@@ -1,0 +1,9 @@
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    BACKEND_NAMES,
+    PORTED_ARCHS,
+    ModelConfig,
+    ParallelConfig,
+    SpammConfig,
+    get_config,
+)

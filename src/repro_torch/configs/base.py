@@ -1,0 +1,119 @@
+"""Config dataclasses + registry of the PyTorch port.
+
+Twin of `repro.configs.base`, kept as an independent copy so the port never
+imports the JAX package. Only the dense attention families are registered in
+this slice (ROADMAP queue A, "other model families"): `get_config` resolves
+`starcoder2-7b` and raises `NotImplementedError` for the other arch ids.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+from typing import Optional
+
+# GEMM backends of the port (kernels/ops.py): `cuda` = the hand-written
+# Hopper kernels, `torch` = their plain PyTorch versions, `auto` = the kernel
+# for a CUDA tensor and the plain version for a CPU tensor
+BACKEND_NAMES = ("auto", "cuda", "torch")
+
+
+@dataclass(frozen=True)
+class SpammConfig:
+    enable: bool = False
+    tau: float = 0.0                    # norm-product threshold (paper τ)
+    valid_ratio: Optional[float] = None # target executed fraction (τ-search:
+                                        # not ported yet, ROADMAP queue A)
+    tile: int = 64                      # LoNum
+    block_n: int = 1                    # super-column width in the mm kernel
+    backend: str = "auto"               # auto | cuda | torch
+    bwd: str = "dense"                  # dense | spamm gradient path
+    levels: int = 0                     # norm-pyramid coarsening steps (0 =
+                                        # flat; hierarchical gating is not
+                                        # ported yet)
+    dtype: str = "float32"              # GEMM compute dtype (float32 only in
+                                        # this slice)
+
+    @property
+    def coarse_tile(self) -> int:
+        """Tile size of the coarsest pyramid level (== tile when flat)."""
+        return self.tile * (2 ** self.levels)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                         # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                   # 0 → d_model // num_heads
+    act: str = "silu"                   # silu (SwiGLU) | gelu (GeGLU) | gelu_mlp
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    frontend: Optional[str] = None
+    subquadratic: bool = False
+    notes: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    def reduced(self) -> "ModelConfig":
+        """Tiny same-family config for CPU tests (the reference's widths)."""
+        kw = dict(
+            num_layers=2,
+            d_model=64,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 4) if self.num_kv_heads else 0,
+            d_ff=128,
+            vocab=256,
+            head_dim=16,
+        )
+        if self.sliding_window:
+            kw["sliding_window"] = 32
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The single-device subset of the reference's runtime config: the
+    fields the unsharded port reads."""
+    compute_dtype: str = "float32"
+    param_dtype: str = "float32"
+    attn_q_chunk: int = 512             # attention q block (rows per chunk)
+
+
+ARCH_IDS = (
+    "llava-next-mistral-7b",
+    "mamba2-1.3b",
+    "starcoder2-7b",
+    "granite-34b",
+    "codeqwen1.5-7b",
+    "qwen2.5-32b",
+    "recurrentgemma-9b",
+    "qwen2-moe-a2.7b",
+    "mixtral-8x22b",
+    "musicgen-large",
+)
+
+# archs whose config module exists in the port
+PORTED_ARCHS = ("starcoder2-7b",)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in PORTED_ARCHS:
+        if name in ARCH_IDS:
+            raise NotImplementedError(
+                f"{name!r} is not ported yet (ROADMAP queue A: the other "
+                f"model families); ported: {PORTED_ARCHS}")
+        raise ValueError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
+    return mod.CONFIG

@@ -1,0 +1,159 @@
+// Work-list SpAMM GEMM (paper §3.3, Alg. 2): C[i, j] = Σ over the valid k of
+// A[i, k] · B[k, j], driven by the planner's step tables.
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/spamm_mm.py::spamm_mm_worklist (_spamm_mm_worklist_kernel).
+// The TPU kernel walks one sequential 1-D grid over the steps and carries
+// its f32 accumulator in VMEM from step to step. Blocks on a GPU run in
+// parallel and in no order, so here each (i, j) RUN of consecutive steps
+// (the rows of `runs`: steps [runs[p], runs[p+1]) share one output block)
+// is one thread block that walks its steps in a loop: INIT zeroes the
+// register accumulator, ACC adds A[i,k]·B[k,j-block] for that step, FLUSH
+// writes the accumulator out; steps without flag bits (bucket padding,
+// steps the frozen gate switched off) do nothing. The ACC steps of a run are
+// accumulated in table order (ascending k) with plain f32 FMAs — no TF32,
+// no split over k, no atomics — so a work-list and a frozen plan that keep
+// the same active steps give bit-identical outputs. The output is
+// zero-initialised by the caller, so tiles no run visits stay exactly 0.
+//
+// What bounds it on an H100: operations, at the serving shapes. One ACC step
+// is 2·t³ flops against 2·t² fresh floats (t = 64: 16 flop/B, with the A and
+// B tiles re-read by other runs mostly from L2); the least time is the
+// executed flops over the 67 TFLOP/s f32 peak of the CUDA cores.
+//
+// Design (simple first; wgmma/TMA/pipelining come later): 256 threads per
+// block, each owning a (t/16)×(t/16) sub-grid of the output block (rows
+// ty + 16·m, columns tx + 16·n) in registers. Per ACC step both tiles are
+// staged in shared memory (rows padded by one float against bank
+// conflicts) with coalesced loads, then every thread runs t rank-1 updates.
+// block_n > 1 (super-columns) splits into gridDim.y column groups of width
+// t: each group is an independent output block with the same run, so the
+// per-element accumulation order does not change.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kInit = 1;
+constexpr int kAcc = 2;
+constexpr int kFlush = 4;
+
+template <int TILE>
+__global__ void __launch_bounds__(kThreads)
+spamm_worklist_f32_kernel(const float* __restrict__ a,
+                          const float* __restrict__ b,
+                          const int* __restrict__ step_i,
+                          const int* __restrict__ step_j,
+                          const int* __restrict__ step_k,
+                          const int* __restrict__ step_flags,
+                          const int* __restrict__ runs,
+                          float* __restrict__ out, int k, int n,
+                          int block_n) {
+  constexpr int R = TILE / 16;  // outputs per thread along each dim
+  __shared__ float as[TILE][TILE + 1];
+  __shared__ float bs[TILE][TILE + 1];
+  const int run = blockIdx.x;
+  const int group = blockIdx.y;
+  const int s0 = runs[run];
+  const int s1 = runs[run + 1];
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  float acc[R][R];
+#pragma unroll
+  for (int m = 0; m < R; ++m)
+#pragma unroll
+    for (int c = 0; c < R; ++c) acc[m][c] = 0.f;
+
+  for (int s = s0; s < s1; ++s) {
+    const int f = step_flags[s];  // uniform across the block
+    if (f & kInit) {
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+#pragma unroll
+        for (int c = 0; c < R; ++c) acc[m][c] = 0.f;
+    }
+    if (f & kAcc) {
+      const int i = step_i[s];
+      const int j = step_j[s];
+      const int kk = step_k[s];
+      const float* ag = a + static_cast<size_t>(i) * TILE * k +
+                        static_cast<size_t>(kk) * TILE;
+      const float* bg = b + static_cast<size_t>(kk) * TILE * n +
+                        (static_cast<size_t>(j) * block_n + group) * TILE;
+      __syncthreads();  // the previous step's readers are done with as/bs
+      for (int e = threadIdx.x; e < TILE * TILE; e += kThreads) {
+        const int r = e / TILE;
+        const int c = e - r * TILE;
+        as[r][c] = ag[static_cast<size_t>(r) * k + c];
+        bs[r][c] = bg[static_cast<size_t>(r) * n + c];
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int q = 0; q < TILE; ++q) {
+        float av[R];
+        float bv[R];
+#pragma unroll
+        for (int m = 0; m < R; ++m) av[m] = as[ty + 16 * m][q];
+#pragma unroll
+        for (int c = 0; c < R; ++c) bv[c] = bs[q][tx + 16 * c];
+#pragma unroll
+        for (int m = 0; m < R; ++m)
+#pragma unroll
+          for (int c = 0; c < R; ++c) acc[m][c] = fmaf(av[m], bv[c], acc[m][c]);
+      }
+    }
+    if (f & kFlush) {
+      const int i = step_i[s];
+      const int j = step_j[s];
+      float* og = out + static_cast<size_t>(i) * TILE * n +
+                  (static_cast<size_t>(j) * block_n + group) * TILE;
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+#pragma unroll
+        for (int c = 0; c < R; ++c)
+          og[static_cast<size_t>(ty + 16 * m) * n + tx + 16 * c] = acc[m][c];
+    }
+  }
+}
+
+template <int TILE>
+void launch(const float* a, const float* b, const int* si, const int* sj,
+            const int* sk, const int* sf, const int* runs, int num_runs,
+            float* out, int k, int n, int block_n, cudaStream_t stream) {
+  const dim3 grid(num_runs, block_n);
+  spamm_worklist_f32_kernel<TILE><<<grid, kThreads, 0, stream>>>(
+      a, b, si, sj, sk, sf, runs, out, k, n, block_n);
+}
+
+}  // namespace
+
+// a: (m, k), b: (k, n) row-major float32; step tables (S,) int32; runs
+// (num_runs + 1,) int32 run boundaries into the step tables; out: (m, n)
+// float32, zero-initialised. tile must be 16, 32 or 64 (else returns
+// cudaErrorInvalidValue without launching). Returns cudaGetLastError().
+extern "C" int spamm_mm_worklist_f32(const float* a, const float* b,
+                                     const int* step_i, const int* step_j,
+                                     const int* step_k, const int* step_flags,
+                                     const int* runs, int num_runs,
+                                     float* out, int m, int k, int n,
+                                     int tile, int block_n, void* stream) {
+  (void)m;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 16:
+      launch<16>(a, b, step_i, step_j, step_k, step_flags, runs, num_runs,
+                 out, k, n, block_n, st);
+      break;
+    case 32:
+      launch<32>(a, b, step_i, step_j, step_k, step_flags, runs, num_runs,
+                 out, k, n, block_n, st);
+      break;
+    case 64:
+      launch<64>(a, b, step_i, step_j, step_k, step_flags, runs, num_runs,
+                 out, k, n, block_n, st);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,108 @@
+"""Get-norm kernel of the port (paper §3.2): per-tile Frobenius norms.
+
+Twin of `repro.kernels.getnorm.tile_norms`. Three entry points:
+
+  tile_norms_plain — the plain PyTorch version (reshape, square, sum in f32,
+                     sqrt): what the CPU runs and what the kernel is held
+                     against on the card;
+  tile_norms_cuda  — the hand-written CUDA kernel `csrc/getnorm.cu` (see its
+                     header note for what bounds it and how it is built);
+  tile_norms       — dispatch on where the tensor lies: the plain version
+                     for a CPU tensor, the kernel for a CUDA tensor (the
+                     kernel launches or raises; nothing falls back).
+
+`launches` counts kernel launches (incremented only where the kernel is
+launched), so a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+launches = 0
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("getnorm.cu")
+        fn = lib.spamm_tile_norms_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _grid(x: torch.Tensor, tile: int):
+    if x.dim() != 2:
+        raise ValueError(f"tile_norms needs a 2-D matrix, got {tuple(x.shape)}")
+    m, k = x.shape
+    if tile < 1 or m % tile or k % tile:
+        raise ValueError(f"shape {tuple(x.shape)} not divisible by tile {tile}")
+    return m // tile, k // tile
+
+
+def tile_norms_plain(x: torch.Tensor, tile: int = 64, *,
+                     use_mxu: bool = False) -> torch.Tensor:
+    """(M//tile, K//tile) f32 tile norms with plain tensor ops.
+
+    use_mxu=True keeps the reference's meaning (paper Eq. 3–4): the tile's
+    sum of squares is taken as two products against a ones vector (row
+    sums, then their total) instead of a direct reduction."""
+    gm, gk = _grid(x, tile)
+    x4 = x.float().reshape(gm, tile, gk, tile)
+    sq = x4 * x4
+    if use_mxu:
+        ones = torch.ones(tile, 1, dtype=torch.float32, device=x.device)
+        rows = sq.permute(0, 2, 1, 3) @ ones          # (gm, gk, t, 1)
+        total = ones.transpose(0, 1) @ rows           # (gm, gk, 1, 1)
+        return torch.sqrt(total.reshape(gm, gk))
+    return torch.sqrt(sq.sum(dim=(1, 3)))
+
+
+def tile_norms_cuda(x: torch.Tensor, tile: int = 64, *,
+                    use_mxu: bool = False) -> torch.Tensor:
+    """(M//tile, K//tile) f32 tile norms from the CUDA get-norm kernel.
+
+    Takes a contiguous 2-D float32 CUDA tensor; raises on anything else."""
+    global launches
+    if use_mxu:
+        raise NotImplementedError(
+            "use_mxu=True (tensor-core get-norm, paper Eq. 3-4) has no CUDA "
+            "kernel yet: ROADMAP queue B, tensor-core tile_norms variant")
+    if x.device.type != "cuda":
+        raise ValueError(f"tile_norms_cuda needs a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"tile_norms_cuda takes float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("tile_norms_cuda needs a contiguous tensor")
+    gm, gk = _grid(x, tile)
+    if gm > 65535:
+        raise ValueError(f"{gm} row tiles exceed the kernel's grid.y limit")
+    out = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.spamm_tile_norms_f32(x.data_ptr(), out.data_ptr(),
+                                      x.shape[0], x.shape[1], tile, stream)
+    if rc != 0:
+        raise RuntimeError(f"tile_norms kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def tile_norms(x: torch.Tensor, tile: int = 64, *,
+               use_mxu: bool = False) -> torch.Tensor:
+    """Per-tile norms: the plain version for a CPU tensor, the CUDA kernel
+    for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return tile_norms_plain(x, tile, use_mxu=use_mxu)
+    return tile_norms_cuda(x, tile, use_mxu=use_mxu)

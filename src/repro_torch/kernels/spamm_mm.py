@@ -1,0 +1,174 @@
+"""Work-list SpAMM GEMM of the port (paper §3.3, Alg. 2).
+
+Twin of `repro.kernels.spamm_mm.spamm_mm_worklist`. C[i, j] is the f32 sum
+of A[i, k] @ B[k, j-block] over the steps of the work-list, driven by the
+step tables `repro_torch.core.plan.compact_from_triples` (eager plans) or
+`FrozenPlan` (frozen plans) build:
+
+  step_i / step_j / step_k / step_flags  (S,) int32 — one entry per step;
+      step_j is a super-column id when block_n > 1; STEP_INIT zeroes the
+      accumulator, STEP_ACC adds the step's tile product, STEP_FLUSH writes
+      the accumulator to the output block; steps without bits do nothing;
+  runs  (P + 1,) int32 — run boundaries: steps [runs[p], runs[p+1]) share
+      one output block (i, j). The TPU kernel carries its accumulator along
+      one sequential grid; on a GPU each run is one thread block, so the
+      caller hands over where runs start. Both planners know it on the host
+      (the work-list's pair offsets; the frozen plan's segment starts), so
+      no launch needs a host sync.
+
+Output blocks never flushed stay exactly zero. Entry points as in
+`getnorm`: `spamm_mm_worklist_plain`, `spamm_mm_worklist_cuda` (the kernel
+`csrc/spamm_mm.cu`, f32 only, tile 16/32/64) and `spamm_mm_worklist`
+(dispatch on the operands' device). `launches` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+# step_flags bits — the planner encodes them, the kernel decodes them
+STEP_INIT, STEP_ACC, STEP_FLUSH = 1, 2, 4
+
+CUDA_TILES = (16, 32, 64)
+
+launches = 0
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load("spamm_mm.cu")
+        fn = lib.spamm_mm_worklist_f32
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check_shapes(a, b, tables, runs, tile, block_n):
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"bad operands {tuple(a.shape)} @ {tuple(b.shape)}")
+    m, k = a.shape
+    n = b.shape[1]
+    if m % tile or k % tile or n % (tile * block_n):
+        raise ValueError(f"{tuple(a.shape)} @ {tuple(b.shape)} not divisible "
+                         f"by tile {tile} (block_n {block_n})")
+    s = tables[0].shape
+    if any(t.dim() != 1 or t.shape != s for t in tables):
+        raise ValueError("step tables must be 1-D and equally long")
+    if runs.dim() != 1 or runs.shape[0] < 1:
+        raise ValueError("runs must be a 1-D table of run boundaries")
+    return m, k, n
+
+
+def spamm_mm_worklist_plain(a, b, step_i, step_j, step_k, step_flags, runs,
+                            *, tile: int = 64, block_n: int = 1,
+                            out_dtype=torch.float32) -> torch.Tensor:
+    """The plain version: every run advances one step per iteration, all
+    runs together, honouring each flag bit exactly as the kernel does. An
+    ACC step adds its tile product as `tile` rank-1 updates in ascending
+    inner index (multiply, then add, in f32), so every output element is
+    accumulated in the same order whatever the batch of runs — the plain
+    path is deterministic element by element, as frozen ≡ eager needs."""
+    m, k, n = _check_shapes(a, b, (step_i, step_j, step_k, step_flags), runs,
+                            tile, block_n)
+    dev = a.device
+    gm, gk, tn = m // tile, k // tile, tile * block_n
+    out = torch.zeros(m, n, dtype=torch.float32, device=dev)
+    runs = runs.to(dev, torch.long)
+    starts, lengths = runs[:-1], runs[1:] - runs[:-1]
+    if starts.numel() == 0:
+        return out.to(out_dtype)
+    si, sj, sk, sf = (t.to(dev, torch.long)
+                      for t in (step_i, step_j, step_k, step_flags))
+    a4 = a.float().reshape(gm, tile, gk, tile)
+    b4 = b.float().reshape(gk, tile, n // tn, tn)
+    o4 = out.view(gm, tile, n // tn, tn)
+    acc = torch.zeros(starts.numel(), tile, tn, dtype=torch.float32,
+                      device=dev)
+    last = si.numel() - 1
+    for q in range(int(lengths.max())):
+        s = (starts + q).clamp(max=last)
+        f = torch.where(lengths > q, sf[s], torch.zeros_like(sf[s]))
+        acc[(f & STEP_INIT) != 0] = 0.0
+        live = torch.nonzero((f & STEP_ACC) != 0).squeeze(1)
+        if live.numel():
+            st = s[live]
+            at = a4[si[st], :, sk[st], :]            # (L, t, t)
+            bt = b4[sk[st], :, sj[st], :]            # (L, t, t·block_n)
+            sub = acc[live]
+            for kk in range(tile):
+                sub = sub + at[:, :, kk, None] * bt[:, None, kk, :]
+            acc[live] = sub
+        fl = torch.nonzero((f & STEP_FLUSH) != 0).squeeze(1)
+        if fl.numel():
+            st = s[fl]
+            o4[si[st], :, sj[st], :] = acc[fl]
+    return out.to(out_dtype)
+
+
+def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
+                           *, tile: int = 64, block_n: int = 1,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """The CUDA kernel: one thread block per run (× block_n column groups).
+    Takes contiguous float32 operands and int32 tables on one CUDA device,
+    tile in CUDA_TILES and a float32 output; raises on anything else."""
+    global launches
+    tables = (step_i, step_j, step_k, step_flags)
+    m, k, n = _check_shapes(a, b, tables, runs, tile, block_n)
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"spamm_mm_worklist_cuda needs CUDA tensors, "
+                         f"got {dev}")
+    for name, t in (("a", a), ("b", b), ("step_i", step_i),
+                    ("step_j", step_j), ("step_k", step_k),
+                    ("step_flags", step_flags), ("runs", runs)):
+        if t.device != dev:
+            raise ValueError(f"{name} lies on {t.device}, a on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"spamm_mm_worklist_cuda takes float32 operands, got "
+                        f"{a.dtype} @ {b.dtype} (bf16 and int8 kernels: "
+                        f"ROADMAP queue B)")
+    if any(t.dtype != torch.int32 for t in (*tables, runs)):
+        raise TypeError("step tables and runs must be int32")
+    if out_dtype != torch.float32:
+        raise TypeError(f"the kernel writes float32, not {out_dtype}")
+    if tile not in CUDA_TILES:
+        raise ValueError(f"tile {tile} not in the kernel's {CUDA_TILES}")
+    if not 1 <= block_n <= 65535:
+        raise ValueError(f"block_n {block_n} out of range")
+    out = torch.zeros(m, n, dtype=torch.float32, device=dev)
+    num_runs = runs.shape[0] - 1
+    if num_runs == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.spamm_mm_worklist_f32(
+            a.data_ptr(), b.data_ptr(), step_i.data_ptr(), step_j.data_ptr(),
+            step_k.data_ptr(), step_flags.data_ptr(), runs.data_ptr(),
+            num_runs, out.data_ptr(), m, k, n, tile, block_n, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"spamm_mm_worklist kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def spamm_mm_worklist(a, b, step_i, step_j, step_k, step_flags, runs, *,
+                      tile: int = 64, block_n: int = 1,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """Work-list GEMM: the plain version for CPU operands, the CUDA kernel
+    for CUDA operands."""
+    fn = (spamm_mm_worklist_plain if a.device.type == "cpu"
+          else spamm_mm_worklist_cuda)
+    return fn(a, b, step_i, step_j, step_k, step_flags, runs, tile=tile,
+              block_n=block_n, out_dtype=out_dtype)

@@ -1,0 +1,107 @@
+"""Attention for the port (twin of `repro.models.attention`).
+
+Plain PyTorch: the reference's attention is `lax.scan` code, not a Pallas
+kernel. `flash_attention` walks q chunks and attends each chunk to the whole
+KV with the reference's additive-bias mask contract (`_mask_bias`: causal,
+sliding window, kv_limit; per-row q offsets); `decode_attention` attends one
+new token per row against a cache. Matmuls run in f32 (TF32 off).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mask_bias(qpos, kpos, window: Optional[int], kv_limit=None):
+    """(..., q, k) additive bias: causal + optional sliding window +
+    optional kv_limit. `qpos` may carry leading batch dims."""
+    qp = qpos[..., :, None]
+    ok = kpos <= qp
+    if window is not None:
+        ok &= kpos > (qp - window)
+    if kv_limit is not None:
+        ok &= kpos < kv_limit
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_chunk: int = 512, q_offset=0,
+                    kv_limit=None) -> torch.Tensor:
+    """q (B, Sq, Hq, D), k/v (B, Skv, Hk, D) → (B, Sq, Hq, D). GQA groups q
+    heads onto kv heads. `q_offset` is q[0]'s absolute position: an int or a
+    (B,) tensor. Each q chunk attends the whole KV at once (the reference
+    also chunks KV with an online softmax; the result is the same softmax up
+    to f32 rounding)."""
+    b, sq, hq, d = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    g = hq // hk
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    q5 = q.float().reshape(b, sq, hk, g, d)
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(skv, device=dev)
+    off = torch.as_tensor(q_offset, device=dev)
+    outs = []
+    for q0 in range(0, sq, q_chunk):
+        qc = q5[:, q0:q0 + q_chunk]
+        n = qc.shape[1]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kf) * scale
+        if causal or kv_limit is not None:
+            qpos = off[..., None] + q0 + torch.arange(n, device=dev)
+            if not causal:
+                qpos = torch.full_like(qpos, skv)
+            bias = _mask_bias(qpos, kpos, window if causal else None,
+                              kv_limit)
+            if bias.dim() == 3:                  # per-row → (B,1,1,q,k)
+                bias = bias[:, None, None]
+            s = s + bias
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhgqk,bkhd->bhgqd", p, vf) / l.clamp(min=1e-30)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, n, hq, d))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _slot_positions(slots, lb, ring: bool, cache_len: int):
+    """Token position held by each cache slot, per batch row → (B, S).
+    Linear cache: slot s holds token s. Ring cache (sliding window W): the
+    newest token is p = lb-1; slot s holds p - ((p - s) mod W)."""
+    if not ring:
+        return slots[None, :].expand(lb.shape[0], slots.shape[0])
+    p = (lb - 1)[:, None]
+    return p - torch.remainder(p - slots[None, :], cache_len)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length, *,
+                     window: Optional[int] = None, ring: bool = False
+                     ) -> torch.Tensor:
+    """q (B, Hq, D) one new token per row; caches (B, S, Hk, D); `length`
+    (int or (B,)) = valid token positions after this step's write."""
+    b, hq, d = q.shape
+    s, hk = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hk
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    q4 = q.float().reshape(b, hk, g, d)
+    length = torch.as_tensor(length, device=dev)
+    lb = length if length.dim() else length.expand(b)
+    kpos = _slot_positions(torch.arange(s, device=dev), lb, ring, s)
+    scores = torch.einsum("bhgd,bshd->bhgs", q4, k_cache.float()) * scale
+    valid = (kpos < lb[:, None]) & (kpos >= 0)
+    if window is not None:
+        valid &= kpos >= (lb[:, None] - window)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    o = o / l.clamp(min=1e-30)[..., None]
+    return o.reshape(b, hq, d).to(q.dtype)

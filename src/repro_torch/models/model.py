@@ -1,0 +1,132 @@
+"""Top-level model API of the port (twin of `repro.models.model`):
+`init_params`, `init_cache`, `make_prefill_step`, `make_decode_step`, and
+`params_from_jax`, which carries a reference parameter tree (as numpy)
+across so both packages can run the same weights.
+
+Parameter tree: {"embed": {"embedding"}, "final_norm", "unembed":
+{"kernel"}, "layers": [per-layer dict, ...]} — the reference's tree with its
+stacked leading L axis unstacked into a list.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core import module as spmod
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tr
+from repro_torch.models.layers import _normal, embed, rms_norm
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def init_params(cfg: ModelConfig, pcfg: ParallelConfig, seed: int = 0, *,
+                device="cuda") -> dict:
+    """Random parameters from a `torch.Generator` seeded with `seed`, made
+    directly on `device` (the card unless asked otherwise). The
+    distributions are the reference's; the numbers differ (another RNG) —
+    use `params_from_jax` to run the reference's exact weights."""
+    dev = resolve_device(device)
+    pdt = _dtype(pcfg.param_dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = 1.0 / math.sqrt(cfg.d_model)
+    return {
+        "embed": {"embedding": _normal(gen, (cfg.vocab, cfg.d_model), s, pdt,
+                                       dev)},
+        "final_norm": torch.zeros(cfg.d_model, dtype=torch.float32,
+                                  device=dev),
+        "unembed": {"kernel": _normal(gen, (cfg.d_model, cfg.vocab), s, pdt,
+                                      dev)},
+        "layers": [tr.layer_params(gen, cfg, pdt, dev)
+                   for _ in range(cfg.num_layers)],
+    }
+
+
+def params_from_jax(np_tree: dict, cfg: ModelConfig, *,
+                    device="cuda") -> dict:
+    """The reference's parameter pytree, as numpy arrays, → the port's tree
+    on `device`: layers stacked on a leading L axis become a list of L
+    per-layer dicts; every leaf is copied."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        return torch.tensor(np.asarray(x), device=dev)
+
+    def tmap(fn, node):
+        if isinstance(node, dict):
+            return {k: tmap(fn, v) for k, v in node.items()}
+        return fn(node)
+
+    layers = np_tree["layers"]
+    return {
+        "embed": tmap(conv, np_tree["embed"]),
+        "final_norm": conv(np_tree["final_norm"]),
+        "unembed": tmap(conv, np_tree["unembed"]),
+        "layers": [tmap(lambda t, i=i: conv(np.asarray(t)[i]), layers)
+                   for i in range(cfg.num_layers)],
+    }
+
+
+def init_cache(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
+               max_len: int, *, device="cuda") -> dict:
+    """Zeroed decode caches: {"layers": [{"k", "v"} (B, S, Hk, hd)]}."""
+    dev = resolve_device(device)
+    cdt = _dtype(pcfg.compute_dtype)
+    tr.stack_kinds(cfg)
+    s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"layers": [{"k": torch.zeros(shape, dtype=cdt, device=dev),
+                        "v": torch.zeros(shape, dtype=cdt, device=dev)}
+                       for _ in range(cfg.num_layers)]}
+
+
+def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
+                      spamm_cfg=None):
+    """fn(params, batch, frozen=None) → (cache, last_logits (B, V) f32).
+    `batch["tokens"]` is (B, S) int; `frozen` the FrozenPlan tree for B·S
+    rows (or None: gated GEMMs plan eagerly)."""
+    spamm_cfg = spmod.as_context(spamm_cfg)
+
+    def step(params, batch, frozen=None):
+        cdt = _dtype(pcfg.compute_dtype)
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens.long(), cdt)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+        cache_len = min(cfg.sliding_window, s) if cfg.sliding_window else s
+        x, cache = tr.stack_prefill(params, x, cfg, pcfg, positions,
+                                    cache_len, spamm_cfg=spamm_cfg,
+                                    frozen=frozen)
+        h_last = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+        logits = (h_last @ params["unembed"]["kernel"].to(cdt)).float()
+        return cache, logits
+
+    return step
+
+
+def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
+                     spamm_cfg=None):
+    """fn(params, tokens (B, 1), cache, pos: int, frozen=None) →
+    (logits (B, V) f32, cache). Decode GEMMs gate only through `frozen`
+    plans; sites without one stay dense."""
+    spamm_cfg = spmod.as_context(spamm_cfg)
+
+    def step(params, inp, cache, pos, frozen=None):
+        cdt = _dtype(pcfg.compute_dtype)
+        x = embed(params["embed"], inp.long(), cdt)
+        x, cache = tr.stack_decode(params, x, cache, pos, cfg, pcfg,
+                                   spamm_cfg=spamm_cfg, frozen=frozen)
+        h = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)
+        logits = (h @ params["unembed"]["kernel"].to(cdt)).float()
+        return logits, cache
+
+    return step
