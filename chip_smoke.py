@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from src/repro_torch/kernels/csrc, holds each
-kernel against its plain PyTorch version at the serving path's shapes (and
-frozen ≡ eager bit for bit), then serves starcoder2-7b at full width
-(d=4608, ff=18432, 36/4 heads, 32 layers, random weights from a seed)
-through `Engine.generate` three ways: dense, τ = 0 and a τ > 0 derived from
-the first gated GEMM's norm products. Every result line is a JSON object;
+kernel against its plain PyTorch version at the serving path's shapes,
+prefill and decode (and frozen ≡ eager bit for bit), then serves
+starcoder2-7b at full width (d=4608, ff=18432, 36/4 heads, 32 layers,
+random weights from a seed) through `Engine.generate` three ways: dense,
+τ = 0 and a τ > 0 derived from the first gated GEMM of a decode step, so
+that both prefill and decode keep part of their tiles. Every result line is
+a JSON object;
 the line before the last lists the kernels with their launches on the main
 path (the τ > 0 run), errors, times and bounds; the last line is
 {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
@@ -174,39 +176,68 @@ def median_product_tau(na, nb):
     return float((na[:, None, :] * nb.T[None]).flatten().median())
 
 
+def check_frozen(x, w, label):
+    """The frozen plan of `w` for x's row grid at τ = the median norm
+    product: the work-list kernel against its plain version, and frozen ≡
+    eager bit for bit (same active steps, same kernel, same k order)."""
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import getnorm
+    from repro_torch.plans.frozen import FrozenWeight
+
+    tau = median_product_tau(getnorm.tile_norms_cuda(x, TILE),
+                             getnorm.tile_norms_cuda(w, TILE))
+    fw = FrozenWeight.build(w, tau, tile=TILE, backend="cuda")
+    frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // TILE))
+    vf = float(frozen.valid_fraction)
+    check(0.0 < vf < 1.0, f"{label}: frozen plan keeps all or nothing ({vf})")
+    res = check_worklist(x, w, frozen, label)
+    eager = P.plan(x, w, tau, tile=TILE, backend="cuda")
+    same = torch.equal(P.execute(frozen, x, w), P.execute(eager, x, w))
+    emit({"frozen_equals_eager": {"shape": label, "bit_identical": same,
+                                  "tau": tau, "valid_fraction": vf,
+                                  "eager_valid_tiles": int(eager.valid_tiles),
+                                  "frozen_valid_tiles":
+                                      int(frozen.valid_tiles)}})
+    check(same, f"{label}: frozen and eager plans differ")
+    return res
+
+
+def decode_rows(n_cols, gen):
+    """A decode step's activation as the gated GEMMs see it: BATCH real
+    rows, zero-padded to one row tile."""
+    import torch
+
+    x = torch.zeros(TILE, n_cols, device=DEV)
+    x[:BATCH] = torch.randn(BATCH, n_cols, generator=gen, device=DEV)
+    return x
+
+
 def phase_kernels():
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import plan as P
     from repro_torch.kernels import getnorm
-    from repro_torch.plans.frozen import FrozenWeight
 
     cfg = get_config(ARCH)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     d, ff = cfg.d_model, cfg.d_ff
     w1 = torch.randn(d, ff, generator=gen, device=DEV).mul_(d ** -0.5)
+    w2 = torch.randn(ff, d, generator=gen, device=DEV).mul_(ff ** -0.5)
     x = torch.randn(BATCH * PROMPT_LEN, d, generator=gen, device=DEV)
     check_tile_norms(w1, f"w1 {d}x{ff}")
     norms_act = check_tile_norms(x, f"activation {BATCH * PROMPT_LEN}x{d}")
 
-    # (a) the frozen plan of w1 for 512 rows, τ = median norm product
-    tau = median_product_tau(getnorm.tile_norms_cuda(x, TILE),
-                             getnorm.tile_norms_cuda(w1, TILE))
-    fw = FrozenWeight.build(w1, tau, tile=TILE, backend="cuda")
-    frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // TILE))
-    vf = float(frozen.valid_fraction)
-    check(0.0 < vf < 1.0, f"w1 frozen plan keeps all or nothing ({vf})")
-    mm_w1 = check_worklist(x, w1, frozen, f"frozen w1 {x.shape[0]}x{d}x{ff}")
-    # frozen ≡ eager: same active steps, same kernel, same k order
-    eager = P.plan(x, w1, tau, tile=TILE, backend="cuda")
-    same = torch.equal(P.execute(frozen, x, w1), P.execute(eager, x, w1))
-    emit({"frozen_equals_eager": {"bit_identical": same, "tau": tau,
-                                  "valid_fraction": vf,
-                                  "eager_valid_tiles": int(eager.valid_tiles),
-                                  "frozen_valid_tiles":
-                                      int(frozen.valid_tiles)}})
-    check(same, "frozen and eager plans of w1 differ")
+    # (a) frozen plans of the MLP weights at the serving shapes: w1 for a
+    # 512-row prefill, then w1 and w2 for a decode step (one row tile, 8 and
+    # 72 runs of 72 and 288 steps)
+    mm_w1 = check_frozen(x, w1, f"frozen w1 {x.shape[0]}x{d}x{ff}")
+    check_frozen(decode_rows(d, gen), w1,
+                 f"frozen w1 decode {TILE}({BATCH})x{d}x{ff}")
+    check_frozen(decode_rows(ff, gen), w2,
+                 f"frozen w2 decode {TILE}({BATCH})x{ff}x{d}")
 
     # (b) the paper's synthetic: exponential-decay matrices,
     # |a_ij| = lam^|i-j| · U(0.5, 1), random signs
@@ -227,7 +258,7 @@ def phase_kernels():
     vfd = float(pd.valid_fraction)
     check(0.2 < vfd < 0.8, f"exp-decay valid fraction {vfd} outside (0.2, 0.8)")
     check_worklist(a, b, pd, f"exp-decay {n}x{n}x{n} lam={lam}")
-    del w1, x, a, b, fw, frozen, eager, pd
+    del w1, w2, x, a, b, pd
     torch.cuda.empty_cache()
     return norms_act, mm_w1
 
@@ -324,28 +355,41 @@ def prefill_logits(cfg, pcfg, params, prompts, eng=None):
     return logits
 
 
-def derive_tau(cfg, params, prompts):
-    """τ for run (c): the median of the first gated GEMM's norm products
-    (layer 0 wq: tile norms of the normalised prompt embeddings × tile
-    norms of wq)."""
+def derive_tau(cfg, params, prompts, first_tokens):
+    """τ for run (c): the median of the norm products of a decode step's
+    first gated GEMM (layer 0 wq on the normalised embeddings of the dense
+    run's first generated tokens, zero-padded to one row tile, as the
+    engine pads them). A decode tile holds BATCH real rows of 64, so its
+    norm products lie far below a prefill tile's: a τ taken from prefill
+    gates every decode tile out, this one keeps part of both. The prefill
+    median of the same GEMM is printed beside it."""
     import torch
 
+    from repro_torch.core.plan import pad_to_tile
     from repro_torch.kernels import getnorm
     from repro_torch.models.layers import embed, rms_norm
 
-    with torch.inference_mode():
-        x = embed(params["embed"], torch.as_tensor(prompts, device=DEV)
+    wq = params["layers"][0]["mix"]["wq"]
+    nb = getnorm.tile_norms_cuda(wq, TILE)
+
+    def first_gemm_norms(tokens):
+        x = embed(params["embed"], torch.as_tensor(tokens, device=DEV)
                   .long(), torch.float32)
         x = rms_norm(x, params["layers"][0]["ln1"], cfg.norm_eps)
-        x = x.reshape(-1, cfg.d_model).contiguous()
-        na = getnorm.tile_norms_cuda(x, TILE)
-        nb = getnorm.tile_norms_cuda(params["layers"][0]["mix"]["wq"], TILE)
-        tau = median_product_tau(na, nb)
+        x = pad_to_tile(x.reshape(-1, cfg.d_model), TILE).contiguous()
+        return getnorm.tile_norms_cuda(x, TILE), list(x.shape)
+
+    with torch.inference_mode():
+        na_dec, dec_shape = first_gemm_norms(first_tokens)
+        na_pre, pre_shape = first_gemm_norms(prompts)
+        tau = median_product_tau(na_dec, nb)
+        tau_prefill = median_product_tau(na_pre, nb)
     emit({"tau_derivation": {
-        "gemm": "layer 0 wq", "activation": list(x.shape),
-        "weight": list(params["layers"][0]["mix"]["wq"].shape),
+        "gemm": "layer 0 wq, first decode step", "activation": dec_shape,
+        "weight": list(wq.shape),
         "rule": "median of norm_a[i,k]*norm_b[k,j] over all (i,j,k)",
-        "tau": tau}})
+        "tau": tau, "prefill_activation": pre_shape,
+        "prefill_median": tau_prefill}})
     return tau
 
 
@@ -392,13 +436,14 @@ def phase_serve():
     del eng
     torch.cuda.empty_cache()
 
-    tau = derive_tau(cfg, params, prompts)
+    tau = derive_tau(cfg, params, prompts, dense_toks[:, 0])
     sct = SpammConfig(enable=True, tau=tau, tile=TILE, block_n=1, levels=0)
     eng, _, out, counts = run_engine(cfg, pcfg, params, prompts, sct,
                                      f"c: tau={tau:.6g}")
-    vf = out["spamm"]["valid_fraction"]
-    check(vf is not None and 0.0 < vf < 1.0,
-          f"τ>0 prefill valid fraction {vf} not strictly inside (0, 1)")
+    for phase in ("valid_fraction", "decode_valid_fraction"):
+        vf = out["spamm"][phase]
+        check(vf is not None and 0.0 < vf < 1.0,
+              f"τ>0 {phase} {vf} not strictly inside (0, 1)")
     check(all(v > 0 for v in counts.values()), f"τ>0 launches {counts}")
     return counts
 

@@ -22,9 +22,8 @@ from repro_torch.core.plan import pad_to_tile
 
 
 class Tap(NamedTuple):
-    """One labeled telemetry event from a gated GEMM."""
+    """One telemetry event from a gated GEMM, tagged with its phase."""
     phase: str
-    site: Optional[str]
     value: float
 
 
@@ -56,12 +55,11 @@ class SpammContext:
         """Tag subsequent taps ("prefill" | "decode")."""
         self._phase = phase
 
-    def tap(self, valid_fraction, site: Optional[str] = None):
+    def tap(self, valid_fraction):
         """Record one gated GEMM's valid fraction (a 0-d tensor, left on its
-        device) with the current phase and its site label; no-op unless
-        collecting."""
+        device) with the current phase; no-op unless collecting."""
         if self._collect:
-            self._pending.append((self._phase, site,
+            self._pending.append((self._phase,
                                   torch.as_tensor(valid_fraction).detach()))
 
     def end_stats(self) -> list:
@@ -71,9 +69,8 @@ class SpammContext:
         self._collect = False
         if not pending:
             return []
-        vals = torch.stack([v.float().reshape(()) for *_, v in pending])
-        return [Tap(ph, site, v)
-                for (ph, site, _), v in zip(pending, vals.cpu().tolist())]
+        vals = torch.stack([v.float().reshape(()) for _, v in pending])
+        return [Tap(ph, v) for (ph, _), v in zip(pending, vals.cpu().tolist())]
 
 
 def as_context(spamm_cfg) -> Optional[SpammContext]:
@@ -119,8 +116,7 @@ def spamm_linear(x: torch.Tensor, w: torch.Tensor, tau, tile: int = 64,
 
 
 def spamm_linear_frozen(x: torch.Tensor, w: torch.Tensor, fp,
-                        ctx: Optional[SpammContext] = None,
-                        site: Optional[str] = None) -> torch.Tensor:
+                        ctx: Optional[SpammContext] = None) -> torch.Tensor:
     """Gated GEMM with a frozen weight side (the serving path): the
     activation get-norm, the device-side gate over the frozen step tables,
     then the work-list kernel. Bit-identical to `spamm_linear` with the same
@@ -130,15 +126,15 @@ def spamm_linear_frozen(x: torch.Tensor, w: torch.Tensor, fp,
     n = w.shape[-1]
     p = _plan.plan(xp, frozen_weight=fp)
     if ctx is not None:
-        ctx.tap(p.valid_fraction, site=site)
+        ctx.tap(p.valid_fraction)
     wp = pad_to_tile(w, tile, tile * fp.block_n).contiguous()
     c = _plan.execute(p, xp, wp)
     return c[:m, :n].reshape(*lead, n).to(x.dtype)
 
 
 def maybe_spamm_matmul(x: torch.Tensor, w: torch.Tensor, spamm_cfg: Any,
-                       frozen=None, require_frozen: bool = False,
-                       site: Optional[str] = None) -> torch.Tensor:
+                       frozen=None, require_frozen: bool = False
+                       ) -> torch.Tensor:
     """Dense when SpAMM is off; the frozen path when `frozen` (a FrozenPlan)
     is given; the eager plan/execute path otherwise. `require_frozen=True`
     (the decode contract) stays dense when no frozen plan exists for this
@@ -147,9 +143,9 @@ def maybe_spamm_matmul(x: torch.Tensor, w: torch.Tensor, spamm_cfg: Any,
     if ctx is None or not ctx.enable or (require_frozen and frozen is None):
         return x @ w
     if frozen is not None:
-        return spamm_linear_frozen(x, w, frozen, ctx, site=site)
+        return spamm_linear_frozen(x, w, frozen, ctx)
     cfg = ctx.cfg
     y, p = _fwd_impl(x, w, cfg.tau, cfg.tile, cfg.backend, cfg.block_n,
                      cfg.levels, cfg.dtype)
-    ctx.tap(p.valid_fraction, site=site)
+    ctx.tap(p.valid_fraction)
     return y

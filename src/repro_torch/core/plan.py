@@ -98,7 +98,7 @@ class SpammWork(NamedTuple):
 
 def compact_from_triples(ii, jj, kk, *, gm: int, gn: int, gk: int,
                          block_n: int = 1, steps: bool = True,
-                         assume_sorted: bool = False, bucket_min: int = 16):
+                         assume_sorted: bool = False):
     """Work-list straight from surviving (i, j, k) triples, without a dense
     (gm, gn, gk) bitmap: one fused-key sort (skipped when `assume_sorted`),
     super-column folding, then linear passes. Host numpy, array for array
@@ -128,7 +128,7 @@ def compact_from_triples(ii, jj, kk, *, gm: int, gn: int, gk: int,
     nvalid = np.zeros((gm, gnb), np.int32)
     step_i = step_j = step_k = step_flags = None
     if steps:
-        s = kcost.bucket(v, bucket_min)
+        s = kcost.bucket(v)
         step_i = np.zeros(s, np.int32)
         step_j = np.zeros(s, np.int32)
         step_k = np.zeros(s, np.int32)
@@ -329,7 +329,7 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
          tau=None, *, valid_ratio=None, norm_a=None, norm_b=None,
          tile: int = 64, block_n: int = 1, backend: str = "auto",
          use_mxu_norm: bool = False, levels: int = 0, frozen_weight=None,
-         compute_dtype: str = "float32", bucket_min: int = 16) -> SpammPlan:
+         compute_dtype: str = "float32") -> SpammPlan:
     """Gating phase for (M, K) @ (K, N), dims divisible by tile (N by
     tile·block_n). Either side may be the matrix or its precomputed normmap
     (norm_a= / norm_b=). The gate is the concrete flat one: normmaps go to
@@ -378,8 +378,7 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
     gm, gk = norm_a.shape
     gnb = norm_b.shape[-1] // block_n
     work_np, nvalid_np = compact_from_triples(
-        *triples, gm=gm, gn=gnb, gk=gk, block_n=1, assume_sorted=True,
-        bucket_min=bucket_min)
+        *triples, gm=gm, gn=gnb, gk=gk, block_n=1, assume_sorted=True)
     work = SpammWork(*(torch.as_tensor(x, device=dev) for x in work_np))
     return SpammPlan(tau_f, norm_a, norm_b,
                      torch.as_tensor(nvalid_np, device=dev),

@@ -56,22 +56,21 @@ def mlp(params: dict, x: torch.Tensor, act: str, spamm_cfg=None, frozen=None,
     if act in ("silu", "gelu"):
         g = maybe_spamm_matmul(x, params["w1"].to(cdt), spamm_cfg,
                                frozen=fz.get("w1"),
-                               require_frozen=require_frozen, site="w1")
+                               require_frozen=require_frozen)
         u = maybe_spamm_matmul(x, params["w3"].to(cdt), spamm_cfg,
                                frozen=fz.get("w3"),
-                               require_frozen=require_frozen, site="w3")
+                               require_frozen=require_frozen)
         g = F.silu(g) if act == "silu" else _gelu(g)
         return maybe_spamm_matmul(g * u, params["w2"].to(cdt), spamm_cfg,
                                   frozen=fz.get("w2"),
-                                  require_frozen=require_frozen, site="w2")
+                                  require_frozen=require_frozen)
     if act == "gelu_mlp":
         h = _gelu(maybe_spamm_matmul(x, params["w1"].to(cdt), spamm_cfg,
                                      frozen=fz.get("w1"),
-                                     require_frozen=require_frozen,
-                                     site="w1"))
+                                     require_frozen=require_frozen))
         return maybe_spamm_matmul(h, params["w2"].to(cdt), spamm_cfg,
                                   frozen=fz.get("w2"),
-                                  require_frozen=require_frozen, site="w2")
+                                  require_frozen=require_frozen)
     raise ValueError(act)
 
 

@@ -49,7 +49,7 @@ def _qkv(p, x, cfg: ModelConfig, positions, spamm_cfg=None, frozen=None,
     fz = frozen or {}
     q, k, v = (maybe_spamm_matmul(x, p[name].to(cdt), spamm_cfg,
                                   frozen=fz.get(name),
-                                  require_frozen=require_frozen, site=name)
+                                  require_frozen=require_frozen)
                for name in ("wq", "wk", "wv"))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
@@ -69,7 +69,7 @@ def attention_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                  q_chunk=pcfg.attn_q_chunk)
     o = o.reshape(*x.shape[:2], -1)
     out = maybe_spamm_matmul(o, p["wo"].to(x.dtype), spamm_cfg,
-                             frozen=(frozen or {}).get("wo"), site="wo")
+                             frozen=(frozen or {}).get("wo"))
     if return_kv:
         return out, (k, v)
     return out
@@ -93,7 +93,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                                   window=window, ring=ring)
     out = maybe_spamm_matmul(o.reshape(b, 1, hq * hd), p["wo"].to(x.dtype),
                              spamm_cfg, frozen=(frozen or {}).get("wo"),
-                             require_frozen=True, site="wo")
+                             require_frozen=True)
     return out, (cache_k, cache_v)
 
 

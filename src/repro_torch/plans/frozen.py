@@ -74,10 +74,6 @@ class FrozenWeight:
     def num_kj(self) -> int:
         return int(self.kj_k.shape[0])
 
-    # the work-list bucket floor `for_rows` pads to (the reference's
-    # untuned default; its autotuner is not ported yet)
-    bucket_floor = 16
-
     @classmethod
     def build(cls, w: torch.Tensor, tau, *, tile: int = 64, block_n: int = 1,
               levels: int = 0, backend: str = "auto", use_mxu: bool = False,
@@ -117,20 +113,19 @@ class FrozenWeight:
             use_mxu=use_mxu,
         )
 
-    def for_rows(self, gm: int, *, min_steps: int = 0) -> "FrozenPlan":
+    def for_rows(self, gm: int) -> "FrozenPlan":
         """Specialize to an activation row grid of `gm` tiles: step tables
         pair-major ((i, j) runs contiguous, k ascending within a run),
-        padded to a power-of-two bucket of at least max(`min_steps`,
-        `bucket_floor`); padding repeats the last real triple with `real`
-        clear. Cached per (gm, bucket)."""
+        padded to a power-of-two bucket of at least 16 (the reference's
+        untuned floor; its autotuner is not ported yet); padding repeats
+        the last real triple with `real` clear. Cached per gm."""
+        hit = self._rows_cache.get(gm)
+        if hit is not None:
+            return hit
         gk, gnb = self.grid
         w = self.num_kj
         s_real = gm * w
-        s = bucket(max(s_real, min_steps), self.bucket_floor)
-        key = (gm, s)
-        hit = self._rows_cache.get(key)
-        if hit is not None:
-            return hit
+        s = bucket(s_real)
         kj_k = np.asarray(self.kj_k, np.int32)
         kj_j = np.asarray(self.kj_j, np.int32)
         if s_real:
@@ -178,7 +173,7 @@ class FrozenWeight:
             tile=self.tile, block_n=self.block_n, num_levels=self.num_levels,
             backend=self.backend, gm=gm, gk=gk, gnb=gnb,
         )
-        self._rows_cache[key] = fp
+        self._rows_cache[gm] = fp
         return fp
 
 
