@@ -3,19 +3,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from src/repro_torch/kernels/csrc, holds each
-kernel against its plain PyTorch version at the serving path's shapes,
-prefill and decode (and frozen ≡ eager bit for bit), then serves
-starcoder2-7b at full width (d=4608, ff=18432, 36/4 heads, 32 layers,
-random weights from a seed) through `Engine.generate` three ways: dense,
-τ = 0 and a τ > 0 derived from the first gated GEMM of a decode step, so
-that both prefill and decode keep part of their tiles. Every result line is
-a JSON object;
-the line before the last lists the kernels with their launches on the main
-path (the τ > 0 run), errors, times and bounds; the last line is
-{"ok": true, "device": {...}}. Any failed check exits non-zero. Without
-CUDA, or without the repository's src/ beside it, it exits 2 and prints no
-result.
+Builds the port's CUDA kernels from src/repro_torch/kernels/csrc and drives
+two paths of the port.
+
+Serving: holds the get-norm and work-list kernels against their plain
+PyTorch versions at the serving path's shapes, prefill and decode (and
+frozen ≡ eager bit for bit), then serves starcoder2-7b at full width
+(d=4608, ff=18432, 36/4 heads, 32 layers, random weights from a seed)
+through `Engine.generate` three ways: dense, τ = 0 and a τ > 0 derived from
+the first gated GEMM of a decode step, so that both prefill and decode keep
+part of their tiles.
+
+Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
+with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
+(the paper's §4.1 ensemble) at ratios 0.30 and 0.10: achieved ratio,
+hierarchical ≡ flat bit for bit, τ = 0 against torch.matmul; (b) batched
+spamm_bmm at the expert shapes of qwen2-moe-a2.7b (60 experts, d 2048,
+expert ff 1408), per-slice through the dense-grid kernel and shared-weight
+through the work-list kernel; (c) the pyramid pooling kernel; (d) the eager
+gated GEMM with a pyramid (levels = 2 ≡ levels = 0) on starcoder2-7b's w1.
+
+Every result line is a JSON object; the line before the last lists the four
+kernels with their launches on their path (the τ > 0 serving run, or the
+library path), errors, times and bounds; the last line is {"ok": true,
+"device": {...}}. Any failed check exits non-zero. Without CUDA, or without
+the repository's src/ beside it, it exits 2 and prints no result.
 """
 import json
 import os
@@ -37,7 +49,8 @@ DECAY_N, DECAY_LAM = 4096, 0.999
 MAX_LEN = PROMPT_LEN + MAX_NEW + 16
 PROFILE_NEW = 4  # tokens of the profiled wave: prefill + 3 decode steps
 SEED = 0
-# tile norms: f32 sums of 4096 squares in two orders
+# tile norms: f32 sums of 4096 squares in two orders (pooling: four squares
+# summed in one order in both versions)
 NORM_RTOL = 1e-5
 # work-list GEMM vs plain: FMA vs multiply-add over K ≤ 18432, relative to
 # the output's largest magnitude
@@ -45,6 +58,21 @@ MM_RTOL = 1e-4
 # τ = 0 vs dense prefill logits after 32 f32 layers (reassociated sums),
 # relative to the logits' largest magnitude
 LOGIT_RTOL = 1e-3
+
+# library path: the paper's §4.1 ensemble at N = 16384 (A, B and C 1 GiB
+# each in f32), the valid ratios asked for, the search's tolerance and the
+# pyramid depth of the hierarchical plans
+LIB_N = 16384
+LIB_RATIOS = (0.30, 0.10)
+RATIO_TOL = 0.01
+LIB_LEVELS = 3
+# qwen2-moe-a2.7b expert shapes (src/repro/configs/qwen2_moe_a2_7b.py, from
+# Qwen/Qwen1.5-MoE-A2.7B): 60 experts, d_model 2048, expert ff 1408. A
+# 512-token prefill at top-4 routes about 34 tokens to each expert, padded
+# to one 64-row tile
+MOE_EXPERTS, MOE_D, MOE_FF, MOE_ROWS = 60, 2048, 1408, 64
+# the eager gated GEMM with a pyramid
+EAGER_LEVELS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -77,6 +105,34 @@ def time_ms(fn, reps=10, warmup=2):
         times.append(t0.elapsed_time(t1))
     times.sort()
     return times[len(times) // 2]
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels import getnorm, spamm_mm
+
+    getnorm.launches = getnorm.pool_launches = 0
+    spamm_mm.launches = spamm_mm.dense_launches = 0
+
+
+def read_counts():
+    from repro_torch.kernels import getnorm, spamm_mm
+
+    return {"tile_norms": getnorm.launches,
+            "spamm_mm_worklist": spamm_mm.launches,
+            "pool_norms": getnorm.pool_launches,
+            "spamm_mm": spamm_mm.dense_launches}
+
+
+def host_ms(fn):
+    """(result, host milliseconds) of fn(), ending in a device sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def bound_ms(nbytes, flops):
@@ -269,7 +325,6 @@ def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
     (engine, tokens, measured request metadata, launch counts)."""
     import numpy as np
 
-    from repro_torch.kernels import getnorm, spamm_mm
     from repro_torch.serving.engine import Engine, Request
 
     eng = Engine(cfg, pcfg, params, max_len=MAX_LEN, spamm_cfg=spamm_cfg)
@@ -281,11 +336,9 @@ def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
         return toks, reqs[0].out, time.perf_counter() - t0
 
     _, cold, cold_s = wave()
-    getnorm.launches = 0
-    spamm_mm.launches = 0
+    reset_counts()
     toks, out, dt = wave()
-    counts = {"tile_norms": getnorm.launches,
-              "spamm_mm_worklist": spamm_mm.launches}
+    counts = read_counts()
     lat, sp = out["latency"], out["spamm"] or {}
     emit({"serve": label, "tok_per_s": toks.size / dt, "wave_s": dt,
           "ttft_ms": lat["ttft_s"] * 1e3,
@@ -432,7 +485,8 @@ def phase_serve():
     check(rel <= LOGIT_RTOL, f"τ=0 prefill logits differ from dense ({rel})")
     check(same, "τ=0 greedy tokens differ from the dense run")
     check(out0["spamm"]["valid_fraction"] == 1.0, "τ=0 dropped tiles")
-    check(all(v > 0 for v in counts0.values()), f"τ=0 launches {counts0}")
+    check(counts0["tile_norms"] > 0 and counts0["spamm_mm_worklist"] > 0,
+          f"τ=0 launches {counts0}")
     del eng
     torch.cuda.empty_cache()
 
@@ -444,8 +498,344 @@ def phase_serve():
         vf = out["spamm"][phase]
         check(vf is not None and 0.0 < vf < 1.0,
               f"τ>0 {phase} {vf} not strictly inside (0, 1)")
-    check(all(v > 0 for v in counts.values()), f"τ>0 launches {counts}")
+    check(counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0,
+          f"τ>0 launches {counts}")
     return counts
+
+# ---------------------------------------------------------------------------
+# library path
+# ---------------------------------------------------------------------------
+
+def algebraic_decay_on_card(n, seed, c=0.1, lam=0.1):
+    """`core.spamm.algebraic_decay(n, seed=...)`'s formula made on the card:
+    |a_ij| = c / (|i-j|^lam + 1), one float64 value per distance rounded to
+    float32 as the numpy generator rounds it, times random signs from a
+    torch.Generator (numpy would need 2 GiB of float64 per matrix)."""
+    import torch
+
+    mag = (c / (torch.arange(n, dtype=torch.float64, device=DEV) ** lam
+                + 1.0)).to(torch.float32)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    idx = torch.arange(n, device=DEV)
+    out = torch.empty(n, n, device=DEV)
+    for r0 in range(0, n, 1024):
+        dist = (idx[r0:r0 + 1024, None] - idx[None, :]).abs()
+        sign = torch.randint(0, 2, dist.shape, generator=gen, device=DEV,
+                             dtype=torch.int8) * 2 - 1
+        out[r0:r0 + 1024] = mag[dist] * sign
+    return out
+
+
+def batched_median_tau(na, nb):
+    """The median over all slices of the products na[s,i,k]·nb[s,k,j]."""
+    return float((na[..., :, None, :] * nb.transpose(-1, -2)[..., None, :, :]
+                  ).flatten().median())
+
+
+def moe_operands(gen):
+    """Per-expert operands at qwen2-moe-a2.7b's shapes: x1 (E, rows, d) @
+    w1 (E, d, ff) and x2 (E, rows, ff) @ w2 (E, ff, d), weights scaled by
+    fan_in^-1/2."""
+    import torch
+
+    e, d, ff, rows = MOE_EXPERTS, MOE_D, MOE_FF, MOE_ROWS
+    x1 = torch.randn(e, rows, d, generator=gen, device=DEV)
+    w1 = torch.randn(e, d, ff, generator=gen, device=DEV).mul_(d ** -0.5)
+    x2 = torch.randn(e, rows, ff, generator=gen, device=DEV)
+    w2 = torch.randn(e, ff, d, generator=gen, device=DEV).mul_(ff ** -0.5)
+    return {"w1": (x1, w1), "w2": (x2, w2)}
+
+
+def slice_norms(x):
+    """(E, M/t, K/t) normmaps of a batch of slices, one get-norm launch."""
+    from repro_torch.kernels import getnorm
+
+    e, m, k = x.shape
+    return getnorm.tile_norms_cuda(x.reshape(e * m, k), TILE).reshape(
+        e, m // TILE, k // TILE)
+
+
+def library_main_path(a, b, moe, eager):
+    """The library path as a user calls it, with no check or timing in
+    between: (a) spamm(valid_ratio) and plan(valid_ratio, levels) + execute
+    at both ratios, (b) spamm_bmm per-slice on both expert GEMMs and
+    shared-weight once, (d) the eager gated GEMM at levels 2 and 0.
+    Returns the outputs and the launches of (d)."""
+    from repro_torch.configs import SpammConfig
+    from repro_torch.core import module as mod
+    from repro_torch.core import plan as P
+    from repro_torch.core.spamm import spamm
+
+    out = {"paper": {}, "moe": {}, "eager": {}}
+    for r in LIB_RATIOS:
+        (c_flat, info), spamm_ms = host_ms(lambda: spamm(a, b, valid_ratio=r,
+                                                         tile=TILE))
+        p_hier, plan_ms = host_ms(lambda: P.plan(a, b, valid_ratio=r,
+                                                 tile=TILE,
+                                                 levels=LIB_LEVELS))
+        c_hier, exec_ms = host_ms(lambda: P.execute(p_hier, a, b))
+        out["paper"][r] = {"c_flat": c_flat, "info": info,
+                           "spamm_host_ms": spamm_ms, "p_hier": p_hier,
+                           "c_hier": c_hier, "hier_plan_host_ms": plan_ms,
+                           "hier_execute_host_ms": exec_ms}
+    for name, (x, w, tau) in moe.items():
+        out["moe"][name] = P.spamm_bmm(x, w, tau, tile=TILE)
+    xe, we, tau_e = eager
+    before = read_counts()["pool_norms"]
+    for levels in (EAGER_LEVELS, 0):
+        ctx = mod.SpammContext(SpammConfig(enable=True, tau=tau_e, tile=TILE,
+                                           levels=levels))
+        out["eager"][levels] = mod.maybe_spamm_matmul(xe, we, ctx)
+        if levels:
+            out["eager"]["pool_launches"] = (read_counts()["pool_norms"]
+                                             - before)
+    return out
+
+
+def check_paper(a, b, runs):
+    """(a): the search's achieved ratio within its tolerance, hierarchical
+    ≡ flat at the flat τ (tables and output), times against dense, and
+    τ = 0 against torch.matmul."""
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.core.tau_search import search_tau, search_tau_pyramid
+    from repro_torch.kernels import getnorm
+
+    na, nb = getnorm.tile_norms_cuda(a, TILE), getnorm.tile_norms_cuda(b, TILE)
+    pa = P.NormPyramid.from_normmap(na, LIB_LEVELS, tile=TILE)
+    pb = P.NormPyramid.from_normmap(nb, LIB_LEVELS, tile=TILE)
+    dense_ms = time_ms(lambda: torch.matmul(a, b), reps=5)
+    n = a.shape[0]
+    for r, run in runs.items():
+        tau, res = search_tau(na, nb, r)
+        tau_h, res_h = search_tau_pyramid(pa, pb, r)
+        info = run["info"]
+        check(tau == info.tau, f"ratio {r}: spamm's τ {info.tau} is not the "
+              f"search's {tau}")
+        check(abs(res.achieved_ratio - r) <= RATIO_TOL,
+              f"ratio {r}: flat search achieved {res.achieved_ratio}")
+        check(abs(res_h.achieved_ratio - r) <= RATIO_TOL,
+              f"ratio {r}: coarse-first search achieved "
+              f"{res_h.achieved_ratio}")
+        check(run["p_hier"].tau == tau_h, f"ratio {r}: plan's τ differs")
+        p_flat, plan_ms = host_ms(lambda: P.plan(a, b, tau, tile=TILE))
+        p_h, hplan_ms = host_ms(lambda: P.plan(a, b, tau, tile=TILE,
+                                               levels=LIB_LEVELS))
+        same_tables = all(torch.equal(x, y)
+                          for x, y in zip(p_flat.work, p_h.work))
+        c_flat = run["c_flat"]
+        same_out = torch.equal(P.execute(p_h, a, b), c_flat)
+        exec_ms = time_ms(lambda: P.execute(p_flat, a, b), reps=5)
+        vf = float(p_flat.valid_fraction)
+        emit({"library_paper": {
+            "n": n, "tile": TILE, "valid_ratio": r,
+            "flat": {"tau": tau, "achieved_ratio": res.achieved_ratio,
+                     "iterations": res.iterations, "valid_fraction": vf,
+                     "plan_host_ms": plan_ms,
+                     "spamm_host_ms": run["spamm_host_ms"]},
+            "hier": {"levels": LIB_LEVELS, "tau": tau_h,
+                     "achieved_ratio": res_h.achieved_ratio,
+                     "iterations": res_h.iterations,
+                     "valid_fraction": float(run["p_hier"].valid_fraction),
+                     "plan_host_ms": run["hier_plan_host_ms"],
+                     "plan_at_flat_tau_host_ms": hplan_ms},
+            "execute_ms": exec_ms, "dense_matmul_ms": dense_ms,
+            "execute_bound_ms": bound_ms(0, 2 * TILE ** 3
+                                         * int(p_flat.valid_tiles))[0],
+            "hier_tables_equal_flat": same_tables,
+            "hier_output_bit_identical": same_out}})
+        check(same_tables and same_out,
+              f"ratio {r}: hierarchical plan differs from flat")
+        del p_flat, p_h
+    p0 = P.plan(a, b, 0.0, tile=TILE)
+    abs_err, rel = errors(P.execute(p0, a, b), torch.matmul(a, b))
+    emit({"library_tau0_vs_matmul": {"n": n, "max_abs_err": abs_err,
+                                     "max_rel_err": rel,
+                                     "tolerance_rel": MM_RTOL,
+                                     "valid_fraction":
+                                         float(p0.valid_fraction)}})
+    check(rel <= MM_RTOL and float(p0.valid_fraction) == 1.0,
+          f"τ = 0 differs from torch.matmul ({rel})")
+    return na
+
+
+def check_dense_grid(name, x, w, tau, c, info):
+    """(b): the dense-grid kernel against its plain version on the batched
+    gate, bit for bit against the work-list kernel on each slice's own plan,
+    and its time against torch.bmm and its bound."""
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import ref, spamm_mm
+
+    vf = float(info.valid_fraction)
+    check(0.0 < vf < 1.0, f"moe {name}: valid fraction {vf} not in (0, 1)")
+    mask = P.gate_mask(slice_norms(x), slice_norms(w), tau)
+    kidx, nvalid = ref.spamm_compact_ref(mask)
+    args = (x, w, kidx, nvalid)
+    got = spamm_mm.spamm_mm_cuda(*args, tile=TILE)
+    want = spamm_mm.spamm_mm_plain(*args, tile=TILE)
+    torch.cuda.synchronize()
+    abs_err, rel = errors(got, want)
+    check(rel <= MM_RTOL, f"spamm_mm {name}: max rel err {rel}")
+    check(torch.equal(got, c), f"moe {name}: spamm_bmm is not the kernel's "
+          f"output")
+    same = True
+    for s in range(x.shape[0]):
+        p = P.plan(x[s], w[s], tau, tile=TILE)
+        same = same and torch.equal(P.execute(p, x[s], w[s]), c[s])
+    check(same, f"moe {name}: dense-grid differs from work-list")
+    steps = int(nvalid.sum())
+    a_tiles = int(mask.any(dim=2).sum())   # (slice, i, k) read by some j
+    b_tiles = int(mask.any(dim=1).sum())   # (slice, k, j) read by some i
+    nbytes = ((a_tiles + b_tiles) * TILE * TILE * 4 + c.numel() * 4
+              + (kidx.numel() + nvalid.numel()) * 4)
+    bms, by = bound_ms(nbytes, 2 * TILE ** 3 * steps)
+    e, m, k = x.shape
+    res = {"name": "spamm_mm",
+           "shape": f"{e}x{m}x{k}x{w.shape[2]} per-slice ({name})",
+           "tau": tau, "valid_fraction": vf, "valid_steps": steps,
+           "max_abs_err": abs_err, "max_rel_err": rel,
+           "bit_identical_to_worklist": same,
+           "ms": time_ms(lambda: spamm_mm.spamm_mm_cuda(*args, tile=TILE)),
+           "plain_ms": time_ms(lambda: spamm_mm.spamm_mm_plain(
+               *args, tile=TILE), reps=3, warmup=1),
+           "library_ms": time_ms(lambda: torch.bmm(x, w)),
+           "bound_ms": bms, "bound_by": by}
+    emit({"kernel_check": res})
+    return res
+
+
+def kernel_device_ms(fn, kernel, calls=20):
+    """Mean device time of one launch of `kernel` over `calls` calls of fn
+    under torch.profiler — for kernels so short that an event pair around
+    one call measures the host's launch path instead. "not measured" when
+    the profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return us / calls / 1e3 if us > 0 else "not measured"
+
+
+def check_pool(x, label):
+    """(c): the pooling kernel against its plain version and one torch
+    expression (square, pad, 2×2 sum, sqrt)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import getnorm
+
+    gm, gk = x.shape
+    gmc, gkc = (gm + 1) // 2, (gk + 1) // 2
+    got = getnorm.pool_norms_cuda(x)
+    want = getnorm.pool_norms_plain(x)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+    check(rel <= NORM_RTOL, f"pool_norms {label}: max rel err {rel}")
+    bms, by = bound_ms((x.numel() + got.numel()) * 4, 7 * got.numel())
+    res = {"name": "pool_norms", "shape": label,
+           "max_abs_err": float((got - want).abs().max()),
+           "max_rel_err": rel, "bit_identical": torch.equal(got, want),
+           "device_ms": kernel_device_ms(
+               lambda: getnorm.pool_norms_cuda(x), "pool_norms_f32_kernel"),
+           "ms": time_ms(lambda: getnorm.pool_norms_cuda(x)),
+           "plain_ms": time_ms(lambda: getnorm.pool_norms_plain(x)),
+           "library_ms": time_ms(lambda: torch.sqrt(
+               F.pad(x * x, (0, gk % 2, 0, gm % 2))
+               .reshape(gmc, 2, gkc, 2).sum((1, 3)))),
+           "bound_ms": bms, "bound_by": by}
+    emit({"kernel_check": res})
+    return res
+
+
+def phase_library():
+    """The library path at full size: operands made on the card, the main
+    path driven once with every count at 0 just before and read just after,
+    then the checks and timings."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.spamm import spamm
+    from repro_torch.kernels import getnorm
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    a = algebraic_decay_on_card(LIB_N, SEED)
+    b = algebraic_decay_on_card(LIB_N, SEED + 1)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    moe = {}
+    for name, (x, w) in moe_operands(gen).items():
+        moe[name] = (x, w, batched_median_tau(slice_norms(x),
+                                              slice_norms(w)))
+    x1, w1, _ = moe["w1"]
+    moe_shared = (x1, w1[0], batched_median_tau(slice_norms(x1),
+                                                slice_norms(w1[:1])))
+    cfg = get_config(ARCH)
+    xe = torch.randn(BATCH * PROMPT_LEN, cfg.d_model, generator=gen,
+                     device=DEV)
+    we = torch.randn(cfg.d_model, cfg.d_ff, generator=gen,
+                     device=DEV).mul_(cfg.d_model ** -0.5)
+    tau_e = median_product_tau(getnorm.tile_norms_cuda(xe, TILE),
+                               getnorm.tile_norms_cuda(we, TILE))
+    torch.cuda.synchronize()
+    emit({"library_setup": {"seconds": time.perf_counter() - t0,
+                            "paper_n": LIB_N, "moe_taus": {
+                                k: v[2] for k, v in moe.items()},
+                            "moe_shared_tau": moe_shared[2],
+                            "eager_tau": tau_e}})
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = library_main_path(a, b, {**moe, "shared": moe_shared},
+                            (xe, we, tau_e))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    emit({"library_path": {"seconds": time.perf_counter() - t0,
+                           "launches": counts,
+                           "eager_pool_launches":
+                               out["eager"]["pool_launches"]}})
+    check(all(v > 0 for v in counts.values()), f"library launches {counts}")
+
+    norm_a = check_paper(a, b, out["paper"])
+    del out["paper"], a, b
+    torch.cuda.empty_cache()
+    mm = {name: check_dense_grid(name, *moe[name], *out["moe"][name])
+          for name in ("w1", "w2")}
+    c_s, info_s = out["moe"]["shared"]
+    x1, ws, tau_s = moe_shared
+    vf_s = float(info_s.valid_fraction)
+    ref_s = torch.stack([spamm(x1[s], ws, tau_s, tile=TILE)[0]
+                         for s in range(x1.shape[0])])
+    emit({"library_moe_shared": {"shape": f"{tuple(x1.shape)} @ "
+                                          f"{tuple(ws.shape)}",
+                                 "tau": tau_s, "valid_fraction": vf_s,
+                                 "per_slice_bit_identical":
+                                     torch.equal(c_s, ref_s)}})
+    check(0.0 < vf_s < 1.0 and torch.equal(c_s, ref_s),
+          "shared-weight spamm_bmm differs from per-slice spamm")
+    pool = check_pool(norm_a, f"normmap {tuple(norm_a.shape)}")
+    gen_r = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    check_pool(torch.rand(255, 257, generator=gen_r, device=DEV),
+               "normmap (255, 257)")
+    same = torch.equal(out["eager"][EAGER_LEVELS], out["eager"][0])
+    emit({"library_eager": {"gemm": f"{tuple(xe.shape)} @ {tuple(we.shape)}",
+                            "tau": tau_e, "levels": EAGER_LEVELS,
+                            "bit_identical_to_levels_0": same,
+                            "pool_launches": out["eager"]["pool_launches"]}})
+    check(same and out["eager"]["pool_launches"] > 0,
+          "eager levels > 0 differs from flat or never pooled")
+    return counts, pool, mm["w1"]
 
 
 def _leaves(tree):
@@ -489,22 +879,41 @@ def main():
                                               if "Used" in ln or "spill" in ln]}
                                 for s, r in report.items()}}})
 
+    seconds = {}
+    t0 = time.perf_counter()
     norms_act, mm_w1 = phase_kernels()
+    seconds["kernels"] = time.perf_counter() - t0
     counts = phase_serve()
+    seconds["serve"] = time.perf_counter() - t0 - seconds["kernels"]
+    lib_counts, pool, dense = phase_library()
+    seconds["library"] = time.perf_counter() - t0 - sum(seconds.values())
+    emit({"phase_seconds": seconds})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
+    serve_path = "serve: starcoder2-7b wave, run (c)"
+    lib_path = "library: (a) paper ensemble, (b) moe spamm_bmm, (d) eager"
     kernels = [
         {"name": "tile_norms", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:147",
-         "launches": counts["tile_norms"],
+         "launches": counts["tile_norms"], "path": serve_path,
          **{k: norms_act[k] for k in keys}},
         {"name": "spamm_mm_worklist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:203",
-         "launches": counts["spamm_mm_worklist"],
+         "launches": counts["spamm_mm_worklist"], "path": serve_path,
          **{k: mm_w1[k] for k in keys}},
+        {"name": "pool_norms", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/getnorm.cu",
+         "replaces": "src/repro/kernels/getnorm.py:98",
+         "launches": lib_counts["pool_norms"], "path": lib_path,
+         **{k: pool[k] for k in keys}},
+        {"name": "spamm_mm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
+         "replaces": "src/repro/kernels/spamm_mm.py:109",
+         "launches": lib_counts["spamm_mm"], "path": lib_path,
+         **{k: dense[k] for k in keys}},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -22,15 +22,15 @@ BACKEND_NAMES = ("auto", "cuda", "torch")
 class SpammConfig:
     enable: bool = False
     tau: float = 0.0                    # norm-product threshold (paper τ)
-    valid_ratio: Optional[float] = None # target executed fraction (τ-search:
-                                        # not ported yet, ROADMAP queue A)
+    valid_ratio: Optional[float] = None # target executed fraction (the
+                                        # model path gates on tau, as in
+                                        # the reference)
     tile: int = 64                      # LoNum
     block_n: int = 1                    # super-column width in the mm kernel
     backend: str = "auto"               # auto | cuda | torch
     bwd: str = "dense"                  # dense | spamm gradient path
     levels: int = 0                     # norm-pyramid coarsening steps (0 =
-                                        # flat; hierarchical gating is not
-                                        # ported yet)
+                                        # flat)
     dtype: str = "float32"              # GEMM compute dtype (float32 only in
                                         # this slice)
 

@@ -3,13 +3,18 @@
 `maybe_spamm_matmul` is the hook every eligible GEMM of the models calls:
 dense `x @ w` when SpAMM is off, the frozen work-list path when a
 `FrozenPlan` is given, the eager plan/execute path otherwise. Only the
-forward exists here: `spamm_linear` refuses tensors that need gradients
+forward exists here: the gated GEMMs refuse tensors that need gradients
 (the `torch.autograd.Function` with dense|spamm backward waits for the
 training slice, ROADMAP queue A).
 
-`SpammContext` carries the config plus the gating telemetry. Each gated
-GEMM appends its valid fraction as a DEVICE tensor (no host sync per GEMM);
-`end_stats()` moves the whole wave's fractions to the host in one transfer.
+`SpammContext` carries the config, a `WeightPlanCache` shared by the
+eager gated GEMMs of a model (the weight's padding and normmap or pyramid
+are computed once), and the gating telemetry. Each gated GEMM appends its
+valid fraction as a DEVICE tensor (no host sync per GEMM); `end_stats()`
+moves the whole wave's fractions to the host in one transfer.
+
+`spamm_bmm_linear` is the batched gated GEMM for per-slice weights (the MoE
+grouped-FFN shape), forward only.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.core import plan as _plan
-from repro_torch.core.plan import pad_to_tile
+from repro_torch.core.plan import WeightPlanCache, pad_to_tile
 
 
 class Tap(NamedTuple):
@@ -28,19 +33,20 @@ class Tap(NamedTuple):
 
 
 class SpammContext:
-    """The SpammConfig plus the per-wave gating taps. Create one per
-    model/engine, not per call."""
+    """The SpammConfig, a WeightPlanCache for the eager gated GEMMs, and the
+    per-wave gating taps. Create one per model/engine, not per call."""
 
-    __slots__ = ("cfg", "_pending", "_collect", "_phase")
+    __slots__ = ("cfg", "cache", "_pending", "_collect", "_phase")
 
-    def __init__(self, cfg: Any):
+    def __init__(self, cfg: Any, cache: Optional[WeightPlanCache] = None):
         self.cfg = cfg
+        self.cache = cache if cache is not None else WeightPlanCache()
         self._pending: list = []
         self._collect = False
         self._phase = "prefill"
 
     def __repr__(self):
-        return f"SpammContext({self.cfg!r})"
+        return f"SpammContext({self.cfg!r}, cache={len(self.cache)} entries)"
 
     @property
     def enable(self) -> bool:
@@ -90,18 +96,30 @@ def _flatten_pad(x: torch.Tensor, tile: int):
     return pad_to_tile(x2, tile).contiguous(), (lead, m, k)
 
 
-def _fwd_impl(x, w, tau, tile, backend, block_n, levels=0,
-              compute_dtype="float32"):
-    """Plan + execute one gated GEMM eagerly; returns (y, plan)."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+def _forward_only(*tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "spamm_linear is forward-only in the port; the autograd Function "
+            "the port's gated GEMMs are forward-only; the autograd Function "
             "(bwd dense|spamm) waits for the training slice (ROADMAP queue A)")
+
+
+def _fwd_impl(x, w, tau, tile, backend, block_n, ctx=None, levels=0,
+              compute_dtype="float32"):
+    """Plan + execute one gated GEMM eagerly; returns (y, plan). With a
+    context, the weight side comes from its cache (levels > 0: the cached
+    weight pyramid, the activation's pooled by the backend's kernel)."""
+    _forward_only(x, w)
     xp, (lead, m, k) = _flatten_pad(x, tile)
     n = w.shape[-1]
-    wp = pad_to_tile(w, tile, tile * block_n).contiguous()
-    p = _plan.plan(xp, wp, tau, tile=tile, block_n=block_n, backend=backend,
-                   levels=levels, compute_dtype=compute_dtype)
+    if ctx is not None:
+        p, wp = ctx.cache.plan_for(xp, w, tau, tile=tile, block_n=block_n,
+                                   backend=backend, levels=levels,
+                                   compute_dtype=compute_dtype)
+    else:
+        wp = pad_to_tile(w, tile, tile * block_n).contiguous()
+        p = _plan.plan(xp, wp, tau, tile=tile, block_n=block_n,
+                       backend=backend, levels=levels,
+                       compute_dtype=compute_dtype)
     c = _plan.execute(p, xp, wp)
     return c[:m, :n].reshape(*lead, n).to(x.dtype), p
 
@@ -111,8 +129,22 @@ def spamm_linear(x: torch.Tensor, w: torch.Tensor, tau, tile: int = 64,
                  compute_dtype: str = "float32") -> torch.Tensor:
     """y[..., n] = SpAMM(x[..., k] @ w[k, n], tau), forward only. Output
     dtype follows x."""
-    return _fwd_impl(x, w, tau, tile, backend, block_n, levels,
+    return _fwd_impl(x, w, tau, tile, backend, block_n, None, levels,
                      compute_dtype)[0]
+
+
+def spamm_bmm_linear(x: torch.Tensor, w: torch.Tensor,
+                     spamm_ctx: SpammContext) -> torch.Tensor:
+    """Batched gated GEMM for per-slice weights (B, K, N) — the MoE grouped
+    FFN shape — through `core.plan.spamm_bmm` with the config's τ, forward
+    only; taps the batch's valid fraction."""
+    _forward_only(x, w)
+    cfg = spamm_ctx.cfg
+    c, info = _plan.spamm_bmm(x, w, cfg.tau, tile=cfg.tile,
+                              block_n=cfg.block_n, backend=cfg.backend,
+                              cache=spamm_ctx.cache, levels=cfg.levels)
+    spamm_ctx.tap(info.valid_fraction)
+    return c.to(x.dtype)
 
 
 def spamm_linear_frozen(x: torch.Tensor, w: torch.Tensor, fp,
@@ -145,7 +177,7 @@ def maybe_spamm_matmul(x: torch.Tensor, w: torch.Tensor, spamm_cfg: Any,
     if frozen is not None:
         return spamm_linear_frozen(x, w, frozen, ctx)
     cfg = ctx.cfg
-    y, p = _fwd_impl(x, w, cfg.tau, cfg.tile, cfg.backend, cfg.block_n,
+    y, p = _fwd_impl(x, w, cfg.tau, cfg.tile, cfg.backend, cfg.block_n, ctx,
                      cfg.levels, cfg.dtype)
     ctx.tap(p.valid_fraction)
     return y

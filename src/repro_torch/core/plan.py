@@ -5,25 +5,37 @@ The gating phase — get-norm (§3.2) → τ-gate → `map_offset` compaction
 phase consumes its step tables. This module is the port's one
 implementation of the gating phase:
 
-  plan(a, b, tau)          → SpammPlan   concrete flat gate, host planner
-  plan(a, frozen_weight=…) → SpammPlan   frozen weight side (serving path)
-  execute(plan, a, b)      → C           the work-list GEMM kernel
-  compact_from_triples     — work-list + step tables from surviving triples
-  _frozen_step_flags       — INIT/ACC/FLUSH flags over frozen step tables
+  plan(a, b, tau | valid_ratio=…)  → SpammPlan  concrete gate, host planner;
+                                     levels=L gates coarse-to-fine over the
+                                     norm pyramid (same tables as flat)
+  plan(a, frozen_weight=…)         → SpammPlan  frozen weight side (serving)
+  execute(plan, a, b)              → C          the work-list GEMM kernel
+  NormPyramid                      — coarse-to-fine normmap stack, pooled
+                                     through the backend's kernel
+  hier_gate_mask                   — coarse-to-fine bitmap (≡ gate_mask)
+  compact_from_triples             — work-list + step tables from triples
+  kidx_from_work                   — dense kidx from a work-list
+  WeightPlanCache                  — weight-side artifacts per weight
+  spamm_bmm(x, w, tau)             — batched SpAMM: a shared weight folds the
+                                     batch into rows (work-list kernel);
+                                     per-slice weights run the batched mask
+                                     through the dense-grid kernel
 
 The host planners stay numpy, so their tables match the reference's array
 for array. The frozen path does its per-call work on the device (no host
 sync per GEMM): the activation get-norm, an O(S) gather-compare over the
 frozen step tables, the flag arithmetic and the nvalid scatter-add.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-hierarchical gating over a norm pyramid (needs `pool_norms`), the
-valid-ratio τ-search, low-precision (bf16/int8) plans, traced dense-kidx
-plans and the `WeightPlanCache`.
+The port has no tracing, so the reference's traced branches have no
+counterpart here: `hier_gate_mask`'s dense traced refinement and `plan()`'s
+traced-operand path (dense bitmap → `spamm_compact_ref` kidx) do not exist;
+every plan is concrete and carries its work-list. Low-precision (bf16/int8)
+plans raise NotImplementedError naming their ROADMAP item.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import collections
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,24 +60,72 @@ def pad_to_tile(x: torch.Tensor, tile: int, tile_n: Optional[int] = None
     return F.pad(x, (0, pn, 0, pm))
 
 
+# Relative slack applied to τ at coarse levels only: coarse norms are f32
+# (sqrt of pooled sums of squares), so a coarse product can round a hair
+# below a fine product it dominates. The slack only widens the candidate
+# set; the level-0 test, which is exactly the flat gate, decides the final
+# triples, so the pooling's rounding never changes them (hierarchical ≡
+# flat). 1e-5 covers the f32 rounding of several levels many times over.
+_COARSE_SLACK = 1e-5
+
+
 class NormPyramid:
-    """Coarse-to-fine stack of normmaps for one operand side: levels[0] is
-    the plain normmap at `tile`, levels[l] the sqrt-sumsq 2×2 pooling of
-    levels[l-1] (exact norm of the (tile·2^l)² block)."""
+    """Coarse-to-fine stack of normmaps for one operand side.
+
+    levels[0] is the plain normmap at `tile`; levels[l] ceil-halves each
+    grid dim of levels[l-1] by sqrt-sumsq pooling, so levels[l][I, J] is the
+    exact Frobenius norm of the (tile·2^l)² block (zero-padded at ragged
+    edges) and upper-bounds every descendant tile norm. Leading batch dims
+    (per-expert weights) ride along. Pooling goes through the backend's
+    `pool_norms`: the kernel for CUDA tensors under "auto"/"cuda"."""
 
     def __init__(self, levels, *, tile: int):
         self.levels = tuple(levels)
         self.tile = tile
 
+    @property
+    def base(self) -> torch.Tensor:
+        """The finest normmap — what flat gating and SpammPlan.norm_* hold."""
+        return self.levels[0]
+
+    @property
+    def coarse(self) -> torch.Tensor:
+        return self.levels[-1]
+
+    @property
+    def num_levels(self) -> int:
+        """Number of coarsening steps (0 ⇒ just the flat normmap)."""
+        return len(self.levels) - 1
+
+    @property
+    def coarse_tile(self) -> int:
+        return self.tile * (2 ** self.num_levels)
+
+    def extended(self, levels: int, *, backend: str = "auto"
+                 ) -> "NormPyramid":
+        """This pyramid deepened to `levels` coarsening steps (itself if
+        already that deep), pooling on from the current coarsest level."""
+        if self.num_levels >= levels:
+            return self
+        pool = kops.get_backend(backend).pool_norms
+        lv = list(self.levels)
+        for _ in range(levels - self.num_levels):
+            lv.append(pool(lv[-1]))
+        return NormPyramid(lv, tile=self.tile)
+
     @classmethod
     def from_normmap(cls, normmap: torch.Tensor, levels: int, *,
-                     tile: int = 64) -> "NormPyramid":
+                     tile: int = 64, backend: str = "auto") -> "NormPyramid":
         """Pyramid from an existing finest normmap (each coarser level one
         pooling reduction)."""
-        lv = [normmap]
-        for _ in range(levels):
-            lv.append(kref.pool_norms_ref(lv[-1]))
-        return cls(lv, tile=tile)
+        return cls([normmap], tile=tile).extended(levels, backend=backend)
+
+    @classmethod
+    def build(cls, x: torch.Tensor, levels: int, *, tile: int = 64,
+              backend: str = "auto", use_mxu: bool = False) -> "NormPyramid":
+        """Pyramid from the matrix: one get-norm pass plus the poolings."""
+        return cls(kops.pyramid_norms(x, tile, levels, backend=backend,
+                                      use_mxu=use_mxu), tile=tile)
 
 
 STEP_INIT = kmm.STEP_INIT
@@ -161,6 +221,38 @@ def compact_from_triples(ii, jj, kk, *, gm: int, gn: int, gk: int,
     return work, nvalid
 
 
+def _host(x) -> np.ndarray:
+    """A tensor (any device) or array as a numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def kidx_from_work(work: SpammWork, gm: int, gnb: int, gk: int) -> np.ndarray:
+    """Dense (gm, gnb, gk) kidx table from a work-list's pair view — the
+    layout of `spamm_compact_ref` (ascending valid k's first, padding slots
+    repeating the last valid k, all-invalid pairs reading 0), built by O(V)
+    scatters instead of a sort over the grid."""
+    rows, cols = _host(work.rows), _host(work.cols)
+    offsets, klist = _host(work.offsets), _host(work.klist)
+    lastk = np.zeros((gm, gnb), np.int32)
+    if klist.size:
+        lastk[rows, cols] = klist[offsets[1:] - 1]
+    kidx = np.broadcast_to(lastk[:, :, None], (gm, gnb, gk)).copy()
+    if klist.size:
+        counts = np.diff(offsets)
+        t = np.arange(klist.size, dtype=np.int32) - np.repeat(
+            offsets[:-1], counts)
+        kidx[np.repeat(rows, counts), np.repeat(cols, counts), t] = klist
+    return kidx
+
+
+class SpammInfo(NamedTuple):
+    tau: float                      # threshold actually used (f32 value)
+    valid_fraction: torch.Tensor    # executed-tile fraction (paper's ratio)
+    effective_flops: torch.Tensor   # 2·M·K·N · valid_fraction
+
+
 class SpammPlan:
     """Gating phase of one SpAMM product.
 
@@ -169,10 +261,11 @@ class SpammPlan:
     (gm, gnb, gk) bool view scattered from the step tables on first read;
     the executor never reads it).
     tau is the f32 gate threshold as a Python float. Metadata: tile,
-    block_n, backend."""
+    block_n, backend, levels (pyramid coarsening steps the gate descended;
+    0 = flat — the tables are the same either way)."""
 
     def __init__(self, tau, norm_a, norm_b, nvalid, valid_tiles, work, *,
-                 tile: int, block_n: int, backend: str):
+                 tile: int, block_n: int, backend: str, levels: int = 0):
         self.tau = tau
         self.norm_a = norm_a
         self.norm_b = norm_b
@@ -183,6 +276,7 @@ class SpammPlan:
         self.tile = tile
         self.block_n = block_n
         self.backend = backend
+        self.levels = levels
 
     @property
     def grid(self):
@@ -213,20 +307,103 @@ class SpammPlan:
     def valid_fraction(self) -> torch.Tensor:
         return self.valid_tiles.float() / self.total_tiles
 
+    def info(self) -> dict:
+        """The info dict `kernels.ops.spamm_matmul` returns: the normmaps,
+        nvalid (the paper's validNum), valid/total tiles and the fraction."""
+        return {
+            "norm_a": self.norm_a,
+            "norm_b": self.norm_b,
+            "nvalid": self.nvalid,
+            "valid_tiles": self.valid_tiles,
+            "total_tiles": self.total_tiles,
+            "valid_fraction": self.valid_fraction,
+        }
+
 
 def gate_mask(norm_a: torch.Tensor, norm_b: torch.Tensor, tau,
               block_n: int = 1) -> torch.Tensor:
     """Validity bitmap from normmaps (paper Alg. 2 lines 3–8); block_n > 1
-    groups columns into super-columns valid if ANY member is. Returns
-    (gm, gn//block_n, gk) bool."""
+    groups columns into super-columns valid if ANY member is. Leading batch
+    dims broadcast (the reference maps it over a batch). Returns (...,
+    gm, gn//block_n, gk) bool."""
     if block_n > 1:
-        gk, gn = norm_b.shape
+        gk, gn = norm_b.shape[-2:]
         assert gn % block_n == 0, (gn, block_n)
-        nb_g = norm_b.reshape(gk, gn // block_n, block_n)
-        fine = (norm_a[:, None, :, None] * nb_g.transpose(0, 1)[None]
-                >= tau)
+        nb_g = norm_b.reshape(*norm_b.shape[:-2], gk, gn // block_n, block_n)
+        fine = (norm_a[..., :, None, :, None]
+                * nb_g.transpose(-3, -2)[..., None, :, :, :] >= tau)
         return fine.any(dim=-1)
     return kref.spamm_mask_ref(norm_a, norm_b, tau)
+
+
+# children of one coarse (i, j, k) triple: the 2×2×2 refinement offsets, as
+# three separate contiguous columns
+_OFF_I = np.array([i for i in (0, 1) for _ in (0, 1) for _ in (0, 1)], np.int32)
+_OFF_J = np.array([j for _ in (0, 1) for j in (0, 1) for _ in (0, 1)], np.int32)
+_OFF_K = np.array([k for _ in (0, 1) for _ in (0, 1) for k in (0, 1)], np.int32)
+
+
+def _hier_descend_host(la, lb, tau: float):
+    """Sparse coarse-to-fine descent on numpy normmaps (per level, finest
+    first): gates the whole coarsest level, then expands only the surviving
+    triples into their 2×2×2 children, level by level. Returns the surviving
+    fine (ii, jj, kk) triples — exactly the support of `gate_mask`, since the
+    level-0 test is the flat gate — in the compacted form
+    `compact_from_triples` consumes (not sorted)."""
+    top = len(la) - 1
+    tau_c = tau - _COARSE_SLACK * abs(tau)
+    na, nb = la[top], lb[top]
+    cand = na[:, None, :] * np.swapaxes(nb, 0, 1)[None] >= (tau_c if top else tau)
+    ii, jj, kk = [x.astype(np.int32) for x in np.nonzero(cand)]
+    for l in range(top - 1, -1, -1):
+        gm_l, gk_l = la[l].shape
+        gn_l = lb[l].shape[1]
+        if ii.shape[0] == 0:
+            break
+        i2 = (ii[:, None] * 2 + _OFF_I[None]).ravel()
+        j2 = (jj[:, None] * 2 + _OFF_J[None]).ravel()
+        k2 = (kk[:, None] * 2 + _OFF_K[None]).ravel()
+        # ceil-pooled coarse grids overhang ragged fine edges — drop phantoms
+        keep = (i2 < gm_l) & (j2 < gn_l) & (k2 < gk_l)
+        if not keep.all():
+            i2, j2, k2 = i2[keep], j2[keep], k2[keep]
+        vals = la[l][i2, k2] * lb[l][k2, j2]
+        s = vals >= (tau if l == 0 else tau_c)
+        ii, jj, kk = i2[s], j2[s], k2[s]
+    return ii, jj, kk
+
+
+def _hier_mask_host(la, lb, tau: float) -> np.ndarray:
+    """Dense bitmap view of `_hier_descend_host`."""
+    ii, jj, kk = _hier_descend_host(la, lb, tau)
+    gm, gk = la[0].shape
+    gn = lb[0].shape[1]
+    mask = np.zeros(gm * gn * gk, bool)
+    if ii.shape[0]:
+        mask[(ii.astype(np.int64) * gn + jj) * gk + kk] = True
+    return mask.reshape(gm, gn, gk)
+
+
+def _f32(tau) -> float:
+    """τ rounded to float32, as a Python float (the gate compares in f32)."""
+    return float(np.float32(float(tau)))
+
+
+def hier_gate_mask(pyr_a: NormPyramid, pyr_b: NormPyramid, tau,
+                   block_n: int = 1) -> np.ndarray:
+    """Coarse-to-fine validity bitmap (host numpy), bit-identical to
+    `gate_mask` on the finest normmaps: a failing coarse product
+    upper-bounds, hence rules out, every fine product inside it. Descends
+    to the shallower pyramid's depth."""
+    levels = min(pyr_a.num_levels, pyr_b.num_levels)
+    mask = _hier_mask_host([_host(x) for x in pyr_a.levels[:levels + 1]],
+                           [_host(x) for x in pyr_b.levels[:levels + 1]],
+                           _f32(tau))
+    if block_n > 1:
+        gm, gn, gk = mask.shape
+        assert gn % block_n == 0, (gn, block_n)
+        mask = mask.reshape(gm, gn // block_n, block_n, gk).any(2)
+    return mask
 
 
 def _flat_triples_host(na: np.ndarray, nb: np.ndarray, tau: float,
@@ -325,6 +502,21 @@ def _plan_frozen(a, fp, *, norm_a=None, use_mxu_norm: bool = False
                      tile=fp.tile, block_n=fp.block_n, backend=bk.name)
 
 
+def _side_pyramid(norm, x, levels: int, tile: int, bk, use_mxu: bool,
+                  side: str) -> NormPyramid:
+    """Resolve one operand side (matrix / normmap / pyramid) to a pyramid
+    with at least `levels` coarsening steps."""
+    if isinstance(norm, NormPyramid):
+        return norm.extended(levels, backend=bk.name)
+    if norm is not None:
+        return NormPyramid.from_normmap(norm, levels, tile=tile,
+                                        backend=bk.name)
+    if x is None:
+        raise ValueError(f"need `{side}` or `norm_{side}`")
+    return NormPyramid(bk.pyramid_norms(x, tile, levels, use_mxu=use_mxu),
+                       tile=tile)
+
+
 def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
          tau=None, *, valid_ratio=None, norm_a=None, norm_b=None,
          tile: int = 64, block_n: int = 1, backend: str = "auto",
@@ -332,9 +524,16 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
          compute_dtype: str = "float32") -> SpammPlan:
     """Gating phase for (M, K) @ (K, N), dims divisible by tile (N by
     tile·block_n). Either side may be the matrix or its precomputed normmap
-    (norm_a= / norm_b=). The gate is the concrete flat one: normmaps go to
-    the host, the surviving triples feed `compact_from_triples`, and the
-    step tables come back to the operands' device.
+    or NormPyramid (norm_a= / norm_b=). Exactly one of `tau` / `valid_ratio`
+    is given; valid_ratio runs the §3.5.2 τ-search on the normmaps.
+
+    Flat (levels = 0): the normmaps go to the host, the surviving triples of
+    the chunked f32 gate feed `compact_from_triples`, and the step tables
+    come back to the operands' device. levels > 0 (or a NormPyramid
+    operand) gates coarse-to-fine over the norm pyramid (`_hier_descend_host`
+    on the host, the pooling on the operands' device); the tables are the
+    flat plan's, array for array, and a valid_ratio searches coarse-first
+    (`search_tau_pyramid`).
 
     frozen_weight (a `FrozenPlan`, or a `FrozenWeight` plus `a`) replaces
     the weight side: τ/tile/block_n/backend come from the artifact."""
@@ -346,45 +545,68 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
                             use_mxu_norm=use_mxu_norm)
     if (tau is None) == (valid_ratio is None):
         raise ValueError("give exactly one of tau / valid_ratio")
-    if valid_ratio is not None:
-        raise NotImplementedError(
-            "valid_ratio needs the τ-search (core/tau_search.py): ROADMAP "
-            "queue A, hierarchical gating + τ-search")
     if kquant.canonical_dtype(compute_dtype) != "float32":
         raise NotImplementedError(
             f"compute_dtype={compute_dtype!r} needs the bf16/int8 kernels "
             f"(ROADMAP queue B items 5, 6, 8)")
-    if (levels > 0 or isinstance(norm_a, NormPyramid)
-            or isinstance(norm_b, NormPyramid)):
-        raise NotImplementedError(
-            "hierarchical gating (levels > 0) needs pool_norms and the "
-            "pyramid descent: ROADMAP queue A, hierarchical gating + τ-search")
     bk = kops.get_backend(backend)
-    dev = next((x.device for x in (a, b, norm_a, norm_b)
-                if isinstance(x, torch.Tensor)), torch.device("cpu"))
-    if norm_a is None:
-        if a is None:
-            raise ValueError("need `a` or `norm_a`")
-        norm_a = bk.norms(a, tile, use_mxu=use_mxu_norm)
-    if norm_b is None:
-        if b is None:
-            raise ValueError("need `b` or `norm_b`")
-        norm_b = bk.norms(b, tile, use_mxu=use_mxu_norm)
-    tau_f = float(np.float32(float(tau)))
-    triples, _ = _flat_triples_host(
-        norm_a.detach().cpu().numpy().astype(np.float32, copy=False),
-        norm_b.detach().cpu().numpy().astype(np.float32, copy=False),
-        tau_f, block_n, keep_mask=False)
+    dev = next((x.base.device if isinstance(x, NormPyramid) else x.device
+                for x in (a, b, norm_a, norm_b)
+                if isinstance(x, (torch.Tensor, NormPyramid))),
+               torch.device("cpu"))
+    hier = (levels > 0 or isinstance(norm_a, NormPyramid)
+            or isinstance(norm_b, NormPyramid))
+    want = 0
+    if hier:
+        want = max([levels] + [x.num_levels for x in (norm_a, norm_b)
+                               if isinstance(x, NormPyramid)])
+        pyr_a = _side_pyramid(norm_a, a, want, tile, bk, use_mxu_norm, "a")
+        pyr_b = _side_pyramid(norm_b, b, want, tile, bk, use_mxu_norm, "b")
+        norm_a, norm_b = pyr_a.base, pyr_b.base
+        if valid_ratio is not None:
+            from repro_torch.core.tau_search import search_tau_pyramid
+
+            tau, _ = search_tau_pyramid(pyr_a, pyr_b, valid_ratio)
+        tau_f = _f32(tau)
+        lv = min(pyr_a.num_levels, pyr_b.num_levels)
+        triples = _hier_descend_host(
+            [_host(x) for x in pyr_a.levels[:lv + 1]],
+            [_host(x) for x in pyr_b.levels[:lv + 1]], tau_f)
+    else:
+        if norm_a is None:
+            if a is None:
+                raise ValueError("need `a` or `norm_a`")
+            norm_a = bk.norms(a, tile, use_mxu=use_mxu_norm)
+        if norm_b is None:
+            if b is None:
+                raise ValueError("need `b` or `norm_b`")
+            norm_b = bk.norms(b, tile, use_mxu=use_mxu_norm)
+        if valid_ratio is not None:
+            from repro_torch.core.tau_search import search_tau
+
+            tau, _ = search_tau(norm_a, norm_b, valid_ratio)
+        tau_f = _f32(tau)
+        triples, _ = _flat_triples_host(
+            _host(norm_a).astype(np.float32, copy=False),
+            _host(norm_b).astype(np.float32, copy=False),
+            tau_f, block_n, keep_mask=False)
     gm, gk = norm_a.shape
-    gnb = norm_b.shape[-1] // block_n
-    work_np, nvalid_np = compact_from_triples(
-        *triples, gm=gm, gn=gnb, gk=gk, block_n=1, assume_sorted=True)
+    gn = norm_b.shape[-1]
+    if hier:
+        work_np, nvalid_np = compact_from_triples(
+            *triples, gm=gm, gn=gn, gk=gk, block_n=block_n)
+    else:
+        # the chunked scan emits triples in row-major order, grouped
+        work_np, nvalid_np = compact_from_triples(
+            *triples, gm=gm, gn=gn // block_n, gk=gk, block_n=1,
+            assume_sorted=True)
     work = SpammWork(*(torch.as_tensor(x, device=dev) for x in work_np))
     return SpammPlan(tau_f, norm_a, norm_b,
                      torch.as_tensor(nvalid_np, device=dev),
                      torch.tensor(int(work_np.klist.size), dtype=torch.int32,
                                   device=dev),
-                     work, tile=tile, block_n=block_n, backend=bk.name)
+                     work, tile=tile, block_n=block_n, backend=bk.name,
+                     levels=want)
 
 
 def execute(p: SpammPlan, a: torch.Tensor, b: torch.Tensor, *,
@@ -400,3 +622,168 @@ def execute(p: SpammPlan, a: torch.Tensor, b: torch.Tensor, *,
                          f"match the plan's grid ({gm}, {gk}, {gn}) at tile {t}")
     return kops.get_backend(p.backend).matmul_worklist(
         a, b, p.work, t, p.block_n, out_dtype or torch.float32)
+
+
+class _WeightEntry(NamedTuple):
+    weight: Any          # strong ref: anchors the id() key (no stale reuse)
+    padded: torch.Tensor
+    norms: Any           # normmap (levels=0) or NormPyramid (levels>0)
+
+
+class WeightPlanCache:
+    """Caches the weight-side gating artifacts (tile padding + normmap or
+    norm pyramid), keyed on weight identity, version, shape, dtype, device,
+    tile, backend, levels and block_n.
+
+    Eager forward passes call one weight against a stream of activations:
+    the weight normmap (the O(K·N) half of get-norm) and the padded copy do
+    not depend on the batch, so they are computed once per weight. The
+    tensor's in-place version counter is part of the key (torch tensors are
+    mutable, jax arrays are not), so an updated weight misses instead of
+    serving stale norms. LRU-bounded; `hits`/`misses` count lookups.
+
+    The reference's frozen tier (`frozen_weight`, backed by a `PlanStore`)
+    waits for the plan store (ROADMAP queue A item 5)."""
+
+    def __init__(self, maxsize: int = 256):
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self.maxsize = maxsize
+        self.hits = 0
+        self.misses = 0
+
+    def weight_side(self, w: torch.Tensor, *, tile: int, backend: str,
+                    use_mxu: bool = False, levels: int = 0,
+                    block_n: int = 1):
+        """(padded_weight, weight_norms) for w, cached on identity.
+
+        w may be 2-D (K, N) → normmap (gk, gn), or 3-D batched (B, K, N) —
+        the per-expert MoE shape — → normmap (B, gk, gn) from one reshaped
+        get-norm pass (row tiles never cross slices after padding). levels
+        > 0 returns a NormPyramid (its levels keep the batch dim). N pads to
+        tile·block_n so the super-column grouping divides the column grid."""
+        bk = kops.get_backend(backend)
+
+        def compute():
+            wp = pad_to_tile(w, tile, tile * block_n).contiguous()
+            w2 = (wp.reshape(wp.shape[0] * wp.shape[1], wp.shape[2])
+                  if wp.dim() == 3 else wp)
+            nw = bk.norms(w2, tile, use_mxu=use_mxu)
+            if wp.dim() == 3:
+                nw = nw.reshape(wp.shape[0], wp.shape[1] // tile, -1)
+            if levels > 0:
+                nw = NormPyramid.from_normmap(nw, levels, tile=tile,
+                                              backend=bk.name)
+            return wp, nw
+
+        key = (id(w), w._version, tuple(w.shape), str(w.dtype),
+               str(w.device), tile, bk.name, use_mxu, levels, block_n)
+        ent = self._entries.get(key)
+        if ent is not None and ent.weight is w:
+            self.hits += 1
+            self._entries.move_to_end(key)
+            return ent.padded, ent.norms
+        self.misses += 1
+        wp, nw = compute()
+        self._entries[key] = _WeightEntry(w, wp, nw)
+        if len(self._entries) > self.maxsize:
+            self._entries.popitem(last=False)
+        return wp, nw
+
+    def plan_for(self, x_padded, w, tau=None, *, valid_ratio=None,
+                 tile: int = 64, block_n: int = 1, backend: str = "auto",
+                 use_mxu_norm: bool = False, levels: int = 0,
+                 compute_dtype: str = "float32"):
+        """Full plan for x @ w with the weight side served from the cache
+        (levels > 0: the cached weight pyramid). x_padded must already be
+        tile-padded. Returns (plan, padded_weight)."""
+        wp, nw = self.weight_side(w, tile=tile, backend=backend,
+                                  use_mxu=use_mxu_norm, levels=levels,
+                                  block_n=block_n)
+        p = plan(x_padded, None, tau, valid_ratio=valid_ratio, norm_b=nw,
+                 tile=tile, block_n=block_n, backend=backend,
+                 use_mxu_norm=use_mxu_norm, levels=levels,
+                 compute_dtype=compute_dtype)
+        return p, wp
+
+    def clear(self):
+        self._entries.clear()
+        self.hits = self.misses = 0
+
+    def __len__(self):
+        return len(self._entries)
+
+
+def spamm_bmm(x: torch.Tensor, w: torch.Tensor, tau=None, *,
+              valid_ratio=None, tile: int = 64, block_n: int = 1,
+              backend: str = "auto", use_mxu_norm: bool = False,
+              out_dtype=None, cache: Optional[WeightPlanCache] = None,
+              levels: int = 0):
+    """Batched SpAMM: (B, M, K) @ (K, N) or (B, M, K) @ (B, K, N).
+
+    Shared weight: the batch folds into the row-tile grid — ONE (B·M, K) @
+    (K, N) plan (hierarchical with levels > 0) whose row tiles never cross
+    slices, so the gating is exactly the per-slice gating, executed by the
+    work-list kernel; the weight side (optionally from `cache`) is computed
+    once for the batch.
+
+    Per-slice weights: normmaps for every slice from one reshaped get-norm
+    call per side, the batched flat gate, its batched compaction
+    (`spamm_compact_ref`) and ONE dense-grid kernel launch over all slices.
+    `levels` does not apply there (as in the reference) and valid_ratio
+    needs a shared weight.
+
+    Arbitrary shapes are zero-padded to tile multiples and un-padded.
+    Returns (C (B, M, N), SpammInfo)."""
+    if (tau is None) == (valid_ratio is None):
+        raise ValueError("give exactly one of tau / valid_ratio")
+    bsz, m, k = x.shape
+    bk = kops.get_backend(backend)
+    out_dtype = out_dtype or torch.float32
+    xp = pad_to_tile(x, tile).contiguous()
+    mp, kp = xp.shape[1:]
+    if w.dim() == 2:  # (B, M, K) @ (K, N): fold batch into the row-tile grid
+        k2, n = w.shape
+        assert k == k2, (x.shape, w.shape)
+        if cache is not None:
+            wp, nw = cache.weight_side(w, tile=tile, backend=backend,
+                                       use_mxu=use_mxu_norm, levels=levels,
+                                       block_n=block_n)
+        else:
+            wp = pad_to_tile(w, tile, tile * block_n).contiguous()
+            nw = bk.norms(wp, tile, use_mxu=use_mxu_norm)
+            if levels > 0:
+                nw = NormPyramid.from_normmap(nw, levels, tile=tile,
+                                              backend=bk.name)
+        x2 = xp.reshape(bsz * mp, kp)
+        p = plan(x2, None, tau, valid_ratio=valid_ratio, norm_b=nw,
+                 tile=tile, block_n=block_n, backend=backend,
+                 use_mxu_norm=use_mxu_norm, levels=levels)
+        c = execute(p, x2, wp, out_dtype=out_dtype)
+        c = c.reshape(bsz, mp, -1)[:, :m, :n]
+        frac = p.valid_fraction
+        tau_used = p.tau
+    else:  # (B, M, K) @ (B, K, N): per-slice gates, one dense-grid launch
+        if valid_ratio is not None:
+            raise ValueError("valid_ratio needs a shared weight; pass tau for "
+                             "per-batch weights")
+        assert w.shape[0] == bsz and w.shape[1] == k, (x.shape, w.shape)
+        n = w.shape[2]
+        gm, gk = mp // tile, kp // tile
+        if cache is not None:
+            wp, nw = cache.weight_side(w, tile=tile, backend=backend,
+                                       use_mxu=use_mxu_norm, block_n=block_n)
+        else:
+            wp = pad_to_tile(w, tile, tile * block_n).contiguous()
+            nw = bk.norms(wp.reshape(bsz * kp, wp.shape[2]), tile,
+                          use_mxu=use_mxu_norm).reshape(bsz, gk, -1)
+        na = bk.norms(xp.reshape(bsz * mp, kp), tile,
+                      use_mxu=use_mxu_norm).reshape(bsz, gm, gk)
+        tau_used = _f32(tau)
+        mask = gate_mask(na, nw, tau_used, block_n)
+        kidx, nvalid = (kops.spamm_compact(mask) if bk.needs_compaction
+                        else (None, None))
+        c = bk.matmul(xp, wp, mask, kidx, nvalid, tile, block_n, out_dtype)
+        c = c[:, :m, :n]
+        frac = mask.sum(dtype=torch.int32).float() / mask.numel()
+    return c, SpammInfo(tau=tau_used, valid_fraction=frac,
+                        effective_flops=frac * (2.0 * bsz * m * k * n))

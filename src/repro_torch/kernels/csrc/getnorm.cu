@@ -1,8 +1,10 @@
-// Get-norm kernel (paper §3.2): per-(t×t)-tile Frobenius norms of a 2-D
-// float32 matrix, the `normmap` the SpAMM gate reads.
+// Get-norm kernels (paper §3.2): per-(t×t)-tile Frobenius norms of a 2-D
+// float32 matrix, the `normmap` the SpAMM gate reads, and one level of the
+// norm pyramid pooled from a normmap.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/getnorm.py::tile_norms
-// (bodies _getnorm_kernel and _tile_sumsq, use_mxu=False).
+// tile_norms replaces the Pallas TPU kernel
+// src/repro/kernels/getnorm.py::tile_norms (bodies _getnorm_kernel and
+// _tile_sumsq, use_mxu=False).
 //
 // What bounds it on an H100: bytes. Every element is read once (4 B) for 2
 // flops, far below the ~20 flop/B where f32 CUDA cores would take over, so
@@ -73,6 +75,49 @@ tile_norms_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+// pool_norms replaces the Pallas TPU kernel
+// src/repro/kernels/getnorm.py::pool_norms (body _pool_kernel): one pyramid
+// level, out[s, r, c] = sqrt of the sum of squares of the 2×2 group of fine
+// norms at rows 2r, 2r+1 and columns 2c, 2c+1 of slice s, with entries past
+// a ragged (odd) edge taken as zero.
+//
+// What bounds it on an H100: bytes, and at the sizes the planner pools
+// (normmaps of at most a few hundred tiles a side: 256×256 is 0.26 MB) the
+// launch latency long before them. Design: one thread per coarse entry,
+// slice-major, so a warp covers 32 neighbouring coarse columns and reads 64
+// neighbouring fine norms of each of the two rows. A leading slice count
+// covers the 3-D normmaps of per-expert weights; the row and column pairs
+// are indexed inside one slice, so no pair crosses slices when gm or gk is
+// odd. The sum keeps the TPU body's order, row pairs first, then the
+// column pair: (r0c0² + r1c0²) + (r0c1² + r1c1²). __fmul_rn/__fadd_rn keep
+// nvcc from contracting a product and a sum into an FMA, so the result is
+// the plain version's, rounding for rounding.
+__global__ void __launch_bounds__(kThreads)
+pool_norms_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
+                      int gm, int gk, int gmc, int gkc, long long total) {
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (e >= total) return;
+  const int c = static_cast<int>(e % gkc);
+  const long long rs = e / gkc;
+  const int r = static_cast<int>(rs % gmc);
+  const long long s = rs / gmc;
+  const float* xs = x + s * gm * gk;
+  const int r0 = 2 * r;
+  const int c0 = 2 * c;
+  const bool has_r1 = r0 + 1 < gm;
+  const bool has_c1 = c0 + 1 < gk;
+  const float v00 = xs[static_cast<size_t>(r0) * gk + c0];
+  const float v10 = has_r1 ? xs[static_cast<size_t>(r0 + 1) * gk + c0] : 0.f;
+  const float v01 = has_c1 ? xs[static_cast<size_t>(r0) * gk + c0 + 1] : 0.f;
+  const float v11 = (has_r1 && has_c1)
+                        ? xs[static_cast<size_t>(r0 + 1) * gk + c0 + 1]
+                        : 0.f;
+  const float col0 = __fadd_rn(__fmul_rn(v00, v00), __fmul_rn(v10, v10));
+  const float col1 = __fadd_rn(__fmul_rn(v01, v01), __fmul_rn(v11, v11));
+  out[e] = sqrtf(__fadd_rn(col0, col1));
+}
+
 }  // namespace
 
 // x: (m, k) row-major float32, m % tile == 0 == k % tile; out: (m/tile,
@@ -85,5 +130,19 @@ extern "C" int spamm_tile_norms_f32(const float* x, float* out, int m, int k,
   tile_norms_f32_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(x, out, k,
                                                                tile, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (slices, gm, gk) row-major float32 normmaps; out: (slices, ⌈gm/2⌉,
+// ⌈gk/2⌉) float32. Launches on `stream` and returns cudaGetLastError().
+extern "C" int spamm_pool_norms_f32(const float* x, float* out, int slices,
+                                    int gm, int gk, void* stream) {
+  const int gmc = (gm + 1) / 2;
+  const int gkc = (gk + 1) / 2;
+  const long long total = static_cast<long long>(slices) * gmc * gkc;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  pool_norms_f32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      x, out, gm, gk, gmc, gkc, total);
   return static_cast<int>(cudaGetLastError());
 }

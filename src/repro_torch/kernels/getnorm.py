@@ -1,6 +1,8 @@
-"""Get-norm kernel of the port (paper §3.2): per-tile Frobenius norms.
+"""Get-norm kernels of the port (paper §3.2): per-tile Frobenius norms, and
+the 2×2 pooling that builds one level of the norm pyramid from them.
 
-Twin of `repro.kernels.getnorm.tile_norms`. Three entry points:
+Twin of `repro.kernels.getnorm.tile_norms` and `pool_norms`. Each has
+three entry points; for the tile norms:
 
   tile_norms_plain — the plain PyTorch version (reshape, square, sum in f32,
                      sqrt): what the CPU runs and what the kernel is held
@@ -11,18 +13,26 @@ Twin of `repro.kernels.getnorm.tile_norms`. Three entry points:
                      for a CPU tensor, the kernel for a CUDA tensor (the
                      kernel launches or raises; nothing falls back).
 
-`launches` counts kernel launches (incremented only where the kernel is
-launched), so a run can show that its main path went through the kernel.
+The pooling has the same three: `pool_norms_plain`, `pool_norms_cuda` and
+`pool_norms`. The reference's `norm_pyramid` (one get-norm pass plus
+`levels` poolings) is `Backend.pyramid_norms` in `kernels/ops.py`, so that
+it composes the entry points of one backend.
+
+Each kernel has its own launch count, incremented only where the kernel is
+launched (`launches` for tile_norms, `pool_launches` for pool_norms), so a
+run can show that its main path went through each kernel.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
 launches = 0
+pool_launches = 0
 
 _LIB = None
 
@@ -34,6 +44,10 @@ def _lib():
         fn = lib.spamm_tile_norms_f32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.spamm_pool_norms_f32
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -106,3 +120,58 @@ def tile_norms(x: torch.Tensor, tile: int = 64, *,
     if x.device.type == "cpu":
         return tile_norms_plain(x, tile, use_mxu=use_mxu)
     return tile_norms_cuda(x, tile, use_mxu=use_mxu)
+
+
+def pool_norms_plain(normmap: torch.Tensor) -> torch.Tensor:
+    """One norm-pyramid level with plain tensor ops: (..., gm, gk) f32 →
+    (..., ⌈gm/2⌉, ⌈gk/2⌉), odd trailing dims zero-padded. Sums in the TPU
+    body's order, the row pair first, then the column pair, as the kernel
+    does."""
+    if normmap.dim() < 2:
+        raise ValueError(f"pool_norms needs a normmap of at least 2 dims, "
+                         f"got {tuple(normmap.shape)}")
+    gm, gk = normmap.shape[-2:]
+    sq = F.pad(normmap.float(), (0, gk % 2, 0, gm % 2))
+    sq = sq * sq
+    rows = sq[..., 0::2, :] + sq[..., 1::2, :]
+    return torch.sqrt(rows[..., 0::2] + rows[..., 1::2])
+
+
+def pool_norms_cuda(normmap: torch.Tensor) -> torch.Tensor:
+    """One norm-pyramid level from the CUDA pooling kernel. Takes a
+    contiguous float32 CUDA tensor of shape (..., gm, gk), the leading dims
+    being slices pooled independently; raises on anything else."""
+    global pool_launches
+    if normmap.device.type != "cuda":
+        raise ValueError(f"pool_norms_cuda needs a CUDA tensor, got "
+                         f"{normmap.device}")
+    if normmap.dtype != torch.float32:
+        raise TypeError(f"pool_norms_cuda takes float32, got {normmap.dtype}")
+    if not normmap.is_contiguous():
+        raise ValueError("pool_norms_cuda needs a contiguous tensor")
+    if normmap.dim() < 2:
+        raise ValueError(f"pool_norms needs a normmap of at least 2 dims, "
+                         f"got {tuple(normmap.shape)}")
+    *lead, gm, gk = normmap.shape
+    slices = normmap.numel() // max(gm * gk, 1)
+    out = torch.empty((*lead, (gm + 1) // 2, (gk + 1) // 2),
+                      dtype=torch.float32, device=normmap.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(normmap.device).cuda_stream
+    with torch.cuda.device(normmap.device):
+        rc = lib.spamm_pool_norms_f32(normmap.data_ptr(), out.data_ptr(),
+                                      slices, gm, gk, stream)
+    if rc != 0:
+        raise RuntimeError(f"pool_norms kernel launch failed: CUDA error {rc}")
+    pool_launches += 1
+    return out
+
+
+def pool_norms(normmap: torch.Tensor) -> torch.Tensor:
+    """One norm-pyramid level: the plain version for a CPU tensor, the CUDA
+    kernel for a CUDA tensor."""
+    if normmap.device.type == "cpu":
+        return pool_norms_plain(normmap)
+    return pool_norms_cuda(normmap)

@@ -1,4 +1,4 @@
-"""Plain-PyTorch oracles for the two cuSpAMM kernels (paper §3.2, §3.3).
+"""Plain-PyTorch oracles for the cuSpAMM kernels (paper §3.2, §3.3).
 
 Twin of `repro.kernels.ref`: the ground truth the kernels' plain versions
 and the planner are held against.
@@ -38,27 +38,45 @@ def pool_norms_ref(normmap: torch.Tensor, factor: int = 2) -> torch.Tensor:
 
 def spamm_mask_ref(norm_a: torch.Tensor, norm_b: torch.Tensor,
                    tau) -> torch.Tensor:
-    """bitmap[i, j, k] = normA[i,k] * normB[k,j] >= tau (paper Alg. 2
-    lines 3-8). Returns (gm, gn, gk) bool."""
-    prod = norm_a[:, None, :] * norm_b.transpose(0, 1)[None, :, :]
+    """bitmap[..., i, j, k] = normA[..., i,k] * normB[..., k,j] >= tau (paper
+    Alg. 2 lines 3-8). Leading batch dims broadcast. Returns (..., gm, gn,
+    gk) bool."""
+    prod = norm_a[..., :, None, :] * norm_b.transpose(-1, -2)[..., None, :, :]
     return prod >= tau
+
+
+def spamm_matmul_ref(a: torch.Tensor, b: torch.Tensor, tau,
+                     tile: int) -> torch.Tensor:
+    """Reference SpAMM: C[i,j] = sum_k bitmap[i,j,k] * A[i,k] @ B[k,j].
+
+    a: (M, K), b: (K, N); M, K, N divisible by `tile`. A dense blocked
+    einsum with the mask applied — mathematically identical to skipping the
+    products. Returns (M, N) float32."""
+    m, k = a.shape
+    n = b.shape[1]
+    gm, gk, gn = m // tile, k // tile, n // tile
+    mask = spamm_mask_ref(tile_norms_ref(a, tile), tile_norms_ref(b, tile),
+                          tau)
+    a4 = a.float().reshape(gm, tile, gk, tile)
+    b4 = b.float().reshape(gk, tile, gn, tile)
+    out = torch.einsum("ijk,ipks,ksjq->ipjq", mask.float(), a4, b4)
+    return out.reshape(m, n)
 
 
 def spamm_compact_ref(mask: torch.Tensor):
     """Compact valid-k lists (the paper's `map_offset`, Fig. 3b).
 
-    mask: (gm, gn, gk) bool. Returns (kidx, nvalid): kidx (gm, gn, gk)
-    int32 whose first nvalid entries are the valid k's in ascending order,
-    padding slots repeating the last valid k (0 when none); nvalid (gm, gn)
-    int32 (the paper's validNum)."""
-    gm, gn, gk = mask.shape
+    mask: (..., gm, gn, gk) bool (leading batch dims allowed, as the
+    reference maps it over a batch). Returns (kidx, nvalid): kidx (..., gm,
+    gn, gk) int32 whose first nvalid entries are the valid k's in ascending
+    order, padding slots repeating the last valid k (0 when none); nvalid
+    (..., gm, gn) int32 (the paper's validNum)."""
+    gk = mask.shape[-1]
     ks = torch.arange(gk, dtype=torch.int32, device=mask.device)
     nvalid = mask.sum(dim=-1, dtype=torch.int32)
-    sentinel = torch.where(mask, ks[None, None, :],
-                           torch.full_like(ks, gk)[None, None, :])
+    sentinel = torch.where(mask, ks, torch.full_like(ks, gk))
     kidx = torch.sort(sentinel, dim=-1).values
     last = torch.gather(kidx, -1,
                         (nvalid - 1).clamp(min=0)[..., None].long())
     last = torch.where(nvalid[..., None] > 0, last, torch.zeros_like(last))
-    t = ks[None, None, :]
-    return torch.where(t < nvalid[..., None], kidx, last).int(), nvalid
+    return torch.where(ks < nvalid[..., None], kidx, last).int(), nvalid

@@ -1,9 +1,9 @@
-"""Work-list SpAMM GEMM of the port (paper §3.3, Alg. 2).
+"""SpAMM GEMMs of the port (paper §3.3, Alg. 2): work-list and dense-grid.
 
-Twin of `repro.kernels.spamm_mm.spamm_mm_worklist`. C[i, j] is the f32 sum
-of A[i, k] @ B[k, j-block] over the steps of the work-list, driven by the
-step tables `repro_torch.core.plan.compact_from_triples` (eager plans) or
-`FrozenPlan` (frozen plans) build:
+Work-list: twin of `repro.kernels.spamm_mm.spamm_mm_worklist`. C[i, j] is
+the f32 sum of A[i, k] @ B[k, j-block] over the steps of the work-list,
+driven by the step tables `repro_torch.core.plan.compact_from_triples`
+(eager plans) or `FrozenPlan` (frozen plans) build:
 
   step_i / step_j / step_k / step_flags  (S,) int32 — one entry per step;
       step_j is a super-column id when block_n > 1; STEP_INIT zeroes the
@@ -19,7 +19,24 @@ step tables `repro_torch.core.plan.compact_from_triples` (eager plans) or
 Output blocks never flushed stay exactly zero. Entry points as in
 `getnorm`: `spamm_mm_worklist_plain`, `spamm_mm_worklist_cuda` (the kernel
 `csrc/spamm_mm.cu`, f32 only, tile 16/32/64) and `spamm_mm_worklist`
-(dispatch on the operands' device). `launches` counts kernel launches.
+(dispatch on the operands' device).
+
+Dense-grid: twin of `repro.kernels.spamm_mm.spamm_mm`, driven by the
+compacted valid-k lists of `repro_torch.kernels.ref.spamm_compact_ref`:
+
+  kidx  (gm, gnb, gk) int32 — the first nvalid[i, j] entries are output
+      block (i, j)'s valid k's in ascending order (gnb = N // (tile·block_n));
+  nvalid (gm, gnb) int32 — how many.
+
+It also takes a batch of per-slice products in one call: a (B, M, K),
+b (B, K, N), kidx (B, gm, gnb, gk), nvalid (B, gm, gnb). Every output block
+is written, with zeros where nvalid is 0. Entry points `spamm_mm_plain`,
+`spamm_mm_cuda` and `spamm_mm`. Both GEMMs add a tile product in the same
+order (kernel: one shared device function; plain: the same rank-1 updates),
+so with the same valid k's dense-grid ≡ work-list bit for bit.
+
+Launch counts, one per kernel: `launches` (work-list), `dense_launches`
+(dense-grid).
 """
 from __future__ import annotations
 
@@ -35,6 +52,7 @@ STEP_INIT, STEP_ACC, STEP_FLUSH = 1, 2, 4
 CUDA_TILES = (16, 32, 64)
 
 launches = 0
+dense_launches = 0
 
 _LIB = None
 
@@ -46,6 +64,10 @@ def _lib():
         fn = lib.spamm_mm_worklist_f32
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.spamm_mm_dense_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -65,6 +87,15 @@ def _check_shapes(a, b, tables, runs, tile, block_n):
     if runs.dim() != 1 or runs.shape[0] < 1:
         raise ValueError("runs must be a 1-D table of run boundaries")
     return m, k, n
+
+
+def _accumulate(acc, at, bt, tile):
+    """acc += at @ bt as `tile` rank-1 updates in ascending inner index,
+    each a multiply then an add in f32: every element is summed in the same
+    order whatever the batch of blocks (the plain versions of both GEMMs)."""
+    for kk in range(tile):
+        acc = acc + at[:, :, kk, None] * bt[:, None, kk, :]
+    return acc
 
 
 def spamm_mm_worklist_plain(a, b, step_i, step_j, step_k, step_flags, runs,
@@ -102,10 +133,7 @@ def spamm_mm_worklist_plain(a, b, step_i, step_j, step_k, step_flags, runs,
             st = s[live]
             at = a4[si[st], :, sk[st], :]            # (L, t, t)
             bt = b4[sk[st], :, sj[st], :]            # (L, t, t·block_n)
-            sub = acc[live]
-            for kk in range(tile):
-                sub = sub + at[:, :, kk, None] * bt[:, None, kk, :]
-            acc[live] = sub
+            acc[live] = _accumulate(acc[live], at, bt, tile)
         fl = torch.nonzero((f & STEP_FLUSH) != 0).squeeze(1)
         if fl.numel():
             st = s[fl]
@@ -172,3 +200,106 @@ def spamm_mm_worklist(a, b, step_i, step_j, step_k, step_flags, runs, *,
           else spamm_mm_worklist_cuda)
     return fn(a, b, step_i, step_j, step_k, step_flags, runs, tile=tile,
               block_n=block_n, out_dtype=out_dtype)
+
+
+def _check_dense(a, b, kidx, nvalid, tile, block_n):
+    """Shapes of a dense-grid call, 2-D or batched. Returns (batch, m, k,
+    n, gm, gnb, gk)."""
+    if a.dim() != b.dim() or a.dim() not in (2, 3):
+        raise ValueError(f"bad operands {tuple(a.shape)} @ {tuple(b.shape)}")
+    batch = a.shape[0] if a.dim() == 3 else 1
+    m, k = a.shape[-2:]
+    k2, n = b.shape[-2:]
+    if k2 != k or (a.dim() == 3 and b.shape[0] != batch):
+        raise ValueError(f"bad operands {tuple(a.shape)} @ {tuple(b.shape)}")
+    if m % tile or k % tile or n % (tile * block_n):
+        raise ValueError(f"{tuple(a.shape)} @ {tuple(b.shape)} not divisible "
+                         f"by tile {tile} (block_n {block_n})")
+    gm, gk, gnb = m // tile, k // tile, n // (tile * block_n)
+    lead = tuple(a.shape[:-2])
+    if tuple(kidx.shape) != lead + (gm, gnb, gk):
+        raise ValueError(f"kidx {tuple(kidx.shape)} does not match the grid "
+                         f"{lead + (gm, gnb, gk)}")
+    if tuple(nvalid.shape) != lead + (gm, gnb):
+        raise ValueError(f"nvalid {tuple(nvalid.shape)} does not match the "
+                         f"grid {lead + (gm, gnb)}")
+    return batch, m, k, n, gm, gnb, gk
+
+
+def spamm_mm_plain(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """The plain version: every output block advances one valid k per
+    iteration, all blocks together, with the rank-1 updates of the
+    work-list plain version (so plain dense-grid ≡ plain work-list)."""
+    batch, m, k, n, gm, gnb, gk = _check_dense(a, b, kidx, nvalid, tile,
+                                               block_n)
+    dev = a.device
+    tn = tile * block_n
+    a5 = a.float().reshape(batch, gm, tile, gk, tile)
+    b5 = b.float().reshape(batch, gk, tile, gnb, tn)
+    nv = nvalid.to(dev, torch.long).reshape(-1)          # (batch·gm·gnb,)
+    kl = kidx.to(dev, torch.long).reshape(-1, gk)
+    blk = torch.arange(nv.numel(), device=dev)
+    bb, ii, jj = blk // (gm * gnb), (blk // gnb) % gm, blk % gnb
+    acc = torch.zeros(nv.numel(), tile, tn, dtype=torch.float32, device=dev)
+    for t in range(int(nv.max()) if nv.numel() else 0):
+        live = torch.nonzero(nv > t).squeeze(1)
+        kk = kl[live, t]
+        at = a5[bb[live], ii[live], :, kk, :]            # (L, t, t)
+        bt = b5[bb[live], kk, :, jj[live], :]            # (L, t, t·block_n)
+        acc[live] = _accumulate(acc[live], at, bt, tile)
+    out = acc.reshape(batch, gm, gnb, tile, tn).permute(0, 1, 3, 2, 4)
+    return out.reshape(a.shape[:-2] + (m, n)).to(out_dtype)
+
+
+def spamm_mm_cuda(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """The CUDA dense-grid kernel: one thread block per (slice, i, j,
+    column group). Takes contiguous float32 operands and int32 kidx/nvalid
+    on one CUDA device, tile in CUDA_TILES and a float32 output; raises on
+    anything else."""
+    global dense_launches
+    batch, m, k, n, gm, gnb, gk = _check_dense(a, b, kidx, nvalid, tile,
+                                               block_n)
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"spamm_mm_cuda needs CUDA tensors, got {dev}")
+    for name, t in (("a", a), ("b", b), ("kidx", kidx), ("nvalid", nvalid)):
+        if t.device != dev:
+            raise ValueError(f"{name} lies on {t.device}, a on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"spamm_mm_cuda takes float32 operands, got "
+                        f"{a.dtype} @ {b.dtype} (bf16 and int8 kernels: "
+                        f"ROADMAP queue B)")
+    if kidx.dtype != torch.int32 or nvalid.dtype != torch.int32:
+        raise TypeError("kidx and nvalid must be int32")
+    if out_dtype != torch.float32:
+        raise TypeError(f"the kernel writes float32, not {out_dtype}")
+    if tile not in CUDA_TILES:
+        raise ValueError(f"tile {tile} not in the kernel's {CUDA_TILES}")
+    if not 1 <= block_n <= 65535 or batch > 65535:
+        raise ValueError(f"block_n {block_n} or batch {batch} out of range")
+    out = torch.empty(a.shape[:-2] + (m, n), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.spamm_mm_dense_f32(
+            a.data_ptr(), b.data_ptr(), kidx.data_ptr(), nvalid.data_ptr(),
+            out.data_ptr(), batch, m, k, n, tile, block_n, stream)
+    if rc != 0:
+        raise RuntimeError(f"spamm_mm kernel launch failed: CUDA error {rc}")
+    dense_launches += 1
+    return out
+
+
+def spamm_mm(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
+             out_dtype=torch.float32) -> torch.Tensor:
+    """Dense-grid GEMM: the plain version for CPU operands, the CUDA kernel
+    for CUDA operands."""
+    fn = spamm_mm_plain if a.device.type == "cpu" else spamm_mm_cuda
+    return fn(a, b, kidx, nvalid, tile=tile, block_n=block_n,
+              out_dtype=out_dtype)

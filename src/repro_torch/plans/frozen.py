@@ -80,7 +80,8 @@ class FrozenWeight:
               compute_dtype: str = "float32") -> "FrozenWeight":
         """Freeze the weight side of `x @ w` gating at threshold `tau`: the
         backend's get-norm runs ONCE on the padded weight (on its device),
-        the pair list is built on the host."""
+        the pyramid pools through the backend's kernel, and the pair list is
+        built on the host."""
         if kquant.canonical_dtype(compute_dtype) != "float32":
             raise NotImplementedError(
                 f"freezing for {compute_dtype} needs the low-precision "
@@ -90,7 +91,8 @@ class FrozenWeight:
             raise ValueError(f"expected a 2-D weight, got {tuple(w.shape)}")
         wp = pad_to_tile(w, tile, tile * block_n).contiguous()
         base = bk.norms(wp, tile, use_mxu=use_mxu)
-        pyr = NormPyramid.from_normmap(base, levels, tile=tile)
+        pyr = NormPyramid.from_normmap(base, levels, tile=tile,
+                                       backend=bk.name)
         base_np = base.detach().cpu().numpy().astype(np.float32, copy=False)
         gk, gnp = base_np.shape
         assert gnp % block_n == 0, (gnp, block_n)

@@ -11,8 +11,9 @@ import pytest
 import torch
 
 from repro_torch.core import plan as P
+from repro_torch.core import spamm as S
 from repro_torch.device import f32_numerics
-from repro_torch.kernels import getnorm, spamm_mm
+from repro_torch.kernels import getnorm, ref, spamm_mm
 from repro_torch.plans.frozen import FrozenWeight
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +110,97 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         spamm_mm.spamm_mm_worklist_cuda(x.half(), x.t().contiguous().half(),
                                         *tables, tile=64)
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (5, 7), (255, 257), (3, 5, 7),
+                                   (1, 1)])
+def test_pool_norms_kernel_matches_plain(dev, shape):
+    x = _rand(shape, 8, dev).abs()
+    before = getnorm.pool_launches
+    got = getnorm.pool_norms(x)
+    torch.cuda.synchronize()
+    assert getnorm.pool_launches == before + 1
+    torch.testing.assert_close(got, getnorm.pool_norms_plain(x),
+                               rtol=NORM_RTOL, atol=0)
+
+
+def _dense_case(tile, block_n, dev, bsz=3):
+    """Per-slice operands, the batched gate at τ = the median product and
+    its compaction."""
+    x = _rand((bsz, 2 * tile, 5 * tile), 9, dev)
+    w = _rand((bsz, 5 * tile, 4 * tile), 10, dev)
+    na = getnorm.tile_norms_cuda(x.reshape(-1, 5 * tile), tile).reshape(
+        bsz, 2, 5)
+    nb = getnorm.tile_norms_cuda(w.reshape(-1, 4 * tile), tile).reshape(
+        bsz, 5, 4)
+    tau = float((na[..., :, None, :] * nb.transpose(-1, -2)[..., None, :, :]
+                 ).flatten().median())
+    mask = P.gate_mask(na, nb, tau, block_n)
+    kidx, nvalid = ref.spamm_compact_ref(mask)
+    return x, w, tau, kidx, nvalid
+
+
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_dense_grid_kernel_matches_plain_and_worklist(dev, tile, block_n):
+    """The dense-grid kernel against its plain version, and bit for bit
+    against the work-list kernel on each slice's own plan."""
+    x, w, tau, kidx, nvalid = _dense_case(tile, block_n, dev)
+    before = spamm_mm.dense_launches
+    got = spamm_mm.spamm_mm(x, w, kidx, nvalid, tile=tile, block_n=block_n)
+    torch.cuda.synchronize()
+    assert spamm_mm.dense_launches == before + 1
+    want = spamm_mm.spamm_mm_plain(x, w, kidx, nvalid, tile=tile,
+                                   block_n=block_n)
+    torch.testing.assert_close(got, want, rtol=MM_TOL, atol=MM_TOL)
+    assert 0 < int(nvalid.sum()) < kidx.numel()
+    for s in range(x.shape[0]):
+        p = P.plan(x[s], w[s], tau, tile=tile, block_n=block_n,
+                   backend="cuda")
+        assert torch.equal(p.nvalid, nvalid[s])
+        assert torch.equal(P.execute(p, x[s], w[s]), got[s])
+
+
+def test_spamm_bmm_per_slice_on_card(dev):
+    x, w, tau, _, _ = _dense_case(64, 1, dev)
+    before = spamm_mm.dense_launches
+    c, info = P.spamm_bmm(x, w, tau, tile=64, backend="cuda")
+    torch.cuda.synchronize()
+    assert spamm_mm.dense_launches == before + 1
+    assert 0.0 < float(info.valid_fraction) < 1.0
+    for s in range(x.shape[0]):
+        assert torch.equal(c[s], S.spamm(x[s], w[s], tau, tile=64,
+                                         backend="cuda")[0])
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_hier_plan_equals_flat_on_card(dev, levels):
+    """Pyramids pooled by the kernel give the flat plan's tables and a
+    bit-identical product."""
+    a = _rand((5 * 64, 7 * 64), 11, dev)
+    b = _rand((7 * 64, 6 * 64), 12, dev)
+    tau = _median_tau(a, b, 64)
+    flat = P.plan(a, b, tau, tile=64, backend="cuda")
+    before = getnorm.pool_launches
+    hier = P.plan(a, b, tau, tile=64, backend="cuda", levels=levels)
+    assert getnorm.pool_launches == before + 2 * levels
+    for name in flat.work._fields:
+        assert torch.equal(getattr(flat.work, name),
+                           getattr(hier.work, name)), name
+    assert torch.equal(P.execute(flat, a, b), P.execute(hier, a, b))
+
+
+def test_library_kernels_reject_what_they_do_not_take(dev):
+    x = _rand((6, 8), 13, dev).abs()
+    with pytest.raises(TypeError):
+        getnorm.pool_norms_cuda(x.double())
+    with pytest.raises(ValueError):
+        getnorm.pool_norms_cuda(x.t())               # not contiguous
+    a, w, _, kidx, nvalid = _dense_case(64, 1, dev)
+    with pytest.raises(TypeError):
+        spamm_mm.spamm_mm_cuda(a.half(), w.half(), kidx, nvalid, tile=64)
+    with pytest.raises(TypeError):
+        spamm_mm.spamm_mm_cuda(a, w, kidx.long(), nvalid, tile=64)
+    with pytest.raises(ValueError):
+        spamm_mm.spamm_mm_cuda(a, w.transpose(-1, -2).contiguous()
+                               .transpose(-1, -2), kidx, nvalid, tile=64)

@@ -31,8 +31,8 @@ def _imported_roots(path):
 def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in _port_files()}
     for twin in ("kernels/getnorm.py", "kernels/spamm_mm.py", "kernels/ops.py",
-                 "core/plan.py", "plans/frozen.py", "serving/engine.py",
-                 "launch/serve.py"):
+                 "core/plan.py", "core/tau_search.py", "core/spamm.py",
+                 "plans/frozen.py", "serving/engine.py", "launch/serve.py"):
         assert twin in names
 
 
@@ -48,6 +48,7 @@ def test_fresh_import_keeps_jax_out():
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.serving.engine\n"
         "import repro_torch.plans.precompute, repro_torch.kernels.ops\n"
+        "import repro_torch.core.spamm, repro_torch.core.tau_search\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
