@@ -8,11 +8,17 @@ two paths of the port.
 
 Serving: holds the get-norm and work-list kernels against their plain
 PyTorch versions at the serving path's shapes, prefill and decode (and
-frozen ≡ eager bit for bit), then serves starcoder2-7b at full width
+frozen ≡ eager bit for bit), and the low-precision kernels the same way:
+the fused int8 get-norm bit for bit against the unfused composition, the
+int8 work-list bit for bit against its plain version (block_n 1 and 2) and
+within 1e-5 of the f32 kernel on the dequantized operands, the bf16
+work-list bit for bit against the f32 kernel on bf16-rounded operands, and
+frozen int8 ≡ eager int8. It then serves starcoder2-7b at full width
 (d=4608, ff=18432, 36/4 heads, 32 layers, random weights from a seed)
-through `Engine.generate` three ways: dense, τ = 0 and a τ > 0 derived from
-the first gated GEMM of a decode step, so that both prefill and decode keep
-part of their tiles.
+through `Engine.generate`: dense, τ = 0 and a τ > 0 derived from the first
+gated GEMM of a decode step (so that both prefill and decode keep part of
+their tiles), then at that τ with int8 and with bf16 GEMMs; and checks at
+layer-0 wq that the int8 and bf16 gates keep every tile the f32 gate keeps.
 
 Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
 with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
@@ -21,13 +27,15 @@ hierarchical ≡ flat bit for bit, τ = 0 against torch.matmul; (b) batched
 spamm_bmm at the expert shapes of qwen2-moe-a2.7b (60 experts, d 2048,
 expert ff 1408), per-slice through the dense-grid kernel and shared-weight
 through the work-list kernel; (c) the pyramid pooling kernel; (d) the eager
-gated GEMM with a pyramid (levels = 2 ≡ levels = 0) on starcoder2-7b's w1.
+gated GEMM with a pyramid (levels = 2 ≡ levels = 0) on starcoder2-7b's w1;
+(e) spamm(valid_ratio=0.30) with int8 and with bf16 GEMMs on the ensemble.
 
-Every result line is a JSON object; the line before the last lists the four
-kernels with their launches on their path (the τ > 0 serving run, or the
-library path), errors, times and bounds; the last line is {"ok": true,
-"device": {...}}. Any failed check exits non-zero. Without CUDA, or without
-the repository's src/ beside it, it exits 2 and prints no result.
+Every result line is a JSON object; the line before the last lists the six
+kernels (the work-list GEMM twice, f32 and bf16) with their launches on
+their path (the τ > 0 serving run at its dtype, or the library path),
+errors, times and bounds; the last line is {"ok": true, "device": {...}}.
+Any failed check exits non-zero. Without CUDA, or without the repository's
+src/ beside it, it exits 2 and prints no result.
 """
 import json
 import os
@@ -37,9 +45,12 @@ import time
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 
-# H100 SXM data sheet: HBM3 bandwidth and f32 (non-tensor-core) peak
+# H100 SXM data sheet: HBM3 bandwidth, f32 (non-tensor-core) peak, and the
+# dense tensor-core peaks of bf16 and int8
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
+PEAK_INT8_OP_S = 1979e12
 
 DEV = "cuda"
 ARCH = "starcoder2-7b"
@@ -58,6 +69,11 @@ MM_RTOL = 1e-4
 # τ = 0 vs dense prefill logits after 32 f32 layers (reassociated sums),
 # relative to the logits' largest magnitude
 LOGIT_RTOL = 1e-3
+# int8 work-list vs the f32 kernel on the dequantized operands, relative to
+# the output's largest magnitude (the reference's own bound,
+# tests/test_mixed_precision.py): the f32 kernel rounds inside each tile dot
+INT8_DEQ_RTOL = 1e-5
+LOWP_DTYPES = ("int8", "bfloat16")
 
 # library path: the paper's §4.1 ensemble at N = 16384 (A, B and C 1 GiB
 # each in f32), the valid ratios asked for, the search's tolerance and the
@@ -111,8 +127,9 @@ def reset_counts():
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels import getnorm, spamm_mm
 
-    getnorm.launches = getnorm.pool_launches = 0
+    getnorm.launches = getnorm.pool_launches = getnorm.quant_launches = 0
     spamm_mm.launches = spamm_mm.dense_launches = 0
+    spamm_mm.bf16_launches = spamm_mm.int8_launches = 0
 
 
 def read_counts():
@@ -120,8 +137,11 @@ def read_counts():
 
     return {"tile_norms": getnorm.launches,
             "spamm_mm_worklist": spamm_mm.launches,
+            "spamm_mm_worklist_bf16": spamm_mm.bf16_launches,
             "pool_norms": getnorm.pool_launches,
-            "spamm_mm": spamm_mm.dense_launches}
+            "spamm_mm": spamm_mm.dense_launches,
+            "tile_norms_quant": getnorm.quant_launches,
+            "spamm_mm_worklist_int8": spamm_mm.int8_launches}
 
 
 def host_ms(fn):
@@ -135,10 +155,11 @@ def host_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=PEAK_F32_FLOP_S):
     """Least time for the work on an H100: the larger of bytes over HBM
-    bandwidth and f32 operations over the CUDA-core peak."""
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+    bandwidth and operations over the peak rate of their type (f32 on the
+    CUDA cores unless `peak` says otherwise)."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / peak * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -176,10 +197,10 @@ def check_tile_norms(x, label):
     return res
 
 
-def worklist_work(work, tile, block_n):
-    """(flops, bytes) the work-list needs: 2·t³ per ACC step; each A and B
-    tile the ACC steps touch read once, the output written once, the step
-    tables read once."""
+def worklist_work(work, tile, block_n, itemsize=4):
+    """(flops, ACC steps, bytes) the work-list needs: 2·t³ per ACC step;
+    each A and B tile the ACC steps touch read once at `itemsize` bytes per
+    element, the step tables read once (the caller adds the output)."""
     import torch
 
     acc = (work.step_flags & 2) != 0
@@ -190,8 +211,9 @@ def worklist_work(work, tile, block_n):
     b_tiles = int(torch.unique(sk * 1_000_003 + sj).numel())
     flops = 2 * tile ** 3 * block_n * n_acc
     tables = 4 * work.step_i.numel() * 4 + work.runs.numel() * 4
-    return flops, n_acc, (a_tiles * tile * tile * 4
-                          + b_tiles * tile * tile * block_n * 4 + tables)
+    return flops, n_acc, ((a_tiles * tile * tile
+                           + b_tiles * tile * tile * block_n) * itemsize
+                          + tables)
 
 
 def check_worklist(a, b, p, label):
@@ -260,6 +282,192 @@ def check_frozen(x, w, label):
     return res
 
 
+def check_tile_norms_quant(x, label):
+    """The fused int8 get-norm: bit for bit against the unfused composition
+    on the card (quantize → dequantize → the f32 get-norm kernel; scales
+    against the quantizer's), within NORM_RTOL of the plain composition.
+    No single PyTorch call computes it: the yardstick is the unfused torch
+    composition (quantize, dequantize, `vector_norm`)."""
+    import torch
+
+    from repro_torch.kernels import getnorm
+    from repro_torch.kernels import quantize as Q
+
+    t = TILE
+    m, k = x.shape
+    norms, scales = getnorm.tile_norms_quant_cuda(x, t)
+    q, s = Q.quantize_tiles(x, t)
+    unfused = getnorm.tile_norms_cuda(Q.dequantize_tiles(q, s, t), t)
+    pn, ps = getnorm.tile_norms_quant_plain(x, t)
+    torch.cuda.synchronize()
+    same_n, same_s = torch.equal(norms, unfused), torch.equal(scales, s)
+    rel = float(((norms - pn).abs() / pn.abs().clamp(min=1e-30)).max())
+    check(same_n and same_s and torch.equal(scales, ps) and rel <= NORM_RTOL,
+          f"tile_norms_quant {label}: norms bit-identical {same_n}, scales "
+          f"{same_s}, rel err to plain {rel}")
+
+    def unfused_torch():
+        dq = Q.dequantize_tiles(*Q.quantize_tiles(x, t), t)
+        return torch.linalg.vector_norm(dq.view(m // t, t, k // t, t),
+                                        dim=(1, 3))
+
+    gm, gk = m // t, k // t
+    # abs, max, divide, round, two clamps, multiply, square-add per element
+    bms, by = bound_ms(m * k * 4 + 2 * gm * gk * 4, 9 * m * k)
+    res = {"name": "tile_norms_quant", "shape": label,
+           "max_abs_err": float((norms - pn).abs().max()),
+           "max_rel_err": rel, "norms_bit_identical_to_unfused": same_n,
+           "scales_bit_identical": same_s,
+           "ms": time_ms(lambda: getnorm.tile_norms_quant_cuda(x, t)),
+           "plain_ms": time_ms(lambda: getnorm.tile_norms_quant_plain(x, t),
+                               reps=5),
+           "library_ms": time_ms(unfused_torch),
+           "library_call": "unfused torch composition: quantize_tiles, "
+                           "dequantize_tiles, vector_norm",
+           "bound_ms": bms, "bound_by": by}
+    emit({"kernel_check": res})
+    return res
+
+
+def lowp_median_tau(x, w, dtype):
+    """A τ whose widened gate sits at the median of the norm products of
+    the quantized operands, so that a `dtype` plan keeps about half of its
+    tile products (the f32 median would keep nearly all of them at int8:
+    the gate is widened by (1 − 64/254)² ≈ 0.56 at tile 64)."""
+    from repro_torch.kernels import getnorm
+    from repro_torch.kernels import quantize as Q
+
+    if dtype == "int8":
+        na, nb = (getnorm.tile_norms_quant_cuda(t, TILE)[0] for t in (x, w))
+    else:
+        na, nb = (getnorm.tile_norms_cuda(t.bfloat16().float(), TILE)
+                  for t in (x, w))
+    return median_product_tau(na, nb) / (1.0 - Q.gate_eps(dtype, TILE)) ** 2
+
+
+def check_int8_frozen(x, w, label, block_n=1):
+    """The frozen int8 plan of `w` for x's row grid at `lowp_median_tau`:
+    the int8 work-list kernel bit for bit against its plain
+    version and within INT8_DEQ_RTOL of the f32 kernel on the dequantized
+    operands; frozen int8 ≡ eager int8 bit for bit. Times it against
+    `torch._int_mm` on the same codes (the dense int8 product without the
+    per-tile scales: a yardstick, never called by the port)."""
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import getnorm, spamm_mm
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.plans.frozen import FrozenWeight
+
+    tau = lowp_median_tau(x, w, "int8")
+    fw = FrozenWeight.build(w, tau, tile=TILE, block_n=block_n,
+                            backend="cuda", compute_dtype="int8")
+    frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // TILE))
+    vf = float(frozen.valid_fraction)
+    check(0.0 < vf < 1.0, f"{label}: int8 frozen plan keeps all or nothing "
+          f"({vf})")
+    wk = frozen.work
+    a_q, a_s = Q.quantize_tiles(x, TILE, scales=frozen.a_scale)
+    b_q, b_s = Q.quantize_tiles(w, TILE, scales=frozen.b_scale)
+    tables = (wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
+    args = (a_q, b_q, a_s, b_s, *tables)
+    kw = {"tile": TILE, "block_n": block_n}
+    got = spamm_mm.spamm_mm_worklist_int8_cuda(*args, **kw)
+    want = spamm_mm.spamm_mm_worklist_int8_plain(*args, **kw)
+    f32 = spamm_mm.spamm_mm_worklist_cuda(Q.dequantize_tiles(a_q, a_s, TILE),
+                                          Q.dequantize_tiles(b_q, b_s, TILE),
+                                          *tables, **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    abs_err, rel = errors(got, f32)
+    eager = P.plan(x, w, tau, tile=TILE, block_n=block_n, backend="cuda",
+                   compute_dtype="int8")
+    same_fe = torch.equal(P.execute(frozen, x, w), P.execute(eager, x, w))
+    emit({"frozen_equals_eager": {"shape": label, "dtype": "int8",
+                                  "block_n": block_n, "bit_identical": same_fe,
+                                  "tau": tau, "gate_tau": frozen.tau,
+                                  "valid_fraction": vf}})
+    check(same and rel <= INT8_DEQ_RTOL and same_fe,
+          f"spamm_mm_worklist_int8 {label}: plain bit-identical {same}, rel "
+          f"err to f32 on dequantized {rel}, frozen ≡ eager {same_fe}")
+    flops, n_acc, nbytes = worklist_work(wk, TILE, block_n, itemsize=1)
+    nbytes += got.numel() * 4 + (a_s.numel() + b_s.numel()) * 4
+    bms, by = bound_ms(nbytes, flops, PEAK_INT8_OP_S)
+    res = {"name": "spamm_mm_worklist_int8", "shape": label,
+           "block_n": block_n, "valid_fraction": vf, "acc_steps": n_acc,
+           "max_abs_err": 0.0 if same else float((got - want).abs().max()),
+           "bit_identical_to_plain": same,
+           "max_abs_err_vs_f32_dequantized": abs_err,
+           "max_rel_err_vs_f32_dequantized": rel,
+           "ms": time_ms(lambda: spamm_mm.spamm_mm_worklist_int8_cuda(*args,
+                                                                     **kw)),
+           "plain_ms": time_ms(
+               lambda: spamm_mm.spamm_mm_worklist_int8_plain(*args, **kw),
+               reps=3, warmup=1),
+           "library_ms": time_ms(lambda: torch._int_mm(a_q, b_q)),
+           "library_call": "torch._int_mm on the int8 codes (dense, no "
+                           "scales)",
+           "bound_ms": bms, "bound_by": by}
+    emit({"kernel_check": res})
+    return res
+
+
+def check_bf16_frozen(x, w, label):
+    """The frozen bf16 plan of `w` at `lowp_median_tau`: the bf16
+    work-list kernel bit for bit against the f32 kernel on the bf16-rounded
+    operands and against its plain version; frozen bf16 ≡ eager bf16."""
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import getnorm, spamm_mm
+    from repro_torch.plans.frozen import FrozenWeight
+
+    tau = lowp_median_tau(x, w, "bfloat16")
+    fw = FrozenWeight.build(w, tau, tile=TILE, backend="cuda",
+                            compute_dtype="bfloat16")
+    frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // TILE))
+    vf = float(frozen.valid_fraction)
+    check(0.0 < vf < 1.0, f"{label}: bf16 frozen plan keeps all or nothing "
+          f"({vf})")
+    wk = frozen.work
+    xb, wb = x.bfloat16(), w.bfloat16()
+    tables = (wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
+    got = spamm_mm.spamm_mm_worklist_cuda(xb, wb, *tables, tile=TILE)
+    f32 = spamm_mm.spamm_mm_worklist_cuda(xb.float(), wb.float(), *tables,
+                                          tile=TILE)
+    want = spamm_mm.spamm_mm_worklist_plain(xb, wb, *tables, tile=TILE)
+    torch.cuda.synchronize()
+    same32, same_plain = torch.equal(got, f32), torch.equal(got, want)
+    eager = P.plan(x, w, tau, tile=TILE, backend="cuda",
+                   compute_dtype="bfloat16")
+    same_fe = torch.equal(P.execute(frozen, x, w), P.execute(eager, x, w))
+    emit({"frozen_equals_eager": {"shape": label, "dtype": "bfloat16",
+                                  "bit_identical": same_fe, "tau": tau,
+                                  "gate_tau": frozen.tau,
+                                  "valid_fraction": vf}})
+    check(same32 and same_plain and same_fe,
+          f"spamm_mm_worklist bf16 {label}: ≡ f32 on rounded {same32}, ≡ "
+          f"plain {same_plain}, frozen ≡ eager {same_fe}")
+    flops, n_acc, nbytes = worklist_work(wk, TILE, 1, itemsize=2)
+    nbytes += got.numel() * 4
+    bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
+    res = {"name": "spamm_mm_worklist_bf16", "shape": label,
+           "valid_fraction": vf, "acc_steps": n_acc,
+           "max_abs_err": float((got - want).abs().max()),
+           "bit_identical_to_f32_on_rounded": same32,
+           "bit_identical_to_plain": same_plain,
+           "ms": time_ms(lambda: spamm_mm.spamm_mm_worklist_cuda(
+               xb, wb, *tables, tile=TILE)),
+           "plain_ms": time_ms(lambda: spamm_mm.spamm_mm_worklist_plain(
+               xb, wb, *tables, tile=TILE), reps=3, warmup=1),
+           "library_ms": time_ms(lambda: torch.matmul(xb, wb)),
+           "library_call": "torch.matmul on the bf16 operands (dense, bf16 "
+                           "out)",
+           "bound_ms": bms, "bound_by": by}
+    emit({"kernel_check": res})
+    return res
+
+
 def decode_rows(n_cols, gen):
     """A decode step's activation as the gated GEMMs see it: BATCH real
     rows, zero-padded to one row tile."""
@@ -295,7 +503,24 @@ def phase_kernels():
     check_frozen(decode_rows(ff, gen), w2,
                  f"frozen w2 decode {TILE}({BATCH})x{ff}x{d}")
 
-    # (b) the paper's synthetic: exponential-decay matrices,
+    # (b) the low-precision kernels at the same shapes: the fused int8
+    # get-norm on the activation and w1; the int8 work-list on frozen w1 at
+    # prefill and decode shapes, block_n 1 and 2; the bf16 work-list
+    lowp = {"quant": check_tile_norms_quant(
+        x, f"activation {BATCH * PROMPT_LEN}x{d}")}
+    check_tile_norms_quant(w1, f"w1 {d}x{ff}")
+    xd = decode_rows(d, gen)
+    for block_n in (1, 2):
+        res = check_int8_frozen(x, w1, f"frozen w1 {x.shape[0]}x{d}x{ff}",
+                                block_n)
+        lowp.setdefault("int8", res)
+        check_int8_frozen(xd, w1, f"frozen w1 decode {TILE}({BATCH})x{d}x"
+                          f"{ff}", block_n)
+    lowp["bf16"] = check_bf16_frozen(x, w1,
+                                     f"frozen w1 {x.shape[0]}x{d}x{ff}")
+    del xd
+
+    # (c) the paper's synthetic: exponential-decay matrices,
     # |a_ij| = lam^|i-j| · U(0.5, 1), random signs
     n, lam = DECAY_N, DECAY_LAM
     idx = torch.arange(n, device=DEV, dtype=torch.float32)
@@ -316,7 +541,7 @@ def phase_kernels():
     check_worklist(a, b, pd, f"exp-decay {n}x{n}x{n} lam={lam}")
     del w1, w2, x, a, b, pd
     torch.cuda.empty_cache()
-    return norms_act, mm_w1
+    return norms_act, mm_w1, lowp
 
 
 def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
@@ -349,6 +574,9 @@ def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
           "decode_valid_fraction": sp.get("decode_valid_fraction"),
           "gated_gemms": sp.get("gated_gemms"),
           "decode_gated_gemms": sp.get("decode_gated_gemms"),
+          "compute_dtype": sp.get("compute_dtype"),
+          "gemm_bytes_moved": sp.get("gemm_bytes_moved"),
+          "decode_gemm_bytes_moved": sp.get("decode_gemm_bytes_moved"),
           "launches": counts, "tokens_req0": toks[0].tolist()})
     profile_wave(label, eng, prompts)
     return eng, toks, out, counts
@@ -356,42 +584,72 @@ def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
 
 def profile_wave(label, eng, prompts):
     """A short wave (prefill + PROFILE_NEW - 1 decode steps) under
-    torch.profiler: device time by CUDA kernel, the two port kernels'
-    share, and the device's busy share of the wave's wall clock (one
-    stream, so kernel times do not overlap; the profiler's own host cost
-    inflates the wall clock, so the share is a lower bound)."""
+    torch.profiler: device time by CUDA kernel, the port kernels' shares,
+    the device time of the per-call operand quantization (every
+    `quantize_tiles` call, wrapped in a profiler range for this wave only;
+    the weights are most of it) and of dtype casts (`aten::_to_copy`: the
+    bf16 operands), and the device's busy share of the wave's wall clock
+    (one stream, so kernel times do not overlap; the profiler's own host
+    cost inflates the wall clock, so the share is a lower bound)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.kernels import quantize as Q
     from repro_torch.serving.engine import Request
 
     reqs = [Request(prompt=p, max_new_tokens=PROFILE_NEW) for p in prompts]
+    quantize = Q.quantize_tiles
+    span = "chip_smoke::quantize_tiles"
+
+    def traced_quantize(*args, **kw):
+        with record_function(span):
+            return quantize(*args, **kw)
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.generate(reqs)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    Q.quantize_tiles = traced_quantize
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        Q.quantize_tiles = quantize
+    events = prof.key_averages()
+    # the range also shows as a GPU annotation spanning its kernels: it is
+    # no kernel, so it stays out of the kernel rows and the device time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in events
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key != span]
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
 
-    def share(tag):
-        return sum(r[1] for r in rows if tag in r[0])
+    def share(tag, without=None):
+        return sum(r[1] for r in rows
+                   if tag in r[0] and (without is None or without not in r[0]))
+
+    def inclusive(key):
+        """Device time of the kernels launched under the host op `key`."""
+        return sum(e.device_time_total / 1e3 for e in events
+                   if e.key == key and e.device_type == DeviceType.CPU)
 
     emit({"profile": label, "decode_steps": PROFILE_NEW - 1,
           "wall_ms": wall_ms,
           "device_ms": device_ms if rows else "not measured",
           "device_busy_share": device_ms / wall_ms if rows else None,
           "tile_norms_ms": share("tile_norms_f32_kernel"),
-          "spamm_mm_worklist_ms": share("spamm_worklist_f32_kernel"),
+          "spamm_mm_worklist_ms": share("spamm_worklist_f32_kernel",
+                                        without="__nv_bfloat16"),
+          "spamm_mm_worklist_bf16_ms": share("__nv_bfloat16"),
+          "tile_norms_quant_ms": share("tile_norms_quant_f32_kernel"),
+          "spamm_mm_worklist_int8_ms": share("spamm_worklist_int8_kernel"),
+          "quantize_tiles_ms": inclusive(span),
+          "to_copy_ms": inclusive("aten::_to_copy"),
           "top": [{"kernel": k[:80], "ms": ms, "count": n}
-                  for k, ms, n in rows[:8]]})
+                  for k, ms, n in rows[:10]]})
 
 
 def prefill_logits(cfg, pcfg, params, prompts, eng=None):
@@ -415,35 +673,68 @@ def derive_tau(cfg, params, prompts, first_tokens):
     engine pads them). A decode tile holds BATCH real rows of 64, so its
     norm products lie far below a prefill tile's: a τ taken from prefill
     gates every decode tile out, this one keeps part of both. The prefill
-    median of the same GEMM is printed beside it."""
+    median of the same GEMM is printed beside it and returned too."""
     import torch
 
-    from repro_torch.core.plan import pad_to_tile
     from repro_torch.kernels import getnorm
-    from repro_torch.models.layers import embed, rms_norm
 
     wq = params["layers"][0]["mix"]["wq"]
     nb = getnorm.tile_norms_cuda(wq, TILE)
 
-    def first_gemm_norms(tokens):
-        x = embed(params["embed"], torch.as_tensor(tokens, device=DEV)
-                  .long(), torch.float32)
-        x = rms_norm(x, params["layers"][0]["ln1"], cfg.norm_eps)
-        x = pad_to_tile(x.reshape(-1, cfg.d_model), TILE).contiguous()
-        return getnorm.tile_norms_cuda(x, TILE), list(x.shape)
-
     with torch.inference_mode():
-        na_dec, dec_shape = first_gemm_norms(first_tokens)
-        na_pre, pre_shape = first_gemm_norms(prompts)
-        tau = median_product_tau(na_dec, nb)
-        tau_prefill = median_product_tau(na_pre, nb)
+        x_dec = first_gemm_input(cfg, params, first_tokens)
+        x_pre = first_gemm_input(cfg, params, prompts)
+        dec_shape, pre_shape = list(x_dec.shape), list(x_pre.shape)
+        tau = median_product_tau(getnorm.tile_norms_cuda(x_dec, TILE), nb)
+        tau_prefill = median_product_tau(getnorm.tile_norms_cuda(x_pre, TILE),
+                                         nb)
     emit({"tau_derivation": {
         "gemm": "layer 0 wq, first decode step", "activation": dec_shape,
         "weight": list(wq.shape),
         "rule": "median of norm_a[i,k]*norm_b[k,j] over all (i,j,k)",
         "tau": tau, "prefill_activation": pre_shape,
         "prefill_median": tau_prefill}})
-    return tau
+    return tau, tau_prefill
+
+
+def first_gemm_input(cfg, params, tokens):
+    """The activation of layer 0's first gated GEMM (wq): the normalised
+    embeddings of `tokens`, flattened and zero-padded to whole row tiles,
+    as the engine pads them."""
+    import torch
+
+    from repro_torch.core.plan import pad_to_tile
+    from repro_torch.models.layers import embed, rms_norm
+
+    x = embed(params["embed"], torch.as_tensor(tokens, device=DEV).long(),
+              torch.float32)
+    x = rms_norm(x, params["layers"][0]["ln1"], cfg.norm_eps)
+    return pad_to_tile(x.reshape(-1, cfg.d_model), TILE).contiguous()
+
+
+def check_superset(cfg, params, prompts, tau):
+    """At layer-0 wq, on the prefill activation at `tau`: every (i, j, k)
+    step the f32 gate keeps is kept by the int8 and by the bf16 gate (their
+    τ is widened by the quantization bound)."""
+    import torch
+
+    from repro_torch.core import plan as P
+
+    wq = params["layers"][0]["mix"]["wq"]
+    with torch.inference_mode():
+        x = first_gemm_input(cfg, params, prompts)
+        masks = {d: P.plan(x, wq, tau, tile=TILE, backend="cuda",
+                           compute_dtype=d).mask
+                 for d in ("float32",) + LOWP_DTYPES}
+    f32 = masks["float32"]
+    res = {"gemm": f"layer 0 wq, prefill {tuple(x.shape)} @ "
+                   f"{tuple(wq.shape)}", "tau": tau,
+           "kept": {d: int(m.sum()) for d, m in masks.items()},
+           "total": f32.numel()}
+    res["superset"] = {d: bool((masks[d] | ~f32).all()) for d in LOWP_DTYPES}
+    emit({"gate_superset": res})
+    check(all(res["superset"].values()) and 0 < res["kept"]["float32"]
+          < res["total"], f"low-precision gates drop f32-kept steps: {res}")
 
 
 def phase_serve():
@@ -490,17 +781,60 @@ def phase_serve():
     del eng
     torch.cuda.empty_cache()
 
-    tau = derive_tau(cfg, params, prompts, dense_toks[:, 0])
+    tau, tau_prefill = derive_tau(cfg, params, prompts, dense_toks[:, 0])
     sct = SpammConfig(enable=True, tau=tau, tile=TILE, block_n=1, levels=0)
-    eng, _, out, counts = run_engine(cfg, pcfg, params, prompts, sct,
-                                     f"c: tau={tau:.6g}")
+    eng, toks_c, out, counts = run_engine(cfg, pcfg, params, prompts, sct,
+                                          f"c: tau={tau:.6g}")
     for phase in ("valid_fraction", "decode_valid_fraction"):
         vf = out["spamm"][phase]
         check(vf is not None and 0.0 < vf < 1.0,
               f"τ>0 {phase} {vf} not strictly inside (0, 1)")
     check(counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0,
           f"τ>0 launches {counts}")
-    return counts
+    abs_err, rel = errors(prefill_logits(cfg, pcfg, params, prompts, eng),
+                          dense_logits)
+    emit({"float32_vs_dense": {"prefill_logits_max_abs_err": abs_err,
+                               "prefill_logits_max_rel_err": rel,
+                               "token_agreement": float(
+                                   (toks_c == dense_toks).mean())}})
+    bytes_f32 = out["spamm"]["gemm_bytes_moved"]
+    del eng
+    torch.cuda.empty_cache()
+
+    check_superset(cfg, params, prompts, tau_prefill)
+    lowp = {}
+    for dtype, label in (("int8", "d"), ("bfloat16", "e")):
+        scl = SpammConfig(enable=True, tau=tau, tile=TILE, block_n=1,
+                          levels=0, dtype=dtype)
+        eng, toks, outl, cnt = run_engine(cfg, pcfg, params, prompts, scl,
+                                          f"{label}: {dtype} tau={tau:.6g}")
+        sp = outl["spamm"]
+        abs_err, rel = errors(prefill_logits(cfg, pcfg, params, prompts, eng),
+                              dense_logits)
+        ratio = bytes_f32 / sp["gemm_bytes_moved"]
+        emit({f"{dtype}_vs_dense": {
+            "prefill_logits_max_abs_err": abs_err,
+            "prefill_logits_max_rel_err": rel,
+            "token_agreement": float((toks == dense_toks).mean()),
+            "compute_dtype": sp["compute_dtype"],
+            "prefill_gemm_bytes_f32_over_this": ratio}})
+        for phase in ("valid_fraction", "decode_valid_fraction"):
+            vf = sp[phase]
+            check(vf is not None and 0.0 < vf <= 1.0,
+                  f"{dtype} {phase} {vf} not inside (0, 1]")
+        check(sp["compute_dtype"] == dtype and ratio >= 1.5
+              and bool(np.isfinite(toks).all()),
+              f"{dtype} serving: dtype {sp['compute_dtype']}, f32/{dtype} "
+              f"prefill GEMM bytes {ratio}")
+        lowp[dtype] = cnt
+        del eng
+        torch.cuda.empty_cache()
+    check(lowp["int8"]["tile_norms_quant"] > 0
+          and lowp["int8"]["spamm_mm_worklist_int8"] > 0
+          and lowp["bfloat16"]["spamm_mm_worklist_bf16"] > 0
+          and lowp["bfloat16"]["tile_norms"] > 0,
+          f"low-precision serving launches {lowp}")
+    return counts, lowp
 
 # ---------------------------------------------------------------------------
 # library path
@@ -559,14 +893,15 @@ def library_main_path(a, b, moe, eager):
     """The library path as a user calls it, with no check or timing in
     between: (a) spamm(valid_ratio) and plan(valid_ratio, levels) + execute
     at both ratios, (b) spamm_bmm per-slice on both expert GEMMs and
-    shared-weight once, (d) the eager gated GEMM at levels 2 and 0.
-    Returns the outputs and the launches of (d)."""
+    shared-weight once, (d) the eager gated GEMM at levels 2 and 0, (e)
+    spamm(valid_ratio=0.30) with int8 and with bf16 GEMMs. Returns the
+    outputs and the launches of (d)."""
     from repro_torch.configs import SpammConfig
     from repro_torch.core import module as mod
     from repro_torch.core import plan as P
     from repro_torch.core.spamm import spamm
 
-    out = {"paper": {}, "moe": {}, "eager": {}}
+    out = {"paper": {}, "moe": {}, "eager": {}, "lowp": {}}
     for r in LIB_RATIOS:
         (c_flat, info), spamm_ms = host_ms(lambda: spamm(a, b, valid_ratio=r,
                                                          tile=TILE))
@@ -589,6 +924,11 @@ def library_main_path(a, b, moe, eager):
         if levels:
             out["eager"]["pool_launches"] = (read_counts()["pool_norms"]
                                              - before)
+    for dtype in LOWP_DTYPES:
+        (c, info), ms = host_ms(lambda: spamm(a, b, valid_ratio=LIB_RATIOS[0],
+                                              tile=TILE,
+                                              compute_dtype=dtype))
+        out["lowp"][dtype] = {"c": c, "info": info, "spamm_host_ms": ms}
     return out
 
 
@@ -658,6 +998,35 @@ def check_paper(a, b, runs):
     check(rel <= MM_RTOL and float(p0.valid_fraction) == 1.0,
           f"τ = 0 differs from torch.matmul ({rel})")
     return na
+
+
+def check_lowp_library(a, b, runs):
+    """(e): spamm(valid_ratio=0.30) at int8 and bf16 on the ensemble: the
+    achieved ratio within the search's tolerance, finite output, plan host
+    ms and execute ms against dense torch.matmul."""
+    import torch
+
+    from repro_torch.core import plan as P
+
+    r = LIB_RATIOS[0]
+    dense_ms = time_ms(lambda: torch.matmul(a, b), reps=3, warmup=1)
+    for dtype, run in runs.items():
+        c, info = run["c"], run["info"]
+        vf = float(info.valid_fraction)
+        p, plan_ms = host_ms(lambda: P.plan(a, b, valid_ratio=r, tile=TILE,
+                                            compute_dtype=dtype))
+        exec_ms = time_ms(lambda: P.execute(p, a, b), reps=3, warmup=1)
+        finite = bool(torch.isfinite(c).all())
+        emit({"library_lowp": {
+            "n": a.shape[0], "tile": TILE, "compute_dtype": dtype,
+            "valid_ratio": r, "tau": info.tau, "achieved_ratio": vf,
+            "plan_tau": p.tau, "plan_host_ms": plan_ms,
+            "spamm_host_ms": run["spamm_host_ms"], "execute_ms": exec_ms,
+            "dense_matmul_ms": dense_ms,
+            "gemm_bytes_moved": float(p.bytes_moved()), "finite": finite}})
+        check(abs(vf - r) <= RATIO_TOL and finite and p.tau == info.tau,
+              f"{dtype} spamm at ratio {r}: achieved {vf}, finite {finite}")
+        del p
 
 
 def check_dense_grid(name, x, w, tau, c, info):
@@ -808,7 +1177,9 @@ def phase_library():
     check(all(v > 0 for v in counts.values()), f"library launches {counts}")
 
     norm_a = check_paper(a, b, out["paper"])
-    del out["paper"], a, b
+    del out["paper"]
+    check_lowp_library(a, b, out["lowp"])
+    del out["lowp"], a, b
     torch.cuda.empty_cache()
     mm = {name: check_dense_grid(name, *moe[name], *out["moe"][name])
           for name in ("w1", "w2")}
@@ -881,9 +1252,9 @@ def main():
 
     seconds = {}
     t0 = time.perf_counter()
-    norms_act, mm_w1 = phase_kernels()
+    norms_act, mm_w1, lowp = phase_kernels()
     seconds["kernels"] = time.perf_counter() - t0
-    counts = phase_serve()
+    counts, lowp_counts = phase_serve()
     seconds["serve"] = time.perf_counter() - t0 - seconds["kernels"]
     lib_counts, pool, dense = phase_library()
     seconds["library"] = time.perf_counter() - t0 - sum(seconds.values())
@@ -892,6 +1263,8 @@ def main():
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     serve_path = "serve: starcoder2-7b wave, run (c)"
+    int8_path = "serve: starcoder2-7b wave, run (d) int8"
+    bf16_path = "serve: starcoder2-7b wave, run (e) bf16"
     lib_path = "library: (a) paper ensemble, (b) moe spamm_bmm, (d) eager"
     kernels = [
         {"name": "tile_norms", "route": "cuda",
@@ -904,6 +1277,11 @@ def main():
          "replaces": "src/repro/kernels/spamm_mm.py:203",
          "launches": counts["spamm_mm_worklist"], "path": serve_path,
          **{k: mm_w1[k] for k in keys}},
+        {"name": "spamm_mm_worklist_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
+         "replaces": "src/repro/kernels/spamm_mm.py:203",
+         "launches": lowp_counts["bfloat16"]["spamm_mm_worklist_bf16"],
+         "path": bf16_path, **{k: lowp["bf16"][k] for k in keys}},
         {"name": "pool_norms", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:98",
@@ -914,6 +1292,18 @@ def main():
          "replaces": "src/repro/kernels/spamm_mm.py:109",
          "launches": lib_counts["spamm_mm"], "path": lib_path,
          **{k: dense[k] for k in keys}},
+        {"name": "tile_norms_quant", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/getnorm.cu",
+         "replaces": "src/repro/kernels/getnorm.py:180",
+         "launches": lowp_counts["int8"]["tile_norms_quant"],
+         "path": int8_path, "library_call": lowp["quant"]["library_call"],
+         **{k: lowp["quant"][k] for k in keys}},
+        {"name": "spamm_mm_worklist_int8", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
+         "replaces": "src/repro/kernels/spamm_mm.py:322",
+         "launches": lowp_counts["int8"]["spamm_mm_worklist_int8"],
+         "path": int8_path, "library_call": lowp["int8"]["library_call"],
+         **{k: lowp["int8"][k] for k in keys}},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -31,8 +31,10 @@ class SpammConfig:
     bwd: str = "dense"                  # dense | spamm gradient path
     levels: int = 0                     # norm-pyramid coarsening steps (0 =
                                         # flat)
-    dtype: str = "float32"              # GEMM compute dtype (float32 only in
-                                        # this slice)
+    dtype: str = "float32"              # GEMM compute dtype: float32 |
+                                        # bfloat16 | int8 (f32 accumulate;
+                                        # the gate stays a superset of the
+                                        # f32 gate through the widened τ)
 
     @property
     def coarse_tile(self) -> int:

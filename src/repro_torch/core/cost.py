@@ -1,9 +1,12 @@
-"""Step-table bucketing (twin of `repro.core.cost.bucket`/`bucket_ladder`).
+"""Step-table bucketing and the GEMM-byte count (twins of
+`repro.core.cost.bucket`/`bucket_ladder`/`gemm_bytes`).
 
-The rest of the reference's cost model (counts, calibration, autotuner) is
-not ported yet (ROADMAP queue A).
+The rest of the reference's cost model (flop counts, calibration,
+autotuner) is not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
+
+from repro_torch.kernels import quantize as kquant
 
 
 def bucket(n: int, minimum: int = 16) -> int:
@@ -20,3 +23,14 @@ def bucket_ladder(n_max: int, minimum: int = 16) -> list:
     while out[-1] < hi:
         out.append(out[-1] * 2)
     return out
+
+
+def gemm_bytes(valid_tiles, pairs, tile: int, block_n: int, dtype):
+    """GEMM bytes the executed work-list moves: per real step one (tile,
+    tile) A block and one (tile, tile·block_n) B block at the compute
+    dtype's itemsize, plus one f32 (tile, tile·block_n) output flush per
+    active output pair. Python floats or float tensors (pure arithmetic)."""
+    isize = kquant.dtype_itemsize(dtype)
+    t2 = float(tile * tile)
+    return (valid_tiles * (t2 * (1 + block_n) * isize)
+            + pairs * (t2 * block_n * 4.0))

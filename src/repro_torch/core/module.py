@@ -10,8 +10,10 @@ training slice, ROADMAP queue A).
 `SpammContext` carries the config, a `WeightPlanCache` shared by the
 eager gated GEMMs of a model (the weight's padding and normmap or pyramid
 are computed once), and the gating telemetry. Each gated GEMM appends its
-valid fraction as a DEVICE tensor (no host sync per GEMM); `end_stats()`
-moves the whole wave's fractions to the host in one transfer.
+valid fraction as a DEVICE tensor (no host sync per GEMM), and a frozen
+one also the GEMM bytes its plan moves at the configured compute dtype
+(`SpammPlan.bytes_moved`); `end_stats()` moves the whole wave's values to
+the host in one transfer. Every gated GEMM honours `cfg.dtype`.
 
 `spamm_bmm_linear` is the batched gated GEMM for per-slice weights (the MoE
 grouped-FFN shape), forward only.
@@ -27,9 +29,11 @@ from repro_torch.core.plan import WeightPlanCache, pad_to_tile
 
 
 class Tap(NamedTuple):
-    """One telemetry event from a gated GEMM, tagged with its phase."""
+    """One telemetry event from a gated GEMM, tagged with its phase: the
+    valid fraction, and the GEMM bytes moved (None where not tapped)."""
     phase: str
     value: float
+    nbytes: Optional[float] = None
 
 
 class SpammContext:
@@ -61,12 +65,12 @@ class SpammContext:
         """Tag subsequent taps ("prefill" | "decode")."""
         self._phase = phase
 
-    def tap(self, valid_fraction):
-        """Record one gated GEMM's valid fraction (a 0-d tensor, left on its
-        device) with the current phase; no-op unless collecting."""
+    def tap(self, valid_fraction, nbytes=None):
+        """Record one gated GEMM's valid fraction and, optionally, the GEMM
+        bytes it moves (0-d tensors, left on their device) with the current
+        phase; no-op unless collecting."""
         if self._collect:
-            self._pending.append((self._phase,
-                                  torch.as_tensor(valid_fraction).detach()))
+            self._pending.append((self._phase, valid_fraction, nbytes))
 
     def end_stats(self) -> list:
         """Stop collecting and drain: `Tap` events since `begin_stats`, the
@@ -75,8 +79,13 @@ class SpammContext:
         self._collect = False
         if not pending:
             return []
-        vals = torch.stack([v.float().reshape(()) for _, v in pending])
-        return [Tap(ph, v) for (ph, _), v in zip(pending, vals.cpu().tolist())]
+        tapped = [v for _, v, _ in pending] + [b for _, _, b in pending
+                                               if b is not None]
+        vals = torch.stack([torch.as_tensor(x).detach().float().reshape(())
+                            for x in tapped]).cpu().tolist()
+        nbytes = iter(vals[len(pending):])
+        return [Tap(ph, v, None if b is None else next(nbytes))
+                for (ph, _, b), v in zip(pending, vals)]
 
 
 def as_context(spamm_cfg) -> Optional[SpammContext]:
@@ -151,14 +160,15 @@ def spamm_linear_frozen(x: torch.Tensor, w: torch.Tensor, fp,
                         ctx: Optional[SpammContext] = None) -> torch.Tensor:
     """Gated GEMM with a frozen weight side (the serving path): the
     activation get-norm, the device-side gate over the frozen step tables,
-    then the work-list kernel. Bit-identical to `spamm_linear` with the same
-    config."""
+    then the work-list kernel at the plan's compute dtype. Bit-identical to
+    `spamm_linear` with the same config. Taps the valid fraction and the
+    GEMM bytes moved."""
     tile = fp.tile
     xp, (lead, m, k) = _flatten_pad(x, tile)
     n = w.shape[-1]
     p = _plan.plan(xp, frozen_weight=fp)
     if ctx is not None:
-        ctx.tap(p.valid_fraction)
+        ctx.tap(p.valid_fraction, p.bytes_moved())
     wp = pad_to_tile(w, tile, tile * fp.block_n).contiguous()
     c = _plan.execute(p, xp, wp)
     return c[:m, :n].reshape(*lead, n).to(x.dtype)

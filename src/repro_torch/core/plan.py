@@ -29,8 +29,10 @@ frozen step tables, the flag arithmetic and the nvalid scatter-add.
 The port has no tracing, so the reference's traced branches have no
 counterpart here: `hier_gate_mask`'s dense traced refinement and `plan()`'s
 traced-operand path (dense bitmap → `spamm_compact_ref` kidx) do not exist;
-every plan is concrete and carries its work-list. Low-precision (bf16/int8)
-plans raise NotImplementedError naming their ROADMAP item.
+every plan is concrete and carries its work-list. Low-precision plans
+(`compute_dtype` "bfloat16" | "int8") gate on the norms of the quantized
+operands at the widened τ and execute on bf16 operands or int8 codes (the
+int8 work-list kernel), as the reference does.
 """
 from __future__ import annotations
 
@@ -260,12 +262,20 @@ class SpammPlan:
     valid_tiles (0-d int32), work (SpammWork, device tables), mask (lazy
     (gm, gnb, gk) bool view scattered from the step tables on first read;
     the executor never reads it).
-    tau is the f32 gate threshold as a Python float. Metadata: tile,
-    block_n, backend, levels (pyramid coarsening steps the gate descended;
-    0 = flat — the tables are the same either way)."""
+    a_scale (gm, gk) / b_scale (gk, gn) f32 per-tile int8 scales, or None:
+    the scales the fused get-norm made on an int8 plan (b_scale per FINE
+    tile); `execute` quantizes with them, or recomputes missing ones (the
+    quantizer is a pure function of the operand, so either is bit-identical).
+    tau is the f32 gate threshold as a Python float (already widened on a
+    low-precision plan). Metadata: tile, block_n, backend, levels (pyramid
+    coarsening steps the gate descended; 0 = flat — the tables are the same
+    either way), compute_dtype ("float32" | "bfloat16" | "int8": what
+    `execute` feeds the kernel; the normmaps describe that operand view)."""
 
-    def __init__(self, tau, norm_a, norm_b, nvalid, valid_tiles, work, *,
-                 tile: int, block_n: int, backend: str, levels: int = 0):
+    def __init__(self, tau, norm_a, norm_b, nvalid, valid_tiles, work,
+                 a_scale=None, b_scale=None, *, tile: int, block_n: int,
+                 backend: str, levels: int = 0,
+                 compute_dtype: str = "float32"):
         self.tau = tau
         self.norm_a = norm_a
         self.norm_b = norm_b
@@ -273,10 +283,13 @@ class SpammPlan:
         self.nvalid = nvalid
         self.valid_tiles = valid_tiles
         self.work = work
+        self.a_scale = a_scale
+        self.b_scale = b_scale
         self.tile = tile
         self.block_n = block_n
         self.backend = backend
         self.levels = levels
+        self.compute_dtype = compute_dtype
 
     @property
     def grid(self):
@@ -306,6 +319,15 @@ class SpammPlan:
     @property
     def valid_fraction(self) -> torch.Tensor:
         return self.valid_tiles.float() / self.total_tiles
+
+    def bytes_moved(self) -> torch.Tensor:
+        """GEMM bytes the executed work-list moves at this plan's compute
+        dtype (`core.cost.gemm_bytes`): A and B blocks per real step, one f32
+        output flush per active output pair; a 0-d f32 tensor on the plan's
+        device (no host sync)."""
+        pairs = (self.nvalid > 0).sum(dtype=torch.int32)
+        return kcost.gemm_bytes(self.valid_tiles.float(), pairs.float(),
+                                self.tile, self.block_n, self.compute_dtype)
 
     def info(self) -> dict:
         """The info dict `kernels.ops.spamm_matmul` returns: the normmaps,
@@ -460,7 +482,10 @@ def _plan_frozen(a, fp, *, norm_a=None, use_mxu_norm: bool = False
                  ) -> SpammPlan:
     """Plan from a frozen weight side: the activation-side get-norm plus an
     O(S) gather-compare over the frozen step tables, all on the operands'
-    device — no weight get-norm, no bitmap, no host sync."""
+    device — no weight get-norm, no bitmap, no host sync. A low-precision
+    plan gates on the quantized activation's norms (int8: the fused get-norm,
+    whose scales the plan keeps for `execute`) at the frozen plan's widened
+    τ."""
     from repro_torch.plans.frozen import FrozenPlan, FrozenWeight
 
     if isinstance(fp, FrozenWeight):
@@ -471,10 +496,12 @@ def _plan_frozen(a, fp, *, norm_a=None, use_mxu_norm: bool = False
     if not isinstance(fp, FrozenPlan):
         raise TypeError(f"expected a FrozenPlan, got {type(fp).__name__}")
     bk = kops.get_backend(fp.backend)
+    dtype = fp.compute_dtype
+    a_scale = None
     if norm_a is None:
         if a is None:
             raise ValueError("need `a` or `norm_a`")
-        norm_a = bk.norms(a, fp.tile, use_mxu=use_mxu_norm)
+        norm_a, a_scale = dtype_norms(bk, a, dtype, fp.tile, use_mxu_norm)
     gm, gk = norm_a.shape
     if (gm, gk) != (fp.gm, fp.gk):
         raise ValueError(
@@ -499,7 +526,20 @@ def _plan_frozen(a, fp, *, norm_a=None, use_mxu_norm: bool = False
     nvalid = nvalid.view(gm, fp.gnb)
     valid_tiles = active.sum(dtype=torch.int32)
     return SpammPlan(fp.tau, norm_a, fp.norm_b, nvalid, valid_tiles, work,
-                     tile=fp.tile, block_n=fp.block_n, backend=bk.name)
+                     a_scale, fp.b_scale, tile=fp.tile, block_n=fp.block_n,
+                     backend=bk.name, compute_dtype=dtype)
+
+
+def dtype_norms(bk, x: torch.Tensor, dtype: str, tile: int,
+                use_mxu: bool = False):
+    """(normmap, int8 scales or None) of x as a `dtype` kernel will
+    multiply it: the fused get-norm at int8 (norms of the per-tile int8
+    view, and its scales), the get-norm of the bf16-rounded view at
+    bfloat16, the plain get-norm at float32. `dtype` is canonical."""
+    if dtype == "int8":
+        return bk.norms_quant(x, tile, use_mxu=use_mxu)
+    return bk.norms(kquant.quantized_view(x, dtype, tile), tile,
+                    use_mxu=use_mxu), None
 
 
 def _side_pyramid(norm, x, levels: int, tile: int, bk, use_mxu: bool,
@@ -536,7 +576,18 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
     (`search_tau_pyramid`).
 
     frozen_weight (a `FrozenPlan`, or a `FrozenWeight` plus `a`) replaces
-    the weight side: τ/tile/block_n/backend come from the artifact."""
+    the weight side: τ/tile/block_n/backend/compute_dtype come from the
+    artifact.
+
+    compute_dtype ("float32" | "bfloat16" | "int8", aliases accepted) plans
+    for low-precision execution, as the reference does: the normmaps are
+    those of the quantized operands (int8: the fused get-norm, whose scales
+    the plan keeps; bf16: the bf16-rounded view), and an explicit τ is
+    widened (`kernels.quantize.widen_tau`) so the gate keeps every tile the
+    f32 gate at τ keeps. A valid_ratio search runs on the quantized norms
+    with no widening (the ratio is the spec). Precomputed norm_a/norm_b
+    must already describe the quantized view
+    (`WeightPlanCache.weight_side(dtype=…)` makes them so)."""
     if frozen_weight is not None:
         if tau is not None or valid_ratio is not None:
             raise ValueError("frozen_weight carries its own tau; pass neither "
@@ -545,11 +596,25 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
                             use_mxu_norm=use_mxu_norm)
     if (tau is None) == (valid_ratio is None):
         raise ValueError("give exactly one of tau / valid_ratio")
-    if kquant.canonical_dtype(compute_dtype) != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r} needs the bf16/int8 kernels "
-            f"(ROADMAP queue B items 5, 6, 8)")
     bk = kops.get_backend(backend)
+    compute_dtype = kquant.canonical_dtype(compute_dtype)
+    a_scale = b_scale = None
+    if compute_dtype == "int8":
+        # the fused get-norm: quantized-view norms and the per-tile scales
+        # from one read; the matrix's only further use is execute's
+        if a is not None and norm_a is None:
+            norm_a, a_scale = bk.norms_quant(a, tile, use_mxu=use_mxu_norm)
+            a = None
+        if b is not None and norm_b is None:
+            norm_b, b_scale = bk.norms_quant(b, tile, use_mxu=use_mxu_norm)
+            b = None
+    elif compute_dtype == "bfloat16":
+        if a is not None:
+            a = kquant.quantized_view(a, compute_dtype, tile)
+        if b is not None:
+            b = kquant.quantized_view(b, compute_dtype, tile)
+    if tau is not None:
+        tau = kquant.widen_tau(tau, compute_dtype, tile)
     dev = next((x.base.device if isinstance(x, NormPyramid) else x.device
                 for x in (a, b, norm_a, norm_b)
                 if isinstance(x, (torch.Tensor, NormPyramid))),
@@ -605,23 +670,38 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
                      torch.as_tensor(nvalid_np, device=dev),
                      torch.tensor(int(work_np.klist.size), dtype=torch.int32,
                                   device=dev),
-                     work, tile=tile, block_n=block_n, backend=bk.name,
-                     levels=want)
+                     work, a_scale, b_scale, tile=tile, block_n=block_n,
+                     backend=bk.name, levels=want,
+                     compute_dtype=compute_dtype)
 
 
 def execute(p: SpammPlan, a: torch.Tensor, b: torch.Tensor, *,
             out_dtype=None) -> torch.Tensor:
     """Multiplication phase of a prebuilt plan on (a, b), which must have
     the tile-padded shapes the plan was built for: the backend's work-list
-    GEMM over the plan's step tables."""
+    GEMM over the plan's step tables.
+
+    Callers pass the ORIGINAL f32 operands whatever the plan's dtype:
+    execute owns the cast. bfloat16 casts both operands for the work-list
+    kernel (f32 accumulation); int8 quantizes both per tile with the
+    plan's scales (recomputing missing ones, bit-identically) and drives
+    the int8 work-list kernel."""
     gm, gk = p.norm_a.shape
     gn = p.norm_b.shape[1]
     t = p.tile
     if tuple(a.shape) != (gm * t, gk * t) or tuple(b.shape) != (gk * t, gn * t):
         raise ValueError(f"operands {tuple(a.shape)} @ {tuple(b.shape)} do not "
                          f"match the plan's grid ({gm}, {gk}, {gn}) at tile {t}")
-    return kops.get_backend(p.backend).matmul_worklist(
-        a, b, p.work, t, p.block_n, out_dtype or torch.float32)
+    bk = kops.get_backend(p.backend)
+    out_dtype = out_dtype or torch.float32
+    if p.compute_dtype == "int8":
+        a_q, a_s = kquant.quantize_tiles(a, t, scales=p.a_scale)
+        b_q, b_s = kquant.quantize_tiles(b, t, scales=p.b_scale)
+        return bk.matmul_worklist_int8(a_q, b_q, a_s, b_s, p.work, t,
+                                       p.block_n, out_dtype)
+    if p.compute_dtype == "bfloat16":
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    return bk.matmul_worklist(a, b, p.work, t, p.block_n, out_dtype)
 
 
 class _WeightEntry(NamedTuple):
@@ -633,7 +713,7 @@ class _WeightEntry(NamedTuple):
 class WeightPlanCache:
     """Caches the weight-side gating artifacts (tile padding + normmap or
     norm pyramid), keyed on weight identity, version, shape, dtype, device,
-    tile, backend, levels and block_n.
+    tile, backend, levels, block_n and the compute dtype.
 
     Eager forward passes call one weight against a stream of activations:
     the weight normmap (the O(K·N) half of get-norm) and the padded copy do
@@ -653,21 +733,25 @@ class WeightPlanCache:
 
     def weight_side(self, w: torch.Tensor, *, tile: int, backend: str,
                     use_mxu: bool = False, levels: int = 0,
-                    block_n: int = 1):
+                    block_n: int = 1, dtype: str = "float32"):
         """(padded_weight, weight_norms) for w, cached on identity.
 
         w may be 2-D (K, N) → normmap (gk, gn), or 3-D batched (B, K, N) —
         the per-expert MoE shape — → normmap (B, gk, gn) from one reshaped
         get-norm pass (row tiles never cross slices after padding). levels
         > 0 returns a NormPyramid (its levels keep the batch dim). N pads to
-        tile·block_n so the super-column grouping divides the column grid."""
+        tile·block_n so the super-column grouping divides the column grid.
+        dtype (a compute dtype) takes the norms of the QUANTIZED weight view
+        (int8: the fused get-norm, its scales dropped — execute recomputes
+        them bit-identically); the padded weight stays f32."""
         bk = kops.get_backend(backend)
+        dtype = kquant.canonical_dtype(dtype)
 
         def compute():
             wp = pad_to_tile(w, tile, tile * block_n).contiguous()
             w2 = (wp.reshape(wp.shape[0] * wp.shape[1], wp.shape[2])
                   if wp.dim() == 3 else wp)
-            nw = bk.norms(w2, tile, use_mxu=use_mxu)
+            nw, _ = dtype_norms(bk, w2, dtype, tile, use_mxu)
             if wp.dim() == 3:
                 nw = nw.reshape(wp.shape[0], wp.shape[1] // tile, -1)
             if levels > 0:
@@ -676,7 +760,7 @@ class WeightPlanCache:
             return wp, nw
 
         key = (id(w), w._version, tuple(w.shape), str(w.dtype),
-               str(w.device), tile, bk.name, use_mxu, levels, block_n)
+               str(w.device), tile, bk.name, use_mxu, levels, block_n, dtype)
         ent = self._entries.get(key)
         if ent is not None and ent.weight is w:
             self.hits += 1
@@ -695,10 +779,13 @@ class WeightPlanCache:
                  compute_dtype: str = "float32"):
         """Full plan for x @ w with the weight side served from the cache
         (levels > 0: the cached weight pyramid). x_padded must already be
-        tile-padded. Returns (plan, padded_weight)."""
+        tile-padded. Returns (plan, padded_weight). compute_dtype plans for
+        low-precision execution: the cached weight norms are the quantized
+        view's, and plan() handles the activation and the τ widening."""
+        compute_dtype = kquant.canonical_dtype(compute_dtype)
         wp, nw = self.weight_side(w, tile=tile, backend=backend,
                                   use_mxu=use_mxu_norm, levels=levels,
-                                  block_n=block_n)
+                                  block_n=block_n, dtype=compute_dtype)
         p = plan(x_padded, None, tau, valid_ratio=valid_ratio, norm_b=nw,
                  tile=tile, block_n=block_n, backend=backend,
                  use_mxu_norm=use_mxu_norm, levels=levels,

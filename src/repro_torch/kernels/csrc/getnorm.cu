@@ -1,6 +1,7 @@
 // Get-norm kernels (paper §3.2): per-(t×t)-tile Frobenius norms of a 2-D
-// float32 matrix, the `normmap` the SpAMM gate reads, and one level of the
-// norm pyramid pooled from a normmap.
+// float32 matrix, the `normmap` the SpAMM gate reads; the same norms of the
+// matrix's per-tile int8 view fused with its quantization scales; and one
+// level of the norm pyramid pooled from a normmap.
 //
 // tile_norms replaces the Pallas TPU kernel
 // src/repro/kernels/getnorm.py::tile_norms (bodies _getnorm_kernel and
@@ -18,12 +19,100 @@
 // partial sums; thread 0 writes sqrt of the total. Nothing is kept between
 // tiles, so there is no cross-block reduction. The TPU kernel's MXU variant
 // (sums via dots against ones, use_mxu=True) has no counterpart here yet.
+//
+// tile_norms_quant replaces the Pallas TPU kernel
+// src/repro/kernels/getnorm.py::tile_norms_quant (body
+// _getnorm_quant_kernel): per tile, scale = max(amax, 1e-30)·f32(1/127),
+// q = clip(rint(x / scale), ±127), and the norm of the dequantized tile
+// q·scale, from one launch. Bound: bytes, as tile_norms (M·K·4 B read, two
+// f32 maps written). Design: the same block and grid; a first walk takes
+// the block-wide max|x| (shuffle tree, broadcast through shared memory), a
+// second walk — the tile is still in L1 — quantizes, dequantizes and sums
+// the squares. Both kernels run their sum through ONE device function
+// (tile_walk + block_sum: the same element-to-thread assignment, the same
+// fmaf chain, the same tree), and the division, rint and dequantizing
+// multiply are __fdiv_rn / rintf / __fmul_rn, which nvcc never contracts.
+// So on the card the fused norms are bit-identical to tile_norms run on the
+// dequantized matrix, and the scales to the per-tile quantizer's (the
+// reference's own contract, getnorm.py:57-74).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr float kTiny = 1e-30f;
+constexpr float kInv127 = 1.0f / 127.0f;  // f32(1)/f32(127), as the quantizer
+
+// Calls op(v) for every element v of the (tile × tile) tile at `base` (row
+// stride k) that this thread owns: 16-byte loads when `vec`, else scalars.
+// The assignment of elements to threads and their order within a thread
+// are fixed, so every caller sums in the same order.
+template <class Op>
+__device__ __forceinline__ void tile_walk(const float* __restrict__ base,
+                                          int k, int tile, int vec, Op op) {
+  if (vec) {
+    const int tq = tile / 4;  // float4 loads per tile row
+    const int n = tile * tq;
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      const int r = e / tq;
+      const int c = e - r * tq;
+      const float4 v =
+          reinterpret_cast<const float4*>(base + static_cast<size_t>(r) * k)[c];
+      op(v.x);
+      op(v.y);
+      op(v.z);
+      op(v.w);
+    }
+  } else {
+    const int n = tile * tile;
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      const int r = e / tile;
+      const int c = e - r * tile;
+      op(base[static_cast<size_t>(r) * k + c]);
+    }
+  }
+}
+
+// Block-wide sum of the threads' partial sums: a warp-shuffle tree, then
+// the 8 warp sums in warp 0. The total is valid in thread 0.
+__device__ __forceinline__ float block_sum(float s) {
+  __shared__ float warp_sums[kThreads / 32];
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_down_sync(0xffffffffu, s, off);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    s = lane < kThreads / 32 ? warp_sums[lane] : 0.f;
+    for (int off = 4; off > 0; off >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, off);
+    }
+  }
+  return s;
+}
+
+// Block-wide max, returned to every thread.
+__device__ __forceinline__ float block_max(float m) {
+  __shared__ float warp_max[kThreads / 32];
+  __shared__ float total;
+  for (int off = 16; off > 0; off >>= 1) {
+    m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, off));
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = warp_max[0];
+    for (int w = 1; w < kThreads / 32; ++w) t = fmaxf(t, warp_max[w]);
+    total = t;
+  }
+  __syncthreads();
+  return total;
+}
 
 __global__ void __launch_bounds__(kThreads)
 tile_norms_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -34,44 +123,38 @@ tile_norms_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
   const float* base = x + static_cast<size_t>(ti) * tile * k +
                       static_cast<size_t>(tj) * tile;
   float s = 0.f;
-  if (vec) {
-    const int tq = tile / 4;  // float4 loads per tile row
-    const int n = tile * tq;
-    for (int e = threadIdx.x; e < n; e += kThreads) {
-      const int r = e / tq;
-      const int c = e - r * tq;
-      const float4 v =
-          reinterpret_cast<const float4*>(base + static_cast<size_t>(r) * k)[c];
-      s = fmaf(v.x, v.x, s);
-      s = fmaf(v.y, v.y, s);
-      s = fmaf(v.z, v.z, s);
-      s = fmaf(v.w, v.w, s);
-    }
-  } else {
-    const int n = tile * tile;
-    for (int e = threadIdx.x; e < n; e += kThreads) {
-      const int r = e / tile;
-      const int c = e - r * tile;
-      const float v = base[static_cast<size_t>(r) * k + c];
-      s = fmaf(v, v, s);
-    }
+  tile_walk(base, k, tile, vec, [&](float v) { s = fmaf(v, v, s); });
+  s = block_sum(s);
+  if (threadIdx.x == 0) {
+    out[static_cast<size_t>(ti) * gk + tj] = sqrtf(s);
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  }
-  __shared__ float warp_sums[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = s;
-  __syncthreads();
-  if (warp == 0) {
-    s = lane < kThreads / 32 ? warp_sums[lane] : 0.f;
-    for (int off = 4; off > 0; off >>= 1) {
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    }
-    if (lane == 0) {
-      out[static_cast<size_t>(ti) * gk + tj] = sqrtf(s);
-    }
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_norms_quant_f32_kernel(const float* __restrict__ x,
+                            float* __restrict__ norms,
+                            float* __restrict__ scales, int k, int tile,
+                            int vec) {
+  const int tj = blockIdx.x;
+  const int ti = blockIdx.y;
+  const int gk = gridDim.x;
+  const float* base = x + static_cast<size_t>(ti) * tile * k +
+                      static_cast<size_t>(tj) * tile;
+  float m = 0.f;
+  tile_walk(base, k, tile, vec, [&](float v) { m = fmaxf(m, fabsf(v)); });
+  const float scale = __fmul_rn(fmaxf(block_max(m), kTiny), kInv127);
+  float s = 0.f;
+  tile_walk(base, k, tile, vec, [&](float v) {
+    const float q =
+        fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f);
+    const float dq = __fmul_rn(q, scale);
+    s = fmaf(dq, dq, s);
+  });
+  s = block_sum(s);
+  if (threadIdx.x == 0) {
+    const size_t o = static_cast<size_t>(ti) * gk + tj;
+    norms[o] = sqrtf(s);
+    scales[o] = scale;
   }
 }
 
@@ -130,6 +213,21 @@ extern "C" int spamm_tile_norms_f32(const float* x, float* out, int m, int k,
   tile_norms_f32_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(x, out, k,
                                                                tile, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (m, k) row-major float32, m % tile == 0 == k % tile; norms, scales:
+// (m/tile, k/tile) float32. Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int spamm_tile_norms_quant_f32(const float* x, float* norms,
+                                          float* scales, int m, int k,
+                                          int tile, void* stream) {
+  const dim3 grid(k / tile, m / tile);
+  const int vec = (tile % 4 == 0) && (k % 4 == 0) &&
+                  (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  tile_norms_quant_f32_kernel<<<grid, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      x, norms, scales, k, tile, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,9 @@
-"""Get-norm kernels of the port (paper §3.2): per-tile Frobenius norms, and
-the 2×2 pooling that builds one level of the norm pyramid from them.
+"""Get-norm kernels of the port (paper §3.2): per-tile Frobenius norms, the
+same norms of the per-tile int8 view fused with its quantization scales,
+and the 2×2 pooling that builds one level of the norm pyramid.
 
-Twin of `repro.kernels.getnorm.tile_norms` and `pool_norms`. Each has
+Twin of `repro.kernels.getnorm.tile_norms`, `tile_norms_quant` and
+`pool_norms`. Each has
 three entry points; for the tile norms:
 
   tile_norms_plain — the plain PyTorch version (reshape, square, sum in f32,
@@ -13,14 +15,20 @@ three entry points; for the tile norms:
                      for a CPU tensor, the kernel for a CUDA tensor (the
                      kernel launches or raises; nothing falls back).
 
-The pooling has the same three: `pool_norms_plain`, `pool_norms_cuda` and
-`pool_norms`. The reference's `norm_pyramid` (one get-norm pass plus
-`levels` poolings) is `Backend.pyramid_norms` in `kernels/ops.py`, so that
-it composes the entry points of one backend.
+The fused int8 get-norm has the same three: `tile_norms_quant_plain` (the
+unfused composition quantize → dequantize → `tile_norms_plain`),
+`tile_norms_quant_cuda` (one launch: scales and norms of the dequantized
+tile; on the card bit-identical to `tile_norms_cuda` on the dequantized
+matrix) and `tile_norms_quant`. The pooling has the same three:
+`pool_norms_plain`, `pool_norms_cuda` and `pool_norms`. The reference's
+`norm_pyramid` (one get-norm pass plus `levels` poolings) is
+`Backend.pyramid_norms` in `kernels/ops.py`, so that it composes the entry
+points of one backend.
 
 Each kernel has its own launch count, incremented only where the kernel is
-launched (`launches` for tile_norms, `pool_launches` for pool_norms), so a
-run can show that its main path went through each kernel.
+launched (`launches` for tile_norms, `quant_launches` for tile_norms_quant,
+`pool_launches` for pool_norms), so a run can show that its main path went
+through each kernel.
 """
 from __future__ import annotations
 
@@ -30,8 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels import quantize as _quant
 
 launches = 0
+quant_launches = 0
 pool_launches = 0
 
 _LIB = None
@@ -44,6 +54,10 @@ def _lib():
         fn = lib.spamm_tile_norms_f32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.spamm_tile_norms_quant_f32
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.spamm_pool_norms_f32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 \
@@ -80,25 +94,32 @@ def tile_norms_plain(x: torch.Tensor, tile: int = 64, *,
     return torch.sqrt(sq.sum(dim=(1, 3)))
 
 
+def _check_cuda_input(x: torch.Tensor, tile: int, use_mxu: bool, name: str):
+    """Shape and type checks of the CUDA get-norm kernels; returns the
+    tile grid (gm, gk)."""
+    if use_mxu:
+        raise NotImplementedError(
+            "use_mxu=True (tensor-core get-norm, paper Eq. 3-4) has no CUDA "
+            "kernel yet: ROADMAP queue B, tensor-core tile_norms variant")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous tensor")
+    gm, gk = _grid(x, tile)
+    if gm > 65535:
+        raise ValueError(f"{gm} row tiles exceed the kernel's grid.y limit")
+    return gm, gk
+
+
 def tile_norms_cuda(x: torch.Tensor, tile: int = 64, *,
                     use_mxu: bool = False) -> torch.Tensor:
     """(M//tile, K//tile) f32 tile norms from the CUDA get-norm kernel.
 
     Takes a contiguous 2-D float32 CUDA tensor; raises on anything else."""
     global launches
-    if use_mxu:
-        raise NotImplementedError(
-            "use_mxu=True (tensor-core get-norm, paper Eq. 3-4) has no CUDA "
-            "kernel yet: ROADMAP queue B, tensor-core tile_norms variant")
-    if x.device.type != "cuda":
-        raise ValueError(f"tile_norms_cuda needs a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"tile_norms_cuda takes float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("tile_norms_cuda needs a contiguous tensor")
-    gm, gk = _grid(x, tile)
-    if gm > 65535:
-        raise ValueError(f"{gm} row tiles exceed the kernel's grid.y limit")
+    gm, gk = _check_cuda_input(x, tile, use_mxu, "tile_norms_cuda")
     out = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
@@ -120,6 +141,51 @@ def tile_norms(x: torch.Tensor, tile: int = 64, *,
     if x.device.type == "cpu":
         return tile_norms_plain(x, tile, use_mxu=use_mxu)
     return tile_norms_cuda(x, tile, use_mxu=use_mxu)
+
+
+def tile_norms_quant_plain(x: torch.Tensor, tile: int = 64, *,
+                           use_mxu: bool = False):
+    """(norms, scales), both (M//tile, K//tile) f32: the per-tile int8
+    quantizer's scales and the tile norms of the dequantized matrix, as the
+    unfused composition quantize → dequantize → `tile_norms_plain` (the
+    reference's `int8_norms_and_scales` without a fused kernel)."""
+    _grid(x, tile)
+    q, s = _quant.quantize_tiles(x, tile)
+    dq = _quant.dequantize_tiles(q, s, tile)
+    return tile_norms_plain(dq, tile, use_mxu=use_mxu), s
+
+
+def tile_norms_quant_cuda(x: torch.Tensor, tile: int = 64, *,
+                          use_mxu: bool = False):
+    """(norms, scales) from the fused CUDA kernel: one launch takes each
+    tile's absmax scale and the norm of its dequantized int8 view. Takes a
+    contiguous 2-D float32 CUDA tensor; raises on anything else."""
+    global quant_launches
+    gm, gk = _check_cuda_input(x, tile, use_mxu, "tile_norms_quant_cuda")
+    norms = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
+    scales = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
+    if norms.numel() == 0:
+        return norms, scales
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.spamm_tile_norms_quant_f32(x.data_ptr(), norms.data_ptr(),
+                                            scales.data_ptr(), x.shape[0],
+                                            x.shape[1], tile, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"tile_norms_quant kernel launch failed: CUDA error {rc}")
+    quant_launches += 1
+    return norms, scales
+
+
+def tile_norms_quant(x: torch.Tensor, tile: int = 64, *,
+                     use_mxu: bool = False):
+    """Fused int8 get-norm: the plain composition for a CPU tensor, the
+    CUDA kernel for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return tile_norms_quant_plain(x, tile, use_mxu=use_mxu)
+    return tile_norms_quant_cuda(x, tile, use_mxu=use_mxu)
 
 
 def pool_norms_plain(normmap: torch.Tensor) -> torch.Tensor:

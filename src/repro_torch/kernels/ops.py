@@ -10,10 +10,12 @@ Twin of the registry in `repro.kernels.ops` (`Backend`, `BACKENDS`,
             the kernel or raises.
 
 A `Backend` bundles the kernel entry points the SpAMM pipeline needs: the
-§3.2 get-norm and its pyramid pooling, the §3.3 work-list GEMM over a
-`repro_torch.core.plan.SpammWork`, and the dense-grid GEMM over compacted
-valid-k lists. The int8 entry points of the reference registry are not
-ported yet (ROADMAP queue B).
+§3.2 get-norm, its fused int8 variant and its pyramid pooling, the §3.3
+work-list GEMM over a `repro_torch.core.plan.SpammWork` (f32 or bf16
+operands) and its int8 twin, and the dense-grid GEMM over compacted valid-k
+lists. Every port backend has every entry point, so the reference's
+widen-to-f32 fallbacks for backends without the int8 ones have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -32,10 +34,17 @@ class Backend:
     """One SpAMM execution backend.
 
     norms(x, tile, use_mxu=False)                    → (M//tile, K//tile) f32
+    norms_quant(x, tile, use_mxu=False)              → (norms, scales), both
+      (M//tile, K//tile) f32: the fused int8 get-norm (norms of the
+      per-tile int8 view, and its scales)
     pool_norms(normmap)                              → one pyramid level,
       (..., gm, gk) → (..., ⌈gm/2⌉, ⌈gk/2⌉) f32
     matmul_worklist(a, b, work, tile, block_n,
                     out_dtype)                       → (M, N) out_dtype
+      f32 or bf16 operands, f32 accumulation
+    matmul_worklist_int8(a_q, b_q, a_scale, b_scale, work, tile, block_n,
+                         out_dtype)                  → (M, N) out_dtype
+      int8 codes, per-tile f32 scales (b's per fine tile)
     matmul(a, b, mask, kidx, nvalid, tile, block_n,
            out_dtype)                                → (..., M, N) out_dtype
       the dense-grid GEMM; `mask` is the (..., gm, gn//block_n, gk) bitmap,
@@ -46,8 +55,10 @@ class Backend:
     """
     name: str
     norms: Callable[..., torch.Tensor]
+    norms_quant: Callable[..., tuple]
     pool_norms: Callable[..., torch.Tensor]
     matmul_worklist: Callable[..., torch.Tensor]
+    matmul_worklist_int8: Callable[..., torch.Tensor]
     matmul: Callable[..., torch.Tensor]
     needs_compaction: bool = True
 
@@ -69,6 +80,16 @@ def _worklist(fn):
     return matmul_worklist
 
 
+def _worklist_int8(fn):
+    def matmul_worklist_int8(a_q, b_q, a_scale, b_scale, work, tile, block_n,
+                             out_dtype):
+        return fn(a_q, b_q, a_scale, b_scale, work.step_i, work.step_j,
+                  work.step_k, work.step_flags, work.runs, tile=tile,
+                  block_n=block_n, out_dtype=out_dtype)
+
+    return matmul_worklist_int8
+
+
 def _dense(fn):
     def matmul(a, b, mask, kidx, nvalid, tile, block_n, out_dtype):
         del mask  # the kernel reads the compaction
@@ -79,15 +100,21 @@ def _dense(fn):
 
 
 BACKENDS = {
-    "cuda": Backend("cuda", _getnorm.tile_norms_cuda, _getnorm.pool_norms_cuda,
+    "cuda": Backend("cuda", _getnorm.tile_norms_cuda,
+                    _getnorm.tile_norms_quant_cuda, _getnorm.pool_norms_cuda,
                     _worklist(_spamm_mm.spamm_mm_worklist_cuda),
+                    _worklist_int8(_spamm_mm.spamm_mm_worklist_int8_cuda),
                     _dense(_spamm_mm.spamm_mm_cuda)),
     "torch": Backend("torch", _getnorm.tile_norms_plain,
+                     _getnorm.tile_norms_quant_plain,
                      _getnorm.pool_norms_plain,
                      _worklist(_spamm_mm.spamm_mm_worklist_plain),
+                     _worklist_int8(_spamm_mm.spamm_mm_worklist_int8_plain),
                      _dense(_spamm_mm.spamm_mm_plain)),
-    "auto": Backend("auto", _getnorm.tile_norms, _getnorm.pool_norms,
+    "auto": Backend("auto", _getnorm.tile_norms, _getnorm.tile_norms_quant,
+                    _getnorm.pool_norms,
                     _worklist(_spamm_mm.spamm_mm_worklist),
+                    _worklist_int8(_spamm_mm.spamm_mm_worklist_int8),
                     _dense(_spamm_mm.spamm_mm)),
 }
 
@@ -114,6 +141,16 @@ def pyramid_norms(x: torch.Tensor, tile: int = 64, levels: int = 1, *,
     exact normmap at tile·2^l). Registry-dispatched."""
     return get_backend(backend).pyramid_norms(x, tile, levels,
                                               use_mxu=use_mxu)
+
+
+def int8_norms_and_scales(x: torch.Tensor, tile: int = 64, *,
+                          backend: str = "auto", use_mxu: bool = False):
+    """(norms, scales) of the per-tile int8 view of x — the entry point
+    every int8 planner goes through (the reference's). On a CUDA tensor the
+    fused kernel reads x once; its norms are bit-identical to `tile_norms`
+    of the dequantized matrix on the card, and its scales to the
+    quantizer's."""
+    return get_backend(backend).norms_quant(x, tile, use_mxu=use_mxu)
 
 
 def spamm_compact(mask: torch.Tensor):

@@ -1,10 +1,9 @@
 """Per-tile quantization helpers + quantization-aware gate widening.
 
 Twin of `repro.kernels.quantize` (see its docstring for the gate-widening
-derivation). Only the float32 path runs in this slice of the port; the
-bf16/int8 helpers are ported as-is because they are pure tensor functions,
-and stay off the serving path until the low-precision kernels are ported
-(ROADMAP queue B).
+derivation). Low-precision plans gate on the norms of what the kernel will
+multiply (`quantized_view`, or the fused int8 get-norm) at the widened τ of
+`widen_tau`, so their gate keeps every tile the float32 gate keeps.
 
 int8 scheme: symmetric per-(tile × tile_n) scaling,
     scale = max(amax, tiny) · f32(1/127),  q = clip(round(x / scale), ±127)

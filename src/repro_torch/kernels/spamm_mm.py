@@ -18,8 +18,18 @@ driven by the step tables `repro_torch.core.plan.compact_from_triples`
 
 Output blocks never flushed stay exactly zero. Entry points as in
 `getnorm`: `spamm_mm_worklist_plain`, `spamm_mm_worklist_cuda` (the kernel
-`csrc/spamm_mm.cu`, f32 only, tile 16/32/64) and `spamm_mm_worklist`
-(dispatch on the operands' device).
+`csrc/spamm_mm.cu`, two f32 or two bf16 operands, f32 out, tile 16/32/64)
+and `spamm_mm_worklist` (dispatch on the operands' device). A bf16 product
+is exact in f32, so the bf16 kernel is bit-identical to the f32 kernel on
+the bf16-rounded operands, and to its plain version.
+
+Int8 work-list: twin of `repro.kernels.spamm_mm.spamm_mm_worklist_int8`.
+Per-tile int8 codes a_q (M, K) and b_q (K, N), f32 scales a_scale (gm, gk)
+and b_scale (gk, gn) per FINE tile (block_n > 1 reads one scale per column
+group), the same step tables: an ACC step adds (f32(int32 tile dot) ·
+a_scale[i, k]) · b_scale[k, fine j]. Entry points
+`spamm_mm_worklist_int8_plain`, `_cuda` and `spamm_mm_worklist_int8`; the
+kernel ≡ the plain version bit for bit (the tile dot is exact in both).
 
 Dense-grid: twin of `repro.kernels.spamm_mm.spamm_mm`, driven by the
 compacted valid-k lists of `repro_torch.kernels.ref.spamm_compact_ref`:
@@ -35,8 +45,9 @@ is written, with zeros where nvalid is 0. Entry points `spamm_mm_plain`,
 order (kernel: one shared device function; plain: the same rank-1 updates),
 so with the same valid k's dense-grid ≡ work-list bit for bit.
 
-Launch counts, one per kernel: `launches` (work-list), `dense_launches`
-(dense-grid).
+Launch counts, one per kernel: `launches` (f32 work-list),
+`bf16_launches` (its bf16 variant), `int8_launches` (int8 work-list),
+`dense_launches` (dense-grid).
 """
 from __future__ import annotations
 
@@ -52,6 +63,8 @@ STEP_INIT, STEP_ACC, STEP_FLUSH = 1, 2, 4
 CUDA_TILES = (16, 32, 64)
 
 launches = 0
+bf16_launches = 0
+int8_launches = 0
 dense_launches = 0
 
 _LIB = None
@@ -63,6 +76,14 @@ def _lib():
         lib = build.load("spamm_mm.cu")
         fn = lib.spamm_mm_worklist_f32
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.spamm_mm_worklist_bf16
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.spamm_mm_worklist_int8
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.spamm_mm_dense_f32
@@ -141,30 +162,19 @@ def spamm_mm_worklist_plain(a, b, step_i, step_j, step_k, step_flags, runs,
     return out.to(out_dtype)
 
 
-def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
-                           *, tile: int = 64, block_n: int = 1,
-                           out_dtype=torch.float32) -> torch.Tensor:
-    """The CUDA kernel: one thread block per run (× block_n column groups).
-    Takes contiguous float32 operands and int32 tables on one CUDA device,
-    tile in CUDA_TILES and a float32 output; raises on anything else."""
-    global launches
-    tables = (step_i, step_j, step_k, step_flags)
-    m, k, n = _check_shapes(a, b, tables, runs, tile, block_n)
-    dev = a.device
+def _check_cuda_worklist(named, tables, runs, tile, block_n, out_dtype):
+    """Device, layout and type checks shared by the work-list kernels;
+    `named` lists (name, tensor) of the operands."""
+    dev = named[0][1].device
     if dev.type != "cuda":
-        raise ValueError(f"spamm_mm_worklist_cuda needs CUDA tensors, "
-                         f"got {dev}")
-    for name, t in (("a", a), ("b", b), ("step_i", step_i),
-                    ("step_j", step_j), ("step_k", step_k),
-                    ("step_flags", step_flags), ("runs", runs)):
+        raise ValueError(f"the work-list kernels need CUDA tensors, got {dev}")
+    for name, t in (*named, ("step_i", tables[0]), ("step_j", tables[1]),
+                    ("step_k", tables[2]), ("step_flags", tables[3]),
+                    ("runs", runs)):
         if t.device != dev:
             raise ValueError(f"{name} lies on {t.device}, a on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"spamm_mm_worklist_cuda takes float32 operands, got "
-                        f"{a.dtype} @ {b.dtype} (bf16 and int8 kernels: "
-                        f"ROADMAP queue B)")
     if any(t.dtype != torch.int32 for t in (*tables, runs)):
         raise TypeError("step tables and runs must be int32")
     if out_dtype != torch.float32:
@@ -173,21 +183,44 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
         raise ValueError(f"tile {tile} not in the kernel's {CUDA_TILES}")
     if not 1 <= block_n <= 65535:
         raise ValueError(f"block_n {block_n} out of range")
+    return dev
+
+
+def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
+                           *, tile: int = 64, block_n: int = 1,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """The CUDA kernel: one thread block per run (× block_n column groups).
+    Takes two contiguous float32 or two bfloat16 operands and int32 tables
+    on one CUDA device, tile in CUDA_TILES and a float32 output; raises on
+    anything else (mixed operand types too)."""
+    global launches, bf16_launches
+    tables = (step_i, step_j, step_k, step_flags)
+    m, k, n = _check_shapes(a, b, tables, runs, tile, block_n)
+    dev = _check_cuda_worklist((("a", a), ("b", b)), tables, runs, tile,
+                               block_n, out_dtype)
+    if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"spamm_mm_worklist_cuda takes two float32 or two "
+                        f"bfloat16 operands, got {a.dtype} @ {b.dtype}")
     out = torch.zeros(m, n, dtype=torch.float32, device=dev)
     num_runs = runs.shape[0] - 1
     if num_runs == 0:
         return out
     lib = _lib()
+    fn = (lib.spamm_mm_worklist_f32 if a.dtype == torch.float32
+          else lib.spamm_mm_worklist_bf16)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.spamm_mm_worklist_f32(
-            a.data_ptr(), b.data_ptr(), step_i.data_ptr(), step_j.data_ptr(),
-            step_k.data_ptr(), step_flags.data_ptr(), runs.data_ptr(),
-            num_runs, out.data_ptr(), m, k, n, tile, block_n, stream)
+        rc = fn(a.data_ptr(), b.data_ptr(), step_i.data_ptr(),
+                step_j.data_ptr(), step_k.data_ptr(), step_flags.data_ptr(),
+                runs.data_ptr(), num_runs, out.data_ptr(), m, k, n, tile,
+                block_n, stream)
     if rc != 0:
         raise RuntimeError(
             f"spamm_mm_worklist kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if a.dtype == torch.float32:
+        launches += 1
+    else:
+        bf16_launches += 1
     return out
 
 
@@ -200,6 +233,117 @@ def spamm_mm_worklist(a, b, step_i, step_j, step_k, step_flags, runs, *,
           else spamm_mm_worklist_cuda)
     return fn(a, b, step_i, step_j, step_k, step_flags, runs, tile=tile,
               block_n=block_n, out_dtype=out_dtype)
+
+
+def _check_int8(a_q, b_q, a_scale, b_scale, tables, runs, tile, block_n):
+    m, k, n = _check_shapes(a_q, b_q, tables, runs, tile, block_n)
+    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8:
+        raise TypeError(f"the int8 work-list takes int8 codes, got "
+                        f"{a_q.dtype} @ {b_q.dtype}")
+    gm, gk, gn = m // tile, k // tile, n // tile
+    if tuple(a_scale.shape) != (gm, gk) or tuple(b_scale.shape) != (gk, gn):
+        raise ValueError(f"scales {tuple(a_scale.shape)}, "
+                         f"{tuple(b_scale.shape)} do not match the fine tile "
+                         f"grids ({gm}, {gk}) and ({gk}, {gn})")
+    return m, k, n
+
+
+def spamm_mm_worklist_int8_plain(a_q, b_q, a_scale, b_scale, step_i, step_j,
+                                 step_k, step_flags, runs, *, tile: int = 64,
+                                 block_n: int = 1,
+                                 out_dtype=torch.float32) -> torch.Tensor:
+    """The plain int8 version: the runs of `spamm_mm_worklist_plain`, with
+    each ACC step's tile dot taken on the codes in f32 — exact, since every
+    partial sum is an integer of magnitude ≤ tile·127² < 2²⁴ — then scaled
+    and added as the kernel does: acc + (dot · a_scale[i, k]) ·
+    b_scale[k, fine j], three f32 roundings in that order."""
+    m, k, n = _check_int8(a_q, b_q, a_scale, b_scale,
+                          (step_i, step_j, step_k, step_flags), runs, tile,
+                          block_n)
+    dev = a_q.device
+    gm, gk, tn = m // tile, k // tile, tile * block_n
+    out = torch.zeros(m, n, dtype=torch.float32, device=dev)
+    runs = runs.to(dev, torch.long)
+    starts, lengths = runs[:-1], runs[1:] - runs[:-1]
+    if starts.numel() == 0:
+        return out.to(out_dtype)
+    si, sj, sk, sf = (t.to(dev, torch.long)
+                      for t in (step_i, step_j, step_k, step_flags))
+    a4 = a_q.float().reshape(gm, tile, gk, tile)
+    b4 = b_q.float().reshape(gk, tile, n // tn, tn)
+    sa = a_scale.float()
+    sb = b_scale.float().reshape(gk, n // tn, block_n)
+    o4 = out.view(gm, tile, n // tn, tn)
+    acc = torch.zeros(starts.numel(), tile, tn, dtype=torch.float32,
+                      device=dev)
+    last = si.numel() - 1
+    for q in range(int(lengths.max())):
+        s = (starts + q).clamp(max=last)
+        f = torch.where(lengths > q, sf[s], torch.zeros_like(sf[s]))
+        acc[(f & STEP_INIT) != 0] = 0.0
+        live = torch.nonzero((f & STEP_ACC) != 0).squeeze(1)
+        if live.numel():
+            st = s[live]
+            dot = torch.bmm(a4[si[st], :, sk[st], :],
+                            b4[sk[st], :, sj[st], :])    # (L, t, t·block_n)
+            a_s = sa[si[st], sk[st]][:, None, None]
+            b_s = sb[sk[st], sj[st]].repeat_interleave(tile, dim=1)[:, None]
+            acc[live] = acc[live] + (dot * a_s) * b_s
+        fl = torch.nonzero((f & STEP_FLUSH) != 0).squeeze(1)
+        if fl.numel():
+            st = s[fl]
+            o4[si[st], :, sj[st], :] = acc[fl]
+    return out.to(out_dtype)
+
+
+def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
+                                step_k, step_flags, runs, *, tile: int = 64,
+                                block_n: int = 1,
+                                out_dtype=torch.float32) -> torch.Tensor:
+    """The CUDA int8 kernel: one thread block per run (× block_n column
+    groups), exact __dp4a tile dots. Takes contiguous int8 codes (4-byte
+    aligned), float32 scales and int32 tables on one CUDA device, tile in
+    CUDA_TILES and a float32 output; raises on anything else."""
+    global int8_launches
+    tables = (step_i, step_j, step_k, step_flags)
+    m, k, n = _check_int8(a_q, b_q, a_scale, b_scale, tables, runs, tile,
+                          block_n)
+    dev = _check_cuda_worklist((("a_q", a_q), ("b_q", b_q),
+                                ("a_scale", a_scale), ("b_scale", b_scale)),
+                               tables, runs, tile, block_n, out_dtype)
+    if a_scale.dtype != torch.float32 or b_scale.dtype != torch.float32:
+        raise TypeError("the scales must be float32")
+    if a_q.data_ptr() % 4 or b_q.data_ptr() % 4:
+        raise ValueError("the int8 codes must be 4-byte aligned")
+    out = torch.zeros(m, n, dtype=torch.float32, device=dev)
+    num_runs = runs.shape[0] - 1
+    if num_runs == 0:
+        return out
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.spamm_mm_worklist_int8(
+            a_q.data_ptr(), b_q.data_ptr(), a_scale.data_ptr(),
+            b_scale.data_ptr(), step_i.data_ptr(), step_j.data_ptr(),
+            step_k.data_ptr(), step_flags.data_ptr(), runs.data_ptr(),
+            num_runs, out.data_ptr(), m, k, n, tile, block_n, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"spamm_mm_worklist_int8 kernel launch failed: CUDA error {rc}")
+    int8_launches += 1
+    return out
+
+
+def spamm_mm_worklist_int8(a_q, b_q, a_scale, b_scale, step_i, step_j, step_k,
+                           step_flags, runs, *, tile: int = 64,
+                           block_n: int = 1,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """Int8 work-list GEMM: the plain version for CPU operands, the CUDA
+    kernel for CUDA operands."""
+    fn = (spamm_mm_worklist_int8_plain if a_q.device.type == "cpu"
+          else spamm_mm_worklist_int8_cuda)
+    return fn(a_q, b_q, a_scale, b_scale, step_i, step_j, step_k, step_flags,
+              runs, tile=tile, block_n=block_n, out_dtype=out_dtype)
 
 
 def _check_dense(a, b, kidx, nvalid, tile, block_n):
@@ -271,8 +415,7 @@ def spamm_mm_cuda(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
             raise ValueError(f"{name} must be contiguous")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"spamm_mm_cuda takes float32 operands, got "
-                        f"{a.dtype} @ {b.dtype} (bf16 and int8 kernels: "
-                        f"ROADMAP queue B)")
+                        f"{a.dtype} @ {b.dtype}")
     if kidx.dtype != torch.int32 or nvalid.dtype != torch.int32:
         raise TypeError("kidx and nvalid must be int32")
     if out_dtype != torch.float32:

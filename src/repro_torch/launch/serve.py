@@ -3,7 +3,7 @@ equal-length requests with greedy generation.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
       --num-requests 4 --prompt-len 128 --max-new 16 \
-      --spamm-tau 0.5 --spamm-tile 64
+      --spamm-tau 0.5 --spamm-tile 64 [--spamm-dtype int8]
 
 Runs on the card by default; `--device cpu` runs the plain PyTorch versions
 of the kernels (use `--reduced` there).
@@ -35,6 +35,11 @@ def main(argv=None):
                          "AND decode gate (decode through frozen plans)")
     ap.add_argument("--spamm-tile", type=int, default=32)
     ap.add_argument("--spamm-backend", default="auto", choices=BACKEND_NAMES)
+    ap.add_argument("--spamm-dtype", default="float32",
+                    choices=("float32", "bfloat16", "bf16", "int8"),
+                    help="GEMM compute dtype of the gated GEMMs (f32 "
+                         "accumulate; the gate stays a superset of the f32 "
+                         "gate through the widened τ)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -48,7 +53,8 @@ def main(argv=None):
     if args.spamm_tau is not None:
         spamm_cfg = SpammConfig(enable=True, tau=args.spamm_tau,
                                 tile=args.spamm_tile,
-                                backend=args.spamm_backend)
+                                backend=args.spamm_backend,
+                                dtype=args.spamm_dtype)
     eng = Engine(cfg, pcfg, params, max_len=args.max_len,
                  spamm_cfg=spamm_cfg, device=args.device)
 
@@ -73,6 +79,11 @@ def main(argv=None):
               f"gated_gemms={sp['gated_gemms']} decode_valid_fraction="
               f"{f'{dvf:.3f}' if dvf is not None else 'n/a'} "
               f"decode_gated_gemms={sp['decode_gated_gemms']}")
+        gb, dgb = sp["gemm_bytes_moved"], sp["decode_gemm_bytes_moved"]
+        print(f"  spamm dtype={sp['compute_dtype']}: prefill_gemm_bytes="
+              f"{f'{gb / 1e6:.3f}MB' if gb is not None else 'n/a'} "
+              f"decode_gemm_bytes="
+              f"{f'{dgb / 1e6:.3f}MB' if dgb is not None else 'n/a'}")
     lat = out["latency"]
     line = (f"  latency: ttft={lat['ttft_s'] * 1e3:.1f}ms"
             if lat["ttft_s"] is not None else "  latency: ttft=n/a")

@@ -15,6 +15,12 @@ so serving freezes it once:
     thread block per. Built on the host once per row grid and kept as
     device tensors; a serving step only reads them.
 
+Low precision: `FrozenWeight.build(compute_dtype=…)` takes the norms of the
+quantized weight (int8: the fused get-norm, whose scales become `b_scale`)
+and keeps the REQUESTED τ; `for_rows` bakes the WIDENED τ
+(`kernels.quantize.widen_tau`) into the `FrozenPlan`, whose gate then keeps
+every tile the f32 gate at τ keeps.
+
 Exactness: the frozen step tables are a superset of every reachable mask;
 the per-call activation gate `norm_a[i,k] · nbmax[k,j] ≥ τ` re-applies the
 exact flat test per step, so the frozen path is bit-identical to the eager
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cost import bucket
-from repro_torch.core.plan import NormPyramid, pad_to_tile
+from repro_torch.core.plan import NormPyramid, dtype_norms, pad_to_tile
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quantize as kquant
 
@@ -43,26 +49,30 @@ class FrozenWeight:
     """Shape-independent frozen gating artifact of ONE gated weight.
 
     Fields: tau (the requested τ, f32-rounded Python float); levels (tuple
-    of normmaps on the weight's device, finest first); nbmax (gk, gn//block_n)
-    f32 on the device; kj_k/kj_j (W,) int32 numpy — the weight-admissible
-    (k, j) pairs sorted by (j, k), read on the host only by `for_rows`.
-    Metadata: tile, block_n, num_levels, backend, use_mxu (which get-norm
-    variant made the norms: part of the reference's store key, so it is
-    kept with the artifact)."""
+    of normmaps on the weight's device, finest first — of the quantized
+    weight on a low-precision artifact); nbmax (gk, gn//block_n) f32 on the
+    device; kj_k/kj_j (W,) int32 numpy — the weight-admissible (k, j) pairs
+    sorted by (j, k), read on the host only by `for_rows`; b_scale (gk, gnp)
+    f32 per-tile int8 scales of the padded weight, or None. Metadata: tile,
+    block_n, num_levels, backend, use_mxu (which get-norm variant made the
+    norms: part of the reference's store key, so it is kept with the
+    artifact), compute_dtype."""
 
-    def __init__(self, tau, levels, nbmax, kj_k, kj_j, *, tile: int,
-                 block_n: int, num_levels: int, backend: str,
-                 use_mxu: bool = False):
+    def __init__(self, tau, levels, nbmax, kj_k, kj_j, b_scale=None, *,
+                 tile: int, block_n: int, num_levels: int, backend: str,
+                 use_mxu: bool = False, compute_dtype: str = "float32"):
         self.tau = tau
         self.levels = tuple(levels)
         self.nbmax = nbmax
         self.kj_k = kj_k
         self.kj_j = kj_j
+        self.b_scale = b_scale
         self.tile = tile
         self.block_n = block_n
         self.num_levels = num_levels
         self.backend = backend
         self.use_mxu = use_mxu
+        self.compute_dtype = compute_dtype
         self._rows_cache: dict = {}
 
     @property
@@ -81,16 +91,15 @@ class FrozenWeight:
         """Freeze the weight side of `x @ w` gating at threshold `tau`: the
         backend's get-norm runs ONCE on the padded weight (on its device),
         the pyramid pools through the backend's kernel, and the pair list is
-        built on the host."""
-        if kquant.canonical_dtype(compute_dtype) != "float32":
-            raise NotImplementedError(
-                f"freezing for {compute_dtype} needs the low-precision "
-                f"kernels (ROADMAP queue B items 5, 6, 8)")
+        built on the host. compute_dtype freezes for low-precision
+        execution: the norms of the quantized weight (int8: the fused
+        get-norm, whose scales are stored as `b_scale`)."""
         bk = kops.get_backend(backend)
+        compute_dtype = kquant.canonical_dtype(compute_dtype)
         if w.dim() != 2:
             raise ValueError(f"expected a 2-D weight, got {tuple(w.shape)}")
         wp = pad_to_tile(w, tile, tile * block_n).contiguous()
-        base = bk.norms(wp, tile, use_mxu=use_mxu)
+        base, b_scale = dtype_norms(bk, wp, compute_dtype, tile, use_mxu)
         pyr = NormPyramid.from_normmap(base, levels, tile=tile,
                                        backend=bk.name)
         base_np = base.detach().cpu().numpy().astype(np.float32, copy=False)
@@ -110,9 +119,9 @@ class FrozenWeight:
         return cls(
             tau_f, pyr.levels,
             torch.as_tensor(np.ascontiguousarray(nbmax), device=base.device),
-            kk[order].astype(np.int32), jj[order].astype(np.int32),
+            kk[order].astype(np.int32), jj[order].astype(np.int32), b_scale,
             tile=tile, block_n=block_n, num_levels=levels, backend=bk.name,
-            use_mxu=use_mxu,
+            use_mxu=use_mxu, compute_dtype=compute_dtype,
         )
 
     def for_rows(self, gm: int) -> "FrozenPlan":
@@ -166,14 +175,19 @@ class FrozenWeight:
         def up(x):
             return torch.as_tensor(np.ascontiguousarray(x), device=dev)
 
-        # float32 gates at the requested τ (no quantization widening)
+        # the plan's τ is the GATE threshold: on a low-precision artifact
+        # the widened τ' ≤ τ, so the gate over quantized norms keeps every
+        # tile the f32 gate at τ keeps (self.tau stays the requested τ)
+        gate_tau = float(np.float32(kquant.widen_tau(
+            self.tau, self.compute_dtype, self.tile)))
         fp = FrozenPlan(
-            self.tau, self.levels[0], self.nbmax,
+            gate_tau, self.levels[0], self.nbmax,
             up(step_i.astype(np.int32)), up(step_j.astype(np.int32)),
             up(step_k.astype(np.int32)), up(step_real), up(seg_first),
-            up(seg_last), up(runs),
+            up(seg_last), up(runs), self.b_scale,
             tile=self.tile, block_n=self.block_n, num_levels=self.num_levels,
             backend=self.backend, gm=gm, gk=gk, gnb=gnb,
+            compute_dtype=self.compute_dtype,
         )
         self._rows_cache[gm] = fp
         return fp
@@ -185,13 +199,15 @@ class FrozenPlan:
     Device tensors: norm_b (gk, gnp), nbmax (gk, gnb), step_i/j/k (S,)
     int32, step_real (S,) bool, seg_first/seg_last (S,) int32, runs (R+1,)
     int32 — boundaries of the same segments up to the last real step, one
-    kernel thread block each.
-    tau is the gate threshold (f32-rounded Python float). Metadata: tile,
-    block_n, num_levels, backend, gm, gk, gnb."""
+    kernel thread block each; b_scale (gk, gnp) f32 int8 weight scales, or
+    None. tau is the gate threshold (f32-rounded Python float; widened on a
+    low-precision plan). Metadata: tile, block_n, num_levels, backend, gm,
+    gk, gnb, compute_dtype."""
 
     def __init__(self, tau, norm_b, nbmax, step_i, step_j, step_k, step_real,
-                 seg_first, seg_last, runs, *, tile: int, block_n: int,
-                 num_levels: int, backend: str, gm: int, gk: int, gnb: int):
+                 seg_first, seg_last, runs, b_scale=None, *, tile: int,
+                 block_n: int, num_levels: int, backend: str, gm: int,
+                 gk: int, gnb: int, compute_dtype: str = "float32"):
         self.tau = tau
         self.norm_b = norm_b
         self.nbmax = nbmax
@@ -202,6 +218,8 @@ class FrozenPlan:
         self.seg_first = seg_first
         self.seg_last = seg_last
         self.runs = runs
+        self.b_scale = b_scale
+        self.compute_dtype = compute_dtype
         self.tile = tile
         self.block_n = block_n
         self.num_levels = num_levels

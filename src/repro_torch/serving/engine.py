@@ -106,16 +106,25 @@ class Engine:
 
         return {"layers": [grow(c) for c in cache["layers"]]}
 
-    @staticmethod
-    def _spamm_stats(taps) -> dict:
+    def _spamm_stats(self, taps) -> dict:
+        """Per-wave gating stats: mean valid fraction and gated-GEMM count
+        per phase, the configured compute dtype, and the GEMM bytes moved
+        per phase (sums over the frozen GEMMs' taps)."""
         pre = [t.value for t in taps if t.phase != "decode"]
         dec = [t.value for t in taps if t.phase == "decode"]
+        pre_b = [t.nbytes for t in taps
+                 if t.phase != "decode" and t.nbytes is not None]
+        dec_b = [t.nbytes for t in taps
+                 if t.phase == "decode" and t.nbytes is not None]
         return {
             "valid_fraction": float(np.mean(pre)) if pre else None,
             "gated_gemms": len(pre),
             "decode_valid_fraction": float(np.mean(dec)) if dec else None,
             "decode_gated_gemms": len(dec),
-            "compute_dtype": "float32",
+            "compute_dtype": self.spamm_ctx.cfg.dtype,
+            "gemm_bytes_moved": float(np.sum(pre_b)) if pre_b else None,
+            "decode_gemm_bytes_moved": (float(np.sum(dec_b)) if dec_b
+                                        else None),
         }
 
     # -- dispatch ------------------------------------------------------------

@@ -14,6 +14,7 @@ from repro_torch.core import plan as P
 from repro_torch.core import spamm as S
 from repro_torch.device import f32_numerics
 from repro_torch.kernels import getnorm, ref, spamm_mm
+from repro_torch.kernels import quantize as Q
 from repro_torch.plans.frozen import FrozenWeight
 
 pytestmark = pytest.mark.cuda
@@ -204,3 +205,158 @@ def test_library_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         spamm_mm.spamm_mm_cuda(a, w.transpose(-1, -2).contiguous()
                                .transpose(-1, -2), kidx, nvalid, tile=64)
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_tile_norms_quant_kernel_equals_unfused_on_card(dev, tile):
+    """The fused int8 get-norm: scales equal to the quantizer's and norms
+    equal to the f32 get-norm kernel on the dequantized matrix, bit for bit;
+    within NORM_RTOL of the plain composition (another summation order)."""
+    x = _rand((4 * tile, 6 * tile), 14, dev)
+    x[:tile, :tile] = 0.0                  # an all-zero tile: scale 1e-30/127
+    before = getnorm.quant_launches
+    norms, scales = getnorm.tile_norms_quant(x, tile)
+    torch.cuda.synchronize()
+    assert getnorm.quant_launches == before + 1
+    q, s = Q.quantize_tiles(x, tile)
+    assert torch.equal(scales, s)
+    assert torch.equal(norms, getnorm.tile_norms_cuda(
+        Q.dequantize_tiles(q, s, tile), tile))
+    pn, ps = getnorm.tile_norms_quant_plain(x, tile)
+    assert torch.equal(scales, ps)
+    torch.testing.assert_close(norms, pn, rtol=NORM_RTOL, atol=0)
+
+
+def _int8_case(tile, block_n, dev):
+    """Per-tile int8 codes and scales of two random operands, and the step
+    tables of their f32 plan at τ = the median product."""
+    a = _rand((4 * tile, 6 * tile), 15, dev)
+    b = _rand((6 * tile, 4 * tile), 16, dev)
+    tau = _median_tau(a, b, tile)
+    w = P.plan(a, b, tau, tile=tile, block_n=block_n, backend="cuda").work
+    a_q, a_s = Q.quantize_tiles(a, tile)
+    b_q, b_s = Q.quantize_tiles(b, tile)
+    return (a_q, b_q, a_s, b_s, w.step_i, w.step_j, w.step_k, w.step_flags,
+            w.runs), w
+
+
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_int8_worklist_kernel_equals_plain_on_card(dev, tile, block_n):
+    """Exact int32 tile dots and the reference's scale order: kernel ≡
+    plain bit for bit; against the f32 kernel on the dequantized operands
+    within 1e-5 of the output's largest magnitude (the reference's bound:
+    the f32 kernel rounds inside each tile dot)."""
+    args, w = _int8_case(tile, block_n, dev)
+    before = spamm_mm.int8_launches
+    got = spamm_mm.spamm_mm_worklist_int8(*args, tile=tile, block_n=block_n)
+    torch.cuda.synchronize()
+    assert spamm_mm.int8_launches == before + 1
+    want = spamm_mm.spamm_mm_worklist_int8_plain(*args, tile=tile,
+                                                 block_n=block_n)
+    assert torch.equal(got, want)
+    a_q, b_q, a_s, b_s = args[:4]
+    f32 = spamm_mm.spamm_mm_worklist_cuda(
+        Q.dequantize_tiles(a_q, a_s, tile), Q.dequantize_tiles(b_q, b_s, tile),
+        *args[4:], tile=tile, block_n=block_n)
+    assert float((got - f32).abs().max()) <= 1e-5 * float(f32.abs().max())
+
+
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_bf16_worklist_kernel_bitwise_on_card(dev, tile, block_n):
+    """bf16 operands: ≡ the f32 kernel on the bf16-rounded operands and ≡
+    the plain version, bit for bit (a bf16 product is exact in f32)."""
+    a = _rand((4 * tile, 6 * tile), 17, dev)
+    b = _rand((6 * tile, 4 * tile), 18, dev)
+    tau = _median_tau(a, b, tile)
+    w = P.plan(a, b, tau, tile=tile, block_n=block_n, backend="cuda").work
+    tables = (w.step_i, w.step_j, w.step_k, w.step_flags, w.runs)
+    ab, bb = a.bfloat16(), b.bfloat16()
+    before = (spamm_mm.bf16_launches, spamm_mm.launches)
+    got = spamm_mm.spamm_mm_worklist(ab, bb, *tables, tile=tile,
+                                     block_n=block_n)
+    torch.cuda.synchronize()
+    assert (spamm_mm.bf16_launches, spamm_mm.launches) == (before[0] + 1,
+                                                           before[1])
+    assert torch.equal(got, spamm_mm.spamm_mm_worklist_cuda(
+        ab.float(), bb.float(), *tables, tile=tile, block_n=block_n))
+    assert torch.equal(got, spamm_mm.spamm_mm_worklist_plain(
+        ab, bb, *tables, tile=tile, block_n=block_n))
+
+
+def test_lowp_kernels_reject_what_they_do_not_take(dev):
+    args, w = _int8_case(64, 1, dev)
+    a_q, b_q, a_s, b_s, *tables = args
+    with pytest.raises(TypeError):               # mixed operand types
+        spamm_mm.spamm_mm_worklist_cuda(a_q.float().bfloat16(), b_q.float(),
+                                        *tables, tile=64)
+    with pytest.raises(TypeError):               # codes must be int8
+        spamm_mm.spamm_mm_worklist_int8_cuda(a_q.float(), b_q, a_s, b_s,
+                                             *tables, tile=64)
+    with pytest.raises(ValueError):              # b_scale per fine tile
+        spamm_mm.spamm_mm_worklist_int8_cuda(a_q, b_q, a_s, b_s[:, :1],
+                                             *tables, tile=64)
+    with pytest.raises(ValueError):
+        spamm_mm.spamm_mm_worklist_int8_cuda(a_q, b_q, a_s, b_s, *tables,
+                                             tile=48)
+    with pytest.raises(TypeError):
+        getnorm.tile_norms_quant_cuda(a_q, 64)
+    with pytest.raises(NotImplementedError):
+        getnorm.tile_norms_quant_cuda(a_s.new_zeros(64, 64), 64,
+                                      use_mxu=True)
+
+
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_frozen_lowp_equals_eager_on_card(dev, dtype, block_n):
+    """Low-precision frozen ≡ eager bit for bit on the card, through the
+    fused get-norm and the int8 / bf16 work-list kernels."""
+    tile = 64
+    x = _rand((3 * tile, 5 * tile), 19, dev)
+    w = _rand((5 * tile, 4 * tile), 20, dev)
+    tau = _median_tau(x, w, tile)
+    counts = (getnorm.quant_launches, spamm_mm.int8_launches,
+              spamm_mm.bf16_launches)
+    eager = P.plan(x, w, tau, tile=tile, block_n=block_n, backend="cuda",
+                   compute_dtype=dtype)
+    fw = FrozenWeight.build(w, tau, tile=tile, block_n=block_n,
+                            backend="cuda", compute_dtype=dtype)
+    frozen = P.plan(x, frozen_weight=fw.for_rows(3))
+    assert frozen.tau == eager.tau < tau
+    assert int(eager.valid_tiles) == int(frozen.valid_tiles) > 0
+    c = P.execute(frozen, x, w)
+    assert torch.equal(P.execute(eager, x, w), c)
+    torch.cuda.synchronize()
+    if dtype == "int8":
+        assert getnorm.quant_launches == counts[0] + 4
+        assert spamm_mm.int8_launches == counts[1] + 2
+    else:
+        assert spamm_mm.bf16_launches == counts[2] + 2
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_lowp_gate_keeps_every_f32_tile_on_card(dev, dtype):
+    tile = 64
+    a = _rand((4 * tile, 6 * tile), 21, dev)
+    b = _rand((6 * tile, 5 * tile), 22, dev)
+    tau = _median_tau(a, b, tile)
+    f32 = P.plan(a, b, tau, tile=tile, backend="cuda").mask
+    low = P.plan(a, b, tau, tile=tile, backend="cuda",
+                 compute_dtype=dtype).mask
+    assert bool((low | ~f32).all())
+
+
+def test_spamm_int8_valid_ratio_on_card(dev):
+    """spamm(valid_ratio, compute_dtype="int8"): the search on the fused
+    kernel's norms reaches its ratio within the search's tolerance."""
+    n = 1024
+    a = torch.as_tensor(S.algebraic_decay(n, seed=0), device=dev)
+    b = torch.as_tensor(S.algebraic_decay(n, seed=1), device=dev)
+    before = (getnorm.quant_launches, spamm_mm.int8_launches)
+    c, info = S.spamm(a, b, valid_ratio=0.3, tile=64, compute_dtype="int8")
+    torch.cuda.synchronize()
+    assert abs(float(info.valid_fraction) - 0.3) <= 0.01
+    assert (getnorm.quant_launches, spamm_mm.int8_launches) == (
+        before[0] + 2, before[1] + 1)
+    assert bool(torch.isfinite(c).all())

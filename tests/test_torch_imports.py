@@ -36,6 +36,40 @@ def test_port_has_modules():
         assert twin in names
 
 
+# the low-precision entry points: the fused int8 get-norm, the int8 work-list
+# GEMM (plain / CUDA / dispatch each), the registry's int8 entries and the
+# GEMM-byte count
+LOWP_ENTRY_POINTS = (
+    ("repro_torch.kernels.getnorm", ("tile_norms_quant_plain",
+                                     "tile_norms_quant_cuda",
+                                     "tile_norms_quant", "quant_launches")),
+    ("repro_torch.kernels.spamm_mm", ("spamm_mm_worklist_int8_plain",
+                                      "spamm_mm_worklist_int8_cuda",
+                                      "spamm_mm_worklist_int8",
+                                      "int8_launches", "bf16_launches")),
+    ("repro_torch.kernels.ops", ("int8_norms_and_scales",)),
+    ("repro_torch.core.cost", ("gemm_bytes",)),
+)
+
+
+@pytest.mark.parametrize("module,names", LOWP_ENTRY_POINTS,
+                         ids=[m for m, _ in LOWP_ENTRY_POINTS])
+def test_lowp_entry_points_exist(module, names):
+    import importlib
+
+    mod = importlib.import_module(module)
+    for name in names:
+        assert hasattr(mod, name), f"{module}.{name}"
+
+
+def test_every_backend_has_the_lowp_entries():
+    from repro_torch.kernels import ops
+
+    for name, bk in ops.BACKENDS.items():
+        assert callable(bk.norms_quant) and callable(bk.matmul_worklist_int8), \
+            name
+
+
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: p.relative_to(PORT).as_posix())
 def test_no_jax_or_reference_imports(path):
@@ -49,6 +83,8 @@ def test_fresh_import_keeps_jax_out():
         "import repro_torch.launch.serve, repro_torch.serving.engine\n"
         "import repro_torch.plans.precompute, repro_torch.kernels.ops\n"
         "import repro_torch.core.spamm, repro_torch.core.tau_search\n"
+        "import repro_torch.kernels.getnorm, repro_torch.kernels.spamm_mm\n"
+        "import repro_torch.kernels.quantize, repro_torch.core.cost\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
