@@ -19,6 +19,17 @@ through `Engine.generate`: dense, τ = 0 and a τ > 0 derived from the first
 gated GEMM of a decode step (so that both prefill and decode keep part of
 their tiles), then at that τ with int8 and with bf16 GEMMs; and checks at
 layer-0 wq that the int8 and bf16 gates keep every tile the f32 gate keeps.
+The tensor-core get-norm pair (use_mxu=True, paper Eq. 3-4) is held against
+its plain versions at the activation and w1 shapes, fused ≡ unfused bit for
+bit.
+
+Store: at run (c)'s τ, every gated weight of the full-depth model is frozen
+into a fresh plan store (the offline `populate` walk); a fresh
+`Engine(plan_store=…)` then serves the wave from store hits only, with no
+get-norm launch while it freezes and run (c)'s tokens and prefill logits
+bit for bit; the walk is repeated with use_mxu=True at f32 and int8 (new
+keys, one launch of the tensor-core kernels per weight) and the normmaps
+compared with the CUDA-core ones.
 
 Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
 with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
@@ -28,12 +39,15 @@ spamm_bmm at the expert shapes of qwen2-moe-a2.7b (60 experts, d 2048,
 expert ff 1408), per-slice through the dense-grid kernel and shared-weight
 through the work-list kernel; (c) the pyramid pooling kernel; (d) the eager
 gated GEMM with a pyramid (levels = 2 ≡ levels = 0) on starcoder2-7b's w1;
-(e) spamm(valid_ratio=0.30) with int8 and with bf16 GEMMs on the ensemble.
+(e) spamm(valid_ratio=0.30) with int8 and with bf16 GEMMs on the ensemble;
+(f) spamm(valid_ratio=0.30) with the tensor-core get-norm.
 
-Every result line is a JSON object; the line before the last lists the six
-kernels (the work-list GEMM twice, f32 and bf16) with their launches on
-their path (the τ > 0 serving run at its dtype, or the library path),
-errors, times and bounds; the last line is {"ok": true, "device": {...}}.
+Every result line is a JSON object; the line before the last lists nine
+kernel entries (the work-list GEMM twice, f32 and bf16; each of the
+get-norm pair twice, CUDA-core and tensor-core) with their launches on
+their path (the τ > 0 serving run at its dtype, the store walk, or the
+library path), errors, times and bounds; the last line is {"ok": true,
+"device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
 src/ beside it, it exits 2 and prints no result.
 """
@@ -53,6 +67,9 @@ PEAK_BF16_FLOP_S = 989e12
 PEAK_INT8_OP_S = 1979e12
 
 DEV = "cuda"
+# the store phase's temporary plan store, in a directory .gitignore lists
+STORE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "plan_store")
 ARCH = "starcoder2-7b"
 TILE = 64
 BATCH, PROMPT_LEN, MAX_NEW = 4, 128, 16
@@ -128,6 +145,7 @@ def reset_counts():
     from repro_torch.kernels import getnorm, spamm_mm
 
     getnorm.launches = getnorm.pool_launches = getnorm.quant_launches = 0
+    getnorm.mxu_launches = getnorm.quant_mxu_launches = 0
     spamm_mm.launches = spamm_mm.dense_launches = 0
     spamm_mm.bf16_launches = spamm_mm.int8_launches = 0
 
@@ -141,7 +159,9 @@ def read_counts():
             "pool_norms": getnorm.pool_launches,
             "spamm_mm": spamm_mm.dense_launches,
             "tile_norms_quant": getnorm.quant_launches,
-            "spamm_mm_worklist_int8": spamm_mm.int8_launches}
+            "spamm_mm_worklist_int8": spamm_mm.int8_launches,
+            "tile_norms_mxu": getnorm.mxu_launches,
+            "tile_norms_quant_mxu": getnorm.quant_mxu_launches}
 
 
 def host_ms(fn):
@@ -329,6 +349,76 @@ def check_tile_norms_quant(x, label):
     return res
 
 
+def check_tile_norms_mxu(x, label):
+    """The tensor-core get-norm pair (use_mxu=True, paper Eq. 3-4) against
+    their plain versions within NORM_RTOL (scales bit for bit), and fused ≡
+    unfused bit for bit under use_mxu=True. Yardsticks: `vector_norm` for
+    the tile norms, the unfused torch composition for the fused pair.
+    Returns the two kernel_check results."""
+    import torch
+
+    from repro_torch.kernels import getnorm
+    from repro_torch.kernels import quantize as Q
+
+    t = TILE
+    m, k = x.shape
+    gm, gk = m // t, k // t
+    x4 = x.view(gm, t, gk, t)
+    got = getnorm.tile_norms_cuda(x, t, use_mxu=True)
+    want = getnorm.tile_norms_plain(x, t, use_mxu=True)
+    norms, scales = getnorm.tile_norms_quant_cuda(x, t, use_mxu=True)
+    q, s = Q.quantize_tiles(x, t)
+    unfused = getnorm.tile_norms_cuda(Q.dequantize_tiles(q, s, t), t,
+                                      use_mxu=True)
+    pn, ps = getnorm.tile_norms_quant_plain(x, t, use_mxu=True)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+    rel_n, rel_q = rel(got, want), rel(norms, pn)
+    same_n, same_s = torch.equal(norms, unfused), torch.equal(scales, s)
+    check(rel_n <= NORM_RTOL and rel_q <= NORM_RTOL and same_n and same_s
+          and torch.equal(scales, ps),
+          f"use_mxu get-norm {label}: rel err {rel_n} / {rel_q}, fused ≡ "
+          f"unfused {same_n}, scales {same_s}")
+
+    def unfused_torch():
+        dq = Q.dequantize_tiles(*Q.quantize_tiles(x, t), t)
+        return torch.linalg.vector_norm(dq.view(gm, t, gk, t), dim=(1, 3))
+
+    bms, by = bound_ms(m * k * 4 + gm * gk * 4, 2 * m * k)
+    res = {"name": "tile_norms_mxu", "shape": label,
+           "max_abs_err": float((got - want).abs().max()),
+           "max_rel_err": rel_n,
+           "ms": time_ms(lambda: getnorm.tile_norms_cuda(x, t, use_mxu=True)),
+           "plain_ms": time_ms(lambda: getnorm.tile_norms_plain(
+               x, t, use_mxu=True), reps=5),
+           "library_ms": time_ms(
+               lambda: torch.linalg.vector_norm(x4, dim=(1, 3))),
+           "library_call": "torch.linalg.vector_norm over the tile dims",
+           "cuda_core_ms": time_ms(lambda: getnorm.tile_norms_cuda(x, t)),
+           "bound_ms": bms, "bound_by": by}
+    emit({"kernel_check": res})
+    bms, by = bound_ms(m * k * 4 + 2 * gm * gk * 4, 9 * m * k)
+    res_q = {"name": "tile_norms_quant_mxu", "shape": label,
+             "max_abs_err": float((norms - pn).abs().max()),
+             "max_rel_err": rel_q, "norms_bit_identical_to_unfused": same_n,
+             "scales_bit_identical": same_s,
+             "ms": time_ms(lambda: getnorm.tile_norms_quant_cuda(
+                 x, t, use_mxu=True)),
+             "plain_ms": time_ms(lambda: getnorm.tile_norms_quant_plain(
+                 x, t, use_mxu=True), reps=5),
+             "library_ms": time_ms(unfused_torch),
+             "library_call": "unfused torch composition: quantize_tiles, "
+                             "dequantize_tiles, vector_norm",
+             "cuda_core_ms": time_ms(lambda: getnorm.tile_norms_quant_cuda(
+                 x, t)),
+             "bound_ms": bms, "bound_by": by}
+    emit({"kernel_check": res_q})
+    return res, res_q
+
+
 def lowp_median_tau(x, w, dtype):
     """A τ whose widened gate sits at the median of the norm products of
     the quantized operands, so that a `dtype` plan keeps about half of its
@@ -509,6 +599,10 @@ def phase_kernels():
     lowp = {"quant": check_tile_norms_quant(
         x, f"activation {BATCH * PROMPT_LEN}x{d}")}
     check_tile_norms_quant(w1, f"w1 {d}x{ff}")
+    # the tensor-core get-norm pair at the same two shapes; the store path
+    # runs it on the weights, so the w1 results go into the kernels line
+    check_tile_norms_mxu(x, f"activation {BATCH * PROMPT_LEN}x{d}")
+    lowp["mxu"] = check_tile_norms_mxu(w1, f"w1 {d}x{ff}")
     xd = decode_rows(d, gen)
     for block_n in (1, 2):
         res = check_int8_frozen(x, w1, f"frozen w1 {x.shape[0]}x{d}x{ff}",
@@ -791,8 +885,8 @@ def phase_serve():
               f"τ>0 {phase} {vf} not strictly inside (0, 1)")
     check(counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0,
           f"τ>0 launches {counts}")
-    abs_err, rel = errors(prefill_logits(cfg, pcfg, params, prompts, eng),
-                          dense_logits)
+    logits_c = prefill_logits(cfg, pcfg, params, prompts, eng)
+    abs_err, rel = errors(logits_c, dense_logits)
     emit({"float32_vs_dense": {"prefill_logits_max_abs_err": abs_err,
                                "prefill_logits_max_rel_err": rel,
                                "token_agreement": float(
@@ -834,7 +928,150 @@ def phase_serve():
           and lowp["bfloat16"]["spamm_mm_worklist_bf16"] > 0
           and lowp["bfloat16"]["tile_norms"] > 0,
           f"low-precision serving launches {lowp}")
-    return counts, lowp
+    store = phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c)
+    return counts, lowp, store
+
+
+def compare_artifacts(base, other):
+    """Largest relative difference of the finest normmaps of two freezes
+    of the same weights, the count of normmap entries that differ at all,
+    and of weight-admissible (k, j) pairs in one artifact but not the
+    other."""
+    import numpy as np
+
+    rel, entries, pairs = 0.0, 0, 0
+    for a, b in zip(_leaves(base), _leaves(other)):
+        na, nb = a.levels[0], b.levels[0]
+        rel = max(rel, float(((na - nb).abs()
+                              / na.abs().clamp(min=1e-30)).max()))
+        entries += int((na != nb).sum())
+        gk = a.grid[0]
+        ka = set((a.kj_j.astype(np.int64) * gk + a.kj_k).tolist())
+        kb = set((b.kj_j.astype(np.int64) * gk + b.kj_k).tolist())
+        pairs += len(ka ^ kb)
+    return rel, entries, pairs
+
+
+def phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c):
+    """The offline plan-store path at full width and depth, at run (c)'s
+    τ: (1) freeze every gated weight into a fresh store (the cold pass of
+    `populate`: one get-norm launch per weight, every lookup a miss); (2)
+    a fresh `Engine(plan_store=…)` serves the wave warm-started from it:
+    store hits only, no get-norm launch while it freezes, and run (c)'s
+    tokens and prefill logits bit for bit; a second wave reports 0/0
+    store traffic; (3) the same walk with the tensor-core get-norm
+    (use_mxu=True) at f32 and at int8, new keys beside the CUDA-core
+    artifacts, with one launch of the new kernels per weight. Every count
+    is set to 0 just before the walks and the wave and read just after.
+    Returns the launches of the path."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.plans.precompute import freeze_tree, iter_gated_weights
+    from repro_torch.plans.store import PlanStore
+    from repro_torch.serving.engine import Engine, Request
+
+    n_weights = sum(1 for _ in iter_gated_weights(params))
+    os.makedirs(STORE_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke-", dir=STORE_DIR)
+    sc8 = dataclasses.replace(sct, dtype="int8")
+    try:
+        store = PlanStore(root)
+        reset_counts()
+        fw32, cold_s = host_ms(lambda: freeze_tree(params, sct,
+                                                   store=store)[0])
+        cold_counts = read_counts()
+        disk = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(root) for f in fs)
+        emit({"store_cold": {"weights": n_weights, "layers": cfg.num_layers,
+                             "depth_cut": None, "freeze_s": cold_s / 1e3,
+                             "artifacts": len(store), "bytes_on_disk": disk,
+                             "hits": store.hits, "misses": store.misses,
+                             "launches": cold_counts}})
+        check(store.misses == n_weights == len(store) == 6 * cfg.num_layers
+              and store.hits == 0
+              and cold_counts["tile_norms"] == n_weights,
+              f"cold store pass: {len(store)} artifacts, {store.hits}h/"
+              f"{store.misses}m, launches {cold_counts}")
+
+        eng = Engine(cfg, pcfg, params, max_len=MAX_LEN, spamm_cfg=sct,
+                     plan_store=root)
+        freeze = {"ms": 0.0, "calls": 0, "launches": dict.fromkeys(
+            read_counts(), 0)}
+        ensure = eng._ensure_fw_tree
+
+        def timed_freeze():   # the engine calls it once per new row grid
+            c0 = read_counts()
+            freeze["ms"] += host_ms(ensure)[1]
+            freeze["calls"] += 1
+            for k, v in read_counts().items():
+                freeze["launches"][k] += v - c0[k]
+
+        eng._ensure_fw_tree = timed_freeze
+        reset_counts()
+        reqs = [Request(prompt=p, max_new_tokens=MAX_NEW) for p in prompts]
+        toks = np.stack(eng.generate(reqs))
+        warm_counts = read_counts()
+        sp = reqs[0].out["spamm"]
+        logits = prefill_logits(cfg, pcfg, params, prompts, eng)
+        reqs2 = [Request(prompt=p, max_new_tokens=MAX_NEW) for p in prompts]
+        eng.generate(reqs2)
+        sp2 = reqs2[0].out["spamm"]
+        same_toks = bool((toks == toks_c).all())
+        same_logits = torch.equal(logits, logits_c)
+        getnorms = sum(v for k, v in freeze["launches"].items()
+                       if k.startswith("tile_norms"))
+        emit({"store_warm": {
+            "freeze_s": freeze["ms"] / 1e3, "freeze_calls": freeze["calls"],
+            "plan_store_hits": sp["plan_store_hits"],
+            "plan_store_misses": sp["plan_store_misses"],
+            "weight_getnorm_launches_in_freeze": getnorms,
+            "tokens_equal_cold": same_toks,
+            "prefill_logits_bit_identical_to_cold": same_logits,
+            "second_wave_hits": sp2["plan_store_hits"],
+            "second_wave_misses": sp2["plan_store_misses"],
+            "launches": warm_counts}})
+        check(sp["plan_store_hits"] == n_weights
+              and sp["plan_store_misses"] == 0 and getnorms == 0
+              and same_toks and same_logits
+              and (sp2["plan_store_hits"], sp2["plan_store_misses"]) == (0, 0),
+              "warm start from the plan store: see the store_warm line")
+        del eng
+        torch.cuda.empty_cache()
+
+        keys0 = set(store.keys())
+        reset_counts()
+        fw32m, mxu32_s = host_ms(lambda: freeze_tree(params, sct, store=store,
+                                                     use_mxu=True)[0])
+        fw8m, mxu8_s = host_ms(lambda: freeze_tree(params, sc8, store=store,
+                                                   use_mxu=True)[0])
+        mxu_counts = read_counts()
+        new_keys = set(store.keys()) - keys0
+        # the CUDA-core int8 artifacts the int8 ones are compared with
+        fw8, _ = host_ms(lambda: freeze_tree(params, sc8, store=store)[0])
+        res = {"freeze_s": {"float32": mxu32_s / 1e3, "int8": mxu8_s / 1e3},
+               "new_artifacts": len(new_keys), "launches": mxu_counts}
+        for dtype, base, other in (("float32", fw32, fw32m),
+                                   ("int8", fw8, fw8m)):
+            rel, entries, pairs = compare_artifacts(base, other)
+            res[dtype] = {"max_rel_normmap_diff_vs_use_mxu_false": rel,
+                          "normmap_entries_differing": entries,
+                          "kj_pairs_differing": pairs}
+        emit({"store_mxu": res})
+        check(mxu_counts["tile_norms_mxu"] == n_weights
+              and mxu_counts["tile_norms_quant_mxu"] == n_weights
+              and len(new_keys) == 2 * n_weights
+              and all(res[d]["max_rel_normmap_diff_vs_use_mxu_false"]
+                      <= NORM_RTOL for d in ("float32", "int8")),
+              f"use_mxu store pass: {res}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"weights": n_weights, "cold": cold_counts, "warm": warm_counts,
+            "mxu": mxu_counts}
 
 # ---------------------------------------------------------------------------
 # library path
@@ -894,7 +1131,8 @@ def library_main_path(a, b, moe, eager):
     between: (a) spamm(valid_ratio) and plan(valid_ratio, levels) + execute
     at both ratios, (b) spamm_bmm per-slice on both expert GEMMs and
     shared-weight once, (d) the eager gated GEMM at levels 2 and 0, (e)
-    spamm(valid_ratio=0.30) with int8 and with bf16 GEMMs. Returns the
+    spamm(valid_ratio=0.30) with int8 and with bf16 GEMMs, (f)
+    spamm(valid_ratio=0.30) with the tensor-core get-norm. Returns the
     outputs and the launches of (d)."""
     from repro_torch.configs import SpammConfig
     from repro_torch.core import module as mod
@@ -929,6 +1167,9 @@ def library_main_path(a, b, moe, eager):
                                               tile=TILE,
                                               compute_dtype=dtype))
         out["lowp"][dtype] = {"c": c, "info": info, "spamm_host_ms": ms}
+    (c, info), ms = host_ms(lambda: spamm(a, b, valid_ratio=LIB_RATIOS[0],
+                                          tile=TILE, use_mxu_norm=True))
+    out["mxu"] = {"c": c, "info": info, "spamm_host_ms": ms}
     return out
 
 
@@ -1027,6 +1268,24 @@ def check_lowp_library(a, b, runs):
         check(abs(vf - r) <= RATIO_TOL and finite and p.tau == info.tau,
               f"{dtype} spamm at ratio {r}: achieved {vf}, finite {finite}")
         del p
+
+
+def check_mxu_library(info_f32, run):
+    """(f): spamm(valid_ratio=0.30, use_mxu_norm=True) reaches its ratio
+    within the search's tolerance; its τ beside the CUDA-core run's."""
+    import torch
+
+    info = run["info"]
+    vf = float(info.valid_fraction)
+    finite = bool(torch.isfinite(run["c"]).all())
+    emit({"library_mxu": {
+        "n": LIB_N, "tile": TILE, "valid_ratio": LIB_RATIOS[0],
+        "tau": info.tau, "achieved_ratio": vf,
+        "tau_use_mxu_false": info_f32.tau,
+        "achieved_ratio_use_mxu_false": float(info_f32.valid_fraction),
+        "spamm_host_ms": run["spamm_host_ms"], "finite": finite}})
+    check(abs(vf - LIB_RATIOS[0]) <= RATIO_TOL and finite,
+          f"spamm(use_mxu_norm=True) at ratio {LIB_RATIOS[0]}: achieved {vf}")
 
 
 def check_dense_grid(name, x, w, tau, c, info):
@@ -1174,8 +1433,12 @@ def phase_library():
                            "launches": counts,
                            "eager_pool_launches":
                                out["eager"]["pool_launches"]}})
-    check(all(v > 0 for v in counts.values()), f"library launches {counts}")
+    # the fused int8 get-norm's tensor-core variant runs on the store path
+    check(all(v > 0 for k, v in counts.items()
+              if k != "tile_norms_quant_mxu"), f"library launches {counts}")
 
+    check_mxu_library(out["paper"][LIB_RATIOS[0]]["info"], out["mxu"])
+    del out["mxu"]
     norm_a = check_paper(a, b, out["paper"])
     del out["paper"]
     check_lowp_library(a, b, out["lowp"])
@@ -1254,7 +1517,7 @@ def main():
     t0 = time.perf_counter()
     norms_act, mm_w1, lowp = phase_kernels()
     seconds["kernels"] = time.perf_counter() - t0
-    counts, lowp_counts = phase_serve()
+    counts, lowp_counts, store_counts = phase_serve()
     seconds["serve"] = time.perf_counter() - t0 - seconds["kernels"]
     lib_counts, pool, dense = phase_library()
     seconds["library"] = time.perf_counter() - t0 - sum(seconds.values())
@@ -1266,6 +1529,8 @@ def main():
     int8_path = "serve: starcoder2-7b wave, run (d) int8"
     bf16_path = "serve: starcoder2-7b wave, run (e) bf16"
     lib_path = "library: (a) paper ensemble, (b) moe spamm_bmm, (d) eager"
+    store_path = (f"store: freeze {ARCH}'s {store_counts['weights']} gated "
+                  f"weights into a plan store, use_mxu=True at f32 and int8")
     kernels = [
         {"name": "tile_norms", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
@@ -1304,6 +1569,22 @@ def main():
          "launches": lowp_counts["int8"]["spamm_mm_worklist_int8"],
          "path": int8_path, "library_call": lowp["int8"]["library_call"],
          **{k: lowp["int8"][k] for k in keys}},
+        {"name": "tile_norms_mxu", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/getnorm.cu",
+         "replaces": "src/repro/kernels/getnorm.py:147",
+         "variant": "use_mxu=True (_tile_sumsq :36-46)",
+         "launches": store_counts["mxu"]["tile_norms_mxu"],
+         "path": store_path,
+         "library_path_launches": lib_counts["tile_norms_mxu"],
+         "library_call": lowp["mxu"][0]["library_call"],
+         **{k: lowp["mxu"][0][k] for k in keys}},
+        {"name": "tile_norms_quant_mxu", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/getnorm.cu",
+         "replaces": "src/repro/kernels/getnorm.py:180",
+         "variant": "use_mxu=True (_tile_sumsq :36-46)",
+         "launches": store_counts["mxu"]["tile_norms_quant_mxu"],
+         "path": store_path, "library_call": lowp["mxu"][1]["library_call"],
+         **{k: lowp["mxu"][1][k] for k in keys}},
     ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

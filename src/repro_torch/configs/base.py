@@ -35,6 +35,12 @@ class SpammConfig:
                                         # bfloat16 | int8 (f32 accumulate;
                                         # the gate stays a superset of the
                                         # f32 gate through the widened τ)
+    autotune: bool = False              # roofline-autotune block_n/levels/
+                                        # bucket per weight at freeze time;
+                                        # the tuner is not ported (ROADMAP
+                                        # queue A item 8): freezing raises
+    tune_profile: Optional[str] = None  # calibrated cost-profile JSON for
+                                        # the autotuner (not ported)
 
     @property
     def coarse_tile(self) -> int:

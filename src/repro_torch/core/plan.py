@@ -15,7 +15,9 @@ implementation of the gating phase:
   hier_gate_mask                   — coarse-to-fine bitmap (≡ gate_mask)
   compact_from_triples             — work-list + step tables from triples
   kidx_from_work                   — dense kidx from a work-list
-  WeightPlanCache                  — weight-side artifacts per weight
+  WeightPlanCache                  — weight-side artifacts per weight, and
+                                     the memory tier of frozen artifacts
+                                     above a PlanStore
   spamm_bmm(x, w, tau)             — batched SpAMM: a shared weight folds the
                                      batch into rows (work-list kernel);
                                      per-slice weights run the batched mask
@@ -722,14 +724,21 @@ class WeightPlanCache:
     mutable, jax arrays are not), so an updated weight misses instead of
     serving stale norms. LRU-bounded; `hits`/`misses` count lookups.
 
-    The reference's frozen tier (`frozen_weight`, backed by a `PlanStore`)
-    waits for the plan store (ROADMAP queue A item 5)."""
+    Frozen tier: `frozen_weight` memoizes `plans.frozen.FrozenWeight`
+    artifacts by content fingerprint, falling through to the attached
+    `PlanStore` (`self.store`) and only then to a fresh build, so a warm
+    store makes an engine's start a pure load (no get-norm pass);
+    `frozen_hits`/`frozen_misses` count its lookups."""
 
-    def __init__(self, maxsize: int = 256):
+    def __init__(self, maxsize: int = 256, store=None):
         self._entries: collections.OrderedDict = collections.OrderedDict()
         self.maxsize = maxsize
         self.hits = 0
         self.misses = 0
+        self.store = store           # optional plans.store.PlanStore
+        self._frozen: dict = {}
+        self.frozen_hits = 0
+        self.frozen_misses = 0
 
     def weight_side(self, w: torch.Tensor, *, tile: int, backend: str,
                     use_mxu: bool = False, levels: int = 0,
@@ -792,9 +801,54 @@ class WeightPlanCache:
                  compute_dtype=compute_dtype)
         return p, wp
 
+    def frozen_weight(self, w: torch.Tensor, *, tau, tile: int = 64,
+                      block_n: int = 1, levels: int = 0,
+                      backend: str = "auto", use_mxu: bool = False,
+                      store=None, dtype: str = "float32", tuned=None,
+                      weight_hash: Optional[str] = None):
+        """FrozenWeight for `w` at the given gating config, through the
+        memory → store → build tiers. Keyed on the weight's CONTENT
+        fingerprint (pass `weight_hash` when the caller has already hashed
+        it), the config with the backend resolved by the weight's device,
+        and the device the artifact lies on. `tuned` rides a built artifact
+        as provenance and bucket floor (re-attached to a store hit without
+        one); it is no key field."""
+        from repro_torch.plans import frozen as _frozen  # imports this module
+        from repro_torch.plans import store as _pstore
+
+        store = store if store is not None else self.store
+        h = weight_hash or _pstore.fingerprint(w)
+        resolved = kops.resolve_backend(backend, w.device)
+        dtype = kquant.canonical_dtype(dtype)
+        key = (h, _f32(tau), tile, block_n, levels, resolved, use_mxu, dtype,
+               str(w.device))
+        hit = self._frozen.get(key)
+        if hit is not None:
+            self.frozen_hits += 1
+            return hit
+        self.frozen_misses += 1
+        fw = None
+        if store is not None:
+            fw = store.get(h, tau=tau, tile=tile, block_n=block_n,
+                           levels=levels, backend=resolved, use_mxu=use_mxu,
+                           dtype=dtype, device=w.device)
+            if fw is not None and fw.tuned is None and tuned is not None:
+                fw.tuned = tuned
+        if fw is None:
+            fw = _frozen.FrozenWeight.build(
+                w, tau, tile=tile, block_n=block_n, levels=levels,
+                backend=resolved, use_mxu=use_mxu, weight_hash=h,
+                compute_dtype=dtype, tuned=tuned)
+            if store is not None:
+                store.put(fw)
+        self._frozen[key] = fw
+        return fw
+
     def clear(self):
         self._entries.clear()
         self.hits = self.misses = 0
+        self._frozen.clear()
+        self.frozen_hits = self.frozen_misses = 0
 
     def __len__(self):
         return len(self._entries)

@@ -17,8 +17,7 @@
 // warp reads two contiguous row segments), square and sum in f32 registers,
 // then a warp-shuffle tree and a 8-entry shared-memory stage reduce the 256
 // partial sums; thread 0 writes sqrt of the total. Nothing is kept between
-// tiles, so there is no cross-block reduction. The TPU kernel's MXU variant
-// (sums via dots against ones, use_mxu=True) has no counterpart here yet.
+// tiles, so there is no cross-block reduction.
 //
 // tile_norms_quant replaces the Pallas TPU kernel
 // src/repro/kernels/getnorm.py::tile_norms_quant (body
@@ -94,9 +93,10 @@ __device__ __forceinline__ float block_sum(float s) {
   return s;
 }
 
-// Block-wide max, returned to every thread.
+// Block-wide max over NT threads, returned to every thread.
+template <int NT>
 __device__ __forceinline__ float block_max(float m) {
-  __shared__ float warp_max[kThreads / 32];
+  __shared__ float warp_max[NT / 32];
   __shared__ float total;
   for (int off = 16; off > 0; off >>= 1) {
     m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, off));
@@ -107,11 +107,18 @@ __device__ __forceinline__ float block_max(float m) {
   __syncthreads();
   if (threadIdx.x == 0) {
     float t = warp_max[0];
-    for (int w = 1; w < kThreads / 32; ++w) t = fmaxf(t, warp_max[w]);
+    for (int w = 1; w < NT / 32; ++w) t = fmaxf(t, warp_max[w]);
     total = t;
   }
   __syncthreads();
   return total;
+}
+
+// The int8 view of v under `scale`, dequantized: q = clip(rint(v / scale),
+// ±127), then q·scale, with the quantizer's roundings and no contraction.
+__device__ __forceinline__ float dequantized(float v, float scale) {
+  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f);
+  return __fmul_rn(q, scale);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -142,17 +149,191 @@ tile_norms_quant_f32_kernel(const float* __restrict__ x,
                       static_cast<size_t>(tj) * tile;
   float m = 0.f;
   tile_walk(base, k, tile, vec, [&](float v) { m = fmaxf(m, fabsf(v)); });
-  const float scale = __fmul_rn(fmaxf(block_max(m), kTiny), kInv127);
+  const float scale =
+      __fmul_rn(fmaxf(block_max<kThreads>(m), kTiny), kInv127);
   float s = 0.f;
   tile_walk(base, k, tile, vec, [&](float v) {
-    const float q =
-        fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f);
-    const float dq = __fmul_rn(q, scale);
+    const float dq = dequantized(v, scale);
     s = fmaf(dq, dq, s);
   });
   s = block_sum(s);
   if (threadIdx.x == 0) {
     const size_t o = static_cast<size_t>(ti) * gk + tj;
+    norms[o] = sqrtf(s);
+    scales[o] = scale;
+  }
+}
+
+// tile_norms(use_mxu=True) and tile_norms_quant(use_mxu=True) replace the
+// MXU branch of the Pallas body _tile_sumsq (src/repro/kernels/getnorm.py,
+// use_mxu=True, under _getnorm_kernel and _getnorm_quant_kernel): the
+// paper's tensor-core reduction, Eq. 3-4. The tile's sum of squares is taken
+// as two products against ones: Eq. 3, the row sums D = SQ·1, then Eq. 4,
+// their total 1ᵀ·D.
+//
+// What bounds it on an H100: bytes, as the CUDA-core variant (M·K·4 B read
+// once). Design: one 128-thread block (4 warps) per tile, the grid (K/t,
+// M/t), t % 16 == 0. Warp w owns the 16-row strips w, w+4, ... of the tile;
+// lane (g = lane/4, q = lane%4) loads 16-byte vectors of rows g and g+8 of
+// the strip (a quad of lanes covers 64 contiguous bytes of a row) and feeds
+// the squares as the A operand of mma.sync.m16n8k8 TF32 against a B of ones,
+// accumulating the strip's 16 row sums in f32 (Eq. 3). The row sums go to
+// shared memory; warp 0 then issues ones(16×8)·rows(8×8 chunk) over the
+// t/8 chunks (Eq. 4) and thread 0 writes sqrt of the total.
+//
+// f32 accuracy from TF32 inputs: each square (and each row sum) is split as
+// hi = rna_tf32(v), lo = rna_tf32(v − hi) — v − hi is exact in f32 — and both
+// halves are multiplied by the ones, so each element enters the sum with a
+// relative error of about 2⁻²² (the ones are exact in TF32, so the third
+// term of a 3×TF32 product vanishes). The square and the difference are
+// __fmul_rn/__fsub_rn (never contracted into an FMA). Both kernels sum
+// through ONE device function (mxu_tile_sumsq: the same element-to-lane
+// assignment, the same mma sequence), so on the card the fused norms are
+// bit-identical to the plain kernel run on the dequantized matrix.
+constexpr int kMxuThreads = 128;
+constexpr int kMxuWarps = kMxuThreads / 32;
+constexpr uint32_t kOneTf32 = 0x3f800000u;  // 1.0f, exact in TF32
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += A·B for one m16n8k8 TF32 product with f32 accumulation: a0..a3 are
+// this lane's A fragment (rows g, g+8 of columns q, q+4), b0/b1 its B
+// fragment (rows q, q+4 of column g).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Eq. 3 step: d += SQ·1 for the four f32 squares of this lane's A fragment,
+// as hi·1 + lo·1.
+__device__ __forceinline__ void rowsum_step(float (&d)[4], float s0, float s1,
+                                            float s2, float s3) {
+  const uint32_t h0 = tf32_rna(s0), h1 = tf32_rna(s1);
+  const uint32_t h2 = tf32_rna(s2), h3 = tf32_rna(s3);
+  mma_tf32(d, h0, h1, h2, h3, kOneTf32, kOneTf32);
+  mma_tf32(d, tf32_rna(__fsub_rn(s0, __uint_as_float(h0))),
+           tf32_rna(__fsub_rn(s1, __uint_as_float(h1))),
+           tf32_rna(__fsub_rn(s2, __uint_as_float(h2))),
+           tf32_rna(__fsub_rn(s3, __uint_as_float(h3))), kOneTf32, kOneTf32);
+}
+
+__device__ __forceinline__ float4 load4(const float* __restrict__ base, int k,
+                                        int r, int c, int vec) {
+  const float* p = base + static_cast<size_t>(r) * k + c;
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+// Calls op(u, v) for every 4-column group this lane owns: u from row 16s+g,
+// v from row 16s+g+8 of each strip s of warp w, at columns c+4q..c+4q+3 of
+// each 16-column segment c. `strip_done(s)` runs after each strip.
+template <class Op, class Done>
+__device__ __forceinline__ void strip_walk(const float* __restrict__ base,
+                                           int k, int tile, int vec, Op op,
+                                           Done strip_done) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  for (int s = warp; s < tile / 16; s += kMxuWarps) {
+    for (int c = 0; c < tile; c += 16) {
+      op(load4(base, k, 16 * s + g, c + 4 * q, vec),
+         load4(base, k, 16 * s + g + 8, c + 4 * q, vec));
+    }
+    strip_done(s);
+  }
+}
+
+// Sum of squares of f(v) over the (tile × tile) tile at `base` on the tensor
+// cores (Eq. 3-4); `rows` is `tile` floats of shared memory. Every thread
+// of the block calls it; the total is valid in thread 0.
+template <class F>
+__device__ __forceinline__ float mxu_tile_sumsq(const float* __restrict__ base,
+                                                int k, int tile, int vec, F f,
+                                                float* rows) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  auto sq = [&](float v) {
+    const float x = f(v);
+    return __fmul_rn(x, x);
+  };
+  strip_walk(
+      base, k, tile, vec,
+      [&](float4 u, float4 v) {
+        rowsum_step(d, sq(u.x), sq(v.x), sq(u.y), sq(v.y));
+        rowsum_step(d, sq(u.z), sq(v.z), sq(u.w), sq(v.w));
+      },
+      [&](int s) {
+        // every column of D holds the row sum: D[g][2q] and D[g+8][2q]
+        if (q == 0) {
+          rows[16 * s + g] = d[0];
+          rows[16 * s + g + 8] = d[2];
+        }
+        d[0] = d[1] = d[2] = d[3] = 0.f;
+      });
+  __syncthreads();
+  if (threadIdx.x >= 32) return 0.f;
+  // Eq. 4: D = ones(16×8) · R, R's column g = the chunk rows[c..c+7]
+  for (int c = 0; c < tile; c += 8) {
+    const float r0 = rows[c + q], r1 = rows[c + q + 4];
+    const uint32_t h0 = tf32_rna(r0), h1 = tf32_rna(r1);
+    mma_tf32(d, kOneTf32, kOneTf32, kOneTf32, kOneTf32, h0, h1);
+    mma_tf32(d, kOneTf32, kOneTf32, kOneTf32, kOneTf32,
+             tf32_rna(__fsub_rn(r0, __uint_as_float(h0))),
+             tf32_rna(__fsub_rn(r1, __uint_as_float(h1))));
+  }
+  return d[0];
+}
+
+__global__ void __launch_bounds__(kMxuThreads)
+tile_norms_mxu_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
+                          int k, int tile, int vec) {
+  extern __shared__ float rows[];
+  const int tj = blockIdx.x;
+  const int ti = blockIdx.y;
+  const float* base = x + static_cast<size_t>(ti) * tile * k +
+                      static_cast<size_t>(tj) * tile;
+  const float s =
+      mxu_tile_sumsq(base, k, tile, vec, [](float v) { return v; }, rows);
+  if (threadIdx.x == 0) {
+    out[static_cast<size_t>(ti) * gridDim.x + tj] = sqrtf(s);
+  }
+}
+
+__global__ void __launch_bounds__(kMxuThreads)
+tile_norms_quant_mxu_f32_kernel(const float* __restrict__ x,
+                                float* __restrict__ norms,
+                                float* __restrict__ scales, int k, int tile,
+                                int vec) {
+  extern __shared__ float rows[];
+  const int tj = blockIdx.x;
+  const int ti = blockIdx.y;
+  const float* base = x + static_cast<size_t>(ti) * tile * k +
+                      static_cast<size_t>(tj) * tile;
+  float m = 0.f;
+  auto amax = [&](float4 u) {
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(u.x), fabsf(u.y)),
+                       fmaxf(fabsf(u.z), fabsf(u.w))));
+  };
+  strip_walk(
+      base, k, tile, vec, [&](float4 u, float4 v) { amax(u); amax(v); },
+      [](int) {});
+  const float scale =
+      __fmul_rn(fmaxf(block_max<kMxuThreads>(m), kTiny), kInv127);
+  const float s = mxu_tile_sumsq(
+      base, k, tile, vec, [&](float v) { return dequantized(v, scale); },
+      rows);
+  if (threadIdx.x == 0) {
+    const size_t o = static_cast<size_t>(ti) * gridDim.x + tj;
     norms[o] = sqrtf(s);
     scales[o] = scale;
   }
@@ -242,5 +423,30 @@ extern "C" int spamm_pool_norms_f32(const float* x, float* out, int slices,
   pool_norms_f32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       x, out, gm, gk, gmc, gkc, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (m, k) row-major float32, m % tile == 0 == k % tile, tile % 16 == 0;
+// out: (m/tile, k/tile) float32 — the tensor-core (Eq. 3-4) tile norms.
+// Launches on `stream` and returns cudaGetLastError().
+extern "C" int spamm_tile_norms_mxu_f32(const float* x, float* out, int m,
+                                        int k, int tile, void* stream) {
+  const dim3 grid(k / tile, m / tile);
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  tile_norms_mxu_f32_kernel<<<grid, kMxuThreads, tile * sizeof(float),
+                              static_cast<cudaStream_t>(stream)>>>(x, out, k,
+                                                                   tile, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As spamm_tile_norms_quant_f32, with the tensor-core sum; tile % 16 == 0.
+extern "C" int spamm_tile_norms_quant_mxu_f32(const float* x, float* norms,
+                                              float* scales, int m, int k,
+                                              int tile, void* stream) {
+  const dim3 grid(k / tile, m / tile);
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  tile_norms_quant_mxu_f32_kernel<<<grid, kMxuThreads, tile * sizeof(float),
+                                    static_cast<cudaStream_t>(stream)>>>(
+      x, norms, scales, k, tile, vec);
   return static_cast<int>(cudaGetLastError());
 }

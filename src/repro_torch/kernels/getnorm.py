@@ -25,8 +25,15 @@ matrix) and `tile_norms_quant`. The pooling has the same three:
 `Backend.pyramid_norms` in `kernels/ops.py`, so that it composes the entry
 points of one backend.
 
+`use_mxu=True` selects the reference's tensor-core reduction (paper Eq.
+3–4: the tile's sum of squares as products against ones): in the plain
+versions as two matmuls against a ones vector, on the card as the
+`mma.sync` TF32 kernels of `csrc/getnorm.cu` (tile % 16 == 0), whose f32
+accuracy comes from splitting each square into two TF32 terms.
+
 Each kernel has its own launch count, incremented only where the kernel is
 launched (`launches` for tile_norms, `quant_launches` for tile_norms_quant,
+`mxu_launches`/`quant_mxu_launches` for their tensor-core variants,
 `pool_launches` for pool_norms), so a run can show that its main path went
 through each kernel.
 """
@@ -42,6 +49,8 @@ from repro_torch.kernels import quantize as _quant
 
 launches = 0
 quant_launches = 0
+mxu_launches = 0
+quant_mxu_launches = 0
 pool_launches = 0
 
 _LIB = None
@@ -51,14 +60,17 @@ def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load("getnorm.cu")
-        fn = lib.spamm_tile_norms_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = lib.spamm_tile_norms_quant_f32
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for name in ("spamm_tile_norms_f32", "spamm_tile_norms_mxu_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for name in ("spamm_tile_norms_quant_f32",
+                     "spamm_tile_norms_quant_mxu_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+                + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         fn = lib.spamm_pool_norms_f32
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 \
             + [ctypes.c_void_p]
@@ -96,11 +108,8 @@ def tile_norms_plain(x: torch.Tensor, tile: int = 64, *,
 
 def _check_cuda_input(x: torch.Tensor, tile: int, use_mxu: bool, name: str):
     """Shape and type checks of the CUDA get-norm kernels; returns the
-    tile grid (gm, gk)."""
-    if use_mxu:
-        raise NotImplementedError(
-            "use_mxu=True (tensor-core get-norm, paper Eq. 3-4) has no CUDA "
-            "kernel yet: ROADMAP queue B, tensor-core tile_norms variant")
+    tile grid (gm, gk). The tensor-core variant (use_mxu) takes tiles of a
+    multiple of 16 rows and columns (the mma.sync m16n8k8 shape)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.float32:
@@ -108,6 +117,9 @@ def _check_cuda_input(x: torch.Tensor, tile: int, use_mxu: bool, name: str):
     if not x.is_contiguous():
         raise ValueError(f"{name} needs a contiguous tensor")
     gm, gk = _grid(x, tile)
+    if use_mxu and tile % 16:
+        raise ValueError(f"{name}(use_mxu=True) needs a tile that is a "
+                         f"multiple of 16, got {tile}")
     if gm > 65535:
         raise ValueError(f"{gm} row tiles exceed the kernel's grid.y limit")
     return gm, gk
@@ -115,22 +127,27 @@ def _check_cuda_input(x: torch.Tensor, tile: int, use_mxu: bool, name: str):
 
 def tile_norms_cuda(x: torch.Tensor, tile: int = 64, *,
                     use_mxu: bool = False) -> torch.Tensor:
-    """(M//tile, K//tile) f32 tile norms from the CUDA get-norm kernel.
+    """(M//tile, K//tile) f32 tile norms from the CUDA get-norm kernel
+    (use_mxu=True: the tensor-core kernel, tile % 16 == 0).
 
     Takes a contiguous 2-D float32 CUDA tensor; raises on anything else."""
-    global launches
+    global launches, mxu_launches
     gm, gk = _check_cuda_input(x, tile, use_mxu, "tile_norms_cuda")
     out = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
     lib = _lib()
+    fn = lib.spamm_tile_norms_mxu_f32 if use_mxu else lib.spamm_tile_norms_f32
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = lib.spamm_tile_norms_f32(x.data_ptr(), out.data_ptr(),
-                                      x.shape[0], x.shape[1], tile, stream)
+        rc = fn(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], tile,
+                stream)
     if rc != 0:
         raise RuntimeError(f"tile_norms kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if use_mxu:
+        mxu_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -158,24 +175,29 @@ def tile_norms_quant_plain(x: torch.Tensor, tile: int = 64, *,
 def tile_norms_quant_cuda(x: torch.Tensor, tile: int = 64, *,
                           use_mxu: bool = False):
     """(norms, scales) from the fused CUDA kernel: one launch takes each
-    tile's absmax scale and the norm of its dequantized int8 view. Takes a
-    contiguous 2-D float32 CUDA tensor; raises on anything else."""
-    global quant_launches
+    tile's absmax scale and the norm of its dequantized int8 view (use_mxu:
+    the tensor-core sum, tile % 16 == 0). Takes a contiguous 2-D float32
+    CUDA tensor; raises on anything else."""
+    global quant_launches, quant_mxu_launches
     gm, gk = _check_cuda_input(x, tile, use_mxu, "tile_norms_quant_cuda")
     norms = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
     scales = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
     if norms.numel() == 0:
         return norms, scales
     lib = _lib()
+    fn = (lib.spamm_tile_norms_quant_mxu_f32 if use_mxu
+          else lib.spamm_tile_norms_quant_f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = lib.spamm_tile_norms_quant_f32(x.data_ptr(), norms.data_ptr(),
-                                            scales.data_ptr(), x.shape[0],
-                                            x.shape[1], tile, stream)
+        rc = fn(x.data_ptr(), norms.data_ptr(), scales.data_ptr(),
+                x.shape[0], x.shape[1], tile, stream)
     if rc != 0:
         raise RuntimeError(
             f"tile_norms_quant kernel launch failed: CUDA error {rc}")
-    quant_launches += 1
+    if use_mxu:
+        quant_mxu_launches += 1
+    else:
+        quant_launches += 1
     return norms, scales
 
 

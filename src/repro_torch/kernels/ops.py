@@ -9,6 +9,9 @@ Twin of the registry in `repro.kernels.ops` (`Backend`, `BACKENDS`,
             a CPU tensor. Never a fallback: on a CUDA tensor `auto` launches
             the kernel or raises.
 
+`resolve_backend` names the backend that runs on a given device ("auto"
+resolved per device): the name plan artifacts are recorded and stored under.
+
 A `Backend` bundles the kernel entry points the SpAMM pipeline needs: the
 §3.2 get-norm, its fused int8 variant and its pyramid pooling, the §3.3
 work-list GEMM over a `repro_torch.core.plan.SpammWork` (f32 or bf16
@@ -126,6 +129,17 @@ def get_backend(backend: str) -> Backend:
         return BACKENDS[backend]
     except KeyError:
         raise ValueError(f"backend {backend!r} not in {VALID_BACKENDS}") from None
+
+
+def resolve_backend(backend: str, device) -> str:
+    """The backend that runs on a tensor of `device`: "auto" resolves to
+    "cuda" for a CUDA device and "torch" for the CPU, the way it dispatches
+    per tensor; a registered name stays itself. Plan artifacts record and
+    are addressed by this name, so a CPU-built artifact and a card-built
+    one (norms an ulp apart) never share a store key."""
+    if backend == "auto":
+        return "cuda" if torch.device(device).type == "cuda" else "torch"
+    return get_backend(backend).name
 
 
 def tile_norms(x: torch.Tensor, tile: int = 64, *, backend: str = "auto",

@@ -6,7 +6,9 @@ equal-length requests with greedy generation.
       --spamm-tau 0.5 --spamm-tile 64 [--spamm-dtype int8]
 
 Runs on the card by default; `--device cpu` runs the plain PyTorch versions
-of the kernels (use `--reduced` there).
+of the kernels (use `--reduced` there). `--plan-store DIR` warm-starts the
+frozen plans from a store that `repro_torch.launch.precompute_plans`
+populated with the same arch, seed, device and SpAMM flags.
 """
 from __future__ import annotations
 
@@ -35,11 +37,24 @@ def main(argv=None):
                          "AND decode gate (decode through frozen plans)")
     ap.add_argument("--spamm-tile", type=int, default=32)
     ap.add_argument("--spamm-backend", default="auto", choices=BACKEND_NAMES)
+    ap.add_argument("--spamm-block-n", type=int, default=1,
+                    help="super-column width of the mm kernel; must match "
+                         "the value the plan store was precomputed with, or "
+                         "every lookup misses and plans are rebuilt")
+    ap.add_argument("--spamm-levels", type=int, default=0,
+                    help="norm-pyramid coarsening steps for hierarchical "
+                         "gating (0 = flat); coarse tile = tile · 2^levels")
     ap.add_argument("--spamm-dtype", default="float32",
                     choices=("float32", "bfloat16", "bf16", "int8"),
                     help="GEMM compute dtype of the gated GEMMs (f32 "
                          "accumulate; the gate stays a superset of the f32 "
                          "gate through the widened τ)")
+    ap.add_argument("--plan-store", default=None,
+                    help="on-disk PlanStore directory of precomputed frozen "
+                         "weight plans (populate offline with "
+                         "repro_torch.launch.precompute_plans); the engine "
+                         "warm-starts from it instead of running a planning "
+                         "pass")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -53,10 +68,13 @@ def main(argv=None):
     if args.spamm_tau is not None:
         spamm_cfg = SpammConfig(enable=True, tau=args.spamm_tau,
                                 tile=args.spamm_tile,
+                                block_n=args.spamm_block_n,
+                                levels=args.spamm_levels,
                                 backend=args.spamm_backend,
                                 dtype=args.spamm_dtype)
     eng = Engine(cfg, pcfg, params, max_len=args.max_len,
-                 spamm_cfg=spamm_cfg, device=args.device)
+                 spamm_cfg=spamm_cfg, plan_store=args.plan_store,
+                 device=args.device)
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(prompt=rng.integers(1, cfg.vocab, size=args.prompt_len)
@@ -84,6 +102,9 @@ def main(argv=None):
               f"{f'{gb / 1e6:.3f}MB' if gb is not None else 'n/a'} "
               f"decode_gemm_bytes="
               f"{f'{dgb / 1e6:.3f}MB' if dgb is not None else 'n/a'}")
+        if "plan_store_hits" in sp:
+            print(f"  plan_store: {sp['plan_store_hits']}h/"
+                  f"{sp['plan_store_misses']}m")
     lat = out["latency"]
     line = (f"  latency: ttft={lat['ttft_s'] * 1e3:.1f}ms"
             if lat["ttft_s"] is not None else "  latency: ttft=n/a")

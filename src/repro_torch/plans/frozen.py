@@ -27,6 +27,12 @@ exact flat test per step, so the frozen path is bit-identical to the eager
 `plan()` + `execute()` pipeline (same active steps, same kernel, same
 ascending-k accumulation).
 
+Store addressing: an artifact carries its weight's content fingerprint
+(`weight_hash`), the plan format version and the gating config that made it
+(`config_key()`: τ, tile, block_n, levels, the resolved backend, the
+get-norm variant `use_mxu` and the compute dtype); `plans.store.PlanStore`
+files it under their hash.
+
 Per-layer plans stay a Python list (one FrozenPlan per layer): the port's
 layer loop is a Python loop, so the reference's `stack_plans` (stacking for
 `lax.scan`) has no counterpart. `slice_rows`/`shard_by_offsets` wait for the
@@ -39,10 +45,17 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.cost import bucket
+from repro_torch.core.cost import TunedParams, bucket
 from repro_torch.core.plan import NormPyramid, dtype_norms, pad_to_tile
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quantize as kquant
+
+
+# Bump when the on-disk encoding changes incompatibly: PlanStore refuses
+# artifacts written under another version. The reference's value, so that
+# the two packages' stores share one format (v2: compute-dtype keying, int8
+# b_scale tables, the widened gate τ).
+PLAN_FORMAT_VERSION = 2
 
 
 class FrozenWeight:
@@ -54,13 +67,20 @@ class FrozenWeight:
     device; kj_k/kj_j (W,) int32 numpy — the weight-admissible (k, j) pairs
     sorted by (j, k), read on the host only by `for_rows`; b_scale (gk, gnp)
     f32 per-tile int8 scales of the padded weight, or None. Metadata: tile,
-    block_n, num_levels, backend, use_mxu (which get-norm variant made the
-    norms: part of the reference's store key, so it is kept with the
-    artifact), compute_dtype."""
+    block_n, num_levels, backend (resolved: "cuda" or "torch"), wshape (the
+    true (K, N)), padded ((Kp, Np)), use_mxu (which get-norm variant made
+    the norms), weight_hash (content fingerprint, "" when unknown),
+    version, compute_dtype, and tuned — the reference autotuner's
+    `TunedParams` when the artifact came from it (provenance and the
+    work-list bucket floor; not an addressing field)."""
 
     def __init__(self, tau, levels, nbmax, kj_k, kj_j, b_scale=None, *,
                  tile: int, block_n: int, num_levels: int, backend: str,
-                 use_mxu: bool = False, compute_dtype: str = "float32"):
+                 wshape: Tuple[int, int], padded: Tuple[int, int],
+                 use_mxu: bool = False, weight_hash: str = "",
+                 version: int = PLAN_FORMAT_VERSION,
+                 compute_dtype: str = "float32",
+                 tuned: TunedParams | None = None):
         self.tau = tau
         self.levels = tuple(levels)
         self.nbmax = nbmax
@@ -71,8 +91,13 @@ class FrozenWeight:
         self.block_n = block_n
         self.num_levels = num_levels
         self.backend = backend
+        self.wshape = tuple(wshape)
+        self.padded = tuple(padded)
         self.use_mxu = use_mxu
+        self.weight_hash = weight_hash
+        self.version = version
         self.compute_dtype = compute_dtype
+        self.tuned = tuned
         self._rows_cache: dict = {}
 
     @property
@@ -84,17 +109,40 @@ class FrozenWeight:
     def num_kj(self) -> int:
         return int(self.kj_k.shape[0])
 
+    @property
+    def bucket_floor(self) -> int:
+        """The work-list bucket floor `for_rows` pads to: the tuned value
+        when the artifact carries one, else 16."""
+        return self.tuned.bucket if self.tuned is not None else 16
+
+    def config_key(self) -> dict:
+        """The config echo that, with the weight hash, addresses this
+        artifact in a PlanStore: every field that changes the stored
+        normmaps or the gate."""
+        return {
+            "tau": float(self.tau),
+            "tile": self.tile,
+            "block_n": self.block_n,
+            "levels": self.num_levels,
+            "backend": self.backend,
+            "use_mxu": self.use_mxu,
+            "dtype": self.compute_dtype,
+        }
+
     @classmethod
     def build(cls, w: torch.Tensor, tau, *, tile: int = 64, block_n: int = 1,
               levels: int = 0, backend: str = "auto", use_mxu: bool = False,
-              compute_dtype: str = "float32") -> "FrozenWeight":
+              weight_hash: str = "", compute_dtype: str = "float32",
+              tuned: TunedParams | None = None) -> "FrozenWeight":
         """Freeze the weight side of `x @ w` gating at threshold `tau`: the
         backend's get-norm runs ONCE on the padded weight (on its device),
         the pyramid pools through the backend's kernel, and the pair list is
         built on the host. compute_dtype freezes for low-precision
         execution: the norms of the quantized weight (int8: the fused
-        get-norm, whose scales are stored as `b_scale`)."""
-        bk = kops.get_backend(backend)
+        get-norm, whose scales are stored as `b_scale`). The artifact
+        records the backend resolved by the weight's device."""
+        resolved = kops.resolve_backend(backend, w.device)
+        bk = kops.get_backend(resolved)
         compute_dtype = kquant.canonical_dtype(compute_dtype)
         if w.dim() != 2:
             raise ValueError(f"expected a 2-D weight, got {tuple(w.shape)}")
@@ -121,22 +169,23 @@ class FrozenWeight:
             torch.as_tensor(np.ascontiguousarray(nbmax), device=base.device),
             kk[order].astype(np.int32), jj[order].astype(np.int32), b_scale,
             tile=tile, block_n=block_n, num_levels=levels, backend=bk.name,
-            use_mxu=use_mxu, compute_dtype=compute_dtype,
+            wshape=tuple(w.shape), padded=tuple(wp.shape), use_mxu=use_mxu,
+            weight_hash=weight_hash, compute_dtype=compute_dtype,
+            tuned=tuned,
         )
 
     def for_rows(self, gm: int) -> "FrozenPlan":
         """Specialize to an activation row grid of `gm` tiles: step tables
         pair-major ((i, j) runs contiguous, k ascending within a run),
-        padded to a power-of-two bucket of at least 16 (the reference's
-        untuned floor; its autotuner is not ported yet); padding repeats
-        the last real triple with `real` clear. Cached per gm."""
+        padded to a power-of-two bucket of at least `bucket_floor`; padding
+        repeats the last real triple with `real` clear. Cached per gm."""
         hit = self._rows_cache.get(gm)
         if hit is not None:
             return hit
         gk, gnb = self.grid
         w = self.num_kj
         s_real = gm * w
-        s = bucket(s_real)
+        s = bucket(s_real, self.bucket_floor)
         kj_k = np.asarray(self.kj_k, np.int32)
         kj_j = np.asarray(self.kj_j, np.int32)
         if s_real:

@@ -1,18 +1,29 @@
-"""Walk a model's gated GEMM weights and freeze their weight-side plans.
+"""Walk a model's gated GEMM weights and freeze their weight-side plans,
+through an in-memory cache and an on-disk `PlanStore` when given.
 
-Twin of `repro.plans.precompute` (`iter_gated_weights`, `freeze_tree`),
-without the on-disk `PlanStore` and the autotuner (ROADMAP queue A). The
-gated GEMMs are the leaves named wq/wk/wv/wo/w1/w2/w3 directly under a "mix"
-or "mlp" subtree. The port keeps layers as a Python list of per-layer dicts
-(no stacked leading axis), so `freeze_tree` mirrors that: a list of
-per-layer dicts of `FrozenWeight`s.
+Twin of `repro.plans.precompute` (`iter_gated_weights`, `freeze_tree`,
+`populate`). The gated GEMMs are the leaves named wq/wk/wv/wo/w1/w2/w3
+directly under a "mix" or "mlp" subtree. The port keeps layers as a Python
+list of per-layer dicts (no stacked leading axis), so `freeze_tree` mirrors
+that: a list of per-layer dicts of `FrozenWeight`s; each per-layer (K, N)
+weight hashes like the reference's slice `flat[l]` of its stacked leaf, so
+the two packages address one weight by one fingerprint. The autotuner
+(`tune_for`, `SpammConfig.autotune`) is not ported: ROADMAP queue A item 8.
+`populate` is the store writer of `repro_torch.launch.precompute_plans`.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+from repro_torch.core.plan import WeightPlanCache
 from repro_torch.plans.frozen import FrozenWeight
+from repro_torch.plans.store import PlanStore, fingerprints
 
 GATED_NAMES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 GATED_PARENTS = ("mix", "mlp")
+
+_NO_TUNER = ("the roofline autotuner (core.cost.tune_weight) is not ported "
+             "yet: ROADMAP queue A item 8 — freeze with autotune=False")
 
 
 def _is_gated(path, leaf) -> bool:
@@ -39,12 +50,39 @@ def iter_gated_weights(params, _prefix=()):
             yield path, sub
 
 
-def freeze_tree(params, scfg, *, use_mxu: bool = False):
+def tune_for(w, scfg, *, profile=None, use_mxu: bool = False):
+    """The reference's per-weight autotuner: not ported."""
+    raise NotImplementedError(_NO_TUNER)
+
+
+def _freeze_one(w, scfg, *, cache=None, store: Optional[PlanStore] = None,
+                use_mxu: bool = False, tuned=None,
+                weight_hash: Optional[str] = None) -> FrozenWeight:
+    """One weight → FrozenWeight, through the cache/store tiers when
+    given (without a cache: the store, then a build). `weight_hash` is w's
+    content fingerprint when the caller has it (hashed here otherwise)."""
+    if tuned is None and scfg.autotune:
+        tuned = tune_for(w, scfg, use_mxu=use_mxu)
+    cache = cache if cache is not None else WeightPlanCache()
+    return cache.frozen_weight(
+        w, tau=scfg.tau, tile=scfg.tile, block_n=scfg.block_n,
+        levels=scfg.levels, backend=scfg.backend, use_mxu=use_mxu,
+        store=store, dtype=scfg.dtype, tuned=tuned, weight_hash=weight_hash)
+
+
+def freeze_tree(params, scfg, *, cache=None, store: Optional[PlanStore] = None,
+                use_mxu: bool = False):
     """Freeze every gated weight of a params tree at SpAMM config `scfg`.
 
     Returns (tree, count): `tree` mirrors the params structure at the
     gated leaves (lists stay lists), each leaf a `FrozenWeight`; `count`
-    is the number of weights frozen."""
+    is the number of weights frozen. `cache` (a `WeightPlanCache`) is the
+    in-memory tier, `store` the persistent one: with a warm store the walk
+    only loads (no get-norm pass). The content fingerprints are taken up
+    front, on a few threads."""
+    if scfg.autotune:
+        raise NotImplementedError(_NO_TUNER)
+    hashes = iter(fingerprints(w for _, w in iter_gated_weights(params)))
     count = 0
 
     def walk(node, path):
@@ -59,11 +97,20 @@ def freeze_tree(params, scfg, *, use_mxu: bool = False):
                 if frozen:
                     out[name] = frozen
             elif _is_gated(p, sub):
-                out[name] = FrozenWeight.build(
-                    sub, scfg.tau, tile=scfg.tile, block_n=scfg.block_n,
-                    levels=scfg.levels, backend=scfg.backend,
-                    use_mxu=use_mxu, compute_dtype=scfg.dtype)
+                out[name] = _freeze_one(sub, scfg, cache=cache, store=store,
+                                        use_mxu=use_mxu,
+                                        weight_hash=next(hashes))
                 count += 1
         return out
 
     return walk(params, ()), count
+
+
+def populate(store: PlanStore, params, scfg, *, cache=None,
+             use_mxu: bool = False) -> int:
+    """Populate `store` with frozen plans for every gated GEMM weight of
+    `params` under SpAMM config `scfg`. Returns the number of weights
+    processed (store hits + fresh builds)."""
+    _, count = freeze_tree(params, scfg, cache=cache, store=store,
+                           use_mxu=use_mxu)
+    return count

@@ -3,9 +3,12 @@
 lockstep greedy decode until every sequence finishes), unsharded.
 
 Frozen plans: with SpAMM on, the engine freezes every gated weight once
-(`plans.precompute.freeze_tree`) and specializes the frozen artifacts per
-activation row grid (`_frozen_for`, cached in `_fp_cache`), so prefill and
-every decode step only read device-resident step tables. The chunked
+(`plans.precompute.freeze_tree`, through the SpAMM context's
+`WeightPlanCache`) and specializes the frozen artifacts per activation row
+grid (`_frozen_for`, cached in `_fp_cache`), so prefill and every decode
+step only read device-resident step tables. With a plan store
+(`plan_store=`, populated offline by `launch.precompute_plans`) the freeze
+is a pure load: no planning pass, no get-norm on the weights. The chunked
 mixed-length plane, the pod-sharded mode, re-sharding and the observability
 bundle are not ported yet (ROADMAP queue A); mixed-length batches raise.
 """
@@ -39,10 +42,12 @@ class Engine:
     """Greedy serving of equal-length request waves on `device` (the card
     unless asked otherwise). `spamm_cfg` (SpammConfig or SpammContext)
     turns on norm-gated GEMMs in prefill and decode, both through frozen
-    plans."""
+    plans. `plan_store` (a `plans.store.PlanStore` or its root directory)
+    is the persistent tier the frozen artifacts load from."""
 
     def __init__(self, cfg: ModelConfig, pcfg: ParallelConfig, params, *,
-                 max_len: int = 512, spamm_cfg=None, device="cuda"):
+                 max_len: int = 512, spamm_cfg=None, plan_store=None,
+                 device="cuda"):
         self.device = resolve_device(device)
         f32_numerics()
         emb = params["embed"]["embedding"]
@@ -53,6 +58,13 @@ class Engine:
         self.max_len = max_len
         self.spamm_ctx = spmod.as_context(spamm_cfg)
         self._gated = self.spamm_ctx is not None and self.spamm_ctx.enable
+        if isinstance(plan_store, str):
+            from repro_torch.plans.store import PlanStore
+
+            plan_store = PlanStore(plan_store)
+        self.plan_store = plan_store
+        if self._gated and plan_store is not None:
+            self.spamm_ctx.cache.store = plan_store
         self._fw_tree = None     # params-shaped tree of FrozenWeight
         self._fp_cache: dict = {}  # row-tile grid gm → FrozenPlan tree
         self._prefill = M.make_prefill_step(cfg, pcfg,
@@ -87,11 +99,14 @@ class Engine:
         return tree
 
     def _ensure_fw_tree(self):
-        """Freeze the weight-side gating artifacts once."""
+        """Freeze the weight-side gating artifacts once, through the
+        context's cache and the plan store (a warm store makes it a load)."""
         if self._fw_tree is None:
             from repro_torch.plans.precompute import freeze_tree
 
-            self._fw_tree, _ = freeze_tree(self.params, self.spamm_ctx.cfg)
+            self._fw_tree, _ = freeze_tree(
+                self.params, self.spamm_ctx.cfg, cache=self.spamm_ctx.cache,
+                store=self.plan_store)
 
     def _pad_cache(self, cache):
         """Grow the prefill's KV caches to the engine's slot budget:
@@ -106,17 +121,19 @@ class Engine:
 
         return {"layers": [grow(c) for c in cache["layers"]]}
 
-    def _spamm_stats(self, taps) -> dict:
+    def _spamm_stats(self, taps, store0=None) -> dict:
         """Per-wave gating stats: mean valid fraction and gated-GEMM count
-        per phase, the configured compute dtype, and the GEMM bytes moved
-        per phase (sums over the frozen GEMMs' taps)."""
+        per phase, the configured compute dtype, the GEMM bytes moved per
+        phase (sums over the frozen GEMMs' taps), and with a plan store its
+        hits and misses during this wave (deltas from `store0`, the
+        counters at the wave's start: a warm second wave reports 0/0)."""
         pre = [t.value for t in taps if t.phase != "decode"]
         dec = [t.value for t in taps if t.phase == "decode"]
         pre_b = [t.nbytes for t in taps
                  if t.phase != "decode" and t.nbytes is not None]
         dec_b = [t.nbytes for t in taps
                  if t.phase == "decode" and t.nbytes is not None]
-        return {
+        stats = {
             "valid_fraction": float(np.mean(pre)) if pre else None,
             "gated_gemms": len(pre),
             "decode_valid_fraction": float(np.mean(dec)) if dec else None,
@@ -126,6 +143,10 @@ class Engine:
             "decode_gemm_bytes_moved": (float(np.sum(dec_b)) if dec_b
                                         else None),
         }
+        if store0 is not None:
+            stats["plan_store_hits"] = self.plan_store.hits - store0[0]
+            stats["plan_store_misses"] = self.plan_store.misses - store0[1]
+        return stats
 
     # -- dispatch ------------------------------------------------------------
     def generate(self, requests: List[Request]) -> List[np.ndarray]:
@@ -158,6 +179,8 @@ class Engine:
         b = len(requests)
         plen = len(requests[0].prompt)
         toks = np.stack([r.prompt for r in requests]).astype(np.int32)
+        store0 = (None if self.plan_store is None
+                  else (self.plan_store.hits, self.plan_store.misses))
         t_wave0 = time.perf_counter()
         frozen_pre = self._frozen_for(b * plen)
         frozen_dec = self._frozen_for(b)
@@ -205,7 +228,7 @@ class Engine:
             if self._gated:
                 taps = self.spamm_ctx.end_stats()
                 self.spamm_ctx.set_phase("prefill")
-        spamm_meta = self._spamm_stats(taps) if self._gated else None
+        spamm_meta = self._spamm_stats(taps, store0) if self._gated else None
         latency = {"ttft_s": ttft_s, "decode_steps": len(decode_lat),
                    "decode_mean_s": (float(np.mean(decode_lat))
                                      if decode_lat else None),

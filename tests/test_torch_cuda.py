@@ -101,8 +101,8 @@ def test_kernels_reject_what_they_do_not_take(dev):
         getnorm.tile_norms_cuda(x.double(), 64)
     with pytest.raises(ValueError):
         getnorm.tile_norms_cuda(x.t(), 64)          # not contiguous
-    with pytest.raises(NotImplementedError):
-        getnorm.tile_norms_cuda(x, 64, use_mxu=True)
+    with pytest.raises(ValueError):                 # mma needs tile % 16
+        getnorm.tile_norms_cuda(_rand((48, 96), 7, dev), 24, use_mxu=True)
     w = P.plan(x, x.t().contiguous(), 0.0, tile=64, backend="cuda").work
     tables = (w.step_i, w.step_j, w.step_k, w.step_flags, w.runs)
     with pytest.raises(ValueError):
@@ -302,8 +302,8 @@ def test_lowp_kernels_reject_what_they_do_not_take(dev):
                                              tile=48)
     with pytest.raises(TypeError):
         getnorm.tile_norms_quant_cuda(a_q, 64)
-    with pytest.raises(NotImplementedError):
-        getnorm.tile_norms_quant_cuda(a_s.new_zeros(64, 64), 64,
+    with pytest.raises(ValueError):              # mma needs tile % 16
+        getnorm.tile_norms_quant_cuda(a_s.new_zeros(48, 96), 24,
                                       use_mxu=True)
 
 
@@ -360,3 +360,78 @@ def test_spamm_int8_valid_ratio_on_card(dev):
     assert (getnorm.quant_launches, spamm_mm.int8_launches) == (
         before[0] + 2, before[1] + 1)
     assert bool(torch.isfinite(c).all())
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core get-norm (use_mxu=True, paper Eq. 3-4)
+# ---------------------------------------------------------------------------
+
+def _mxu_operand(kind, shape, seed, dev):
+    """A random operand, or one whose magnitudes decay away from the
+    diagonal over four orders of magnitude (tile norms far apart)."""
+    x = _rand(shape, seed, dev)
+    if kind == "decaying":
+        m, n = shape
+        d = (torch.arange(m, device=dev)[:, None] * (n / m)
+             - torch.arange(n, device=dev)[None, :]).abs()
+        x = x * torch.exp(-d * (9.0 / max(m, n)))
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["random", "decaying"])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_mxu_tile_norms_kernels_match_plain(dev, tile, kind):
+    """Both tensor-core kernels against their plain versions within
+    NORM_RTOL (the TF32 hi/lo split keeps about 2^-22 per element), with
+    non-square tile grids; scales bit for bit; each launch counted apart
+    from the CUDA-core variant."""
+    for shape in ((3 * tile, 5 * tile), (tile, 4 * tile)):
+        x = _mxu_operand(kind, shape, 23, dev)
+        before = (getnorm.launches, getnorm.mxu_launches,
+                  getnorm.quant_launches, getnorm.quant_mxu_launches)
+        got = getnorm.tile_norms(x, tile, use_mxu=True)
+        norms, scales = getnorm.tile_norms_quant(x, tile, use_mxu=True)
+        torch.cuda.synchronize()
+        assert (getnorm.launches, getnorm.mxu_launches,
+                getnorm.quant_launches, getnorm.quant_mxu_launches) == (
+            before[0], before[1] + 1, before[2], before[3] + 1)
+        torch.testing.assert_close(
+            got, getnorm.tile_norms_plain(x, tile, use_mxu=True),
+            rtol=NORM_RTOL, atol=0)
+        pn, ps = getnorm.tile_norms_quant_plain(x, tile, use_mxu=True)
+        torch.testing.assert_close(norms, pn, rtol=NORM_RTOL, atol=0)
+        assert torch.equal(scales, ps)
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_mxu_fused_equals_unfused_on_card(dev, tile):
+    """Fused ≡ unfused bit for bit under use_mxu=True: both kernels sum
+    through one device function."""
+    x = _rand((4 * tile, 6 * tile), 24, dev)
+    x[:tile, :tile] = 0.0
+    norms, scales = getnorm.tile_norms_quant_cuda(x, tile, use_mxu=True)
+    q, s = Q.quantize_tiles(x, tile)
+    assert torch.equal(scales, s)
+    assert torch.equal(norms, getnorm.tile_norms_cuda(
+        Q.dequantize_tiles(q, s, tile), tile, use_mxu=True))
+    assert float(norms[0, 0]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_frozen_equals_eager_with_mxu_norms_on_card(dev, dtype):
+    """Frozen ≡ eager bit for bit when both sides take the tensor-core
+    norms."""
+    tile = 64
+    x = _rand((3 * tile, 5 * tile), 25, dev)
+    w = _rand((5 * tile, 4 * tile), 26, dev)
+    tau = _median_tau(x, w, tile)
+    eager = P.plan(x, w, tau, tile=tile, backend="cuda", use_mxu_norm=True,
+                   compute_dtype=dtype)
+    fw = FrozenWeight.build(w, tau, tile=tile, backend="cuda", use_mxu=True,
+                            compute_dtype=dtype)
+    frozen = P.plan(x, frozen_weight=fw.for_rows(3), use_mxu_norm=True)
+    assert torch.equal(frozen.norm_a, eager.norm_a)
+    assert torch.equal(fw.levels[0], eager.norm_b)
+    assert 0 < int(eager.valid_tiles) == int(frozen.valid_tiles)
+    assert torch.equal(P.execute(eager, x, w), P.execute(frozen, x, w))
+

@@ -32,7 +32,9 @@ def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in _port_files()}
     for twin in ("kernels/getnorm.py", "kernels/spamm_mm.py", "kernels/ops.py",
                  "core/plan.py", "core/tau_search.py", "core/spamm.py",
-                 "plans/frozen.py", "serving/engine.py", "launch/serve.py"):
+                 "plans/frozen.py", "plans/store.py", "plans/precompute.py",
+                 "serving/engine.py", "launch/serve.py",
+                 "launch/precompute_plans.py"):
         assert twin in names
 
 
@@ -52,9 +54,34 @@ LOWP_ENTRY_POINTS = (
 )
 
 
+# the tensor-core get-norm's counters, the plan store and its writer, the
+# frozen tier of the weight cache
+STORE_ENTRY_POINTS = (
+    ("repro_torch.kernels.getnorm", ("mxu_launches", "quant_mxu_launches")),
+    ("repro_torch.kernels.ops", ("resolve_backend",)),
+    ("repro_torch.core.cost", ("TunedParams",)),
+    ("repro_torch.plans.frozen", ("PLAN_FORMAT_VERSION",)),
+    ("repro_torch.plans.store", ("PlanStore", "PlanStoreError", "fingerprint",
+                                 "fingerprints")),
+    ("repro_torch.plans.precompute", ("populate", "freeze_tree", "tune_for",
+                                      "_freeze_one")),
+    ("repro_torch.launch.precompute_plans", ("main",)),
+)
+
+
 @pytest.mark.parametrize("module,names", LOWP_ENTRY_POINTS,
                          ids=[m for m, _ in LOWP_ENTRY_POINTS])
 def test_lowp_entry_points_exist(module, names):
+    import importlib
+
+    mod = importlib.import_module(module)
+    for name in names:
+        assert hasattr(mod, name), f"{module}.{name}"
+
+
+@pytest.mark.parametrize("module,names", STORE_ENTRY_POINTS,
+                         ids=[m for m, _ in STORE_ENTRY_POINTS])
+def test_store_entry_points_exist(module, names):
     import importlib
 
     mod = importlib.import_module(module)
@@ -85,6 +112,7 @@ def test_fresh_import_keeps_jax_out():
         "import repro_torch.core.spamm, repro_torch.core.tau_search\n"
         "import repro_torch.kernels.getnorm, repro_torch.kernels.spamm_mm\n"
         "import repro_torch.kernels.quantize, repro_torch.core.cost\n"
+        "import repro_torch.plans.store, repro_torch.launch.precompute_plans\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

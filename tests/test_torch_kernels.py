@@ -32,7 +32,8 @@ def _rand(shape, seed):
 
 
 @pytest.mark.parametrize("shape,tile,use_mxu", [
-    ((64, 96), 16, False), ((128, 64), 32, False), ((64, 96), 16, True)])
+    ((64, 96), 16, False), ((128, 64), 32, False), ((64, 96), 16, True),
+    ((128, 64), 32, True), ((96, 160), 32, True)])
 def test_tile_norms_plain_matches_reference(shape, tile, use_mxu):
     x = _rand(shape, 0)
     want = np.asarray(rgetnorm.tile_norms(jnp.asarray(x), tile,
