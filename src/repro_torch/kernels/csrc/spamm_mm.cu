@@ -1,62 +1,79 @@
 // SpAMM GEMMs (paper §3.3, Alg. 2): C[i, j] = Σ over the valid k of
-// A[i, k] · B[k, j], driven by the planner's step tables (work-list kernel)
+// A[i, k] · B[k, j], driven by the planner's step tables (work-list kernels)
 // or by dense per-(i, j) valid-k lists (dense-grid kernel).
 //
-// The work-list kernel replaces the Pallas TPU kernel
+// The work-list kernels replace the Pallas TPU kernel
 // src/repro/kernels/spamm_mm.py::spamm_mm_worklist (_spamm_mm_worklist_kernel).
 // The TPU kernel walks one sequential 1-D grid over the steps and carries
 // its f32 accumulator in VMEM from step to step. Blocks on a GPU run in
 // parallel and in no order, so here each (i, j) RUN of consecutive steps
 // (the rows of `runs`: steps [runs[p], runs[p+1]) share one output block)
-// is one thread block that walks its steps in a loop: INIT zeroes the
-// register accumulator, ACC adds A[i,k]·B[k,j-block] for that step, FLUSH
-// writes the accumulator out; steps without flag bits (bucket padding,
-// steps the frozen gate switched off) do nothing. The ACC steps of a run are
-// accumulated in table order (ascending k) with plain f32 FMAs — no TF32,
-// no split over k, no atomics — so a work-list and a frozen plan that keep
-// the same active steps give bit-identical outputs. The output is
-// zero-initialised by the caller, so tiles no run visits stay exactly 0.
+// is one thread block (times block_n column groups and the column slices
+// below, in gridDim.y). INIT zeroes the register accumulator, ACC adds
+// A[i,k]·B[k,j-block] for that step, FLUSH writes the accumulator out;
+// steps without flag bits (bucket padding, steps a frozen gate switched
+// off) do nothing. The output is zero-initialised by the caller, so tiles no
+// run visits stay exactly 0.
 //
-// What bounds it on an H100: operations, at the serving shapes. One ACC step
-// is 2·t³ flops against 2·t² fresh floats (t = 64: 16 flop/B, with the A and
-// B tiles re-read by other runs mostly from L2); the least time is the
-// executed flops over the 67 TFLOP/s f32 peak of the CUDA cores.
+// Schedule of a block (both work-list kernels and the dense-grid kernel):
+// 1. Step list. The block reads its run's step_flags/step_k/step_i/step_j
+//    in coalesced rounds of one step per thread and keeps the steps with a
+//    flag bit, in table order (warp ballot, then a prefix over the warps),
+//    as int4 entries of a shared-memory list of kListCap entries; a longer
+//    run is walked in several such chunks. A frozen plan's gated-off steps
+//    cost one coalesced read each, not a dependent global load.
+// 2. Pipeline. The A and B tiles of the list's ACC entries stream through a
+//    ring of STAGES stages in dynamic shared memory, filled by 16-byte
+//    cp.async: while one ACC step computes, the next STAGES-1 load.
+// 3. Tile product (one per operand type, below) into registers; FLUSH
+//    stores the registers straight to the output.
+// The dense-grid kernel builds the same list from its valid-k list (ACC on
+// every entry, INIT on the first, FLUSH on the last; one INIT|FLUSH entry
+// when nvalid is 0, so the block writes zeros) and walks it with the same
+// pipeline and tile product.
 //
-// Design (simple first; wgmma/TMA/pipelining come later): 256 threads per
-// block, each owning a (t/16)×(t/16) sub-grid of the output block (rows
-// ty + 16·m, columns tx + 16·n) in registers. Per ACC step both tiles are
-// staged in shared memory (rows padded by one float against bank
-// conflicts) with coalesced loads, then every thread runs t rank-1 updates.
-// block_n > 1 (super-columns) splits into gridDim.y column groups of width
-// t: each group is an independent output block with the same run, so the
-// per-element accumulation order does not change.
+// Column slices: at decode shapes the runs alone cannot fill 132 SMs (8
+// runs for wk/wv, 72 for w2), so the wrapper splits each t-wide output
+// block into `slices` column slices of W = t / slices, one block each; a
+// slice walks the same list over its W columns. The rule is the host
+// function `column_slices` in kernels/spamm_mm.py.
+//
+// f32 (the numerics of record): no tensor cores, no TF32. 128 threads per
+// block (64 at t = 16): W/4 threads along a row, each owning one float4 of
+// 4 columns in RM rows strided by the thread rows (8 × 4 outputs at t = 64
+// on a whole block, 2 × 4 on a decode slice of 16 columns). A rows are
+// read as float4 over 4 consecutive q, B rows as float4, so a 4-q step
+// costs RM + 4 shared loads for 16·RM FMAs (128 per 12 LDS.128 at t = 64);
+// a warp's B load covers 16 distinct float4s, its A loads 2 adjacent rows
+// (different banks through the 4-float row pad). Every output element is
+// accumulated with fmaf over the run's ACC steps in table order and, within
+// a tile, over ascending q: the order of the earlier one-FMA-per-q kernel,
+// whatever the slices, the thread layout or the pipeline. So frozen ≡
+// eager, dense-grid ≡ work-list and any two geometries agree bit for bit.
+// Bound: 2·t³ operations per ACC step at the 67 TFLOP/s f32 peak of the
+// CUDA cores, or (decode) the A and B tile bytes.
+//
+// bf16: tensor cores, mma.sync.aligned.m16n8k16 bf16 × bf16 → f32. Warp w
+// owns rows 16w .. 16w+15 of the output block and all W columns (W/8
+// m16n8 accumulators in registers, f32); A fragments come from the
+// row-major A tile by ldmatrix.x4, B fragments from the row-major (k, n)
+// B tile by ldmatrix.x4.trans. Tile rows are padded by 16 bytes so the 8
+// row addresses of an ldmatrix hit 8 distinct bank groups. The tensor core
+// adds the products of one k16 slice in its own order, so the bf16 kernel
+// is NOT bit-identical to the f32 kernel on the bf16-rounded operands: it
+// agrees within 1e-4 of the output's largest magnitude (the port's
+// contract; a product of two bf16 values is exact in f32, only the order
+// of the additions differs). It is deterministic, and frozen ≡ eager bit
+// for bit (same kernel, same steps). Bound: the bf16 tensor-core peak (989
+// TFLOP/s) or, at serving shapes, the bf16 operand bytes.
 //
 // The dense-grid kernel replaces the Pallas TPU kernel
 // src/repro/kernels/spamm_mm.py::spamm_mm (_spamm_mm_kernel), which walks
 // the whole (gm, gn, gk) grid and masks the steps t >= nvalid[i, j] out,
 // reading k = kidx[i, j, t]. Here one thread block owns one output block
-// (i, j) (times block_n column groups in gridDim.y) of one batch slice
-// (gridDim.z, so a batch of per-slice products is one launch) and walks
-// only its t < nvalid[b, i, j] valid k's; a block with nvalid = 0 writes
-// zeros, as the Pallas kernel flushes its zeroed accumulator. Its bound is
-// the same as the work-list kernel's: 2·t³ operations per valid step at the
-// f32 CUDA-core peak.
-//
-// Both kernels add a step's tile product through ONE device function
-// (acc_tile_product: shared-memory staging, then t rank-1 FMA updates in
-// ascending inner index) and write through one (store_tile). With the same
-// valid k's in the same ascending order, the dense-grid and the work-list
-// kernel therefore give bit-identical outputs.
-//
-// bf16 operands (the reference's bf16 plans run its one work-list kernel on
-// bf16 inputs with f32 accumulation): the work-list kernel is a template on
-// the operand type. bf16 tiles are widened with __bfloat162float into the
-// same f32 shared-memory tiles and run the same FMAs. A product of two bf16
-// values is exact in f32, so each FMA rounds exactly as a multiply and an
-// add would: the bf16 kernel is bit-identical to the f32 kernel on the
-// bf16-rounded operands. Its bound is the bf16 tensor-core peak (989
-// TFLOP/s) against half the operand bytes; this first version keeps the
-// CUDA-core FMAs (wgmma is later work).
+// (i, j) (times block_n column groups and column slices in gridDim.y) of
+// one batch slice (gridDim.z) and walks only its valid k's. Its bound is
+// the work-list kernel's.
 //
 // The int8 work-list kernel replaces the Pallas TPU kernel
 // src/repro/kernels/spamm_mm.py::spamm_mm_worklist_int8
@@ -68,63 +85,443 @@
 // cannot contract the two multiplies and the add: the kernel is bit-
 // identical to its plain version. Its bound is the int8 tensor-core peak
 // (1,979 TOP/s) or, at serving shapes, the int8 operand bytes. Design
-// (simple first): the run-per-block schedule of the f32 kernel; per ACC
-// step the A tile is staged as 4-byte words and the B tile TRANSPOSED, so
-// each thread's R×R outputs take t/4 __dp4a (4 int8 products + int32
-// accumulate) per output on the CUDA cores; mma.sync/wgmma s8 come later.
+// (simple first): one block of 256 threads per run (× block_n column
+// groups), walking its steps one by one; per ACC step the A tile is staged
+// as 4-byte words and the B tile TRANSPOSED, so each thread's R×R outputs
+// (rows ty + 16·m, columns tx + 16·c) take t/4 __dp4a (4 int8 products +
+// int32 accumulate) per output on the CUDA cores; mma.sync/wgmma s8 come
+// later.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kInit = 1;
 constexpr int kAcc = 2;
 constexpr int kFlush = 4;
+// entries of a block's shared-memory step list (int4 each: k, i, j, flags)
+constexpr int kListCap = 256;
+// ring depth of the pipelined tile products
+constexpr int kStagesF32 = 2;
+constexpr int kStagesBf16 = 3;
+// threads of an f32 block that has at least this many float4 outputs
+constexpr int kThreadsF32 = 128;
 
-// acc += A_tile · B_tile for one (TILE × TILE) A tile at `ag` (row stride
-// lda) and one (TILE × TILE) B tile at `bg` (row stride ldb), f32 or bf16
-// (widened to f32 as it is staged). Each of the
-// 256 threads owns the R×R outputs at rows ty + 16·m, columns tx + 16·c.
-// Both tiles are staged in shared memory (rows padded by one float against
-// bank conflicts) with coalesced loads, then every thread runs TILE rank-1
-// updates in ascending q with plain f32 FMAs.
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <int TILE, class T>
-__device__ __forceinline__ void acc_tile_product(
-    const T* __restrict__ ag, size_t lda, const T* __restrict__ bg,
-    size_t ldb, float (&acc)[TILE / 16][TILE / 16]) {
-  constexpr int R = TILE / 16;
-  __shared__ float as[TILE][TILE + 1];
-  __shared__ float bs[TILE][TILE + 1];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  __syncthreads();  // the previous step's readers are done with as/bs
-  for (int e = threadIdx.x; e < TILE * TILE; e += kThreads) {
-    const int r = e / TILE;
-    const int c = e - r * TILE;
-    as[r][c] = to_f32(ag[static_cast<size_t>(r) * lda + c]);
-    bs[r][c] = to_f32(bg[static_cast<size_t>(r) * ldb + c]);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// f32 tile product: CUDA-core FMAs in ascending q.
+// ---------------------------------------------------------------------------
+template <int TILE, int SL>
+struct F32Product {
+  using T = float;
+  static constexpr int W = TILE / SL;          // output columns per block
+  static constexpr int TC = W / 4;             // threads along a row
+  static constexpr int TR =
+      TILE < kThreadsF32 / TC ? TILE : kThreadsF32 / TC;
+  static constexpr int RM = TILE / TR;         // rows per thread
+  static constexpr int NT = TR * TC;
+  static constexpr int STAGES = kStagesF32;
+  static constexpr int LDA = TILE + 4;         // padded A row (floats)
+  static constexpr int STAGE_BYTES = (TILE * LDA + TILE * W) * 4;
+  static_assert(TC >= 1 && NT % 32 == 0, "bad f32 geometry");
+
+  struct Acc {
+    float4 v[RM];  // row ty + TR·m, columns 4·tx .. 4·tx + 3
+  };
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int m = 0; m < RM; ++m) acc.v[m] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  __syncthreads();
-#pragma unroll 8
-  for (int q = 0; q < TILE; ++q) {
-    float av[R];
-    float bv[R];
+
+  // cp.async of the (TILE × TILE) A tile at `ag` and the (TILE × W) B tile
+  // at `bg` into one stage
+  __device__ static void load(unsigned char* stage, const float* ag,
+                              size_t lda, const float* bg, size_t ldb) {
+    float* as = reinterpret_cast<float*>(stage);
+    float* bs = as + TILE * LDA;
+    for (int e = threadIdx.x; e < TILE * TILE / 4; e += NT) {
+      const int r = e / (TILE / 4);
+      const int c = 4 * (e % (TILE / 4));
+      cp_async16(as + r * LDA + c, ag + static_cast<size_t>(r) * lda + c);
+    }
+    for (int e = threadIdx.x; e < TILE * W / 4; e += NT) {
+      const int r = e / (W / 4);
+      const int c = 4 * (e % (W / 4));
+      cp_async16(bs + r * W + c, bg + static_cast<size_t>(r) * ldb + c);
+    }
+  }
+
+  __device__ static __forceinline__ float4 fma4(float a, float4 b,
+                                                float4 c) {
+    return make_float4(fmaf(a, b.x, c.x), fmaf(a, b.y, c.y),
+                       fmaf(a, b.z, c.z), fmaf(a, b.w, c.w));
+  }
+
+  __device__ static __forceinline__ float lane(float4 v, int q) {
+    return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+  }
+
+  // acc += A_tile · B_tile, one fmaf per output and q, q ascending
+  __device__ static void compute(const unsigned char* stage, Acc& acc) {
+    const float* as = reinterpret_cast<const float*>(stage);
+    const float* bs = as + TILE * LDA;
+    const int tx = threadIdx.x % TC;
+    const int ty = threadIdx.x / TC;
+#pragma unroll 4
+    for (int q = 0; q < TILE; q += 4) {
+      float4 av[RM];
 #pragma unroll
-    for (int m = 0; m < R; ++m) av[m] = as[ty + 16 * m][q];
+      for (int m = 0; m < RM; ++m)
+        av[m] = *reinterpret_cast<const float4*>(as + (ty + TR * m) * LDA + q);
 #pragma unroll
-    for (int c = 0; c < R; ++c) bv[c] = bs[q][tx + 16 * c];
+      for (int qq = 0; qq < 4; ++qq) {
+        const float4 bv =
+            *reinterpret_cast<const float4*>(bs + (q + qq) * W + 4 * tx);
 #pragma unroll
-    for (int m = 0; m < R; ++m)
+        for (int m = 0; m < RM; ++m)
+          acc.v[m] = fma4(lane(av[m], qq), bv, acc.v[m]);
+      }
+    }
+  }
+
+  // writes the thread's outputs into the (TILE × W) block at `og`
+  __device__ static void store(float* og, size_t ldo, const Acc& acc) {
+    const int tx = threadIdx.x % TC;
+    const int ty = threadIdx.x / TC;
 #pragma unroll
-      for (int c = 0; c < R; ++c) acc[m][c] = fmaf(av[m], bv[c], acc[m][c]);
+    for (int m = 0; m < RM; ++m)
+      *reinterpret_cast<float4*>(og + static_cast<size_t>(ty + TR * m) * ldo +
+                                 4 * tx) = acc.v[m];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// bf16 tile product: mma.sync m16n8k16 on the tensor cores, f32 accumulate.
+// ---------------------------------------------------------------------------
+template <int TILE, int SL>
+struct Bf16Product {
+  using T = __nv_bfloat16;
+  static constexpr int W = TILE / SL;
+  static constexpr int NB = W / 8;             // m16n8 accumulators per warp
+  static constexpr int NT = 32 * (TILE / 16);  // one warp per 16 rows
+  static constexpr int STAGES = kStagesBf16;
+  static constexpr int LDA = TILE + 8;         // padded rows (bf16 values)
+  static constexpr int LDB = W + 8;
+  static constexpr int STAGE_BYTES = (TILE * LDA + TILE * LDB) * 2;
+  static_assert(NB % 2 == 0, "ldmatrix.x4.trans takes two n8 blocks");
+
+  struct Acc {
+    float c[NB][4];
+  };
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc.c[nb][r] = 0.f;
+  }
+
+  __device__ static void load(unsigned char* stage, const T* ag, size_t lda,
+                              const T* bg, size_t ldb) {
+    T* as = reinterpret_cast<T*>(stage);
+    T* bs = as + TILE * LDA;
+    for (int e = threadIdx.x; e < TILE * TILE / 8; e += NT) {
+      const int r = e / (TILE / 8);
+      const int c = 8 * (e % (TILE / 8));
+      cp_async16(as + r * LDA + c, ag + static_cast<size_t>(r) * lda + c);
+    }
+    for (int e = threadIdx.x; e < TILE * W / 8; e += NT) {
+      const int r = e / (W / 8);
+      const int c = 8 * (e % (W / 8));
+      cp_async16(bs + r * LDB + c, bg + static_cast<size_t>(r) * ldb + c);
+    }
+  }
+
+  __device__ static void compute(const unsigned char* stage, Acc& acc) {
+    const T* as = reinterpret_cast<const T*>(stage);
+    const T* bs = as + TILE * LDA;
+    const int warp = threadIdx.x / 32;
+    const int ln = threadIdx.x % 32;
+#pragma unroll
+    for (int kk = 0; kk < TILE; kk += 16) {
+      unsigned a0, a1, a2, a3;
+      // matrices: rows 0-7 / 8-15 of the warp's 16 at k 0-7, then at k 8-15
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+          : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
+          : "r"(smem_addr(as + (16 * warp + ln % 16) * LDA + kk +
+                          (ln / 16) * 8)));
+#pragma unroll
+      for (int nb = 0; nb < NB; nb += 2) {
+        unsigned b0, b1, b2, b3;
+        // matrices: k 0-7 / 8-15 at columns n0 .. n0+7, then at n0+8 ..
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+            "{%0,%1,%2,%3}, [%4];\n"
+            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+            : "r"(smem_addr(bs + (kk + ln % 8 + ((ln / 8) % 2) * 8) * LDB +
+                            nb * 8 + (ln / 16) * 8)));
+        mma(acc.c[nb], a0, a1, a2, a3, b0, b1);
+        mma(acc.c[nb + 1], a0, a1, a2, a3, b2, b3);
+      }
+    }
+  }
+
+  __device__ static __forceinline__ void mma(float (&c)[4], unsigned a0,
+                                             unsigned a1, unsigned a2,
+                                             unsigned a3, unsigned b0,
+                                             unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
+
+  // accumulator fragment: c0, c1 at row lane/4, columns 2·(lane%4) + 0/1
+  // of each n8 block; c2, c3 eight rows below
+  __device__ static void store(float* og, size_t ldo, const Acc& acc) {
+    const int warp = threadIdx.x / 32;
+    const int ln = threadIdx.x % 32;
+    const size_t r = 16 * warp + ln / 4;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int c = nb * 8 + 2 * (ln % 4);
+      *reinterpret_cast<float2*>(og + r * ldo + c) =
+          make_float2(acc.c[nb][0], acc.c[nb][1]);
+      *reinterpret_cast<float2*>(og + (r + 8) * ldo + c) =
+          make_float2(acc.c[nb][2], acc.c[nb][3]);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Step lists and the pipelined walk, shared by every kernel above.
+// ---------------------------------------------------------------------------
+
+// Appends the flagged steps of [base, s1) to `list` (entries: k, i, j,
+// flags), in table order, in rounds of NT steps while a whole round still
+// fits; advances `base` past the steps read. Returns the entry count.
+template <int NT>
+__device__ int fill_worklist(int4* list, int* wsum, const int* step_i,
+                             const int* step_j, const int* step_k,
+                             const int* step_flags, int& base, int s1) {
+  const int ln = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  int cnt = 0;
+  while (base < s1 && cnt + NT <= kListCap) {
+    const int s = base + threadIdx.x;
+    int f = 0, kk = 0, ii = 0, jj = 0;
+    if (s < s1) {
+      f = step_flags[s];
+      kk = step_k[s];
+      ii = step_i[s];
+      jj = step_j[s];
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, f != 0);
+    if (ln == 0) wsum[warp] = __popc(bal);
+    __syncthreads();
+    int off = cnt, total = 0;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) {
+      const int c = wsum[w];
+      total += c;
+      if (w < warp) off += c;
+    }
+    if (f != 0)
+      list[off + __popc(bal & ((1u << ln) - 1u))] = make_int4(kk, ii, jj, f);
+    cnt += total;
+    base += NT;
+    __syncthreads();  // list complete; wsum free for the next round
+  }
+  return cnt;
+}
+
+// Walks `n` list entries: INIT zeroes `acc`, ACC adds the entry's tile
+// product (tiles prefetched STAGES-1 ACC entries ahead through the ring in
+// `smem`), FLUSH stores `acc`. An entry (k, i, j) reads A's tile (i, k) and
+// B's tile at rows k·TILE, columns j·jstride + col0, and flushes to the
+// output at rows i·TILE, the same columns. Every branch is uniform across
+// the block (flags come from shared memory).
+template <class P, int TILE>
+__device__ void walk_list(unsigned char* smem, const int4* list, int n,
+                          const typename P::T* a, size_t lda,
+                          const typename P::T* b, size_t ldb, float* out,
+                          size_t ldo, size_t jstride, size_t col0,
+                          typename P::Acc& acc) {
+  auto next_acc = [&](int e) {
+    while (e < n && !(list[e].w & kAcc)) ++e;
+    return e;
+  };
+  auto load = [&](int e, int st) {
+    const int4 en = list[e];
+    P::load(smem + st * P::STAGE_BYTES,
+            a + static_cast<size_t>(en.y) * TILE * lda +
+                static_cast<size_t>(en.x) * TILE,
+            lda,
+            b + static_cast<size_t>(en.x) * TILE * ldb +
+                static_cast<size_t>(en.z) * jstride + col0,
+            ldb);
+  };
+  int ld = next_acc(0);
+#pragma unroll
+  for (int p = 0; p < P::STAGES - 1; ++p) {
+    if (ld < n) {
+      load(ld, p);
+      ld = next_acc(ld + 1);
+    }
+    cp_async_commit();
+  }
+  int stage = 0;
+  for (int e = 0; e < n; ++e) {
+    const int4 en = list[e];
+    if (en.w & kInit) P::zero(acc);
+    if (en.w & kAcc) {
+      cp_async_wait<P::STAGES - 2>();
+      __syncthreads();  // the stage has landed; the previous one is free
+      if (ld < n) {
+        load(ld, (stage + P::STAGES - 1) % P::STAGES);
+        ld = next_acc(ld + 1);
+      }
+      cp_async_commit();
+      P::compute(smem + stage * P::STAGE_BYTES, acc);
+      stage = (stage + 1) % P::STAGES;
+    }
+    if (en.w & kFlush)
+      P::store(out + static_cast<size_t>(en.y) * TILE * ldo +
+                   static_cast<size_t>(en.z) * jstride + col0,
+               ldo, acc);
   }
 }
+
+// One block per (run, column group × column slice): the run's flagged
+// steps, chunk by chunk, through walk_list.
+template <class P, int TILE>
+__device__ void worklist_block(const typename P::T* a,
+                               const typename P::T* b, const int* step_i,
+                               const int* step_j, const int* step_k,
+                               const int* step_flags, const int* runs,
+                               float* out, int k, int n, int block_n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int4 list[kListCap];
+  __shared__ int wsum[P::NT / 32];
+  constexpr int SL = TILE / P::W;
+  const int group = blockIdx.y / SL;
+  const int slice = blockIdx.y % SL;
+  const size_t col0 = static_cast<size_t>(group) * TILE + slice * P::W;
+  int base = runs[blockIdx.x];
+  const int s1 = runs[blockIdx.x + 1];
+  typename P::Acc acc;
+  P::zero(acc);
+  while (base < s1) {
+    __syncthreads();  // every thread is done with the previous chunk
+    const int cnt = fill_worklist<P::NT>(list, wsum, step_i, step_j, step_k,
+                                         step_flags, base, s1);
+    walk_list<P, TILE>(smem, list, cnt, a, k, b, n, out, n,
+                       static_cast<size_t>(block_n) * TILE, col0, acc);
+  }
+}
+
+template <int TILE, int SL>
+__global__ void __launch_bounds__(F32Product<TILE, SL>::NT, 3)
+spamm_worklist_f32_kernel(const float* __restrict__ a,
+                          const float* __restrict__ b,
+                          const int* __restrict__ step_i,
+                          const int* __restrict__ step_j,
+                          const int* __restrict__ step_k,
+                          const int* __restrict__ step_flags,
+                          const int* __restrict__ runs,
+                          float* __restrict__ out, int k, int n,
+                          int block_n) {
+  worklist_block<F32Product<TILE, SL>, TILE>(a, b, step_i, step_j, step_k,
+                                             step_flags, runs, out, k, n,
+                                             block_n);
+}
+
+template <int TILE, int SL>
+__global__ void __launch_bounds__(Bf16Product<TILE, SL>::NT)
+spamm_worklist_bf16_kernel(const __nv_bfloat16* __restrict__ a,
+                           const __nv_bfloat16* __restrict__ b,
+                           const int* __restrict__ step_i,
+                           const int* __restrict__ step_j,
+                           const int* __restrict__ step_k,
+                           const int* __restrict__ step_flags,
+                           const int* __restrict__ runs,
+                           float* __restrict__ out, int k, int n,
+                           int block_n) {
+  worklist_block<Bf16Product<TILE, SL>, TILE>(a, b, step_i, step_j, step_k,
+                                              step_flags, runs, out, k, n,
+                                              block_n);
+}
+
+// One block per (slice, i, j, column group × column slice): the valid-k
+// list kidx[slice, i, j, 0 .. nvalid) as ACC entries (INIT on the first,
+// FLUSH on the last; one INIT|FLUSH entry when nvalid is 0, so the block
+// writes zeros), chunk by chunk, through walk_list.
+template <int TILE, int SL>
+__global__ void __launch_bounds__(F32Product<TILE, SL>::NT, 3)
+spamm_dense_f32_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b,
+                       const int* __restrict__ kidx,
+                       const int* __restrict__ nvalid,
+                       float* __restrict__ out, int m, int k, int n,
+                       int gnb, int block_n) {
+  using P = F32Product<TILE, SL>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int4 list[kListCap];
+  const int pair = blockIdx.x;  // i * gnb + j
+  const int i = pair / gnb;
+  const int j = pair - i * gnb;
+  const int group = blockIdx.y / SL;
+  const int slice = blockIdx.y % SL;
+  const size_t col0 = static_cast<size_t>(group) * TILE + slice * P::W;
+  const size_t z = blockIdx.z;
+  const int gk = k / TILE;
+  const size_t pair_id = z * (m / TILE) * gnb + pair;
+  const int nv = nvalid[pair_id];
+  const int* kl = kidx + pair_id * gk;
+  const int total = nv > 0 ? nv : 1;
+  typename P::Acc acc;
+  P::zero(acc);
+  for (int t0 = 0; t0 < total; t0 += kListCap) {
+    const int cnt = min(kListCap, total - t0);
+    __syncthreads();  // every thread is done with the previous chunk
+    for (int e = threadIdx.x; e < cnt; e += P::NT) {
+      const int t = t0 + e;
+      const int f = (nv > 0 ? kAcc : 0) | (t == 0 ? kInit : 0) |
+                    (t == total - 1 ? kFlush : 0);
+      list[e] = make_int4(nv > 0 ? kl[t] : 0, i, j, f);
+    }
+    __syncthreads();
+    walk_list<P, TILE>(smem, list, cnt, a + z * m * k, k, b + z * k * n, n,
+                       out + z * m * n, n, static_cast<size_t>(block_n) * TILE,
+                       col0, acc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// int8 work-list kernel (256 threads, one step at a time)
+// ---------------------------------------------------------------------------
+constexpr int kThreads = 256;
 
 template <int TILE>
 __device__ __forceinline__ void zero_acc(float (&acc)[TILE / 16][TILE / 16]) {
@@ -134,8 +531,8 @@ __device__ __forceinline__ void zero_acc(float (&acc)[TILE / 16][TILE / 16]) {
     for (int c = 0; c < TILE / 16; ++c) acc[m][c] = 0.f;
 }
 
-// Writes the thread's R×R outputs to the (TILE × TILE) output block at
-// `og` (row stride ldo).
+// Writes the thread's R×R outputs (rows ty + 16·m, columns tx + 16·c) to
+// the (TILE × TILE) output block at `og` (row stride ldo).
 template <int TILE>
 __device__ __forceinline__ void store_tile(
     float* __restrict__ og, size_t ldo,
@@ -149,90 +546,12 @@ __device__ __forceinline__ void store_tile(
       og[static_cast<size_t>(ty + 16 * m) * ldo + tx + 16 * c] = acc[m][c];
 }
 
-template <int TILE, class T>
-__global__ void __launch_bounds__(kThreads)
-spamm_worklist_f32_kernel(const T* __restrict__ a,
-                          const T* __restrict__ b,
-                          const int* __restrict__ step_i,
-                          const int* __restrict__ step_j,
-                          const int* __restrict__ step_k,
-                          const int* __restrict__ step_flags,
-                          const int* __restrict__ runs,
-                          float* __restrict__ out, int k, int n,
-                          int block_n) {
-  const int run = blockIdx.x;
-  const int group = blockIdx.y;
-  const int s0 = runs[run];
-  const int s1 = runs[run + 1];
-  float acc[TILE / 16][TILE / 16];
-  zero_acc<TILE>(acc);
-
-  for (int s = s0; s < s1; ++s) {
-    const int f = step_flags[s];  // uniform across the block
-    if (f & kInit) zero_acc<TILE>(acc);
-    if (f & kAcc) {
-      const int i = step_i[s];
-      const int j = step_j[s];
-      const int kk = step_k[s];
-      acc_tile_product<TILE, T>(
-          a + static_cast<size_t>(i) * TILE * k +
-              static_cast<size_t>(kk) * TILE,
-          k,
-          b + static_cast<size_t>(kk) * TILE * n +
-              (static_cast<size_t>(j) * block_n + group) * TILE,
-          n, acc);
-    }
-    if (f & kFlush) {
-      const int i = step_i[s];
-      const int j = step_j[s];
-      store_tile<TILE>(out + static_cast<size_t>(i) * TILE * n +
-                           (static_cast<size_t>(j) * block_n + group) * TILE,
-                       n, acc);
-    }
-  }
-}
-
-// One block per (slice, i, j, column group): acc = Σ_{t < nvalid} A[i, k_t]
-// · B[k_t, j-block], k_t = kidx[slice, i, j, t] in the table's (ascending)
-// order, then one store — zeros where nvalid is 0.
-template <int TILE>
-__global__ void __launch_bounds__(kThreads)
-spamm_dense_f32_kernel(const float* __restrict__ a,
-                       const float* __restrict__ b,
-                       const int* __restrict__ kidx,
-                       const int* __restrict__ nvalid,
-                       float* __restrict__ out, int m, int k, int n,
-                       int gnb, int block_n) {
-  const int pair = blockIdx.x;  // i * gnb + j
-  const int group = blockIdx.y;
-  const size_t slice = blockIdx.z;
-  const int i = pair / gnb;
-  const int j = pair - i * gnb;
-  const int gk = k / TILE;
-  const size_t pair_id = slice * (m / TILE) * gnb + pair;
-  const int nv = nvalid[pair_id];
-  const int* kl = kidx + pair_id * gk;
-  const float* ag = a + slice * m * k + static_cast<size_t>(i) * TILE * k;
-  const float* bg = b + slice * k * n +
-                    (static_cast<size_t>(j) * block_n + group) * TILE;
-  float acc[TILE / 16][TILE / 16];
-  zero_acc<TILE>(acc);
-  for (int t = 0; t < nv; ++t) {
-    const int kk = kl[t];
-    acc_tile_product<TILE, float>(ag + static_cast<size_t>(kk) * TILE, k,
-                           bg + static_cast<size_t>(kk) * TILE * n, n, acc);
-  }
-  store_tile<TILE>(out + slice * m * n + static_cast<size_t>(i) * TILE * n +
-                       (static_cast<size_t>(j) * block_n + group) * TILE,
-                   n, acc);
-}
-
 // One int8 ACC step: acc += (f32(A_q·B_q)·sa)·sb for one (TILE × TILE)
 // int8 A tile at `ag` (row stride lda) and one (TILE × TILE) int8 B tile at
 // `bg` (row stride ldb). A is staged as 4-byte words of 4 consecutive k; B
 // transposed, so a word holds 4 consecutive k of one output column. Each
-// thread owns the outputs of acc_tile_product (rows ty + 16·m, columns
-// tx + 16·c) and forms their exact int32 dots with __dp4a in ascending k.
+// thread owns the outputs at rows ty + 16·m, columns tx + 16·c and forms
+// their exact int32 dots with __dp4a in ascending k.
 template <int TILE>
 __device__ __forceinline__ void acc_tile_product_int8(
     const signed char* __restrict__ ag, size_t lda,
@@ -334,42 +653,6 @@ spamm_worklist_int8_kernel(const signed char* __restrict__ a,
   }
 }
 
-template <int TILE, class T>
-void launch_worklist(const T* a, const T* b, const int* si, const int* sj,
-                     const int* sk, const int* sf, const int* runs,
-                     int num_runs, float* out, int k, int n, int block_n,
-                     cudaStream_t stream) {
-  const dim3 grid(num_runs, block_n);
-  spamm_worklist_f32_kernel<TILE, T><<<grid, kThreads, 0, stream>>>(
-      a, b, si, sj, sk, sf, runs, out, k, n, block_n);
-}
-
-template <class T>
-int worklist_entry(const T* a, const T* b, const int* step_i,
-                   const int* step_j, const int* step_k,
-                   const int* step_flags, const int* runs, int num_runs,
-                   float* out, int k, int n, int tile, int block_n,
-                   void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (tile) {
-    case 16:
-      launch_worklist<16, T>(a, b, step_i, step_j, step_k, step_flags, runs,
-                             num_runs, out, k, n, block_n, st);
-      break;
-    case 32:
-      launch_worklist<32, T>(a, b, step_i, step_j, step_k, step_flags, runs,
-                             num_runs, out, k, n, block_n, st);
-      break;
-    case 64:
-      launch_worklist<64, T>(a, b, step_i, step_j, step_k, step_flags, runs,
-                             num_runs, out, k, n, block_n, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int TILE>
 void launch_worklist_int8(const signed char* a, const signed char* b,
                           const float* sa, const float* sb, const int* si,
@@ -381,32 +664,88 @@ void launch_worklist_int8(const signed char* a, const signed char* b,
       a, b, sa, sb, si, sj, sk, sf, runs, out, k, n, block_n);
 }
 
-template <int TILE>
-void launch_dense(const float* a, const float* b, const int* kidx,
-                  const int* nvalid, float* out, int batch, int m, int k,
-                  int n, int block_n, cudaStream_t stream) {
-  const int gnb = n / (TILE * block_n);
-  const dim3 grid((m / TILE) * gnb, block_n, batch);
-  spamm_dense_f32_kernel<TILE><<<grid, kThreads, 0, stream>>>(
-      a, b, kidx, nvalid, out, m, k, n, gnb, block_n);
+// Launches kernel `kern` with P's block size and ring, gridDim (x, y, z),
+// after raising its dynamic shared-memory limit to the ring's size.
+template <class P, class K, class... Args>
+int launch(K kern, dim3 grid, cudaStream_t stream, Args... args) {
+  constexpr int smem = P::STAGES * P::STAGE_BYTES;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kern<<<grid, P::NT, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
+
+template <int TILE, int SL>
+int worklist_f32(const float* a, const float* b, const int* si,
+                 const int* sj, const int* sk, const int* sf,
+                 const int* runs, int num_runs, float* out, int k, int n,
+                 int block_n, cudaStream_t st) {
+  return launch<F32Product<TILE, SL>>(
+      spamm_worklist_f32_kernel<TILE, SL>, dim3(num_runs, block_n * SL), st,
+      a, b, si, sj, sk, sf, runs, out, k, n, block_n);
+}
+
+template <int TILE, int SL>
+int worklist_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                  const int* si, const int* sj, const int* sk, const int* sf,
+                  const int* runs, int num_runs, float* out, int k, int n,
+                  int block_n, cudaStream_t st) {
+  return launch<Bf16Product<TILE, SL>>(
+      spamm_worklist_bf16_kernel<TILE, SL>, dim3(num_runs, block_n * SL), st,
+      a, b, si, sj, sk, sf, runs, out, k, n, block_n);
+}
+
+template <int TILE, int SL>
+int dense_f32(const float* a, const float* b, const int* kidx,
+              const int* nvalid, float* out, int batch, int m, int k, int n,
+              int block_n, cudaStream_t st) {
+  const int gnb = n / (TILE * block_n);
+  return launch<F32Product<TILE, SL>>(
+      spamm_dense_f32_kernel<TILE, SL>,
+      dim3((m / TILE) * gnb, block_n * SL, batch), st, a, b, kidx, nvalid,
+      out, m, k, n, gnb, block_n);
+}
+
+// Calls F<TILE, SL>(args...) for the (tile, slices) pairs the kernels are
+// built for: tile 16, 32 or 64 and slices 1 .. tile/16 (a power of two, at
+// most 4), so that a slice is at least 16 columns wide. Anything else
+// returns cudaErrorInvalidValue without launching.
+#define SPAMM_DISPATCH(F, tile, slices, ...)                               \
+  do {                                                                     \
+    if ((tile) == 16 && (slices) == 1) return F<16, 1>(__VA_ARGS__);       \
+    if ((tile) == 32 && (slices) == 1) return F<32, 1>(__VA_ARGS__);       \
+    if ((tile) == 32 && (slices) == 2) return F<32, 2>(__VA_ARGS__);       \
+    if ((tile) == 64 && (slices) == 1) return F<64, 1>(__VA_ARGS__);       \
+    if ((tile) == 64 && (slices) == 2) return F<64, 2>(__VA_ARGS__);       \
+    if ((tile) == 64 && (slices) == 4) return F<64, 4>(__VA_ARGS__);       \
+    return static_cast<int>(cudaErrorInvalidValue);                        \
+  } while (0)
 
 }  // namespace
 
-// a: (m, k), b: (k, n) row-major float32; step tables (S,) int32; runs
-// (num_runs + 1,) int32 run boundaries into the step tables; out: (m, n)
-// float32, zero-initialised. tile must be 16, 32 or 64 (else returns
-// cudaErrorInvalidValue without launching). Returns cudaGetLastError().
+// Ring depth of the pipelined f32 (bf16 == 0) or bf16 (bf16 != 0) kernels.
+extern "C" int spamm_mm_stages(int bf16) {
+  return bf16 ? kStagesBf16 : kStagesF32;
+}
+
+// a: (m, k), b: (k, n) row-major float32, 16-byte aligned; step tables
+// (S,) int32; runs (num_runs + 1,) int32 run boundaries into the step
+// tables; out: (m, n) float32, zero-initialised and 16-byte aligned;
+// slices: column slices per output block. tile 16, 32 or 64 and slices 1 ..
+// tile/16 (a power of two), else returns cudaErrorInvalidValue without
+// launching. Returns cudaGetLastError().
 extern "C" int spamm_mm_worklist_f32(const float* a, const float* b,
                                      const int* step_i, const int* step_j,
                                      const int* step_k, const int* step_flags,
                                      const int* runs, int num_runs,
                                      float* out, int m, int k, int n,
-                                     int tile, int block_n, void* stream) {
+                                     int tile, int block_n, int slices,
+                                     void* stream) {
   (void)m;
-  return worklist_entry<float>(a, b, step_i, step_j, step_k, step_flags,
-                               runs, num_runs, out, k, n, tile, block_n,
-                               stream);
+  SPAMM_DISPATCH(worklist_f32, tile, slices, a, b, step_i, step_j, step_k,
+                 step_flags, runs, num_runs, out, k, n, block_n,
+                 static_cast<cudaStream_t>(stream));
 }
 
 // As spamm_mm_worklist_f32 with a: (m, k), b: (k, n) row-major bf16
@@ -418,11 +757,11 @@ extern "C" int spamm_mm_worklist_bf16(const __nv_bfloat16* a,
                                       const int* step_flags, const int* runs,
                                       int num_runs, float* out, int m, int k,
                                       int n, int tile, int block_n,
-                                      void* stream) {
+                                      int slices, void* stream) {
   (void)m;
-  return worklist_entry<__nv_bfloat16>(a, b, step_i, step_j, step_k,
-                                       step_flags, runs, num_runs, out, k, n,
-                                       tile, block_n, stream);
+  SPAMM_DISPATCH(worklist_bf16, tile, slices, a, b, step_i, step_j, step_k,
+                 step_flags, runs, num_runs, out, k, n, block_n,
+                 static_cast<cudaStream_t>(stream));
 }
 
 // a: (m, k), b: (k, n) row-major int8 codes, 4-byte aligned; a_scale:
@@ -464,29 +803,18 @@ extern "C" int spamm_mm_worklist_int8(const signed char* a,
   return static_cast<int>(cudaGetLastError());
 }
 
-// a: (batch, m, k), b: (batch, k, n) row-major float32; kidx: (batch,
-// m/tile, n/(tile·block_n), k/tile) int32 valid-k lists, the first nvalid
-// entries of each in ascending order; nvalid: (batch, m/tile,
-// n/(tile·block_n)) int32; out: (batch, m, n) float32, every element
-// written. tile must be 16, 32 or 64 (else returns cudaErrorInvalidValue
+// a: (batch, m, k), b: (batch, k, n) row-major float32, 16-byte aligned;
+// kidx: (batch, m/tile, n/(tile·block_n), k/tile) int32 valid-k lists, the
+// first nvalid entries of each in ascending order; nvalid: (batch, m/tile,
+// n/(tile·block_n)) int32; out: (batch, m, n) float32, 16-byte aligned,
+// every element written; slices: column slices per output block. tile and
+// slices as spamm_mm_worklist_f32 (else returns cudaErrorInvalidValue
 // without launching). Returns cudaGetLastError().
 extern "C" int spamm_mm_dense_f32(const float* a, const float* b,
                                   const int* kidx, const int* nvalid,
                                   float* out, int batch, int m, int k, int n,
-                                  int tile, int block_n, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (tile) {
-    case 16:
-      launch_dense<16>(a, b, kidx, nvalid, out, batch, m, k, n, block_n, st);
-      break;
-    case 32:
-      launch_dense<32>(a, b, kidx, nvalid, out, batch, m, k, n, block_n, st);
-      break;
-    case 64:
-      launch_dense<64>(a, b, kidx, nvalid, out, batch, m, k, n, block_n, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                  int tile, int block_n, int slices,
+                                  void* stream) {
+  SPAMM_DISPATCH(dense_f32, tile, slices, a, b, kidx, nvalid, out, batch, m,
+                 k, n, block_n, static_cast<cudaStream_t>(stream));
 }

@@ -17,11 +17,16 @@ driven by the step tables `repro_torch.core.plan.compact_from_triples`
       no launch needs a host sync.
 
 Output blocks never flushed stay exactly zero. Entry points as in
-`getnorm`: `spamm_mm_worklist_plain`, `spamm_mm_worklist_cuda` (the kernel
-`csrc/spamm_mm.cu`, two f32 or two bf16 operands, f32 out, tile 16/32/64)
-and `spamm_mm_worklist` (dispatch on the operands' device). A bf16 product
-is exact in f32, so the bf16 kernel is bit-identical to the f32 kernel on
-the bf16-rounded operands, and to its plain version.
+`getnorm`: `spamm_mm_worklist_plain`, `spamm_mm_worklist_cuda` (the kernels
+of `csrc/spamm_mm.cu`: two f32 operands on the CUDA cores, or two bf16
+operands on the tensor cores; f32 out, tile 16/32/64) and
+`spamm_mm_worklist` (dispatch on the operands' device). The f32 kernel adds
+every element's products with one FMA each, in table order and ascending
+inner index. The bf16 kernel's tensor-core MMA adds a 16-deep slice of
+products in its own order: it agrees with the f32 kernel on the
+bf16-rounded operands, and with its plain version, within 1e-4 of the
+output's largest magnitude (the products are exact in f32 in all three;
+only the order of the additions differs), and is deterministic.
 
 Int8 work-list: twin of `repro.kernels.spamm_mm.spamm_mm_worklist_int8`.
 Per-tile int8 codes a_q (M, K) and b_q (K, N), f32 scales a_scale (gm, gk)
@@ -43,10 +48,20 @@ b (B, K, N), kidx (B, gm, gnb, gk), nvalid (B, gm, gnb). Every output block
 is written, with zeros where nvalid is 0. Entry points `spamm_mm_plain`,
 `spamm_mm_cuda` and `spamm_mm`. Both GEMMs add a tile product in the same
 order (kernel: one shared device function; plain: the same rank-1 updates),
-so with the same valid k's dense-grid ≡ work-list bit for bit.
+so with the same valid k's dense-grid ≡ work-list bit for bit, whatever
+the column slices of either.
+
+Launch geometry (f32/bf16 work-list and dense-grid): one thread block per
+run (dense-grid: per output block) × block_n column groups × `slices`
+column slices. `column_slices` is the rule: a decode step's few runs are
+split into up to 4 slices of at least 16 columns until the launch has two
+blocks per SM; each slice walks the same steps over its columns, so the
+per-element order does not change. Every operand pointer the kernels read
+with 16-byte copies must be 16-byte aligned (the wrappers raise
+otherwise). `last_geometry` holds the geometry of the latest launch.
 
 Launch counts, one per kernel: `launches` (f32 work-list),
-`bf16_launches` (its bf16 variant), `int8_launches` (int8 work-list),
+`bf16_launches` (bf16 work-list), `int8_launches` (int8 work-list),
 `dense_launches` (dense-grid).
 """
 from __future__ import annotations
@@ -61,37 +76,91 @@ from repro_torch.kernels import build
 STEP_INIT, STEP_ACC, STEP_FLUSH = 1, 2, 4
 
 CUDA_TILES = (16, 32, 64)
+# column slices per output block: a slice is at least 16 columns wide
+MAX_COLUMN_SLICES = 4
+# ring depth of the pipelined kernels, as `spamm_mm_stages` reports it
+PIPELINE_STAGES = {torch.float32: 2, torch.bfloat16: 3}
+# threads of an f32 block that holds at least this many float4 outputs (the
+# kernel's kThreadsF32)
+F32_THREADS = 128
 
 launches = 0
 bf16_launches = 0
 int8_launches = 0
 dense_launches = 0
+last_geometry: dict = {}
 
 _LIB = None
+_SMS: dict = {}
 
 
 def _lib():
     global _LIB
     if _LIB is None:
         lib = build.load("spamm_mm.cu")
-        fn = lib.spamm_mm_worklist_f32
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fn = lib.spamm_mm_worklist_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for fn in (lib.spamm_mm_worklist_f32, lib.spamm_mm_worklist_bf16):
+            fn.argtypes = ([ctypes.c_void_p] * 7
+                           + [ctypes.c_int, ctypes.c_void_p]
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         fn = lib.spamm_mm_worklist_int8
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.spamm_mm_dense_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.spamm_mm_stages.argtypes = [ctypes.c_int]
+        lib.spamm_mm_stages.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def column_slices(num_blocks: int, tile: int, num_sms: int) -> int:
+    """Column slices per output block for a launch of `num_blocks` blocks
+    (runs × block_n column groups; dense-grid: batch slices × output
+    blocks × column groups) on `num_sms` SMs: doubled from 1 while the
+    launch has fewer than two blocks per SM, up to tile/16 (a slice keeps
+    at least 16 columns) and MAX_COLUMN_SLICES. Slices only split launches
+    below 2·num_sms blocks, so block_n × slices stays far inside gridDim.y."""
+    most = min(MAX_COLUMN_SLICES, tile // 16)
+    slices = 1
+    while slices < most and num_blocks * slices < 2 * num_sms:
+        slices *= 2
+    return slices
+
+
+def launch_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
+                    num_sms: int) -> dict:
+    """The launch of an f32 or bf16 work-list / dense-grid kernel over
+    `num_blocks` (output block, column group) pairs: column slices, thread
+    blocks, threads per block and ring stages. f32: width/4 threads along
+    a row, each owning one float4 of columns in as many rows as keep 128
+    threads (64 at tile 16); bf16: one warp per 16 rows of the tile."""
+    slices = column_slices(num_blocks, tile, num_sms)
+    width = tile // slices
+    threads = (min(tile, F32_THREADS // (width // 4)) * (width // 4)
+               if dtype == torch.float32 else 2 * tile)
+    return {"blocks": num_blocks * slices, "column_slices": slices,
+            "threads": threads, "stages": PIPELINE_STAGES[dtype]}
+
+
+def _num_sms(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _check_aligned(named):
+    """The kernels copy tiles with 16-byte cp.async: every operand must
+    start on a 16-byte boundary."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the "
+                             f"kernel's 16-byte copies (offset "
+                             f"{t.data_ptr() % 16})")
 
 
 def _check_shapes(a, b, tables, runs, tile, block_n):
@@ -189,11 +258,12 @@ def _check_cuda_worklist(named, tables, runs, tile, block_n, out_dtype):
 def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
                            *, tile: int = 64, block_n: int = 1,
                            out_dtype=torch.float32) -> torch.Tensor:
-    """The CUDA kernel: one thread block per run (× block_n column groups).
-    Takes two contiguous float32 or two bfloat16 operands and int32 tables
-    on one CUDA device, tile in CUDA_TILES and a float32 output; raises on
-    anything else (mixed operand types too)."""
-    global launches, bf16_launches
+    """The CUDA kernels: one thread block per run × block_n column groups ×
+    `column_slices`. Takes two contiguous, 16-byte aligned float32 or
+    bfloat16 operands and int32 tables on one CUDA device, tile in
+    CUDA_TILES and a float32 output; raises on anything else (mixed operand
+    types too)."""
+    global launches, bf16_launches, last_geometry
     tables = (step_i, step_j, step_k, step_flags)
     m, k, n = _check_shapes(a, b, tables, runs, tile, block_n)
     dev = _check_cuda_worklist((("a", a), ("b", b)), tables, runs, tile,
@@ -201,10 +271,12 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
     if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"spamm_mm_worklist_cuda takes two float32 or two "
                         f"bfloat16 operands, got {a.dtype} @ {b.dtype}")
+    _check_aligned((("a", a), ("b", b)))
     out = torch.zeros(m, n, dtype=torch.float32, device=dev)
     num_runs = runs.shape[0] - 1
     if num_runs == 0:
         return out
+    geo = launch_geometry(num_runs * block_n, tile, a.dtype, _num_sms(dev))
     lib = _lib()
     fn = (lib.spamm_mm_worklist_f32 if a.dtype == torch.float32
           else lib.spamm_mm_worklist_bf16)
@@ -213,10 +285,11 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
         rc = fn(a.data_ptr(), b.data_ptr(), step_i.data_ptr(),
                 step_j.data_ptr(), step_k.data_ptr(), step_flags.data_ptr(),
                 runs.data_ptr(), num_runs, out.data_ptr(), m, k, n, tile,
-                block_n, stream)
+                block_n, geo["column_slices"], stream)
     if rc != 0:
         raise RuntimeError(
             f"spamm_mm_worklist kernel launch failed: CUDA error {rc}")
+    last_geometry = geo
     if a.dtype == torch.float32:
         launches += 1
     else:
@@ -399,10 +472,10 @@ def spamm_mm_plain(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
 def spamm_mm_cuda(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
                   out_dtype=torch.float32) -> torch.Tensor:
     """The CUDA dense-grid kernel: one thread block per (slice, i, j,
-    column group). Takes contiguous float32 operands and int32 kidx/nvalid
-    on one CUDA device, tile in CUDA_TILES and a float32 output; raises on
-    anything else."""
-    global dense_launches
+    column group) × `column_slices`. Takes contiguous, 16-byte aligned
+    float32 operands and int32 kidx/nvalid on one CUDA device, tile in
+    CUDA_TILES and a float32 output; raises on anything else."""
+    global dense_launches, last_geometry
     batch, m, k, n, gm, gnb, gk = _check_dense(a, b, kidx, nvalid, tile,
                                                block_n)
     dev = a.device
@@ -424,17 +497,22 @@ def spamm_mm_cuda(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
         raise ValueError(f"tile {tile} not in the kernel's {CUDA_TILES}")
     if not 1 <= block_n <= 65535 or batch > 65535:
         raise ValueError(f"block_n {block_n} or batch {batch} out of range")
+    _check_aligned((("a", a), ("b", b)))
     out = torch.empty(a.shape[:-2] + (m, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    geo = launch_geometry(batch * gm * gnb * block_n, tile, torch.float32,
+                          _num_sms(dev))
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.spamm_mm_dense_f32(
             a.data_ptr(), b.data_ptr(), kidx.data_ptr(), nvalid.data_ptr(),
-            out.data_ptr(), batch, m, k, n, tile, block_n, stream)
+            out.data_ptr(), batch, m, k, n, tile, block_n,
+            geo["column_slices"], stream)
     if rc != 0:
         raise RuntimeError(f"spamm_mm kernel launch failed: CUDA error {rc}")
+    last_geometry = geo
     dense_launches += 1
     return out
 

@@ -21,7 +21,9 @@ pytestmark = pytest.mark.cuda
 
 # tile norms: f32 sums of ≤ 4096 squares in two orders
 NORM_RTOL = 1e-5
-# work-list GEMM: FMA (kernel) vs multiply-add (plain) over K ≤ 384
+# work-list GEMM: FMA (kernel) vs multiply-add (plain) over K ≤ 2560; bf16
+# on the tensor cores vs sequential f32 sums, relative to the output's
+# largest magnitude
 MM_TOL = 1e-4
 
 
@@ -262,11 +264,19 @@ def test_int8_worklist_kernel_equals_plain_on_card(dev, tile, block_n):
     assert float((got - f32).abs().max()) <= 1e-5 * float(f32.abs().max())
 
 
+def _max_rel(got, want):
+    """Largest abs difference over the largest magnitude of `want`."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp(min=1e-30))
+
+
 @pytest.mark.parametrize("block_n", [1, 2])
 @pytest.mark.parametrize("tile", [16, 32, 64])
-def test_bf16_worklist_kernel_bitwise_on_card(dev, tile, block_n):
-    """bf16 operands: ≡ the f32 kernel on the bf16-rounded operands and ≡
-    the plain version, bit for bit (a bf16 product is exact in f32)."""
+def test_bf16_worklist_kernel_on_card(dev, tile, block_n):
+    """bf16 operands on the tensor cores: within MM_TOL of the output's
+    largest magnitude against the f32 kernel on the bf16-rounded operands
+    and against the plain version (the products are exact in f32, the MMA
+    adds them in its own order); two launches give equal outputs."""
     a = _rand((4 * tile, 6 * tile), 17, dev)
     b = _rand((6 * tile, 4 * tile), 18, dev)
     tau = _median_tau(a, b, tile)
@@ -276,13 +286,175 @@ def test_bf16_worklist_kernel_bitwise_on_card(dev, tile, block_n):
     before = (spamm_mm.bf16_launches, spamm_mm.launches)
     got = spamm_mm.spamm_mm_worklist(ab, bb, *tables, tile=tile,
                                      block_n=block_n)
+    again = spamm_mm.spamm_mm_worklist(ab, bb, *tables, tile=tile,
+                                       block_n=block_n)
     torch.cuda.synchronize()
-    assert (spamm_mm.bf16_launches, spamm_mm.launches) == (before[0] + 1,
+    assert (spamm_mm.bf16_launches, spamm_mm.launches) == (before[0] + 2,
                                                            before[1])
-    assert torch.equal(got, spamm_mm.spamm_mm_worklist_cuda(
-        ab.float(), bb.float(), *tables, tile=tile, block_n=block_n))
-    assert torch.equal(got, spamm_mm.spamm_mm_worklist_plain(
-        ab, bb, *tables, tile=tile, block_n=block_n))
+    assert torch.equal(got, again)
+    f32 = spamm_mm.spamm_mm_worklist_cuda(ab.float(), bb.float(), *tables,
+                                          tile=tile, block_n=block_n)
+    plain = spamm_mm.spamm_mm_worklist_plain(ab, bb, *tables, tile=tile,
+                                             block_n=block_n)
+    assert _max_rel(got, f32) <= MM_TOL
+    assert _max_rel(got, plain) <= MM_TOL
+    assert float(got.abs().max()) > 0.0
+
+
+def _decode_case(tile, dev, gk=40, gn=4, seed=27):
+    """A decode step as the gated GEMMs see it: 4 real rows zero-padded to
+    one row tile, a long k-list (gk tiles) and gn output columns: few runs,
+    so the wrapper splits their blocks into column slices."""
+    x = torch.zeros(tile, gk * tile, device=dev)
+    x[:4] = _rand((4, gk * tile), seed, dev)
+    w = _rand((gk * tile, gn * tile), seed + 1, dev)
+    return x, w, _median_tau(x, w, tile)
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+def test_decode_column_split_f32_on_card(dev, tile):
+    """At decode shapes the column split is taken; the kernel stays within
+    MM_TOL of its plain version, frozen ≡ eager and dense-grid ≡ work-list
+    bit for bit (each slice walks the same steps in the same order)."""
+    x, w, tau = _decode_case(tile, dev)
+    fw = FrozenWeight.build(w, tau, tile=tile, backend="cuda")
+    frozen = P.plan(x, frozen_weight=fw.for_rows(1))
+    assert 0.0 < float(frozen.valid_fraction) < 1.0
+    wk = frozen.work
+    args = (x, w, wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
+    got = spamm_mm.spamm_mm_worklist_cuda(*args, tile=tile)
+    geo = dict(spamm_mm.last_geometry)
+    assert geo["column_slices"] == tile // 16 > 1
+    assert geo["blocks"] == (wk.runs.numel() - 1) * geo["column_slices"]
+    want = spamm_mm.spamm_mm_worklist_plain(*args, tile=tile)
+    torch.testing.assert_close(got, want, rtol=MM_TOL, atol=MM_TOL)
+    eager = P.plan(x, w, tau, tile=tile, backend="cuda")
+    c = P.execute(eager, x, w)
+    assert torch.equal(P.execute(frozen, x, w), c)
+    kidx, nvalid = ref.spamm_compact_ref(eager.mask)
+    dense = spamm_mm.spamm_mm_cuda(x, w, kidx, nvalid, tile=tile)
+    assert spamm_mm.last_geometry["column_slices"] == tile // 16
+    assert torch.equal(dense, c)
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+def test_decode_column_split_bf16_on_card(dev, tile):
+    """bf16 at decode shapes: frozen ≡ eager bit for bit through the split
+    launch, within MM_TOL of the plain version."""
+    x, w, tau = _decode_case(tile, dev, seed=29)
+    eager = P.plan(x, w, tau, tile=tile, backend="cuda",
+                   compute_dtype="bfloat16")
+    fw = FrozenWeight.build(w, tau, tile=tile, backend="cuda",
+                            compute_dtype="bfloat16")
+    frozen = P.plan(x, frozen_weight=fw.for_rows(1))
+    before = spamm_mm.bf16_launches
+    c = P.execute(frozen, x, w)
+    assert spamm_mm.bf16_launches == before + 1
+    assert spamm_mm.last_geometry["column_slices"] == tile // 16
+    assert torch.equal(P.execute(eager, x, w), c)
+    wk = frozen.work
+    plain = spamm_mm.spamm_mm_worklist_plain(
+        x.bfloat16(), w.bfloat16(), wk.step_i, wk.step_j, wk.step_k,
+        wk.step_flags, wk.runs, tile=tile)
+    assert _max_rel(c, plain) <= MM_TOL
+
+
+def _flag_tables(tile, gk, dev, seed=31):
+    """Hand-made step tables for a (tile, 2·tile) output over gk k tiles.
+    Run 0, block (0, 0): 600 steps cycling over k, about half with ACC (a
+    longer list than one shared-memory chunk), INIT on the first flagged
+    step, FLUSH on the last, flag-0 steps between. Run 1, block (0, 1): 40
+    flag-0 steps and a trailing FLUSH, which writes the zeroed accumulator."""
+    rng = np.random.default_rng(seed)
+    s0, s1 = 600, 41
+    k0 = np.arange(s0) % gk
+    f0 = np.where(rng.random(s0) < 0.5, spamm_mm.STEP_ACC, 0)
+    on = np.flatnonzero(f0)
+    f0[on[0]] |= spamm_mm.STEP_INIT
+    f0[on[-1]] |= spamm_mm.STEP_FLUSH
+    f1 = np.zeros(s1, np.int64)
+    f1[-1] = spamm_mm.STEP_FLUSH
+    cols = [np.zeros(s0 + s1, np.int64),
+            np.r_[np.zeros(s0), np.ones(s1)],
+            np.r_[k0, rng.integers(0, gk, s1)], np.r_[f0, f1]]
+    tables = [torch.as_tensor(c.astype(np.int32), device=dev) for c in cols]
+    runs = torch.tensor([0, s0, s0 + s1], dtype=torch.int32, device=dev)
+    return (*tables, runs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_worklist_flag_patterns_on_card(dev, tile, dtype):
+    """A run longer than one step-list chunk with flag-0 steps between its
+    ACC steps, and a run of flag-0 steps ending in a lone FLUSH: the kernel
+    against its plain version (the lone-FLUSH block stays zero)."""
+    gk = 5
+    tables = _flag_tables(tile, gk, dev)
+    a = _rand((tile, gk * tile), 32, dev).to(dtype)
+    b = _rand((gk * tile, 2 * tile), 33, dev).to(dtype)
+    got = spamm_mm.spamm_mm_worklist_cuda(a, b, *tables, tile=tile)
+    want = spamm_mm.spamm_mm_worklist_plain(a, b, *tables, tile=tile)
+    torch.cuda.synchronize()
+    assert _max_rel(got, want) <= MM_TOL
+    assert float(got[:, :tile].abs().max()) > 0.0
+    assert not bool(got[:, tile:].any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_frozen_empty_pair_on_card(dev, dtype):
+    """A frozen segment with no active step (its row tile is all zeros)
+    gets one INIT|FLUSH and writes zeros; the rest ≡ eager bit for bit."""
+    tile = 64
+    x = _rand((3 * tile, 5 * tile), 34, dev)
+    x[tile:2 * tile] = 0.0
+    w = _rand((5 * tile, 4 * tile), 35, dev)
+    tau = _median_tau(x, w, tile)
+    fw = FrozenWeight.build(w, tau, tile=tile, backend="cuda",
+                            compute_dtype=dtype)
+    frozen = P.plan(x, frozen_weight=fw.for_rows(3))
+    flags = frozen.work.step_flags
+    both = spamm_mm.STEP_INIT | spamm_mm.STEP_FLUSH
+    assert bool(((flags & both) == both).logical_and(
+        (flags & spamm_mm.STEP_ACC) == 0).any())
+    c = P.execute(frozen, x, w)
+    assert not bool(c[tile:2 * tile].any())
+    eager = P.plan(x, w, tau, tile=tile, backend="cuda", compute_dtype=dtype)
+    assert torch.equal(P.execute(eager, x, w), c)
+
+
+def test_kernels_raise_on_misaligned_operands(dev):
+    """The 16-byte copies need 16-byte aligned operands: an offset view
+    raises, for every operand of both GEMMs, f32 and bf16."""
+    tile = 64
+    a = _rand((tile, 2 * tile), 36, dev)
+    b = _rand((2 * tile, tile), 37, dev)
+    tables = P.plan(a, b, 0.0, tile=tile, backend="cuda").work
+    tables = (tables.step_i, tables.step_j, tables.step_k,
+              tables.step_flags, tables.runs)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    for dt in (torch.float32, torch.bfloat16):
+        at, bt = a.to(dt), b.to(dt)
+        for args in ((shifted(at), bt), (at, shifted(bt))):
+            with pytest.raises(ValueError, match="aligned"):
+                spamm_mm.spamm_mm_worklist_cuda(*args, *tables, tile=tile)
+    kidx = torch.zeros(1, 1, 2, dtype=torch.int32, device=dev)
+    nvalid = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    for args in ((shifted(a), b), (a, shifted(b))):
+        with pytest.raises(ValueError, match="aligned"):
+            spamm_mm.spamm_mm_cuda(*args, kidx, nvalid, tile=tile)
+
+
+def test_pipeline_stages_match_the_library(dev):
+    lib = spamm_mm._lib()
+    assert lib.spamm_mm_stages(0) == spamm_mm.PIPELINE_STAGES[torch.float32]
+    assert lib.spamm_mm_stages(1) == spamm_mm.PIPELINE_STAGES[torch.bfloat16]
 
 
 def test_lowp_kernels_reject_what_they_do_not_take(dev):

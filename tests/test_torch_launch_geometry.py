@@ -1,0 +1,79 @@
+"""The host rules of the port's SpAMM GEMM launches (no card needed).
+
+`column_slices` splits the output blocks of a launch into column slices
+when the blocks alone give fewer than two per SM; `launch_geometry` adds
+the threads and ring stages the kernels are built with; `_check_aligned`
+refuses operands the kernels' 16-byte copies cannot read.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import spamm_mm
+
+SMS = 132  # an H100 SXM
+
+
+@pytest.mark.parametrize("tile,most", [(16, 1), (32, 2), (64, 4)])
+def test_column_slices_below_threshold_split_up_to_the_tile_limit(tile,
+                                                                  most):
+    """Few runs (a decode step's wk/wv: 8) take the most slices a tile
+    allows: a slice keeps at least 16 columns, and at most 4."""
+    assert spamm_mm.column_slices(8, tile, SMS) == most
+    assert spamm_mm.column_slices(1, tile, SMS) == most
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_column_slices_at_or_above_threshold_do_not_split(tile):
+    """Two blocks per SM or more (prefill, decode w1's 288 runs) launch
+    one block per run."""
+    for blocks in (2 * SMS, 288, 2304):
+        assert spamm_mm.column_slices(blocks, tile, SMS) == 1
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+def test_column_slices_double_until_two_blocks_per_sm(tile):
+    """Just below the threshold one doubling suffices; a decode step's 72
+    runs (wq/wo/w2) need 4 at tile 64."""
+    assert spamm_mm.column_slices(2 * SMS - 1, tile, SMS) == 2
+    assert spamm_mm.column_slices(72, 64, SMS) == 4
+    for blocks in range(1, 3 * SMS):
+        s = spamm_mm.column_slices(blocks, tile, SMS)
+        assert s in (1, 2, 4) and s <= tile // 16
+        assert blocks * s >= 2 * SMS or s == min(4, tile // 16)
+        if s > 1:
+            assert blocks * (s // 2) < 2 * SMS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+@pytest.mark.parametrize("blocks", [8, 72, 2304])
+def test_launch_geometry_covers_every_output(tile, blocks, dtype):
+    """Blocks = (run, group) pairs × slices; the threads of a block own
+    its tile × width outputs exactly (f32: whole float4s; bf16: one warp
+    per 16 rows, m16n8 accumulators of 4 outputs a thread)."""
+    geo = spamm_mm.launch_geometry(blocks, tile, dtype, SMS)
+    s = geo["column_slices"]
+    assert s == spamm_mm.column_slices(blocks, tile, SMS)
+    assert geo["blocks"] == blocks * s
+    assert geo["stages"] == spamm_mm.PIPELINE_STAGES[dtype] >= 2
+    width = tile // s
+    assert width >= 16 and tile % s == 0
+    threads = geo["threads"]
+    assert threads % 32 == 0 and threads <= 128
+    per_thread = tile * width // threads
+    assert per_thread * threads == tile * width
+    assert per_thread % 4 == 0
+    if dtype == torch.bfloat16:
+        assert threads == 32 * (tile // 16)
+
+
+def test_check_aligned_refuses_offset_views():
+    buf = torch.zeros(64 * 65)
+    spamm_mm._check_aligned((("a", buf[:64 * 64].view(64, 64)),))
+    spamm_mm._check_aligned((("a", buf[64:].view(64, 64)),))   # 256 B in
+    with pytest.raises(ValueError, match="aligned"):
+        spamm_mm._check_aligned((("a", buf[1:64 * 64 + 1].view(64, 64)),))
+    half = torch.zeros(64 * 64 + 8, dtype=torch.bfloat16)
+    spamm_mm._check_aligned((("b", half[8:].view(64, 64)),))   # 16 B in
+    with pytest.raises(ValueError, match="b must be 16-byte aligned"):
+        spamm_mm._check_aligned((("b", half[4:4 + 64 * 64].view(64, 64)),))
