@@ -3,21 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from src/repro_torch/kernels/csrc and drives
-two paths of the port.
+Builds the port's CUDA kernels from src/repro_torch/kernels/csrc, checks
+that the int8 work-list kernel's SASS runs on the tensor cores (IMMA, no
+IDP4A), and drives two paths of the port.
 
 Serving: holds the get-norm and work-list kernels against their plain
 PyTorch versions at the serving path's shapes, prefill and decode (and
 frozen ≡ eager bit for bit), and the low-precision kernels the same way:
 the fused int8 get-norm bit for bit against the unfused composition, the
-int8 work-list bit for bit against its plain version (block_n 1 and 2) and
+int8 work-list (tensor cores) bit for bit against its plain version at
+prefill, decode w1 and decode w2 (column slices), block_n 1 and 2, and
 within 1e-5 of the f32 kernel on the dequantized operands, the bf16
 work-list (tensor cores) within 1e-4 of the output's magnitude against the
 f32 kernel on bf16-rounded operands and its plain version, deterministic,
 at prefill and decode shapes, and frozen int8 / bf16 ≡ eager bit for
-bit. It then serves starcoder2-7b at full width (d=4608, ff=18432, 36/4
-heads, 32 layers, random weights from a seed)
-through `Engine.generate`: dense, τ = 0 and a τ > 0 derived from the first
+bit. The device time of each get-norm kernel at the prefill and decode
+activation shapes is read from the profiler, beside the wrapper's host
+cost per call. It then serves starcoder2-7b at full width (d=4608,
+ff=18432, 36/4 heads, 32 layers, random weights from a seed) through `Engine.generate`: dense, τ = 0 and a τ > 0 derived from the first
 gated GEMM of a decode step (so that both prefill and decode keep part of
 their tiles), then at that τ with int8 and with bf16 GEMMs; and checks at
 layer-0 wq that the int8 and bf16 gates keep every tile the f32 gate keeps.
@@ -139,6 +142,29 @@ def time_ms(fn, reps=10, warmup=2):
         t1.record()
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def time_ms_back_to_back(fn, calls=20, reps=5):
+    """Median over `reps` of the CUDA-event time of `calls` back-to-back
+    calls of fn(), per call: the wrapper's host cost overlaps the previous
+    launch, so a kernel longer than it is timed on its own (time_ms puts
+    the host cost of one call inside its event pair)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(calls):
+            fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / calls)
     times.sort()
     return times[len(times) // 2]
 
@@ -445,7 +471,8 @@ def check_int8_frozen(x, w, label, block_n=1):
     version and within INT8_DEQ_RTOL of the f32 kernel on the dequantized
     operands; frozen int8 ≡ eager int8 bit for bit. Times it against
     `torch._int_mm` on the same codes (the dense int8 product without the
-    per-tile scales: a yardstick, never called by the port)."""
+    per-tile scales: a yardstick, never called by the port), with B
+    row-major and column-major."""
     import torch
 
     from repro_torch.core import plan as P
@@ -467,6 +494,7 @@ def check_int8_frozen(x, w, label, block_n=1):
     args = (a_q, b_q, a_s, b_s, *tables)
     kw = {"tile": TILE, "block_n": block_n}
     got = spamm_mm.spamm_mm_worklist_int8_cuda(*args, **kw)
+    geometry = dict(spamm_mm.last_geometry)
     want = spamm_mm.spamm_mm_worklist_int8_plain(*args, **kw)
     f32 = spamm_mm.spamm_mm_worklist_cuda(Q.dequantize_tiles(a_q, a_s, TILE),
                                           Q.dequantize_tiles(b_q, b_s, TILE),
@@ -487,21 +515,28 @@ def check_int8_frozen(x, w, label, block_n=1):
     flops, n_acc, nbytes = worklist_work(wk, TILE, block_n, itemsize=1)
     nbytes += got.numel() * 4 + (a_s.numel() + b_s.numel()) * 4
     bms, by = bound_ms(nbytes, flops, PEAK_INT8_OP_S)
+    b_cm = b_q.t().contiguous().t()
     res = {"name": "spamm_mm_worklist_int8", "shape": label,
            "block_n": block_n, "valid_fraction": vf, "acc_steps": n_acc,
+           "geometry": geometry,
            "max_abs_err": 0.0 if same else float((got - want).abs().max()),
            "bit_identical_to_plain": same,
            "max_abs_err_vs_f32_dequantized": abs_err,
            "max_rel_err_vs_f32_dequantized": rel,
            "ms": time_ms(lambda: spamm_mm.spamm_mm_worklist_int8_cuda(*args,
                                                                      **kw)),
+           "ms_back_to_back": time_ms_back_to_back(
+               lambda: spamm_mm.spamm_mm_worklist_int8_cuda(*args, **kw)),
            "plain_ms": time_ms(
                lambda: spamm_mm.spamm_mm_worklist_int8_plain(*args, **kw),
                reps=3, warmup=1),
            "library_ms": time_ms(lambda: torch._int_mm(a_q, b_q)),
            "library_call": "torch._int_mm on the int8 codes (dense, no "
                            "scales)",
-           "bound_ms": bms, "bound_by": by}
+           "library_colmajor_b_ms": time_ms(lambda: torch._int_mm(a_q, b_cm)),
+           "bound_ms": bms, "bound_by": by,
+           "bound_bytes_ms": nbytes / PEAK_BYTES_S * 1e3,
+           "bound_ops_ms": flops / PEAK_INT8_OP_S * 1e3}
     emit({"kernel_check": res})
     return res
 
@@ -570,6 +605,78 @@ def check_bf16_frozen(x, w, label):
     return res
 
 
+def int8_sass():
+    """Opcode counts of the int8 work-list kernels in the built library's
+    SASS (`cuobjdump -sass`): they must run on the tensor cores (IMMA) and
+    hold no CUDA-core dot (IDP4A)."""
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(
+        "spamm_mm.cu"))], capture_output=True, text=True, check=True).stdout
+    lines = sass.splitlines()
+    counts, fn = {"functions": 0, "IMMA": 0}, ""
+    for line in lines:
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts["functions"] += "spamm_worklist_int8_kernel" in fn
+        elif "spamm_worklist_int8_kernel" in fn:
+            counts["IMMA"] += " IMMA." in line or " IMMA " in line
+    counts["IDP4A_in_library"] = sum(" IDP4A" in ln for ln in lines)
+    emit({"int8_sass": counts})
+    check(counts["functions"] > 0 and counts["IMMA"] > 0
+          and counts["IDP4A_in_library"] == 0,
+          f"int8 work-list SASS: {counts}")
+    return counts
+
+
+def getnorm_device_times(x, label, calls=100):
+    """Device time of one launch of each get-norm kernel on x (the pooling
+    kernel on x's normmap), from the profiler over `calls` back-to-back
+    calls, beside the wrapper's host cost per call (the host clock over
+    the same number of calls, before the closing sync) and the time per
+    call by CUDA events around them (the larger of the two)."""
+    import torch
+
+    from repro_torch.kernels import getnorm
+
+    t = TILE
+    nm = getnorm.tile_norms_cuda(x, t)
+    rows = {
+        "tile_norms": (lambda: getnorm.tile_norms_cuda(x, t),
+                       "tile_norms_f32_kernel"),
+        "tile_norms_mxu": (lambda: getnorm.tile_norms_cuda(x, t, use_mxu=True),
+                           "tile_norms_mxu_f32_kernel"),
+        "pool_norms": (lambda: getnorm.pool_norms_cuda(nm),
+                       "pool_norms_f32_kernel"),
+        "tile_norms_quant": (lambda: getnorm.tile_norms_quant_cuda(x, t),
+                             "tile_norms_quant_f32_kernel"),
+        "tile_norms_quant_mxu": (
+            lambda: getnorm.tile_norms_quant_cuda(x, t, use_mxu=True),
+            "tile_norms_quant_mxu_f32_kernel"),
+    }
+    out = {}
+    for name, (fn, kernel) in rows.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(calls):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / calls
+        e1.record()
+        e1.synchronize()
+        out[name] = {"device_ms": kernel_device_ms(fn, kernel, calls),
+                     "host_ms_per_call": host,
+                     "events_ms_per_call": e0.elapsed_time(e1) / calls}
+    emit({"getnorm_device": {"shape": label,
+                             "normmap": list(nm.shape), "calls": calls,
+                             "kernels": out}})
+    return out
+
+
 def decode_rows(n_cols, gen):
     """A decode step's activation as the gated GEMMs see it: BATCH real
     rows, zero-padded to one row tile."""
@@ -615,19 +722,24 @@ def phase_kernels():
     # runs it on the weights, so the w1 results go into the kernels line
     check_tile_norms_mxu(x, f"activation {BATCH * PROMPT_LEN}x{d}")
     lowp["mxu"] = check_tile_norms_mxu(w1, f"w1 {d}x{ff}")
-    xd = decode_rows(d, gen)
+    xd, xd2 = decode_rows(d, gen), decode_rows(ff, gen)
     for block_n in (1, 2):
         res = check_int8_frozen(x, w1, f"frozen w1 {x.shape[0]}x{d}x{ff}",
                                 block_n)
         lowp.setdefault("int8", res)
         check_int8_frozen(xd, w1, f"frozen w1 decode {TILE}({BATCH})x{d}x"
                           f"{ff}", block_n)
+        check_int8_frozen(xd2, w2, f"frozen w2 decode {TILE}({BATCH})x{ff}x"
+                          f"{d}", block_n)
     lowp["bf16"] = check_bf16_frozen(x, w1,
                                      f"frozen w1 {x.shape[0]}x{d}x{ff}")
     check_bf16_frozen(xd, w1, f"frozen w1 decode {TILE}({BATCH})x{d}x{ff}")
-    check_bf16_frozen(decode_rows(ff, gen), w2,
-                      f"frozen w2 decode {TILE}({BATCH})x{ff}x{d}")
-    del xd
+    check_bf16_frozen(xd2, w2, f"frozen w2 decode {TILE}({BATCH})x{ff}x{d}")
+    # device time of the get-norm kernels at the activation shapes the
+    # serving path hands them (prefill and decode)
+    getnorm_device_times(x, f"activation {BATCH * PROMPT_LEN}x{d}")
+    getnorm_device_times(xd, f"decode activation {TILE}({BATCH})x{d}")
+    del xd, xd2
 
     # (c) the paper's synthetic: exponential-decay matrices,
     # |a_ij| = lam^|i-j| · U(0.5, 1), random signs
@@ -1526,6 +1638,7 @@ def main():
                                               r["ptxas"].splitlines()
                                               if "Used" in ln or "spill" in ln]}
                                 for s, r in report.items()}}})
+    int8_sass()
 
     seconds = {}
     t0 = time.perf_counter()
@@ -1582,6 +1695,9 @@ def main():
          "replaces": "src/repro/kernels/spamm_mm.py:322",
          "launches": lowp_counts["int8"]["spamm_mm_worklist_int8"],
          "path": int8_path, "library_call": lowp["int8"]["library_call"],
+         "library_colmajor_b_ms": lowp["int8"]["library_colmajor_b_ms"],
+         "ms_back_to_back": lowp["int8"]["ms_back_to_back"],
+         "geometry": lowp["int8"]["geometry"],
          **{k: lowp["int8"][k] for k in keys}},
         {"name": "tile_norms_mxu", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",

@@ -52,6 +52,18 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels import spamm_mm as kmm
 
 
+def kernel_operand(x):
+    """x as the backends' kernels take it: contiguous and starting on a
+    16-byte boundary. A strided view (a transposed weight) or an offset one
+    gets a fresh contiguous copy; anything else, None included, is returned
+    as it is. The library entry points own this copy; the kernel wrappers
+    raise on what they cannot read."""
+    if (not isinstance(x, torch.Tensor)
+            or (x.is_contiguous() and x.data_ptr() % 16 == 0)):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def pad_to_tile(x: torch.Tensor, tile: int, tile_n: Optional[int] = None
                 ) -> torch.Tensor:
     """Zero-pad the trailing two dims of x up to multiples of `tile`
@@ -589,7 +601,12 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
     f32 gate at τ keeps. A valid_ratio search runs on the quantized norms
     with no widening (the ratio is the spec). Precomputed norm_a/norm_b
     must already describe the quantized view
-    (`WeightPlanCache.weight_side(dtype=…)` makes them so)."""
+    (`WeightPlanCache.weight_side(dtype=…)` makes them so).
+
+    Operands of any strides are taken: a non-contiguous or misaligned one
+    is copied (`kernel_operand`), with the same plan as its contiguous
+    copy."""
+    a, b = kernel_operand(a), kernel_operand(b)
     if frozen_weight is not None:
         if tau is not None or valid_ratio is not None:
             raise ValueError("frozen_weight carries its own tau; pass neither "
@@ -687,7 +704,8 @@ def execute(p: SpammPlan, a: torch.Tensor, b: torch.Tensor, *,
     execute owns the cast. bfloat16 casts both operands for the work-list
     kernel (f32 accumulation); int8 quantizes both per tile with the
     plan's scales (recomputing missing ones, bit-identically) and drives
-    the int8 work-list kernel."""
+    the int8 work-list kernel. Operands of any strides are taken: a
+    non-contiguous or misaligned one is copied first (`kernel_operand`)."""
     gm, gk = p.norm_a.shape
     gn = p.norm_b.shape[1]
     t = p.tile
@@ -696,6 +714,8 @@ def execute(p: SpammPlan, a: torch.Tensor, b: torch.Tensor, *,
                          f"match the plan's grid ({gm}, {gk}, {gn}) at tile {t}")
     bk = kops.get_backend(p.backend)
     out_dtype = out_dtype or torch.float32
+    # contiguous operands give contiguous codes and casts too
+    a, b = kernel_operand(a), kernel_operand(b)
     if p.compute_dtype == "int8":
         a_q, a_s = kquant.quantize_tiles(a, t, scales=p.a_scale)
         b_q, b_s = kquant.quantize_tiles(b, t, scales=p.b_scale)

@@ -84,13 +84,27 @@
 // accumulator, in the reference's order, with __fmul_rn/__fadd_rn so nvcc
 // cannot contract the two multiplies and the add: the kernel is bit-
 // identical to its plain version. Its bound is the int8 tensor-core peak
-// (1,979 TOP/s) or, at serving shapes, the int8 operand bytes. Design
-// (simple first): one block of 256 threads per run (× block_n column
-// groups), walking its steps one by one; per ACC step the A tile is staged
-// as 4-byte words and the B tile TRANSPOSED, so each thread's R×R outputs
-// (rows ty + 16·m, columns tx + 16·c) take t/4 __dp4a (4 int8 products +
-// int32 accumulate) per output on the CUDA cores; mma.sync/wgmma s8 come
-// later.
+// (1,979 TOP/s) or, at serving shapes, the int8 operand bytes (a step
+// reads 2·t² bytes for 2·t³ operations, so the tile traffic from L2 holds
+// it long before the tensor cores do). It runs on the pipeline above, with
+// the f32/bf16 geometry and column slices, and the tensor cores:
+// mma.sync.aligned.m16n8k32 s8 × s8 → s32 (m16n8k16 at t = 16), one warp
+// per 16 rows of the output block with W/8 m16n8 accumulators, A
+// fragments by ldmatrix from the row-major A tile as in bf16. The .col B
+// operand wants 4 consecutive k of one column in a register, so B must be
+// K-major in shared memory: the ring lands the (k, n) B tile as it is in
+// global memory (rows permuted so that the reads below hit 32 banks), and
+// each ACC step first transposes it once, shared to shared, into a (W × t)
+// buffer (4 × 4 byte blocks, 4 word loads, 8 prmt, 4 word stores; rows
+// XOR-swizzled so the stores spread over the banks and each ldmatrix hits
+// 8 distinct bank groups); a later wgmma s8 design needs the same K-major
+// layout. Gathering each lane's B bytes straight from the landed tile
+// instead (byte loads, no transpose) was slower at every serving shape:
+// every warp reads all of B, a byte at a time. Each ACC step starts
+// its s32 fragments afresh (its scales are its own) and folds them into
+// the f32 accumulator with the exact expression above. The integer tile
+// dot is exact in any order (|dot| ≤ 64·127² < 2²⁴, so f32(dot) is exact
+// too), and the tensor-core sum equals the plain version's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -104,6 +118,7 @@ constexpr int kListCap = 256;
 // ring depth of the pipelined tile products
 constexpr int kStagesF32 = 2;
 constexpr int kStagesBf16 = 3;
+constexpr int kStagesInt8 = 4;
 // threads of an f32 block that has at least this many float4 outputs
 constexpr int kThreadsF32 = 128;
 
@@ -121,9 +136,34 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stores NB m16n8 f32 accumulator fragments of one warp (rows 16·warp ..
+// +15 of the block at `og`): c0, c1 at row lane/4, columns 2·(lane%4) +
+// 0/1 of each n8 block; c2, c3 eight rows below.
+template <int NB>
+__device__ __forceinline__ void store_m16n8(float* og, size_t ldo,
+                                            const float (&c)[NB][4]) {
+  const int warp = threadIdx.x / 32;
+  const int ln = threadIdx.x % 32;
+  const size_t r = 16 * warp + ln / 4;
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    const int col = nb * 8 + 2 * (ln % 4);
+    *reinterpret_cast<float2*>(og + r * ldo + col) =
+        make_float2(c[nb][0], c[nb][1]);
+    *reinterpret_cast<float2*>(og + (r + 8) * ldo + col) =
+        make_float2(c[nb][2], c[nb][3]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -153,9 +193,10 @@ struct F32Product {
   }
 
   // cp.async of the (TILE × TILE) A tile at `ag` and the (TILE × W) B tile
-  // at `bg` into one stage
+  // at `bg` into one stage (the list entry is the int8 product's)
   __device__ static void load(unsigned char* stage, const float* ag,
-                              size_t lda, const float* bg, size_t ldb) {
+                              size_t lda, const float* bg, size_t ldb,
+                              int4) {
     float* as = reinterpret_cast<float*>(stage);
     float* bs = as + TILE * LDA;
     for (int e = threadIdx.x; e < TILE * TILE / 4; e += NT) {
@@ -241,7 +282,7 @@ struct Bf16Product {
   }
 
   __device__ static void load(unsigned char* stage, const T* ag, size_t lda,
-                              const T* bg, size_t ldb) {
+                              const T* bg, size_t ldb, int4) {
     T* as = reinterpret_cast<T*>(stage);
     T* bs = as + TILE * LDA;
     for (int e = threadIdx.x; e < TILE * TILE / 8; e += NT) {
@@ -297,20 +338,205 @@ struct Bf16Product {
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
   }
 
-  // accumulator fragment: c0, c1 at row lane/4, columns 2·(lane%4) + 0/1
-  // of each n8 block; c2, c3 eight rows below
   __device__ static void store(float* og, size_t ldo, const Acc& acc) {
+    store_m16n8<NB>(og, ldo, acc.c);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// int8 tile product: mma.sync s8 × s8 → s32 on the tensor cores, each ACC
+// step's exact tile dot scaled into the f32 accumulator.
+// ---------------------------------------------------------------------------
+template <int TILE, int SL>
+struct Int8Product {
+  using T = signed char;
+  static constexpr int W = TILE / SL;
+  static constexpr int NB = W / 8;             // m16n8 accumulators per warp
+  static constexpr int NT = 32 * (TILE / 16);  // one warp per 16 rows
+  static constexpr int STAGES = kStagesInt8;
+  static constexpr int KS = TILE >= 32 ? 32 : 16;  // mma depth
+  // rows of TILE bytes padded to an odd number of 16-byte units, so the 8
+  // row addresses of an ldmatrix hit 8 distinct bank groups
+  static constexpr int LDA = (TILE / 16) % 2 ? TILE : TILE + 16;
+  static constexpr int KB = TILE / 4;          // 4-row blocks of a B tile
+  static constexpr int CW = W / 4;             // 4-byte words of a B row
+  static constexpr int A_BYTES = TILE * LDA;
+  static constexpr int B_BYTES = TILE * W;     // the landed (k, n) B tile
+  // A tile, B tile, then a_scale and b_scale of the step
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES + 16;
+  static_assert(NB % 2 == 0, "ldmatrix.x4 takes two n8 blocks");
+
+  const float* a_scale;  // (gm, gk)
+  const float* b_scale;  // (gk, gn), per fine tile
+  int gk, gn, block_n, group;
+
+  struct Acc {
+    float c[NB][4];
+  };
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc.c[nb][r] = 0.f;
+  }
+
+  // slot of B row k in the landed tile: rows k ≡ q (mod 4) together, so
+  // the transposer's word loads are consecutive across a warp
+  __device__ static __forceinline__ int b_slot(int k) {
+    return (k % 4) * KB + k / 4;
+  }
+
+  // row of output column n in the transposed tile: n XOR (bits 3-4 of n)
+  // in its low two bits, which spreads a warp's transposed stores over the
+  // banks and keeps the 8 rows of each ldmatrix in distinct bank groups
+  __device__ static __forceinline__ int bt_row(int n) {
+    return n ^ ((n >> 3) & 3);
+  }
+
+  // cp.async of the A tile at `ag`, the B tile at `bg` and the entry's
+  // (k, i, j) scales into one stage
+  __device__ void load(unsigned char* stage, const T* ag, size_t lda,
+                       const T* bg, size_t ldb, int4 en) const {
+    T* as = reinterpret_cast<T*>(stage);
+    T* bs = as + A_BYTES;
+    for (int e = threadIdx.x; e < TILE * TILE / 16; e += NT) {
+      const int r = e / (TILE / 16);
+      const int c = 16 * (e % (TILE / 16));
+      cp_async16(as + r * LDA + c, ag + static_cast<size_t>(r) * lda + c);
+    }
+    for (int e = threadIdx.x; e < TILE * W / 16; e += NT) {
+      const int r = e / (W / 16);
+      const int c = 16 * (e % (W / 16));
+      cp_async16(bs + b_slot(r) * W + c, bg + static_cast<size_t>(r) * ldb + c);
+    }
+    float* sc = reinterpret_cast<float*>(bs + B_BYTES);
+    if (threadIdx.x == 0)
+      cp_async4(sc, a_scale + static_cast<size_t>(en.y) * gk + en.x);
+    if (threadIdx.x == 1)
+      cp_async4(sc + 1, b_scale + static_cast<size_t>(en.x) * gn +
+                            static_cast<size_t>(en.z) * block_n + group);
+  }
+
+  __device__ static __forceinline__ void mma(int (&d)[4], unsigned a0,
+                                             unsigned a1, unsigned a2,
+                                             unsigned a3, unsigned b0,
+                                             unsigned b1) {
+    if constexpr (KS == 32) {
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    } else {
+      (void)a2;
+      (void)a3;
+      (void)b1;
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+          "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+          : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+          : "r"(a0), "r"(a1), "r"(b0));
+    }
+  }
+
+  // acc += (f32(A_q·B_q)·a_scale)·b_scale for the stage's tiles
+  __device__ void compute(const unsigned char* stage, Acc& acc) const {
+    __shared__ __align__(16) unsigned char bt[W * LDA];
+    const unsigned char* as = stage;
+    const unsigned char* bs = stage + A_BYTES;
+    // 1. transpose the landed (k, n) B tile into bt (rows n, TILE bytes of
+    //    k): 4 × 4 byte blocks, 4 k rows of one 4-column word each
+    for (int e = threadIdx.x; e < KB * CW; e += NT) {
+      const int c = e % CW;
+      const int kb = e / CW;
+      unsigned r[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        r[q] = *reinterpret_cast<const unsigned*>(bs + (q * KB + kb) * W +
+                                                  4 * c);
+      const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
+      const unsigned t1 = __byte_perm(r[0], r[1], 0x7362);
+      const unsigned t2 = __byte_perm(r[2], r[3], 0x5140);
+      const unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
+      const unsigned o[4] = {__byte_perm(t0, t2, 0x5410),
+                             __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410),
+                             __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<unsigned*>(bt + bt_row(4 * c + j) * LDA + 4 * kb) =
+            o[j];
+    }
+    __syncthreads();
+    // 2. the exact s32 tile dots on the tensor cores
     const int warp = threadIdx.x / 32;
     const int ln = threadIdx.x % 32;
-    const size_t r = 16 * warp + ln / 4;
+    int d[NB][4];
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      const int c = nb * 8 + 2 * (ln % 4);
-      *reinterpret_cast<float2*>(og + r * ldo + c) =
-          make_float2(acc.c[nb][0], acc.c[nb][1]);
-      *reinterpret_cast<float2*>(og + (r + 8) * ldo + c) =
-          make_float2(acc.c[nb][2], acc.c[nb][3]);
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[nb][r] = 0;
+#pragma unroll
+    for (int kk = 0; kk < TILE; kk += KS) {
+      unsigned a0, a1, a2 = 0, a3 = 0;
+      if constexpr (KS == 32) {
+        // matrices: rows 0-7 / 8-15 of the warp's 16 at k 0-15, then at
+        // k 16-31
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+            : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
+            : "r"(smem_addr(as + (16 * warp + ln % 16) * LDA + kk +
+                            (ln / 16) * 16)));
+      } else {
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+            : "=r"(a0), "=r"(a1)
+            : "r"(smem_addr(as + (16 * warp + ln % 16) * LDA + kk)));
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; nb += 2) {
+        if constexpr (KS == 32) {
+          // matrices: columns n0 .. n0+7 at k 0-15, at k 16-31, then
+          // columns n0+8 .. n0+15 at k 0-15, at k 16-31
+          const int mi = ln / 8;
+          const int n = nb * 8 + (mi / 2) * 8 + ln % 8;
+          unsigned b0, b1, b2, b3;
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
+              "[%4];\n"
+              : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+              : "r"(smem_addr(bt + bt_row(n) * LDA + kk + (mi % 2) * 16)));
+          mma(d[nb], a0, a1, a2, a3, b0, b1);
+          mma(d[nb + 1], a0, a1, a2, a3, b2, b3);
+        } else {
+          // matrices: columns n0 .. n0+7, then n0+8 .. n0+15, at k 0-15
+          const int n = nb * 8 + ((ln / 8) % 2) * 8 + ln % 8;
+          unsigned b0, b1;
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+              : "=r"(b0), "=r"(b1)
+              : "r"(smem_addr(bt + bt_row(n) * LDA + kk)));
+          mma(d[nb], a0, a1, a2, a3, b0, 0u);
+          mma(d[nb + 1], a0, a1, a2, a3, b1, 0u);
+        }
+      }
     }
+    // 3. fold into the f32 accumulator in the plain version's order
+    const float* sc = reinterpret_cast<const float*>(bs + B_BYTES);
+    const float sa = sc[0];
+    const float sb = sc[1];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        acc.c[nb][r] = __fadd_rn(
+            acc.c[nb][r], __fmul_rn(__fmul_rn(__int2float_rn(d[nb][r]), sa),
+                                    sb));
+  }
+
+  __device__ static void store(float* og, size_t ldo, const Acc& acc) {
+    store_m16n8<NB>(og, ldo, acc.c);
   }
 };
 
@@ -356,17 +582,18 @@ __device__ int fill_worklist(int4* list, int* wsum, const int* step_i,
   return cnt;
 }
 
-// Walks `n` list entries: INIT zeroes `acc`, ACC adds the entry's tile
-// product (tiles prefetched STAGES-1 ACC entries ahead through the ring in
-// `smem`), FLUSH stores `acc`. An entry (k, i, j) reads A's tile (i, k) and
-// B's tile at rows k·TILE, columns j·jstride + col0, and flushes to the
-// output at rows i·TILE, the same columns. Every branch is uniform across
-// the block (flags come from shared memory).
+// Walks `n` list entries with the tile product `prod`: INIT zeroes `acc`,
+// ACC adds the entry's tile product (tiles prefetched STAGES-1 ACC entries
+// ahead through the ring in `smem`; the product's load sees the entry, for
+// per-step scales), FLUSH stores `acc`. An entry (k, i, j) reads A's tile
+// (i, k) and B's tile at rows k·TILE, columns j·jstride + col0, and flushes
+// to the output at rows i·TILE, the same columns. Every branch is uniform
+// across the block (flags come from shared memory).
 template <class P, int TILE>
-__device__ void walk_list(unsigned char* smem, const int4* list, int n,
-                          const typename P::T* a, size_t lda,
-                          const typename P::T* b, size_t ldb, float* out,
-                          size_t ldo, size_t jstride, size_t col0,
+__device__ void walk_list(const P& prod, unsigned char* smem,
+                          const int4* list, int n, const typename P::T* a,
+                          size_t lda, const typename P::T* b, size_t ldb,
+                          float* out, size_t ldo, size_t jstride, size_t col0,
                           typename P::Acc& acc) {
   auto next_acc = [&](int e) {
     while (e < n && !(list[e].w & kAcc)) ++e;
@@ -374,13 +601,13 @@ __device__ void walk_list(unsigned char* smem, const int4* list, int n,
   };
   auto load = [&](int e, int st) {
     const int4 en = list[e];
-    P::load(smem + st * P::STAGE_BYTES,
-            a + static_cast<size_t>(en.y) * TILE * lda +
-                static_cast<size_t>(en.x) * TILE,
-            lda,
-            b + static_cast<size_t>(en.x) * TILE * ldb +
-                static_cast<size_t>(en.z) * jstride + col0,
-            ldb);
+    prod.load(smem + st * P::STAGE_BYTES,
+              a + static_cast<size_t>(en.y) * TILE * lda +
+                  static_cast<size_t>(en.x) * TILE,
+              lda,
+              b + static_cast<size_t>(en.x) * TILE * ldb +
+                  static_cast<size_t>(en.z) * jstride + col0,
+              ldb, en);
   };
   int ld = next_acc(0);
 #pragma unroll
@@ -403,7 +630,7 @@ __device__ void walk_list(unsigned char* smem, const int4* list, int n,
         ld = next_acc(ld + 1);
       }
       cp_async_commit();
-      P::compute(smem + stage * P::STAGE_BYTES, acc);
+      prod.compute(smem + stage * P::STAGE_BYTES, acc);
       stage = (stage + 1) % P::STAGES;
     }
     if (en.w & kFlush)
@@ -414,9 +641,9 @@ __device__ void walk_list(unsigned char* smem, const int4* list, int n,
 }
 
 // One block per (run, column group × column slice): the run's flagged
-// steps, chunk by chunk, through walk_list.
+// steps, chunk by chunk, through walk_list with the tile product `prod`.
 template <class P, int TILE>
-__device__ void worklist_block(const typename P::T* a,
+__device__ void worklist_block(const P& prod, const typename P::T* a,
                                const typename P::T* b, const int* step_i,
                                const int* step_j, const int* step_k,
                                const int* step_flags, const int* runs,
@@ -436,7 +663,7 @@ __device__ void worklist_block(const typename P::T* a,
     __syncthreads();  // every thread is done with the previous chunk
     const int cnt = fill_worklist<P::NT>(list, wsum, step_i, step_j, step_k,
                                          step_flags, base, s1);
-    walk_list<P, TILE>(smem, list, cnt, a, k, b, n, out, n,
+    walk_list<P, TILE>(prod, smem, list, cnt, a, k, b, n, out, n,
                        static_cast<size_t>(block_n) * TILE, col0, acc);
   }
 }
@@ -452,9 +679,9 @@ spamm_worklist_f32_kernel(const float* __restrict__ a,
                           const int* __restrict__ runs,
                           float* __restrict__ out, int k, int n,
                           int block_n) {
-  worklist_block<F32Product<TILE, SL>, TILE>(a, b, step_i, step_j, step_k,
-                                             step_flags, runs, out, k, n,
-                                             block_n);
+  worklist_block<F32Product<TILE, SL>, TILE>({}, a, b, step_i, step_j,
+                                             step_k, step_flags, runs, out,
+                                             k, n, block_n);
 }
 
 template <int TILE, int SL>
@@ -468,9 +695,30 @@ spamm_worklist_bf16_kernel(const __nv_bfloat16* __restrict__ a,
                            const int* __restrict__ runs,
                            float* __restrict__ out, int k, int n,
                            int block_n) {
-  worklist_block<Bf16Product<TILE, SL>, TILE>(a, b, step_i, step_j, step_k,
-                                              step_flags, runs, out, k, n,
-                                              block_n);
+  worklist_block<Bf16Product<TILE, SL>, TILE>({}, a, b, step_i, step_j,
+                                              step_k, step_flags, runs, out,
+                                              k, n, block_n);
+}
+
+template <int TILE, int SL>
+__global__ void __launch_bounds__(Int8Product<TILE, SL>::NT)
+spamm_worklist_int8_kernel(const signed char* __restrict__ a,
+                           const signed char* __restrict__ b,
+                           const float* __restrict__ a_scale,
+                           const float* __restrict__ b_scale,
+                           const int* __restrict__ step_i,
+                           const int* __restrict__ step_j,
+                           const int* __restrict__ step_k,
+                           const int* __restrict__ step_flags,
+                           const int* __restrict__ runs,
+                           float* __restrict__ out, int k, int n,
+                           int block_n) {
+  const Int8Product<TILE, SL> prod{a_scale, b_scale, k / TILE, n / TILE,
+                                   block_n,
+                                   static_cast<int>(blockIdx.y) / SL};
+  worklist_block<Int8Product<TILE, SL>, TILE>(prod, a, b, step_i, step_j,
+                                              step_k, step_flags, runs, out,
+                                              k, n, block_n);
 }
 
 // One block per (slice, i, j, column group × column slice): the valid-k
@@ -512,156 +760,10 @@ spamm_dense_f32_kernel(const float* __restrict__ a,
       list[e] = make_int4(nv > 0 ? kl[t] : 0, i, j, f);
     }
     __syncthreads();
-    walk_list<P, TILE>(smem, list, cnt, a + z * m * k, k, b + z * k * n, n,
-                       out + z * m * n, n, static_cast<size_t>(block_n) * TILE,
-                       col0, acc);
+    walk_list<P, TILE>(P{}, smem, list, cnt, a + z * m * k, k,
+                       b + z * k * n, n, out + z * m * n, n,
+                       static_cast<size_t>(block_n) * TILE, col0, acc);
   }
-}
-
-// ---------------------------------------------------------------------------
-// int8 work-list kernel (256 threads, one step at a time)
-// ---------------------------------------------------------------------------
-constexpr int kThreads = 256;
-
-template <int TILE>
-__device__ __forceinline__ void zero_acc(float (&acc)[TILE / 16][TILE / 16]) {
-#pragma unroll
-  for (int m = 0; m < TILE / 16; ++m)
-#pragma unroll
-    for (int c = 0; c < TILE / 16; ++c) acc[m][c] = 0.f;
-}
-
-// Writes the thread's R×R outputs (rows ty + 16·m, columns tx + 16·c) to
-// the (TILE × TILE) output block at `og` (row stride ldo).
-template <int TILE>
-__device__ __forceinline__ void store_tile(
-    float* __restrict__ og, size_t ldo,
-    const float (&acc)[TILE / 16][TILE / 16]) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int m = 0; m < TILE / 16; ++m)
-#pragma unroll
-    for (int c = 0; c < TILE / 16; ++c)
-      og[static_cast<size_t>(ty + 16 * m) * ldo + tx + 16 * c] = acc[m][c];
-}
-
-// One int8 ACC step: acc += (f32(A_q·B_q)·sa)·sb for one (TILE × TILE)
-// int8 A tile at `ag` (row stride lda) and one (TILE × TILE) int8 B tile at
-// `bg` (row stride ldb). A is staged as 4-byte words of 4 consecutive k; B
-// transposed, so a word holds 4 consecutive k of one output column. Each
-// thread owns the outputs at rows ty + 16·m, columns tx + 16·c and forms
-// their exact int32 dots with __dp4a in ascending k.
-template <int TILE>
-__device__ __forceinline__ void acc_tile_product_int8(
-    const signed char* __restrict__ ag, size_t lda,
-    const signed char* __restrict__ bg, size_t ldb, float sa, float sb,
-    float (&acc)[TILE / 16][TILE / 16]) {
-  constexpr int R = TILE / 16;
-  constexpr int W = TILE / 4;  // 4-byte words per tile row
-  __shared__ int as[TILE][W + 1];
-  __shared__ int bt[TILE][W + 1];  // bt[c][w] = B[4w .. 4w+3][c]
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  __syncthreads();  // the previous step's readers are done with as/bt
-  for (int e = threadIdx.x; e < TILE * W; e += kThreads) {
-    const int r = e / W;
-    const int w = e - r * W;
-    as[r][w] = *reinterpret_cast<const int*>(ag + static_cast<size_t>(r) *
-                                                      lda + 4 * w);
-    // B row r, columns 4w .. 4w+3 → byte (r % 4) of word r / 4 of each
-    // of the four transposed columns
-    const int v = *reinterpret_cast<const int*>(bg + static_cast<size_t>(r) *
-                                                         ldb + 4 * w);
-    signed char* col = reinterpret_cast<signed char*>(&bt[4 * w][0]);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      col[q * (W + 1) * 4 + r] = static_cast<signed char>(v >> (8 * q));
-    }
-  }
-  __syncthreads();
-  int dot[R][R];
-#pragma unroll
-  for (int m = 0; m < R; ++m)
-#pragma unroll
-    for (int c = 0; c < R; ++c) dot[m][c] = 0;
-#pragma unroll 4
-  for (int w = 0; w < W; ++w) {
-    int av[R];
-    int bv[R];
-#pragma unroll
-    for (int m = 0; m < R; ++m) av[m] = as[ty + 16 * m][w];
-#pragma unroll
-    for (int c = 0; c < R; ++c) bv[c] = bt[tx + 16 * c][w];
-#pragma unroll
-    for (int m = 0; m < R; ++m)
-#pragma unroll
-      for (int c = 0; c < R; ++c) dot[m][c] = __dp4a(av[m], bv[c], dot[m][c]);
-  }
-#pragma unroll
-  for (int m = 0; m < R; ++m)
-#pragma unroll
-    for (int c = 0; c < R; ++c)
-      acc[m][c] = __fadd_rn(
-          acc[m][c], __fmul_rn(__fmul_rn(__int2float_rn(dot[m][c]), sa), sb));
-}
-
-template <int TILE>
-__global__ void __launch_bounds__(kThreads)
-spamm_worklist_int8_kernel(const signed char* __restrict__ a,
-                           const signed char* __restrict__ b,
-                           const float* __restrict__ a_scale,
-                           const float* __restrict__ b_scale,
-                           const int* __restrict__ step_i,
-                           const int* __restrict__ step_j,
-                           const int* __restrict__ step_k,
-                           const int* __restrict__ step_flags,
-                           const int* __restrict__ runs,
-                           float* __restrict__ out, int k, int n,
-                           int block_n) {
-  const int run = blockIdx.x;
-  const int group = blockIdx.y;
-  const int s0 = runs[run];
-  const int s1 = runs[run + 1];
-  const int gk = k / TILE;
-  const int gn = n / TILE;
-  float acc[TILE / 16][TILE / 16];
-  zero_acc<TILE>(acc);
-
-  for (int s = s0; s < s1; ++s) {
-    const int f = step_flags[s];  // uniform across the block
-    if (f & kInit) zero_acc<TILE>(acc);
-    if (f & kAcc) {
-      const int i = step_i[s];
-      const int jf = step_j[s] * block_n + group;  // fine column tile
-      const int kk = step_k[s];
-      acc_tile_product_int8<TILE>(
-          a + static_cast<size_t>(i) * TILE * k +
-              static_cast<size_t>(kk) * TILE,
-          k, b + static_cast<size_t>(kk) * TILE * n +
-                 static_cast<size_t>(jf) * TILE,
-          n, a_scale[static_cast<size_t>(i) * gk + kk],
-          b_scale[static_cast<size_t>(kk) * gn + jf], acc);
-    }
-    if (f & kFlush) {
-      const int i = step_i[s];
-      const int jf = step_j[s] * block_n + group;
-      store_tile<TILE>(out + static_cast<size_t>(i) * TILE * n +
-                           static_cast<size_t>(jf) * TILE,
-                       n, acc);
-    }
-  }
-}
-
-template <int TILE>
-void launch_worklist_int8(const signed char* a, const signed char* b,
-                          const float* sa, const float* sb, const int* si,
-                          const int* sj, const int* sk, const int* sf,
-                          const int* runs, int num_runs, float* out, int k,
-                          int n, int block_n, cudaStream_t stream) {
-  const dim3 grid(num_runs, block_n);
-  spamm_worklist_int8_kernel<TILE><<<grid, kThreads, 0, stream>>>(
-      a, b, sa, sb, si, sj, sk, sf, runs, out, k, n, block_n);
 }
 
 // Launches kernel `kern` with P's block size and ring, gridDim (x, y, z),
@@ -697,6 +799,16 @@ int worklist_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
 }
 
 template <int TILE, int SL>
+int worklist_int8(const signed char* a, const signed char* b, const float* sa,
+                  const float* sb, const int* si, const int* sj,
+                  const int* sk, const int* sf, const int* runs, int num_runs,
+                  float* out, int k, int n, int block_n, cudaStream_t st) {
+  return launch<Int8Product<TILE, SL>>(
+      spamm_worklist_int8_kernel<TILE, SL>, dim3(num_runs, block_n * SL), st,
+      a, b, sa, sb, si, sj, sk, sf, runs, out, k, n, block_n);
+}
+
+template <int TILE, int SL>
 int dense_f32(const float* a, const float* b, const int* kidx,
               const int* nvalid, float* out, int batch, int m, int k, int n,
               int block_n, cudaStream_t st) {
@@ -724,9 +836,9 @@ int dense_f32(const float* a, const float* b, const int* kidx,
 
 }  // namespace
 
-// Ring depth of the pipelined f32 (bf16 == 0) or bf16 (bf16 != 0) kernels.
-extern "C" int spamm_mm_stages(int bf16) {
-  return bf16 ? kStagesBf16 : kStagesF32;
+// Ring depth of the pipelined kernels: f32 (dtype 0), bf16 (1), int8 (2).
+extern "C" int spamm_mm_stages(int dtype) {
+  return dtype == 2 ? kStagesInt8 : dtype == 1 ? kStagesBf16 : kStagesF32;
 }
 
 // a: (m, k), b: (k, n) row-major float32, 16-byte aligned; step tables
@@ -764,10 +876,9 @@ extern "C" int spamm_mm_worklist_bf16(const __nv_bfloat16* a,
                  static_cast<cudaStream_t>(stream));
 }
 
-// a: (m, k), b: (k, n) row-major int8 codes, 4-byte aligned; a_scale:
+// a: (m, k), b: (k, n) row-major int8 codes, 16-byte aligned; a_scale:
 // (m/tile, k/tile), b_scale: (k/tile, n/tile) float32 per FINE tile; step
-// tables and runs as spamm_mm_worklist_f32; out: (m, n) float32,
-// zero-initialised. tile must be 16, 32 or 64 (else returns
+// tables, runs, out, tile and slices as spamm_mm_worklist_f32 (else returns
 // cudaErrorInvalidValue without launching). Returns cudaGetLastError().
 extern "C" int spamm_mm_worklist_int8(const signed char* a,
                                       const signed char* b,
@@ -778,29 +889,11 @@ extern "C" int spamm_mm_worklist_int8(const signed char* a,
                                       const int* step_flags, const int* runs,
                                       int num_runs, float* out, int m, int k,
                                       int n, int tile, int block_n,
-                                      void* stream) {
+                                      int slices, void* stream) {
   (void)m;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (tile) {
-    case 16:
-      launch_worklist_int8<16>(a, b, a_scale, b_scale, step_i, step_j,
-                               step_k, step_flags, runs, num_runs, out, k, n,
-                               block_n, st);
-      break;
-    case 32:
-      launch_worklist_int8<32>(a, b, a_scale, b_scale, step_i, step_j,
-                               step_k, step_flags, runs, num_runs, out, k, n,
-                               block_n, st);
-      break;
-    case 64:
-      launch_worklist_int8<64>(a, b, a_scale, b_scale, step_i, step_j,
-                               step_k, step_flags, runs, num_runs, out, k, n,
-                               block_n, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  SPAMM_DISPATCH(worklist_int8, tile, slices, a, b, a_scale, b_scale, step_i,
+                 step_j, step_k, step_flags, runs, num_runs, out, k, n,
+                 block_n, static_cast<cudaStream_t>(stream));
 }
 
 // a: (batch, m, k), b: (batch, k, n) row-major float32, 16-byte aligned;

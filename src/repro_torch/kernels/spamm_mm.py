@@ -33,8 +33,10 @@ Per-tile int8 codes a_q (M, K) and b_q (K, N), f32 scales a_scale (gm, gk)
 and b_scale (gk, gn) per FINE tile (block_n > 1 reads one scale per column
 group), the same step tables: an ACC step adds (f32(int32 tile dot) ·
 a_scale[i, k]) · b_scale[k, fine j]. Entry points
-`spamm_mm_worklist_int8_plain`, `_cuda` and `spamm_mm_worklist_int8`; the
-kernel ≡ the plain version bit for bit (the tile dot is exact in both).
+`spamm_mm_worklist_int8_plain`, `_cuda` (the tensor-core kernel:
+`mma.sync` s8 × s8 → s32 on the work-list pipeline) and
+`spamm_mm_worklist_int8`; the kernel ≡ the plain version bit for bit (the
+integer tile dot is exact in both).
 
 Dense-grid: twin of `repro.kernels.spamm_mm.spamm_mm`, driven by the
 compacted valid-k lists of `repro_torch.kernels.ref.spamm_compact_ref`:
@@ -51,7 +53,7 @@ order (kernel: one shared device function; plain: the same rank-1 updates),
 so with the same valid k's dense-grid ≡ work-list bit for bit, whatever
 the column slices of either.
 
-Launch geometry (f32/bf16 work-list and dense-grid): one thread block per
+Launch geometry (every work-list kernel and dense-grid): one thread block per
 run (dense-grid: per output block) × block_n column groups × `slices`
 column slices. `column_slices` is the rule: a decode step's few runs are
 split into up to 4 slices of at least 16 columns until the launch has two
@@ -79,7 +81,7 @@ CUDA_TILES = (16, 32, 64)
 # column slices per output block: a slice is at least 16 columns wide
 MAX_COLUMN_SLICES = 4
 # ring depth of the pipelined kernels, as `spamm_mm_stages` reports it
-PIPELINE_STAGES = {torch.float32: 2, torch.bfloat16: 3}
+PIPELINE_STAGES = {torch.float32: 2, torch.bfloat16: 3, torch.int8: 4}
 # threads of an f32 block that holds at least this many float4 outputs (the
 # kernel's kThreadsF32)
 F32_THREADS = 128
@@ -105,7 +107,7 @@ def _lib():
             fn.restype = ctypes.c_int
         fn = lib.spamm_mm_worklist_int8
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.spamm_mm_dense_f32
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
@@ -133,11 +135,12 @@ def column_slices(num_blocks: int, tile: int, num_sms: int) -> int:
 
 def launch_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
                     num_sms: int) -> dict:
-    """The launch of an f32 or bf16 work-list / dense-grid kernel over
-    `num_blocks` (output block, column group) pairs: column slices, thread
-    blocks, threads per block and ring stages. f32: width/4 threads along
-    a row, each owning one float4 of columns in as many rows as keep 128
-    threads (64 at tile 16); bf16: one warp per 16 rows of the tile."""
+    """The launch of a work-list (f32, bf16 or int8) or dense-grid kernel
+    over `num_blocks` (output block, column group) pairs: column slices,
+    thread blocks, threads per block and ring stages. f32: width/4 threads
+    along a row, each owning one float4 of columns in as many rows as keep
+    128 threads (64 at tile 16); bf16 and int8 (tensor cores): one warp per
+    16 rows of the tile."""
     slices = column_slices(num_blocks, tile, num_sms)
     width = tile // slices
     threads = (min(tile, F32_THREADS // (width // 4)) * (width // 4)
@@ -373,11 +376,13 @@ def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
                                 step_k, step_flags, runs, *, tile: int = 64,
                                 block_n: int = 1,
                                 out_dtype=torch.float32) -> torch.Tensor:
-    """The CUDA int8 kernel: one thread block per run (× block_n column
-    groups), exact __dp4a tile dots. Takes contiguous int8 codes (4-byte
-    aligned), float32 scales and int32 tables on one CUDA device, tile in
-    CUDA_TILES and a float32 output; raises on anything else."""
-    global int8_launches
+    """The CUDA int8 kernel: one thread block per run × block_n column
+    groups × `column_slices`, exact s32 tile dots on the tensor cores
+    (`mma.sync` s8) through the work-list pipeline. Takes contiguous,
+    16-byte aligned int8 codes, float32 scales and int32 tables on one CUDA
+    device, tile in CUDA_TILES and a float32 output; raises on anything
+    else."""
+    global int8_launches, last_geometry
     tables = (step_i, step_j, step_k, step_flags)
     m, k, n = _check_int8(a_q, b_q, a_scale, b_scale, tables, runs, tile,
                           block_n)
@@ -386,12 +391,12 @@ def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
                                tables, runs, tile, block_n, out_dtype)
     if a_scale.dtype != torch.float32 or b_scale.dtype != torch.float32:
         raise TypeError("the scales must be float32")
-    if a_q.data_ptr() % 4 or b_q.data_ptr() % 4:
-        raise ValueError("the int8 codes must be 4-byte aligned")
+    _check_aligned((("a_q", a_q), ("b_q", b_q)))
     out = torch.zeros(m, n, dtype=torch.float32, device=dev)
     num_runs = runs.shape[0] - 1
     if num_runs == 0:
         return out
+    geo = launch_geometry(num_runs * block_n, tile, torch.int8, _num_sms(dev))
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -399,10 +404,12 @@ def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
             a_q.data_ptr(), b_q.data_ptr(), a_scale.data_ptr(),
             b_scale.data_ptr(), step_i.data_ptr(), step_j.data_ptr(),
             step_k.data_ptr(), step_flags.data_ptr(), runs.data_ptr(),
-            num_runs, out.data_ptr(), m, k, n, tile, block_n, stream)
+            num_runs, out.data_ptr(), m, k, n, tile, block_n,
+            geo["column_slices"], stream)
     if rc != 0:
         raise RuntimeError(
             f"spamm_mm_worklist_int8 kernel launch failed: CUDA error {rc}")
+    last_geometry = geo
     int8_launches += 1
     return out
 

@@ -1,4 +1,4 @@
-"""Serving CLI of the port: init a model from a seed, serve one wave of
+"""Serving CLI of the port: init a model from a seed, serve a wave of
 equal-length requests with greedy generation.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
@@ -8,7 +8,9 @@ equal-length requests with greedy generation.
 Runs on the card by default; `--device cpu` runs the plain PyTorch versions
 of the kernels (use `--reduced` there). `--plan-store DIR` warm-starts the
 frozen plans from a store that `repro_torch.launch.precompute_plans`
-populated with the same arch, seed, device and SpAMM flags.
+populated with the same arch, seed, device and SpAMM flags. `--waves N`
+serves the same requests N times and reports the last wave: the first
+freezes the plans, so `--waves 2` times a warm wave.
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--waves", type=int, default=1,
+                    help="serve the requests this many times; report the "
+                         "last wave")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--spamm-tau", type=float, default=None,
                     help="enable SpAMM norm-gated GEMMs at this τ — prefill "
@@ -77,12 +82,14 @@ def main(argv=None):
                  device=args.device)
 
     rng = np.random.default_rng(args.seed)
-    reqs = [Request(prompt=rng.integers(1, cfg.vocab, size=args.prompt_len)
-                    .astype(np.int32), max_new_tokens=args.max_new)
-            for _ in range(args.num_requests)]
-    t0 = time.time()
-    outs = eng.generate(reqs)
-    dt = time.time() - t0
+    prompts = [rng.integers(1, cfg.vocab, size=args.prompt_len)
+               .astype(np.int32) for _ in range(args.num_requests)]
+    for _ in range(max(args.waves, 1)):
+        reqs = [Request(prompt=p, max_new_tokens=args.max_new)
+                for p in prompts]
+        t0 = time.time()
+        outs = eng.generate(reqs)
+        dt = time.time() - t0
     total = sum(len(o) for o in outs)
     print(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
           f"({total/dt:.1f} tok/s)")

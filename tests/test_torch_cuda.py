@@ -229,17 +229,21 @@ def test_tile_norms_quant_kernel_equals_unfused_on_card(dev, tile):
     torch.testing.assert_close(norms, pn, rtol=NORM_RTOL, atol=0)
 
 
-def _int8_case(tile, block_n, dev):
-    """Per-tile int8 codes and scales of two random operands, and the step
-    tables of their f32 plan at τ = the median product."""
-    a = _rand((4 * tile, 6 * tile), 15, dev)
-    b = _rand((6 * tile, 4 * tile), 16, dev)
+def _int8_args(a, b, tile, block_n=1):
+    """Codes and scales of a and b with the step tables of their f32 plan
+    at τ = the median product."""
     tau = _median_tau(a, b, tile)
     w = P.plan(a, b, tau, tile=tile, block_n=block_n, backend="cuda").work
     a_q, a_s = Q.quantize_tiles(a, tile)
     b_q, b_s = Q.quantize_tiles(b, tile)
     return (a_q, b_q, a_s, b_s, w.step_i, w.step_j, w.step_k, w.step_flags,
-            w.runs), w
+            w.runs)
+
+
+def _int8_case(tile, block_n, dev):
+    """_int8_args of two random operands."""
+    return _int8_args(_rand((4 * tile, 6 * tile), 15, dev),
+                      _rand((6 * tile, 4 * tile), 16, dev), tile, block_n)
 
 
 @pytest.mark.parametrize("block_n", [1, 2])
@@ -249,7 +253,7 @@ def test_int8_worklist_kernel_equals_plain_on_card(dev, tile, block_n):
     plain bit for bit; against the f32 kernel on the dequantized operands
     within 1e-5 of the output's largest magnitude (the reference's bound:
     the f32 kernel rounds inside each tile dot)."""
-    args, w = _int8_case(tile, block_n, dev)
+    args = _int8_case(tile, block_n, dev)
     before = spamm_mm.int8_launches
     got = spamm_mm.spamm_mm_worklist_int8(*args, tile=tile, block_n=block_n)
     torch.cuda.synchronize()
@@ -455,10 +459,104 @@ def test_pipeline_stages_match_the_library(dev):
     lib = spamm_mm._lib()
     assert lib.spamm_mm_stages(0) == spamm_mm.PIPELINE_STAGES[torch.float32]
     assert lib.spamm_mm_stages(1) == spamm_mm.PIPELINE_STAGES[torch.bfloat16]
+    assert lib.spamm_mm_stages(2) == spamm_mm.PIPELINE_STAGES[torch.int8]
+
+
+
+@pytest.mark.parametrize("case", ["decode", "prefill"])
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_int8_worklist_every_column_slice_count_on_card(dev, monkeypatch,
+                                                        tile, block_n, case):
+    """The tensor-core int8 kernel ≡ its plain version bit for bit at every
+    column-slice count its tile allows, forced through the SM count the
+    slice rule sees, on few runs (a decode step: 4 real rows in one row
+    tile) and on many; two launches are equal and `last_geometry` records
+    each launch."""
+    if case == "decode":
+        a, _, _ = _decode_case(tile, dev, gk=12, gn=4 * block_n, seed=61)
+    else:
+        a = _rand((4 * tile, 6 * tile), 62, dev)
+    b = _rand((a.shape[1], 4 * block_n * tile), 63, dev)
+    args = _int8_args(a, b, tile, block_n)
+    kw = {"tile": tile, "block_n": block_n}
+    want = spamm_mm.spamm_mm_worklist_int8_plain(*args, **kw)
+    assert float(want.abs().max()) > 0.0
+    blocks = (args[-1].numel() - 1) * block_n
+    most = min(spamm_mm.MAX_COLUMN_SLICES, tile // 16)
+    sms_for = {1: 1, most: 10 ** 6}
+    if most == 4:
+        sms_for[2] = blocks
+    for slices, sms in sms_for.items():
+        monkeypatch.setattr(spamm_mm, "_num_sms", lambda _dev, s=sms: s)
+        before = spamm_mm.int8_launches
+        got = spamm_mm.spamm_mm_worklist_int8_cuda(*args, **kw)
+        geo = dict(spamm_mm.last_geometry)
+        again = spamm_mm.spamm_mm_worklist_int8_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        assert spamm_mm.int8_launches == before + 2
+        assert geo["column_slices"] == slices
+        assert geo["blocks"] == blocks * slices
+        assert geo["threads"] == 2 * tile
+        assert geo["stages"] == spamm_mm.PIPELINE_STAGES[torch.int8]
+        assert torch.equal(got, want), (slices, float((got - want).abs().max()))
+        assert torch.equal(got, again)
+
+
+def test_int8_kernel_raises_on_misaligned_codes(dev):
+    """The 16-byte copies need 16-byte aligned codes: an int8 view that
+    starts 4 bytes past a boundary (the old kernel's 4-byte alignment)
+    raises ValueError, for either operand."""
+    tile = 64
+    args = _int8_args(_rand((tile, 2 * tile), 64, dev),
+                      _rand((2 * tile, tile), 65, dev), tile)
+    a_q, b_q = args[:2]
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=dev)
+        view = buf[4:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    for codes in ((shifted(a_q), b_q), (a_q, shifted(b_q))):
+        with pytest.raises(ValueError, match="aligned"):
+            spamm_mm.spamm_mm_worklist_int8_cuda(*codes, *args[2:], tile=tile)
+    with pytest.raises(ValueError, match="contiguous"):
+        spamm_mm.spamm_mm_worklist_int8_cuda(a_q, b_q.t().contiguous().t(),
+                                             *args[2:], tile=tile)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_plan_execute_take_a_transposed_weight_on_card(dev, dtype):
+    """plan() and execute() on a transposed (non-contiguous) weight on the
+    card: the same plan and output as the contiguous call, bit for bit,
+    through the kernels (which themselves refuse strided operands)."""
+    tile = 64
+    x = _rand((2 * tile, 5 * tile), 66, dev)
+    w = _rand((3 * tile, 5 * tile), 67, dev).t()
+    assert not w.is_contiguous()
+    # the median product at the widened gate: part of the tiles survive
+    tau = _median_tau(x, w.contiguous(), tile) / (
+        1.0 - Q.gate_eps(dtype, tile)) ** 2
+    before = (getnorm.launches + getnorm.quant_launches, spamm_mm.launches
+              + spamm_mm.bf16_launches + spamm_mm.int8_launches)
+    p = P.plan(x, w, tau, tile=tile, backend="cuda", compute_dtype=dtype)
+    c = P.execute(p, x, w)
+    torch.cuda.synchronize()
+    assert (getnorm.launches + getnorm.quant_launches, spamm_mm.launches
+            + spamm_mm.bf16_launches + spamm_mm.int8_launches) == (
+        before[0] + 2, before[1] + 1)
+    wc = w.contiguous()
+    ref = P.plan(x, wc, tau, tile=tile, backend="cuda", compute_dtype=dtype)
+    for mine, theirs in zip(p.work, ref.work):
+        assert torch.equal(mine, theirs)
+    assert 0.0 < float(p.valid_fraction) < 1.0
+    assert torch.equal(c, P.execute(ref, x, wc))
 
 
 def test_lowp_kernels_reject_what_they_do_not_take(dev):
-    args, w = _int8_case(64, 1, dev)
+    args = _int8_case(64, 1, dev)
     a_q, b_q, a_s, b_s, *tables = args
     with pytest.raises(TypeError):               # mixed operand types
         spamm_mm.spamm_mm_worklist_cuda(a_q.float().bfloat16(), b_q.float(),

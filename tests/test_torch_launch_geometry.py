@@ -44,13 +44,14 @@ def test_column_slices_double_until_two_blocks_per_sm(tile):
             assert blocks * (s // 2) < 2 * SMS
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
 @pytest.mark.parametrize("tile", [16, 32, 64])
 @pytest.mark.parametrize("blocks", [8, 72, 2304])
 def test_launch_geometry_covers_every_output(tile, blocks, dtype):
     """Blocks = (run, group) pairs × slices; the threads of a block own
-    its tile × width outputs exactly (f32: whole float4s; bf16: one warp
-    per 16 rows, m16n8 accumulators of 4 outputs a thread)."""
+    its tile × width outputs exactly (f32: whole float4s; bf16 and int8:
+    one warp per 16 rows, m16n8 accumulators of 4 outputs a thread)."""
     geo = spamm_mm.launch_geometry(blocks, tile, dtype, SMS)
     s = geo["column_slices"]
     assert s == spamm_mm.column_slices(blocks, tile, SMS)
@@ -63,8 +64,9 @@ def test_launch_geometry_covers_every_output(tile, blocks, dtype):
     per_thread = tile * width // threads
     assert per_thread * threads == tile * width
     assert per_thread % 4 == 0
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         assert threads == 32 * (tile // 16)
+        assert width % 16 == 0    # two n8 blocks per B ldmatrix.x4
 
 
 def test_check_aligned_refuses_offset_views():

@@ -226,3 +226,24 @@ def test_serve_cli_on_cpu(capsys):
     assert len(tokens) == 2
     assert tokens == [ln for ln in gated.splitlines()
                       if ln.strip().startswith("req")]
+
+
+def test_serve_cli_warm_wave_on_cpu(capsys):
+    """`--waves 2` serves the requests twice and reports the second, warm
+    wave: the same tokens as one wave, with the gate's plans frozen once."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", ARCH, "--reduced", "--num-requests", "2",
+            "--prompt-len", "16", "--max-new", "3", "--device", "cpu",
+            "--spamm-tau", "0.05", "--spamm-tile", "16"]
+    serve.main(argv)
+    one = capsys.readouterr().out
+    serve.main(argv + ["--waves", "2"])
+    two = capsys.readouterr().out
+    assert one.count("served 2 requests") == two.count("served 2 requests") == 1
+
+    def tokens(out):
+        return [ln for ln in out.splitlines() if ln.strip().startswith("req")]
+
+    assert len(tokens(one)) == 2 and tokens(one) == tokens(two)
+    assert "latency: ttft=" in two
