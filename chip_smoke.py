@@ -18,9 +18,10 @@ work-list (tensor cores) within 1e-4 of the output's magnitude against the
 f32 kernel on bf16-rounded operands and its plain version, deterministic,
 at prefill and decode shapes, and frozen int8 / bf16 ≡ eager bit for
 bit. The device time of each get-norm kernel at the prefill and decode
-activation shapes is read from the profiler, beside the wrapper's host
-cost per call. It then serves starcoder2-7b at full width (d=4608,
-ff=18432, 36/4 heads, 32 layers, random weights from a seed) through `Engine.generate`: dense, τ = 0 and a τ > 0 derived from the first
+activation shapes and at w1 is read from the profiler, beside the
+wrapper's host cost per call; the get-norm pair is also timed back to back
+at w1 and at the prefill activation. It then serves starcoder2-7b at full
+width (d=4608, ff=18432, 36/4 heads, 32 layers, random weights from a seed) through `Engine.generate`: dense, τ = 0 and a τ > 0 derived from the first
 gated GEMM of a decode step (so that both prefill and decode keep part of
 their tiles), then at that τ with int8 and with bf16 GEMMs; and checks at
 layer-0 wq that the int8 and bf16 gates keep every tile the f32 gate keeps.
@@ -237,6 +238,8 @@ def check_tile_norms(x, label):
         "name": "tile_norms", "shape": label, "max_abs_err": abs_err,
         "max_rel_err": rel,
         "ms": time_ms(lambda: getnorm.tile_norms_cuda(x, t)),
+        "ms_back_to_back": time_ms_back_to_back(
+            lambda: getnorm.tile_norms_cuda(x, t)),
         "plain_ms": time_ms(lambda: getnorm.tile_norms_plain(x, t), reps=5),
         "library_ms": time_ms(
             lambda: torch.linalg.vector_norm(x4, dim=(1, 3))),
@@ -369,6 +372,8 @@ def check_tile_norms_quant(x, label):
            "max_rel_err": rel, "norms_bit_identical_to_unfused": same_n,
            "scales_bit_identical": same_s,
            "ms": time_ms(lambda: getnorm.tile_norms_quant_cuda(x, t)),
+           "ms_back_to_back": time_ms_back_to_back(
+               lambda: getnorm.tile_norms_quant_cuda(x, t)),
            "plain_ms": time_ms(lambda: getnorm.tile_norms_quant_plain(x, t),
                                reps=5),
            "library_ms": time_ms(unfused_torch),
@@ -630,12 +635,13 @@ def int8_sass():
     return counts
 
 
-def getnorm_device_times(x, label, calls=100):
+def getnorm_device_times(x, label, calls=100, reps=5):
     """Device time of one launch of each get-norm kernel on x (the pooling
     kernel on x's normmap), from the profiler over `calls` back-to-back
-    calls, beside the wrapper's host cost per call (the host clock over
-    the same number of calls, before the closing sync) and the time per
-    call by CUDA events around them (the larger of the two)."""
+    calls, beside the wrapper's host cost per call (the median over `reps`
+    runs of the host clock over `calls` calls, each before its closing
+    sync) and the time per call by CUDA events around `calls` calls (the
+    larger of the two)."""
     import torch
 
     from repro_torch.kernels import getnorm
@@ -658,18 +664,21 @@ def getnorm_device_times(x, label, calls=100):
     out = {}
     for name, (fn, kernel) in rows.items():
         fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(calls):
-            fn()
-        host = (time.perf_counter() - t0) * 1e3 / calls
-        e1.record()
-        e1.synchronize()
+        hosts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(calls):
+                fn()
+            hosts.append((time.perf_counter() - t0) * 1e3 / calls)
+            e1.record()
+            e1.synchronize()
+        hosts.sort()
         out[name] = {"device_ms": kernel_device_ms(fn, kernel, calls),
-                     "host_ms_per_call": host,
+                     "host_ms_per_call": hosts[len(hosts) // 2],
                      "events_ms_per_call": e0.elapsed_time(e1) / calls}
     emit({"getnorm_device": {"shape": label,
                              "normmap": list(nm.shape), "calls": calls,
@@ -736,9 +745,11 @@ def phase_kernels():
     check_bf16_frozen(xd, w1, f"frozen w1 decode {TILE}({BATCH})x{d}x{ff}")
     check_bf16_frozen(xd2, w2, f"frozen w2 decode {TILE}({BATCH})x{ff}x{d}")
     # device time of the get-norm kernels at the activation shapes the
-    # serving path hands them (prefill and decode)
+    # serving path hands them (prefill and decode) and at the weight shape
+    # a freeze hands them
     getnorm_device_times(x, f"activation {BATCH * PROMPT_LEN}x{d}")
     getnorm_device_times(xd, f"decode activation {TILE}({BATCH})x{d}")
+    getnorm_device_times(w1, f"w1 {d}x{ff}")
     del xd, xd2
 
     # (c) the paper's synthetic: exponential-decay matrices,
@@ -1663,6 +1674,7 @@ def main():
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:147",
          "launches": counts["tile_norms"], "path": serve_path,
+         "ms_back_to_back": norms_act["ms_back_to_back"],
          **{k: norms_act[k] for k in keys}},
         {"name": "spamm_mm_worklist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
@@ -1689,6 +1701,7 @@ def main():
          "replaces": "src/repro/kernels/getnorm.py:180",
          "launches": lowp_counts["int8"]["tile_norms_quant"],
          "path": int8_path, "library_call": lowp["quant"]["library_call"],
+         "ms_back_to_back": lowp["quant"]["ms_back_to_back"],
          **{k: lowp["quant"][k] for k in keys}},
         {"name": "spamm_mm_worklist_int8", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",

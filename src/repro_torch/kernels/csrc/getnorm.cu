@@ -5,35 +5,51 @@
 //
 // tile_norms replaces the Pallas TPU kernel
 // src/repro/kernels/getnorm.py::tile_norms (bodies _getnorm_kernel and
-// _tile_sumsq, use_mxu=False).
-//
-// What bounds it on an H100: bytes. Every element is read once (4 B) for 2
-// flops, far below the ~20 flop/B where f32 CUDA cores would take over, so
-// the least time is M·K·4 B over the 3.35 TB/s of HBM3.
-//
-// Design: one 256-thread block per tile, the grid (K/t, M/t). Threads walk
-// the tile with 16-byte loads when the tile width and row stride allow it
-// (16 neighbouring threads cover one 256-byte tile row of a t=64 tile, so a
-// warp reads two contiguous row segments), square and sum in f32 registers,
-// then a warp-shuffle tree and a 8-entry shared-memory stage reduce the 256
-// partial sums; thread 0 writes sqrt of the total. Nothing is kept between
-// tiles, so there is no cross-block reduction.
-//
-// tile_norms_quant replaces the Pallas TPU kernel
+// _tile_sumsq, use_mxu=False). tile_norms_quant replaces
 // src/repro/kernels/getnorm.py::tile_norms_quant (body
 // _getnorm_quant_kernel): per tile, scale = max(amax, 1e-30)·f32(1/127),
 // q = clip(rint(x / scale), ±127), and the norm of the dequantized tile
-// q·scale, from one launch. Bound: bytes, as tile_norms (M·K·4 B read, two
-// f32 maps written). Design: the same block and grid; a first walk takes
-// the block-wide max|x| (shuffle tree, broadcast through shared memory), a
-// second walk — the tile is still in L1 — quantizes, dequantizes and sums
-// the squares. Both kernels run their sum through ONE device function
-// (tile_walk + block_sum: the same element-to-thread assignment, the same
-// fmaf chain, the same tree), and the division, rint and dequantizing
-// multiply are __fdiv_rn / rintf / __fmul_rn, which nvcc never contracts.
-// So on the card the fused norms are bit-identical to tile_norms run on the
-// dequantized matrix, and the scales to the per-tile quantizer's (the
-// reference's own contract, getnorm.py:57-74).
+// q·scale, from one launch.
+//
+// What bounds them on an H100: bytes. Every element is read once (4 B) for
+// 2 flops (9 in the int8 variant), far below the ~20 flop/B where f32 CUDA
+// cores would take over, so the least time is M·K·4 B over the 3.35 TB/s
+// of HBM3. A streaming reduction at 0.5 flop/B has no use for TMA or wgmma:
+// what it needs is enough loads in flight, about 16–32 KB per SM.
+//
+// Design (tiles 16, 32 and 64, the tiles the work-list kernels take): the
+// walk is a template on the tile, so each thread's loads are a fixed-count
+// unrolled array, all in flight before the first fmaf, and the tile stays in
+// the thread's registers (16 floats at tile 64). 16-byte loads when the row
+// stride and base allow it, else 4-byte ones. Load j of a tile's thread t is
+// the tile's load t + j·T, T = min(256, loads per tile): 256 threads per
+// tile at tiles 32 and 64, one 256-thread block each (at tile 64 a block
+// has 16 KB in flight); 64 threads per tile at tile 16 with 16-byte loads,
+// so a block takes four neighbouring tiles and no thread idles. Each thread
+// squares and sums its registers in order (fmaf), then a warp-shuffle tree
+// and the tile's warp sums in its first warp (tile_sum) give the total.
+// tile_norms_quant takes max|x| from the same registers (a shuffle tree and
+// one barrier, tile_max), then quantizes, dequantizes and sums the squares
+// from them: the tile is read from memory once. Any other tile takes the
+// runtime-tile kernels (*_any_*), one 256-thread block per tile walking it
+// in a loop over a run-time count (and reading it twice for the int8
+// variant). At w1 both templated kernels run at the bytes bound; at the
+// activation shapes (one or a few blocks per SM) the int8 kernel's time is
+// its exact division, __fdiv_rn, whose per-element check branches to a
+// slow path: a multiply by the reciprocal would halve it but move the
+// quantizer's bits, so the division stays (launch/ablate_getnorm.py).
+//
+// The bits: every path sums with the same element-to-thread assignment,
+// the same fmaf order within a thread and the same tree (tile_sum). A tile
+// of 64 threads is the tree a 256-thread block gives when its other warps
+// hold zeros, and adding a zero partial is exact. So the templated kernels
+// give the runtime-tile kernels' output bit for bit. The division, rint and
+// dequantizing multiply are __fdiv_rn / rintf / __fmul_rn, which nvcc never
+// contracts: on the card the fused norms are bit-identical to tile_norms run
+// on the dequantized matrix (on the same load path: 16-byte and 4-byte
+// loads split a tile among threads differently), and the scales to the
+// per-tile quantizer's (the reference's own contract,
+// getnorm.py:57-74).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -73,10 +89,58 @@ __device__ __forceinline__ void tile_walk(const float* __restrict__ base,
   }
 }
 
-// Block-wide sum of the threads' partial sums: a warp-shuffle tree, then
-// the 8 warp sums in warp 0. The total is valid in thread 0.
-__device__ __forceinline__ float block_sum(float s) {
+// The loads of one templated (TILE × TILE) tile: 16-byte ones when VEC,
+// else 4-byte; T = kTileThreads threads per tile hold kPer loads each, the
+// walk's assignment with every thread that holds a load and no other.
+template <int TILE, bool VEC>
+struct TileShape {
+  static constexpr int kTile = TILE;
+  static constexpr bool kVec = VEC;
+  static constexpr int kWidth = VEC ? 4 : 1;       // floats per load
+  static constexpr int kRowLoads = TILE / kWidth;  // loads per tile row
+  static constexpr int kLoads = TILE * kRowLoads;  // loads per tile
+  static constexpr int kTileThreads = kLoads < kThreads ? kLoads : kThreads;
+  static constexpr int kPer = kLoads / kTileThreads;  // loads per thread
+  static constexpr int kRegs = kPer * kWidth;         // floats per thread
+  static constexpr int kTilesPerBlock = kThreads / kTileThreads;
+  static_assert(kTileThreads % 32 == 0 && kLoads % kTileThreads == 0,
+                "a tile takes whole warps, each thread the same loads");
+};
+
+// Thread t's elements of the tile at `base` (row stride k), in the walk's
+// order: load j is the tile's load t + j·kTileThreads. The loop is unrolled,
+// so every load is in flight before the first is used.
+template <class S>
+__device__ __forceinline__ void load_tile(const float* __restrict__ base,
+                                          int k, int t,
+                                          float (&v)[S::kRegs]) {
+#pragma unroll
+  for (int j = 0; j < S::kPer; ++j) {
+    const int e = t + j * S::kTileThreads;
+    const int r = e / S::kRowLoads;
+    const int c = e % S::kRowLoads;
+    const float* p = base + static_cast<size_t>(r) * k + c * S::kWidth;
+    if constexpr (S::kVec) {
+      const float4 q = *reinterpret_cast<const float4*>(p);
+      v[4 * j] = q.x;
+      v[4 * j + 1] = q.y;
+      v[4 * j + 2] = q.z;
+      v[4 * j + 3] = q.w;
+    } else {
+      v[j] = *p;
+    }
+  }
+}
+
+// Sum of the partial sums of a tile's NT threads (NT/32 whole warps of the
+// block, the tile's own): a warp-shuffle tree, then the NT/32 warp sums in
+// the tile's first warp. The total is valid in the tile's first thread.
+// NT = kThreads is the one-tile-per-block tree; a tile of two warps gets
+// the sum that tree gives when warps 2–7 hold zeros (s0 + s1).
+template <int NT>
+__device__ __forceinline__ float tile_sum(float s) {
   __shared__ float warp_sums[kThreads / 32];
+  constexpr int kWarps = NT / 32;
   for (int off = 16; off > 0; off >>= 1) {
     s += __shfl_down_sync(0xffffffffu, s, off);
   }
@@ -84,13 +148,33 @@ __device__ __forceinline__ float block_sum(float s) {
   const int warp = threadIdx.x >> 5;
   if (lane == 0) warp_sums[warp] = s;
   __syncthreads();
-  if (warp == 0) {
-    s = lane < kThreads / 32 ? warp_sums[lane] : 0.f;
-    for (int off = 4; off > 0; off >>= 1) {
+  const int first = warp - warp % kWarps;
+  if (warp == first) {
+    s = lane < kWarps ? warp_sums[first + lane] : 0.f;
+    for (int off = kWarps / 2; off > 0; off >>= 1) {
       s += __shfl_down_sync(0xffffffffu, s, off);
     }
   }
   return s;
+}
+
+// Max over a tile's NT threads, returned to each of them: a butterfly in
+// each warp, then the tile's warp maxima after one barrier.
+template <int NT>
+__device__ __forceinline__ float tile_max(float m) {
+  __shared__ float warp_max[kThreads / 32];
+  constexpr int kWarps = NT / 32;
+  for (int off = 16; off > 0; off >>= 1) {
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) warp_max[warp] = m;
+  __syncthreads();
+  const int first = warp - warp % kWarps;
+  m = warp_max[first];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, warp_max[first + w]);
+  return m;
 }
 
 // Block-wide max over NT threads, returned to every thread.
@@ -121,9 +205,71 @@ __device__ __forceinline__ float dequantized(float v, float scale) {
   return __fmul_rn(q, scale);
 }
 
+// The templated kernels' tiles: tile `id` of the (M/t, K/t) grid, row-major
+// (ids past the last tile of a partly filled block load the last tile and
+// store nothing). Sets this thread's index t within its tile and loads its
+// elements of the tile into v.
+template <class S>
+__device__ __forceinline__ int load_block_tile(const float* __restrict__ x,
+                                               int k, int gk, int tiles,
+                                               int& t, float (&v)[S::kRegs]) {
+  t = threadIdx.x % S::kTileThreads;
+  const int id = blockIdx.x * S::kTilesPerBlock + threadIdx.x / S::kTileThreads;
+  const int at = id < tiles ? id : tiles - 1;
+  const int ti = at / gk;
+  const int tj = at - ti * gk;
+  load_tile<S>(x + static_cast<size_t>(ti) * S::kTile * k +
+                   static_cast<size_t>(tj) * S::kTile,
+               k, t, v);
+  return id;
+}
+
+template <class S>
 __global__ void __launch_bounds__(kThreads)
 tile_norms_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
-                      int k, int tile, int vec) {
+                      int k, int gk, int tiles) {
+  int t;
+  float v[S::kRegs];
+  const int id = load_block_tile<S>(x, k, gk, tiles, t, v);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < S::kRegs; ++i) s = fmaf(v[i], v[i], s);
+  s = tile_sum<S::kTileThreads>(s);
+  if (t == 0 && id < tiles) out[id] = sqrtf(s);
+}
+
+template <class S>
+__global__ void __launch_bounds__(kThreads)
+tile_norms_quant_f32_kernel(const float* __restrict__ x,
+                            float* __restrict__ norms,
+                            float* __restrict__ scales, int k, int gk,
+                            int tiles) {
+  int t;
+  float v[S::kRegs];
+  const int id = load_block_tile<S>(x, k, gk, tiles, t, v);
+  float m = 0.f;
+#pragma unroll
+  for (int i = 0; i < S::kRegs; ++i) m = fmaxf(m, fabsf(v[i]));
+  const float scale =
+      __fmul_rn(fmaxf(tile_max<S::kTileThreads>(m), kTiny), kInv127);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < S::kRegs; ++i) {
+    const float dq = dequantized(v[i], scale);
+    s = fmaf(dq, dq, s);
+  }
+  s = tile_sum<S::kTileThreads>(s);
+  if (t == 0 && id < tiles) {
+    norms[id] = sqrtf(s);
+    scales[id] = scale;
+  }
+}
+
+// The runtime-tile kernels: any tile, one 256-thread block per tile, the
+// grid (K/t, M/t).
+__global__ void __launch_bounds__(kThreads)
+tile_norms_any_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
+                          int k, int tile, int vec) {
   const int tj = blockIdx.x;
   const int ti = blockIdx.y;
   const int gk = gridDim.x;
@@ -131,17 +277,17 @@ tile_norms_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
                       static_cast<size_t>(tj) * tile;
   float s = 0.f;
   tile_walk(base, k, tile, vec, [&](float v) { s = fmaf(v, v, s); });
-  s = block_sum(s);
+  s = tile_sum<kThreads>(s);
   if (threadIdx.x == 0) {
     out[static_cast<size_t>(ti) * gk + tj] = sqrtf(s);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-tile_norms_quant_f32_kernel(const float* __restrict__ x,
-                            float* __restrict__ norms,
-                            float* __restrict__ scales, int k, int tile,
-                            int vec) {
+tile_norms_quant_any_f32_kernel(const float* __restrict__ x,
+                                float* __restrict__ norms,
+                                float* __restrict__ scales, int k, int tile,
+                                int vec) {
   const int tj = blockIdx.x;
   const int ti = blockIdx.y;
   const int gk = gridDim.x;
@@ -156,7 +302,7 @@ tile_norms_quant_f32_kernel(const float* __restrict__ x,
     const float dq = dequantized(v, scale);
     s = fmaf(dq, dq, s);
   });
-  s = block_sum(s);
+  s = tile_sum<kThreads>(s);
   if (threadIdx.x == 0) {
     const size_t o = static_cast<size_t>(ti) * gk + tj;
     norms[o] = sqrtf(s);
@@ -382,18 +528,56 @@ pool_norms_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
   out[e] = sqrtf(__fadd_rn(col0, col1));
 }
 
+// Calls launch(S{}) with the TileShape of a templated tile (16, 32, 64) and
+// returns true; returns false for any other tile.
+template <class F>
+bool templated_tile(int tile, int vec, F&& launch) {
+  switch (tile) {
+    case 16:
+      vec ? launch(TileShape<16, true>{}) : launch(TileShape<16, false>{});
+      return true;
+    case 32:
+      vec ? launch(TileShape<32, true>{}) : launch(TileShape<32, false>{});
+      return true;
+    case 64:
+      vec ? launch(TileShape<64, true>{}) : launch(TileShape<64, false>{});
+      return true;
+    default:
+      return false;
+  }
+}
+
+// 16-byte loads when the tile width, the row stride and the base allow them.
+int vec_loads(const float* x, int k, int tile) {
+  return (tile % 4 == 0) && (k % 4 == 0) &&
+         (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+}
+
+template <class S>
+unsigned tile_blocks(int tiles) {
+  return static_cast<unsigned>((tiles + S::kTilesPerBlock - 1) /
+                               S::kTilesPerBlock);
+}
+
 }  // namespace
 
 // x: (m, k) row-major float32, m % tile == 0 == k % tile; out: (m/tile,
 // k/tile) float32. Launches on `stream` and returns cudaGetLastError().
 extern "C" int spamm_tile_norms_f32(const float* x, float* out, int m, int k,
                                     int tile, void* stream) {
-  const dim3 grid(k / tile, m / tile);
-  const int vec = (tile % 4 == 0) && (k % 4 == 0) &&
-                  (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  tile_norms_f32_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(x, out, k,
-                                                               tile, vec);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int vec = vec_loads(x, k, tile);
+  const int gk = k / tile;
+  const int tiles = (m / tile) * gk;
+  const bool templated = templated_tile(tile, vec, [&](auto shape) {
+    using S = decltype(shape);
+    tile_norms_f32_kernel<S><<<tile_blocks<S>(tiles), kThreads, 0, st>>>(
+        x, out, k, gk, tiles);
+  });
+  if (!templated) {
+    tile_norms_any_f32_kernel<<<dim3(gk, m / tile), kThreads, 0, st>>>(
+        x, out, k, tile, vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -403,12 +587,19 @@ extern "C" int spamm_tile_norms_f32(const float* x, float* out, int m, int k,
 extern "C" int spamm_tile_norms_quant_f32(const float* x, float* norms,
                                           float* scales, int m, int k,
                                           int tile, void* stream) {
-  const dim3 grid(k / tile, m / tile);
-  const int vec = (tile % 4 == 0) && (k % 4 == 0) &&
-                  (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  tile_norms_quant_f32_kernel<<<grid, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      x, norms, scales, k, tile, vec);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int vec = vec_loads(x, k, tile);
+  const int gk = k / tile;
+  const int tiles = (m / tile) * gk;
+  const bool templated = templated_tile(tile, vec, [&](auto shape) {
+    using S = decltype(shape);
+    tile_norms_quant_f32_kernel<S><<<tile_blocks<S>(tiles), kThreads, 0,
+                                     st>>>(x, norms, scales, k, gk, tiles);
+  });
+  if (!templated) {
+    tile_norms_quant_any_f32_kernel<<<dim3(gk, m / tile), kThreads, 0, st>>>(
+        x, norms, scales, k, tile, vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

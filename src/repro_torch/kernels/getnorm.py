@@ -36,6 +36,13 @@ launched (`launches` for tile_norms, `quant_launches` for tile_norms_quant,
 `mxu_launches`/`quant_mxu_launches` for their tensor-core variants,
 `pool_launches` for pool_norms), so a run can show that its main path went
 through each kernel.
+
+The launch path is lean, since a decode step calls a get-norm entry once
+per gated GEMM and the kernels take a few microseconds on the card: every
+check runs before the kernel library is touched, the stream is the raw
+handle of the current stream (no `torch.cuda.Stream` object), the current
+device is switched only when the tensor lies on another one, and the fused
+int8 entry allocates its norms and scales as one tensor.
 """
 from __future__ import annotations
 
@@ -79,6 +86,16 @@ def _lib():
     return _LIB
 
 
+def _launch(fn, x: torch.Tensor, *args) -> int:
+    """Call the C entry `fn(*args, stream)` on x's device and its current
+    stream; returns the entry's CUDA error code."""
+    dev = x.get_device()
+    if dev == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+
+
 def _grid(x: torch.Tensor, tile: int):
     if x.dim() != 2:
         raise ValueError(f"tile_norms needs a 2-D matrix, got {tuple(x.shape)}")
@@ -110,7 +127,7 @@ def _check_cuda_input(x: torch.Tensor, tile: int, use_mxu: bool, name: str):
     """Shape and type checks of the CUDA get-norm kernels; returns the
     tile grid (gm, gk). The tensor-core variant (use_mxu) takes tiles of a
     multiple of 16 rows and columns (the mma.sync m16n8k8 shape)."""
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name} takes float32, got {x.dtype}")
@@ -133,15 +150,13 @@ def tile_norms_cuda(x: torch.Tensor, tile: int = 64, *,
     Takes a contiguous 2-D float32 CUDA tensor; raises on anything else."""
     global launches, mxu_launches
     gm, gk = _check_cuda_input(x, tile, use_mxu, "tile_norms_cuda")
-    out = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
+    out = x.new_empty((gm, gk))
+    if gm * gk == 0:
         return out
     lib = _lib()
     fn = lib.spamm_tile_norms_mxu_f32 if use_mxu else lib.spamm_tile_norms_f32
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], tile,
-                stream)
+    rc = _launch(fn, x, x.data_ptr(), out.data_ptr(), gm * tile, gk * tile,
+                 tile)
     if rc != 0:
         raise RuntimeError(f"tile_norms kernel launch failed: CUDA error {rc}")
     if use_mxu:
@@ -180,17 +195,14 @@ def tile_norms_quant_cuda(x: torch.Tensor, tile: int = 64, *,
     CUDA tensor; raises on anything else."""
     global quant_launches, quant_mxu_launches
     gm, gk = _check_cuda_input(x, tile, use_mxu, "tile_norms_quant_cuda")
-    norms = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
-    scales = torch.empty((gm, gk), dtype=torch.float32, device=x.device)
-    if norms.numel() == 0:
+    norms, scales = x.new_empty((2, gm, gk)).unbind(0)
+    if gm * gk == 0:
         return norms, scales
     lib = _lib()
     fn = (lib.spamm_tile_norms_quant_mxu_f32 if use_mxu
           else lib.spamm_tile_norms_quant_f32)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), norms.data_ptr(), scales.data_ptr(),
-                x.shape[0], x.shape[1], tile, stream)
+    rc = _launch(fn, x, x.data_ptr(), norms.data_ptr(), scales.data_ptr(),
+                 gm * tile, gk * tile, tile)
     if rc != 0:
         raise RuntimeError(
             f"tile_norms_quant kernel launch failed: CUDA error {rc}")
@@ -230,7 +242,7 @@ def pool_norms_cuda(normmap: torch.Tensor) -> torch.Tensor:
     contiguous float32 CUDA tensor of shape (..., gm, gk), the leading dims
     being slices pooled independently; raises on anything else."""
     global pool_launches
-    if normmap.device.type != "cuda":
+    if not normmap.is_cuda:
         raise ValueError(f"pool_norms_cuda needs a CUDA tensor, got "
                          f"{normmap.device}")
     if normmap.dtype != torch.float32:
@@ -242,15 +254,11 @@ def pool_norms_cuda(normmap: torch.Tensor) -> torch.Tensor:
                          f"got {tuple(normmap.shape)}")
     *lead, gm, gk = normmap.shape
     slices = normmap.numel() // max(gm * gk, 1)
-    out = torch.empty((*lead, (gm + 1) // 2, (gk + 1) // 2),
-                      dtype=torch.float32, device=normmap.device)
+    out = normmap.new_empty((*lead, (gm + 1) // 2, (gk + 1) // 2))
     if out.numel() == 0:
         return out
-    lib = _lib()
-    stream = torch.cuda.current_stream(normmap.device).cuda_stream
-    with torch.cuda.device(normmap.device):
-        rc = lib.spamm_pool_norms_f32(normmap.data_ptr(), out.data_ptr(),
-                                      slices, gm, gk, stream)
+    rc = _launch(_lib().spamm_pool_norms_f32, normmap, normmap.data_ptr(),
+                 out.data_ptr(), slices, gm, gk)
     if rc != 0:
         raise RuntimeError(f"pool_norms kernel launch failed: CUDA error {rc}")
     pool_launches += 1

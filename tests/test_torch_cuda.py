@@ -229,6 +229,75 @@ def test_tile_norms_quant_kernel_equals_unfused_on_card(dev, tile):
     torch.testing.assert_close(norms, pn, rtol=NORM_RTOL, atol=0)
 
 
+def _offset_view(t):
+    """A contiguous copy of t one element past a 16-byte aligned base: the
+    get-norm kernels take their 4-byte load path on it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("tile", [16, 24, 32, 48, 64])
+def test_getnorm_pair_at_every_tile_and_load_path_on_card(dev, tile,
+                                                          aligned):
+    """tile_norms and the fused int8 get-norm at the templated tiles (16,
+    32, 64) and at tiles the runtime-tile kernels take (24, 48), on 16-byte
+    and on 4-byte loads, with an all-zero tile, at shapes that fill whole
+    blocks and one that leaves part of a tile-16 block empty (5 tiles):
+    within NORM_RTOL of the plain versions, fused ≡ unfused (on the same
+    load path) and scales ≡ the quantizer's bit for bit, two calls
+    bit-identical, one launch per call."""
+    for shape in ((4 * tile, 6 * tile), (tile, 5 * tile),
+                  (16 * tile, 36 * tile)):
+        x = _rand(shape, 40 + tile, dev)
+        x[:tile, tile:2 * tile] = 0.0
+        if not aligned:
+            x = _offset_view(x)
+        before = (getnorm.launches, getnorm.quant_launches)
+        got = getnorm.tile_norms_cuda(x, tile)
+        again = getnorm.tile_norms_cuda(x, tile)
+        norms, scales = getnorm.tile_norms_quant_cuda(x, tile)
+        norms2, scales2 = getnorm.tile_norms_quant_cuda(x, tile)
+        torch.cuda.synchronize()
+        assert (getnorm.launches, getnorm.quant_launches) == (
+            before[0] + 2, before[1] + 2)
+        assert torch.equal(got, again)
+        assert torch.equal(norms, norms2) and torch.equal(scales, scales2)
+        assert float(got[0, 1]) == 0.0 and float(norms[0, 1]) == 0.0
+        torch.testing.assert_close(got, getnorm.tile_norms_plain(x, tile),
+                                   rtol=NORM_RTOL, atol=0)
+        q, s = Q.quantize_tiles(x, tile)
+        assert torch.equal(scales, s)
+        dq = Q.dequantize_tiles(q, s, tile)
+        if not aligned:
+            dq = _offset_view(dq)
+        assert torch.equal(norms, getnorm.tile_norms_cuda(dq, tile))
+        pn, ps = getnorm.tile_norms_quant_plain(x, tile)
+        assert torch.equal(scales, ps)
+        torch.testing.assert_close(norms, pn, rtol=NORM_RTOL, atol=0)
+
+
+def test_getnorm_entries_raise_on_what_they_do_not_take_on_card(dev):
+    """On the card, as on the CPU (tests/test_torch_getnorm_launch.py):
+    the same exception types, and no launch counted."""
+    x = _rand((64, 96), 41, dev)
+    counts = (getnorm.launches, getnorm.quant_launches, getnorm.pool_launches)
+    for fn in (getnorm.tile_norms_cuda, getnorm.tile_norms_quant_cuda):
+        for bad, exc in ((x.double(), TypeError), (x.bfloat16(), TypeError),
+                         (x.t(), ValueError),
+                         (x[:, :80].contiguous(), ValueError),
+                         (x.cpu(), ValueError)):
+            with pytest.raises(exc):
+                fn(bad, 32)
+    with pytest.raises(ValueError):
+        getnorm.pool_norms_cuda(x[0])
+    assert counts == (getnorm.launches, getnorm.quant_launches,
+                      getnorm.pool_launches)
+
+
 def _int8_args(a, b, tile, block_n=1):
     """Codes and scales of a and b with the step tables of their f32 plan
     at τ = the median product."""
