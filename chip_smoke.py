@@ -5,7 +5,9 @@
 
 Builds the port's CUDA kernels from src/repro_torch/kernels/csrc, checks
 that the int8 work-list kernel's SASS runs on the tensor cores (IMMA, no
-IDP4A), and drives two paths of the port.
+IDP4A) and that the tensor-core get-norm kernels do (HMMA on TF32, the
+int8 one loading no more than the f32 one), and drives two paths of the
+port.
 
 Serving: holds the get-norm and work-list kernels against their plain
 PyTorch versions at the serving path's shapes, prefill and decode (and
@@ -27,15 +29,18 @@ their tiles), then at that τ with int8 and with bf16 GEMMs; and checks at
 layer-0 wq that the int8 and bf16 gates keep every tile the f32 gate keeps.
 The tensor-core get-norm pair (use_mxu=True, paper Eq. 3-4) is held against
 its plain versions at the activation and w1 shapes, fused ≡ unfused bit for
-bit.
+bit, and its device time is read at tiles 16 and 32 of the activation and
+on one N = 16384 library operand, beside the CUDA-core pair's; an empty
+kernel's device time is printed as launch_floor_ms.
 
 Store: at run (c)'s τ, every gated weight of the full-depth model is frozen
 into a fresh plan store (the offline `populate` walk); a fresh
 `Engine(plan_store=…)` then serves the wave from store hits only, with no
 get-norm launch while it freezes and run (c)'s tokens and prefill logits
 bit for bit; the walk is repeated with use_mxu=True at f32 and int8 (new
-keys, one launch of the tensor-core kernels per weight) and the normmaps
-compared with the CUDA-core ones.
+keys, one launch of the tensor-core kernels per weight), the normmaps
+compared with the CUDA-core ones, and once more warm (store hits only, no
+launch, the cold use_mxu artifacts bit for bit).
 
 Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
 with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
@@ -427,6 +432,8 @@ def check_tile_norms_mxu(x, label):
            "max_abs_err": float((got - want).abs().max()),
            "max_rel_err": rel_n,
            "ms": time_ms(lambda: getnorm.tile_norms_cuda(x, t, use_mxu=True)),
+           "ms_back_to_back": time_ms_back_to_back(
+               lambda: getnorm.tile_norms_cuda(x, t, use_mxu=True)),
            "plain_ms": time_ms(lambda: getnorm.tile_norms_plain(
                x, t, use_mxu=True), reps=5),
            "library_ms": time_ms(
@@ -442,6 +449,8 @@ def check_tile_norms_mxu(x, label):
              "scales_bit_identical": same_s,
              "ms": time_ms(lambda: getnorm.tile_norms_quant_cuda(
                  x, t, use_mxu=True)),
+             "ms_back_to_back": time_ms_back_to_back(
+                 lambda: getnorm.tile_norms_quant_cuda(x, t, use_mxu=True)),
              "plain_ms": time_ms(lambda: getnorm.tile_norms_quant_plain(
                  x, t, use_mxu=True), reps=5),
              "library_ms": time_ms(unfused_torch),
@@ -635,6 +644,98 @@ def int8_sass():
     return counts
 
 
+def mxu_sass():
+    """Opcode counts of the tensor-core get-norm kernels in the built
+    library's SASS: every one of them (templated and runtime-tile, f32 and
+    int8) must sum on the tensor cores (HMMA with TF32 operands), and each
+    templated int8 kernel must load no more than the f32 kernel of the same
+    tile and load path (it takes its tile from registers: one read)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(
+        "getnorm.cu"))], capture_output=True, text=True, check=True).stdout
+    kernels, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            m = re.search(r"(tile_norms(?:_quant)?_mxu(?:_any)?_f32_kernel)"
+                          r"(?:INS_8MxuShapeILi(\d+)ELb([01])E)?", name)
+            fn = None
+            if m:
+                fn = m.group(1) + (f"<{m.group(2)}, vec={m.group(3)}>"
+                                   if m.group(2) else "")
+                kernels[fn] = {"HMMA_TF32": 0, "loads": 0}
+        elif fn:
+            kernels[fn]["HMMA_TF32"] += " HMMA." in line and "TF32" in line
+            kernels[fn]["loads"] += bool(re.search(r"\s(LDG|LD)\.", line))
+    pairs = {k: (v["loads"], kernels.get(k.replace("_mxu_", "_quant_mxu_"),
+                                         {}).get("loads"))
+             for k, v in kernels.items()
+             if k.startswith("tile_norms_mxu_f32_kernel<")}
+    emit({"mxu_sass": {"kernels": kernels,
+                       "templated_loads_f32_int8": pairs}})
+    check(len(kernels) == 14 and all(v["HMMA_TF32"] > 0
+                                     for v in kernels.values())
+          and len(pairs) == 6
+          and all(q is not None and q <= f for f, q in pairs.values()),
+          f"tensor-core get-norm SASS: {kernels}")
+    return kernels
+
+
+def launch_floor_ms(calls=100):
+    """Device time of one launch of an empty kernel (`getnorm.cu`'s
+    launch_floor_kernel), from the profiler: the floor that the get-norm
+    kernels' device times at the decode and pooling shapes sit on."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import getnorm
+
+    fn = getnorm._lib().spamm_launch_floor
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        rc = fn(torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device()))
+        check(rc == 0, f"empty kernel launch failed: CUDA error {rc}")
+
+    ms = kernel_device_ms(launch, "launch_floor_kernel", calls)
+    emit({"launch_floor_ms": ms, "calls": calls})
+    return ms
+
+
+def mxu_device_times(x, label, tiles, calls=100):
+    """Device time of one launch of each tensor-core get-norm kernel on x at
+    each tile of `tiles`, from the profiler, beside its CUDA-core twin and
+    the bytes bound (x read once, the normmap(s) written once)."""
+    from repro_torch.kernels import getnorm
+
+    m, k = x.shape
+    out = {}
+    for t in tiles:
+        nm = (m // t) * (k // t) * 4
+        rows = {
+            "tile_norms_mxu": (lambda: getnorm.tile_norms_cuda(
+                x, t, use_mxu=True), "tile_norms_mxu_f32_kernel", 1),
+            "tile_norms_quant_mxu": (lambda: getnorm.tile_norms_quant_cuda(
+                x, t, use_mxu=True), "tile_norms_quant_mxu_f32_kernel", 2),
+            "tile_norms": (lambda: getnorm.tile_norms_cuda(x, t),
+                           "tile_norms_f32_kernel", 1),
+            "tile_norms_quant": (lambda: getnorm.tile_norms_quant_cuda(x, t),
+                                 "tile_norms_quant_f32_kernel", 2),
+        }
+        out[t] = {name: {"device_ms": kernel_device_ms(fn, kernel, calls),
+                         "bound_ms": bound_ms(m * k * 4 + maps * nm,
+                                              2 * m * k)[0]}
+                  for name, (fn, kernel, maps) in rows.items()}
+    emit({"mxu_device": {"shape": label, "calls": calls, "tiles": out}})
+    return out
+
+
 def getnorm_device_times(x, label, calls=100, reps=5):
     """Device time of one launch of each get-norm kernel on x (the pooling
     kernel on x's normmap), from the profiler over `calls` back-to-back
@@ -750,6 +851,10 @@ def phase_kernels():
     getnorm_device_times(x, f"activation {BATCH * PROMPT_LEN}x{d}")
     getnorm_device_times(xd, f"decode activation {TILE}({BATCH})x{d}")
     getnorm_device_times(w1, f"w1 {d}x{ff}")
+    # the tensor-core pair at the packed tiles, and the launch floor the
+    # decode-shape device times are read against
+    mxu_device_times(x, f"activation {BATCH * PROMPT_LEN}x{d}", (16, 32))
+    launch_floor_ms()
     del xd, xd2
 
     # (c) the paper's synthetic: exponential-decay matrices,
@@ -1191,18 +1296,34 @@ def phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c):
         fw8, _ = host_ms(lambda: freeze_tree(params, sc8, store=store)[0])
         res = {"freeze_s": {"float32": mxu32_s / 1e3, "int8": mxu8_s / 1e3},
                "new_artifacts": len(new_keys), "launches": mxu_counts}
+        # the same use_mxu walks again, warm: store hits only, no get-norm
+        # launch, the cold walks' artifacts bit for bit
+        reset_counts()
+        warm_m = {"float32": freeze_tree(params, sct, store=store,
+                                         use_mxu=True)[0],
+                  "int8": freeze_tree(params, sc8, store=store,
+                                      use_mxu=True)[0]}
+        res["warm_launches"] = read_counts()
         for dtype, base, other in (("float32", fw32, fw32m),
                                    ("int8", fw8, fw8m)):
             rel, entries, pairs = compare_artifacts(base, other)
+            _, warm_entries, warm_pairs = compare_artifacts(other,
+                                                            warm_m[dtype])
             res[dtype] = {"max_rel_normmap_diff_vs_use_mxu_false": rel,
                           "normmap_entries_differing": entries,
-                          "kj_pairs_differing": pairs}
+                          "kj_pairs_differing": pairs,
+                          "warm_entries_differing_from_cold": warm_entries,
+                          "warm_kj_pairs_differing_from_cold": warm_pairs}
         emit({"store_mxu": res})
         check(mxu_counts["tile_norms_mxu"] == n_weights
               and mxu_counts["tile_norms_quant_mxu"] == n_weights
               and len(new_keys) == 2 * n_weights
+              and not any(res["warm_launches"].values())
               and all(res[d]["max_rel_normmap_diff_vs_use_mxu_false"]
-                      <= NORM_RTOL for d in ("float32", "int8")),
+                      <= NORM_RTOL
+                      and res[d]["warm_entries_differing_from_cold"] == 0
+                      and res[d]["warm_kj_pairs_differing_from_cold"] == 0
+                      for d in ("float32", "int8")),
               f"use_mxu store pass: {res}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1474,9 +1595,10 @@ def check_dense_grid(name, x, w, tau, c, info):
 
 def kernel_device_ms(fn, kernel, calls=20):
     """Mean device time of one launch of `kernel` over `calls` calls of fn
-    under torch.profiler — for kernels so short that an event pair around
-    one call measures the host's launch path instead. "not measured" when
-    the profiler records no device time."""
+    under torch.profiler (over the launches it recorded) — for kernels so
+    short that an event pair around one call measures the host's launch
+    path instead. "not measured" when the profiler records no device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1488,9 +1610,13 @@ def kernel_device_ms(fn, kernel, calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
-    return us / calls / 1e3 if us > 0 else "not measured"
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    us = sum(e.self_device_time_total for e in rows)
+    # the mean over the launches the profiler kept: it can drop records of
+    # a long run, which a division by `calls` would count as zero time
+    n = sum(e.count for e in rows)
+    return us / n / 1e3 if us > 0 else "not measured"
 
 
 def check_pool(x, label):
@@ -1579,6 +1705,7 @@ def phase_library():
     norm_a = check_paper(a, b, out["paper"])
     del out["paper"]
     check_lowp_library(a, b, out["lowp"])
+    mxu_device_times(a, f"library operand {LIB_N}x{LIB_N}", (TILE,))
     del out["lowp"], a, b
     torch.cuda.empty_cache()
     mm = {name: check_dense_grid(name, *moe[name], *out["moe"][name])
@@ -1650,6 +1777,7 @@ def main():
                                               if "Used" in ln or "spill" in ln]}
                                 for s, r in report.items()}}})
     int8_sass()
+    mxu_sass()
 
     seconds = {}
     t0 = time.perf_counter()
@@ -1720,6 +1848,7 @@ def main():
          "path": store_path,
          "library_path_launches": lib_counts["tile_norms_mxu"],
          "library_call": lowp["mxu"][0]["library_call"],
+         "ms_back_to_back": lowp["mxu"][0]["ms_back_to_back"],
          **{k: lowp["mxu"][0][k] for k in keys}},
         {"name": "tile_norms_quant_mxu", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
@@ -1727,6 +1856,7 @@ def main():
          "variant": "use_mxu=True (_tile_sumsq :36-46)",
          "launches": store_counts["mxu"]["tile_norms_quant_mxu"],
          "path": store_path, "library_call": lowp["mxu"][1]["library_call"],
+         "ms_back_to_back": lowp["mxu"][1]["ms_back_to_back"],
          **{k: lowp["mxu"][1][k] for k in keys}},
     ]
     emit({"kernels": kernels})

@@ -35,9 +35,11 @@
 // in a loop over a run-time count (and reading it twice for the int8
 // variant). At w1 both templated kernels run at the bytes bound; at the
 // activation shapes (one or a few blocks per SM) the int8 kernel's time is
-// its exact division, __fdiv_rn, whose per-element check branches to a
-// slow path: a multiply by the reciprocal would halve it but move the
-// quantizer's bits, so the division stays (launch/ablate_getnorm.py).
+// its exact division, __fdiv_rn: a multiply by the reciprocal would cut it
+// but move the quantizer's bits, so the division stays. A zero dividend
+// (most of a zero-padded decode tile) would branch to the division's slow
+// path; it divides the scale in its place (dequantized), the same bits
+// (launch/ablate_getnorm.py, variant div_zeros).
 //
 // The bits: every path sums with the same element-to-thread assignment,
 // the same fmaf order within a thread and the same tree (tile_sum). A tile
@@ -159,7 +161,8 @@ __device__ __forceinline__ float tile_sum(float s) {
 }
 
 // Max over a tile's NT threads, returned to each of them: a butterfly in
-// each warp, then the tile's warp maxima after one barrier.
+// each warp, then (a tile of several warps) the tile's warp maxima after
+// one barrier.
 template <int NT>
 __device__ __forceinline__ float tile_max(float m) {
   __shared__ float warp_max[kThreads / 32];
@@ -167,6 +170,7 @@ __device__ __forceinline__ float tile_max(float m) {
   for (int off = 16; off > 0; off >>= 1) {
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   }
+  if constexpr (kWarps == 1) return m;
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) warp_max[warp] = m;
   __syncthreads();
@@ -177,31 +181,14 @@ __device__ __forceinline__ float tile_max(float m) {
   return m;
 }
 
-// Block-wide max over NT threads, returned to every thread.
-template <int NT>
-__device__ __forceinline__ float block_max(float m) {
-  __shared__ float warp_max[NT / 32];
-  __shared__ float total;
-  for (int off = 16; off > 0; off >>= 1) {
-    m = fmaxf(m, __shfl_down_sync(0xffffffffu, m, off));
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = warp_max[0];
-    for (int w = 1; w < NT / 32; ++w) t = fmaxf(t, warp_max[w]);
-    total = t;
-  }
-  __syncthreads();
-  return total;
-}
-
 // The int8 view of v under `scale`, dequantized: q = clip(rint(v / scale),
 // ±127), then q·scale, with the quantizer's roundings and no contraction.
+// A zero dividend takes the exact division's slow path, and 0 / scale is
+// the zero itself: a zero divides the scale instead and keeps its own
+// value, without a branch, so the result is the division's bit for bit.
 __device__ __forceinline__ float dequantized(float v, float scale) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f);
+  const float d = rintf(__fdiv_rn(v == 0.f ? scale : v, scale));
+  const float q = fminf(fmaxf(v == 0.f ? v : d, -127.f), 127.f);
   return __fmul_rn(q, scale);
 }
 
@@ -296,7 +283,7 @@ tile_norms_quant_any_f32_kernel(const float* __restrict__ x,
   float m = 0.f;
   tile_walk(base, k, tile, vec, [&](float v) { m = fmaxf(m, fabsf(v)); });
   const float scale =
-      __fmul_rn(fmaxf(block_max<kThreads>(m), kTiny), kInv127);
+      __fmul_rn(fmaxf(tile_max<kThreads>(m), kTiny), kInv127);
   float s = 0.f;
   tile_walk(base, k, tile, vec, [&](float v) {
     const float dq = dequantized(v, scale);
@@ -314,41 +301,96 @@ tile_norms_quant_any_f32_kernel(const float* __restrict__ x,
 // MXU branch of the Pallas body _tile_sumsq (src/repro/kernels/getnorm.py,
 // use_mxu=True, under _getnorm_kernel and _getnorm_quant_kernel): the
 // paper's tensor-core reduction, Eq. 3-4. The tile's sum of squares is taken
-// as two products against ones: Eq. 3, the row sums D = SQ·1, then Eq. 4,
-// their total 1ᵀ·D.
+// as products against ones: Eq. 3, the row sums R = SQ·1, then Eq. 4, their
+// total 1ᵀ·R.
 //
 // What bounds it on an H100: bytes, as the CUDA-core variant (M·K·4 B read
-// once). Design: one 128-thread block (4 warps) per tile, the grid (K/t,
-// M/t), t % 16 == 0. Warp w owns the 16-row strips w, w+4, ... of the tile;
-// lane (g = lane/4, q = lane%4) loads 16-byte vectors of rows g and g+8 of
-// the strip (a quad of lanes covers 64 contiguous bytes of a row) and feeds
-// the squares as the A operand of mma.sync.m16n8k8 TF32 against a B of ones,
-// accumulating the strip's 16 row sums in f32 (Eq. 3). The row sums go to
-// shared memory; warp 0 then issues ones(16×8)·rows(8×8 chunk) over the
-// t/8 chunks (Eq. 4) and thread 0 writes sqrt of the total.
+// once); at the activation shapes (one or a few blocks per SM) the chain of
+// one block: its loads, its products and its barriers.
 //
-// f32 accuracy from TF32 inputs: each square (and each row sum) is split as
-// hi = rna_tf32(v), lo = rna_tf32(v − hi) — v − hi is exact in f32 — and both
-// halves are multiplied by the ones, so each element enters the sum with a
-// relative error of about 2⁻²² (the ones are exact in TF32, so the third
-// term of a 3×TF32 product vanishes). The square and the difference are
-// __fmul_rn/__fsub_rn (never contracted into an FMA). Both kernels sum
-// through ONE device function (mxu_tile_sumsq: the same element-to-lane
-// assignment, the same mma sequence), so on the card the fused norms are
-// bit-identical to the plain kernel run on the dequantized matrix.
+// Design. A tile (t % 16 == 0) is t/16 strips of 16 rows, each t/16
+// segments of 16 columns. A warp sums one unit: a whole strip, or at tile
+// 64 a run of kSegs64 of its segments. Lane (g = lane/4, q = lane%4) loads,
+// per segment, 16 bytes of rows g and g+8 at columns 4q..4q+3 (a quad of
+// lanes covers 64 contiguous bytes of a row). Eq. 3 is mma.sync.m16n8k8
+// TF32 of the squares against a B of ones, in kChains independent
+// accumulators (float j of each load goes to chain j % kChains), so a warp
+// has products in flight where one chain would wait on each; one more
+// product against ones sums the chains into the unit's 16 row sums (lane
+// q gives chain q). Two chains: one and four were slower at the activation
+// shapes (launch/ablate_getnorm.py). Eq. 4 is three products with A = ones:
+// column g of B takes row sums g and g+8; the eight column sums fold into
+// two (even and odd columns); the odd sum goes onto the even one in the
+// same accumulator. A tile of several units sums their totals after one
+// barrier, four to a product (column 0 of B). No sum is taken on the CUDA
+// cores.
+//
+// Templated tiles (16, 32, 64): every load of a lane is issued before the
+// first product and the unit stays in registers (8 float4 a lane at tile
+// 64). One warp per unit: one tile per warp at tile 16, four tiles to a
+// 128-thread block; two warps and two tiles per block at tile 32; four
+// warps at tile 64 (eight, kSegs64 = 2, shorten the decode chain but cost
+// the int8 kernel a fifth more at w1). A flat grid over the tiles;
+// ids past the last tile of a partly filled block load the last tile and
+// store nothing. The int8 kernel takes max|x| from the same registers
+// (tile_max, one barrier), then quantizes, dequantizes and squares them:
+// the tile is read once. Any other tile takes the runtime-tile kernels
+// (*_mxu_any_*): one 128-thread block per tile, whose warps walk the units
+// in a loop over a run-time count (the int8 one reads its tile twice).
+//
+// f32 accuracy from TF32 inputs: each value that enters a product (a
+// square, a partial sum) is split into two TF32 halves (split_tf32: hi =
+// v truncated, lo = v − hi rounded), and both halves are multiplied by the
+// ones, so each enters the sum with a relative error below 2⁻²¹ (the ones
+// are exact in TF32, so the third term of a 3×TF32 product vanishes). The
+// square and the difference are __fmul_rn/__fsub_rn, never contracted into
+// an FMA.
+//
+// The bits: every path sums through the same helpers (eq3_segment,
+// unit_total, units_total) with the same element-to-lane assignment and the
+// same products in the same order, and 4-byte loads fill the same registers
+// as 16-byte ones. So the templated kernels give the runtime-tile kernels'
+// output bit for bit, the two load paths agree, and on the card the fused
+// norms are bit-identical to the plain kernel run on the dequantized matrix.
 constexpr int kMxuThreads = 128;
-constexpr int kMxuWarps = kMxuThreads / 32;
 constexpr uint32_t kOneTf32 = 0x3f800000u;  // 1.0f, exact in TF32
+// 16-column segments of a warp's unit at tile 64: 4, a whole strip (four
+// warps per tile); 2, half a strip (eight warps)
+constexpr int kSegs64 = 4;
+// independent Eq. 3 accumulators of a warp (float j of each load goes to
+// chain j % kChains)
+constexpr int kChains = 2;
 
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
+// 16-column segments of a warp's unit: a whole strip but at tile 64.
+__host__ __device__ constexpr int mxu_unit_segs(int tile) {
+  return tile == 64 ? kSegs64 : tile / 16;
+}
+
+// Units (warps' shares) of a tile.
+__host__ __device__ constexpr int mxu_units(int tile) {
+  return (tile / 16) * (tile / 16 / mxu_unit_segs(tile));
+}
+
+// v as two TF32 halves, hi + lo, within 2⁻²¹ of v: hi is v truncated to
+// TF32 (its low 13 bits cleared); lo is the rest, v − hi (exact in f32,
+// below 2⁻¹⁰ of v), rounded to TF32 to nearest, ties away from zero, on its
+// bits. Integer operations on the bits: cvt.rna.tf32.f32 compiles to a
+// longer sequence that guards special values. A NaN or an infinity stays
+// in hi (lo is then a NaN rounded to −0).
+struct Tf32Pair {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Tf32Pair split_tf32(float v) {
+  const uint32_t hi = __float_as_uint(v) & 0xffffe000u;
+  const float lo = __fsub_rn(v, __uint_as_float(hi));
+  return {hi, (__float_as_uint(lo) + 0x1000u) & 0xffffe000u};
 }
 
 // d += A·B for one m16n8k8 TF32 product with f32 accumulation: a0..a3 are
-// this lane's A fragment (rows g, g+8 of columns q, q+4), b0/b1 its B
-// fragment (rows q, q+4 of column g).
+// this lane's A fragment (A[g][q], A[g+8][q], A[g][q+4], A[g+8][q+4]),
+// b0/b1 its B fragment (B[q][g], B[q+4][g]); d holds D[g][2q], D[g][2q+1],
+// D[g+8][2q], D[g+8][2q+1].
 __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint32_t b0, uint32_t b1) {
@@ -359,129 +401,305 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// Eq. 3 step: d += SQ·1 for the four f32 squares of this lane's A fragment,
-// as hi·1 + lo·1.
-__device__ __forceinline__ void rowsum_step(float (&d)[4], float s0, float s1,
-                                            float s2, float s3) {
-  const uint32_t h0 = tf32_rna(s0), h1 = tf32_rna(s1);
-  const uint32_t h2 = tf32_rna(s2), h3 = tf32_rna(s3);
-  mma_tf32(d, h0, h1, h2, h3, kOneTf32, kOneTf32);
-  mma_tf32(d, tf32_rna(__fsub_rn(s0, __uint_as_float(h0))),
-           tf32_rna(__fsub_rn(s1, __uint_as_float(h1))),
-           tf32_rna(__fsub_rn(s2, __uint_as_float(h2))),
-           tf32_rna(__fsub_rn(s3, __uint_as_float(h3))), kOneTf32, kOneTf32);
+// d += ones(16×8)·B with this lane's B fragment b0 = B[q][g], b1 = B[q+4][g]:
+// column n of D gains the sum of column n of B.
+__device__ __forceinline__ void mma_ones_b(float (&d)[4], uint32_t b0,
+                                           uint32_t b1) {
+  mma_tf32(d, kOneTf32, kOneTf32, kOneTf32, kOneTf32, b0, b1);
 }
 
-__device__ __forceinline__ float4 load4(const float* __restrict__ base, int k,
-                                        int r, int c, int vec) {
-  const float* p = base + static_cast<size_t>(r) * k + c;
-  if (vec) return *reinterpret_cast<const float4*>(p);
-  return make_float4(p[0], p[1], p[2], p[3]);
-}
-
-// Calls op(u, v) for every 4-column group this lane owns: u from row 16s+g,
-// v from row 16s+g+8 of each strip s of warp w, at columns c+4q..c+4q+3 of
-// each 16-column segment c. `strip_done(s)` runs after each strip.
-template <class Op, class Done>
-__device__ __forceinline__ void strip_walk(const float* __restrict__ base,
-                                           int k, int tile, int vec, Op op,
-                                           Done strip_done) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  for (int s = warp; s < tile / 16; s += kMxuWarps) {
-    for (int c = 0; c < tile; c += 16) {
-      op(load4(base, k, 16 * s + g, c + 4 * q, vec),
-         load4(base, k, 16 * s + g + 8, c + 4 * q, vec));
-    }
-    strip_done(s);
+// Eq. 3 over one 16-column segment: u and v are this lane's four elements
+// of rows g and g+8 at columns 4q..4q+3 of the segment. Float j adds the
+// squares of f(u[j]) and f(v[j]) to chain j % kChains: A = [hi u², hi v²,
+// lo u², lo v²] against ones, so every column of a chain holds its row
+// sums.
+template <class F>
+__device__ __forceinline__ void eq3_segment(float (&acc)[kChains][4],
+                                            const float (&u)[4],
+                                            const float (&v)[4], F f) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float fu = f(u[j]), fv = f(v[j]);
+    const Tf32Pair a = split_tf32(__fmul_rn(fu, fu));
+    const Tf32Pair b = split_tf32(__fmul_rn(fv, fv));
+    mma_tf32(acc[j % kChains], a.hi, b.hi, a.lo, b.lo, kOneTf32, kOneTf32);
   }
 }
 
-// Sum of squares of f(v) over the (tile × tile) tile at `base` on the tensor
-// cores (Eq. 3-4); `rows` is `tile` floats of shared memory. Every thread
-// of the block calls it; the total is valid in thread 0.
-template <class F>
-__device__ __forceinline__ float mxu_tile_sumsq(const float* __restrict__ base,
-                                                int k, int tile, int vec, F f,
-                                                float* rows) {
+// A unit's total from its Eq. 3 chains, valid in lane 0 (and in every
+// lane with q == 0).
+__device__ __forceinline__ float unit_total(const float (&acc)[kChains][4]) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
+  // Eq. 3, the chains summed: lane q gives chain q's sums of rows g, g+8
+  float cg = 0.f, cg8 = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChains; ++c) {
+    cg = q == c ? acc[c][0] : cg;
+    cg8 = q == c ? acc[c][2] : cg8;
+  }
+  const Tf32Pair p = split_tf32(cg), p8 = split_tf32(cg8);
+  float r[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(r, p.hi, p8.hi, p.lo, p8.lo, kOneTf32, kOneTf32);
+  // Eq. 4: column g of B takes R[g] (lane q = 0) and R[g+8] (q = 1), so
+  // column n of c is C[n] = R[n] + R[n+8]; lane q holds C[2q] and C[2q+1]
+  const Tf32Pair s = split_tf32(q == 0 ? r[0] : r[2]);
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_ones_b(c, q < 2 ? s.hi : 0u, q < 2 ? s.lo : 0u);
+  // column 0 takes the even C[2q] (group 0), column 1 the odd C[2q+1]
+  // (group 1); then lane 0 gives the odd sum t[1] onto column 0
+  const Tf32Pair e = split_tf32(g == 0 ? c[0] : c[1]);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_ones_b(t, g < 2 ? e.hi : 0u, g < 2 ? e.lo : 0u);
+  const Tf32Pair o = split_tf32(t[1]);
+  mma_ones_b(t, lane == 0 ? o.hi : 0u, lane == 0 ? o.lo : 0u);
+  return t[0];
+}
+
+// Sum of n ≥ 2 unit totals tot[0..n) (shared memory), four to a product
+// against ones: lane q of group 0 gives tot[i+q] as B[q][0] and B[q+4][0],
+// the products chained in one accumulator. Valid in lane 0.
+__device__ __forceinline__ float units_total(const float* tot, int n) {
+  const int lane = threadIdx.x & 31;
   float d[4] = {0.f, 0.f, 0.f, 0.f};
-  auto sq = [&](float v) {
-    const float x = f(v);
-    return __fmul_rn(x, x);
-  };
-  strip_walk(
-      base, k, tile, vec,
-      [&](float4 u, float4 v) {
-        rowsum_step(d, sq(u.x), sq(v.x), sq(u.y), sq(v.y));
-        rowsum_step(d, sq(u.z), sq(v.z), sq(u.w), sq(v.w));
-      },
-      [&](int s) {
-        // every column of D holds the row sum: D[g][2q] and D[g+8][2q]
-        if (q == 0) {
-          rows[16 * s + g] = d[0];
-          rows[16 * s + g + 8] = d[2];
-        }
-        d[0] = d[1] = d[2] = d[3] = 0.f;
-      });
-  __syncthreads();
-  if (threadIdx.x >= 32) return 0.f;
-  // Eq. 4: D = ones(16×8) · R, R's column g = the chunk rows[c..c+7]
-  for (int c = 0; c < tile; c += 8) {
-    const float r0 = rows[c + q], r1 = rows[c + q + 4];
-    const uint32_t h0 = tf32_rna(r0), h1 = tf32_rna(r1);
-    mma_tf32(d, kOneTf32, kOneTf32, kOneTf32, kOneTf32, h0, h1);
-    mma_tf32(d, kOneTf32, kOneTf32, kOneTf32, kOneTf32,
-             tf32_rna(__fsub_rn(r0, __uint_as_float(h0))),
-             tf32_rna(__fsub_rn(r1, __uint_as_float(h1))));
+  for (int i = 0; i < n; i += 4) {
+    const int at = i + (lane & 3);
+    const float v = tot[at < n ? at : n - 1];
+    const Tf32Pair p = split_tf32(lane < 4 && at < n ? v : 0.f);
+    mma_ones_b(d, p.hi, p.lo);
   }
   return d[0];
 }
 
-__global__ void __launch_bounds__(kMxuThreads)
-tile_norms_mxu_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
-                          int k, int tile, int vec) {
-  extern __shared__ float rows[];
-  const int tj = blockIdx.x;
-  const int ti = blockIdx.y;
-  const float* base = x + static_cast<size_t>(ti) * tile * k +
-                      static_cast<size_t>(tj) * tile;
-  const float s =
-      mxu_tile_sumsq(base, k, tile, vec, [](float v) { return v; }, rows);
-  if (threadIdx.x == 0) {
-    out[static_cast<size_t>(ti) * gridDim.x + tj] = sqrtf(s);
+// Total of a tile's NW unit totals, one from each of the tile's warps
+// (neighbouring warps of the block): a single unit's own, else after one
+// barrier units_total. Valid in lane 0 of each of the tile's warps.
+template <int NW>
+__device__ __forceinline__ float tile_units_total(float t) {
+  if constexpr (NW == 1) {
+    return t;
+  } else {
+    __shared__ float tot[kThreads / 32];
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) tot[warp] = t;
+    __syncthreads();
+    return units_total(tot + (warp - warp % NW), NW);
   }
 }
 
-__global__ void __launch_bounds__(kMxuThreads)
+// Columns c..c+3 of row r of the tile at `base` (row stride k): one
+// 16-byte load when VEC, else four 4-byte ones into the same registers.
+template <bool VEC>
+__device__ __forceinline__ void load4(const float* __restrict__ base, int k,
+                                      int r, int c, float (&out)[4]) {
+  const float* p = base + static_cast<size_t>(r) * k + c;
+  if constexpr (VEC) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else {
+    out[0] = p[0];
+    out[1] = p[1];
+    out[2] = p[2];
+    out[3] = p[3];
+  }
+}
+
+// One templated (TILE × TILE) tensor-core tile: kSegs segments per warp,
+// kTileWarps warps per tile, kTilesPerBlock tiles per kBlock-thread block.
+template <int TILE, bool VEC>
+struct MxuShape {
+  static constexpr int kTile = TILE;
+  static constexpr bool kVec = VEC;
+  static constexpr int kSegs = mxu_unit_segs(TILE);
+  static constexpr int kSplit = TILE / 16 / kSegs;  // warps per strip
+  static constexpr int kTileWarps = mxu_units(TILE);
+  static constexpr int kTileThreads = 32 * kTileWarps;
+  static constexpr int kBlock =
+      kTileThreads > kMxuThreads ? kTileThreads : kMxuThreads;
+  static constexpr int kTilesPerBlock = kBlock / kTileThreads;
+  static_assert(kTileWarps <= kThreads / 32, "a block of at most 8 warps");
+};
+
+// The templated kernels' units: tile `id` of the (M/t, K/t) grid, row-major
+// (ids past the last tile of a partly filled block load the last tile and
+// store nothing). Loads this warp's unit into u (rows g) and v (rows g+8),
+// one segment per entry, every load issued before any is used.
+template <class S>
+__device__ __forceinline__ int load_unit(const float* __restrict__ x, int k,
+                                         int gk, int tiles,
+                                         float (&u)[S::kSegs][4],
+                                         float (&v)[S::kSegs][4]) {
+  const int id = blockIdx.x * S::kTilesPerBlock + threadIdx.x / S::kTileThreads;
+  const int at = id < tiles ? id : tiles - 1;
+  const int ti = at / gk;
+  const int tj = at - ti * gk;
+  const int w = (threadIdx.x % S::kTileThreads) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * (w / S::kSplit) + (lane >> 2);
+  const int col = 16 * S::kSegs * (w % S::kSplit) + 4 * (lane & 3);
+  const float* base = x + static_cast<size_t>(ti) * S::kTile * k +
+                      static_cast<size_t>(tj) * S::kTile;
+#pragma unroll
+  for (int i = 0; i < S::kSegs; ++i) {
+    load4<S::kVec>(base, k, row, col + 16 * i, u[i]);
+    load4<S::kVec>(base, k, row + 8, col + 16 * i, v[i]);
+  }
+  return id;
+}
+
+// Sum of squares of f over a templated tile from its warps' registers
+// (Eq. 3-4); valid in lane 0 of each of the tile's warps.
+template <class S, class F>
+__device__ __forceinline__ float tile_sumsq(const float (&u)[S::kSegs][4],
+                                            const float (&v)[S::kSegs][4],
+                                            F f) {
+  float acc[kChains][4] = {};
+#pragma unroll
+  for (int i = 0; i < S::kSegs; ++i) eq3_segment(acc, u[i], v[i], f);
+  return tile_units_total<S::kTileWarps>(unit_total(acc));
+}
+
+template <class S>
+__global__ void __launch_bounds__(S::kBlock)
+tile_norms_mxu_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
+                          int k, int gk, int tiles) {
+  float u[S::kSegs][4], v[S::kSegs][4];
+  const int id = load_unit<S>(x, k, gk, tiles, u, v);
+  const float s = tile_sumsq<S>(u, v, [](float e) { return e; });
+  if (threadIdx.x % S::kTileThreads == 0 && id < tiles) out[id] = sqrtf(s);
+}
+
+template <class S>
+__global__ void __launch_bounds__(S::kBlock)
 tile_norms_quant_mxu_f32_kernel(const float* __restrict__ x,
                                 float* __restrict__ norms,
-                                float* __restrict__ scales, int k, int tile,
-                                int vec) {
-  extern __shared__ float rows[];
-  const int tj = blockIdx.x;
-  const int ti = blockIdx.y;
-  const float* base = x + static_cast<size_t>(ti) * tile * k +
-                      static_cast<size_t>(tj) * tile;
+                                float* __restrict__ scales, int k, int gk,
+                                int tiles) {
+  float u[S::kSegs][4], v[S::kSegs][4];
+  const int id = load_unit<S>(x, k, gk, tiles, u, v);
   float m = 0.f;
-  auto amax = [&](float4 u) {
-    m = fmaxf(m, fmaxf(fmaxf(fabsf(u.x), fabsf(u.y)),
-                       fmaxf(fabsf(u.z), fabsf(u.w))));
-  };
-  strip_walk(
-      base, k, tile, vec, [&](float4 u, float4 v) { amax(u); amax(v); },
+#pragma unroll
+  for (int i = 0; i < S::kSegs; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m = fmaxf(m, fmaxf(fabsf(u[i][j]), fabsf(v[i][j])));
+    }
+  }
+  const float scale =
+      __fmul_rn(fmaxf(tile_max<S::kTileThreads>(m), kTiny), kInv127);
+  const float s = tile_sumsq<S>(
+      u, v, [=](float e) { return dequantized(e, scale); });
+  if (threadIdx.x % S::kTileThreads == 0 && id < tiles) {
+    norms[id] = sqrtf(s);
+    scales[id] = scale;
+  }
+}
+
+// The runtime-tile walk: calls op(u, v) with this warp's loads of each
+// segment (rows g and g+8, as load_unit) of each unit it owns — units
+// warp, warp + 4, ...; unit w is segments [w % split · segs, + segs) of
+// strip w / split — then done(w) after the unit's last segment.
+template <class Op, class Done>
+__device__ __forceinline__ void unit_walk(const float* __restrict__ base,
+                                          int k, int tile, int vec, Op op,
+                                          Done done) {
+  const int segs = mxu_unit_segs(tile);
+  const int split = tile / 16 / segs;
+  const int lane = threadIdx.x & 31;
+  for (int w = threadIdx.x >> 5; w < mxu_units(tile);
+       w += kMxuThreads / 32) {
+    const int row = 16 * (w / split) + (lane >> 2);
+    const int col = 16 * segs * (w % split) + 4 * (lane & 3);
+    for (int i = 0; i < segs; ++i) {
+      float u[4], v[4];
+      if (vec) {
+        load4<true>(base, k, row, col + 16 * i, u);
+        load4<true>(base, k, row + 8, col + 16 * i, v);
+      } else {
+        load4<false>(base, k, row, col + 16 * i, u);
+        load4<false>(base, k, row + 8, col + 16 * i, v);
+      }
+      op(u, v);
+    }
+    done(w);
+  }
+}
+
+// Sum of squares of f over the tile at `base` (Eq. 3-4), in the templated
+// kernels' order; `tot` holds mxu_units(tile) floats of shared memory.
+// Every thread of the block calls it; valid in thread 0.
+template <class F>
+__device__ __forceinline__ float any_tile_sumsq(const float* __restrict__ base,
+                                                int k, int tile, int vec, F f,
+                                                float* tot) {
+  float acc[kChains][4] = {};
+  unit_walk(
+      base, k, tile, vec,
+      [&](const float (&u)[4], const float (&v)[4]) {
+        eq3_segment(acc, u, v, f);
+      },
+      [&](int w) {
+        const float t = unit_total(acc);
+        if ((threadIdx.x & 31) == 0) tot[w] = t;
+#pragma unroll
+        for (int c = 0; c < kChains; ++c) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[c][r] = 0.f;
+        }
+      });
+  __syncthreads();
+  const int n = mxu_units(tile);
+  return n == 1 ? tot[0] : units_total(tot, n);
+}
+
+// The runtime-tile kernels: any tile % 16 == 0, one block per tile, a flat
+// grid over the tiles.
+__device__ __forceinline__ const float* tile_base(const float* x, int k,
+                                                  int gk, int tile, int id) {
+  const int ti = id / gk;
+  const int tj = id - ti * gk;
+  return x + static_cast<size_t>(ti) * tile * k +
+         static_cast<size_t>(tj) * tile;
+}
+
+__global__ void __launch_bounds__(kMxuThreads)
+tile_norms_mxu_any_f32_kernel(const float* __restrict__ x,
+                              float* __restrict__ out, int k, int gk, int tile,
+                              int vec) {
+  extern __shared__ float tot[];
+  const float s = any_tile_sumsq(tile_base(x, k, gk, tile, blockIdx.x), k,
+                                 tile, vec, [](float e) { return e; }, tot);
+  if (threadIdx.x == 0) out[blockIdx.x] = sqrtf(s);
+}
+
+__global__ void __launch_bounds__(kMxuThreads)
+tile_norms_quant_mxu_any_f32_kernel(const float* __restrict__ x,
+                                    float* __restrict__ norms,
+                                    float* __restrict__ scales, int k, int gk,
+                                    int tile, int vec) {
+  extern __shared__ float tot[];
+  const float* base = tile_base(x, k, gk, tile, blockIdx.x);
+  float m = 0.f;
+  unit_walk(
+      base, k, tile, vec,
+      [&](const float (&u)[4], const float (&v)[4]) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          m = fmaxf(m, fmaxf(fabsf(u[j]), fabsf(v[j])));
+        }
+      },
       [](int) {});
   const float scale =
-      __fmul_rn(fmaxf(block_max<kMxuThreads>(m), kTiny), kInv127);
-  const float s = mxu_tile_sumsq(
-      base, k, tile, vec, [&](float v) { return dequantized(v, scale); },
-      rows);
+      __fmul_rn(fmaxf(tile_max<kMxuThreads>(m), kTiny), kInv127);
+  const float s = any_tile_sumsq(
+      base, k, tile, vec, [=](float e) { return dequantized(e, scale); },
+      tot);
   if (threadIdx.x == 0) {
-    const size_t o = static_cast<size_t>(ti) * gridDim.x + tj;
-    norms[o] = sqrtf(s);
-    scales[o] = scale;
+    norms[blockIdx.x] = sqrtf(s);
+    scales[blockIdx.x] = scale;
   }
 }
 
@@ -528,19 +746,19 @@ pool_norms_f32_kernel(const float* __restrict__ x, float* __restrict__ out,
   out[e] = sqrtf(__fadd_rn(col0, col1));
 }
 
-// Calls launch(S{}) with the TileShape of a templated tile (16, 32, 64) and
+// Calls launch(Shape<tile, vec>{}) for a templated tile (16, 32, 64) and
 // returns true; returns false for any other tile.
-template <class F>
+template <template <int, bool> class Shape, class F>
 bool templated_tile(int tile, int vec, F&& launch) {
   switch (tile) {
     case 16:
-      vec ? launch(TileShape<16, true>{}) : launch(TileShape<16, false>{});
+      vec ? launch(Shape<16, true>{}) : launch(Shape<16, false>{});
       return true;
     case 32:
-      vec ? launch(TileShape<32, true>{}) : launch(TileShape<32, false>{});
+      vec ? launch(Shape<32, true>{}) : launch(Shape<32, false>{});
       return true;
     case 64:
-      vec ? launch(TileShape<64, true>{}) : launch(TileShape<64, false>{});
+      vec ? launch(Shape<64, true>{}) : launch(Shape<64, false>{});
       return true;
     default:
       return false;
@@ -552,6 +770,8 @@ int vec_loads(const float* x, int k, int tile) {
   return (tile % 4 == 0) && (k % 4 == 0) &&
          (reinterpret_cast<uintptr_t>(x) % 16 == 0);
 }
+
+__global__ void launch_floor_kernel() {}
 
 template <class S>
 unsigned tile_blocks(int tiles) {
@@ -569,8 +789,8 @@ extern "C" int spamm_tile_norms_f32(const float* x, float* out, int m, int k,
   const int vec = vec_loads(x, k, tile);
   const int gk = k / tile;
   const int tiles = (m / tile) * gk;
-  const bool templated = templated_tile(tile, vec, [&](auto shape) {
-    using S = decltype(shape);
+  const bool templated = templated_tile<TileShape>(tile, vec, [&](auto s) {
+    using S = decltype(s);
     tile_norms_f32_kernel<S><<<tile_blocks<S>(tiles), kThreads, 0, st>>>(
         x, out, k, gk, tiles);
   });
@@ -591,8 +811,8 @@ extern "C" int spamm_tile_norms_quant_f32(const float* x, float* norms,
   const int vec = vec_loads(x, k, tile);
   const int gk = k / tile;
   const int tiles = (m / tile) * gk;
-  const bool templated = templated_tile(tile, vec, [&](auto shape) {
-    using S = decltype(shape);
+  const bool templated = templated_tile<TileShape>(tile, vec, [&](auto s) {
+    using S = decltype(s);
     tile_norms_quant_f32_kernel<S><<<tile_blocks<S>(tiles), kThreads, 0,
                                      st>>>(x, norms, scales, k, gk, tiles);
   });
@@ -622,11 +842,20 @@ extern "C" int spamm_pool_norms_f32(const float* x, float* out, int slices,
 // Launches on `stream` and returns cudaGetLastError().
 extern "C" int spamm_tile_norms_mxu_f32(const float* x, float* out, int m,
                                         int k, int tile, void* stream) {
-  const dim3 grid(k / tile, m / tile);
-  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  tile_norms_mxu_f32_kernel<<<grid, kMxuThreads, tile * sizeof(float),
-                              static_cast<cudaStream_t>(stream)>>>(x, out, k,
-                                                                   tile, vec);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int vec = vec_loads(x, k, tile);
+  const int gk = k / tile;
+  const int tiles = (m / tile) * gk;
+  const bool templated = templated_tile<MxuShape>(tile, vec, [&](auto s) {
+    using S = decltype(s);
+    tile_norms_mxu_f32_kernel<S><<<tile_blocks<S>(tiles), S::kBlock, 0, st>>>(
+        x, out, k, gk, tiles);
+  });
+  if (!templated) {
+    tile_norms_mxu_any_f32_kernel<<<tiles, kMxuThreads,
+                                    mxu_units(tile) * sizeof(float), st>>>(
+        x, out, k, gk, tile, vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -634,10 +863,28 @@ extern "C" int spamm_tile_norms_mxu_f32(const float* x, float* out, int m,
 extern "C" int spamm_tile_norms_quant_mxu_f32(const float* x, float* norms,
                                               float* scales, int m, int k,
                                               int tile, void* stream) {
-  const dim3 grid(k / tile, m / tile);
-  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  tile_norms_quant_mxu_f32_kernel<<<grid, kMxuThreads, tile * sizeof(float),
-                                    static_cast<cudaStream_t>(stream)>>>(
-      x, norms, scales, k, tile, vec);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int vec = vec_loads(x, k, tile);
+  const int gk = k / tile;
+  const int tiles = (m / tile) * gk;
+  const bool templated = templated_tile<MxuShape>(tile, vec, [&](auto s) {
+    using S = decltype(s);
+    tile_norms_quant_mxu_f32_kernel<S><<<tile_blocks<S>(tiles), S::kBlock, 0,
+                                         st>>>(x, norms, scales, k, gk, tiles);
+  });
+  if (!templated) {
+    tile_norms_quant_mxu_any_f32_kernel<<<tiles, kMxuThreads,
+                                          mxu_units(tile) * sizeof(float),
+                                          st>>>(x, norms, scales, k, gk, tile,
+                                                vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel on `stream`: its device time is the launch floor that
+// the get-norm kernels' times at small shapes are read against. Returns
+// cudaGetLastError().
+extern "C" int spamm_launch_floor(void* stream) {
+  launch_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

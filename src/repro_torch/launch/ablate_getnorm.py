@@ -1,4 +1,4 @@
-"""Timed variants of the CUDA-core get-norm pair on one NVIDIA GPU, and the
+"""Timed variants of the get-norm kernels on one NVIDIA GPU, and the
 get-norm lines of whichever port is on the path.
 
     PYTHONPATH=src python -m repro_torch.launch.ablate_getnorm [--variants a,b]
@@ -6,13 +6,15 @@ get-norm lines of whichever port is on the path.
 
 Variants: builds copies of `kernels/csrc/getnorm.cu` that differ from the
 source in one place each, points the get-norm wrappers at each in turn, and
-times `tile_norms_cuda` and `tile_norms_quant_cuda` at starcoder2-7b's
-shapes (w1 4608×18432, the prefill activation 512×4608 and the decode
-activation 64(4)×4608 at tile 64; the prefill activation at tile 16), each
-variant twice, in turns (forward, then backward order): back to back by
-CUDA events, and the device time of one launch from the profiler. Variants:
+times the pair it changes — the CUDA-core `tile_norms_cuda` and
+`tile_norms_quant_cuda`, or their tensor-core (`use_mxu=True`) variants —
+at starcoder2-7b's shapes (w1 4608×18432, the prefill activation 512×4608
+and the decode activation 64(4)×4608 at tile 64; the prefill activation at
+tiles 16 and 32), each variant twice, in turns (forward, then backward
+order): back to back by CUDA events, and the device time of one launch
+from the profiler. Variants of the CUDA-core pair:
 
-  baseline   the source as it is
+  baseline   the source as it is (both pairs timed)
   runtime    every tile through the runtime-tile kernels (one 256-thread
              block per tile, a loop over a run-time count, the int8 variant
              reading its tile twice)
@@ -21,29 +23,55 @@ CUDA events, and the device time of one launch from the profiler. Variants:
              prove equal to the first) instead of keeping it in registers
   ldcs       the templated kernels' loads marked evict-first (`__ldcs`)
   blocks8    `__launch_bounds__(256, 8)` on the templated kernels
-  div_as_mul the int8 kernel's division by the scale as a multiply by its
+  div_as_mul the int8 kernels' division by the scale as a multiply by its
              reciprocal
-  local_max  the int8 kernel's scale from each thread's own max, with no
+  local_max  the int8 kernels' scale from each thread's own max, with no
              barrier
 
-The first five compute the kernels' function and are held bit for bit
-against the source's output; the last two compute something else, and
-only their times mean anything.
+and of the tensor-core pair:
 
-Each variant's line also counts the loads from memory (`LDG`, and the
-generic `LD` the two_reads reload compiles to) in the SASS of the tile-64
-kernels on 16-byte loads (cuobjdump). Builds go under
-`kernels/_build/ablate_getnorm/`.
+  mxu_runtime    every tile through the runtime-tile kernels
+                 (`*_mxu_any_*`: one 128-thread block per tile, units walked
+                 in a loop over a run-time count, the int8 one reading its
+                 tile twice)
+  mxu_two_reads  the templated int8 kernel reads its tile again for the
+                 dequantizing pass
+  mxu_unpacked   one tile per block at tiles 16 and 32 (a 32- or 64-thread
+                 block) instead of four or two tiles per 128 threads
+  mxu_one_chain  Eq. 3 in one serial accumulator instead of two chains
+  mxu_four_chains  Eq. 3 in four chains
+  mxu_w8         eight warps per tile-64 tile (half a strip each) instead
+                 of four
+  cvt_rna        each value split into its TF32 halves by cvt.rna.tf32.f32
+                 (hi rounded, lo = the rounded rest) instead of the bit
+                 operations (hi truncated, lo rounded)
+
+and of both int8 kernels:
+
+  div_zeros      zeros divided by the scale too (the exact division's slow
+                 path) instead of dividing the scale in their place
+
+Variants held "bits" compute the kernels' function in the source's order
+and must give its output bit for bit; "rtol" ones sum in another order and
+must stay within NORM_RTOL of it; the last two of the CUDA-core list
+compute something else, and only their times mean anything.
+
+Each variant's line also counts, in the SASS of the tile-64 kernels on
+16-byte loads (cuobjdump), the loads from memory (`LDG`, and the generic
+`LD` the two_reads reloads compile to) and, for the tensor-core kernels,
+the `HMMA` instructions. Builds go under `kernels/_build/ablate_getnorm/`.
 
 Lines: times the five get-norm entries (tile_norms, tile_norms_quant,
 their use_mxu variants and pool_norms on the tile-64 normmap) at the three
-tile-64 shapes: one call by CUDA events around it (host cost inside), back
+tile-64 shapes, and the two pairs at tiles 16 and 32 of the prefill
+activation: one call by CUDA events around it (host cost inside), back
 to back, the device time of one launch from the profiler, and the host
 cost per call; beside them the same single-call time of the yardsticks
 (`vector_norm` over the tile dims; the unfused torch composition quantize,
-dequantize, `vector_norm`). It imports only names every port since the get-norm
-kernels has, so another checkout's wrappers are timed by running this file
-by path with that checkout's `src` first on PYTHONPATH:
+dequantize, `vector_norm`) and of each kernel's plain version, and each
+kernel's max relative error against its plain version. It imports only names every port since the
+tensor-core get-norm has, so another checkout's wrappers are timed by
+running this file by path with that checkout's `src` first on PYTHONPATH:
 
     PYTHONPATH=/path/to/other/src python src/repro_torch/launch/ablate_getnorm.py --lines
 
@@ -72,6 +100,9 @@ from repro_torch.kernels import build, getnorm
 
 TILE = 64
 ROWS, REAL_ROWS = 512, 4
+# the tensor-core kernels against the source when they sum in another
+# order: f32 sums of ≤ 4096 squares, each within about 2^-22
+NORM_RTOL = 1e-5
 
 _LOAD4 = "const float4 q = *reinterpret_cast<const float4*>(p);"
 _LOAD1 = "v[j] = *p;"
@@ -84,8 +115,25 @@ _RELOAD = """  {
     load_block_tile<S>(x2, k, gk, tiles, t, v);
   }
 """
-_DIV = "rintf(__fdiv_rn(v, scale))"
+_DIV = "rintf(__fdiv_rn(v == 0.f ? scale : v, scale))"
 _MAX = "tile_max<S::kTileThreads>(m)"
+_TEMPLATED = "templated_tile<{}>(tile, vec,"
+_MXU_SUM = "  const float s = tile_sumsq<S>(\n"
+_MXU_RELOAD = _RELOAD.replace("load_block_tile<S>(x2, k, gk, tiles, t, v)",
+                              "load_unit<S>(x2, k, gk, tiles, u, v)")
+_CHAINS = "constexpr int kChains = 2;"
+_BLOCK = "kTileThreads > kMxuThreads ? kTileThreads : kMxuThreads;"
+_SEGS64 = "constexpr int kSegs64 = 4;"
+_SPLIT = """  const uint32_t hi = __float_as_uint(v) & 0xffffe000u;
+  const float lo = __fsub_rn(v, __uint_as_float(hi));
+  return {hi, (__float_as_uint(lo) + 0x1000u) & 0xffffe000u};
+"""
+_CVT_SPLIT = """  uint32_t hi, lo;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
+  const float rest = __fsub_rn(v, __uint_as_float(hi));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+  return {hi, lo};
+"""
 
 
 def _sub(src: str, old: str, new: str, count: int = 1) -> str:
@@ -96,19 +144,41 @@ def _sub(src: str, old: str, new: str, count: int = 1) -> str:
 
 
 def variants(src: str) -> dict:
-    """{name: (source, computes the kernels' function)}."""
+    """{name: (source, check, pair)}: check "bits" (the source's output bit
+    for bit), "rtol" (within NORM_RTOL of it) or None (another function);
+    pair "cuda_core", "mxu" or "both" (the pair the variant changes)."""
+    sum0 = "  float s = 0.f;\n"
+
+    def runtime(shape):  # templated_tile<shape> sees no templated tile
+        return _sub(src, _TEMPLATED.format(shape),
+                    _TEMPLATED.format(shape).replace("tile,", "0,"), 2)
+
     return {
-        "baseline": (src, True),
-        "runtime": (_sub(src, "  switch (tile) {", "  switch (0) {"), True),
-        "two_reads": (_sub(src, _SCALE, _SCALE + _RELOAD), True),
+        "baseline": (src, "bits", "both"),
+        "runtime": (runtime("TileShape"), "bits", "cuda_core"),
+        "two_reads": (_sub(src, _SCALE + sum0, _SCALE + _RELOAD + sum0),
+                      "bits", "cuda_core"),
         "ldcs": (_sub(_sub(src, _LOAD4, "const float4 q = __ldcs("
                            "reinterpret_cast<const float4*>(p));"),
-                      _LOAD1, "v[j] = __ldcs(p);"), True),
+                      _LOAD1, "v[j] = __ldcs(p);"), "bits", "cuda_core"),
         "blocks8": (_sub(src, _BOUNDS, _BOUNDS.replace(
-            "(kThreads)", "(kThreads, 8)"), 2), True),
+            "(kThreads)", "(kThreads, 8)"), 2), "bits", "cuda_core"),
         "div_as_mul": (_sub(src, _DIV, "rintf(__fmul_rn(v, 1.0f / scale))"),
-                       False),
-        "local_max": (_sub(src, _MAX, "m"), False),
+                       None, "both"),
+        "local_max": (_sub(src, _MAX, "m", 2), None, "both"),
+        "mxu_runtime": (runtime("MxuShape"), "bits", "mxu"),
+        "mxu_two_reads": (_sub(src, _SCALE + _MXU_SUM,
+                               _SCALE + _MXU_RELOAD + _MXU_SUM), "bits", "mxu"),
+        "mxu_unpacked": (_sub(src, _BLOCK, "kTileThreads;"), "bits", "mxu"),
+        "mxu_one_chain": (_sub(src, _CHAINS, _CHAINS.replace("2", "1")),
+                          "rtol", "mxu"),
+        "mxu_four_chains": (_sub(src, _CHAINS, _CHAINS.replace("2", "4")),
+                            "rtol", "mxu"),
+        "mxu_w8": (_sub(src, _SEGS64, _SEGS64.replace("= 4", "= 2")),
+                   "rtol", "mxu"),
+        "cvt_rna": (_sub(src, _SPLIT, _CVT_SPLIT), "rtol", "mxu"),
+        "div_zeros": (_sub(src, _DIV, "rintf(__fdiv_rn(v, scale))"), "bits",
+                      "both"),
     }
 
 
@@ -131,22 +201,28 @@ def build_variants(names, table) -> dict:
     return {name: root / name / "lib.so" for name in names}
 
 
-def global_loads(path) -> dict:
-    """Load instructions (LDG, generic LD) in the SASS of the tile-64
-    kernels on 16-byte loads (TileShape<64, true>) of the library at
-    `path`, by kernel."""
+SASS_KERNELS = ("tile_norms_f32_kernel", "tile_norms_quant_f32_kernel",
+                "tile_norms_mxu_f32_kernel", "tile_norms_quant_mxu_f32_kernel")
+
+
+def sass_counts(path) -> dict:
+    """Load instructions (LDG, generic LD) and tensor-core products (HMMA)
+    in the SASS of the tile-64 kernels on 16-byte loads (TileShape<64,
+    true>, MxuShape<64, true>) of the library at `path`, by kernel."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
-    counts, fn = {"tile_norms_f32_kernel": 0,
-                  "tile_norms_quant_f32_kernel": 0}, None
+    counts = {k: {"loads": 0, "HMMA": 0} for k in SASS_KERNELS}
+    fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1]
             fn = next((k for k in counts if k in name and "ILi64ELb1E" in name),
                       None)
         elif fn and re.search(r"\s(LDG|LD)\.", line):
-            counts[fn] += 1
+            counts[fn]["loads"] += 1
+        elif fn and re.search(r"\sHMMA\.", line):
+            counts[fn]["HMMA"] += 1
     return counts
 
 
@@ -162,7 +238,8 @@ def shapes(seed: int = 0) -> list:
     return [(f"w1 {d}x{ff}", w1, TILE),
             (f"activation {ROWS}x{d}", x, TILE),
             (f"decode activation {TILE}({REAL_ROWS})x{d}", xd, TILE),
-            (f"activation {ROWS}x{d} tile 16", x, 16)]
+            (f"activation {ROWS}x{d} tile 16", x, 16),
+            (f"activation {ROWS}x{d} tile 32", x, 32)]
 
 
 def back_to_back_ms(fn, calls=20, reps=5) -> float:
@@ -202,7 +279,9 @@ def single_call_ms(fn, reps=10) -> float:
 
 def device_ms(fn, calls=50):
     """Device time of one call from the profiler (every kernel fn launches;
-    each entry launches one), or "not measured" when it records none."""
+    each entry launches one), the mean over the launches it recorded (it
+    can drop records of a long run), or "not measured" when it records
+    none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -213,9 +292,10 @@ def device_ms(fn, calls=50):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / calls / 1e3 if us > 0 else "not measured"
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in rows)
+    n = sum(e.count for e in rows)
+    return us / n / 1e3 if us > 0 else "not measured"
 
 
 def host_ms_per_call(fn, calls=100) -> float:
@@ -241,9 +321,27 @@ def use_library(path) -> None:
         build.load = real
 
 
-def _pair(x, tile):
-    return {"tile_norms": lambda: getnorm.tile_norms_cuda(x, tile),
-            "tile_norms_quant": lambda: getnorm.tile_norms_quant_cuda(x, tile)}
+def _pair(x, tile, use_mxu=False):
+    suffix = "_mxu" if use_mxu else ""
+    return {f"tile_norms{suffix}": lambda: getnorm.tile_norms_cuda(
+                x, tile, use_mxu=use_mxu),
+            f"tile_norms_quant{suffix}": lambda: getnorm.tile_norms_quant_cuda(
+                x, tile, use_mxu=use_mxu)}
+
+
+def _outputs(x, tile, use_mxu):
+    return (getnorm.tile_norms_cuda(x, tile, use_mxu=use_mxu),
+            *getnorm.tile_norms_quant_cuda(x, tile, use_mxu=use_mxu))
+
+
+def _agrees(check, got, want) -> bool:
+    """The variant's (norms, norms, scales) against the source's: bit for
+    bit, or (check "rtol") within NORM_RTOL with the scales bit for bit."""
+    if check == "bits":
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+    rel = max(float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+              for g, w in zip(got[:2], want[:2]))
+    return rel <= NORM_RTOL and torch.equal(got[2], want[2])
 
 
 def run_variants(names) -> dict:
@@ -254,21 +352,29 @@ def run_variants(names) -> dict:
     want = {}
     use_library(libs["baseline"])
     for label, x, tile in cases:
-        n = getnorm.tile_norms_cuda(x, tile)
-        want[label] = (n, *getnorm.tile_norms_quant_cuda(x, tile))
+        want[label] = {m: _outputs(x, tile, m) for m in (False, True)}
     res: dict = {}
     for name in names + names[::-1]:
         use_library(libs[name])
-        line = {"variant": name, "loads": global_loads(libs[name])}
+        _, check, pair = table[name]
+        mxus = {"cuda_core": (False,), "mxu": (True,),
+                "both": (False, True)}[pair]
+        line = {"variant": name, "sass": sass_counts(libs[name])}
         for label, x, tile in cases:
-            got = (getnorm.tile_norms_cuda(x, tile),
-                   *getnorm.tile_norms_quant_cuda(x, tile))
-            torch.cuda.synchronize()
-            same = all(torch.equal(g, w) for g, w in zip(got, want[label]))
-            if table[name][1] and not same:
-                raise RuntimeError(f"variant {name} differs from the source "
-                                   f"at {label}")
-            for kernel, fn in _pair(x, tile).items():
+            same = True
+            for use_mxu in mxus:
+                got = _outputs(x, tile, use_mxu)
+                torch.cuda.synchronize()
+                bits = all(torch.equal(g, w)
+                           for g, w in zip(got, want[label][use_mxu]))
+                same = same and bits
+                if check and not _agrees(check, got, want[label][use_mxu]):
+                    raise RuntimeError(f"variant {name} differs from the "
+                                       f"source at {label} (use_mxu="
+                                       f"{use_mxu}, check {check})")
+            fns = {k: v for use_mxu in mxus
+                   for k, v in _pair(x, tile, use_mxu).items()}
+            for kernel, fn in fns.items():
                 ms = {"b2b_ms": back_to_back_ms(fn), "device_ms": device_ms(fn)}
                 line.setdefault(label, {"bit_identical": same})[kernel] = ms
                 res.setdefault(name, {}).setdefault(label, {}).setdefault(
@@ -358,16 +464,42 @@ def run_host() -> dict:
     return res
 
 
+def plains(x, tile) -> dict:
+    """The plain versions of the two pairs' kernels on x."""
+    out = {}
+    for sfx, m in (("", False), ("_mxu", True)):
+        out["tile_norms" + sfx] = lambda m=m: getnorm.tile_norms_plain(
+            x, tile, use_mxu=m)
+        out["tile_norms_quant" + sfx] = (
+            lambda m=m: getnorm.tile_norms_quant_plain(x, tile, use_mxu=m))
+    return out
+
+
+def max_rel_errs(x, tile) -> dict:
+    """Max relative error of each kernel of the two pairs on x against its
+    plain version (the fused int8 ones: their norms)."""
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+    out = {}
+    for use_mxu in (False, True):
+        sfx = "_mxu" if use_mxu else ""
+        out["tile_norms" + sfx] = rel(
+            getnorm.tile_norms_cuda(x, tile, use_mxu=use_mxu),
+            getnorm.tile_norms_plain(x, tile, use_mxu=use_mxu))
+        out["tile_norms_quant" + sfx] = rel(
+            getnorm.tile_norms_quant_cuda(x, tile, use_mxu=use_mxu)[0],
+            getnorm.tile_norms_quant_plain(x, tile, use_mxu=use_mxu)[0])
+    return out
+
+
 def run_lines() -> dict:
     out = {}
-    for label, x, tile in shapes()[:3]:
+    for label, x, tile in shapes():
         nm = getnorm.tile_norms_cuda(x, tile)
-        fns = {**_pair(x, tile),
-               "tile_norms_mxu": lambda: getnorm.tile_norms_cuda(
-                   x, tile, use_mxu=True),
-               "tile_norms_quant_mxu": lambda: getnorm.tile_norms_quant_cuda(
-                   x, tile, use_mxu=True),
-               "pool_norms": lambda: getnorm.pool_norms_cuda(nm)}
+        fns = {**_pair(x, tile), **_pair(x, tile, use_mxu=True)}
+        if tile == TILE:
+            fns["pool_norms"] = lambda: getnorm.pool_norms_cuda(nm)
         line = {name: {"single_call_ms": single_call_ms(fn),
                        "b2b_ms": back_to_back_ms(fn),
                        "device_ms": device_ms(fn, calls=100),
@@ -375,6 +507,9 @@ def run_lines() -> dict:
                 for name, fn in fns.items()}
         line["library_single_call_ms"] = {
             name: single_call_ms(fn) for name, fn in yardsticks(x, tile).items()}
+        line["plain_single_call_ms"] = {
+            name: single_call_ms(fn) for name, fn in plains(x, tile).items()}
+        line["max_rel_err_vs_plain"] = max_rel_errs(x, tile)
         print(json.dumps({"lines": label, **line}), flush=True)
         out[label] = line
     return out

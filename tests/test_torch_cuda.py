@@ -774,3 +774,85 @@ def test_frozen_equals_eager_with_mxu_norms_on_card(dev, dtype):
     assert 0 < int(eager.valid_tiles) == int(frozen.valid_tiles)
     assert torch.equal(P.execute(eager, x, w), P.execute(frozen, x, w))
 
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64, 80])
+def test_mxu_pair_at_every_tile_and_load_path_on_card(dev, tile, aligned):
+    """The tensor-core pair at the templated tiles (16, 32, 64) and at tiles
+    the runtime-tile kernels take (48, 80), on 16-byte and on 4-byte loads,
+    with an all-zero tile, at non-square grids and at grids that leave part
+    of a packed block empty (5 tiles: at tile 16 the second of two
+    four-tile blocks, at tile 32 the third of three two-tile blocks):
+    within NORM_RTOL of the plain versions, scales ≡ the quantizer's, fused
+    ≡ unfused bit for bit, two calls bit-identical, one launch per call;
+    the one-float-offset view gives the aligned view's bits (4-byte loads
+    fill the same registers as 16-byte ones)."""
+    for shape in ((4 * tile, 6 * tile), (tile, 5 * tile), (3 * tile, 7 * tile),
+                  (16 * tile, 36 * tile)):
+        x = _rand(shape, 60 + tile, dev)
+        x[:tile, tile:2 * tile] = 0.0
+        if not aligned:
+            x = _offset_view(x)
+        before = (getnorm.mxu_launches, getnorm.quant_mxu_launches)
+        got = getnorm.tile_norms_cuda(x, tile, use_mxu=True)
+        again = getnorm.tile_norms_cuda(x, tile, use_mxu=True)
+        norms, scales = getnorm.tile_norms_quant_cuda(x, tile, use_mxu=True)
+        norms2, scales2 = getnorm.tile_norms_quant_cuda(x, tile, use_mxu=True)
+        torch.cuda.synchronize()
+        assert (getnorm.mxu_launches, getnorm.quant_mxu_launches) == (
+            before[0] + 2, before[1] + 2)
+        assert torch.equal(got, again)
+        assert torch.equal(norms, norms2) and torch.equal(scales, scales2)
+        assert float(got[0, 1]) == 0.0 and float(norms[0, 1]) == 0.0
+        torch.testing.assert_close(
+            got, getnorm.tile_norms_plain(x, tile, use_mxu=True),
+            rtol=NORM_RTOL, atol=0)
+        q, s = Q.quantize_tiles(x, tile)
+        assert torch.equal(scales, s)
+        dq = Q.dequantize_tiles(q, s, tile)
+        if not aligned:
+            dq = _offset_view(dq)
+        assert torch.equal(norms, getnorm.tile_norms_cuda(dq, tile,
+                                                          use_mxu=True))
+        pn, ps = getnorm.tile_norms_quant_plain(x, tile, use_mxu=True)
+        assert torch.equal(scales, ps)
+        torch.testing.assert_close(norms, pn, rtol=NORM_RTOL, atol=0)
+        if not aligned:
+            xa = x.contiguous().clone()
+            assert xa.data_ptr() % 16 == 0
+            assert torch.equal(got, getnorm.tile_norms_cuda(xa, tile,
+                                                            use_mxu=True))
+            assert torch.equal(norms, getnorm.tile_norms_quant_cuda(
+                xa, tile, use_mxu=True)[0])
+
+
+def test_mxu_templated_kernels_equal_the_runtime_tile_kernels_on_card(dev):
+    """The templated tensor-core kernels (tiles 16, 32, 64) against the
+    runtime-tile ones at the same tile, on both load paths: the library
+    built with every tile sent to `*_mxu_any_*` (the ablation's
+    mxu_runtime variant) gives the same norms and scales bit for bit."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import ablate_getnorm as A
+
+    table = A.variants((build.CSRC / "getnorm.cu").read_text())
+    libs = A.build_variants(["mxu_runtime"], table)
+    cases = []
+    for tile in (16, 32, 64):
+        x = _rand((3 * tile, 5 * tile), 70 + tile, dev)
+        x[tile:2 * tile, :tile] = 0.0
+        cases += [(x, tile), (_offset_view(x), tile)]
+    want = [(getnorm.tile_norms_cuda(x, t, use_mxu=True),
+             *getnorm.tile_norms_quant_cuda(x, t, use_mxu=True))
+            for x, t in cases]
+    try:
+        A.use_library(libs["mxu_runtime"])
+        got = [(getnorm.tile_norms_cuda(x, t, use_mxu=True),
+                *getnorm.tile_norms_quant_cuda(x, t, use_mxu=True))
+               for x, t in cases]
+        torch.cuda.synchronize()
+    finally:
+        getnorm._LIB = None
+    for (x, t), g, w in zip(cases, got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a, b), (t, x.data_ptr() % 16)

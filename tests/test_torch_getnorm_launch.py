@@ -151,3 +151,24 @@ def test_cpu_dispatch_takes_the_plain_versions(no_library, tile):
     nm = getnorm.tile_norms_plain(x, tile)
     assert torch.equal(getnorm.pool_norms(nm), getnorm.pool_norms_plain(nm))
     assert _counts() == before
+
+
+def _ablation_variants():
+    from repro_torch.kernels import build
+    from repro_torch.launch import ablate_getnorm
+
+    return ablate_getnorm.variants((build.CSRC / "getnorm.cu").read_text())
+
+
+@pytest.mark.parametrize("name", sorted(_ablation_variants()))
+def test_ablation_variant_changes_the_source_where_it_says(name):
+    """Each variant of launch/ablate_getnorm.py finds its anchors in the
+    kernel source (it raises otherwise) and changes it, but the baseline;
+    its check and the pair it times are among those the ablation knows."""
+    src, check, pair = _ablation_variants()[name]
+    from repro_torch.kernels import build
+
+    assert (src == (build.CSRC / "getnorm.cu").read_text()) == (
+        name == "baseline")
+    assert check in ("bits", "rtol", None)
+    assert pair in ("cuda_core", "mxu", "both")

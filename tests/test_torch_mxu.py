@@ -25,6 +25,11 @@ from repro_torch.kernels import ops as tops
 # matmuls and the reference's dot_generals (or its einsum) round in another
 # order (measured ≤ 6e-7)
 NORM_RTOL = 1e-6
+# the reference's jnp backend at tiles 48 and 64: its einsum sums up to
+# 64·64 squares in XLA's order and lands up to 9.1e-6 from the reference's
+# own Pallas kernel at tile 64 (measured); the port stays within NORM_RTOL
+# of that kernel at every tile
+JNP_WIDE_RTOL = 2e-5
 # τ from the search: the mean norm product sums in another order than XLA's
 TAU_RTOL = 1e-5
 # f32 GEMM over ≤ 16 tile products of depth 32, relative to the output's
@@ -55,12 +60,13 @@ def _gap_tau(products, lo=0.3, hi=0.7):
     return float(np.sqrt(p[g] * p[g + 1]))
 
 
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [16, 32, 48, 64])
 def test_tile_norms_quant_plain_mxu_matches_reference(tile):
     """Plain fused int8 get-norm under use_mxu=True against the reference's
-    kernel in interpret mode and its jnp backend: norms within NORM_RTOL,
-    scales bit for bit; and the plain fused version is the unfused
-    composition with the Eq. 3-4 sum."""
+    kernel in interpret mode and its jnp backend: norms within NORM_RTOL
+    (of the jnp backend at tiles above 32: JNP_WIDE_RTOL), scales bit for
+    bit; and the plain fused version is the unfused composition with the
+    Eq. 3-4 sum."""
     x = _decay(4 * tile, 3 * tile, 0)
     x[:tile, :tile] = 0.0                   # an all-zero tile
     norms, scales = tgetnorm.tile_norms_quant_plain(torch.as_tensor(x), tile,
@@ -69,10 +75,11 @@ def test_tile_norms_quant_plain_mxu_matches_reference(tile):
                                        interpret=True)
     jn, js = rops.int8_norms_and_scales(jnp.asarray(x), tile, backend="jnp",
                                         use_mxu=True)
-    for want_n, want_s in ((rn, rs), (jn, js)):
+    jnp_rtol = NORM_RTOL if tile <= 32 else JNP_WIDE_RTOL
+    for want_n, want_s, rtol in ((rn, rs, NORM_RTOL), (jn, js, jnp_rtol)):
         np.testing.assert_array_equal(scales.numpy(), np.asarray(want_s))
         np.testing.assert_allclose(norms.numpy(), np.asarray(want_n),
-                                   rtol=NORM_RTOL, atol=0)
+                                   rtol=rtol, atol=0)
     n2, s2 = tops.int8_norms_and_scales(torch.as_tensor(x), tile,
                                         backend="auto", use_mxu=True)
     assert torch.equal(n2, norms) and torch.equal(s2, scales)
