@@ -27,6 +27,10 @@ width (d=4608, ff=18432, 36/4 heads, 32 layers, random weights from a seed) thro
 gated GEMM of a decode step (so that both prefill and decode keep part of
 their tiles), then at that τ with int8 and with bf16 GEMMs; and checks at
 layer-0 wq that the int8 and bf16 gates keep every tile the f32 gate keeps.
+Every decode step runs as a CUDA graph (the engine's default); runs (c),
+(d) and (e) are served once more by the same engine eagerly, which must
+give the graphed wave's tokens, step logits, gating stats and launch
+counts bit for bit, and run (c) is profiled both ways.
 The tensor-core get-norm pair (use_mxu=True, paper Eq. 3-4) is held against
 its plain versions at the activation and w1 shapes, fused ≡ unfused bit for
 bit, and its device time is read at tiles 16 and 32 of the activation and
@@ -41,6 +45,13 @@ bit for bit; the walk is repeated with use_mxu=True at f32 and int8 (new
 keys, one launch of the tensor-core kernels per weight), the normmaps
 compared with the CUDA-core ones, and once more warm (store hits only, no
 launch, the cold use_mxu artifacts bit for bit).
+
+Chunked: run (f), the chunked-prefill plane on the same model: eight
+prompts of 64 to 448 tokens (seed 0) through four slots, one-tile chunks,
+max_len 512, decode and chunk steps as CUDA graphs. At τ = 0 each
+request's tokens equal its solo wave's; at run (c)'s τ a warm wave is
+measured (tok/s, TTFT, decode ms/step, chunks, captures, graph pool
+bytes, valid fractions) and served again eagerly, bit for bit.
 
 Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
 with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
@@ -57,8 +68,8 @@ Every result line is a JSON object; the line before the last lists nine
 kernel entries (the work-list GEMM twice, f32 and bf16; each of the
 get-norm pair twice, CUDA-core and tensor-core) with their launches on
 their path (the τ > 0 serving run at its dtype, the store walk, or the
-library path), errors, times and bounds; the last line is {"ok": true,
-"device": {...}}.
+library path; the f32 pair also on run (f)), errors, times and bounds;
+the last line is {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
 src/ beside it, it exits 2 and prints no result.
 """
@@ -86,6 +97,9 @@ TILE = 64
 BATCH, PROMPT_LEN, MAX_NEW = 4, 128, 16
 DECAY_N, DECAY_LAM = 4096, 0.999
 MAX_LEN = PROMPT_LEN + MAX_NEW + 16
+# run (f), the chunked plane: mixed prompt lengths through a slot pool
+CHUNK_PLENS = (64, 100, 128, 200, 256, 300, 384, 448)
+CHUNK_SLOTS, CHUNK_MAX_LEN = 4, 512
 PROFILE_NEW = 4  # tokens of the profiled wave: prefill + 3 decode steps
 SEED = 0
 # tile norms: f32 sums of 4096 squares in two orders (pooling: four squares
@@ -914,37 +928,195 @@ def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
           "compute_dtype": sp.get("compute_dtype"),
           "gemm_bytes_moved": sp.get("gemm_bytes_moved"),
           "decode_gemm_bytes_moved": sp.get("decode_gemm_bytes_moved"),
-          "launches": counts, "tokens_req0": toks[0].tolist()})
+          "launches": counts, "tokens_req0": toks[0].tolist(),
+          "step_keys": dict(eng.trace_counts), "graphs": eng.graph_stats()})
     profile_wave(label, eng, prompts)
     return eng, toks, out, counts
+
+
+def graph_breakdown(eng, params, label, reps=20):
+    """Where a graphed decode step's time goes, from graphs replayed back
+    to back (no host in the way): the wave's captured decode step of run
+    `label`; the frozen gate alone (`core.plan._plan_frozen`: get-norm plus
+    the gate's small ops) of each of layer 0's six gated GEMMs on a decode
+    activation of BATCH rows, summed over the layers as the gate's share
+    of a step; and layer-0 w1's whole gated GEMM. Per replay: CUDA-event
+    ms, the profiler's kernel ms and its count of device nodes (kernels,
+    copies, fills); the gap between the two times is the device idling
+    between nodes. Eager ms per call beside each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import plan as P
+    from repro_torch.core.module import spamm_linear_frozen
+
+    def captured(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        return g
+
+    def replays(g):
+        def run():
+            for _ in range(reps):
+                g.replay()
+
+        ms = time_ms(run, reps=5, warmup=1) / reps
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        return {"ms": ms,
+                "kernel_ms": sum(e.self_device_time_total for e in dev)
+                / 1e3 / reps,
+                "nodes": sum(e.count for e in dev) / reps}
+
+    step = eng._steps[(("wave", BATCH), True)]
+    res = {"run": label, "decode_step": replays(step._graph), "gates": {}}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    frozen = eng._frozen_for(BATCH)["layers"][0]
+    with torch.inference_mode():
+        for part, site in (("mix", "wq"), ("mix", "wk"), ("mix", "wv"),
+                           ("mix", "wo"), ("mlp", "w1"), ("mlp", "w2")):
+            w = params["layers"][0][part][site]
+            x = decode_rows(w.shape[0], gen)
+            fp = frozen[part][site]
+            gate = lambda: P._plan_frozen(x, fp)   # noqa: E731
+            res["gates"][site] = replays(captured(gate))
+            res["gates"][site]["eager_ms"] = time_ms(gate, reps=20, warmup=2)
+            if site == "w1":
+                gemm = lambda: spamm_linear_frozen(x, w, fp)   # noqa: E731
+                res["gated_gemm_w1"] = replays(captured(gemm))
+                res["gated_gemm_w1"]["eager_ms"] = time_ms(gemm, reps=20,
+                                                           warmup=2)
+    layers = len(params["layers"])
+    res["frozen_gates_per_step"] = {
+        k: layers * sum(g[k] for g in res["gates"].values())
+        for k in ("ms", "kernel_ms", "nodes")}
+    emit({"graph_breakdown": res})
+    return res
+
+
+def logged_wave(eng, prompts, max_new):
+    """One wave with the logits of every decode and chunk step kept, and
+    every launch count set to 0 just before it: (tokens, step logits,
+    request 0's metadata, launch counts, wave seconds)."""
+    import numpy as np
+
+    from repro_torch.serving import graphs as G
+    from repro_torch.serving.engine import Request
+
+    logits = []
+    orig = G.StepGraph.__call__
+
+    def logged(self, **values):
+        out = orig(self, **values)
+        logits.append(out["logits"].clone())
+        return out
+
+    G.StepGraph.__call__ = logged
+    try:
+        reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+        reset_counts()
+        t0 = time.perf_counter()
+        toks = [np.asarray(o) for o in eng.generate(reqs)]
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        G.StepGraph.__call__ = orig
+    return toks, logits, reqs[0].out, counts, dt
+
+
+def wave_numbers(toks, out, dt):
+    lat = out["latency"]
+    return {"tok_per_s": sum(len(t) for t in toks) / dt, "wave_s": dt,
+            "ttft_ms": lat["ttft_s"] * 1e3,
+            "decode_ms_per_step": (lat["decode_mean_s"] or 0.0) * 1e3,
+            "decode_steps": lat["decode_steps"]}
+
+
+def compare_graphed_eager(eng, prompts, label, max_new=MAX_NEW):
+    """The same engine serves the wave as CUDA graphs and then eagerly
+    (`cuda_graphs=False`, its own steps, the same frozen plans): tokens,
+    the logits of every decode and chunk step and the spamm stats must be
+    equal bit for bit, and every launch count the same. Returns the eager
+    wave's numbers."""
+    import torch
+
+    g = logged_wave(eng, prompts, max_new)
+    eng.cuda_graphs = False
+    try:
+        e = logged_wave(eng, prompts, max_new)
+    finally:
+        eng.cuda_graphs = True
+    res = {"run": label, "steps": len(g[1]),
+           "tokens_equal": all(bool((a == b).all()) and a.shape == b.shape
+                               for a, b in zip(g[0], e[0])),
+           "step_logits_bit_identical": len(g[1]) == len(e[1]) and all(
+               torch.equal(a, b) for a, b in zip(g[1], e[1])),
+           "spamm_equal": g[2]["spamm"] == e[2]["spamm"],
+           "launches_equal": g[3] == e[3],
+           "graphed": wave_numbers(g[0], g[2], g[4]),
+           "eager": wave_numbers(e[0], e[2], e[4]),
+           "launches": g[3]}
+    emit({"graphed_vs_eager": res})
+    check(res["steps"] > 0 and res["tokens_equal"]
+          and res["step_logits_bit_identical"] and res["spamm_equal"]
+          and res["launches_equal"],
+          f"graphed and eager waves of run {label} differ: {res}")
+    return res["eager"]
 
 
 def profile_wave(label, eng, prompts):
     """A short wave (prefill + PROFILE_NEW - 1 decode steps) under
     torch.profiler: device time by CUDA kernel, the port kernels' shares,
-    the device time of the per-call operand quantization (every
-    `quantize_tiles` call, wrapped in a profiler range for this wave only;
-    the weights are most of it) and of dtype casts (`aten::_to_copy`: the
-    bf16 operands), and the device's busy share of the wave's wall clock
-    (one stream, so kernel times do not overlap; the profiler's own host
-    cost inflates the wall clock, so the share is a lower bound)."""
+    and the device's busy share of the wave's wall clock (one stream, so
+    kernel times do not overlap; the profiler's own host cost inflates the
+    wall clock, so the share is a lower bound). Profiler ranges, for this
+    wave only, give the device time of the kernels each one launches in
+    an eager wave: the decode steps (`StepGraph` calls), the per-call
+    operand quantization (every `quantize_tiles` call; the weights are
+    most of it), dtype casts (`aten::_to_copy`: the bf16 operands) and the
+    frozen gate's small ops (`core.plan._plan_frozen` less its get-norm
+    kernel). A graphed wave's decode steps replay without their host ops,
+    and the profiler ties no replayed kernel to a host range, so those
+    four are printed for eager waves only (`graph_breakdown` times the
+    graphs)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.core import plan as P
     from repro_torch.kernels import quantize as Q
+    from repro_torch.serving import graphs as G
     from repro_torch.serving.engine import Request
 
     reqs = [Request(prompt=p, max_new_tokens=PROFILE_NEW) for p in prompts]
-    quantize = Q.quantize_tiles
-    span = "chip_smoke::quantize_tiles"
+    spans = {"chip_smoke::quantize_tiles": (Q, "quantize_tiles"),
+             "chip_smoke::frozen_gate": (P, "_plan_frozen"),
+             "chip_smoke::step": (G.StepGraph, "__call__")}
+    saved = {name: getattr(obj, attr) for name, (obj, attr) in spans.items()}
 
-    def traced_quantize(*args, **kw):
-        with record_function(span):
-            return quantize(*args, **kw)
+    def traced(name):
+        fn = saved[name]
+
+        def run(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+
+        return run
 
     torch.cuda.synchronize()
-    Q.quantize_tiles = traced_quantize
+    for name, (obj, attr) in spans.items():
+        setattr(obj, attr, traced(name))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -953,14 +1125,15 @@ def profile_wave(label, eng, prompts):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        Q.quantize_tiles = quantize
+        for name, (obj, attr) in spans.items():
+            setattr(obj, attr, saved[name])
     events = prof.key_averages()
-    # the range also shows as a GPU annotation spanning its kernels: it is
+    # a range also shows as a GPU annotation spanning its kernels: it is
     # no kernel, so it stays out of the kernel rows and the device time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in events
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0 and e.key != span]
+            and e.self_device_time_total > 0 and e.key not in spans]
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
 
@@ -972,17 +1145,28 @@ def profile_wave(label, eng, prompts):
         return sum(e.device_time_total / 1e3 for e in events
                    if e.key == key and e.device_type == DeviceType.CPU)
 
-    emit({"profile": label, "decode_steps": PROFILE_NEW - 1,
-          "wall_ms": wall_ms,
+    graphed = eng.cuda_graphs
+    steps = PROFILE_NEW - 1
+    step_ms = inclusive("chip_smoke::step")
+    gate_ms = None
+    if not graphed:
+        norms = inclusive("chip_smoke::frozen_gate")
+        gate_ms = norms - share("tile_norms_f32_kernel") - share(
+            "tile_norms_quant_f32_kernel")
+    emit({"profile": label, "decode_steps": steps,
+          "graphed": graphed, "wall_ms": wall_ms,
           "device_ms": device_ms if rows else "not measured",
           "device_busy_share": device_ms / wall_ms if rows else None,
+          "decode_step_device_ms": (None if graphed else step_ms / steps),
+          "frozen_gate_ops_ms": gate_ms,
           "tile_norms_ms": share("tile_norms_f32_kernel"),
           "spamm_mm_worklist_ms": share("spamm_worklist_f32_kernel"),
           "spamm_mm_worklist_bf16_ms": share("spamm_worklist_bf16_kernel"),
           "tile_norms_quant_ms": share("tile_norms_quant_f32_kernel"),
           "spamm_mm_worklist_int8_ms": share("spamm_worklist_int8_kernel"),
-          "quantize_tiles_ms": inclusive(span),
-          "to_copy_ms": inclusive("aten::_to_copy"),
+          "quantize_tiles_ms": (None if graphed
+                                else inclusive("chip_smoke::quantize_tiles")),
+          "to_copy_ms": None if graphed else inclusive("aten::_to_copy"),
           "top": [{"kernel": k[:80], "ms": ms, "count": n}
                   for k, ms, n in rows[:10]]})
 
@@ -1126,6 +1310,11 @@ def phase_serve():
               f"τ>0 {phase} {vf} not strictly inside (0, 1)")
     check(counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0,
           f"τ>0 launches {counts}")
+    compare_graphed_eager(eng, prompts, "c")
+    graph_breakdown(eng, params, "c")
+    eng.cuda_graphs = False
+    profile_wave(f"c: tau={tau:.6g}, eager", eng, prompts)
+    eng.cuda_graphs = True
     logits_c = prefill_logits(cfg, pcfg, params, prompts, eng)
     abs_err, rel = errors(logits_c, dense_logits)
     emit({"float32_vs_dense": {"prefill_logits_max_abs_err": abs_err,
@@ -1143,6 +1332,10 @@ def phase_serve():
                           levels=0, dtype=dtype)
         eng, toks, outl, cnt = run_engine(cfg, pcfg, params, prompts, scl,
                                           f"{label}: {dtype} tau={tau:.6g}")
+        compare_graphed_eager(eng, prompts, label)
+        eng.cuda_graphs = False
+        profile_wave(f"{label}: {dtype} tau={tau:.6g}, eager", eng, prompts)
+        eng.cuda_graphs = True
         sp = outl["spamm"]
         abs_err, rel = errors(prefill_logits(cfg, pcfg, params, prompts, eng),
                               dense_logits)
@@ -1170,7 +1363,81 @@ def phase_serve():
           and lowp["bfloat16"]["tile_norms"] > 0,
           f"low-precision serving launches {lowp}")
     store = phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c)
-    return counts, lowp, store
+    chunked = phase_chunked(cfg, pcfg, params, sct)
+    return counts, lowp, store, chunked
+
+
+def phase_chunked(cfg, pcfg, params, sct):
+    """Run (f), the chunked plane at full width and depth: CHUNK_PLENS
+    prompts (seed 0) through CHUNK_SLOTS slots, chunks of one tile (the
+    auto chunk at tile 64), CUDA graphs. At τ = 0 every request's tokens
+    equal its solo wave's; at run (c)'s τ a warm wave is measured with
+    every count set to 0 just before it and read just after, then served
+    again as graphs and eagerly, bit for bit. Returns the measured wave's
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import Engine, Request
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in CHUNK_PLENS]
+
+    def engine(sc):
+        eng = Engine(cfg, pcfg, params, max_len=CHUNK_MAX_LEN, spamm_cfg=sc,
+                     max_slots=CHUNK_SLOTS)
+        check(eng._resolve_chunk(True) == TILE
+              and eng._slot_count(len(prompts)) == CHUNK_SLOTS,
+              "run (f) chunk or slot count")
+        return eng
+
+    eng = engine(dataclasses.replace(sct, tau=0.0))
+    toks0, _, out0, _, dt0 = logged_wave(eng, prompts, MAX_NEW)
+    solo = [np.asarray(eng.generate([Request(prompt=p,
+                                             max_new_tokens=MAX_NEW)])[0])
+            for p in prompts]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(toks0, solo)]
+    emit({"chunked_tau0": {"cold_wave": True,
+                           "prompt_lens": list(CHUNK_PLENS),
+                           "slots": CHUNK_SLOTS, "chunk": TILE,
+                           "max_len": CHUNK_MAX_LEN,
+                           "tokens_equal_solo_wave": same,
+                           **wave_numbers(toks0, out0, dt0),
+                           "step_keys": dict(eng.trace_counts),
+                           "graphs": eng.graph_stats()}})
+    check(all(same), f"run (f) at τ=0 differs from solo waves: {same}")
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = engine(sct)
+    logged_wave(eng, prompts, MAX_NEW)                 # freezes, captures
+    c0 = eng.chunk_steps
+    toks, _, out, counts, dt = logged_wave(eng, prompts, MAX_NEW)
+    sp = out["spamm"]
+    emit({"serve": f"f: chunked tau={sct.tau:.6g}",
+          **wave_numbers(toks, out, dt),
+          "prefill_chunks": eng.chunk_steps - c0,
+          "admissions": eng.admissions,
+          "prefill_valid_fraction": sp["valid_fraction"],
+          "decode_valid_fraction": sp["decode_valid_fraction"],
+          "gated_gemms": sp["gated_gemms"],
+          "decode_gated_gemms": sp["decode_gated_gemms"],
+          "launches": counts, "step_keys": dict(eng.trace_counts),
+          "graphs": eng.graph_stats(),
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for phase in ("valid_fraction", "decode_valid_fraction"):
+        check(sp[phase] is not None and 0.0 < sp[phase] <= 1.0,
+              f"run (f) {phase} {sp[phase]}")
+    check(counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0
+          and eng.trace_counts == {"prefill": 1, "decode": 1},
+          f"run (f) launches {counts}, step keys {eng.trace_counts}")
+    compare_graphed_eager(eng, prompts, "f")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
 
 
 def compare_artifacts(base, other):
@@ -1783,7 +2050,7 @@ def main():
     t0 = time.perf_counter()
     norms_act, mm_w1, lowp = phase_kernels()
     seconds["kernels"] = time.perf_counter() - t0
-    counts, lowp_counts, store_counts = phase_serve()
+    counts, lowp_counts, store_counts, chunked_counts = phase_serve()
     seconds["serve"] = time.perf_counter() - t0 - seconds["kernels"]
     lib_counts, pool, dense = phase_library()
     seconds["library"] = time.perf_counter() - t0 - sum(seconds.values())
@@ -1792,6 +2059,7 @@ def main():
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     serve_path = "serve: starcoder2-7b wave, run (c)"
+    chunked_path = "serve: starcoder2-7b chunked plane, run (f)"
     int8_path = "serve: starcoder2-7b wave, run (d) int8"
     bf16_path = "serve: starcoder2-7b wave, run (e) bf16"
     lib_path = "library: (a) paper ensemble, (b) moe spamm_bmm, (d) eager"
@@ -1802,12 +2070,16 @@ def main():
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:147",
          "launches": counts["tile_norms"], "path": serve_path,
+         "chunked_launches": chunked_counts["tile_norms"],
+         "chunked_path": chunked_path,
          "ms_back_to_back": norms_act["ms_back_to_back"],
          **{k: norms_act[k] for k in keys}},
         {"name": "spamm_mm_worklist", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:203",
          "launches": counts["spamm_mm_worklist"], "path": serve_path,
+         "chunked_launches": chunked_counts["spamm_mm_worklist"],
+         "chunked_path": chunked_path,
          **{k: mm_w1[k] for k in keys}},
         {"name": "spamm_mm_worklist_bf16", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",

@@ -13,13 +13,17 @@ are computed once), and the gating telemetry. Each gated GEMM appends its
 valid fraction as a DEVICE tensor (no host sync per GEMM), and a frozen
 one also the GEMM bytes its plan moves at the configured compute dtype
 (`SpammPlan.bytes_moved`); `end_stats()` moves the whole wave's values to
-the host in one transfer. Every gated GEMM honours `cfg.dtype`.
+the host in one transfer. Every gated GEMM honours `cfg.dtype`. A step
+captured in a CUDA graph taps while it is captured, once (`record`); each
+replay then appends its taps as one block (`tap_block`), so a graphed wave
+drains one tap per gated GEMM per step, as an eager one does.
 
 `spamm_bmm_linear` is the batched gated GEMM for per-slice weights (the MoE
 grouped-FFN shape), forward only.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -72,6 +76,28 @@ class SpammContext:
         if self._collect:
             self._pending.append((self._phase, valid_fraction, nbytes))
 
+    def tap_block(self, values, nbytes=None, has_nbytes=()):
+        """Record len(values) taps at once with the current phase: `values`
+        an (n,) f32 device tensor of valid fractions, `nbytes` an (m,) one
+        of the bytes of the taps flagged in `has_nbytes` (n bools, m
+        True). No-op unless collecting."""
+        if self._collect:
+            self._pending.append((self._phase, values, nbytes,
+                                  tuple(has_nbytes)))
+
+    @contextlib.contextmanager
+    def record(self):
+        """Collect the taps of the enclosed calls into the yielded list of
+        (phase, valid_fraction, nbytes), whether or not a wave is
+        collecting, and keep them out of the wave's stats."""
+        saved = (self._pending, self._collect)
+        got: list = []
+        self._pending, self._collect = got, True
+        try:
+            yield got
+        finally:
+            self._pending, self._collect = saved
+
     def end_stats(self) -> list:
         """Stop collecting and drain: `Tap` events since `begin_stats`, the
         values read from the device in one transfer."""
@@ -79,13 +105,22 @@ class SpammContext:
         self._collect = False
         if not pending:
             return []
-        tapped = [v for _, v, _ in pending] + [b for _, _, b in pending
-                                               if b is not None]
-        vals = torch.stack([torch.as_tensor(x).detach().float().reshape(())
-                            for x in tapped]).cpu().tolist()
-        nbytes = iter(vals[len(pending):])
-        return [Tap(ph, v, None if b is None else next(nbytes))
-                for (ph, _, b), v in zip(pending, vals)]
+        blocks = []            # (phase, values (n,), nbytes (m,) | None, has)
+        for e in pending:
+            if len(e) == 4:
+                blocks.append(e)
+            else:
+                ph, v, b = e
+                blocks.append((ph, v, b, (b is not None,)))
+        flat = [torch.as_tensor(x).detach().float().reshape(-1)
+                for blk in blocks for x in (blk[1], blk[2]) if x is not None]
+        vals = iter(torch.cat(flat).cpu().tolist())
+        taps = []
+        for ph, _, _, has in blocks:
+            vf = [next(vals) for _ in has]
+            nb = [next(vals) if h else None for h in has]
+            taps.extend(Tap(ph, v, b) for v, b in zip(vf, nb))
+        return taps
 
 
 def as_context(spamm_cfg) -> Optional[SpammContext]:

@@ -1,16 +1,20 @@
-"""Serving CLI of the port: init a model from a seed, serve a wave of
-equal-length requests with greedy generation.
+"""Serving CLI of the port: init a model from a seed, serve a batch of
+requests with greedy generation — an equal-length wave, or mixed lengths
+through the chunked slot scheduler.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
       --num-requests 4 --prompt-len 128 --max-new 16 \
-      --spamm-tau 0.5 --spamm-tile 64 [--spamm-dtype int8]
+      --spamm-tau 0.5 --spamm-tile 64 [--spamm-dtype int8] \
+      [--mixed-lengths --prefill-chunk 64 --max-slots 4]
 
 Runs on the card by default; `--device cpu` runs the plain PyTorch versions
 of the kernels (use `--reduced` there). `--plan-store DIR` warm-starts the
 frozen plans from a store that `repro_torch.launch.precompute_plans`
 populated with the same arch, seed, device and SpAMM flags. `--waves N`
 serves the same requests N times and reports the last wave: the first
-freezes the plans, so `--waves 2` times a warm wave.
+freezes the plans, so `--waves 2` times a warm wave. On the card the
+decode and chunk steps run as CUDA graphs; the report gives the step
+keys, the captures, their seconds and the graph pool's bytes.
 """
 from __future__ import annotations
 
@@ -37,6 +41,20 @@ def main(argv=None):
                     help="serve the requests this many times; report the "
                          "last wave")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mixed-lengths", action="store_true",
+                    help="draw each request's prompt length uniformly from "
+                         "[prompt_len/2, prompt_len] instead of one length "
+                         "— served by the chunked slot scheduler")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked prefill: advance prompts C tokens per "
+                         "engine step at ONE static shape, interleaved with "
+                         "decode (C %% spamm-tile == 0 when gating). "
+                         "Default: chunk only mixed-length batches; 0 "
+                         "disables chunking (mixed lengths then rejected)")
+    ap.add_argument("--max-slots", type=int, default=None,
+                    help="cap the chunked scheduler's concurrent slot pool "
+                         "(power-of-two bucketed); below --num-requests "
+                         "queued requests take freed slots")
     ap.add_argument("--spamm-tau", type=float, default=None,
                     help="enable SpAMM norm-gated GEMMs at this τ — prefill "
                          "AND decode gate (decode through frozen plans)")
@@ -79,12 +97,19 @@ def main(argv=None):
                                 dtype=args.spamm_dtype)
     eng = Engine(cfg, pcfg, params, max_len=args.max_len,
                  spamm_cfg=spamm_cfg, plan_store=args.plan_store,
+                 prefill_chunk=args.prefill_chunk, max_slots=args.max_slots,
                  device=args.device)
 
     rng = np.random.default_rng(args.seed)
-    prompts = [rng.integers(1, cfg.vocab, size=args.prompt_len)
-               .astype(np.int32) for _ in range(args.num_requests)]
+    if args.mixed_lengths:
+        plens = rng.integers(max(1, args.prompt_len // 2),
+                             args.prompt_len + 1, size=args.num_requests)
+    else:
+        plens = np.full(args.num_requests, args.prompt_len)
+    prompts = [rng.integers(1, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in plens]
     for _ in range(max(args.waves, 1)):
+        chunks0 = eng.chunk_steps
         reqs = [Request(prompt=p, max_new_tokens=args.max_new)
                 for p in prompts]
         t0 = time.time()
@@ -120,6 +145,17 @@ def main(argv=None):
                  f" p50={lat['decode_p50_s'] * 1e3:.1f}ms"
                  f" ({lat['decode_steps']} steps)")
     print(line)
+    if eng.chunk_steps > chunks0:
+        print(f"  chunked: slots={eng._slot_count(len(reqs))} chunk="
+              f"{eng._resolve_chunk(len(set(plens.tolist())) > 1)} "
+              f"chunk_steps={eng.chunk_steps - chunks0}")
+    g = eng.graph_stats()
+    pool = (f"{g['pool_bytes'] / 1e6:.1f}MB" if g["pool_bytes"] is not None
+            else "n/a")
+    print(f"  steps: prefill_keys={eng.trace_counts['prefill']} "
+          f"decode_keys={eng.trace_counts['decode']} "
+          f"captures={g['captures']} capture_s={g['capture_s']:.2f} "
+          f"graph_pool={pool}")
 
 
 if __name__ == "__main__":

@@ -5,6 +5,11 @@ kernel. `flash_attention` walks q chunks and attends each chunk to the whole
 KV with the reference's additive-bias mask contract (`_mask_bias`: causal,
 sliding window, kv_limit; per-row q offsets); `decode_attention` attends one
 new token per row against a cache. Matmuls run in f32 (TF32 off).
+
+Offsets and lengths are a Python int or an int tensor on the operands'
+device: the int form builds its positions on the device (`arange`, `full`),
+the tensor form reads them there, so neither copies a host value to the
+card — a captured step (`serving/graphs.py`) takes the tensor form.
 """
 from __future__ import annotations
 
@@ -33,10 +38,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_chunk: int = 512, q_offset=0,
                     kv_limit=None) -> torch.Tensor:
     """q (B, Sq, Hq, D), k/v (B, Skv, Hk, D) → (B, Sq, Hq, D). GQA groups q
-    heads onto kv heads. `q_offset` is q[0]'s absolute position: an int or a
-    (B,) tensor. Each q chunk attends the whole KV at once (the reference
-    also chunks KV with an online softmax; the result is the same softmax up
-    to f32 rounding)."""
+    heads onto kv heads. `q_offset` is q[0]'s absolute position: an int, or
+    a 0-d or (B,) int tensor on q's device. Each q chunk attends the whole
+    KV at once (the reference also chunks KV with an online softmax; the
+    result is the same softmax up to f32 rounding)."""
     b, sq, hq, d = q.shape
     skv, hk = k.shape[1], k.shape[2]
     g = hq // hk
@@ -45,14 +50,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q5 = q.float().reshape(b, sq, hk, g, d)
     kf, vf = k.float(), v.float()
     kpos = torch.arange(skv, device=dev)
-    off = torch.as_tensor(q_offset, device=dev)
     outs = []
     for q0 in range(0, sq, q_chunk):
         qc = q5[:, q0:q0 + q_chunk]
         n = qc.shape[1]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qc, kf) * scale
         if causal or kv_limit is not None:
-            qpos = off[..., None] + q0 + torch.arange(n, device=dev)
+            if isinstance(q_offset, torch.Tensor):
+                qpos = q_offset[..., None] + q0 + torch.arange(n, device=dev)
+            else:
+                qpos = torch.arange(q_offset + q0, q_offset + q0 + n,
+                                    device=dev)
             if not causal:
                 qpos = torch.full_like(qpos, skv)
             bias = _mask_bias(qpos, kpos, window if causal else None,
@@ -83,15 +91,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      window: Optional[int] = None, ring: bool = False
                      ) -> torch.Tensor:
     """q (B, Hq, D) one new token per row; caches (B, S, Hk, D); `length`
-    (int or (B,)) = valid token positions after this step's write."""
+    (an int, or a 0-d or (B,) int tensor on q's device) = valid token
+    positions after this step's write."""
     b, hq, d = q.shape
     s, hk = k_cache.shape[1], k_cache.shape[2]
     g = hq // hk
     scale = 1.0 / math.sqrt(d)
     dev = q.device
     q4 = q.float().reshape(b, hk, g, d)
-    length = torch.as_tensor(length, device=dev)
-    lb = length if length.dim() else length.expand(b)
+    if isinstance(length, torch.Tensor):
+        lb = length.reshape(-1).expand(b)
+    else:
+        lb = torch.full((b,), length, dtype=torch.int64, device=dev)
     kpos = _slot_positions(torch.arange(s, device=dev), lb, ring, s)
     scores = torch.einsum("bhgd,bshd->bhgs", q4, k_cache.float()) * scale
     valid = (kpos < lb[:, None]) & (kpos >= 0)

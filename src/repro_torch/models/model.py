@@ -1,7 +1,8 @@
 """Top-level model API of the port (twin of `repro.models.model`):
-`init_params`, `init_cache`, `make_prefill_step`, `make_decode_step`, and
-`params_from_jax`, which carries a reference parameter tree (as numpy)
-across so both packages can run the same weights.
+`init_params`, `init_cache`, `make_prefill_step`, `make_prefill_chunk_step`,
+`make_decode_step`, and `params_from_jax`, which carries a reference
+parameter tree (as numpy) across so both packages can run the same
+weights.
 
 Parameter tree: {"embed": {"embedding"}, "final_norm", "unembed":
 {"kernel"}, "layers": [per-layer dict, ...]} — the reference's tree with its
@@ -76,12 +77,16 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, *,
 
 
 def init_cache(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
-               max_len: int, *, device="cuda") -> dict:
-    """Zeroed decode caches: {"layers": [{"k", "v"} (B, S, Hk, hd)]}."""
+               max_len: int, *, full: bool = False, device="cuda") -> dict:
+    """Zeroed decode caches: {"layers": [{"k", "v"} (B, S, Hk, hd)]}. S is
+    max_len, or the sliding window when that is smaller (the decode ring);
+    `full=True` always gives max_len: the chunked plane's LINEAR cache,
+    where a window applies as a mask."""
     dev = resolve_device(device)
     cdt = _dtype(pcfg.compute_dtype)
     tr.stack_kinds(cfg)
-    s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    s = (min(max_len, cfg.sliding_window)
+         if cfg.sliding_window and not full else max_len)
     shape = (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"layers": [{"k": torch.zeros(shape, dtype=cdt, device=dev),
                         "v": torch.zeros(shape, dtype=cdt, device=dev)}
@@ -113,11 +118,43 @@ def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
     return step
 
 
+def make_prefill_chunk_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
+                            spamm_cfg=None):
+    """fn(params, batch, cache, positions, last_idx, frozen=None) →
+    (cache, logits (B, V) f32). One chunk of position-offset prefill at ONE
+    static (B, C) shape: `batch["tokens"]` (B, C) runs the stack, writing
+    K/V into the LINEAR decode cache IN PLACE at `positions` (B, C) int
+    (absolute per-row indices; entries ≥ the cache length are idle/pad
+    sentinels whose writes drop). `logits` are read at `last_idx` (B,), the
+    in-chunk index of each row's final prompt token, clamped to [0, C-1]
+    (rows whose prompt does not end in this chunk give values the caller
+    ignores). `frozen` is the FrozenPlan tree for B·C rows."""
+    spamm_cfg = spmod.as_context(spamm_cfg)
+
+    def step(params, batch, cache, positions, last_idx, frozen=None):
+        cdt = _dtype(pcfg.compute_dtype)
+        x = embed(params["embed"], batch["tokens"].long(), cdt)
+        b, c, _ = x.shape
+        x, cache = tr.stack_prefill_chunk(params, x, cache, positions, cfg,
+                                          pcfg, spamm_cfg=spamm_cfg,
+                                          frozen=frozen)
+        idx = last_idx.long().clamp(0, c - 1)
+        h_last = rms_norm(x[torch.arange(b, device=x.device), idx],
+                          params["final_norm"], cfg.norm_eps)
+        logits = (h_last @ params["unembed"]["kernel"].to(cdt)).float()
+        return cache, logits
+
+    return step
+
+
 def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
                      spamm_cfg=None):
-    """fn(params, tokens (B, 1), cache, pos: int, frozen=None) →
-    (logits (B, V) f32, cache). Decode GEMMs gate only through `frozen`
-    plans; sites without one stay dense."""
+    """fn(params, tokens (B, 1), cache, pos, frozen=None) → (logits (B, V)
+    f32, cache). `pos` is an int or a 0-d int tensor (lockstep), or a (B,)
+    int32 tensor of per-row positions whose entries ≥ the cache length are
+    sentinels (`transformer.attention_decode`); the cache is written in
+    place. Decode GEMMs gate only through `frozen` plans; sites without one
+    stay dense."""
     spamm_cfg = spmod.as_context(spamm_cfg)
 
     def step(params, inp, cache, pos, frozen=None):

@@ -4,10 +4,16 @@
 Layers are a Python list of per-layer parameter dicts and the stack is a
 Python loop (the reference's `lax.scan` over stacked layers). Frozen plans
 follow the same structure: `frozen["layers"][l]` is layer l's
-{"mix": {...}, "mlp": {...}} dict of FrozenPlans. The decode step writes the
-new token's K/V into the preallocated cache IN PLACE (the reference updates
-a functional copy); nothing else is mutated. MoE, SSM and hybrid stacks and
-the chunked-prefill plane are not ported yet (ROADMAP queue A).
+{"mix": {...}, "mlp": {...}} dict of FrozenPlans.
+
+The decode step and the prefill chunk write their K/V into the
+preallocated cache IN PLACE (the reference updates a functional copy);
+nothing else is mutated. Positions are Python ints or int tensors on the
+device, never read on the host, so both steps can be captured in a CUDA
+graph (`serving/graphs.py`). Per-row positions at or past the cache length
+are sentinels whose writes drop, as the reference's
+`.at[].set(mode="drop")` does (`_row_writes`). MoE, SSM and hybrid stacks
+are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -75,25 +81,99 @@ def attention_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return out
 
 
+def _row_writes(positions: torch.Tensor, cache_len: int):
+    """Index plan of a per-row scatter at `positions` (B, C) into a (B, S,
+    ...) cache with the drop contract: an entry outside [0, S) writes
+    nothing. Returns (rows, slots, src, live): entry (b, c) writes the
+    value of entry src[b, c] of its row at slots[b, c]. A dropped entry
+    repeats its row's first kept entry (the same value at the same slot),
+    and a row with no kept entry rewrites slot 0 with the cache's own value
+    (`live` False), so every write lands in range and duplicates carry
+    identical bits — no out-of-range index, no host read."""
+    b, c = positions.shape
+    dev = positions.device
+    keep = (positions >= 0) & (positions < cache_len)
+    first = keep.to(torch.int32).argmax(dim=1, keepdim=True)
+    src = torch.where(keep, torch.arange(c, device=dev)[None], first)
+    live = keep.any(dim=1)
+    slots = torch.where(live[:, None], positions.long().gather(1, src), 0)
+    rows = torch.arange(b, device=dev)[:, None].expand(b, c)
+    return rows, slots, src, live
+
+
+def _scatter_rows(cache: torch.Tensor, plan, vals: torch.Tensor):
+    """cache[b, slots[b, c]] = vals[b, src[b, c]] in place (`_row_writes`):
+    vals (B, C, Hk, hd)."""
+    rows, slots, src, live = plan
+    v = vals.to(cache.dtype).gather(
+        1, src[:, :, None, None].expand(-1, -1, *vals.shape[2:]))
+    v = torch.where(live[:, None, None, None], v, cache[:, :1])
+    cache.index_put_((rows, slots), v)
+
+
 def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos: int, cfg: ModelConfig,
+                     cache_v: torch.Tensor, pos, cfg: ModelConfig,
                      pcfg: ParallelConfig, *, window: Optional[int] = None,
                      ring: bool = False, spamm_cfg=None, frozen=None):
-    """One lockstep decode step for x (B, 1, d) at position `pos` (int).
-    Decode gates only through frozen plans (require_frozen)."""
+    """One decode step for x (B, 1, d). `pos` is the incoming token's
+    position: a Python int or a 0-d int tensor (lockstep: every row at one
+    position; a ring cache takes it modulo its length), or a (B,) int
+    tensor of per-row positions (the chunked plane's slots), whose entries
+    ≥ the cache length are idle-slot sentinels: their writes drop and their
+    outputs are garbage the caller discards. Per-row positions need a
+    LINEAR full-length cache and never take the ring modulo, which would
+    wrap a sentinel onto slot 0 and clobber a prefilling lane's K/V. The
+    cache is written in place. Decode gates only through frozen plans
+    (require_frozen)."""
     del pcfg
     b = x.shape[0]
     hq, hd = cfg.num_heads, cfg.resolved_head_dim
-    posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    s = cache_k.shape[1]
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int32, device=x.device)
+    posb = pos.reshape(b, 1) if pos.dim() else pos.reshape(1, 1).expand(b, 1)
     q, k, v = _qkv(p, x, cfg, posb, spamm_cfg, frozen, require_frozen=True)
-    slot = pos % cache_k.shape[1] if ring else pos
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    if pos.dim() == 0:
+        slot = (torch.remainder(pos, s) if ring else pos).reshape(1).long()
+        cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
+    else:
+        plan = _row_writes(posb, s)
+        _scatter_rows(cache_k, plan, k)
+        _scatter_rows(cache_v, plan, v)
     o = attn_mod.decode_attention(q[:, 0], cache_k, cache_v, pos + 1,
                                   window=window, ring=ring)
     out = maybe_spamm_matmul(o.reshape(b, 1, hq * hd), p["wo"].to(x.dtype),
                              spamm_cfg, frozen=(frozen or {}).get("wo"),
                              require_frozen=True)
+    return out, (cache_k, cache_v)
+
+
+def attention_prefill_chunk(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                            cache_v: torch.Tensor, positions: torch.Tensor,
+                            cfg: ModelConfig, pcfg: ParallelConfig, *,
+                            window: Optional[int] = None, spamm_cfg=None,
+                            frozen=None):
+    """One chunk of position-offset prefill for x (B, C, d) at `positions`
+    (B, C) int, absolute per-row token indices; entries ≥ the cache length
+    are sentinels whose K/V writes drop and whose rows are garbage the
+    caller discards. Projects and ropes the chunk at its positions,
+    scatters K/V into the LINEAR cache in place, then attends the chunk's
+    queries to the whole cache with a per-row causal bias from
+    positions[:, 0]. The port attends all keys in one softmax where the
+    reference scans KV blocks, so chunked and one-shot prefill agree to f32
+    rounding, not bit for bit."""
+    b, c, _ = x.shape
+    hq, hd = cfg.num_heads, cfg.resolved_head_dim
+    q, k, v = _qkv(p, x, cfg, positions, spamm_cfg, frozen)
+    plan = _row_writes(positions, cache_k.shape[1])
+    _scatter_rows(cache_k, plan, k)
+    _scatter_rows(cache_v, plan, v)
+    o = attn_mod.flash_attention(q, cache_k, cache_v, causal=True,
+                                 window=window, q_chunk=pcfg.attn_q_chunk,
+                                 q_offset=positions[:, 0])
+    out = maybe_spamm_matmul(o.reshape(b, c, hq * hd), p["wo"].to(x.dtype),
+                             spamm_cfg, frozen=(frozen or {}).get("wo"))
     return out, (cache_k, cache_v)
 
 
@@ -131,9 +211,27 @@ def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + f, ({"k": k, "v": v} if collect_cache else None)
 
 
-def layer_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
+def layer_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
+                        positions: torch.Tensor, cfg: ModelConfig,
+                        pcfg: ParallelConfig, *, spamm_cfg=None, frozen=None):
+    """One residual layer of chunked prefill: attention writes the chunk's
+    K/V into the linear cache at its positions; the FFN is the plain
+    prefill body (stateless per position)."""
+    fz = frozen or {}
+    h, (ck, cv) = attention_prefill_chunk(
+        p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cache["k"],
+        cache["v"], positions, cfg, pcfg, window=cfg.sliding_window,
+        spamm_cfg=spamm_cfg, frozen=fz.get("mix"))
+    x = x + h
+    f = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act,
+            spamm_cfg, fz.get("mlp"))
+    return x + f, dict(cache, k=ck, v=cv)
+
+
+def layer_decode(p: dict, x: torch.Tensor, cache: dict, pos,
                  cfg: ModelConfig, pcfg: ParallelConfig, *, spamm_cfg=None,
                  frozen=None):
+    """One residual decode layer; `pos` as in `attention_decode`."""
     fz = frozen or {}
     # ring buffer iff the cache is exactly the sliding window
     ring = (cfg.sliding_window is not None
@@ -169,11 +267,33 @@ def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return x, {"layers": caches}
 
 
-def stack_decode(params: dict, x: torch.Tensor, cache: dict, pos: int,
+def stack_prefill_chunk(params: dict, x: torch.Tensor, cache: dict,
+                        positions: torch.Tensor, cfg: ModelConfig,
+                        pcfg: ParallelConfig, *, spamm_cfg=None,
+                        frozen=None):
+    """Chunked prefill over the stack at ONE static (B, C) shape, wherever
+    in the prompt the chunk lands: each layer writes the chunk's K/V into
+    its linear cache at `positions` (B, C), in place. Attention stacks
+    only: recurrent prefill state does not checkpoint at a chunk
+    boundary."""
+    stack_kinds(cfg)
+    fz_layers = (frozen or {}).get("layers")
+    caches = []
+    for li, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
+        x, nc = layer_prefill_chunk(
+            p, x, c, positions, cfg, pcfg, spamm_cfg=spamm_cfg,
+            frozen=fz_layers[li] if fz_layers else None)
+        caches.append(nc)
+    return x, {"layers": caches}
+
+
+def stack_decode(params: dict, x: torch.Tensor, cache: dict, pos,
                  cfg: ModelConfig, pcfg: ParallelConfig, *, spamm_cfg=None,
                  frozen=None):
-    """One decode step over the stack. Gated sites need a FrozenPlan; sites
-    without one stay dense (require_frozen in `layer_decode`)."""
+    """One decode step over the stack; `pos` as in `attention_decode` (an
+    int, a 0-d tensor, or a (B,) tensor of per-row positions). Gated sites
+    need a FrozenPlan; sites without one stay dense (require_frozen in
+    `layer_decode`)."""
     fz_layers = (frozen or {}).get("layers")
     caches = []
     for li, (p, c) in enumerate(zip(params["layers"], cache["layers"])):

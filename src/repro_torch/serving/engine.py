@@ -1,16 +1,36 @@
-"""Batched serving engine of the port: the WAVE plane of
-`repro.serving.engine` (one-shot prefill of an equal-length batch, then
-lockstep greedy decode until every sequence finishes), unsharded.
+"""Batched serving engine of the port: the two unsharded data planes of
+`repro.serving.engine`.
+
+* WAVE plane (equal-length prompts, unless `prefill_chunk` asks for
+  chunks): one-shot prefill of the whole batch, then lockstep greedy
+  decode until every sequence finishes.
+* CHUNKED plane (`prefill_chunk`, and automatically for mixed-length
+  prompts): a power-of-two-bucketed pool of slots. Each iteration admits
+  queued requests into idle slots, advances every prefilling slot by one
+  tile-aligned chunk at ONE static (slots, C) shape (writing K/V into a
+  full-length linear cache at per-slot positions; idle and pad lanes carry
+  position sentinels whose writes drop), emits and frees, then runs one
+  decode step over the decoding slots at per-slot positions. No prompt is
+  trimmed; a slot frees on EOS or its token budget and the next queued
+  request takes it.
 
 Frozen plans: with SpAMM on, the engine freezes every gated weight once
 (`plans.precompute.freeze_tree`, through the SpAMM context's
 `WeightPlanCache`) and specializes the frozen artifacts per activation row
-grid (`_frozen_for`, cached in `_fp_cache`), so prefill and every decode
-step only read device-resident step tables. With a plan store
-(`plan_store=`, populated offline by `launch.precompute_plans`) the freeze
-is a pure load: no planning pass, no get-norm on the weights. The chunked
-mixed-length plane, the pod-sharded mode, re-sharding and the observability
-bundle are not ported yet (ROADMAP queue A); mixed-length batches raise.
+grid (`_frozen_for`, cached in `_fp_cache`), so every step only reads
+device-resident step tables. With a plan store (`plan_store=`, populated
+offline by `launch.precompute_plans`) the freeze is a pure load.
+
+Step graphs: every decode step (both planes) and every chunk step runs
+through a `serving.graphs.StepGraph` with static buffers, keyed like the
+reference's jit cache — the wave's decode on its exact batch, the chunked
+plane's decode and chunk steps on the slot count. On the card (the
+default, `cuda_graphs=True`) each key is captured once as a CUDA graph
+and replayed; `cuda_graphs=False` runs the same steps eagerly, for
+comparison. `trace_counts` counts the captures (on the CPU, the first use
+of each key). The wave's one-shot prefill stays eager: it runs once per
+wave at a new shape. The pod-sharded mode, re-sharding and the
+observability bundle are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -20,12 +40,21 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import module as spmod
+from repro_torch.core.cost import bucket
 from repro_torch.device import f32_numerics, resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.transformer import stack_kinds
+from repro_torch.serving.graphs import StepGraph, pool_bytes
+
+
+def _floor_pow2(n: int) -> int:
+    """Largest power of two <= n (n >= 1): a non-power-of-two `max_slots`
+    floors, so the cap on concurrent slots (and their KV memory) holds
+    while the pool stays on the power-of-two bucket ladder."""
+    return 1 << (int(n).bit_length() - 1)
 
 
 @dataclasses.dataclass
@@ -39,14 +68,28 @@ class Request:
 
 
 class Engine:
-    """Greedy serving of equal-length request waves on `device` (the card
-    unless asked otherwise). `spamm_cfg` (SpammConfig or SpammContext)
-    turns on norm-gated GEMMs in prefill and decode, both through frozen
-    plans. `plan_store` (a `plans.store.PlanStore` or its root directory)
-    is the persistent tier the frozen artifacts load from."""
+    """Greedy serving on `device` (the card unless asked otherwise).
+    `spamm_cfg` (SpammConfig or SpammContext) turns on norm-gated GEMMs in
+    prefill and decode, both through frozen plans. `plan_store` (a
+    `plans.store.PlanStore` or its root directory) is the persistent tier
+    the frozen artifacts load from.
+
+    `prefill_chunk`: None chunks only a mixed-length batch (at
+    `_default_chunk`); an int C always chunks at C (a multiple of the SpAMM
+    tile when gating: gating is per row tile, so a cut inside a tile would
+    change the gate); 0 never chunks, and a mixed batch then raises.
+    `max_slots` caps the chunked plane's slot pool (floored to a power of
+    two); below the batch size, queued requests wait for freed slots.
+    `cuda_graphs` (default True; meaningless on the CPU, where nothing is
+    captured) runs decode and chunk steps as CUDA graphs on the card;
+    False runs the same steps eagerly. It may be switched between waves,
+    so one engine (one freeze, the same frozen plans) can serve a wave
+    both ways for comparison; each mode keeps its own steps."""
 
     def __init__(self, cfg: ModelConfig, pcfg: ParallelConfig, params, *,
                  max_len: int = 512, spamm_cfg=None, plan_store=None,
+                 prefill_chunk: Optional[int] = None,
+                 max_slots: Optional[int] = None, cuda_graphs: bool = True,
                  device="cuda"):
         self.device = resolve_device(device)
         f32_numerics()
@@ -58,6 +101,23 @@ class Engine:
         self.max_len = max_len
         self.spamm_ctx = spmod.as_context(spamm_cfg)
         self._gated = self.spamm_ctx is not None and self.spamm_ctx.enable
+        self._prefill_chunk = prefill_chunk
+        self._max_slots = int(max_slots) if max_slots else None
+        if self._max_slots is not None and self._max_slots < 1:
+            raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if prefill_chunk:
+            c = int(prefill_chunk)
+            if c < 1:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1 (or 0/None), got "
+                    f"{prefill_chunk}")
+            stack_kinds(cfg)
+            if self._gated and c % self.spamm_ctx.cfg.tile:
+                raise ValueError(
+                    f"prefill_chunk={c} must be a multiple of the SpAMM "
+                    f"tile ({self.spamm_ctx.cfg.tile}): gating is per row "
+                    f"tile, so a chunk cut inside a tile would change tile "
+                    f"membership and the gate")
         if isinstance(plan_store, str):
             from repro_torch.plans.store import PlanStore
 
@@ -71,6 +131,15 @@ class Engine:
                                             spamm_cfg=self.spamm_ctx)
         self._decode = M.make_decode_step(cfg, pcfg,
                                           spamm_cfg=self.spamm_ctx)
+        self._chunk = M.make_prefill_chunk_step(cfg, pcfg,
+                                                spamm_cfg=self.spamm_ctx)
+        self.cuda_graphs = bool(cuda_graphs)
+        self._pool = None         # the graph memory pool, on first capture
+        self._steps: dict = {}    # (step key, captured) → StepGraph
+        self._caches: dict = {}   # cache key → static KV cache
+        self.trace_counts = {"prefill": 0, "decode": 0}
+        self.chunk_steps = 0      # chunked-prefill steps, all waves
+        self.admissions = 0       # requests admitted into a slot
 
     # -- frozen-plan assembly ------------------------------------------------
     def _frozen_for(self, rows: int) -> dict:
@@ -108,18 +177,117 @@ class Engine:
                 self.params, self.spamm_ctx.cfg, cache=self.spamm_ctx.cache,
                 store=self.plan_store)
 
-    def _pad_cache(self, cache):
-        """Grow the prefill's KV caches to the engine's slot budget:
-        max_len, or the sliding window when that is smaller."""
-        target = (min(self.max_len, self.cfg.sliding_window)
-                  if self.cfg.sliding_window else self.max_len)
+    # -- step graphs ---------------------------------------------------------
+    def _static_cache(self, key, batch: int, full: bool) -> dict:
+        cache = self._caches.get(key)
+        if cache is None:
+            cache = M.init_cache(self.cfg, self.pcfg, batch, self.max_len,
+                                 full=full, device=self.device)
+            self._caches[key] = cache
+        return cache
 
-        def grow(c):
-            return {n: (F.pad(t, (0, 0, 0, 0, 0, target - t.shape[1]))
-                        if n in ("k", "v") and t.shape[1] < target else t)
-                    for n, t in c.items()}
+    @property
+    def _capture(self) -> bool:
+        return self.cuda_graphs and self.device.type == "cuda"
 
-        return {"layers": [grow(c) for c in cache["layers"]]}
+    def _step(self, key, kind: str, make):
+        """The StepGraph at `key` in the current mode, built by `make()` →
+        (body, inputs) on first use; `trace_counts[kind]` counts the keys
+        (on the card, each one capture; eager steps count too)."""
+        step = self._steps.get((key, self._capture))
+        if step is None:
+            if self._capture and self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            body, inputs = make()
+            step = StepGraph(body, inputs, capture=self._capture,
+                             pool=self._pool, spamm_ctx=self.spamm_ctx)
+            self._steps[(key, self._capture)] = step
+            self.trace_counts[kind] += 1
+        return step
+
+    def _buffer(self, *shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+    def _outputs(self, logits) -> dict:
+        return {"logits": logits,
+                "tokens": logits.argmax(dim=-1).to(torch.int32)}
+
+    def _wave_decode_step(self, b: int) -> StepGraph:
+        """Lockstep decode over the wave's exact batch `b` (a pad lane
+        would enter the decode gate's row tile), at one position held in a
+        0-d device buffer, on the wave's static cache."""
+        def make():
+            cache = self._static_cache(("wave", b), b, full=False)
+            frozen = self._frozen_for(b)
+            inp = {"tokens": self._buffer(b, 1), "pos": self._buffer()}
+
+            def body():
+                logits, _ = self._decode(self.params, inp["tokens"], cache,
+                                         inp["pos"], frozen)
+                return self._outputs(logits)
+
+            return body, inp
+
+        return self._step(("wave", b), "decode", make)
+
+    def _slot_decode_step(self, nslots: int) -> StepGraph:
+        """Decode over the slot pool at per-slot positions (sentinels for
+        idle and prefilling slots), on the pool's linear cache."""
+        def make():
+            cache = self._static_cache(("slots", nslots), nslots, full=True)
+            frozen = self._frozen_for(nslots)
+            inp = {"tokens": self._buffer(nslots, 1),
+                   "positions": self._buffer(nslots)}
+
+            def body():
+                logits, _ = self._decode(self.params, inp["tokens"], cache,
+                                         inp["positions"], frozen)
+                return self._outputs(logits)
+
+            return body, inp
+
+        return self._step(("slots", nslots), "decode", make)
+
+    def _chunk_step(self, nslots: int, chunk: int) -> StepGraph:
+        """One prefill chunk over the slot pool at one static (nslots,
+        chunk) shape, on the pool's linear cache."""
+        def make():
+            cache = self._static_cache(("slots", nslots), nslots, full=True)
+            frozen = self._frozen_for(nslots * chunk)
+            inp = {"tokens": self._buffer(nslots, chunk),
+                   "positions": self._buffer(nslots, chunk),
+                   "last_idx": self._buffer(nslots)}
+
+            def body():
+                _, logits = self._chunk(self.params,
+                                        {"tokens": inp["tokens"]}, cache,
+                                        inp["positions"], inp["last_idx"],
+                                        frozen)
+                return self._outputs(logits)
+
+            return body, inp
+
+        return self._step(("chunk", nslots, chunk), "prefill", make)
+
+    def graph_stats(self) -> dict:
+        """Captures so far, their host seconds, and the graph pool's bytes
+        (None off the card or where the allocator does not report it)."""
+        caps = [s.capture_s for s in self._steps.values()
+                if s.capture_s is not None]
+        return {"captures": len(caps), "capture_s": float(sum(caps)),
+                "pool_bytes": (None if self._pool is None
+                               else pool_bytes(self._pool))}
+
+    def _pad_cache(self, cache, into: dict) -> dict:
+        """Copy the prefill's KV caches into the static decode cache `into`
+        (max_len long, or the sliding window when that is smaller), zeroing
+        the slots past the prompt."""
+        for src, dst in zip(cache["layers"], into["layers"]):
+            for n in ("k", "v"):
+                s = src[n].shape[1]
+                dst[n][:, :s].copy_(src[n])
+                dst[n][:, s:].zero_()
+        return into
 
     def _spamm_stats(self, taps, store0=None) -> dict:
         """Per-wave gating stats: mean valid fraction and gated-GEMM count
@@ -148,11 +316,35 @@ class Engine:
             stats["plan_store_misses"] = self.plan_store.misses - store0[1]
         return stats
 
+    @staticmethod
+    def _latency(ttft_s, decode_lat) -> dict:
+        return {"ttft_s": ttft_s, "decode_steps": len(decode_lat),
+                "decode_mean_s": (float(np.mean(decode_lat))
+                                  if decode_lat else None),
+                "decode_p50_s": (float(np.median(decode_lat))
+                                 if decode_lat else None)}
+
     # -- dispatch ------------------------------------------------------------
+    def _default_chunk(self) -> int:
+        """Tile-aligned default chunk size for the auto mixed-length path."""
+        tile = self.spamm_ctx.cfg.tile if self._gated else 1
+        return -(-16 // tile) * tile
+
+    def _resolve_chunk(self, mixed: bool) -> Optional[int]:
+        """The chunk size this batch prefills at, or None for one-shot."""
+        pc = self._prefill_chunk
+        if pc is not None and not pc:      # 0/False: chunking disabled
+            return None
+        if pc is None:                     # auto: chunk only when needed
+            return self._default_chunk() if mixed else None
+        return int(pc)
+
     def generate(self, requests: List[Request]) -> List[np.ndarray]:
-        """Greedy-decode an equal-length batch of prompts. Raises on empty
-        prompts, prompts longer than max_len - 1, and mixed lengths (the
-        chunked plane that serves them is not ported yet)."""
+        """Greedy-decode a batch of prompts: equal lengths through the wave
+        (unless `prefill_chunk` asks for chunks), mixed lengths through the
+        chunked slot scheduler; every prompt token is used. Raises on an
+        empty batch or prompt, on prompts longer than max_len - 1, and on
+        mixed lengths with `prefill_chunk=0`."""
         if not requests:
             raise ValueError("empty batch")
         plens = [len(r.prompt) for r in requests]
@@ -162,12 +354,17 @@ class Engine:
             raise ValueError(
                 f"prompt of {max(plens)} tokens does not fit "
                 f"max_len={self.max_len} (a sequence needs at least one "
-                f"decode slot)")
-        if len(set(plens)) > 1:
-            raise NotImplementedError(
-                "mixed-length prompts need the chunked-prefill plane "
-                "(ROADMAP queue A: chunked plane); pad client-side to one "
-                "length")
+                f"decode slot) — raise max_len instead of losing prompt "
+                f"tokens")
+        mixed = len(set(plens)) > 1
+        chunk = self._resolve_chunk(mixed)
+        if chunk:
+            return self._generate_chunked(requests, chunk)
+        if mixed:
+            raise ValueError(
+                "mixed-length prompts need chunked prefill, but "
+                "prefill_chunk=0 disabled it; drop the override or pad "
+                "client-side")
         return self._generate_wave(requests)
 
     def _generate_wave(self, requests: List[Request]) -> List[np.ndarray]:
@@ -183,7 +380,6 @@ class Engine:
                   else (self.plan_store.hits, self.plan_store.misses))
         t_wave0 = time.perf_counter()
         frozen_pre = self._frozen_for(b * plen)
-        frozen_dec = self._frozen_for(b)
         outs = [[] for _ in range(b)]
         ttft_s, decode_lat, taps = None, [], []
         if self._gated:
@@ -195,7 +391,9 @@ class Engine:
                     self.params,
                     {"tokens": torch.as_tensor(toks, device=self.device)},
                     frozen_pre)
-                cache = self._pad_cache(cache)
+                self._pad_cache(cache, self._static_cache(("wave", b), b,
+                                                          full=False))
+                del cache
                 cur = logits.argmax(dim=-1).to(torch.int32)
                 pos = plen
                 done = np.zeros(b, bool)
@@ -220,20 +418,146 @@ class Engine:
                     if done.all() or pos >= self.max_len - 1:
                         break
                     t_step = time.perf_counter()
-                    logits, cache = self._decode(self.params, cur[:, None],
-                                                 cache, pos, frozen_dec)
-                    cur = logits.argmax(dim=-1).to(torch.int32)
+                    cur = self._wave_decode_step(b)(tokens=cur,
+                                                    pos=pos)["tokens"]
                     pos += 1
         finally:
             if self._gated:
                 taps = self.spamm_ctx.end_stats()
                 self.spamm_ctx.set_phase("prefill")
         spamm_meta = self._spamm_stats(taps, store0) if self._gated else None
-        latency = {"ttft_s": ttft_s, "decode_steps": len(decode_lat),
-                   "decode_mean_s": (float(np.mean(decode_lat))
-                                     if decode_lat else None),
-                   "decode_p50_s": (float(np.median(decode_lat))
-                                    if decode_lat else None)}
+        latency = self._latency(ttft_s, decode_lat)
+        results = [np.asarray(o, np.int32) for o in outs]
+        for r, toks_out in zip(requests, results):
+            r.out = {"tokens": toks_out, "spamm": spamm_meta,
+                     "latency": latency}
+        return results
+
+    def _slot_count(self, b: int) -> int:
+        """The slot pool for `b` requests: the power-of-two bucket of
+        min(b, max_slots), floored under a non-power-of-two cap."""
+        cap = min(b, self._max_slots) if self._max_slots else b
+        nslots = bucket(cap, 1)
+        if self._max_slots and nslots > self._max_slots:
+            nslots = _floor_pow2(self._max_slots)
+        return nslots
+
+    def _generate_chunked(self, requests: List[Request],
+                          chunk: int) -> List[np.ndarray]:
+        """Slot scheduler: chunked prefill interleaved with decode over a
+        power-of-two-bucketed slot pool. Per iteration: (1) queued requests
+        are admitted into idle slots, (2) every prefilling slot advances by
+        one `chunk`-token chunk at ONE static (slots, chunk) shape — a
+        partial chunk is clamp-padded with its last token at sentinel
+        positions, and a slot whose prompt ends in the chunk takes its
+        first generated token from that chunk's logits, (3) pending tokens
+        are emitted and finished slots freed, (4) one decode step runs over
+        the decoding slots at per-slot positions. Idle lanes carry position
+        sentinels (max_len): their cache writes drop and their outputs are
+        never read. Termination per slot is the wave's (EOS /
+        max_new_tokens / pos >= max_len - 1 at emit time). The pool's
+        cache is zeroed at the start, as a fresh one would be. TTFT is the
+        first finished prefill on the host; one decode latency per decode
+        step, dispatch to its tokens on the host."""
+        b = len(requests)
+        nslots = self._slot_count(b)
+        store0 = (None if self.plan_store is None
+                  else (self.plan_store.hits, self.plan_store.misses))
+        t_wave0 = time.perf_counter()
+        outs: List[list] = [[] for _ in range(b)]
+        queue = list(range(b))
+        slot_req = [-1] * nslots       # request index per slot, -1 when idle
+        mode = ["idle"] * nslots       # idle | prefill | decode
+        cursor = [0] * nslots          # prompt tokens already fed
+        pos = [0] * nslots             # tokens materialized in the cache
+        pending: List[Optional[int]] = [None] * nslots
+        cur = np.zeros(nslots, np.int32)
+        ttft_s, decode_lat, taps = None, [], []
+        if self._gated:
+            self.spamm_ctx.begin_stats()
+        try:
+            with torch.inference_mode():
+                for layer in self._static_cache(("slots", nslots), nslots,
+                                                full=True)["layers"]:
+                    layer["k"].zero_()
+                    layer["v"].zero_()
+                while queue or any(m != "idle" for m in mode):
+                    # -- admission: queued requests claim idle slots ------
+                    for s in range(nslots):
+                        if mode[s] == "idle" and queue:
+                            slot_req[s] = queue.pop(0)
+                            mode[s] = "prefill"
+                            cursor[s] = pos[s] = 0
+                            pending[s] = None
+                            self.admissions += 1
+                    # -- one chunk of prefill over the prefilling slots ---
+                    if any(m == "prefill" for m in mode):
+                        tk = np.zeros((nslots, chunk), np.int32)
+                        posc = np.full((nslots, chunk), self.max_len,
+                                       np.int32)
+                        last = np.full(nslots, -1, np.int32)
+                        fin = []
+                        for s in range(nslots):
+                            if mode[s] != "prefill":
+                                continue
+                            pr = np.asarray(requests[slot_req[s]].prompt,
+                                            np.int32)
+                            n = min(len(pr) - cursor[s], chunk)
+                            tk[s, :n] = pr[cursor[s]:cursor[s] + n]
+                            if n < chunk:
+                                tk[s, n:] = tk[s, n - 1]
+                            posc[s, :n] = cursor[s] + np.arange(n)
+                            cursor[s] += n
+                            if cursor[s] >= len(pr):
+                                last[s] = n - 1
+                                fin.append(s)
+                        if self._gated:
+                            self.spamm_ctx.set_phase("prefill")
+                        step_tok = self._chunk_step(nslots, chunk)(
+                            tokens=tk, positions=posc,
+                            last_idx=last)["tokens"].cpu().numpy()
+                        self.chunk_steps += 1
+                        for s in fin:
+                            mode[s] = "decode"
+                            pos[s] = len(requests[slot_req[s]].prompt)
+                            pending[s] = int(step_tok[s])
+                        if fin and ttft_s is None:
+                            ttft_s = time.perf_counter() - t_wave0
+                    # -- emit pending tokens; finished slots free ---------
+                    for s in range(nslots):
+                        if mode[s] != "decode" or pending[s] is None:
+                            continue
+                        r = requests[slot_req[s]]
+                        tok = pending[s]
+                        pending[s] = None
+                        outs[slot_req[s]].append(tok)
+                        if ((r.eos_id is not None and tok == r.eos_id)
+                                or len(outs[slot_req[s]]) >= r.max_new_tokens
+                                or pos[s] >= self.max_len - 1):
+                            mode[s] = "idle"
+                            slot_req[s] = -1
+                    # -- one decode step over the decoding slots ----------
+                    dec = [s for s in range(nslots) if mode[s] == "decode"]
+                    if dec:
+                        posv = np.full(nslots, self.max_len, np.int32)
+                        for s in dec:
+                            cur[s] = outs[slot_req[s]][-1]
+                            posv[s] = pos[s]
+                        if self._gated:
+                            self.spamm_ctx.set_phase("decode")
+                        t0 = time.perf_counter()
+                        step_tok = self._slot_decode_step(nslots)(
+                            tokens=cur, positions=posv)["tokens"].cpu().numpy()
+                        decode_lat.append(time.perf_counter() - t0)
+                        for s in dec:
+                            pending[s] = int(step_tok[s])
+                            pos[s] += 1
+        finally:
+            if self._gated:
+                taps = self.spamm_ctx.end_stats()
+                self.spamm_ctx.set_phase("prefill")
+        spamm_meta = self._spamm_stats(taps, store0) if self._gated else None
+        latency = self._latency(ttft_s, decode_lat)
         results = [np.asarray(o, np.int32) for o in outs]
         for r, toks_out in zip(requests, results):
             r.out = {"tokens": toks_out, "spamm": spamm_meta,

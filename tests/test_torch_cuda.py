@@ -856,3 +856,186 @@ def test_mxu_templated_kernels_equal_the_runtime_tile_kernels_on_card(dev):
     for (x, t), g, w in zip(cases, got, want):
         for a, b in zip(g, w):
             assert torch.equal(a, b), (t, x.data_ptr() % 16)
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's step graphs (reduced starcoder2-7b, tile 16)
+# ---------------------------------------------------------------------------
+
+GRAPH_TILE = 16
+GRAPH_MIX = (5, 16, 23, 9, 12, 30)
+
+
+@pytest.fixture(scope="module")
+def served():
+    """Reduced starcoder2-7b on the card (random weights, seed 0) and a τ
+    at the median of the gate products of a τ = 0 chunked run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("starcoder2-7b").reduced()
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=8)
+    params = M.init_params(cfg, pcfg, 0, device="cuda")
+    products = []
+    orig = P._plan_frozen
+
+    def recording(a, fp, **kw):
+        p = orig(a, fp, **kw)
+        prod = p.norm_a[fp.step_i, fp.step_k] * fp.nbmax[fp.step_k, fp.step_j]
+        products.append(prod[fp.step_real].cpu())
+        return p
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(P, "_plan_frozen", recording)
+        eng = _graph_engine(cfg, pcfg, params, 0.0, "float32", "chunked")
+        eng.cuda_graphs = False
+        _graph_run(eng, _graph_prompts(cfg, "chunked"))
+    tau = float(torch.cat(products).median())
+    return cfg, pcfg, params, tau
+
+
+def _graph_prompts(cfg, plane):
+    lengths = (16,) * 3 if plane == "wave" else GRAPH_MIX
+    rng = np.random.default_rng(5)
+    return [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lengths]
+
+
+def _graph_engine(cfg, pcfg, params, tau, dtype, plane, max_slots=2):
+    from repro_torch.configs import SpammConfig
+    from repro_torch.serving.engine import Engine
+
+    sc = SpammConfig(enable=True, tau=tau, tile=GRAPH_TILE, dtype=dtype)
+    kw = ({} if plane == "wave"
+          else {"prefill_chunk": GRAPH_TILE, "max_slots": max_slots})
+    return Engine(cfg, pcfg, params, max_len=64, spamm_cfg=sc, **kw)
+
+
+def _graph_run(eng, prompts, max_new=4):
+    """One wave: tokens, the logits of every decode and chunk step, the
+    spamm stats, and each launch counter's growth."""
+    from repro_torch.serving import graphs as G
+    from repro_torch.serving.engine import Request
+
+    logits = []
+    orig = G.StepGraph.__call__
+
+    def logged(self, **values):
+        out = orig(self, **values)
+        logits.append(out["logits"].clone())
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(G.StepGraph, "__call__", logged)
+        before = G.read_counters()
+        reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+        toks = [o.tolist() for o in eng.generate(reqs)]
+        torch.cuda.synchronize()
+        counts = [a - b for a, b in zip(G.read_counters(), before)]
+    return toks, logits, reqs[0].out["spamm"], counts
+
+
+@pytest.mark.parametrize("plane", ["wave", "chunked"])
+@pytest.mark.parametrize("dtype,gated", [("float32", False),
+                                         ("float32", True),
+                                         ("int8", True),
+                                         ("bfloat16", True)],
+                         ids=["f32-tau0", "f32", "int8", "bf16"])
+def test_graphed_engine_equals_eager_on_card(served, plane, dtype, gated):
+    """One engine serves a wave eagerly, then as CUDA graphs (the first
+    graphed wave captures, the second only replays): tokens, the logits of
+    every decode and chunk step and the spamm stats bit for bit, and every
+    kernel launch counter grows as in the eager wave."""
+    cfg, pcfg, params, tau = served
+    eng = _graph_engine(cfg, pcfg, params, tau if gated else 0.0, dtype,
+                        plane)
+    prompts = _graph_prompts(cfg, plane)
+    eng.cuda_graphs = False
+    _graph_run(eng, prompts)
+    eager = _graph_run(eng, prompts)
+    eng.cuda_graphs = True
+    captured = _graph_run(eng, prompts)
+    replayed = _graph_run(eng, prompts)
+    stats = eng.graph_stats()
+    assert stats["captures"] == (2 if plane == "chunked" else 1)
+    assert stats["pool_bytes"] is None or stats["pool_bytes"] > 0
+    sp = eager[2]
+    if gated:
+        assert 0.0 < sp["decode_valid_fraction"] < 1.0
+    for run in (captured, replayed):
+        assert run[0] == eager[0]
+        assert len(run[1]) == len(eager[1])
+        for got, want in zip(run[1], eager[1]):
+            assert torch.equal(got, want)
+        assert run[2] == sp
+        assert run[3] == eager[3]
+    assert sum(eager[3]) > 0
+
+
+def test_graph_captures_bounded_by_ladder_on_card(served):
+    """A sweep of six (batch, prompt length) shapes through one graphed
+    chunked engine captures at most len(bucket_ladder(6, 1)) graphs per
+    step kind."""
+    from repro_torch.core.cost import bucket_ladder
+
+    cfg, pcfg, params, tau = served
+    eng = _graph_engine(cfg, pcfg, params, tau, "float32", "chunked",
+                        max_slots=None)
+    rng = np.random.default_rng(8)
+    shapes = [(1, 5), (2, 16), (3, 23), (4, 9), (5, 12), (6, 30)]
+    for b, plen in shapes:
+        prompts = [rng.integers(1, cfg.vocab, plen).astype(np.int32)
+                   for _ in range(b)]
+        toks, *_ = _graph_run(eng, prompts, max_new=2)
+        assert all(len(t) == 2 for t in toks)
+    ladder = len(bucket_ladder(6, 1))
+    assert eng.trace_counts["prefill"] <= ladder
+    assert eng.trace_counts["decode"] <= ladder
+    assert eng.graph_stats()["captures"] == sum(eng.trace_counts.values())
+
+
+def test_capture_with_a_host_sync_raises_on_card(served):
+    """A gated op that reads a value on the host (`.item()`) runs eagerly,
+    but makes the capture fail, and the failure raises: nothing falls back
+    to the eager step. In a child process, so a failed capture cannot
+    touch the other tests' CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    code = """
+import numpy as np, torch
+from repro_torch.configs import ParallelConfig, SpammConfig, get_config
+from repro_torch.core import plan as P
+from repro_torch.models import model as M
+from repro_torch.serving.engine import Engine, Request
+orig = P._frozen_step_flags
+def syncing(fp, active):
+    active.sum().item()
+    return orig(fp, active)
+P._frozen_step_flags = syncing
+cfg = get_config("starcoder2-7b").reduced()
+pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=8)
+params = M.init_params(cfg, pcfg, 0)
+eng = Engine(cfg, pcfg, params, max_len=64,
+             spamm_cfg=SpammConfig(enable=True, tau=0.0, tile=16))
+reqs = lambda: [Request(prompt=np.arange(1, 17, dtype=np.int32),
+                        max_new_tokens=3)]
+eng.cuda_graphs = False
+print("EAGER", len(eng.generate(reqs())[0]))
+eng.cuda_graphs = True
+try:
+    eng.generate(reqs())
+except Exception as e:
+    print("RAISED", type(e).__name__)
+else:
+    print("NO ERROR")
+"""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert "EAGER 3" in res.stdout, res.stdout + res.stderr
+    assert "RAISED" in res.stdout, res.stdout + res.stderr

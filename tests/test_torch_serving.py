@@ -193,9 +193,13 @@ def test_engine_gated_tokens_match_reference(setup, monkeypatch):
 
 
 def test_engine_rejects_mixed_lengths(setup):
+    """Mixed lengths are served by the chunked plane unless chunking is
+    switched off (`prefill_chunk=0`): then they raise, as the reference
+    does."""
     _, cfg, _, params, _ = setup
-    eng = Engine(cfg, PCFG, params, max_len=MAX_LEN, device="cpu")
-    with pytest.raises(NotImplementedError):
+    eng = Engine(cfg, PCFG, params, max_len=MAX_LEN, device="cpu",
+                 prefill_chunk=0)
+    with pytest.raises(ValueError, match="prefill_chunk=0"):
         eng.generate([Request(prompt=np.ones(4, np.int32)),
                       Request(prompt=np.ones(5, np.int32))])
 
