@@ -53,6 +53,17 @@ request's tokens equal its solo wave's; at run (c)'s τ a warm wave is
 measured (tok/s, TTFT, decode ms/step, chunks, captures, graph pool
 bytes, valid fractions) and served again eagerly, bit for bit.
 
+Obs: run (c)'s engine (the observability bundle on, graphed) against a
+second engine of the same params and frozen weights with obs=False: tokens,
+every step's logits and launches bit for bit, the same device nodes per
+replayed decode step, per_layer with all 32 layers × 6 sites (192 cells)
+summing to the wave's aggregates, a graphed wave's cells equal to an eager
+wave's, the Prometheus dump through `parse_prometheus`, and the Chrome
+trace (written under chiprun_out/chip_smoke_obs/) holding the engine's
+spans; decode ms/step, TTFT and tok/s with obs on and off, the cost
+residual per phase. Run (f)'s chunked engine must report prefill_chunk
+spans and the admission and chunk counters it counts.
+
 Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
 with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
 (the paper's §4.1 ensemble) at ratios 0.30 and 0.10: achieved ratio,
@@ -102,6 +113,18 @@ CHUNK_PLENS = (64, 100, 128, 200, 256, 300, 384, 448)
 CHUNK_SLOTS, CHUNK_MAX_LEN = 4, 512
 PROFILE_NEW = 4  # tokens of the profiled wave: prefill + 3 decode steps
 SEED = 0
+# the obs phase's metrics dump and Chrome trace, in a directory .gitignore
+# lists
+OBS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out", "chip_smoke_obs")
+# the spans a wave of the engine records, and the gated GEMM sites of a
+# starcoder2-7b layer
+OBS_SPANS = ("freeze", "plan_assembly", "prefill", "decode_step", "wave")
+OBS_SITES = ("wq", "wk", "wv", "wo", "w1", "w2")
+# a wave's per-(layer, site) bytes summed against the aggregate, relative
+OBS_BYTES_RTOL = 1e-9
+# nvidia-smi's "name, power.limit" line, set by main()
+CARD = None
 # tile norms: f32 sums of 4096 squares in two orders (pooling: four squares
 # summed in one order in both versions)
 NORM_RTOL = 1e-5
@@ -934,6 +957,31 @@ def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
     return eng, toks, out, counts
 
 
+def replay_profile(g, reps=20):
+    """A captured graph replayed `reps` times back to back: CUDA-event ms
+    per replay, the profiler's kernel ms and its count of device nodes
+    (kernels, copies, fills) per replay."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        for _ in range(reps):
+            g.replay()
+
+    ms = time_ms(run, reps=5, warmup=1) / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    return {"ms": ms,
+            "kernel_ms": sum(e.self_device_time_total for e in dev)
+            / 1e3 / reps,
+            "nodes": sum(e.count for e in dev) / reps}
+
+
 def graph_breakdown(eng, params, label, reps=20):
     """Where a graphed decode step's time goes, from graphs replayed back
     to back (no host in the way): the wave's captured decode step of run
@@ -945,8 +993,6 @@ def graph_breakdown(eng, params, label, reps=20):
     copies, fills); the gap between the two times is the device idling
     between nodes. Eager ms per call beside each."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import plan as P
     from repro_torch.core.module import spamm_linear_frozen
@@ -962,25 +1008,10 @@ def graph_breakdown(eng, params, label, reps=20):
             fn()
         return g
 
-    def replays(g):
-        def run():
-            for _ in range(reps):
-                g.replay()
-
-        ms = time_ms(run, reps=5, warmup=1) / reps
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-        return {"ms": ms,
-                "kernel_ms": sum(e.self_device_time_total for e in dev)
-                / 1e3 / reps,
-                "nodes": sum(e.count for e in dev) / reps}
-
     step = eng._steps[(("wave", BATCH), True)]
-    res = {"run": label, "decode_step": replays(step._graph), "gates": {}}
+    res = {"run": label, "decode_step": {**replay_profile(step._graph, reps),
+                                         "graph_nodes": step.nodes()},
+           "gates": {}}
     gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
     frozen = eng._frozen_for(BATCH)["layers"][0]
     with torch.inference_mode():
@@ -990,11 +1021,11 @@ def graph_breakdown(eng, params, label, reps=20):
             x = decode_rows(w.shape[0], gen)
             fp = frozen[part][site]
             gate = lambda: P._plan_frozen(x, fp)   # noqa: E731
-            res["gates"][site] = replays(captured(gate))
+            res["gates"][site] = replay_profile(captured(gate), reps)
             res["gates"][site]["eager_ms"] = time_ms(gate, reps=20, warmup=2)
             if site == "w1":
                 gemm = lambda: spamm_linear_frozen(x, w, fp)   # noqa: E731
-                res["gated_gemm_w1"] = replays(captured(gemm))
+                res["gated_gemm_w1"] = replay_profile(captured(gemm), reps)
                 res["gated_gemm_w1"]["eager_ms"] = time_ms(gemm, reps=20,
                                                            warmup=2)
     layers = len(params["layers"])
@@ -1043,12 +1074,25 @@ def wave_numbers(toks, out, dt):
             "decode_steps": lat["decode_steps"]}
 
 
+def timing_free(sp):
+    """A wave's spamm stats without its host-clock measurements: no
+    latency block, and of the cost residual only the predicted seconds."""
+    if sp is None:
+        return None
+    sp = {k: v for k, v in sp.items() if k != "latency"}
+    if "cost_residual" in sp:
+        sp["cost_residual"] = {ph: c["predicted_s"]
+                               for ph, c in sp["cost_residual"].items()}
+    return sp
+
+
 def compare_graphed_eager(eng, prompts, label, max_new=MAX_NEW):
     """The same engine serves the wave as CUDA graphs and then eagerly
     (`cuda_graphs=False`, its own steps, the same frozen plans): tokens,
-    the logits of every decode and chunk step and the spamm stats must be
-    equal bit for bit, and every launch count the same. Returns the eager
-    wave's numbers."""
+    the logits of every decode and chunk step and the spamm stats (per
+    (layer, site) cells and predicted seconds included; not the host-clock
+    times) must be equal bit for bit, and every launch count the same.
+    Returns the eager wave's numbers."""
     import torch
 
     g = logged_wave(eng, prompts, max_new)
@@ -1062,7 +1106,8 @@ def compare_graphed_eager(eng, prompts, label, max_new=MAX_NEW):
                                for a, b in zip(g[0], e[0])),
            "step_logits_bit_identical": len(g[1]) == len(e[1]) and all(
                torch.equal(a, b) for a, b in zip(g[1], e[1])),
-           "spamm_equal": g[2]["spamm"] == e[2]["spamm"],
+           "spamm_equal": (timing_free(g[2]["spamm"])
+                           == timing_free(e[2]["spamm"])),
            "launches_equal": g[3] == e[3],
            "graphed": wave_numbers(g[0], g[2], g[4]),
            "eager": wave_numbers(e[0], e[2], e[4]),
@@ -1073,6 +1118,141 @@ def compare_graphed_eager(eng, prompts, label, max_new=MAX_NEW):
           and res["launches_equal"],
           f"graphed and eager waves of run {label} differ: {res}")
     return res["eager"]
+
+
+def phase_obs(cfg, pcfg, params, eng, prompts, sct):
+    """The observability plane on run (c): `eng` (obs on, graphed, warm)
+    against an engine of the same params with obs=False that takes `eng`'s
+    frozen weights (no second freeze). Tokens, step logits and launches
+    bit for bit; the same device nodes per replayed decode step; per_layer
+    with every (layer, site) cell, summing to the aggregates; a graphed
+    wave's cells equal an eager wave's; the metrics dump through
+    `parse_prometheus`; the trace's spans. Timed waves on, off, off, on,
+    with the host ms of each wave's tap drain (`end_stats`) and stats
+    (`_spamm_stats`: per_layer, cost residual and, with obs on, the
+    registry feed)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.module import SpammContext
+    from repro_torch.obs import parse_prometheus
+    from repro_torch.serving.engine import Engine
+
+    check(eng.obs.enabled and eng.cuda_graphs, "obs phase: engine of run (c)")
+    off = Engine(cfg, pcfg, params, max_len=MAX_LEN, spamm_cfg=sct,
+                 obs=False)
+    off._fw_tree = eng._fw_tree
+    logged_wave(off, prompts, MAX_NEW)                  # captures
+    waves = {"on": [], "off": []}
+    host = {n: {"end_stats_ms": [], "spamm_stats_ms": []}
+            for n in ("on", "off")}
+
+    def timed(cls, name, key):
+        orig = getattr(cls, name)
+
+        def wrapper(self, *a, **k):
+            t0 = time.perf_counter()
+            out = orig(self, *a, **k)
+            which = "on" if self in (eng, eng.spamm_ctx) else "off"
+            host[which][key].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(cls, name, wrapper)
+        return orig
+
+    origs = (timed(SpammContext, "end_stats", "end_stats_ms"),
+             timed(Engine, "_spamm_stats", "spamm_stats_ms"))
+    try:
+        for name in ("on", "off", "off", "on"):
+            waves[name].append(logged_wave(eng if name == "on" else off,
+                                           prompts, MAX_NEW))
+    finally:
+        SpammContext.end_stats, Engine._spamm_stats = origs
+    on, of = waves["on"][0], waves["off"][0]
+    same_tokens = all(bool(np.array_equal(a, b)) for a, b in zip(on[0], of[0]))
+    same_logits = len(on[1]) == len(of[1]) and all(
+        torch.equal(a, b) for a, b in zip(on[1], of[1]))
+    key = (("wave", BATCH), True)
+    nodes = {n: e._steps[key].nodes() for n, e in (("on", eng), ("off", off))}
+    sp, sp_off = on[2]["spamm"], of[2]["spamm"]
+    cells = [(layer, site, c) for layer, sites in sp["per_layer"].items()
+             for site, c in sites.items()]
+    full = (sorted(sp["per_layer"]) == list(range(cfg.num_layers))
+            and all(sorted(sites) == sorted(OBS_SITES)
+                    for sites in sp["per_layer"].values()))
+    sums = {
+        "gated_gemms": sum(c["gated_gemms"] for *_, c in cells),
+        "decode_gated_gemms": sum(c["decode_gated_gemms"] for *_, c in cells),
+        "gemm_bytes": sum(c["gemm_bytes_moved"] or 0.0 for *_, c in cells)}
+    total_bytes = sp["gemm_bytes_moved"] + sp["decode_gemm_bytes_moved"]
+    sums_ok = (sums["gated_gemms"] == sp["gated_gemms"]
+               and sums["decode_gated_gemms"] == sp["decode_gated_gemms"]
+               and abs(sums["gemm_bytes"] - total_bytes)
+               <= OBS_BYTES_RTOL * total_bytes)
+    eng.cuda_graphs = False
+    try:
+        eager = logged_wave(eng, prompts, MAX_NEW)
+    finally:
+        eng.cuda_graphs = True
+    eager_cells = eager[2]["spamm"]["per_layer"] == sp["per_layer"]
+    os.makedirs(OBS_DIR, exist_ok=True)
+    mpath = eng.obs.write_metrics(os.path.join(OBS_DIR, "metrics.prom"))
+    tpath = eng.obs.write_trace(os.path.join(OBS_DIR, "trace.json"))
+    text = open(mpath).read()
+    parsed = parse_prometheus(text)
+    reg = {m.name: m for m in eng.obs.registry.metrics()}
+    gemm_samples = parsed["spamm_gated_gemms_total"]["samples"]
+    round_trip = (set(parsed) == set(reg)
+                  and len(gemm_samples)
+                  == len(reg["spamm_gated_gemms_total"].series())
+                  and sum(gemm_samples.values()) == sum(
+                      reg["spamm_gated_gemms_total"].series().values())
+                  and parsed["serve_waves_total"]["samples"][
+                      "serve_waves_total"] == reg["serve_waves_total"].value())
+    with open(tpath) as f:
+        events = json.load(f)["traceEvents"]
+    span_names = {e["name"] for e in events if e["ph"] == "X"}
+
+    def numbers(ws):
+        return {k: [wave_numbers(w[0], w[2], w[4])[k] for w in ws]
+                for k in ("tok_per_s", "ttft_ms", "decode_ms_per_step")}
+
+    res = {"card": CARD, "run": f"c: tau={sct.tau:.6g}",
+           "on": numbers(waves["on"]), "off": numbers(waves["off"]),
+           "host_ms": host,
+           "tokens_equal": same_tokens,
+           "step_logits_bit_identical": same_logits,
+           "launches_equal": on[3] == of[3],
+           "nodes_per_replayed_decode_step": nodes,
+           "per_layer_cells": len(cells), "per_layer_complete": full,
+           "cells_sum_to_aggregates": sums_ok,
+           "graphed_cells_equal_eager": eager_cells,
+           "off_silent": ("latency" not in sp_off
+                          and "cost_residual" not in sp_off
+                          and off.obs.tracer.events == []),
+           "cost_residual": sp.get("cost_residual"),
+           "latency": sp["latency"],
+           "metrics_bytes": len(text.encode()), "metrics_series": sum(
+               len(m.series()) for m in reg.values()),
+           "prometheus_round_trip": round_trip,
+           "trace_events": len(events),
+           "spans": sum(e["ph"] == "X" for e in events),
+           "span_names": sorted(span_names)}
+    emit({"obs": res})
+    check(same_tokens and same_logits and res["launches_equal"],
+          "obs on and off differ in tokens, step logits or launches")
+    check(nodes["on"] == nodes["off"] > 0,
+          f"obs on and off replay different graphs: {nodes}")
+    check(full and len(cells) == cfg.num_layers * len(OBS_SITES)
+          and sums_ok and eager_cells,
+          f"per_layer: {len(cells)} cells, complete {full}, sums {sums} "
+          f"against the aggregates, graphed = eager {eager_cells}")
+    check(round_trip and set(OBS_SPANS) <= span_names
+          and res["off_silent"] and sp.get("cost_residual"),
+          "metrics dump, trace or obs=False: see the obs line")
+    del off
+    torch.cuda.empty_cache()
+    return res
 
 
 def profile_wave(label, eng, prompts):
@@ -1312,6 +1492,7 @@ def phase_serve():
           f"τ>0 launches {counts}")
     compare_graphed_eager(eng, prompts, "c")
     graph_breakdown(eng, params, "c")
+    phase_obs(cfg, pcfg, params, eng, prompts, sct)
     eng.cuda_graphs = False
     profile_wave(f"c: tau={tau:.6g}, eager", eng, prompts)
     eng.cuda_graphs = True
@@ -1417,10 +1598,18 @@ def phase_chunked(cfg, pcfg, params, sct):
     c0 = eng.chunk_steps
     toks, _, out, counts, dt = logged_wave(eng, prompts, MAX_NEW)
     sp = out["spamm"]
+    reg = {m.name: m for m in eng.obs.registry.metrics()}
+    obs_f = {"span_names": sorted(eng.obs.tracer.span_names()),
+             "prefill_chunk_spans": sum(
+                 e["name"] == "prefill_chunk" for e in eng.obs.tracer.events),
+             "serve_admissions_total": reg["serve_admissions_total"].value(),
+             "serve_prefill_chunks_total":
+                 reg["serve_prefill_chunks_total"].value(),
+             "cost_residual": sp.get("cost_residual")}
     emit({"serve": f"f: chunked tau={sct.tau:.6g}",
           **wave_numbers(toks, out, dt),
           "prefill_chunks": eng.chunk_steps - c0,
-          "admissions": eng.admissions,
+          "admissions": eng.admissions, "obs": obs_f,
           "prefill_valid_fraction": sp["valid_fraction"],
           "decode_valid_fraction": sp["decode_valid_fraction"],
           "gated_gemms": sp["gated_gemms"],
@@ -1434,6 +1623,11 @@ def phase_chunked(cfg, pcfg, params, sct):
     check(counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0
           and eng.trace_counts == {"prefill": 1, "decode": 1},
           f"run (f) launches {counts}, step keys {eng.trace_counts}")
+    check(obs_f["prefill_chunk_spans"] == eng.chunk_steps > 0
+          and obs_f["serve_prefill_chunks_total"] == eng.chunk_steps
+          and obs_f["serve_admissions_total"] == eng.admissions > 0,
+          f"run (f) obs: {obs_f}, chunks {eng.chunk_steps}, admissions "
+          f"{eng.admissions}")
     compare_graphed_eager(eng, prompts, "f")
     del eng
     torch.cuda.empty_cache()
@@ -2033,7 +2227,9 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD, flush=True)
     t0 = time.perf_counter()
     report = build.build_all()
     emit({"build": {"seconds": time.perf_counter() - t0,

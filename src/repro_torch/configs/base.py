@@ -39,8 +39,11 @@ class SpammConfig:
                                         # bucket per weight at freeze time;
                                         # the tuner is not ported (ROADMAP
                                         # queue A item 8): freezing raises
-    tune_profile: Optional[str] = None  # calibrated cost-profile JSON for
-                                        # the autotuner (not ported)
+    tune_profile: Optional[str] = None  # cost-profile JSON (`core.cost.
+                                        # CostProfile`): the coefficients
+                                        # of the engine's cost residual
+                                        # (and of the autotuner, not
+                                        # ported)
 
     @property
     def coarse_tile(self) -> int:

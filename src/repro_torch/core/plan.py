@@ -541,7 +541,8 @@ def _plan_frozen(a, fp, *, norm_a=None, use_mxu_norm: bool = False
     valid_tiles = active.sum(dtype=torch.int32)
     return SpammPlan(fp.tau, norm_a, fp.norm_b, nvalid, valid_tiles, work,
                      a_scale, fp.b_scale, tile=fp.tile, block_n=fp.block_n,
-                     backend=bk.name, compute_dtype=dtype)
+                     backend=bk.name, levels=fp.num_levels,
+                     compute_dtype=dtype)
 
 
 def dtype_norms(bk, x: torch.Tensor, dtype: str, tile: int,

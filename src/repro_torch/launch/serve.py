@@ -15,6 +15,11 @@ serves the same requests N times and reports the last wave: the first
 freezes the plans, so `--waves 2` times a warm wave. On the card the
 decode and chunk steps run as CUDA graphs; the report gives the step
 keys, the captures, their seconds and the graph pool's bytes.
+`--metrics-out FILE` writes the run's metrics registry as Prometheus text
+(per-(phase, layer, site) gated-GEMM series, TTFT and decode-step
+histograms, plan cache and store counters, the chunked plane's counters);
+`--trace-out FILE` writes its host spans as Chrome-trace JSON (load in
+Perfetto); either prints the registry's summary table at the end.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import numpy as np
 from repro_torch.configs import (BACKEND_NAMES, ParallelConfig, SpammConfig,
                                  get_config)
 from repro_torch.models import model as M
+from repro_torch.obs import Observability
 from repro_torch.serving.engine import Engine, Request
 
 
@@ -80,6 +86,16 @@ def main(argv=None):
                          "pass")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the run's metrics registry here as a "
+                         "Prometheus text dump (TTFT/decode latency "
+                         "histograms, per-layer gated-GEMM series, plan "
+                         "cache/store and chunked-plane counters)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the run's host-side spans here as Chrome-"
+                         "trace JSON (freeze, plan assembly, prefill, "
+                         "decode steps, prefill chunks, waves; load in "
+                         "Perfetto)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -95,10 +111,11 @@ def main(argv=None):
                                 levels=args.spamm_levels,
                                 backend=args.spamm_backend,
                                 dtype=args.spamm_dtype)
+    obs = Observability(process_name="repro-serve")
     eng = Engine(cfg, pcfg, params, max_len=args.max_len,
                  spamm_cfg=spamm_cfg, plan_store=args.plan_store,
                  prefill_chunk=args.prefill_chunk, max_slots=args.max_slots,
-                 device=args.device)
+                 device=args.device, obs=obs)
 
     rng = np.random.default_rng(args.seed)
     if args.mixed_lengths:
@@ -156,6 +173,12 @@ def main(argv=None):
           f"decode_keys={eng.trace_counts['decode']} "
           f"captures={g['captures']} capture_s={g['capture_s']:.2f} "
           f"graph_pool={pool}")
+    if args.metrics_out:
+        print(f"metrics -> {obs.write_metrics(args.metrics_out)}")
+    if args.trace_out:
+        print(f"trace -> {obs.write_trace(args.trace_out)}")
+    if args.metrics_out or args.trace_out:
+        print(obs.summary_table())
 
 
 if __name__ == "__main__":

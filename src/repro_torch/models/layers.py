@@ -3,7 +3,8 @@
 Parameters are plain dicts of tensors in the reference's layouts: GEMM
 weights are (K, N) and apply as `x @ w` (not nn.Linear's (N, K)), because
 the frozen plans' (k, j) tables are tiled on the (K, N) grid. Every gated
-GEMM routes through `core.module.maybe_spamm_matmul`.
+GEMM routes through `core.module.maybe_spamm_matmul`, labelled with its
+site ("w1", "w3", "w2") for the telemetry.
 """
 from __future__ import annotations
 
@@ -56,21 +57,22 @@ def mlp(params: dict, x: torch.Tensor, act: str, spamm_cfg=None, frozen=None,
     if act in ("silu", "gelu"):
         g = maybe_spamm_matmul(x, params["w1"].to(cdt), spamm_cfg,
                                frozen=fz.get("w1"),
-                               require_frozen=require_frozen)
+                               require_frozen=require_frozen, site="w1")
         u = maybe_spamm_matmul(x, params["w3"].to(cdt), spamm_cfg,
                                frozen=fz.get("w3"),
-                               require_frozen=require_frozen)
+                               require_frozen=require_frozen, site="w3")
         g = F.silu(g) if act == "silu" else _gelu(g)
         return maybe_spamm_matmul(g * u, params["w2"].to(cdt), spamm_cfg,
                                   frozen=fz.get("w2"),
-                                  require_frozen=require_frozen)
+                                  require_frozen=require_frozen, site="w2")
     if act == "gelu_mlp":
         h = _gelu(maybe_spamm_matmul(x, params["w1"].to(cdt), spamm_cfg,
                                      frozen=fz.get("w1"),
-                                     require_frozen=require_frozen))
+                                     require_frozen=require_frozen,
+                                     site="w1"))
         return maybe_spamm_matmul(h, params["w2"].to(cdt), spamm_cfg,
                                   frozen=fz.get("w2"),
-                                  require_frozen=require_frozen)
+                                  require_frozen=require_frozen, site="w2")
     raise ValueError(act)
 
 

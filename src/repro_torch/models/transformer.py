@@ -10,7 +10,10 @@ The decode step and the prefill chunk write their K/V into the
 preallocated cache IN PLACE (the reference updates a functional copy);
 nothing else is mutated. Positions are Python ints or int tensors on the
 device, never read on the host, so both steps can be captured in a CUDA
-graph (`serving/graphs.py`). Per-row positions at or past the cache length
+graph (`serving/graphs.py`). Each layer loop labels its gated GEMMs' taps
+with the layer index (`SpammContext.set_layer`, a Python int, so a capture
+records it as a host value) and each GEMM names its site ("wq", "wk",
+"wv", "wo"). Per-row positions at or past the cache length
 are sentinels whose writes drop, as the reference's
 `.at[].set(mode="drop")` does (`_row_writes`). MoE, SSM and hybrid stacks
 are not ported yet (ROADMAP queue A).
@@ -23,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
-from repro_torch.core.module import maybe_spamm_matmul
+from repro_torch.core.module import SpammContext, maybe_spamm_matmul
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (_normal, apply_rope, mlp, mlp_params,
                                        rms_norm)
@@ -55,7 +58,7 @@ def _qkv(p, x, cfg: ModelConfig, positions, spamm_cfg=None, frozen=None,
     fz = frozen or {}
     q, k, v = (maybe_spamm_matmul(x, p[name].to(cdt), spamm_cfg,
                                   frozen=fz.get(name),
-                                  require_frozen=require_frozen)
+                                  require_frozen=require_frozen, site=name)
                for name in ("wq", "wk", "wv"))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
@@ -75,7 +78,7 @@ def attention_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                                  q_chunk=pcfg.attn_q_chunk)
     o = o.reshape(*x.shape[:2], -1)
     out = maybe_spamm_matmul(o, p["wo"].to(x.dtype), spamm_cfg,
-                             frozen=(frozen or {}).get("wo"))
+                             frozen=(frozen or {}).get("wo"), site="wo")
     if return_kv:
         return out, (k, v)
     return out
@@ -145,7 +148,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                                   window=window, ring=ring)
     out = maybe_spamm_matmul(o.reshape(b, 1, hq * hd), p["wo"].to(x.dtype),
                              spamm_cfg, frozen=(frozen or {}).get("wo"),
-                             require_frozen=True)
+                             require_frozen=True, site="wo")
     return out, (cache_k, cache_v)
 
 
@@ -173,8 +176,16 @@ def attention_prefill_chunk(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                                  window=window, q_chunk=pcfg.attn_q_chunk,
                                  q_offset=positions[:, 0])
     out = maybe_spamm_matmul(o.reshape(b, c, hq * hd), p["wo"].to(x.dtype),
-                             spamm_cfg, frozen=(frozen or {}).get("wo"))
+                             spamm_cfg, frozen=(frozen or {}).get("wo"),
+                             site="wo")
     return out, (cache_k, cache_v)
+
+
+def _tap_ctx(spamm_cfg) -> Optional[SpammContext]:
+    """The SpammContext behind what the stack threads, for the layer
+    labels (`set_layer`); None when taps cannot be labelled (a raw
+    SpammConfig builds a throwaway context per GEMM)."""
+    return spamm_cfg if isinstance(spamm_cfg, SpammContext) else None
 
 
 def stack_kinds(cfg: ModelConfig) -> str:
@@ -254,16 +265,23 @@ def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     (token t at slot t % W)."""
     s = x.shape[1]
     fz_layers = (frozen or {}).get("layers")
+    tctx = _tap_ctx(spamm_cfg)
     caches = []
-    for li, p in enumerate(params["layers"]):
-        x, c = layer_fwd(p, x, cfg, pcfg, positions, spamm_cfg=spamm_cfg,
-                         collect_cache=True,
-                         frozen=fz_layers[li] if fz_layers else None)
-        if c["k"].shape[1] > cache_len:
-            shift = s % cache_len
-            c = {n: torch.roll(c[n][:, -cache_len:], shift, dims=1)
-                 for n in ("k", "v")}
-        caches.append(c)
+    try:
+        for li, p in enumerate(params["layers"]):
+            if tctx is not None:
+                tctx.set_layer(li)
+            x, c = layer_fwd(p, x, cfg, pcfg, positions, spamm_cfg=spamm_cfg,
+                             collect_cache=True,
+                             frozen=fz_layers[li] if fz_layers else None)
+            if c["k"].shape[1] > cache_len:
+                shift = s % cache_len
+                c = {n: torch.roll(c[n][:, -cache_len:], shift, dims=1)
+                     for n in ("k", "v")}
+            caches.append(c)
+    finally:
+        if tctx is not None:
+            tctx.set_layer(None)
     return x, {"layers": caches}
 
 
@@ -278,12 +296,19 @@ def stack_prefill_chunk(params: dict, x: torch.Tensor, cache: dict,
     boundary."""
     stack_kinds(cfg)
     fz_layers = (frozen or {}).get("layers")
+    tctx = _tap_ctx(spamm_cfg)
     caches = []
-    for li, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
-        x, nc = layer_prefill_chunk(
-            p, x, c, positions, cfg, pcfg, spamm_cfg=spamm_cfg,
-            frozen=fz_layers[li] if fz_layers else None)
-        caches.append(nc)
+    try:
+        for li, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
+            if tctx is not None:
+                tctx.set_layer(li)
+            x, nc = layer_prefill_chunk(
+                p, x, c, positions, cfg, pcfg, spamm_cfg=spamm_cfg,
+                frozen=fz_layers[li] if fz_layers else None)
+            caches.append(nc)
+    finally:
+        if tctx is not None:
+            tctx.set_layer(None)
     return x, {"layers": caches}
 
 
@@ -295,9 +320,17 @@ def stack_decode(params: dict, x: torch.Tensor, cache: dict, pos,
     need a FrozenPlan; sites without one stay dense (require_frozen in
     `layer_decode`)."""
     fz_layers = (frozen or {}).get("layers")
+    tctx = _tap_ctx(spamm_cfg)
     caches = []
-    for li, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
-        x, nc = layer_decode(p, x, c, pos, cfg, pcfg, spamm_cfg=spamm_cfg,
-                             frozen=fz_layers[li] if fz_layers else None)
-        caches.append(nc)
+    try:
+        for li, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
+            if tctx is not None:
+                tctx.set_layer(li)
+            x, nc = layer_decode(p, x, c, pos, cfg, pcfg,
+                                 spamm_cfg=spamm_cfg,
+                                 frozen=fz_layers[li] if fz_layers else None)
+            caches.append(nc)
+    finally:
+        if tctx is not None:
+            tctx.set_layer(None)
     return x, {"layers": caches}

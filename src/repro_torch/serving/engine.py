@@ -29,8 +29,23 @@ default, `cuda_graphs=True`) each key is captured once as a CUDA graph
 and replayed; `cuda_graphs=False` runs the same steps eagerly, for
 comparison. `trace_counts` counts the captures (on the CPU, the first use
 of each key). The wave's one-shot prefill stays eager: it runs once per
-wave at a new shape. The pod-sharded mode, re-sharding and the
-observability bundle are not ported yet (ROADMAP queue A).
+wave at a new shape. The pod-sharded mode and re-sharding are not ported
+yet (ROADMAP queue A).
+
+Telemetry (`obs`, a `repro_torch.obs.Observability` bundle), all on the
+host: every gated GEMM's tap carries its phase, site and layer, so
+`Request.out["spamm"]["per_layer"]` breaks the wave's valid fractions,
+counts and GEMM bytes down per (layer, site); the registry gets the
+reference's metrics after the wave's one `end_stats()` transfer; the span
+tracer records freeze, plan_assembly, prefill, decode_step, prefill_chunk
+and wave spans, each closed at the loop's existing blocking point; the
+cost-residual channel pairs each phase's predicted seconds (from the
+frozen GEMMs' static cost terms, recorded at the call or the capture, and
+their drained fractions and bytes) with the measured TTFT and decode
+time. Labels and cost terms are host values recorded beside the taps: a
+step runs the same device ops, and a CUDA graph captures the same nodes,
+with `obs` on or off. `obs=False` is the hard-off A/B baseline: no spans,
+no latency block under `out["spamm"]`, no cost terms; tokens are the same.
 """
 from __future__ import annotations
 
@@ -42,12 +57,35 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.core import cost as _cost
 from repro_torch.core import module as spmod
 from repro_torch.core.cost import bucket
 from repro_torch.device import f32_numerics, resolve_device
+from repro_torch.kernels.ops import resolve_backend
 from repro_torch.models import model as M
 from repro_torch.models.transformer import stack_kinds
+from repro_torch.obs import (FRACTION_BUCKETS, LATENCY_BUCKETS_S, Histogram,
+                             Observability)
 from repro_torch.serving.graphs import StepGraph, pool_bytes
+
+# queue depth and slot occupancy of the chunked plane, per iteration
+COUNT_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0)
+
+
+def wave_latency(ttft_s, decode_lat) -> dict:
+    """A wave's latency block: TTFT, the decode-step count and, with at
+    least one step, the mean and the p50/p95 interpolated from a
+    wave-local histogram on the registry's latency ladder (the reference's
+    `decode_p50_s`/`decode_p95_s`)."""
+    lat = {"ttft_s": ttft_s, "decode_steps": len(decode_lat)}
+    if decode_lat:
+        h = Histogram("wave_decode_step_seconds", buckets=LATENCY_BUCKETS_S)
+        for v in decode_lat:
+            h.observe(v)
+        lat["decode_mean_s"] = float(np.mean(decode_lat))
+        lat["decode_p50_s"] = h.quantile(0.5)
+        lat["decode_p95_s"] = h.quantile(0.95)
+    return lat
 
 
 def _floor_pow2(n: int) -> int:
@@ -64,7 +102,8 @@ class Request:
     eos_id: Optional[int] = None
     out: Optional[dict] = None   # set by Engine.generate: {"tokens",
                                  # "spamm" (gating stats or None),
-                                 # "latency" (host wall-clock of the wave)}
+                                 # "latency" (host wall-clock of the wave,
+                                 # `Engine._latency`)}
 
 
 class Engine:
@@ -84,13 +123,16 @@ class Engine:
     captured) runs decode and chunk steps as CUDA graphs on the card;
     False runs the same steps eagerly. It may be switched between waves,
     so one engine (one freeze, the same frozen plans) can serve a wave
-    both ways for comparison; each mode keeps its own steps."""
+    both ways for comparison; each mode keeps its own steps.
+    `obs`: an `Observability` bundle to share (the CLI passes one, so its
+    dump covers the run), None for a private enabled bundle, False for
+    hard-off (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, pcfg: ParallelConfig, params, *,
                  max_len: int = 512, spamm_cfg=None, plan_store=None,
                  prefill_chunk: Optional[int] = None,
                  max_slots: Optional[int] = None, cuda_graphs: bool = True,
-                 device="cuda"):
+                 device="cuda", obs=None):
         self.device = resolve_device(device)
         f32_numerics()
         emb = params["embed"]["embedding"]
@@ -140,6 +182,69 @@ class Engine:
         self.trace_counts = {"prefill": 0, "decode": 0}
         self.chunk_steps = 0      # chunked-prefill steps, all waves
         self.admissions = 0       # requests admitted into a slot
+        self.obs = Observability.ensure(obs, process_name="repro-engine")
+        if self._gated and self.obs.enabled:
+            # cost coefficients resolve once, before the first capture,
+            # from the tune profile (or the nominal table) for the backend
+            # and card the engine runs on
+            scfg = self.spamm_ctx.cfg
+            prof = _cost.CostProfile.load_or_default(
+                getattr(scfg, "tune_profile", None))
+            self.spamm_ctx.enable_cost_taps(prof.coeffs(
+                resolve_backend(scfg.backend, self.device),
+                _cost.device_kind(self.device)))
+        if self.obs.enabled:
+            self._register_metrics()
+
+    def _register_metrics(self):
+        """The reference engine's metrics, names, labels and buckets
+        (those of the re-sharder and the sharded engine are not ported)."""
+        reg = self.obs.registry
+        self._m_ttft = reg.histogram(
+            "serve_ttft_seconds", labelnames=(),
+            help="wave start to first-token available (includes plan "
+                 "assembly + prefill dispatch + execution)",
+            buckets=LATENCY_BUCKETS_S)
+        self._m_decode_s = reg.histogram(
+            "serve_decode_step_seconds", labelnames=(),
+            help="inter-token latency per decode step",
+            buckets=LATENCY_BUCKETS_S)
+        self._m_vf = reg.histogram(
+            "spamm_valid_fraction", labelnames=("phase", "layer", "site"),
+            help="per-execution gated-GEMM valid fraction",
+            buckets=FRACTION_BUCKETS)
+        self._m_gemms = reg.counter(
+            "spamm_gated_gemms_total", labelnames=("phase", "layer", "site"),
+            help="gated GEMM executions")
+        self._m_bytes = reg.counter(
+            "spamm_gemm_bytes_total",
+            labelnames=("phase", "layer", "site", "dtype"),
+            help="analytic GEMM bytes moved by the executed work-lists")
+        self._m_waves = reg.counter(
+            "serve_waves_total", help="request waves served")
+        self._m_tokens = reg.counter(
+            "serve_tokens_total", help="tokens emitted")
+        self._m_cache = reg.counter(
+            "spamm_plan_cache_total", labelnames=("result",),
+            help="WeightPlanCache hits/misses")
+        self._m_store = reg.counter(
+            "spamm_plan_store_total", labelnames=("result",),
+            help="on-disk PlanStore hits/misses")
+        self._m_admit = reg.counter(
+            "serve_admissions_total",
+            help="requests admitted into a slot (chunked scheduler)")
+        self._m_chunks = reg.counter(
+            "serve_prefill_chunks_total",
+            help="chunked-prefill steps executed (each advances every "
+                 "prefilling slot by prefill_chunk tokens)")
+        self._m_queue = reg.histogram(
+            "serve_queue_depth", labelnames=(),
+            help="requests waiting for a slot, sampled per scheduler "
+                 "iteration (chunked mode)", buckets=COUNT_BUCKETS)
+        self._m_occupancy = reg.histogram(
+            "serve_slot_occupancy", labelnames=(),
+            help="live slots per scheduler iteration (chunked mode)",
+            buckets=COUNT_BUCKETS)
 
     # -- frozen-plan assembly ------------------------------------------------
     def _frozen_for(self, rows: int) -> dict:
@@ -153,7 +258,8 @@ class Engine:
         if hit is not None:
             return hit
         self._ensure_fw_tree()
-        return self._assemble_frozen(gm)
+        with self.obs.span("plan_assembly", gm=gm):
+            return self._assemble_frozen(gm)
 
     def _assemble_frozen(self, gm: int) -> dict:
         def specialize(node):
@@ -173,9 +279,10 @@ class Engine:
         if self._fw_tree is None:
             from repro_torch.plans.precompute import freeze_tree
 
-            self._fw_tree, _ = freeze_tree(
-                self.params, self.spamm_ctx.cfg, cache=self.spamm_ctx.cache,
-                store=self.plan_store)
+            with self.obs.span("freeze", store=self.plan_store is not None):
+                self._fw_tree, _ = freeze_tree(
+                    self.params, self.spamm_ctx.cfg,
+                    cache=self.spamm_ctx.cache, store=self.plan_store)
 
     # -- step graphs ---------------------------------------------------------
     def _static_cache(self, key, batch: int, full: bool) -> dict:
@@ -289,18 +396,43 @@ class Engine:
                 dst[n][:, s:].zero_()
         return into
 
-    def _spamm_stats(self, taps, store0=None) -> dict:
-        """Per-wave gating stats: mean valid fraction and gated-GEMM count
-        per phase, the configured compute dtype, the GEMM bytes moved per
-        phase (sums over the frozen GEMMs' taps), and with a plan store its
-        hits and misses during this wave (deltas from `store0`, the
-        counters at the wave's start: a warm second wave reports 0/0)."""
+    def _counters0(self):
+        """(plan-cache, plan-store) counters at a wave's start, whose
+        deltas `_spamm_stats` reports."""
+        cache = (self.spamm_ctx.cache.hits, self.spamm_ctx.cache.misses)
+        store = (None if self.plan_store is None
+                 else (self.plan_store.hits, self.plan_store.misses))
+        return cache, store
+
+    def _spamm_stats(self, taps, cache0, store0=None, ttft_s=None,
+                     decode_lat=()) -> dict:
+        """Per-wave gating stats, as the reference's engine reports them:
+        mean valid fraction and gated-GEMM count per phase, the configured
+        compute dtype, the GEMM bytes moved per phase (sums over the frozen
+        GEMMs' taps), the plan cache's and (with a plan store) the store's
+        hits and misses during this wave (deltas from `cache0`/`store0`,
+        the counters at the wave's start), and:
+
+        - `per_layer`: {layer: {site: cell}} over the same taps — fractions
+          average, counts and bytes sum within each (layer, site) cell, so
+          the cells' counts sum to the aggregates; taps without a layer
+          label (layer < 0) stay in the aggregates only.
+        - `latency` (obs on): `wave_latency(ttft_s, decode_lat)`.
+        - `cost_residual` (obs on, cost taps armed): per phase, the
+          predicted seconds summed over the wave's frozen GEMMs, the
+          measured seconds (TTFT for prefill, the decode steps' sum for
+          decode) and log2(measured / predicted), where both are positive.
+
+        With obs on, the registry gets the taps (per-(phase, layer, site)
+        fraction histogram, GEMM and byte counters) and the cache and store
+        deltas."""
         pre = [t.value for t in taps if t.phase != "decode"]
         dec = [t.value for t in taps if t.phase == "decode"]
         pre_b = [t.nbytes for t in taps
                  if t.phase != "decode" and t.nbytes is not None]
         dec_b = [t.nbytes for t in taps
                  if t.phase == "decode" and t.nbytes is not None]
+        cache = self.spamm_ctx.cache
         stats = {
             "valid_fraction": float(np.mean(pre)) if pre else None,
             "gated_gemms": len(pre),
@@ -310,19 +442,85 @@ class Engine:
             "gemm_bytes_moved": float(np.sum(pre_b)) if pre_b else None,
             "decode_gemm_bytes_moved": (float(np.sum(dec_b)) if dec_b
                                         else None),
+            "plan_cache_hits": cache.hits - cache0[0],
+            "plan_cache_misses": cache.misses - cache0[1],
         }
         if store0 is not None:
             stats["plan_store_hits"] = self.plan_store.hits - store0[0]
             stats["plan_store_misses"] = self.plan_store.misses - store0[1]
+        acc: dict = {}
+        for t in taps:
+            if t.layer < 0:
+                continue
+            a = acc.setdefault((t.layer, t.site or ""), [0.0, 0, 0.0, 0, 0.0])
+            if t.phase == "decode":
+                a[2] += t.value
+                a[3] += 1
+            else:
+                a[0] += t.value
+                a[1] += 1
+            if t.nbytes is not None:
+                a[4] += t.nbytes
+        per_layer: dict = {}
+        for (layer, site), a in sorted(acc.items()):
+            per_layer.setdefault(layer, {})[site] = {
+                "valid_fraction": a[0] / a[1] if a[1] else None,
+                "gated_gemms": a[1],
+                "decode_valid_fraction": a[2] / a[3] if a[3] else None,
+                "decode_gated_gemms": a[3],
+                "gemm_bytes_moved": a[4] if a[4] else None,
+            }
+        stats["per_layer"] = per_layer
+        if not self.obs.enabled:
+            return stats
+        decode_lat = list(decode_lat)
+        if ttft_s is not None or decode_lat:
+            stats["latency"] = wave_latency(ttft_s, decode_lat)
+        cost = [t for t in taps if t.predicted_s is not None]
+        if cost:
+            pred_pre = sum(t.predicted_s for t in cost if t.phase != "decode")
+            pred_dec = sum(t.predicted_s for t in cost if t.phase == "decode")
+            meas_dec = float(np.sum(decode_lat)) if decode_lat else 0.0
+            cres = {}
+            for phase, pred, meas in (("prefill", pred_pre, ttft_s or 0.0),
+                                      ("decode", pred_dec, meas_dec)):
+                if pred > 0.0 and meas > 0.0:
+                    r = self.obs.residual.record(phase, pred, meas)
+                    cres[phase] = {"predicted_s": pred, "measured_s": meas,
+                                   "log2_ratio": r}
+            if cres:
+                stats["cost_residual"] = cres
+        # one histogram sample per tap; the counters take each
+        # (phase, layer, site) cell's sums, the reference's per-tap values
+        # to the bit (counts and bytes are integers)
+        cells: dict = {}
+        for t in taps:
+            site = t.site or ""
+            self._m_vf.observe(t.value, phase=t.phase, layer=t.layer,
+                               site=site)
+            c = cells.setdefault((t.phase, t.layer, site), [0, None])
+            c[0] += 1
+            if t.nbytes is not None:
+                c[1] = (c[1] or 0.0) + t.nbytes
+        dtype = stats["compute_dtype"]
+        for (phase, layer, site), (n, nbytes) in cells.items():
+            self._m_gemms.inc(n, phase=phase, layer=layer, site=site)
+            if nbytes is not None:
+                self._m_bytes.inc(nbytes, phase=phase, layer=layer, site=site,
+                                  dtype=dtype)
+        self._m_cache.inc(stats["plan_cache_hits"], result="hit")
+        self._m_cache.inc(stats["plan_cache_misses"], result="miss")
+        if store0 is not None:
+            self._m_store.inc(stats["plan_store_hits"], result="hit")
+            self._m_store.inc(stats["plan_store_misses"], result="miss")
         return stats
 
     @staticmethod
     def _latency(ttft_s, decode_lat) -> dict:
-        return {"ttft_s": ttft_s, "decode_steps": len(decode_lat),
-                "decode_mean_s": (float(np.mean(decode_lat))
-                                  if decode_lat else None),
-                "decode_p50_s": (float(np.median(decode_lat))
-                                 if decode_lat else None)}
+        """`Request.out["latency"]`, with obs on or off: `wave_latency`,
+        its decode keys None when no decode step ran."""
+        return {"decode_mean_s": None, "decode_p50_s": None,
+                "decode_p95_s": None, **wave_latency(ttft_s, decode_lat)}
 
     # -- dispatch ------------------------------------------------------------
     def _default_chunk(self) -> int:
@@ -372,21 +570,26 @@ class Engine:
         sequence finishes. Latency is read at the loop's own blocking
         point (copying the step's tokens to the host), no extra syncs:
         TTFT from wave start (plan assembly included) to the first token on
-        the host, one decode latency per later step."""
+        the host, one decode latency per later step. With obs on, the
+        prefill and each decode step's span opens at dispatch and closes
+        at that blocking point (`SpanTracer.add_complete`)."""
         b = len(requests)
         plen = len(requests[0].prompt)
         toks = np.stack([r.prompt for r in requests]).astype(np.int32)
-        store0 = (None if self.plan_store is None
-                  else (self.plan_store.hits, self.plan_store.misses))
-        t_wave0 = time.perf_counter()
+        obs_on = self.obs.enabled
+        if self._gated:
+            cache0, store0 = self._counters0()
+        t_wave0 = time.perf_counter_ns()
         frozen_pre = self._frozen_for(b * plen)
         outs = [[] for _ in range(b)]
         ttft_s, decode_lat, taps = None, [], []
+        pend = None      # (span name, t0 ns) of a dispatched, unread step
         if self._gated:
             self.spamm_ctx.begin_stats()
             self.spamm_ctx.set_phase("prefill")
         try:
             with torch.inference_mode():
+                pend = ("prefill", time.perf_counter_ns())
                 cache, logits = self._prefill(
                     self.params,
                     {"tokens": torch.as_tensor(toks, device=self.device)},
@@ -400,14 +603,21 @@ class Engine:
                 budget = max(r.max_new_tokens for r in requests)
                 if self._gated:
                     self.spamm_ctx.set_phase("decode")
-                t_step = None
-                for _ in range(budget):
+                for t in range(budget):
                     vis = cur.cpu().numpy()   # blocks on the previous step
-                    now = time.perf_counter()
-                    if t_step is None:
-                        ttft_s = now - t_wave0
+                    t1 = time.perf_counter_ns()
+                    name, t0 = pend
+                    pend = None
+                    if name == "prefill":
+                        ttft_s = (t1 - t_wave0) / 1e9
                     else:
-                        decode_lat.append(now - t_step)
+                        decode_lat.append((t1 - t0) / 1e9)
+                    if obs_on:
+                        self.obs.tracer.add_complete(name, t0, t1, step=t)
+                        if name == "prefill":
+                            self._m_ttft.observe(ttft_s)
+                        else:
+                            self._m_decode_s.observe(decode_lat[-1])
                     for i, r in enumerate(requests):
                         if not done[i]:
                             outs[i].append(int(vis[i]))
@@ -417,7 +627,7 @@ class Engine:
                                 done[i] = True
                     if done.all() or pos >= self.max_len - 1:
                         break
-                    t_step = time.perf_counter()
+                    pend = ("decode_step", time.perf_counter_ns())
                     cur = self._wave_decode_step(b)(tokens=cur,
                                                     pos=pos)["tokens"]
                     pos += 1
@@ -425,9 +635,28 @@ class Engine:
             if self._gated:
                 taps = self.spamm_ctx.end_stats()
                 self.spamm_ctx.set_phase("prefill")
-        spamm_meta = self._spamm_stats(taps, store0) if self._gated else None
+            if pend is not None and obs_on:
+                # a step still in flight: its span closes now, unblocked,
+                # and stays out of the latency measurements
+                self.obs.tracer.add_complete(pend[0], pend[1],
+                                             time.perf_counter_ns())
+        spamm_meta = (self._spamm_stats(taps, cache0, store0, ttft_s,
+                                        decode_lat) if self._gated else None)
+        return self._finish_wave(requests, outs, spamm_meta, ttft_s,
+                                 decode_lat, t_wave0, batch=b,
+                                 prompt_len=plen)
+
+    def _finish_wave(self, requests, outs, spamm_meta, ttft_s, decode_lat,
+                     t_wave0, **span_args) -> List[np.ndarray]:
+        """Set each request's `out`; with obs on, close the wave's span and
+        count the wave and its tokens."""
         latency = self._latency(ttft_s, decode_lat)
         results = [np.asarray(o, np.int32) for o in outs]
+        if self.obs.enabled:
+            self.obs.tracer.add_complete("wave", t_wave0,
+                                         time.perf_counter_ns(), **span_args)
+            self._m_waves.inc()
+            self._m_tokens.inc(sum(len(o) for o in results))
         for r, toks_out in zip(requests, results):
             r.out = {"tokens": toks_out, "spamm": spamm_meta,
                      "latency": latency}
@@ -458,12 +687,15 @@ class Engine:
         max_new_tokens / pos >= max_len - 1 at emit time). The pool's
         cache is zeroed at the start, as a fresh one would be. TTFT is the
         first finished prefill on the host; one decode latency per decode
-        step, dispatch to its tokens on the host."""
+        step, dispatch to its tokens on the host. With obs on, each chunk
+        and decode step's span closes when its tokens reach the host, and
+        the queue depth and slot occupancy are sampled per iteration."""
         b = len(requests)
         nslots = self._slot_count(b)
-        store0 = (None if self.plan_store is None
-                  else (self.plan_store.hits, self.plan_store.misses))
-        t_wave0 = time.perf_counter()
+        obs_on = self.obs.enabled
+        if self._gated:
+            cache0, store0 = self._counters0()
+        t_wave0 = time.perf_counter_ns()
         outs: List[list] = [[] for _ in range(b)]
         queue = list(range(b))
         slot_req = [-1] * nslots       # request index per slot, -1 when idle
@@ -482,6 +714,8 @@ class Engine:
                     layer["k"].zero_()
                     layer["v"].zero_()
                 while queue or any(m != "idle" for m in mode):
+                    if obs_on:
+                        self._m_queue.observe(len(queue))
                     # -- admission: queued requests claim idle slots ------
                     for s in range(nslots):
                         if mode[s] == "idle" and queue:
@@ -490,6 +724,11 @@ class Engine:
                             cursor[s] = pos[s] = 0
                             pending[s] = None
                             self.admissions += 1
+                            if obs_on:
+                                self._m_admit.inc()
+                    if obs_on:
+                        self._m_occupancy.observe(
+                            sum(m != "idle" for m in mode))
                     # -- one chunk of prefill over the prefilling slots ---
                     if any(m == "prefill" for m in mode):
                         tk = np.zeros((nslots, chunk), np.int32)
@@ -513,16 +752,23 @@ class Engine:
                                 fin.append(s)
                         if self._gated:
                             self.spamm_ctx.set_phase("prefill")
+                        t0 = time.perf_counter_ns()
                         step_tok = self._chunk_step(nslots, chunk)(
                             tokens=tk, positions=posc,
                             last_idx=last)["tokens"].cpu().numpy()
                         self.chunk_steps += 1
+                        if obs_on:
+                            self.obs.tracer.add_complete(
+                                "prefill_chunk", t0, time.perf_counter_ns())
+                            self._m_chunks.inc()
                         for s in fin:
                             mode[s] = "decode"
                             pos[s] = len(requests[slot_req[s]].prompt)
                             pending[s] = int(step_tok[s])
                         if fin and ttft_s is None:
-                            ttft_s = time.perf_counter() - t_wave0
+                            ttft_s = (time.perf_counter_ns() - t_wave0) / 1e9
+                            if obs_on:
+                                self._m_ttft.observe(ttft_s)
                     # -- emit pending tokens; finished slots free ---------
                     for s in range(nslots):
                         if mode[s] != "decode" or pending[s] is None:
@@ -545,10 +791,15 @@ class Engine:
                             posv[s] = pos[s]
                         if self._gated:
                             self.spamm_ctx.set_phase("decode")
-                        t0 = time.perf_counter()
+                        t0 = time.perf_counter_ns()
                         step_tok = self._slot_decode_step(nslots)(
                             tokens=cur, positions=posv)["tokens"].cpu().numpy()
-                        decode_lat.append(time.perf_counter() - t0)
+                        t1 = time.perf_counter_ns()
+                        decode_lat.append((t1 - t0) / 1e9)
+                        if obs_on:
+                            self.obs.tracer.add_complete("decode_step", t0,
+                                                         t1)
+                            self._m_decode_s.observe(decode_lat[-1])
                         for s in dec:
                             pending[s] = int(step_tok[s])
                             pos[s] += 1
@@ -556,10 +807,8 @@ class Engine:
             if self._gated:
                 taps = self.spamm_ctx.end_stats()
                 self.spamm_ctx.set_phase("prefill")
-        spamm_meta = self._spamm_stats(taps, store0) if self._gated else None
-        latency = self._latency(ttft_s, decode_lat)
-        results = [np.asarray(o, np.int32) for o in outs]
-        for r, toks_out in zip(requests, results):
-            r.out = {"tokens": toks_out, "spamm": spamm_meta,
-                     "latency": latency}
-        return results
+        spamm_meta = (self._spamm_stats(taps, cache0, store0, ttft_s,
+                                        decode_lat) if self._gated else None)
+        return self._finish_wave(requests, outs, spamm_meta, ttft_s,
+                                 decode_lat, t_wave0, batch=b, slots=nslots,
+                                 chunk=chunk)

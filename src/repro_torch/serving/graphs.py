@@ -15,16 +15,21 @@ Anything that needs the host inside the step (a sync, a host read, a
 copy from host memory) makes the capture fail, and the failure raises:
 nothing falls back to running the step eagerly. With `capture=False` (the
 CPU, or an engine built with `cuda_graphs=False`), every call runs
-`body()` eagerly on the same buffers.
+`body()` eagerly on the same buffers. A captured step keeps its graph's
+topology beside the instantiated graph, so `nodes()` reads the exact count
+of device nodes (kernels, copies, fills) a replay runs from the driver.
 
 Python runs only at capture, so two things Python counts are carried over
 to replays. The kernel wrappers' launch counters (`kernels.getnorm`,
 `kernels.spamm_mm`) grow during the capture; the step keeps that growth
 and adds it at each replay, so a graphed step reports the launches an
 eager one does. The SpAMM context's taps are recorded during the capture
-(their tensors become graph outputs in the pool); each replay appends a
-device-side copy of them as one block (`SpammContext.tap_block`), with no
-host read.
+(their tensors become graph outputs in the pool), and so are their host
+labels — phase, site, layer and the static cost terms — in capture order;
+each replay appends a device-side copy of the values as one block with
+those labels (`SpammContext.tap_block`), with no host read. A replay runs
+no Python, so labels read at replay time would be whatever ran last; the
+capture's are the step's own.
 """
 from __future__ import annotations
 
@@ -87,7 +92,7 @@ class StepGraph:
         self.capture_s: Optional[float] = None
         self._graph = None
         self._launches = None      # counter growth during the capture
-        self._taps = None          # (values, nbytes, has_nbytes) or None
+        self._taps = None          # (values, nbytes, has_nbytes, labels)
         self._host: Dict[str, torch.Tensor] = {}
         self._staged = None        # event after the last host-to-device copy
 
@@ -104,11 +109,28 @@ class StepGraph:
         self._graph.replay()
         _add_counters(self._launches)
         if self._taps is not None:
-            vals, nbytes, has = self._taps
+            vals, nbytes, has, labels = self._taps
             self.spamm_ctx.tap_block(
                 vals.clone(), None if nbytes is None else nbytes.clone(),
-                has)
+                has, labels)
         return self.outputs
+
+    def nodes(self) -> Optional[int]:
+        """Device nodes of the captured graph (the CUDA driver's
+        `cuGraphGetNodes`), or None before a capture."""
+        if self._graph is None:
+            return None
+        import ctypes
+
+        get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+        get_nodes.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.POINTER(ctypes.c_size_t))
+        get_nodes.restype = ctypes.c_int
+        n = ctypes.c_size_t(0)
+        rc = get_nodes(self._graph.raw_cuda_graph(), None, ctypes.byref(n))
+        if rc != 0:
+            raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+        return n.value
 
     def _stage(self, values):
         """Host values reach the card through pinned staging buffers and
@@ -147,11 +169,12 @@ class StepGraph:
             self.body()
         torch.cuda.current_stream().wait_stream(side)
         _set_counters(before)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         with _recording(ctx) as taps:
             with torch.cuda.graph(graph, pool=self.pool):
                 self.outputs = self.body()
                 self._taps = _stack_taps(taps)
+        graph.instantiate()
         after = read_counters()
         self._launches = [a - b for a, b in zip(after, before)]
         _set_counters(before)
@@ -166,8 +189,9 @@ def _recording(ctx):
 
 
 def _stack_taps(taps):
-    """The recorded taps as (values (n,), nbytes (m,) or None, has_nbytes)
-    — device ops, so inside a capture they become graph nodes — or None."""
+    """The recorded taps as (values (n,), nbytes (m,) or None, has_nbytes,
+    labels) — the stacks are device ops, so inside a capture they become
+    graph nodes; the labels are host values — or None."""
     if not taps:
         return None
     vals = torch.stack([torch.as_tensor(v).float().reshape(())
@@ -175,7 +199,8 @@ def _stack_taps(taps):
     has = tuple(b is not None for _, _, b in taps)
     nb = [torch.as_tensor(b).float().reshape(()) for _, _, b in taps
           if b is not None]
-    return vals, (torch.stack(nb) if nb else None), has
+    labels = tuple(lab for lab, _, _ in taps)
+    return vals, (torch.stack(nb) if nb else None), has, labels
 
 
 def pool_bytes(pool) -> Optional[int]:

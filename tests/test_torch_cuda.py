@@ -902,14 +902,26 @@ def _graph_prompts(cfg, plane):
     return [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lengths]
 
 
-def _graph_engine(cfg, pcfg, params, tau, dtype, plane, max_slots=2):
+def _graph_engine(cfg, pcfg, params, tau, dtype, plane, max_slots=2,
+                  obs=None):
     from repro_torch.configs import SpammConfig
     from repro_torch.serving.engine import Engine
 
     sc = SpammConfig(enable=True, tau=tau, tile=GRAPH_TILE, dtype=dtype)
     kw = ({} if plane == "wave"
           else {"prefill_chunk": GRAPH_TILE, "max_slots": max_slots})
-    return Engine(cfg, pcfg, params, max_len=64, spamm_cfg=sc, **kw)
+    return Engine(cfg, pcfg, params, max_len=64, spamm_cfg=sc, obs=obs,
+                  **kw)
+
+
+def _timing_free(sp):
+    """A wave's spamm stats without its host-clock measurements: no
+    latency block, and of the cost residual only the predicted seconds."""
+    sp = {k: v for k, v in sp.items() if k != "latency"}
+    if "cost_residual" in sp:
+        sp["cost_residual"] = {ph: c["predicted_s"]
+                               for ph, c in sp["cost_residual"].items()}
+    return sp
 
 
 def _graph_run(eng, prompts, max_new=4):
@@ -968,9 +980,45 @@ def test_graphed_engine_equals_eager_on_card(served, plane, dtype, gated):
         assert len(run[1]) == len(eager[1])
         for got, want in zip(run[1], eager[1]):
             assert torch.equal(got, want)
-        assert run[2] == sp
+        assert _timing_free(run[2]) == _timing_free(sp)
         assert run[3] == eager[3]
     assert sum(eager[3]) > 0
+
+
+@pytest.mark.parametrize("plane", ["wave", "chunked"])
+def test_obs_on_and_off_graphed_bit_identical_on_card(served, plane):
+    """Graphed waves with obs on and with obs=False: tokens, every step's
+    logits and launch counts bit for bit, the same gating stats (obs=False
+    has no latency block and no cost channel), the same device nodes per
+    replayed step (labels and cost terms are host values), no span off;
+    and the graphed per_layer is the eager one's."""
+    cfg, pcfg, params, tau = served
+    prompts = _graph_prompts(cfg, plane)
+    engines = {"on": _graph_engine(cfg, pcfg, params, tau, "float32", plane),
+               "off": _graph_engine(cfg, pcfg, params, tau, "float32", plane,
+                                    obs=False)}
+    runs = {}
+    for name, eng in engines.items():
+        _graph_run(eng, prompts)                  # captures
+        runs[name] = _graph_run(eng, prompts)     # replays
+    on, off = runs["on"], runs["off"]
+    assert on[0] == off[0] and on[3] == off[3] and len(on[1]) == len(off[1])
+    for a, b in zip(on[1], off[1]):
+        assert torch.equal(a, b)
+    assert "latency" in on[2] and "cost_residual" in on[2]
+    assert "latency" not in off[2] and "cost_residual" not in off[2]
+    assert off[2] == {k: v for k, v in on[2].items()
+                      if k not in ("latency", "cost_residual")}
+    assert engines["off"].obs.tracer.events == []
+    keys = [k for k in engines["on"]._steps if k[1]]
+    assert keys and keys == [k for k in engines["off"]._steps if k[1]]
+    for k in keys:
+        nodes = [engines[n]._steps[k].nodes() for n in ("on", "off")]
+        assert nodes[0] == nodes[1] > 0, (k, nodes)
+    engines["on"].cuda_graphs = False
+    eager = _graph_run(engines["on"], prompts)
+    assert eager[2]["per_layer"] == on[2]["per_layer"]
+    assert len(on[2]["per_layer"]) == cfg.num_layers
 
 
 def test_graph_captures_bounded_by_ladder_on_card(served):

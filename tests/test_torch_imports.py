@@ -34,7 +34,8 @@ def test_port_has_modules():
                  "core/plan.py", "core/tau_search.py", "core/spamm.py",
                  "plans/frozen.py", "plans/store.py", "plans/precompute.py",
                  "serving/engine.py", "launch/serve.py",
-                 "launch/precompute_plans.py"):
+                 "launch/precompute_plans.py", "obs/__init__.py",
+                 "obs/registry.py", "obs/tracer.py", "obs/residual.py"):
         assert twin in names
 
 
@@ -67,6 +68,32 @@ STORE_ENTRY_POINTS = (
                                       "_freeze_one")),
     ("repro_torch.launch.precompute_plans", ("main",)),
 )
+
+
+# the observability plane and the cost model's predicting half
+OBS_ENTRY_POINTS = (
+    ("repro_torch.obs", ("Observability", "MetricsRegistry", "Counter",
+                         "Gauge", "Histogram", "SpanTracer", "maybe_span",
+                         "CostResidualTracker", "parse_prometheus",
+                         "LATENCY_BUCKETS_S", "FRACTION_BUCKETS",
+                         "RESIDUAL_LOG2_BUCKETS", "IMBALANCE_BUCKETS")),
+    ("repro_torch.core.cost", ("CostCoeffs", "DEFAULT_COEFFS", "device_kind",
+                               "profile_key", "CostProfile", "gemm_flops",
+                               "predict_time_s", "predict_plan_time_s",
+                               "predict_plan_static", "finish_plan_time_s")),
+    ("repro_torch.core.module", ("Tap", "TapLabel")),
+    ("repro_torch.serving.engine", ("wave_latency", "COUNT_BUCKETS")),
+)
+
+
+@pytest.mark.parametrize("module,names", OBS_ENTRY_POINTS,
+                         ids=[m for m, _ in OBS_ENTRY_POINTS])
+def test_obs_entry_points_exist(module, names):
+    import importlib
+
+    mod = importlib.import_module(module)
+    for name in names:
+        assert hasattr(mod, name), f"{module}.{name}"
 
 
 @pytest.mark.parametrize("module,names", LOWP_ENTRY_POINTS,
@@ -113,6 +140,8 @@ def test_fresh_import_keeps_jax_out():
         "import repro_torch.kernels.getnorm, repro_torch.kernels.spamm_mm\n"
         "import repro_torch.kernels.quantize, repro_torch.core.cost\n"
         "import repro_torch.plans.store, repro_torch.launch.precompute_plans\n"
+        "import repro_torch.obs, repro_torch.obs.registry\n"
+        "import repro_torch.obs.tracer, repro_torch.obs.residual\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
