@@ -41,10 +41,11 @@ Store: at run (c)'s τ, every gated weight of the full-depth model is frozen
 into a fresh plan store (the offline `populate` walk); a fresh
 `Engine(plan_store=…)` then serves the wave from store hits only, with no
 get-norm launch while it freezes and run (c)'s tokens and prefill logits
-bit for bit; the walk is repeated with use_mxu=True at f32 and int8 (new
-keys, one launch of the tensor-core kernels per weight), the normmaps
-compared with the CUDA-core ones, and once more warm (store hits only, no
-launch, the cold use_mxu artifacts bit for bit).
+bit for bit; the walk is repeated with use_mxu=True at f32 and int8 over the
+first STORE_MXU_LAYERS layers (new keys, one launch of the tensor-core
+kernels per weight), the normmaps compared with the CUDA-core ones, and
+once more warm (store hits only, no launch, the cold use_mxu artifacts bit
+for bit).
 
 Chunked: run (f), the chunked-prefill plane on the same model: eight
 prompts of 64 to 448 tokens (seed 0) through four slots, one-tile chunks,
@@ -63,6 +64,32 @@ trace (written under chiprun_out/chip_smoke_obs/) holding the engine's
 spans; decode ms/step, TTFT and tok/s with obs on and off, the cost
 residual per phase. Run (f)'s chunked engine must report prefill_chunk
 spans and the admission and chunk counters it counts.
+
+Calibrate: `core.cost.calibrate` on the card at starcoder2-7b's serving
+shapes (its layer's gated weights, run (c)'s prefill and decode rows),
+each sample device-bound (calls captured as a CUDA graph, replayed back to
+back): get-norms up to ≈ 105 MB, the frozen w1 work-list at the prefill
+and decode grids across τ and block_n 1, 2; the gate rate from the frozen
+device gate at the decode grid. Prints the fitted coefficients beside the
+nominal ones, the NNLS columns kept, the largest |log2(measured /
+predicted)| over the samples; the profile is saved under
+chiprun_out/chip_smoke_calibrate/.
+
+Autotune (on run (c)'s engine, after the obs phase): each gated site of
+starcoder2-7b tuned once on its layer-0 weight at run (c)'s τ, with the
+calibrated and with the nominal profile (picks, Σ predicted against Σ
+default predicted, seconds); run (c) served graphed on the tuned
+artifacts and on run (c)'s own, in turns (tok/s, TTFT, decode ms/step,
+nodes per replayed step), each wave's taps priced with both profiles
+(cost residual); tuned graphed ≡ tuned eager; the tuned gate keeps every
+tile the block_n = 1 gate keeps at layer 0; a warm plan store hits every
+tuned artifact.
+
+Dense families: codeqwen1.5-7b at full width and depth (dense, τ = 0 ≡
+dense, the median τ graphed ≡ eager, that τ autotuned: graphed ≡ eager,
+its gate ⊇ the untuned gate at layer 0), qwen2.5-32b and
+granite-34b at full width and FAMILY_DEPTH layers (dense, τ = 0 ≡ dense;
+granite-34b's chunked plane graphed ≡ eager), peak memory of each.
 
 Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
 with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
@@ -84,6 +111,7 @@ the last line is {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
 src/ beside it, it exits 2 and prints no result.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -123,6 +151,20 @@ OBS_SPANS = ("freeze", "plan_assembly", "prefill", "decode_step", "wave")
 OBS_SITES = ("wq", "wk", "wv", "wo", "w1", "w2")
 # a wave's per-(layer, site) bytes summed against the aggregate, relative
 OBS_BYTES_RTOL = 1e-9
+# the calibrated cost profile and the calibration's full report, in a
+# directory .gitignore lists
+CAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out", "chip_smoke_calibrate")
+# the dense family: codeqwen1.5-7b whole; qwen2.5-32b (1.95 GB of f32 a
+# layer) and granite-34b (88 layers, 187 GB of f32 whole) at full width and
+# this depth
+FAMILY_DEPTH = {"codeqwen1.5-7b": None, "qwen2.5-32b": 8, "granite-34b": 8}
+# granite-34b's chunked plane (MQA in the chunk and decode graphs): mixed
+# prompt lengths through two slots
+FAMILY_CHUNK_PLENS = (64, 100, 37, 128)
+# the store phase's use_mxu walks run at this depth (the walk's checks do
+# not depend on it; the cold and warm run (c) walks stay at full depth)
+STORE_MXU_LAYERS = 8
 # nvidia-smi's "name, power.limit" line, set by main()
 CARD = None
 # tile norms: f32 sums of 4096 squares in two orders (pooling: four squares
@@ -932,7 +974,8 @@ def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
         reqs = [Request(prompt=p, max_new_tokens=MAX_NEW) for p in prompts]
         t0 = time.perf_counter()
         toks = np.stack(eng.generate(reqs))
-        return toks, reqs[0].out, time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        return toks, reqs[0].out, dt
 
     _, cold, cold_s = wave()
     reset_counts()
@@ -1436,7 +1479,7 @@ def check_superset(cfg, params, prompts, tau):
           < res["total"], f"low-precision gates drop f32-kept steps: {res}")
 
 
-def phase_serve():
+def phase_serve(profile_path):
     import numpy as np
     import torch
 
@@ -1493,6 +1536,10 @@ def phase_serve():
     compare_graphed_eager(eng, prompts, "c")
     graph_breakdown(eng, params, "c")
     phase_obs(cfg, pcfg, params, eng, prompts, sct)
+    t0 = time.perf_counter()
+    tuned_counts = phase_autotune(cfg, pcfg, params, prompts, sct, eng,
+                                  profile_path)
+    autotune_s = time.perf_counter() - t0
     eng.cuda_graphs = False
     profile_wave(f"c: tau={tau:.6g}, eager", eng, prompts)
     eng.cuda_graphs = True
@@ -1545,7 +1592,7 @@ def phase_serve():
           f"low-precision serving launches {lowp}")
     store = phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c)
     chunked = phase_chunked(cfg, pcfg, params, sct)
-    return counts, lowp, store, chunked
+    return counts, lowp, store, chunked, tuned_counts, autotune_s
 
 
 def phase_chunked(cfg, pcfg, params, sct):
@@ -1746,23 +1793,28 @@ def phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c):
         torch.cuda.empty_cache()
 
         keys0 = set(store.keys())
+        # the use_mxu walks over the first STORE_MXU_LAYERS layers
+        mparams = {**params, "layers": params["layers"][:STORE_MXU_LAYERS]}
+        n_mxu = sum(1 for _ in iter_gated_weights(mparams))
         reset_counts()
-        fw32m, mxu32_s = host_ms(lambda: freeze_tree(params, sct, store=store,
+        fw32m, mxu32_s = host_ms(lambda: freeze_tree(mparams, sct,
+                                                     store=store,
                                                      use_mxu=True)[0])
-        fw8m, mxu8_s = host_ms(lambda: freeze_tree(params, sc8, store=store,
+        fw8m, mxu8_s = host_ms(lambda: freeze_tree(mparams, sc8, store=store,
                                                    use_mxu=True)[0])
         mxu_counts = read_counts()
         new_keys = set(store.keys()) - keys0
         # the CUDA-core int8 artifacts the int8 ones are compared with
-        fw8, _ = host_ms(lambda: freeze_tree(params, sc8, store=store)[0])
-        res = {"freeze_s": {"float32": mxu32_s / 1e3, "int8": mxu8_s / 1e3},
+        fw8, _ = host_ms(lambda: freeze_tree(mparams, sc8, store=store)[0])
+        res = {"layers": STORE_MXU_LAYERS, "weights": n_mxu,
+               "freeze_s": {"float32": mxu32_s / 1e3, "int8": mxu8_s / 1e3},
                "new_artifacts": len(new_keys), "launches": mxu_counts}
         # the same use_mxu walks again, warm: store hits only, no get-norm
         # launch, the cold walks' artifacts bit for bit
         reset_counts()
-        warm_m = {"float32": freeze_tree(params, sct, store=store,
+        warm_m = {"float32": freeze_tree(mparams, sct, store=store,
                                          use_mxu=True)[0],
-                  "int8": freeze_tree(params, sc8, store=store,
+                  "int8": freeze_tree(mparams, sc8, store=store,
                                       use_mxu=True)[0]}
         res["warm_launches"] = read_counts()
         for dtype, base, other in (("float32", fw32, fw32m),
@@ -1776,9 +1828,9 @@ def phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c):
                           "warm_entries_differing_from_cold": warm_entries,
                           "warm_kj_pairs_differing_from_cold": warm_pairs}
         emit({"store_mxu": res})
-        check(mxu_counts["tile_norms_mxu"] == n_weights
-              and mxu_counts["tile_norms_quant_mxu"] == n_weights
-              and len(new_keys) == 2 * n_weights
+        check(mxu_counts["tile_norms_mxu"] == n_mxu
+              and mxu_counts["tile_norms_quant_mxu"] == n_mxu
+              and len(new_keys) == 2 * n_mxu
               and not any(res["warm_launches"].values())
               and all(res[d]["max_rel_normmap_diff_vs_use_mxu_false"]
                       <= NORM_RTOL
@@ -1788,8 +1840,516 @@ def phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c):
               f"use_mxu store pass: {res}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"weights": n_weights, "cold": cold_counts, "warm": warm_counts,
-            "mxu": mxu_counts}
+    return {"weights": n_weights, "mxu_weights": n_mxu, "cold": cold_counts,
+            "warm": warm_counts, "mxu": mxu_counts}
+
+# ---------------------------------------------------------------------------
+# cost calibration, the autotuner, the dense family
+# ---------------------------------------------------------------------------
+
+def layer_gemms(cfg):
+    """{site: (K, N)} of one layer's gated weights at `cfg`'s widths."""
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    gemms = {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
+             "w1": (d, ff), "w2": (ff, d)}
+    if cfg.act != "gelu_mlp":
+        gemms["w3"] = (d, ff)
+    return gemms
+
+
+def phase_calibrate():
+    """`core.cost.calibrate` on the card at ARCH's serving shapes (its
+    layer's gated weights; run (c)'s prefill wave and decode step rows),
+    every count set to 0 just before it and read just after: device-bound
+    samples (calls captured as a CUDA graph, replayed back to back) of
+    get-norms up to ≈ 105 MB and of the frozen w1 work-list at the prefill
+    and decode grids across τ and block_n 1, 2; the gate rate from the
+    device gate at the decode grid. Prints the fitted coefficients beside
+    the nominal ones, the samples and the NNLS columns kept, the largest
+    |log2(measured / predicted)| and the seconds; saves the profile (and
+    the whole report) under CAL_DIR. Returns (profile path, coefficients,
+    launches)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import cost
+
+    sweep = cost.CardSweep(layer_gemms(get_config(ARCH)),
+                           prefill_rows=BATCH * PROMPT_LEN, decode_rows=BATCH)
+    reset_counts()
+    t0 = time.perf_counter()
+    report = {}
+    coeffs = cost.calibrate("cuda", sweep=sweep, report=report)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    prof = cost.CostProfile(meta={"card": CARD, "script": "chip_smoke.py"})
+    prof.put("cuda", coeffs)
+    os.makedirs(CAL_DIR, exist_ok=True)
+    path = prof.save(os.path.join(CAL_DIR, "profile.json"))
+    with open(os.path.join(CAL_DIR, "report.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    worst = sorted(report["samples"], key=lambda r: -abs(r["log2_ratio"]))
+    emit({"calibrate": {
+        "card": CARD, "device_kind": report["device_kind"],
+        "sweep": {"arch": ARCH, **sweep._asdict()},
+        "fitted": coeffs._asdict(),
+        "nominal": cost.DEFAULT_COEFFS["cuda"]._asdict(),
+        "samples": len(report["samples"]),
+        "columns_kept": report["columns_kept"],
+        "fit_base_step_invbw_invflops": report["fit"],
+        "max_abs_log2_measured_over_predicted": report["max_abs_log2"],
+        "samples_us": [[r["kind"], r["shape"], r.get("tau"),
+                        r.get("block_n"), r["measured_s"] * 1e6,
+                        r["predicted_s"] * 1e6] for r in report["samples"]],
+        "worst": [[r["kind"], r["shape"], r.get("tau"), r.get("block_n"),
+                   r["log2_ratio"]] for r in worst[:3]],
+        "gate_us": [[g["site"], g["rows"], g["steps"], g["s"] * 1e6]
+                    for g in report["gate"]],
+        "launches": counts, "seconds": seconds, "profile": path}})
+    check(coeffs.calibrated and all(math.isfinite(v) and v > 0
+                                    for v in coeffs[:5]),
+          f"calibrated coefficients {coeffs}")
+    check(counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0,
+          f"calibration launches {counts}")
+    torch.cuda.empty_cache()
+    return path, coeffs, counts
+
+
+def layer0_inputs(eng, cfg, pcfg, params, prompts):
+    """{site: activation} of layer 0's gated GEMMs in one prefill of `eng`
+    (recorded at `spamm_linear_frozen`, flattened and tile-padded as the
+    GEMM pads them)."""
+    from repro_torch.core import module as Mod
+
+    got = {}
+    orig = Mod.spamm_linear_frozen
+
+    def recording(x, w, fp, ctx=None, site=None):
+        if ctx is eng.spamm_ctx and ctx._layer == 0 and site not in got:
+            got[site] = Mod._flatten_pad(x, fp.tile)[0]
+        return orig(x, w, fp, ctx, site=site)
+
+    Mod.spamm_linear_frozen = recording
+    try:
+        prefill_logits(cfg, pcfg, params, prompts, eng)
+    finally:
+        Mod.spamm_linear_frozen = orig
+    return got
+
+
+def kept_steps(x, fp):
+    """(gm, gn // block_n, gk) bool grid of the (i, j, k) tile products the
+    frozen gate keeps for activation x."""
+    import torch
+
+    from repro_torch.core import plan as P
+
+    p = P.plan(x, frozen_weight=fp)
+    w = p.work
+    act = (w.step_flags & P.STEP_ACC) != 0
+    grid = torch.zeros(fp.gm, fp.gnb, fp.gk, dtype=torch.bool,
+                       device=x.device)
+    grid[w.step_i[act].long(), w.step_j[act].long(),
+         w.step_k[act].long()] = True
+    return grid
+
+
+def tuned_superset(eng_t, eng_c, cfg, pcfg, params, prompts):
+    """At each of layer 0's gated sites, on the prefill's own activation:
+    every tile product the block_n = 1 gate keeps lies in a super-column
+    the tuned gate keeps. Returns per site (tuned block_n, kept at block_n
+    = 1, kept tuned super-column steps, superset)."""
+    import torch.nn.functional as F
+
+    xs = layer0_inputs(eng_t, cfg, pcfg, params, prompts)
+    rows = prompts.size
+    ft = eng_t._frozen_for(rows)["layers"][0]
+    fc = eng_c._frozen_for(rows)["layers"][0]
+    res = {}
+    for part, sites in ft.items():
+        for site, fpt in sites.items():
+            g1 = kept_steps(xs[site], fc[part][site])
+            gt = kept_steps(xs[site], fpt)
+            b = fpt.block_n
+            pad = gt.shape[1] * b - g1.shape[1]
+            g1b = F.pad(g1, (0, 0, 0, pad)).reshape(
+                g1.shape[0], gt.shape[1], b, g1.shape[2]).any(2)
+            res[site] = {"block_n": b, "kept_block_n1": int(g1.sum()),
+                         "kept_tuned": int(gt.sum()),
+                         "superset": bool((gt | ~g1b).all())}
+    return res
+
+
+@contextlib.contextmanager
+def drained_taps(ctx):
+    """The `Tap` lists `ctx.end_stats()` drains while the block runs (one
+    per wave)."""
+    from repro_torch.core.module import SpammContext
+
+    got = []
+    orig = SpammContext.end_stats
+
+    def keep(self):
+        taps = orig(self)
+        if self is ctx:
+            got.append(taps)
+        return taps
+
+    SpammContext.end_stats = keep
+    try:
+        yield got
+    finally:
+        SpammContext.end_stats = orig
+
+
+def plan_statics(eng, coeffs):
+    """{(phase, layer, site): `cost.predict_plan_static` under `coeffs`} of
+    each frozen GEMM of `eng` at run (c)'s grids: the prefill's BATCH ×
+    PROMPT_LEN rows, a decode step's BATCH."""
+    import torch
+
+    from repro_torch.core import cost
+    from repro_torch.core import plan as P
+
+    out = {}
+    for phase, rows in (("prefill", BATCH * PROMPT_LEN), ("decode", BATCH)):
+        for li, layer in enumerate(eng._frozen_for(rows)["layers"]):
+            for sites in layer.values():
+                for site, fp in sites.items():
+                    x = torch.zeros(fp.gm * fp.tile, fp.gk * fp.tile,
+                                    device=DEV)
+                    out[(phase, li, site)] = cost.predict_plan_static(
+                        P.plan(x, frozen_weight=fp), coeffs)
+    return out
+
+
+def priced_s(taps, statics, coeffs):
+    """Predicted seconds per phase of a wave's drained taps, each finished
+    (`cost.finish_plan_time_s`) from `statics` with `coeffs`, summed in the
+    engine's order."""
+    from repro_torch.core import cost
+
+    out = {"prefill": 0.0, "decode": 0.0}
+    for t in taps:
+        if t.predicted_s is not None:
+            ph = "decode" if t.phase == "decode" else "prefill"
+            out[ph] += cost.finish_plan_time_s(
+                statics[(ph, t.layer, t.site)], t.value, t.nbytes, coeffs)
+    return out
+
+
+def phase_autotune(cfg, pcfg, params, prompts, sct, eng_c, profile_path):
+    """The roofline autotuner on starcoder2-7b at run (c)'s τ. Tuning: each
+    gated site once, on layer 0's weight (`tune_for`, as `freeze_tree`
+    tunes), with the calibrated profile and with the nominal one: the
+    picks' histogram over the 192 weights, Σ predicted_us against Σ
+    default_predicted_us, the tuning seconds; and with run (c)'s engine's
+    observed row grids (`gm_histogram`). Serving: run (c) graphed on the
+    tuned artifacts (an engine priced by the calibrated profile) and on run
+    (c)'s own (`eng_c`, nominal), waves in turns: tok/s, TTFT, decode
+    ms/step, nodes per replayed decode step, and the cost residual per
+    phase under both profiles — each wave's drained taps re-priced with
+    each profile through `predict_plan_static`/`finish_plan_time_s`, the
+    engine's own profile reproducing its residual's predictions. Checks:
+    tuned graphed ≡ tuned eager; the tuned gate keeps every tile the
+    block_n = 1 gate keeps at layer 0; a warm plan store hits every tuned
+    artifact. Returns the tuned wave's launches."""
+    import collections
+    import dataclasses
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import cost
+    from repro_torch.plans.precompute import (freeze_tree, frozen_leaves,
+                                              iter_gated_weights, tune_for)
+    from repro_torch.plans.store import PlanStore
+    from repro_torch.serving.engine import Engine
+
+    n_weights = sum(1 for _ in iter_gated_weights(params))
+    sa = dataclasses.replace(sct, autotune=True, tune_profile=profile_path)
+    layer0 = [(p[-1], w) for p, w in iter_gated_weights(params) if p[1] == 0]
+    cal = cost.CostProfile.load(profile_path)
+    kind = cost.device_kind(torch.device(DEV))
+    coeffs = {"calibrated": cal.coeffs("cuda", kind),
+              "nominal": cost.CostProfile().coeffs("cuda", kind)}
+
+    def summary(picks, secs):
+        hist = collections.Counter((t.block_n, t.levels, t.bucket)
+                                   for t in picks.values())
+        return {"sites": {s: [t.block_n, t.levels, t.bucket, t.predicted_us,
+                              t.default_predicted_us, t.profile_key]
+                          for s, t in picks.items()},
+                "histogram_192": {str(k): v * cfg.num_layers
+                                  for k, v in sorted(hist.items())},
+                "predicted_us_sum": cfg.num_layers * sum(
+                    t.predicted_us for t in picks.values()),
+                "default_predicted_us_sum": cfg.num_layers * sum(
+                    t.default_predicted_us for t in picks.values()),
+                "tuning_s": secs}
+
+    tuning = {}
+    for name, prof in (("calibrated", cal), ("nominal", cost.CostProfile())):
+        t0 = time.perf_counter()
+        picks = {s: tune_for(w, sa, profile=prof) for s, w in layer0}
+        tuning[name] = summary(picks, time.perf_counter() - t0)
+    gm_hist = eng_c.gm_histogram
+    t0 = time.perf_counter()
+    picks = {s: cost.tune_weight(w, sct.tau, tile=sct.tile, profile=cal,
+                                 gm_hist=gm_hist) for s, w in layer0}
+    tuning["calibrated_gm_histogram"] = {
+        "gm_histogram": gm_hist, **summary(picks, time.perf_counter() - t0)}
+    emit({"autotune_picks": {"card": CARD, "tau": sct.tau, **tuning}})
+    for name in ("calibrated", "nominal"):
+        t = tuning[name]
+        check(t["predicted_us_sum"] <= t["default_predicted_us_sum"],
+              f"{name} picks predicted slower than the defaults: {t}")
+
+    os.makedirs(STORE_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke-tuned-", dir=STORE_DIR)
+    eng_t = None
+    try:
+        eng_t = Engine(cfg, pcfg, params, max_len=MAX_LEN, spamm_cfg=sa,
+                       plan_store=root)
+        (_, freeze_ms) = host_ms(eng_t._ensure_fw_tree)
+        fws = list(frozen_leaves(eng_t._fw_tree))
+        served_picks = collections.Counter(
+            (fw.block_n, fw.num_levels, fw.bucket_floor) for fw in fws)
+        check(len(fws) == n_weights and all(
+            fw.tuned is not None and fw.block_n == fw.tuned.block_n
+            and fw.num_levels == fw.tuned.levels for fw in fws),
+            "tuned engine's artifacts are not frozen at their picks")
+        engines = {"default": (eng_c, "nominal"),
+                   "tuned": (eng_t, "calibrated")}
+        check(all(e.spamm_ctx.cost_coeffs == coeffs[prof]
+                  for e, prof in engines.values()),
+              "an engine's cost taps are not armed with its profile")
+        logged_wave(eng_t, prompts, MAX_NEW)        # captures, warm
+        statics = {(arts, prof): plan_statics(e, coeffs[prof])
+                   for arts, (e, _) in engines.items() for prof in coeffs}
+        waves = {arts: [] for arts in engines}
+        for arts in ("default", "tuned", "tuned", "default"):
+            e, own = engines[arts]
+            with drained_taps(e.spamm_ctx) as got:
+                w = logged_wave(e, prompts, MAX_NEW)
+            (taps,) = got
+            cres = w[2]["spamm"]["cost_residual"]
+            res_w = {}
+            for prof, c in coeffs.items():
+                pred = priced_s(taps, statics[(arts, prof)], c)
+                res_w[prof] = {ph: {"predicted_s": pred[ph],
+                                    "measured_s": cres[ph]["measured_s"],
+                                    "log2_ratio": math.log2(
+                                        cres[ph]["measured_s"] / pred[ph])}
+                               for ph in ("prefill", "decode")}
+            check(all(abs(res_w[own][ph]["predicted_s"]
+                          - cres[ph]["predicted_s"])
+                      <= 1e-12 * cres[ph]["predicted_s"]
+                      for ph in ("prefill", "decode")),
+                  f"re-pricing {arts}'s taps with its own profile "
+                  f"({res_w[own]}) differs from its residual ({cres})")
+            waves[arts].append((w, res_w))
+        res = {"card": CARD, "run": f"c: tau={sct.tau:.6g}",
+               "tuned_freeze_s": freeze_ms / 1e3,
+               "served_picks": {str(k): v
+                                for k, v in sorted(served_picks.items())}}
+        for arts, ws in waves.items():
+            nums = [wave_numbers(w[0], w[2], w[4]) for w, _ in ws]
+            res[arts] = {k: [n[k] for n in nums]
+                         for k in ("tok_per_s", "ttft_ms",
+                                   "decode_ms_per_step")}
+            res[arts]["engine_profile"] = engines[arts][1]
+            res[arts]["cost_residual"] = {
+                prof: [r[prof] for _, r in ws] for prof in coeffs}
+            res[arts]["nodes_per_replayed_decode_step"] = \
+                engines[arts][0]._steps[(("wave", BATCH), True)].nodes()
+            res[arts]["valid_fraction"] = [
+                ws[0][0][2]["spamm"]["valid_fraction"],
+                ws[0][0][2]["spamm"]["decode_valid_fraction"]]
+        tt, dd = waves["tuned"][0][0], waves["default"][0][0]
+        res["token_agreement_tuned_vs_default"] = float(np.mean(
+            [np.mean(a == b) for a, b in zip(tt[0], dd[0])]))
+        res["tuned_launches"] = tt[3]
+        emit({"autotune_serve": res})
+        lt = res["tuned_launches"]
+        check(lt["tile_norms"] > 0 and lt["spamm_mm_worklist"] > 0,
+              f"tuned wave launches {lt}")
+        compare_graphed_eager(eng_t, prompts, "c tuned")
+
+        sup = tuned_superset(eng_t, eng_c, cfg, pcfg, params, prompts)
+        emit({"tuned_gate_superset": {"tau": sct.tau, "layer": 0,
+                                      "sites": sup}})
+        check(all(v["superset"] for v in sup.values()),
+              f"the tuned gate drops block_n = 1 tiles: {sup}")
+
+        store = PlanStore(root)
+        reset_counts()
+        (tree, _), warm_ms = host_ms(lambda: freeze_tree(params, sa,
+                                                         store=store))
+        warm_counts = read_counts()
+        same = all(a.tuned._replace(profile_key="")
+                   == b.tuned._replace(profile_key="")
+                   and a.block_n == b.block_n and a.weight_hash
+                   == b.weight_hash
+                   for a, b in zip(frozen_leaves(tree), fws))
+        emit({"autotune_store_warm": {
+            "artifacts": len(store), "hits": store.hits,
+            "misses": store.misses, "freeze_s": warm_ms / 1e3,
+            "tuned_records_equal": same, "launches": warm_counts}})
+        check(store.hits == n_weights and store.misses == 0 and same
+              and len(store) == n_weights,
+              "warm tuned store: see the autotune_store_warm line")
+    finally:
+        del eng_t
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res["tuned_launches"]
+
+
+def family_wave(cfg, pcfg, params, prompts, sc, label, depth_cut):
+    """An engine of `cfg` at SpAMM config `sc`: a cold wave (freeze,
+    captures), then the measured wave with every count set to 0 just
+    before it. Emits a "dense_family" line; returns (engine, tokens,
+    out, launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(cfg, pcfg, params, max_len=MAX_LEN, spamm_cfg=sc)
+    logged_wave(eng, prompts, MAX_NEW)
+    toks, _, out, counts, dt = logged_wave(eng, prompts, MAX_NEW)
+    sp = out["spamm"] or {}
+    emit({"dense_family": cfg.name, "run": label, "card": CARD,
+          "layers": cfg.num_layers, "depth_cut": depth_cut,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab,
+          **wave_numbers(toks, out, dt),
+          "prefill_valid_fraction": sp.get("valid_fraction"),
+          "decode_valid_fraction": sp.get("decode_valid_fraction"),
+          "cost_residual": sp.get("cost_residual"), "launches": counts,
+          "graphs": eng.graph_stats(),
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return eng, np.stack(toks), out, counts
+
+
+def phase_dense_families(profile_path):
+    """codeqwen1.5-7b at full width and depth, qwen2.5-32b and granite-34b
+    at full width and FAMILY_DEPTH layers, random weights from SEED, run
+    (c)'s wave shape. Each: dense, then τ = 0 (tokens equal dense, prefill
+    logits within LOGIT_RTOL), graphed. codeqwen1.5-7b also at the median
+    product τ of its first decode GEMM (graphed ≡ eager) and at that τ
+    autotuned with the calibrated profile (its d_ff of 210 tiles pads at
+    block_n 4); granite-34b also on the chunked plane (MQA in the chunk
+    graph) at τ = 0, graphed ≡ eager. Peak memory per model. Returns the
+    launches of codeqwen1.5-7b's τ > 0 waves."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ParallelConfig, SpammConfig, get_config
+    from repro_torch.models import model as M
+    from repro_torch.plans.precompute import frozen_leaves
+    from repro_torch.serving.engine import Engine
+
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=PROMPT_LEN)
+    launches = {}
+    for arch, depth in FAMILY_DEPTH.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        cut = None if depth is None else (
+            f"{depth} of {get_config(arch).num_layers} layers")
+        params = M.init_params(cfg, pcfg, SEED, device=DEV)
+        prompts = np.random.default_rng(SEED).integers(
+            1, cfg.vocab, size=(BATCH, PROMPT_LEN)).astype(np.int32)
+        eng, dense_toks, _, _ = family_wave(cfg, pcfg, params, prompts, None,
+                                            "dense", cut)
+        dense_logits = prefill_logits(cfg, pcfg, params, prompts)
+        del eng
+        sc0 = SpammConfig(enable=True, tau=0.0, tile=TILE)
+        eng, toks0, out0, c0 = family_wave(cfg, pcfg, params, prompts, sc0,
+                                           "tau=0", cut)
+        _, rel = errors(prefill_logits(cfg, pcfg, params, prompts, eng),
+                        dense_logits)
+        same = bool((toks0 == dense_toks).all())
+        emit({"dense_family_tau0_vs_dense": {
+            "model": arch, "prefill_logits_max_rel_err": rel,
+            "tolerance_rel": LOGIT_RTOL, "tokens_equal": same}})
+        check(rel <= LOGIT_RTOL and same
+              and out0["spamm"]["valid_fraction"] == 1.0
+              and c0["tile_norms"] > 0 and c0["spamm_mm_worklist"] > 0,
+              f"{arch} at τ = 0: rel {rel}, tokens equal {same}, "
+              f"launches {c0}")
+        del eng
+        if arch == "granite-34b":
+            rng = np.random.default_rng(SEED)
+            mixed = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+                     for n in FAMILY_CHUNK_PLENS]
+            eng = Engine(cfg, pcfg, params, max_len=CHUNK_MAX_LEN,
+                         spamm_cfg=sc0, max_slots=2)
+            logged_wave(eng, mixed, MAX_NEW)
+            compare_graphed_eager(eng, mixed, f"{arch} chunked tau=0")
+            del eng
+        if arch == "codeqwen1.5-7b":
+            tau, _ = derive_tau(cfg, params, prompts, dense_toks[:, 0])
+            sct = SpammConfig(enable=True, tau=tau, tile=TILE)
+            eng, toks, out, c = family_wave(cfg, pcfg, params, prompts, sct,
+                                            f"tau={tau:.6g}", cut)
+            sp = out["spamm"]
+            check(0.0 < sp["valid_fraction"] < 1.0
+                  and 0.0 < sp["decode_valid_fraction"] < 1.0,
+                  f"{arch} τ > 0 valid fractions {sp['valid_fraction']}, "
+                  f"{sp['decode_valid_fraction']}")
+            compare_graphed_eager(eng, prompts, f"{arch} tau")
+            launches["tau"] = c
+            sa = dataclasses.replace(sct, autotune=True,
+                                     tune_profile=profile_path)
+            eng_t, toks_t, out_t, c = family_wave(
+                cfg, pcfg, params, prompts, sa, f"tau={tau:.6g} autotuned",
+                cut)
+            picks = {}
+            for fw in frozen_leaves(eng_t._fw_tree):
+                k = str((fw.block_n, fw.num_levels, fw.bucket_floor))
+                picks[k] = picks.get(k, 0) + 1
+            pads = sorted({(fw.wshape[1], fw.padded[1])
+                           for fw in frozen_leaves(eng_t._fw_tree)
+                           if fw.padded[1] != fw.wshape[1]})
+            check(c["tile_norms"] > 0 and c["spamm_mm_worklist"] > 0,
+                  f"{arch} autotuned launches {c}")
+            compare_graphed_eager(eng_t, prompts, f"{arch} tau autotuned")
+            sup = tuned_superset(eng_t, eng, cfg, pcfg, params, prompts)
+            emit({"dense_family_autotune": {
+                "model": arch, "tau": tau, "picks": picks,
+                "padded_n": pads,
+                "token_agreement_vs_untuned": float((toks_t == toks).mean()),
+                "gate_superset_layer0": sup}})
+            check(all(v["superset"] for v in sup.values()),
+                  f"{arch}'s tuned gate drops block_n = 1 tiles: {sup}")
+            launches["autotuned"] = c
+            del eng, eng_t
+        emit({"dense_family_done": {"model": arch, "layers": cfg.num_layers,
+                                    "seconds": time.perf_counter() - t0,
+                                    "peak_allocated_gb":
+                                        torch.cuda.max_memory_allocated()
+                                        / 1e9}})
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 
 # ---------------------------------------------------------------------------
 # library path
@@ -2243,14 +2803,21 @@ def main():
     mxu_sass()
 
     seconds = {}
-    t0 = time.perf_counter()
-    norms_act, mm_w1, lowp = phase_kernels()
-    seconds["kernels"] = time.perf_counter() - t0
-    counts, lowp_counts, store_counts, chunked_counts = phase_serve()
-    seconds["serve"] = time.perf_counter() - t0 - seconds["kernels"]
-    lib_counts, pool, dense = phase_library()
-    seconds["library"] = time.perf_counter() - t0 - sum(seconds.values())
-    emit({"phase_seconds": seconds})
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    norms_act, mm_w1, lowp = timed("kernels", phase_kernels)
+    profile_path, _, cal_counts = timed("calibrate", phase_calibrate)
+    (counts, lowp_counts, store_counts, chunked_counts, tuned_counts,
+     seconds["autotune"]) = timed("serve", phase_serve, profile_path)
+    family_counts = timed("dense_families", phase_dense_families,
+                          profile_path)
+    lib_counts, pool, dense = timed("library", phase_library)
+    emit({"phase_seconds": {**seconds, "note": "serve includes autotune"}})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
@@ -2259,8 +2826,17 @@ def main():
     int8_path = "serve: starcoder2-7b wave, run (d) int8"
     bf16_path = "serve: starcoder2-7b wave, run (e) bf16"
     lib_path = "library: (a) paper ensemble, (b) moe spamm_bmm, (d) eager"
-    store_path = (f"store: freeze {ARCH}'s {store_counts['weights']} gated "
-                  f"weights into a plan store, use_mxu=True at f32 and int8")
+    store_path = (f"store: freeze {ARCH}'s first {STORE_MXU_LAYERS} "
+                  f"layers' {store_counts['mxu_weights']} gated weights into "
+                  f"a plan store, use_mxu=True at f32 and int8")
+    def other_paths(name):
+        """A kernel's launches on the calibration, the tuned run (c) wave
+        and codeqwen1.5-7b's τ > 0 and autotuned waves."""
+        return {"calibrate_launches": cal_counts[name],
+                "autotune_launches": tuned_counts[name],
+                "dense_family_launches": {
+                    k: c[name] for k, c in family_counts.items()}}
+
     kernels = [
         {"name": "tile_norms", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
@@ -2268,6 +2844,7 @@ def main():
          "launches": counts["tile_norms"], "path": serve_path,
          "chunked_launches": chunked_counts["tile_norms"],
          "chunked_path": chunked_path,
+         **other_paths("tile_norms"),
          "ms_back_to_back": norms_act["ms_back_to_back"],
          **{k: norms_act[k] for k in keys}},
         {"name": "spamm_mm_worklist", "route": "cuda",
@@ -2276,6 +2853,7 @@ def main():
          "launches": counts["spamm_mm_worklist"], "path": serve_path,
          "chunked_launches": chunked_counts["spamm_mm_worklist"],
          "chunked_path": chunked_path,
+         **other_paths("spamm_mm_worklist"),
          **{k: mm_w1[k] for k in keys}},
         {"name": "spamm_mm_worklist_bf16", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",

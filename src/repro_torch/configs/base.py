@@ -1,9 +1,10 @@
 """Config dataclasses + registry of the PyTorch port.
 
 Twin of `repro.configs.base`, kept as an independent copy so the port never
-imports the JAX package. Only the dense attention families are registered in
-this slice (ROADMAP queue A, "other model families"): `get_config` resolves
-`starcoder2-7b` and raises `NotImplementedError` for the other arch ids.
+imports the JAX package. The dense attention family is registered
+(starcoder2-7b, codeqwen1.5-7b, qwen2.5-32b, granite-34b); `get_config`
+raises `NotImplementedError` for the other arch ids (ROADMAP queue A, "other
+model families").
 """
 from __future__ import annotations
 
@@ -36,14 +37,12 @@ class SpammConfig:
                                         # the gate stays a superset of the
                                         # f32 gate through the widened τ)
     autotune: bool = False              # roofline-autotune block_n/levels/
-                                        # bucket per weight at freeze time;
-                                        # the tuner is not ported (ROADMAP
-                                        # queue A item 8): freezing raises
+                                        # bucket per weight at freeze time
+                                        # (`plans.precompute.tune_for`)
     tune_profile: Optional[str] = None  # cost-profile JSON (`core.cost.
                                         # CostProfile`): the coefficients
-                                        # of the engine's cost residual
-                                        # (and of the autotuner, not
-                                        # ported)
+                                        # of the autotuner and of the
+                                        # engine's cost residual
 
     @property
     def coarse_tile(self) -> int:
@@ -115,7 +114,8 @@ ARCH_IDS = (
 )
 
 # archs whose config module exists in the port
-PORTED_ARCHS = ("starcoder2-7b",)
+PORTED_ARCHS = ("starcoder2-7b", "codeqwen1.5-7b", "qwen2.5-32b",
+                "granite-34b")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -14,8 +14,12 @@ Params come from the same seeded init the serve CLI uses, so the content
 fingerprints match. Runs on the card by default; `--device cpu` freezes
 with the plain PyTorch versions of the kernels (use `--reduced` there). The
 artifacts record the backend that ran ("cuda" or "torch"), so a store made
-on one device serves only that device. `--autotune`/`--tune-profile` are
-the reference's flags; its autotuner is not ported and they raise.
+on one device serves only that device. `--autotune` tunes block_n, levels
+and the bucket floor per gated site (once, from layer 0) against the cost
+model with the coefficients of `--tune-profile` (a `core.cost.CostProfile`
+JSON; the nominal ones without it); the flags become the tuner's defaults,
+and a server finds the artifacts only with the same `--spamm-autotune
+--spamm-tune-profile`.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import time
 from repro_torch.configs import (BACKEND_NAMES, ParallelConfig, SpammConfig,
                                  get_config)
 from repro_torch.models import model as M
-from repro_torch.plans.precompute import populate, tune_for
+from repro_torch.plans.precompute import populate
 from repro_torch.plans.store import PlanStore
 
 
@@ -48,10 +52,12 @@ def main(argv=None):
     ap.add_argument("--block-n", type=int, default=1)
     ap.add_argument("--autotune", action="store_true",
                     help="roofline-autotune block_n/levels/bucket per weight "
-                         "(not ported: raises)")
+                         "(core.cost.tune_weight); --block-n/--spamm-levels "
+                         "become the tuner's defaults, always in its search "
+                         "space")
     ap.add_argument("--tune-profile", default=None,
-                    help="calibrated cost-profile JSON for --autotune (not "
-                         "ported)")
+                    help="calibrated cost-profile JSON for --autotune "
+                         "(core.cost.calibrate, then CostProfile.save)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -64,16 +70,15 @@ def main(argv=None):
                        backend=args.spamm_backend, levels=args.spamm_levels,
                        block_n=args.block_n, dtype=args.spamm_dtype,
                        autotune=args.autotune, tune_profile=args.tune_profile)
-    if scfg.autotune:
-        tune_for(None, scfg)   # raises (not ported) before the model's init
     params = M.init_params(cfg, pcfg, args.seed, device=args.device)
     store = PlanStore(args.plan_store)
     t0 = time.time()
     n = populate(store, params, scfg)
     dt = time.time() - t0
+    tuned_note = " (autotuned block_n/levels/bucket)" if args.autotune else ""
     print(f"precomputed {n} weight plans into {args.plan_store} "
           f"({store.hits} already present, {store.misses} built) "
-          f"in {dt:.2f}s — {len(store)} artifacts total")
+          f"in {dt:.2f}s — {len(store)} artifacts total{tuned_note}")
 
 
 if __name__ == "__main__":

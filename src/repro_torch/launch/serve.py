@@ -15,15 +15,21 @@ serves the same requests N times and reports the last wave: the first
 freezes the plans, so `--waves 2` times a warm wave. On the card the
 decode and chunk steps run as CUDA graphs; the report gives the step
 keys, the captures, their seconds and the graph pool's bytes.
-`--metrics-out FILE` writes the run's metrics registry as Prometheus text
-(per-(phase, layer, site) gated-GEMM series, TTFT and decode-step
-histograms, plan cache and store counters, the chunked plane's counters);
-`--trace-out FILE` writes its host spans as Chrome-trace JSON (load in
-Perfetto); either prints the registry's summary table at the end.
+`--spamm-autotune` freezes each gated site at the block_n, levels and
+bucket floor the roofline tuner picks (`--spamm-block-n`/`--spamm-levels`
+are its defaults), pricing with `--spamm-tune-profile` (a calibrated
+`core.cost.CostProfile` JSON; nominal coefficients without it), which also
+prices the cost residual. `--metrics-out FILE` writes the run's metrics
+registry as Prometheus text (per-(phase, layer, site) gated-GEMM series,
+TTFT and decode-step histograms, plan cache and store counters, the
+chunked plane's counters); `--trace-out FILE` writes its host spans as
+Chrome-trace JSON (load in Perfetto); either prints the registry's
+summary table at the end.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import time
 
 import numpy as np
@@ -32,6 +38,7 @@ from repro_torch.configs import (BACKEND_NAMES, ParallelConfig, SpammConfig,
                                  get_config)
 from repro_torch.models import model as M
 from repro_torch.obs import Observability
+from repro_torch.plans.precompute import frozen_leaves
 from repro_torch.serving.engine import Engine, Request
 
 
@@ -78,6 +85,16 @@ def main(argv=None):
                     help="GEMM compute dtype of the gated GEMMs (f32 "
                          "accumulate; the gate stays a superset of the f32 "
                          "gate through the widened τ)")
+    ap.add_argument("--spamm-autotune", action="store_true",
+                    help="roofline-autotune block_n/levels/bucket per weight "
+                         "at freeze time (core.cost); --spamm-block-n/"
+                         "--spamm-levels become the tuner's defaults. Must "
+                         "match the plan store's precompute setting or "
+                         "lookups miss (tuned params address the artifacts)")
+    ap.add_argument("--spamm-tune-profile", default=None,
+                    help="calibrated cost-profile JSON for --spamm-autotune "
+                         "and the cost residual (core.cost.calibrate, then "
+                         "CostProfile.save)")
     ap.add_argument("--plan-store", default=None,
                     help="on-disk PlanStore directory of precomputed frozen "
                          "weight plans (populate offline with "
@@ -110,7 +127,9 @@ def main(argv=None):
                                 block_n=args.spamm_block_n,
                                 levels=args.spamm_levels,
                                 backend=args.spamm_backend,
-                                dtype=args.spamm_dtype)
+                                dtype=args.spamm_dtype,
+                                autotune=args.spamm_autotune,
+                                tune_profile=args.spamm_tune_profile)
     obs = Observability(process_name="repro-serve")
     eng = Engine(cfg, pcfg, params, max_len=args.max_len,
                  spamm_cfg=spamm_cfg, plan_store=args.plan_store,
@@ -151,6 +170,12 @@ def main(argv=None):
               f"{f'{gb / 1e6:.3f}MB' if gb is not None else 'n/a'} "
               f"decode_gemm_bytes="
               f"{f'{dgb / 1e6:.3f}MB' if dgb is not None else 'n/a'}")
+        if args.spamm_autotune:
+            picks = collections.Counter(
+                (fw.tuned.block_n, fw.tuned.levels, fw.tuned.bucket)
+                for fw in frozen_leaves(eng._fw_tree))
+            print("  autotune (block_n, levels, bucket): "
+                  + " ".join(f"{k}x{n}" for k, n in sorted(picks.items())))
         if "plan_store_hits" in sp:
             print(f"  plan_store: {sp['plan_store_hits']}h/"
                   f"{sp['plan_store_misses']}m")

@@ -70,7 +70,7 @@ class FrozenWeight:
     block_n, num_levels, backend (resolved: "cuda" or "torch"), wshape (the
     true (K, N)), padded ((Kp, Np)), use_mxu (which get-norm variant made
     the norms), weight_hash (content fingerprint, "" when unknown),
-    version, compute_dtype, and tuned — the reference autotuner's
+    version, compute_dtype, and tuned — the autotuner's
     `TunedParams` when the artifact came from it (provenance and the
     work-list bucket floor; not an addressing field)."""
 

@@ -1,15 +1,18 @@
 """Walk a model's gated GEMM weights and freeze their weight-side plans,
 through an in-memory cache and an on-disk `PlanStore` when given.
 
-Twin of `repro.plans.precompute` (`iter_gated_weights`, `freeze_tree`,
-`populate`). The gated GEMMs are the leaves named wq/wk/wv/wo/w1/w2/w3
-directly under a "mix" or "mlp" subtree. The port keeps layers as a Python
-list of per-layer dicts (no stacked leading axis), so `freeze_tree` mirrors
-that: a list of per-layer dicts of `FrozenWeight`s; each per-layer (K, N)
-weight hashes like the reference's slice `flat[l]` of its stacked leaf, so
-the two packages address one weight by one fingerprint. The autotuner
-(`tune_for`, `SpammConfig.autotune`) is not ported: ROADMAP queue A item 8.
-`populate` is the store writer of `repro_torch.launch.precompute_plans`.
+Twin of `repro.plans.precompute` (`iter_gated_weights`, `tune_for`,
+`freeze_tree`, `populate`). The gated GEMMs are the leaves named
+wq/wk/wv/wo/w1/w2/w3 directly under a "mix" or "mlp" subtree. The port keeps
+layers as a Python list of per-layer dicts (no stacked leading axis), so
+`freeze_tree` mirrors that: a list of per-layer dicts of `FrozenWeight`s;
+each per-layer (K, N) weight hashes like the reference's slice `flat[l]` of
+its stacked leaf, so the two packages address one weight by one
+fingerprint. With `SpammConfig.autotune` each gated site is tuned once, from
+layer 0, and every layer is frozen at that pick, as the reference tunes a
+stacked leaf from its first slice: the two packages then pick the same
+parameters and file the artifacts under the same addresses. `populate` is
+the store writer of `repro_torch.launch.precompute_plans`.
 """
 from __future__ import annotations
 
@@ -21,9 +24,6 @@ from repro_torch.plans.store import PlanStore, fingerprints
 
 GATED_NAMES = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
 GATED_PARENTS = ("mix", "mlp")
-
-_NO_TUNER = ("the roofline autotuner (core.cost.tune_weight) is not ported "
-             "yet: ROADMAP queue A item 8 — freeze with autotune=False")
 
 
 def _is_gated(path, leaf) -> bool:
@@ -50,24 +50,47 @@ def iter_gated_weights(params, _prefix=()):
             yield path, sub
 
 
+def frozen_leaves(tree):
+    """Yield the `FrozenWeight`s of a `freeze_tree` result in walk order."""
+    for _, sub in _children(tree):
+        if isinstance(sub, (dict, list)):
+            yield from frozen_leaves(sub)
+        else:
+            yield sub
+
+
 def tune_for(w, scfg, *, profile=None, use_mxu: bool = False):
-    """The reference's per-weight autotuner: not ported."""
-    raise NotImplementedError(_NO_TUNER)
+    """Autotune one weight's blocking parameters against the roofline cost
+    model: argmin of predicted frozen-call time over block_n × levels ×
+    bucket floor, with the config's own (block_n, levels, 16) always in the
+    search space. `profile` is a `core.cost.CostProfile`; None loads
+    `scfg.tune_profile` (or the nominal coefficients)."""
+    from repro_torch.core import cost
+
+    if profile is None:
+        profile = cost.CostProfile.load_or_default(scfg.tune_profile)
+    return cost.tune_weight(
+        w, scfg.tau, tile=scfg.tile, dtype=scfg.dtype, backend=scfg.backend,
+        profile=profile, defaults=(scfg.block_n, scfg.levels, 16),
+        use_mxu=use_mxu)
 
 
 def _freeze_one(w, scfg, *, cache=None, store: Optional[PlanStore] = None,
                 use_mxu: bool = False, tuned=None,
                 weight_hash: Optional[str] = None) -> FrozenWeight:
     """One weight → FrozenWeight, through the cache/store tiers when
-    given (without a cache: the store, then a build). `weight_hash` is w's
-    content fingerprint when the caller has it (hashed here otherwise)."""
-    if tuned is None and scfg.autotune:
-        tuned = tune_for(w, scfg, use_mxu=use_mxu)
+    given (without a cache: the store, then a build). With `tuned` (a
+    `TunedParams`) the artifact is frozen at the tuned block_n and levels,
+    which address it in the store, and carries the record. `weight_hash`
+    is w's content fingerprint when the caller has it (hashed here
+    otherwise)."""
+    block_n = tuned.block_n if tuned is not None else scfg.block_n
+    levels = tuned.levels if tuned is not None else scfg.levels
     cache = cache if cache is not None else WeightPlanCache()
     return cache.frozen_weight(
-        w, tau=scfg.tau, tile=scfg.tile, block_n=scfg.block_n,
-        levels=scfg.levels, backend=scfg.backend, use_mxu=use_mxu,
-        store=store, dtype=scfg.dtype, tuned=tuned, weight_hash=weight_hash)
+        w, tau=scfg.tau, tile=scfg.tile, block_n=block_n, levels=levels,
+        backend=scfg.backend, use_mxu=use_mxu, store=store, dtype=scfg.dtype,
+        tuned=tuned, weight_hash=weight_hash)
 
 
 def freeze_tree(params, scfg, *, cache=None, store: Optional[PlanStore] = None,
@@ -79,10 +102,16 @@ def freeze_tree(params, scfg, *, cache=None, store: Optional[PlanStore] = None,
     is the number of weights frozen. `cache` (a `WeightPlanCache`) is the
     in-memory tier, `store` the persistent one: with a warm store the walk
     only loads (no get-norm pass). The content fingerprints are taken up
-    front, on a few threads."""
+    front, on a few threads. With `scfg.autotune` each site (a path with
+    the layer index left out) is tuned once, on its first (layer 0)
+    weight, and every layer of the site is frozen at that pick."""
+    profile = None
     if scfg.autotune:
-        raise NotImplementedError(_NO_TUNER)
+        from repro_torch.core import cost
+
+        profile = cost.CostProfile.load_or_default(scfg.tune_profile)
     hashes = iter(fingerprints(w for _, w in iter_gated_weights(params)))
+    tuned_by_site: dict = {}
     count = 0
 
     def walk(node, path):
@@ -97,8 +126,15 @@ def freeze_tree(params, scfg, *, cache=None, store: Optional[PlanStore] = None,
                 if frozen:
                     out[name] = frozen
             elif _is_gated(p, sub):
+                tuned = None
+                if scfg.autotune:
+                    site = tuple(x for x in p if not isinstance(x, int))
+                    tuned = tuned_by_site.get(site)
+                    if tuned is None:
+                        tuned = tuned_by_site[site] = tune_for(
+                            sub, scfg, profile=profile, use_mxu=use_mxu)
                 out[name] = _freeze_one(sub, scfg, cache=cache, store=store,
-                                        use_mxu=use_mxu,
+                                        use_mxu=use_mxu, tuned=tuned,
                                         weight_hash=next(hashes))
                 count += 1
         return out

@@ -169,6 +169,7 @@ class Engine:
             self.spamm_ctx.cache.store = plan_store
         self._fw_tree = None     # params-shaped tree of FrozenWeight
         self._fp_cache: dict = {}  # row-tile grid gm → FrozenPlan tree
+        self._gm_hist: dict = {}   # observed row-tile grid gm → step count
         self._prefill = M.make_prefill_step(cfg, pcfg,
                                             spamm_cfg=self.spamm_ctx)
         self._decode = M.make_decode_step(cfg, pcfg,
@@ -283,6 +284,18 @@ class Engine:
                 self._fw_tree, _ = freeze_tree(
                     self.params, self.spamm_ctx.cfg,
                     cache=self.spamm_ctx.cache, store=self.plan_store)
+
+    def _note_gm(self, gm: int):
+        self._gm_hist[gm] = self._gm_hist.get(gm, 0) + 1
+
+    @property
+    def gm_histogram(self) -> dict:
+        """Observed serving row-grid histogram {gm row tiles: executed
+        gated step count}, over every wave with SpAMM on (each prefill,
+        chunk and decode step notes its grid once). Feed it to
+        `core.cost.tune_weight(gm_hist=...)` so the tuner prices the grids
+        this engine runs instead of the synthetic `DEFAULT_TUNE_GM`."""
+        return dict(self._gm_hist)
 
     # -- step graphs ---------------------------------------------------------
     def _static_cache(self, key, batch: int, full: bool) -> dict:
@@ -577,6 +590,7 @@ class Engine:
         plen = len(requests[0].prompt)
         toks = np.stack([r.prompt for r in requests]).astype(np.int32)
         obs_on = self.obs.enabled
+        tile = self.spamm_ctx.cfg.tile if self._gated else 0
         if self._gated:
             cache0, store0 = self._counters0()
         t_wave0 = time.perf_counter_ns()
@@ -594,6 +608,8 @@ class Engine:
                     self.params,
                     {"tokens": torch.as_tensor(toks, device=self.device)},
                     frozen_pre)
+                if self._gated:
+                    self._note_gm(-(-(b * plen) // tile))
                 self._pad_cache(cache, self._static_cache(("wave", b), b,
                                                           full=False))
                 del cache
@@ -630,6 +646,8 @@ class Engine:
                     pend = ("decode_step", time.perf_counter_ns())
                     cur = self._wave_decode_step(b)(tokens=cur,
                                                     pos=pos)["tokens"]
+                    if self._gated:
+                        self._note_gm(-(-b // tile))
                     pos += 1
         finally:
             if self._gated:
@@ -693,6 +711,7 @@ class Engine:
         b = len(requests)
         nslots = self._slot_count(b)
         obs_on = self.obs.enabled
+        tile = self.spamm_ctx.cfg.tile if self._gated else 0
         if self._gated:
             cache0, store0 = self._counters0()
         t_wave0 = time.perf_counter_ns()
@@ -757,6 +776,8 @@ class Engine:
                             tokens=tk, positions=posc,
                             last_idx=last)["tokens"].cpu().numpy()
                         self.chunk_steps += 1
+                        if self._gated:
+                            self._note_gm(-(-(nslots * chunk) // tile))
                         if obs_on:
                             self.obs.tracer.add_complete(
                                 "prefill_chunk", t0, time.perf_counter_ns())
@@ -796,6 +817,8 @@ class Engine:
                             tokens=cur, positions=posv)["tokens"].cpu().numpy()
                         t1 = time.perf_counter_ns()
                         decode_lat.append((t1 - t0) / 1e9)
+                        if self._gated:
+                            self._note_gm(-(-nslots // tile))
                         if obs_on:
                             self.obs.tracer.add_complete("decode_step", t0,
                                                          t1)

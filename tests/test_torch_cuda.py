@@ -1087,3 +1087,114 @@ else:
                          capture_output=True, text=True, timeout=600)
     assert "EAGER 3" in res.stdout, res.stdout + res.stderr
     assert "RAISED" in res.stdout, res.stdout + res.stderr
+
+
+# ---------------------------------------------------------------------------
+# calibration, padded N at the tuner's block_n, autotuned serving
+# ---------------------------------------------------------------------------
+
+def test_calibrate_on_card(dev):
+    """The card's sweep at a caller's serving shapes: calibrated; finite,
+    positive coefficients (a column NNLS zeroes keeps its nominal value);
+    every sample timed and predicted finitely; the device gate rate over
+    the sweep's gated shapes. Without a sweep it raises."""
+    from repro_torch.core import cost
+
+    sweep = cost.CardSweep({"wq": (1024, 1024), "w1": (1024, 4096),
+                            "w2": (4096, 1024)}, prefill_rows=256,
+                           decode_rows=4)
+    report = {}
+    c = cost.calibrate("cuda", sweep=sweep, report=report)
+    assert c.calibrated
+    vals = np.asarray(c[:5], np.float64)
+    assert np.isfinite(vals).all() and (vals > 0).all()
+    assert all(np.isfinite(s["predicted_s"]) for s in report["samples"])
+    assert report["backend"] == "cuda"
+    assert report["device_kind"] == torch.cuda.get_device_name(0)
+    kinds = [s["kind"] for s in report["samples"]]
+    assert kinds.count("getnorm") == 2 + len(cost.CUDA_NORM_SQUARES)
+    assert kinds.count("frozen_worklist") == 2 * 2 * len(
+        cost.CUDA_TAU_QUANTILES)
+    assert all(s["shape"][1:] == [1024, 4096] for s in report["samples"]
+               if s["kind"] == "frozen_worklist")
+    assert all(s["measured_s"] > 0 for s in report["samples"])
+    assert len(report["gate"]) == 2 * len(sweep.gemms)
+    assert 1 <= report["columns_kept"] <= 4
+    with pytest.raises(ValueError, match="sweep"):
+        cost.calibrate("cuda")
+
+
+@pytest.mark.parametrize("block_n", [2, 4])
+def test_frozen_worklist_on_a_padded_n_equals_plain_on_card(dev, block_n):
+    """codeqwen1.5-7b's w1 width: d_ff 13440 is 210 tiles of 64, so block_n
+    2 fits and 4 pads to 212 tiles. The frozen gated GEMM (kernel) equals
+    the same plan through the plain work-list, and the padded columns of
+    the output are zero."""
+    from repro_torch.core import module as Mod
+
+    tile, k, n = 64, 512, 13440
+    x = _rand((2 * tile, k), 20, dev)
+    w = _rand((k, n), 21, dev).mul_(k ** -0.5)
+    tau = _median_tau(x, w, tile)
+    fw = FrozenWeight.build(w, tau, tile=tile, block_n=block_n,
+                            backend="cuda")
+    assert fw.padded == (k, -(-n // (tile * block_n)) * tile * block_n)
+    fp = fw.for_rows(x.shape[0] // tile)
+    p = P.plan(x, frozen_weight=fp)
+    assert 0.0 < float(p.valid_fraction) < 1.0
+    wp = P.pad_to_tile(w, tile, tile * block_n).contiguous()
+    w_ = p.work
+    args = (x, wp, w_.step_i, w_.step_j, w_.step_k, w_.step_flags, w_.runs)
+    before = spamm_mm.launches
+    got = spamm_mm.spamm_mm_worklist(*args, tile=tile, block_n=block_n)
+    torch.cuda.synchronize()
+    assert spamm_mm.launches == before + 1
+    want = spamm_mm.spamm_mm_worklist_plain(*args, tile=tile,
+                                            block_n=block_n)
+    torch.testing.assert_close(got, want, rtol=MM_TOL, atol=MM_TOL)
+    assert not got[:, n:].any()
+    y = Mod.spamm_linear_frozen(x, w, fp)
+    assert y.shape == (x.shape[0], n) and torch.equal(y, got[:, :n])
+
+
+def test_autotuned_serving_graphed_equals_eager_on_card(dev, tmp_path):
+    """Reduced codeqwen1.5-7b (SwiGLU, QKV bias) frozen at the tuner's
+    picks (a profile under which they differ from the defaults): one
+    engine serves the wave eagerly, then as CUDA graphs, bit for bit, on
+    both planes; every artifact is frozen at its tuned block_n."""
+    from repro_torch.configs import ParallelConfig, SpammConfig, get_config
+    from repro_torch.core import cost
+    from repro_torch.models import model as M
+    from repro_torch.plans.precompute import frozen_leaves
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("codeqwen1.5-7b").reduced()
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=8)
+    params = M.init_params(cfg, pcfg, 0, device="cuda")
+    prof = cost.CostProfile()
+    prof.put("cuda", cost.CostCoeffs(1e9, 1e9, 1e-12, 1e-6, 1e15,
+                                     calibrated=True))
+    path = prof.save(str(tmp_path / "profile.json"))
+    for plane in ("wave", "chunked"):
+        sc = SpammConfig(enable=True, tau=1.9, tile=GRAPH_TILE,
+                         autotune=True, tune_profile=path)
+        kw = ({} if plane == "wave"
+              else {"prefill_chunk": GRAPH_TILE, "max_slots": 2})
+        eng = Engine(cfg, pcfg, params, max_len=64, spamm_cfg=sc, **kw)
+        prompts = _graph_prompts(cfg, plane)
+        eng.cuda_graphs = False
+        _graph_run(eng, prompts)
+        eager = _graph_run(eng, prompts)
+        eng.cuda_graphs = True
+        _graph_run(eng, prompts)
+        graphed = _graph_run(eng, prompts)
+        fws = list(frozen_leaves(eng._fw_tree))
+        assert len(fws) == 7 * cfg.num_layers
+        assert all(fw.tuned is not None and fw.block_n == fw.tuned.block_n
+                   for fw in fws)
+        assert sum(eng.gm_histogram.values()) > 0
+        assert graphed[0] == eager[0] and len(graphed[1]) == len(eager[1])
+        for got, want in zip(graphed[1], eager[1]):
+            assert torch.equal(got, want)
+        assert _timing_free(graphed[2]) == _timing_free(eager[2])
+        assert graphed[3] == eager[3] and sum(eager[3]) > 0

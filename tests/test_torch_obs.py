@@ -37,6 +37,7 @@ from repro_torch.configs import ParallelConfig, SpammConfig, get_config
 from repro_torch.core import cost as tcost
 from repro_torch.core import module as tmodule
 from repro_torch.core import plan as tplan
+from repro_torch.kernels import ops as tops
 from repro_torch.models import model as M
 from repro_torch.serving import engine as E
 from repro_torch.serving import graphs as G
@@ -655,6 +656,25 @@ def test_engines_emit_the_same_tokens(served):
     assert toks == rtoks
     sp = out["spamm"]
     assert 0.0 < sp["decode_valid_fraction"] < 1.0
+
+
+def test_gm_histogram_matches_reference(served):
+    """`Engine.gm_histogram` counts the reference engine's row grids, step
+    for step, on each plane (the wave's prefill and decode; the chunked
+    plane's chunks and decodes), and the tuner prices over it."""
+    _, tau, (_, _, eng), (_, _, reng) = served
+    hist = eng.gm_histogram
+    assert hist == reng.gm_histogram and sum(hist.values()) > 1
+    w = eng.params["layers"][0]["mlp"]["w1"]
+    tp = tcost.tune_weight(w, tau, tile=TILE, gm_hist=hist)
+    nb = tops.tile_norms(tplan.pad_to_tile(w, TILE), TILE).numpy()
+    assert tp == tcost.tune(nb, tau, tile=TILE,
+                            coeffs=tcost.DEFAULT_COEFFS["torch"],
+                            profile_key_used="torch/<nominal>",
+                            gm_hist=hist)
+    assert tp.predicted_us <= tp.default_predicted_us
+    eng.gm_histogram[1] = -1                 # a copy: the engine's stays
+    assert eng.gm_histogram == hist
 
 
 def test_per_layer_matches_reference(served):

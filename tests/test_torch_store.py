@@ -27,6 +27,7 @@ from repro.plans import precompute as rpre
 from repro.plans import store as rstore
 from repro.plans.frozen import FrozenWeight as RFrozenWeight
 from repro_torch.configs import ParallelConfig, SpammConfig, get_config
+from repro_torch.core import cost as tcost
 from repro_torch.core import plan as tplan
 from repro_torch.core.cost import TunedParams
 from repro_torch.kernels import ops as tops
@@ -327,20 +328,113 @@ def test_weight_plan_cache_is_memory_tier_above_store(tmp_path):
     assert cache.frozen_weight(b, **kw) is not fw1
 
 
-def test_populate_counts_and_refuses_autotune(models, tmp_path):
-    cfg, _, params = models
+# coefficients under which the tuner's picks differ by site on the reduced
+# model (bytes and flops dear, steps and gate nearly free)
+TUNE_COEFFS = (1e9, 1e9, 1e-12, 1e-6, 1e15)
+# relative distance every layer-0 weight norm keeps from the autotune τ
+GATE_MARGIN = 1e-3
+
+
+def _tune_profile(path):
+    """One profile file: TUNE_COEFFS under the port's key and the
+    reference's."""
+    prof = tcost.CostProfile()
+    for backend in ("torch", "jnp"):
+        prof.put(backend, tcost.CostCoeffs(*TUNE_COEFFS, calibrated=True),
+                 kind="cpu")
+    return prof.save(str(path))
+
+
+def _autotune_tau(params, lo=1.9, hi=2.0):
+    """A τ in [lo, hi] in the widest gap of layer 0's gated weight norms at
+    TILE: the tuner gates the all-ones activation at nb ≥ τ, so no pick
+    can flip on an ulp between the packages' norms."""
+    ns = np.unique(np.concatenate([
+        tops.tile_norms(w, TILE).numpy().ravel()
+        for path, w in tpre.iter_gated_weights(params) if path[1] == 0]))
+    mid = np.sqrt(ns[:-1] * ns[1:])
+    gap = np.where((mid > lo) & (mid < hi), ns[1:] / ns[:-1] - 1.0, 0.0)
+    assert gap.max() >= 2 * GATE_MARGIN
+    return float(mid[int(np.argmax(gap))])
+
+
+def test_populate_counts_and_refuses_autotune(models, tmp_path, monkeypatch):
+    """populate counts and hits; with autotune (refused before the tuner
+    was ported, now run) `freeze_tree` and `populate` tune each gated site
+    once, on its layer-0 weight, and freeze every layer at the pick: the
+    reference's picks (its stacked leaves tuned from slice 0), frozen at
+    the tuned block_n and levels, and the reference's store addresses (up
+    to the backend's name); the store keeps the `TunedParams`."""
+    cfg, rparams, params = models
     sc = SpammConfig(enable=True, tau=0.05, tile=TILE)
-    st = PlanStore(str(tmp_path))
+    st = PlanStore(str(tmp_path / "plain"))
     n = tpre.populate(st, params, sc)
     assert n == 6 * cfg.num_layers == len(st) == st.misses and st.hits == 0
     assert tpre.populate(st, params, sc) == n and st.hits == n
     tree, count = tpre.freeze_tree(params, sc)    # no cache, no store
     assert count == n and len(tree["layers"]) == cfg.num_layers
     assert set(tree["layers"][0]["mix"]) == {"wq", "wk", "wv", "wo"}
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        tpre.populate(st, params, dataclasses.replace(sc, autotune=True))
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        tpre.tune_for(params["layers"][0]["mix"]["wq"], sc)
+    assert all(fw.tuned is None for fw in tpre.frozen_leaves(tree))
+
+    prof = _tune_profile(tmp_path / "profile.json")
+    tau = _autotune_tau(params)
+    sa = SpammConfig(enable=True, tau=tau, tile=TILE, autotune=True,
+                     tune_profile=prof)
+    tuned_on = []
+    orig = tpre.tune_for
+
+    def recording(w, scfg, **kw):
+        tuned_on.append(w)
+        return orig(w, scfg, **kw)
+
+    monkeypatch.setattr(tpre, "tune_for", recording)
+    tree, count = tpre.freeze_tree(params, sa)
+    monkeypatch.undo()
+    layer0 = {id(w) for path, w in tpre.iter_gated_weights(params)
+              if path[1] == 0}
+    assert count == n and len(tuned_on) == 6
+    assert {id(w) for w in tuned_on} == layer0
+    rtree, rcount = rpre.freeze_tree(
+        rparams, RSpamm(enable=True, tau=tau, tile=TILE, backend="jnp",
+                        autotune=True, tune_profile=prof))
+    assert rcount == count
+    picks = set()
+    for layer in range(cfg.num_layers):
+        for part, sites in tree["layers"][layer].items():
+            for site, fw in sites.items():
+                rfw = rtree["layers"][part][site][layer]
+                assert fw.tuned is tree["layers"][0][part][site].tuned
+                assert fw.tuned._replace(profile_key="") == \
+                    rfw.tuned._replace(profile_key="")
+                assert fw.tuned.profile_key == "torch/cpu"
+                assert fw.tuned.predicted_us <= \
+                    fw.tuned.default_predicted_us
+                assert (fw.block_n, fw.num_levels) == (
+                    fw.tuned.block_n, fw.tuned.levels) == (
+                    rfw.block_n, rfw.num_levels)
+                assert fw.bucket_floor == fw.tuned.bucket
+                assert fw.weight_hash == rfw.weight_hash
+                assert PlanStore.key_for(
+                    fw.weight_hash,
+                    **{**fw.config_key(), "backend": "jnp"}) == \
+                    rstore.PlanStore.key_for(rfw.weight_hash,
+                                             **rfw.config_key())
+                picks.add(fw.block_n)
+    assert len(picks) > 1, picks          # the picks differ by site
+    fw0 = tpre.tune_for(params["layers"][0]["mlp"]["w1"], sc)
+    assert (fw0.block_n, fw0.levels, fw0.bucket) in {
+        (b, lv, bk) for b in tcost.BLOCK_N_CHOICES
+        for lv in tcost.LEVELS_CHOICES for bk in tcost.BUCKET_CHOICES}
+    assert fw0.profile_key == "torch/<nominal>"
+
+    st2 = PlanStore(str(tmp_path / "tuned"))
+    assert tpre.populate(st2, params, sa) == n == len(st2) == st2.misses
+    warm = PlanStore(st2.root)
+    for path, w in tpre.iter_gated_weights(params):
+        fw = tree["layers"][path[1]][path[2]][path[3]]
+        got = warm.get(fw.weight_hash, **fw.config_key(), device="cpu")
+        assert got is not None and got.tuned == fw.tuned
+    assert warm.hits == n and warm.misses == 0
 
 
 def test_spamm_configs_match_field_for_field():
@@ -428,7 +522,28 @@ def test_precompute_and_serve_clis_on_cpu(tmp_path, capsys):
     toks = [[ln for ln in o.splitlines() if ln.strip().startswith("req")]
             for o in (plain, warm)]
     assert len(toks[0]) == 2 and toks[0] == toks[1]
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        precompute_plans.main(["--arch", ARCH, "--reduced", "--plan-store",
-                               root, "--tau", "0.05", "--device", "cpu",
-                               "--autotune"])
+    # autotuned (refused before the tuner was ported): precompute with
+    # --autotune --tune-profile, then serve --spamm-autotune with the same
+    # profile hits every tuned artifact, with the tokens of an autotuned
+    # run without the store
+    prof = _tune_profile(tmp_path / "profile.json")
+    tuned_root = str(tmp_path / "tuned")
+    precompute_plans.main(["--arch", ARCH, "--reduced", "--plan-store",
+                           tuned_root, "--tau", "1.9", "--device", "cpu",
+                           "--autotune", "--tune-profile", prof, *flags])
+    out = capsys.readouterr().out
+    assert "precomputed 12 weight plans" in out and "autotuned" in out
+    argv = ["--arch", ARCH, "--reduced", "--num-requests", "2",
+            "--prompt-len", "16", "--max-new", "3", "--device", "cpu",
+            "--spamm-tau", "1.9", *flags, "--spamm-autotune",
+            "--spamm-tune-profile", prof]
+    serve.main(argv)
+    plain = capsys.readouterr().out
+    serve.main(argv + ["--plan-store", tuned_root])
+    warm = capsys.readouterr().out
+    assert "plan_store: 12h/0m" in warm
+    for o in (plain, warm):
+        assert "autotune (block_n, levels, bucket):" in o
+    toks = [[ln for ln in o.splitlines() if ln.strip().startswith("req")]
+            for o in (plain, warm)]
+    assert len(toks[0]) == 2 and toks[0] == toks[1]
