@@ -91,6 +91,19 @@ its gate ⊇ the untuned gate at layer 0), qwen2.5-32b and
 granite-34b at full width and FAMILY_DEPTH layers (dense, τ = 0 ≡ dense;
 granite-34b's chunked plane graphed ≡ eager), peak memory of each.
 
+MoE: qwen2-moe-a2.7b whole (24 layers, d 2048, 16/16 heads, 60 experts
+top-4 of ff 1408, a sigmoid-gated shared expert of ff 5632, vocab 151936;
+57.3 GB of f32) on run (c)'s wave: dense; τ = 0 with moe_bmm (tokens equal
+dense, prefill logits within 1e-3); the median τ of the first gated decode
+GEMM with moe_bmm (graphed ≡ eager bit for bit, the dense-grid kernel
+three times a layer per prefill), one decode step profiled (routing,
+routed-expert bmms, shared expert, attention gates) beside its graph's
+replay; the per-expert path at that τ on 4 layers ≡ moe_bmm bit for bit;
+the chunked plane (SpAMM off, τ = 0, that τ; graphed ≡ eager; chunk steps
+captured only with SpAMM off). mixtral-8x22b at full width, 4 of 56
+layers (41.7 GB): dense, τ = 0 with moe_bmm, on the sliding-window ring
+decode cache.
+
 Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
 with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
 (the paper's §4.1 ensemble) at ratios 0.30 and 0.10: achieved ratio,
@@ -105,8 +118,9 @@ gated GEMM with a pyramid (levels = 2 ≡ levels = 0) on starcoder2-7b's w1;
 Every result line is a JSON object; the line before the last lists nine
 kernel entries (the work-list GEMM twice, f32 and bf16; each of the
 get-norm pair twice, CUDA-core and tensor-core) with their launches on
-their path (the τ > 0 serving run at its dtype, the store walk, or the
-library path; the f32 pair also on run (f)), errors, times and bounds;
+their path (the τ > 0 serving run at its dtype, the store walk, the
+library path, or the dense-grid GEMM's qwen2-moe τ > 0 wave; the f32 pair
+also on run (f) and the MoE wave), errors, times and bounds;
 the last line is {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
 src/ beside it, it exits 2 and prints no result.
@@ -162,6 +176,12 @@ FAMILY_DEPTH = {"codeqwen1.5-7b": None, "qwen2.5-32b": 8, "granite-34b": 8}
 # granite-34b's chunked plane (MQA in the chunk and decode graphs): mixed
 # prompt lengths through two slots
 FAMILY_CHUNK_PLENS = (64, 100, 37, 128)
+# the MoE family: qwen2-moe-a2.7b whole (24 layers, 14.3 B parameters, 57.3
+# GB of f32), its per-expert path (180 eager plans a layer) at this depth,
+# and mixtral-8x22b (10.0 GB of f32 a layer) at full width and this depth
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_PER_EXPERT_LAYERS = 4
+MOE_MIXTRAL_LAYERS = 4
 # the store phase's use_mxu walks run at this depth (the walk's checks do
 # not depend on it; the cold and warm run (c) walks stay at full depth)
 STORE_MXU_LAYERS = 8
@@ -2352,6 +2372,368 @@ def phase_dense_families(profile_path):
 
 
 # ---------------------------------------------------------------------------
+# the MoE family
+# ---------------------------------------------------------------------------
+
+def moe_site_cells(eng, site="moe_bmm"):
+    """(Σ valid fraction, count) of the engine's registry over the prefill
+    taps of the MoE block at `site` (layer -1)."""
+    from repro_torch.obs import parse_prometheus
+
+    s = parse_prometheus(eng.obs.registry.render_prometheus()).get(
+        "spamm_valid_fraction", {"samples": {}})["samples"]
+    lab = f'{{phase="prefill",layer="-1",site="{site}"}}'
+    return (s.get(f"spamm_valid_fraction_sum{lab}", 0.0),
+            s.get(f"spamm_valid_fraction_count{lab}", 0.0))
+
+
+def moe_wave(cfg, pcfg, params, prompts, sc, label, depth_cut, **kw):
+    """An engine of the MoE `cfg` at SpAMM config `sc` (engine options
+    `kw`): a cold wave (freeze, captures), then the measured wave with
+    every count set to 0 just before it and read just after. Emits a "moe"
+    line: tok/s, TTFT, decode ms/step, valid fractions (the moe_bmm
+    taps' mean too), the dense-grid kernel's launches, whether decode and
+    chunk steps ran as CUDA graphs, peak memory. Returns (engine, tokens,
+    out, launches)."""
+    import torch
+
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(cfg, pcfg, params, max_len=kw.pop("max_len", MAX_LEN),
+                 spamm_cfg=sc, **kw)
+    logged_wave(eng, prompts, MAX_NEW)
+    s0, n0 = moe_site_cells(eng) if sc is not None else (0.0, 0.0)
+    toks, _, out, counts, dt = logged_wave(eng, prompts, MAX_NEW)
+    s1, n1 = moe_site_cells(eng) if sc is not None else (0.0, 0.0)
+    sp = out["spamm"] or {}
+    emit({"moe": cfg.name, "run": label, "card": CARD,
+          "layers": cfg.num_layers, "depth_cut": depth_cut,
+          "d_model": cfg.d_model, "experts": cfg.moe.num_experts,
+          "top_k": cfg.moe.top_k, "expert_ff": cfg.moe.expert_ff,
+          "shared_ff": cfg.moe.shared_ff,
+          "moe_bmm": None if sc is None else sc.moe_bmm,
+          **wave_numbers(toks, out, dt),
+          "prefill_valid_fraction": sp.get("valid_fraction"),
+          "decode_valid_fraction": sp.get("decode_valid_fraction"),
+          "moe_bmm_valid_fraction": ((s1 - s0) / (n1 - n0)
+                                     if n1 > n0 else None),
+          "moe_bmm_taps": n1 - n0,
+          "dense_grid_launches": counts["spamm_mm"],
+          "launches": counts, "step_graphs": out["graphs"],
+          "graphs": eng.graph_stats(),
+          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return eng, toks, out, counts
+
+
+def moe_decode_profile(eng, tokens, label):
+    """Where a qwen2-moe decode step's device time goes: one eager decode
+    step of the wave's engine under torch.profiler, with ranges around the
+    routing (`models.moe._dispatch`), the routed experts' dense bmms
+    (`_grouped_ffn`), the shared expert (`_shared_ffn`) and the frozen
+    attention gates (`core.plan._plan_frozen`), each range's device time
+    being the kernels it launches; the captured step's replay beside it.
+    The expectation (not a claim): the routed experts' GEMMs read every
+    expert's weights, 3·E·d·ff·4 bytes a layer."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import plan as P
+    from repro_torch.models import moe as MoE
+
+    cfg = eng.cfg
+    ranges = {"chip_smoke::moe_dispatch": (MoE, "_dispatch"),
+              "chip_smoke::moe_experts": (MoE, "_grouped_ffn"),
+              "chip_smoke::moe_shared": (MoE, "_shared_ffn"),
+              "chip_smoke::attention_gates": (P, "_plan_frozen")}
+    saved = {k: getattr(o, a) for k, (o, a) in ranges.items()}
+
+    def traced(name):
+        fn = saved[name]
+
+        def run(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+
+        return run
+
+    eng.cuda_graphs = False
+    step = eng._wave_decode_step(BATCH)
+    with torch.inference_mode():
+        step(tokens=tokens, pos=PROMPT_LEN)
+        torch.cuda.synchronize()
+        for name, (o, a) in ranges.items():
+            setattr(o, a, traced(name))
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function("chip_smoke::decode_step"):
+                    step(tokens=tokens, pos=PROMPT_LEN)
+                torch.cuda.synchronize()
+        finally:
+            for name, (o, a) in ranges.items():
+                setattr(o, a, saved[name])
+            eng.cuda_graphs = True
+    events = prof.key_averages()
+
+    def inclusive(key):
+        return sum(e.device_time_total / 1e3 for e in events
+                   if e.key == key and e.device_type == DeviceType.CPU)
+
+    names = list(ranges) + ["chip_smoke::decode_step"]
+    ms = {n.split("::")[1]: inclusive(n) for n in names}
+    kernels = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and e.key not in names) / 1e3
+    nbytes = 3 * cfg.moe.num_experts * cfg.d_model * cfg.moe.expert_ff * 4
+    replay = replay_profile(eng._steps[(("wave", BATCH), True)]._graph)
+    res = {"run": label, "card": CARD, "eager_step_device_ms": ms,
+           "eager_step_kernel_ms": kernels if kernels > 0 else "not measured",
+           "graphed_step": replay,
+           "expert_weight_bytes_per_step": nbytes * cfg.num_layers,
+           "expert_bytes_bound_ms":
+               nbytes * cfg.num_layers / PEAK_BYTES_S * 1e3}
+    emit({"moe_decode_profile": res})
+    return res
+
+
+def moe_per_expert(cfg, pcfg, params, prompts, tau):
+    """The per-expert path (moe_bmm=False: every expert's three GEMMs plan
+    eagerly, 3·E plans a layer) against moe_bmm=True at the same τ on the
+    first MOE_PER_EXPERT_LAYERS layers: tokens and prefill logits, and
+    layer 0's block output on one input, bit for bit (dense-grid ≡
+    work-list)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SpammConfig
+    from repro_torch.core.module import SpammContext
+    from repro_torch.models import moe as MoE
+
+    n = min(MOE_PER_EXPERT_LAYERS, cfg.num_layers)
+    cfg4 = dataclasses.replace(cfg, num_layers=n)
+    params4 = dict(params, layers=params["layers"][:n])
+    cut = f"{n} of {cfg.num_layers} layers"
+    runs = {}
+    for bmm in (False, True):
+        sc = SpammConfig(enable=True, tau=tau, tile=TILE, moe_bmm=bmm)
+        eng, toks, out, counts = moe_wave(
+            cfg4, pcfg, params4, prompts, sc,
+            f"tau={tau:.6g} moe_bmm={bmm}", cut)
+        runs[bmm] = (toks, prefill_logits(cfg4, pcfg, params4, prompts, eng),
+                     counts)
+        del eng
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    x = torch.randn(BATCH, PROMPT_LEN, cfg.d_model, generator=gen,
+                    device=DEV)
+    blocks = {}
+    with torch.inference_mode():
+        for bmm in (False, True):
+            ctx = SpammContext(SpammConfig(enable=True, tau=tau, tile=TILE,
+                                           moe_bmm=bmm))
+            blocks[bmm] = MoE.moe_block(params["layers"][0]["moe"], x,
+                                        cfg.moe, cfg.act, spamm_cfg=ctx)[0]
+    res = {"layers": n, "tau": tau,
+           "tokens_equal": all(bool((a == b).all()) for a, b in
+                               zip(runs[False][0], runs[True][0])),
+           "prefill_logits_bit_identical": torch.equal(runs[False][1],
+                                                       runs[True][1]),
+           "layer0_block_bit_identical": torch.equal(blocks[False],
+                                                     blocks[True]),
+           "layer0_block_max_abs_diff": float(
+               (blocks[False] - blocks[True]).abs().max()),
+           "launches_per_expert": runs[False][2],
+           "launches_moe_bmm": runs[True][2]}
+    emit({"moe_per_expert_vs_bmm": res})
+    check(res["tokens_equal"] and res["prefill_logits_bit_identical"]
+          and res["layer0_block_bit_identical"]
+          and runs[False][2]["spamm_mm"] == 0
+          and runs[True][2]["spamm_mm"] == 3 * n,
+          f"per-expert path differs from moe_bmm: {res}")
+
+
+def moe_chunked(cfg, pcfg, params, taus):
+    """The chunked plane on qwen2-moe-a2.7b: FAMILY_CHUNK_PLENS prompts
+    through two slots, SpAMM off and at each τ of `taus` with moe_bmm;
+    graphed ≡ eager bit for bit; the chunk steps are captured only with
+    SpAMM off (gated MoE chunk steps plan on the host)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import SpammConfig
+
+    rng = np.random.default_rng(SEED)
+    mixed = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+             for n in FAMILY_CHUNK_PLENS]
+    for tau in (None,) + tuple(taus):
+        sc = (None if tau is None else
+              SpammConfig(enable=True, tau=tau, tile=TILE, moe_bmm=True))
+        label = "dense" if tau is None else f"tau={tau:.6g}"
+        eng, _, out, counts = moe_wave(cfg, pcfg, params, mixed, sc,
+                                       f"chunked {label}", None,
+                                       max_len=CHUNK_MAX_LEN, max_slots=2)
+        want = {"decode": True, "chunk": tau is None}
+        check(out["graphs"] == want and eng.chunk_steps > 0,
+              f"qwen2-moe chunked {label}: graphs {out['graphs']}")
+        if tau is not None:
+            check(counts["spamm_mm"] > 0 and counts["spamm_mm"] % (
+                3 * cfg.num_layers) == 0,
+                f"qwen2-moe chunked {label}: launches {counts}")
+        compare_graphed_eager(eng, mixed, f"qwen2-moe chunked {label}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def moe_model(arch, depth, pcfg):
+    """(cfg, params, depth cut) of `arch` at full width and `depth` layers
+    (None: all), random weights from SEED on the card; emits a "model"
+    line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    full = get_config(arch)
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         num_layers=depth)
+    cut = None if depth is None else f"{depth} of {full.num_layers} layers"
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, pcfg, SEED, device=DEV)
+    torch.cuda.synchronize()
+    emit({"model": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab,
+          "moe": {"experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+                  "expert_ff": cfg.moe.expert_ff,
+                  "shared_ff": cfg.moe.shared_ff, "impl": cfg.moe.impl},
+          "sliding_window": cfg.sliding_window,
+          "params": sum(t.numel() for t in _leaves(params)),
+          "param_gb": sum(t.numel() * t.element_size()
+                          for t in _leaves(params)) / 1e9,
+          "init_s": time.perf_counter() - t0, "depth_cut": cut})
+    return cfg, params, cut
+
+
+def moe_tau0(cfg, pcfg, params, prompts, cut, dense_toks, dense_logits):
+    """τ = 0 with moe_bmm on the wave: tokens equal dense, prefill logits
+    within LOGIT_RTOL, every tile kept, three dense-grid launches a layer."""
+    import numpy as np
+
+    from repro_torch.configs import SpammConfig
+
+    sc0 = SpammConfig(enable=True, tau=0.0, tile=TILE, moe_bmm=True)
+    eng, toks0, out0, c0 = moe_wave(cfg, pcfg, params, prompts, sc0,
+                                    "tau=0 moe_bmm", cut)
+    _, rel = errors(prefill_logits(cfg, pcfg, params, prompts, eng),
+                    dense_logits)
+    same = bool((np.stack(toks0) == dense_toks).all())
+    emit({"moe_tau0_vs_dense": {"model": cfg.name,
+                                "prefill_logits_max_rel_err": rel,
+                                "tolerance_rel": LOGIT_RTOL,
+                                "tokens_equal": same}})
+    check(rel <= LOGIT_RTOL and same
+          and out0["spamm"]["valid_fraction"] == 1.0
+          and c0["spamm_mm"] == 3 * cfg.num_layers
+          and c0["spamm_mm_worklist"] > 0 and c0["tile_norms"] > 0,
+          f"{cfg.name} at τ = 0: rel {rel}, tokens equal {same}, "
+          f"launches {c0}")
+
+
+def phase_moe():
+    """The MoE family at full width, random weights from SEED, run (c)'s
+    wave shape, graphed decode, after a warm-up wave. qwen2-moe-a2.7b whole
+    (24 layers, ≈ 57.3 GB of f32): dense; τ = 0 with moe_bmm (tokens equal
+    dense, prefill logits within LOGIT_RTOL); the median τ of the first
+    gated decode GEMM with moe_bmm (graphed ≡ eager bit for bit, three
+    dense-grid launches a layer per prefill), its decode step profiled;
+    the per-expert path at that τ on MOE_PER_EXPERT_LAYERS layers (≡
+    moe_bmm bit for bit); the chunked plane (SpAMM off, τ = 0, that τ;
+    graphed ≡ eager). Then mixtral-8x22b at full width and
+    MOE_MIXTRAL_LAYERS layers (sliding-window ring decode, 8 experts top-2):
+    dense, τ = 0 with moe_bmm. Each model is freed before the next is
+    built. Returns the launches of the qwen2-moe τ > 0 wave."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ParallelConfig, SpammConfig
+
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=PROMPT_LEN)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, cut = moe_model(MOE_ARCH, None, pcfg)
+    prompts = np.random.default_rng(SEED).integers(
+        1, cfg.vocab, size=(BATCH, PROMPT_LEN)).astype(np.int32)
+    eng, dense_toks, out, _ = moe_wave(cfg, pcfg, params, prompts, None,
+                                       "dense", cut)
+    check(out["graphs"] == {"decode": True, "chunk": True},
+          f"qwen2-moe dense graphs {out['graphs']}")
+    dense_toks = np.stack(dense_toks)
+    del eng
+    dense_logits = prefill_logits(cfg, pcfg, params, prompts)
+    moe_tau0(cfg, pcfg, params, prompts, cut, dense_toks, dense_logits)
+    torch.cuda.empty_cache()
+
+    tau, _ = derive_tau(cfg, params, prompts, dense_toks[:, 0])
+    sct = SpammConfig(enable=True, tau=tau, tile=TILE, moe_bmm=True)
+    eng, _, out, counts = moe_wave(cfg, pcfg, params, prompts, sct,
+                                   f"tau={tau:.6g} moe_bmm", cut)
+    sp = out["spamm"]
+    check(0.0 < sp["valid_fraction"] <= 1.0
+          and 0.0 < sp["decode_valid_fraction"] < 1.0
+          and counts["spamm_mm"] == 3 * cfg.num_layers
+          and counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0
+          and out["graphs"] == {"decode": True, "chunk": False},
+          f"qwen2-moe τ > 0: valid fractions {sp['valid_fraction']}, "
+          f"{sp['decode_valid_fraction']}, launches {counts}, graphs "
+          f"{out['graphs']}")
+    compare_graphed_eager(eng, prompts, f"qwen2-moe tau={tau:.6g}")
+    moe_decode_profile(eng, dense_toks[:, :1], f"tau={tau:.6g} moe_bmm")
+    del eng
+    torch.cuda.empty_cache()
+    moe_per_expert(cfg, pcfg, params, prompts, tau)
+    moe_chunked(cfg, pcfg, params, (0.0, tau))
+    emit({"moe_done": {"model": cfg.name, "layers": cfg.num_layers,
+                       "seconds": time.perf_counter() - t0,
+                       "peak_allocated_gb":
+                           torch.cuda.max_memory_allocated() / 1e9}})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    cfg_m, params_m, cut_m = moe_model("mixtral-8x22b", MOE_MIXTRAL_LAYERS,
+                                       pcfg)
+    prompts_m = np.random.default_rng(SEED).integers(
+        1, cfg_m.vocab, size=(BATCH, PROMPT_LEN)).astype(np.int32)
+    eng, toks_m, _, _ = moe_wave(cfg_m, pcfg, params_m, prompts_m, None,
+                                 "dense", cut_m)
+    check(all(c["k"].shape[1] <= cfg_m.sliding_window
+              for c in eng._caches[("wave", BATCH)]["layers"]),
+          "mixtral decode cache is not the window's ring")
+    del eng
+    logits_m = prefill_logits(cfg_m, pcfg, params_m, prompts_m)
+    moe_tau0(cfg_m, pcfg, params_m, prompts_m, cut_m, np.stack(toks_m),
+             logits_m)
+    emit({"moe_done": {"model": cfg_m.name, "layers": cfg_m.num_layers,
+                       "seconds": time.perf_counter() - t0,
+                       "peak_allocated_gb":
+                           torch.cuda.max_memory_allocated() / 1e9}})
+    del params_m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # library path
 # ---------------------------------------------------------------------------
 
@@ -2816,6 +3198,7 @@ def main():
      seconds["autotune"]) = timed("serve", phase_serve, profile_path)
     family_counts = timed("dense_families", phase_dense_families,
                           profile_path)
+    moe_counts = timed("moe", phase_moe)
     lib_counts, pool, dense = timed("library", phase_library)
     emit({"phase_seconds": {**seconds, "note": "serve includes autotune"}})
 
@@ -2826,6 +3209,8 @@ def main():
     int8_path = "serve: starcoder2-7b wave, run (d) int8"
     bf16_path = "serve: starcoder2-7b wave, run (e) bf16"
     lib_path = "library: (a) paper ensemble, (b) moe spamm_bmm, (d) eager"
+    moe_path = (f"serve: {MOE_ARCH} wave, derived τ > 0, moe_bmm "
+                f"(one prefill, {MAX_NEW - 1} graphed decode steps)")
     store_path = (f"store: freeze {ARCH}'s first {STORE_MXU_LAYERS} "
                   f"layers' {store_counts['mxu_weights']} gated weights into "
                   f"a plan store, use_mxu=True at f32 and int8")
@@ -2844,6 +3229,7 @@ def main():
          "launches": counts["tile_norms"], "path": serve_path,
          "chunked_launches": chunked_counts["tile_norms"],
          "chunked_path": chunked_path,
+         "moe_launches": moe_counts["tile_norms"], "moe_path": moe_path,
          **other_paths("tile_norms"),
          "ms_back_to_back": norms_act["ms_back_to_back"],
          **{k: norms_act[k] for k in keys}},
@@ -2853,6 +3239,8 @@ def main():
          "launches": counts["spamm_mm_worklist"], "path": serve_path,
          "chunked_launches": chunked_counts["spamm_mm_worklist"],
          "chunked_path": chunked_path,
+         "moe_launches": moe_counts["spamm_mm_worklist"],
+         "moe_path": moe_path,
          **other_paths("spamm_mm_worklist"),
          **{k: mm_w1[k] for k in keys}},
         {"name": "spamm_mm_worklist_bf16", "route": "cuda",
@@ -2868,7 +3256,9 @@ def main():
         {"name": "spamm_mm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:109",
-         "launches": lib_counts["spamm_mm"], "path": lib_path,
+         "launches": moe_counts["spamm_mm"], "path": moe_path,
+         "library_path_launches": lib_counts["spamm_mm"],
+         "library_path": lib_path,
          **{k: dense[k] for k in keys}},
         {"name": "tile_norms_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",

@@ -3,6 +3,7 @@ from repro_torch.configs.base import (
     BACKEND_NAMES,
     PORTED_ARCHS,
     ModelConfig,
+    MoEConfig,
     ParallelConfig,
     SpammConfig,
     get_config,

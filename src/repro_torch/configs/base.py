@@ -1,10 +1,11 @@
 """Config dataclasses + registry of the PyTorch port.
 
 Twin of `repro.configs.base`, kept as an independent copy so the port never
-imports the JAX package. The dense attention family is registered
-(starcoder2-7b, codeqwen1.5-7b, qwen2.5-32b, granite-34b); `get_config`
-raises `NotImplementedError` for the other arch ids (ROADMAP queue A, "other
-model families").
+imports the JAX package. The dense attention family (starcoder2-7b,
+codeqwen1.5-7b, qwen2.5-32b, granite-34b) and the MoE family
+(qwen2-moe-a2.7b, mixtral-8x22b) are registered; `get_config` raises
+`NotImplementedError` for the other arch ids (ROADMAP queue A, "other model
+families").
 """
 from __future__ import annotations
 
@@ -36,6 +37,11 @@ class SpammConfig:
                                         # bfloat16 | int8 (f32 accumulate;
                                         # the gate stays a superset of the
                                         # f32 gate through the widened τ)
+    moe_bmm: bool = False               # run the MoE grouped FFNs through
+                                        # the batched spamm_bmm path (one
+                                        # dense-grid launch per GEMM over
+                                        # all experts); False gates each
+                                        # expert through maybe_spamm_matmul
     autotune: bool = False              # roofline-autotune block_n/levels/
                                         # bucket per weight at freeze time
                                         # (`plans.precompute.tune_for`)
@@ -48,6 +54,19 @@ class SpammConfig:
     def coarse_tile(self) -> int:
         """Tile size of the coarsest pyramid level (== tile when flat)."""
         return self.tile * (2 ** self.levels)
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    expert_ff: int
+    num_shared: int = 0
+    shared_ff: int = 0
+    impl: str = "tp"                    # "tp": ff-dim TP; "ep": expert-
+                                        # parallel (one body on one device)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001    # load-balancing aux loss
 
 
 @dataclass(frozen=True)
@@ -67,6 +86,7 @@ class ModelConfig:
     sliding_window: Optional[int] = None
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     frontend: Optional[str] = None
     subquadratic: bool = False
     notes: str = ""
@@ -86,6 +106,14 @@ class ModelConfig:
             vocab=256,
             head_dim=16,
         )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 8),
+                expert_ff=32,
+                shared_ff=64 if self.moe.num_shared else 0,
+                top_k=min(self.moe.top_k, 2),
+            )
         if self.sliding_window:
             kw["sliding_window"] = 32
         return dataclasses.replace(self, **kw)
@@ -115,7 +143,7 @@ ARCH_IDS = (
 
 # archs whose config module exists in the port
 PORTED_ARCHS = ("starcoder2-7b", "codeqwen1.5-7b", "qwen2.5-32b",
-                "granite-34b")
+                "granite-34b", "qwen2-moe-a2.7b", "mixtral-8x22b")
 
 
 def get_config(name: str) -> ModelConfig:

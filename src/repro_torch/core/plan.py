@@ -64,6 +64,14 @@ def kernel_operand(x):
     return x.clone(memory_format=torch.contiguous_format)
 
 
+def _fraction(count: torch.Tensor, total: int) -> torch.Tensor:
+    """count / total in f32, rounded as the reference's division: a CUDA
+    tensor divided by a Python number is multiplied by its reciprocal,
+    which can land an ulp off (42240 · fl(1/42240) < 1), so the divisor is
+    a device fill (no host copy inside a captured step)."""
+    return count.float() / torch.full((), float(total), device=count.device)
+
+
 def pad_to_tile(x: torch.Tensor, tile: int, tile_n: Optional[int] = None
                 ) -> torch.Tensor:
     """Zero-pad the trailing two dims of x up to multiples of `tile`
@@ -332,7 +340,7 @@ class SpammPlan:
 
     @property
     def valid_fraction(self) -> torch.Tensor:
-        return self.valid_tiles.float() / self.total_tiles
+        return _fraction(self.valid_tiles, self.total_tiles)
 
     def bytes_moved(self) -> torch.Tensor:
         """GEMM bytes the executed work-list moves at this plan's compute
@@ -946,6 +954,6 @@ def spamm_bmm(x: torch.Tensor, w: torch.Tensor, tau=None, *,
                         else (None, None))
         c = bk.matmul(xp, wp, mask, kidx, nvalid, tile, block_n, out_dtype)
         c = c[:, :m, :n]
-        frac = mask.sum(dtype=torch.int32).float() / mask.numel()
+        frac = _fraction(mask.sum(dtype=torch.int32), mask.numel())
     return c, SpammInfo(tau=tau_used, valid_fraction=frac,
                         effective_flops=frac * (2.0 * bsz * m * k * n))

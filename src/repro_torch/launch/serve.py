@@ -14,7 +14,8 @@ populated with the same arch, seed, device and SpAMM flags. `--waves N`
 serves the same requests N times and reports the last wave: the first
 freezes the plans, so `--waves 2` times a warm wave. On the card the
 decode and chunk steps run as CUDA graphs; the report gives the step
-keys, the captures, their seconds and the graph pool's bytes.
+keys, the captures, their seconds, the graph pool's bytes and which
+steps run as graphs (a MoE arch's chunk steps do not with SpAMM on).
 `--spamm-autotune` freezes each gated site at the block_n, levels and
 bucket floor the roofline tuner picks (`--spamm-block-n`/`--spamm-levels`
 are its defaults), pricing with `--spamm-tune-profile` (a calibrated
@@ -194,10 +195,11 @@ def main(argv=None):
     g = eng.graph_stats()
     pool = (f"{g['pool_bytes'] / 1e6:.1f}MB" if g["pool_bytes"] is not None
             else "n/a")
+    graphed = ",".join(k for k, v in eng.step_graphs.items() if v)
     print(f"  steps: prefill_keys={eng.trace_counts['prefill']} "
           f"decode_keys={eng.trace_counts['decode']} "
           f"captures={g['captures']} capture_s={g['capture_s']:.2f} "
-          f"graph_pool={pool}")
+          f"graph_pool={pool} graphed={graphed or 'none'}")
     if args.metrics_out:
         print(f"metrics -> {obs.write_metrics(args.metrics_out)}")
     if args.trace_out:

@@ -6,7 +6,10 @@ weights.
 
 Parameter tree: {"embed": {"embedding"}, "final_norm", "unembed":
 {"kernel"}, "layers": [per-layer dict, ...]} — the reference's tree with its
-stacked leading L axis unstacked into a list.
+stacked leading L axis unstacked into a list. A layer holds "ln1", "ln2",
+"mix" (attention) and "mlp", or for the MoE family "moe": router (d, E) f32,
+w1/w3 (E, d, ff), w2 (E, ff, d) and, with shared experts, "shared" {w1, w3,
+w2, gate (d, 1) f32}.
 """
 from __future__ import annotations
 

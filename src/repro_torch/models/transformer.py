@@ -1,5 +1,6 @@
 """Decoder stack of the port: the attention-stack parts of
-`repro.models.transformer` (dense/vlm/audio families: attention + MLP).
+`repro.models.transformer` (dense/vlm/audio families: attention + MLP; the
+moe family: attention + MoE block, `models/moe.py`).
 
 Layers are a Python list of per-layer parameter dicts and the stack is a
 Python loop (the reference's `lax.scan` over stacked layers). Frozen plans
@@ -13,10 +14,11 @@ device, never read on the host, so both steps can be captured in a CUDA
 graph (`serving/graphs.py`). Each layer loop labels its gated GEMMs' taps
 with the layer index (`SpammContext.set_layer`, a Python int, so a capture
 records it as a host value) and each GEMM names its site ("wq", "wk",
-"wv", "wo"). Per-row positions at or past the cache length
-are sentinels whose writes drop, as the reference's
-`.at[].set(mode="drop")` does (`_row_writes`). MoE, SSM and hybrid stacks
-are not ported yet (ROADMAP queue A).
+"wv", "wo"). A MoE block's taps carry layer -1, as the reference's do
+(its label is cleared for the block). Per-row positions at or past the
+cache length are sentinels whose writes drop, as the reference's
+`.at[].set(mode="drop")` does (`_row_writes`). SSM and hybrid stacks are
+not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.module import SpammContext, maybe_spamm_matmul
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (_normal, apply_rope, mlp, mlp_params,
                                        rms_norm)
 
@@ -189,7 +192,7 @@ def _tap_ctx(spamm_cfg) -> Optional[SpammContext]:
 
 
 def stack_kinds(cfg: ModelConfig) -> str:
-    if cfg.family in ("ssm", "hybrid", "moe"):
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.family} stacks are not ported yet (ROADMAP queue A: the "
             f"other model families)")
@@ -199,12 +202,38 @@ def stack_kinds(cfg: ModelConfig) -> str:
 def layer_params(gen: torch.Generator, cfg: ModelConfig, dtype,
                  device) -> dict:
     stack_kinds(cfg)
-    return {
+    p = {
         "ln1": torch.zeros(cfg.d_model, dtype=torch.float32, device=device),
         "ln2": torch.zeros(cfg.d_model, dtype=torch.float32, device=device),
         "mix": attn_params(gen, cfg, dtype, device),
-        "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype, device),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_mod.moe_params(gen, cfg.moe, cfg.d_model, dtype,
+                                      device)
+    else:
+        p["mlp"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                              device)
+    return p
+
+
+def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, spamm_cfg, frozen=None,
+         require_frozen: bool = False):
+    """The MLP or MoE sub-layer on the normalized input h → (out, aux).
+    A MoE block gates eagerly (its expert buffers depend on the routing;
+    frozen plans cover attention and the dense MLP), with no SpAMM under
+    the decode contract (`require_frozen`), and its taps report layer -1."""
+    if cfg.moe is None:
+        return mlp(p["mlp"], h, cfg.act, spamm_cfg, frozen,
+                   require_frozen), 0.0
+    tctx = _tap_ctx(spamm_cfg)
+    prev = tctx.swap_layer(None) if tctx is not None else None
+    try:
+        return moe_mod.moe_block(
+            p["moe"], h, cfg.moe, cfg.act,
+            spamm_cfg=None if require_frozen else spamm_cfg)
+    finally:
+        if tctx is not None:
+            tctx.swap_layer(prev)
 
 
 def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -217,8 +246,8 @@ def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
         window=cfg.sliding_window, spamm_cfg=spamm_cfg, return_kv=True,
         frozen=fz.get("mix"))
     x = x + h
-    f = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act,
-            spamm_cfg, fz.get("mlp"))
+    f, _ = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
+                fz.get("mlp"))
     return x + f, ({"k": k, "v": v} if collect_cache else None)
 
 
@@ -234,8 +263,8 @@ def layer_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
         cache["v"], positions, cfg, pcfg, window=cfg.sliding_window,
         spamm_cfg=spamm_cfg, frozen=fz.get("mix"))
     x = x + h
-    f = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act,
-            spamm_cfg, fz.get("mlp"))
+    f, _ = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
+                fz.get("mlp"))
     return x + f, dict(cache, k=ck, v=cv)
 
 
@@ -252,8 +281,8 @@ def layer_decode(p: dict, x: torch.Tensor, cache: dict, pos,
         cache["v"], pos, cfg, pcfg, window=cfg.sliding_window, ring=ring,
         spamm_cfg=spamm_cfg, frozen=fz.get("mix"))
     x = x + h
-    f = mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.act,
-            spamm_cfg, fz.get("mlp"), require_frozen=True)
+    f, _ = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
+                fz.get("mlp"), require_frozen=True)
     return x + f, dict(cache, k=ck, v=cv)
 
 

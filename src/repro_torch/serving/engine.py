@@ -29,7 +29,11 @@ default, `cuda_graphs=True`) each key is captured once as a CUDA graph
 and replayed; `cuda_graphs=False` runs the same steps eagerly, for
 comparison. `trace_counts` counts the captures (on the CPU, the first use
 of each key). The wave's one-shot prefill stays eager: it runs once per
-wave at a new shape. The pod-sharded mode and re-sharding are not ported
+wave at a new shape. A MoE stack's chunk steps with SpAMM on stay eager
+too: their expert and shared-expert GEMMs plan eagerly, and `plan()` runs
+on the host. The engine decides this at construction from the config
+(never by catching a failed capture) and reports it in each request's
+`out["graphs"]`; a MoE decode step is dense in its experts and captures. The pod-sharded mode and re-sharding are not ported
 yet (ROADMAP queue A).
 
 Telemetry (`obs`, a `repro_torch.obs.Observability` bundle), all on the
@@ -103,7 +107,9 @@ class Request:
     out: Optional[dict] = None   # set by Engine.generate: {"tokens",
                                  # "spamm" (gating stats or None),
                                  # "latency" (host wall-clock of the wave,
-                                 # `Engine._latency`)}
+                                 # `Engine._latency`), "graphs" (whether
+                                 # decode and chunk steps are captured,
+                                 # `Engine.step_graphs`)}
 
 
 class Engine:
@@ -177,6 +183,9 @@ class Engine:
         self._chunk = M.make_prefill_chunk_step(cfg, pcfg,
                                                 spamm_cfg=self.spamm_ctx)
         self.cuda_graphs = bool(cuda_graphs)
+        # a gated MoE chunk step plans on the host (see the module
+        # docstring): decided here, from the config
+        self._chunk_capturable = not (self._gated and cfg.moe is not None)
         self._pool = None         # the graph memory pool, on first capture
         self._steps: dict = {}    # (step key, captured) → StepGraph
         self._caches: dict = {}   # cache key → static KV cache
@@ -310,16 +319,26 @@ class Engine:
     def _capture(self) -> bool:
         return self.cuda_graphs and self.device.type == "cuda"
 
+    @property
+    def step_graphs(self) -> dict:
+        """Whether decode steps and chunk steps run as CUDA graphs in the
+        current mode: decode whenever the engine captures; chunk steps
+        unless a MoE stack gates them (they plan on the host)."""
+        return {"decode": self._capture,
+                "chunk": self._capture and self._chunk_capturable}
+
     def _step(self, key, kind: str, make):
         """The StepGraph at `key` in the current mode, built by `make()` →
         (body, inputs) on first use; `trace_counts[kind]` counts the keys
         (on the card, each one capture; eager steps count too)."""
         step = self._steps.get((key, self._capture))
         if step is None:
-            if self._capture and self._pool is None:
+            capture = self.step_graphs["chunk" if kind == "prefill"
+                                       else "decode"]
+            if capture and self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             body, inputs = make()
-            step = StepGraph(body, inputs, capture=self._capture,
+            step = StepGraph(body, inputs, capture=capture,
                              pool=self._pool, spamm_ctx=self.spamm_ctx)
             self._steps[(key, self._capture)] = step
             self.trace_counts[kind] += 1
@@ -675,9 +694,10 @@ class Engine:
                                          time.perf_counter_ns(), **span_args)
             self._m_waves.inc()
             self._m_tokens.inc(sum(len(o) for o in results))
+        graphs = self.step_graphs
         for r, toks_out in zip(requests, results):
             r.out = {"tokens": toks_out, "spamm": spamm_meta,
-                     "latency": latency}
+                     "latency": latency, "graphs": dict(graphs)}
         return results
 
     def _slot_count(self, b: int) -> int:

@@ -1198,3 +1198,117 @@ def test_autotuned_serving_graphed_equals_eager_on_card(dev, tmp_path):
             assert torch.equal(got, want)
         assert _timing_free(graphed[2]) == _timing_free(eager[2])
         assert graphed[3] == eager[3] and sum(eager[3]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the MoE block and the MoE family's engine (reduced qwen2-moe-a2.7b)
+# ---------------------------------------------------------------------------
+
+def _moe_case(dev, tokens, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MoE
+
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = MoE.moe_params(gen, cfg.moe, cfg.d_model, torch.float32, dev)
+    x = torch.randn(2, tokens, cfg.d_model, generator=gen, device=dev)
+    return cfg, MoE, p, x
+
+
+@pytest.mark.parametrize("tokens", [1, 16])
+def test_moe_dispatch_graphed_equals_eager_on_card(dev, tokens):
+    """The routing tables, the load-balance loss and the dense block's
+    output of one CUDA graph, replayed on new inputs copied into its static
+    input, equal an eager call on those inputs bit for bit (no host read
+    inside: the capture would raise), and two eager calls agree (the
+    combine has a fixed order)."""
+    cfg, MoE, p, x = _moe_case(dev, tokens)
+    m = cfg.moe
+    cap = MoE.capacity(x.shape[0] * x.shape[1], m)
+
+    def body(xs):
+        xt = xs.reshape(-1, cfg.d_model)
+        return (*MoE._dispatch(xt, p["router"], m, cap),
+                *MoE.moe_block(p, xs, m, cfg.act))
+
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body(static)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = body(static)
+    for seed in (1, 2):
+        _, _, _, new = _moe_case(dev, tokens, seed)
+        static.copy_(new)
+        g.replay()
+        eager = body(new)
+        again = body(new)
+        torch.cuda.synchronize()
+        for a, b, c in zip(outs, eager, again):
+            assert torch.equal(a, b) and torch.equal(b, c)
+    assert outs[6].shape == x.shape and torch.isfinite(outs[6]).all()
+
+
+@pytest.mark.parametrize("plane", ["wave", "chunked"])
+@pytest.mark.parametrize("bmm", [None, True, False],
+                         ids=["dense", "moe_bmm", "per_expert"])
+def test_moe_engine_graphed_equals_eager_on_card(dev, plane, bmm):
+    """Reduced qwen2-moe-a2.7b: one engine serves a wave eagerly, then with
+    its steps captured, bit for bit (tokens, every step's logits, stats,
+    launches). Decode steps are captured; chunk steps are captured with
+    SpAMM off and run eagerly with SpAMM on, as `out["graphs"]` reports;
+    with moe_bmm the dense-grid kernel runs in every gated prefill."""
+    from repro_torch.configs import ParallelConfig, SpammConfig, get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=8)
+    params = M.init_params(cfg, pcfg, 0, device="cuda")
+    sc = (None if bmm is None else
+          SpammConfig(enable=True, tau=12.0, tile=GRAPH_TILE, moe_bmm=bmm))
+    kw = ({} if plane == "wave"
+          else {"prefill_chunk": GRAPH_TILE, "max_slots": 2})
+    eng = Engine(cfg, pcfg, params, max_len=64, spamm_cfg=sc, **kw)
+    prompts = _graph_prompts(cfg, plane)
+    eng.cuda_graphs = False
+    _graph_run(eng, prompts)
+    eager = _graph_run(eng, prompts)
+    eng.cuda_graphs = True
+    _graph_run(eng, prompts)
+    graphed = _graph_run(eng, prompts)
+    assert eng.step_graphs == {"decode": True, "chunk": bmm is None}
+    caps = [k for k, s in eng._steps.items() if k[1] and s.capture]
+    kinds = {k[0][0] for k in caps}
+    assert "wave" in kinds or "slots" in kinds
+    assert ("chunk" in kinds) == (plane == "chunked" and bmm is None)
+    assert graphed[0] == eager[0] and len(graphed[1]) == len(eager[1])
+    for got, want in zip(graphed[1], eager[1]):
+        assert torch.equal(got, want)
+    if bmm is not None:
+        assert _timing_free(graphed[2]) == _timing_free(eager[2])
+        assert 0.0 < graphed[2]["valid_fraction"] < 1.0
+    assert graphed[3] == eager[3]
+    dense_launches = graphed[3][-1]         # spamm_mm.dense_launches
+    assert (dense_launches > 0) == bool(bmm)
+
+
+def test_valid_fractions_divide_exactly_on_card(dev):
+    """A valid fraction is the reference's correctly rounded f32 quotient
+    on the card too (a CUDA tensor divided by a Python number is multiplied
+    by its reciprocal: 42240 · fl(1/42240) < 1): n / n is 1 for every tile
+    count tried, and spamm_bmm at τ = 0 on qwen2-moe-a2.7b's expert grid
+    (60 × 1 × 22 × 32 = 42240 tiles) keeps every tile at fraction 1."""
+    counts = range(1, 50_001, 7)
+    got = torch.stack([P._fraction(torch.tensor(n, device=dev), n)
+                       for n in counts])
+    assert bool((got == 1.0).all())
+    assert float(P._fraction(torch.tensor(12345, device=dev), 42240)) == \
+        float(np.float32(12345) / np.float32(42240))
+    x = _rand((60, 64, 2048), 40, dev)
+    w = _rand((60, 2048, 1408), 41, dev)
+    _, info = P.spamm_bmm(x, w, 0.0, tile=64)
+    assert float(info.valid_fraction) == 1.0

@@ -35,7 +35,8 @@ def test_port_has_modules():
                  "plans/frozen.py", "plans/store.py", "plans/precompute.py",
                  "serving/engine.py", "launch/serve.py",
                  "launch/precompute_plans.py", "obs/__init__.py",
-                 "obs/registry.py", "obs/tracer.py", "obs/residual.py"):
+                 "obs/registry.py", "obs/tracer.py", "obs/residual.py",
+                 "models/moe.py"):
         assert twin in names
 
 
@@ -142,6 +143,7 @@ def test_fresh_import_keeps_jax_out():
         "import repro_torch.plans.store, repro_torch.launch.precompute_plans\n"
         "import repro_torch.obs, repro_torch.obs.registry\n"
         "import repro_torch.obs.tracer, repro_torch.obs.residual\n"
+        "import repro_torch.models.moe\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -438,11 +438,11 @@ def test_populate_counts_and_refuses_autotune(models, tmp_path, monkeypatch):
 
 
 def test_spamm_configs_match_field_for_field():
-    """Every field of the reference's SpammConfig but the MoE switch (the
-    MoE family is not ported), with the same defaults."""
+    """Every field of the reference's SpammConfig, the MoE switch
+    `moe_bmm` included, in its order, with the same defaults."""
     ours = {f.name: f.default for f in dataclasses.fields(SpammConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(RSpamm)}
-    assert set(ref) - set(ours) == {"moe_bmm"} and set(ours) <= set(ref)
+    assert list(ref) == list(ours) and ours["moe_bmm"] is False
     assert all(ours[k] == ref[k] for k in ours if k != "backend")
     assert ours["autotune"] is False and ours["tune_profile"] is None
 
