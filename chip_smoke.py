@@ -85,24 +85,44 @@ nodes per replayed step), each wave's taps priced with both profiles
 tile the block_n = 1 gate keeps at layer 0; a warm plan store hits every
 tuned artifact.
 
-Dense families: codeqwen1.5-7b at full width and depth (dense, τ = 0 ≡
-dense, the median τ graphed ≡ eager, that τ autotuned: graphed ≡ eager,
-its gate ⊇ the untuned gate at layer 0), qwen2.5-32b and
-granite-34b at full width and FAMILY_DEPTH layers (dense, τ = 0 ≡ dense;
+Dense families, at full width and FAMILY_DEPTH layers (llava-next, in
+the last families, is the whole 7B-class dense model): codeqwen1.5-7b
+(dense, τ = 0 ≡ dense, the median τ graphed ≡ eager, that τ autotuned:
+graphed ≡ eager, its gate ⊇ the untuned gate at layer 0), qwen2.5-32b and
+granite-34b (dense, τ = 0 ≡ dense;
 granite-34b's chunked plane graphed ≡ eager), peak memory of each.
 
-MoE: qwen2-moe-a2.7b whole (24 layers, d 2048, 16/16 heads, 60 experts
-top-4 of ff 1408, a sigmoid-gated shared expert of ff 5632, vocab 151936;
-57.3 GB of f32) on run (c)'s wave: dense; τ = 0 with moe_bmm (tokens equal
-dense, prefill logits within 1e-3); the median τ of the first gated decode
-GEMM with moe_bmm (graphed ≡ eager bit for bit, the dense-grid kernel
-three times a layer per prefill), one decode step profiled (routing,
+MoE: qwen2-moe-a2.7b at full width and MOE_LAYERS of its 24 layers (d
+2048, 16/16 heads, 60 experts top-4 of ff 1408, a sigmoid-gated shared
+expert of ff 5632, vocab 151936; 57.3 GB of f32 whole) on run (c)'s wave:
+dense; τ = 0 with moe_bmm (tokens equal dense, prefill logits within
+1e-3); the median τ of the first gated decode GEMM with moe_bmm (graphed
+≡ eager bit for bit, the dense-grid kernel three times a layer per
+prefill), one decode step profiled (routing,
 routed-expert bmms, shared expert, attention gates) beside its graph's
 replay; the per-expert path at that τ on 4 layers ≡ moe_bmm bit for bit;
 the chunked plane (SpAMM off, τ = 0, that τ; graphed ≡ eager; chunk steps
 captured only with SpAMM off). mixtral-8x22b at full width, 4 of 56
 layers (41.7 GB): dense, τ = 0 with moe_bmm, on the sliding-window ring
 decode cache.
+
+Last families (`phase_last_families`), each whole and freed before the
+next, run (c)'s wave at max_len 512: llava-next-mistral-7b (32 layers,
+GQA 32/8, SwiGLU ff 14336) and musicgen-large (48 layers, MHA, GELU MLP)
+behind their stub frontends: dense, τ = 0 ≡ dense tokens (prefill logits
+within 1e-3), the median τ of the first gated GEMM of a decode step
+(graphed ≡ eager bit for bit), a prefill fed embedding[tokens] as
+`embeds` ≡ the token prefill bit for bit; musicgen's chunked plane at
+τ = 0 (4 prompts of 37–128 tokens, 2 slots; graphed ≡ eager, ≡ solo
+waves). recurrentgemma-9b (12 (rec, rec, attn) groups + 2 rec layers,
+MQA 16/1 of head_dim 256, window 2048): the same checks, 162 frozen
+weights, the ring decode cache, a decode step's device time by range
+(RG-LRU blocks, attention layers, MLPs, frozen gates, work-lists), and a
+mixed-length batch and prefill_chunk refused. mamba2-1.3b (48 SSD
+layers): dense at 4 × 128 and 4 × 320 tokens (one carried 256-token chunk
+and a 64-token remainder), graphed ≡ eager; SpAMM on at recurrentgemma's
+τ ≡ dense bit for bit with no get-norm or work-list launch; prefill_chunk
+and a mixed-length batch refused.
 
 Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
 with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
@@ -120,7 +140,8 @@ kernel entries (the work-list GEMM twice, f32 and bf16; each of the
 get-norm pair twice, CUDA-core and tensor-core) with their launches on
 their path (the τ > 0 serving run at its dtype, the store walk, the
 library path, or the dense-grid GEMM's qwen2-moe τ > 0 wave; the f32 pair
-also on run (f) and the MoE wave), errors, times and bounds;
+also on run (f), the MoE wave and the last families' τ > 0 waves),
+errors, times and bounds;
 the last line is {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
 src/ beside it, it exits 2 and prints no result.
@@ -169,19 +190,32 @@ OBS_BYTES_RTOL = 1e-9
 # directory .gitignore lists
 CAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out", "chip_smoke_calibrate")
-# the dense family: codeqwen1.5-7b whole; qwen2.5-32b (1.95 GB of f32 a
-# layer) and granite-34b (88 layers, 187 GB of f32 whole) at full width and
-# this depth
-FAMILY_DEPTH = {"codeqwen1.5-7b": None, "qwen2.5-32b": 8, "granite-34b": 8}
+# the dense family at full width and this depth: codeqwen1.5-7b (32 layers
+# whole; cut, for the smoke's time limit, since llava-next-mistral-7b runs
+# whole in the last families), qwen2.5-32b (1.95 GB of f32 a layer) and
+# granite-34b (88 layers, 187 GB of f32 whole)
+FAMILY_DEPTH = {"codeqwen1.5-7b": 8, "qwen2.5-32b": 8, "granite-34b": 8}
 # granite-34b's chunked plane (MQA in the chunk and decode graphs): mixed
 # prompt lengths through two slots
 FAMILY_CHUNK_PLENS = (64, 100, 37, 128)
-# the MoE family: qwen2-moe-a2.7b whole (24 layers, 14.3 B parameters, 57.3
-# GB of f32), its per-expert path (180 eager plans a layer) at this depth,
-# and mixtral-8x22b (10.0 GB of f32 a layer) at full width and this depth
+# the MoE family: qwen2-moe-a2.7b (24 layers, 14.3 B parameters, 57.3 GB of
+# f32 whole) at this depth, cut for the smoke's time limit, its per-expert
+# path (180 eager plans a layer) at this depth, and mixtral-8x22b (10.0 GB
+# of f32 a layer) at full width and this depth
 MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_LAYERS = 12
 MOE_PER_EXPERT_LAYERS = 4
 MOE_MIXTRAL_LAYERS = 4
+# the last four families, each whole: llava-next-mistral-7b (32 layers,
+# 29.0 GB of f32) and musicgen-large (48, 9.7 GB) behind their stub
+# frontends, recurrentgemma-9b (38: 12 (rec, rec, attn) groups + 2 rec; 38.5
+# GB) and mamba2-1.3b (48, 5.8 GB); their waves at this max_len
+LAST_FAMILIES = ("llava-next-mistral-7b", "musicgen-large",
+                 "recurrentgemma-9b", "mamba2-1.3b")
+FAMILY_MAX_LEN = 512
+# mamba2's long prompt: one carried 256-token SSD chunk and a 64-token
+# remainder
+SSM_LONG_PROMPT = 320
 # the store phase's use_mxu walks run at this depth (the walk's checks do
 # not depend on it; the cold and warm run (c) walks stay at full depth)
 STORE_MXU_LAYERS = 8
@@ -2232,21 +2266,22 @@ def phase_autotune(cfg, pcfg, params, prompts, sct, eng_c, profile_path):
     return res["tuned_launches"]
 
 
-def family_wave(cfg, pcfg, params, prompts, sc, label, depth_cut):
+def family_wave(cfg, pcfg, params, prompts, sc, label, depth_cut,
+                max_len=MAX_LEN, line="dense_family"):
     """An engine of `cfg` at SpAMM config `sc`: a cold wave (freeze,
     captures), then the measured wave with every count set to 0 just
-    before it. Emits a "dense_family" line; returns (engine, tokens,
-    out, launches)."""
+    before it. Emits a `line` line; returns (engine, tokens, out,
+    launches)."""
     import numpy as np
     import torch
 
     from repro_torch.serving.engine import Engine
 
-    eng = Engine(cfg, pcfg, params, max_len=MAX_LEN, spamm_cfg=sc)
+    eng = Engine(cfg, pcfg, params, max_len=max_len, spamm_cfg=sc)
     logged_wave(eng, prompts, MAX_NEW)
     toks, _, out, counts, dt = logged_wave(eng, prompts, MAX_NEW)
     sp = out["spamm"] or {}
-    emit({"dense_family": cfg.name, "run": label, "card": CARD,
+    emit({line: cfg.name, "run": label, "card": CARD,
           "layers": cfg.num_layers, "depth_cut": depth_cut,
           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "heads": cfg.num_heads,
           "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab,
@@ -2254,14 +2289,15 @@ def family_wave(cfg, pcfg, params, prompts, sc, label, depth_cut):
           "prefill_valid_fraction": sp.get("valid_fraction"),
           "decode_valid_fraction": sp.get("decode_valid_fraction"),
           "cost_residual": sp.get("cost_residual"), "launches": counts,
+          "prompt_len": len(prompts[0]), "max_len": max_len,
           "graphs": eng.graph_stats(),
           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
     return eng, np.stack(toks), out, counts
 
 
 def phase_dense_families(profile_path):
-    """codeqwen1.5-7b at full width and depth, qwen2.5-32b and granite-34b
-    at full width and FAMILY_DEPTH layers, random weights from SEED, run
+    """codeqwen1.5-7b, qwen2.5-32b and granite-34b at full width and
+    FAMILY_DEPTH layers, random weights from SEED, run
     (c)'s wave shape. Each: dense, then τ = 0 (tokens equal dense, prefill
     logits within LOGIT_RTOL), graphed. codeqwen1.5-7b also at the median
     product τ of its first decode GEMM (graphed ≡ eager) and at that τ
@@ -2425,28 +2461,22 @@ def moe_wave(cfg, pcfg, params, prompts, sc, label, depth_cut, **kw):
     return eng, toks, out, counts
 
 
-def moe_decode_profile(eng, tokens, label):
-    """Where a qwen2-moe decode step's device time goes: one eager decode
-    step of the wave's engine under torch.profiler, with ranges around the
-    routing (`models.moe._dispatch`), the routed experts' dense bmms
-    (`_grouped_ffn`), the shared expert (`_shared_ffn`) and the frozen
-    attention gates (`core.plan._plan_frozen`), each range's device time
-    being the kernels it launches; the captured step's replay beside it.
-    The expectation (not a claim): the routed experts' GEMMs read every
-    expert's weights, 3·E·d·ff·4 bytes a layer."""
+def decode_step_ranges(eng, tokens, ranges):
+    """Device milliseconds of one eager decode step of the wave's engine
+    under torch.profiler, by range: `ranges` maps a name to the (module,
+    function) whose calls the range wraps, each range's time being the
+    device time of the kernels it launches (inclusive: a range inside
+    another counts in both). The repository's own kernels launch through
+    ctypes, outside any PyTorch op, so the profiler may not attribute them
+    to a range: their device time is also summed by kernel name. Returns
+    ({name: ms, "decode_step": ms}, kernel ms outside every range name, or
+    "not measured", {kernel name part: ms} of the hand-written kernels)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.core import plan as P
-    from repro_torch.models import moe as MoE
-
-    cfg = eng.cfg
-    ranges = {"chip_smoke::moe_dispatch": (MoE, "_dispatch"),
-              "chip_smoke::moe_experts": (MoE, "_grouped_ffn"),
-              "chip_smoke::moe_shared": (MoE, "_shared_ffn"),
-              "chip_smoke::attention_gates": (P, "_plan_frozen")}
-    saved = {k: getattr(o, a) for k, (o, a) in ranges.items()}
+    keys = {f"chip_smoke::{n}": oa for n, oa in ranges.items()}
+    saved = {k: getattr(o, a) for k, (o, a) in keys.items()}
 
     def traced(name):
         fn = saved[name]
@@ -2462,7 +2492,7 @@ def moe_decode_profile(eng, tokens, label):
     with torch.inference_mode():
         step(tokens=tokens, pos=PROMPT_LEN)
         torch.cuda.synchronize()
-        for name, (o, a) in ranges.items():
+        for name, (o, a) in keys.items():
             setattr(o, a, traced(name))
         try:
             with profile(activities=[ProfilerActivity.CPU,
@@ -2471,7 +2501,7 @@ def moe_decode_profile(eng, tokens, label):
                     step(tokens=tokens, pos=PROMPT_LEN)
                 torch.cuda.synchronize()
         finally:
-            for name, (o, a) in ranges.items():
+            for name, (o, a) in keys.items():
                 setattr(o, a, saved[name])
             eng.cuda_graphs = True
     events = prof.key_averages()
@@ -2480,16 +2510,40 @@ def moe_decode_profile(eng, tokens, label):
         return sum(e.device_time_total / 1e3 for e in events
                    if e.key == key and e.device_type == DeviceType.CPU)
 
-    names = list(ranges) + ["chip_smoke::decode_step"]
+    names = list(keys) + ["chip_smoke::decode_step"]
     ms = {n.split("::")[1]: inclusive(n) for n in names}
     kernels = sum(e.self_device_time_total for e in events
                   if e.device_type == DeviceType.CUDA
                   and e.key not in names) / 1e3
+    own = {part: sum(e.self_device_time_total for e in events
+                     if e.device_type == DeviceType.CUDA
+                     and part in e.key) / 1e3
+           for part in ("tile_norms", "spamm_worklist", "spamm_dense")}
+    return ms, (kernels if kernels > 0 else "not measured"), own
+
+
+def moe_decode_profile(eng, tokens, label):
+    """Where a qwen2-moe decode step's device time goes: one eager decode
+    step of the wave's engine (`decode_step_ranges`), with ranges around
+    the routing (`models.moe._dispatch`), the routed experts' dense bmms
+    (`_grouped_ffn`), the shared expert (`_shared_ffn`) and the frozen
+    attention gates (`core.plan._plan_frozen`); the captured step's replay
+    beside it. The expectation (not a claim): the routed experts' GEMMs
+    read every expert's weights, 3·E·d·ff·4 bytes a layer."""
+    from repro_torch.core import plan as P
+    from repro_torch.models import moe as MoE
+
+    cfg = eng.cfg
+    ms, kernels, own = decode_step_ranges(eng, tokens, {
+        "moe_dispatch": (MoE, "_dispatch"),
+        "moe_experts": (MoE, "_grouped_ffn"),
+        "moe_shared": (MoE, "_shared_ffn"),
+        "attention_gates": (P, "_plan_frozen")})
     nbytes = 3 * cfg.moe.num_experts * cfg.d_model * cfg.moe.expert_ff * 4
     replay = replay_profile(eng._steps[(("wave", BATCH), True)]._graph)
     res = {"run": label, "card": CARD, "eager_step_device_ms": ms,
-           "eager_step_kernel_ms": kernels if kernels > 0 else "not measured",
-           "graphed_step": replay,
+           "eager_step_kernel_ms": kernels,
+           "hand_written_kernel_ms": own, "graphed_step": replay,
            "expert_weight_bytes_per_step": nbytes * cfg.num_layers,
            "expert_bytes_bound_ms":
                nbytes * cfg.num_layers / PEAK_BYTES_S * 1e3}
@@ -2645,11 +2699,12 @@ def moe_tau0(cfg, pcfg, params, prompts, cut, dense_toks, dense_logits):
 
 def phase_moe():
     """The MoE family at full width, random weights from SEED, run (c)'s
-    wave shape, graphed decode, after a warm-up wave. qwen2-moe-a2.7b whole
-    (24 layers, ≈ 57.3 GB of f32): dense; τ = 0 with moe_bmm (tokens equal
-    dense, prefill logits within LOGIT_RTOL); the median τ of the first
-    gated decode GEMM with moe_bmm (graphed ≡ eager bit for bit, three
-    dense-grid launches a layer per prefill), its decode step profiled;
+    wave shape, graphed decode, after a warm-up wave. qwen2-moe-a2.7b at
+    MOE_LAYERS of its 24 layers (≈ 57.3 GB of f32 whole): dense; τ = 0
+    with moe_bmm (tokens equal dense, prefill logits within LOGIT_RTOL);
+    the median τ of the first gated decode GEMM with moe_bmm (graphed ≡
+    eager bit for bit, three dense-grid launches a layer per prefill), its
+    decode step profiled;
     the per-expert path at that τ on MOE_PER_EXPERT_LAYERS layers (≡
     moe_bmm bit for bit); the chunked plane (SpAMM off, τ = 0, that τ;
     graphed ≡ eager). Then mixtral-8x22b at full width and
@@ -2668,7 +2723,7 @@ def phase_moe():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, params, cut = moe_model(MOE_ARCH, None, pcfg)
+    cfg, params, cut = moe_model(MOE_ARCH, MOE_LAYERS, pcfg)
     prompts = np.random.default_rng(SEED).integers(
         1, cfg.vocab, size=(BATCH, PROMPT_LEN)).astype(np.int32)
     eng, dense_toks, out, _ = moe_wave(cfg, pcfg, params, prompts, None,
@@ -2731,6 +2786,352 @@ def phase_moe():
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the last four families
+# ---------------------------------------------------------------------------
+
+def family_model(arch, pcfg):
+    """(cfg, params) of `arch` whole, random weights from SEED on the
+    card; emits a "model" line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, pcfg, SEED, device=DEV)
+    torch.cuda.synchronize()
+    sub = {k: dataclasses.asdict(getattr(cfg, k)) for k in ("ssm", "rglru")
+           if getattr(cfg, k) is not None}
+    emit({"model": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "act": cfg.act, "frontend": cfg.frontend,
+          "sliding_window": cfg.sliding_window, **sub,
+          "params": sum(t.numel() for t in _leaves(params)),
+          "param_gb": sum(t.numel() * t.element_size()
+                          for t in _leaves(params)) / 1e9,
+          "init_s": time.perf_counter() - t0, "depth_cut": None})
+    return cfg, params
+
+
+def decode_median_tau(eng, prompts):
+    """derive_tau's rule read from the gate itself, so that it holds on a
+    stack whose layer 0 has no wq: the median norm product of the first
+    gated GEMM of a decode step, recorded (`core.plan._plan_frozen`) in an
+    eager wave of `eng` (τ = 0, every step kept) with two new tokens — the
+    first call on a one-tile row grid is the first decode step's first
+    gated GEMM."""
+    from repro_torch.core import plan as P
+    from repro_torch.serving.engine import Request
+
+    first = []
+    orig = P._plan_frozen
+
+    def recording(a, fp, **kw):
+        p = orig(a, fp, **kw)
+        if fp.gm == 1 and not first:
+            prod = p.norm_a[fp.step_i, fp.step_k] * fp.nbmax[fp.step_k,
+                                                              fp.step_j]
+            first.append((prod[fp.step_real], list(a.shape),
+                          [fp.gk * fp.tile, fp.gnb * fp.tile * fp.block_n]))
+        return p
+
+    eng.cuda_graphs = False
+    P._plan_frozen = recording
+    try:
+        eng.generate([Request(prompt=p, max_new_tokens=2) for p in prompts])
+    finally:
+        P._plan_frozen = orig
+        eng.cuda_graphs = True
+    prods, act, wshape = first[0]
+    tau = float(prods.flatten().median())
+    emit({"tau_derivation": {
+        "model": eng.cfg.name, "gemm": "first gated GEMM of the first "
+        "decode step", "activation": act, "weight_shape": wshape,
+        "rule": "median of norm_a[i,k]*norm_b[k,j] over all (i,j,k)",
+        "products": int(prods.numel()), "tau": tau}})
+    return tau
+
+
+def embeds_equal_tokens(cfg, pcfg, params, prompts, eng):
+    """The stub frontends' path: a prefill fed `embeds = embedding[tokens]`
+    ≡ the token prefill bit for bit (logits), dense and through `eng`'s
+    frozen plans."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    tok = torch.as_tensor(prompts, device=DEV)
+    emb = params["embed"]["embedding"][tok.long()]
+    res = {}
+    for label, ctx, frozen in (
+            ("dense", None, None),
+            ("gated", eng.spamm_ctx, eng._frozen_for(prompts.size))):
+        step = M.make_prefill_step(cfg, pcfg, spamm_cfg=ctx)
+        with torch.inference_mode():
+            _, lt = step(params, {"tokens": tok}, frozen)
+            _, le = step(params, {"embeds": emb}, frozen)
+        res[label] = bool(torch.equal(lt, le))
+    emit({"embeds_vs_tokens": {"model": cfg.name, "frontend": cfg.frontend,
+                               "bit_identical": res}})
+    check(all(res.values()), f"{cfg.name} embeds prefill differs: {res}")
+
+
+def family_tau0(cfg, pcfg, params, prompts, dense_toks, dense_logits):
+    """τ = 0 ≡ dense: tokens equal, prefill logits within LOGIT_RTOL,
+    every tile kept, rows 1 and 2 launched. Returns the engine."""
+    from repro_torch.configs import SpammConfig
+
+    sc0 = SpammConfig(enable=True, tau=0.0, tile=TILE)
+    eng, toks0, out0, c0 = family_wave(cfg, pcfg, params, prompts, sc0,
+                                       "tau=0", None, FAMILY_MAX_LEN,
+                                       "family")
+    _, rel = errors(prefill_logits(cfg, pcfg, params, prompts, eng),
+                    dense_logits)
+    same = bool((toks0 == dense_toks).all())
+    emit({"family_tau0_vs_dense": {
+        "model": cfg.name, "prefill_logits_max_rel_err": rel,
+        "tolerance_rel": LOGIT_RTOL, "tokens_equal": same}})
+    check(rel <= LOGIT_RTOL and same
+          and out0["spamm"]["valid_fraction"] == 1.0
+          and c0["tile_norms"] > 0 and c0["spamm_mm_worklist"] > 0,
+          f"{cfg.name} at τ = 0: rel {rel}, tokens equal {same}, "
+          f"launches {c0}")
+    return eng
+
+
+def gated_family(cfg, pcfg, params, prompts):
+    """An attention or hybrid model whole: dense; τ = 0 ≡ dense; the median
+    decode τ (graphed ≡ eager bit for bit). Returns (τ, the τ > 0 engine,
+    its launches, the dense tokens)."""
+    import torch
+
+    from repro_torch.configs import SpammConfig
+    from repro_torch.plans.precompute import frozen_leaves
+
+    eng, dense_toks, _, _ = family_wave(cfg, pcfg, params, prompts, None,
+                                        "dense", None, FAMILY_MAX_LEN,
+                                        "family")
+    del eng
+    dense_logits = prefill_logits(cfg, pcfg, params, prompts)
+    eng = family_tau0(cfg, pcfg, params, prompts, dense_toks, dense_logits)
+    tau = decode_median_tau(eng, prompts)
+    del eng
+    torch.cuda.empty_cache()
+    sct = SpammConfig(enable=True, tau=tau, tile=TILE)
+    eng, _, out, counts = family_wave(cfg, pcfg, params, prompts, sct,
+                                      f"tau={tau:.6g}", None, FAMILY_MAX_LEN,
+                                      "family")
+    sp = out["spamm"]
+    gemms = len(list(frozen_leaves(eng._fw_tree)))
+    emit({"family_launches": {
+        "model": cfg.name, "tau": tau, "gated_weights": gemms,
+        "expected_rows_1_2": gemms * MAX_NEW,
+        "measured": {k: counts[k] for k in ("tile_norms",
+                                            "spamm_mm_worklist")}}})
+    check(0.0 < sp["valid_fraction"] <= 1.0
+          and 0.0 < sp["decode_valid_fraction"] < 1.0
+          and counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0,
+          f"{cfg.name} τ > 0: valid fractions {sp['valid_fraction']}, "
+          f"{sp['decode_valid_fraction']}, launches {counts}")
+    compare_graphed_eager(eng, prompts, f"{cfg.name} tau={tau:.6g}")
+    return tau, eng, counts, dense_toks
+
+
+def family_chunked_tau0(cfg, pcfg, params):
+    """The chunked plane at τ = 0: FAMILY_CHUNK_PLENS prompts through two
+    slots, graphed ≡ eager bit for bit, each request's tokens ≡ its solo
+    wave's."""
+    import numpy as np
+
+    from repro_torch.configs import SpammConfig
+    from repro_torch.serving.engine import Engine, Request
+
+    rng = np.random.default_rng(SEED)
+    mixed = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+             for n in FAMILY_CHUNK_PLENS]
+    eng = Engine(cfg, pcfg, params, max_len=CHUNK_MAX_LEN,
+                 spamm_cfg=SpammConfig(enable=True, tau=0.0, tile=TILE),
+                 max_slots=2)
+    toks = logged_wave(eng, mixed, MAX_NEW)[0]
+    compare_graphed_eager(eng, mixed, f"{cfg.name} chunked tau=0")
+    solo = [np.asarray(eng.generate([Request(prompt=p,
+                                             max_new_tokens=MAX_NEW)])[0])
+            for p in mixed]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(toks, solo)]
+    emit({"family_chunked_tau0": {"model": cfg.name,
+                                  "prompt_lens": list(FAMILY_CHUNK_PLENS),
+                                  "slots": 2, "chunks": eng.chunk_steps,
+                                  "tokens_equal_solo_wave": same}})
+    check(all(same), f"{cfg.name} chunked τ = 0 differs from solo waves")
+
+
+def hybrid_decode_profile(eng, tokens, label):
+    """Where a recurrentgemma decode step's device time goes
+    (`decode_step_ranges`): the RG-LRU blocks (`rglru_decode_step`), the
+    attention layers (`attention_decode`, their frozen gates and
+    work-lists included), the MLPs (`layers.mlp`, gates and work-lists
+    included), and across both the frozen gates (`core.plan._plan_frozen`)
+    and the work-lists (`core.plan.execute`); the get-norm and work-list
+    kernels by name; the captured step's replay beside it."""
+    from repro_torch.core import plan as P
+    from repro_torch.models import rglru, transformer
+
+    ms, kernels, own = decode_step_ranges(eng, tokens, {
+        "rglru_blocks": (rglru, "rglru_decode_step"),
+        "attention_layers": (transformer, "attention_decode"),
+        "mlps": (transformer, "mlp"),
+        "frozen_gates": (P, "_plan_frozen"),
+        "work_lists": (P, "execute")})
+    replay = replay_profile(eng._steps[(("wave", BATCH), True)]._graph)
+    res = {"run": label, "card": CARD, "eager_step_device_ms": ms,
+           "eager_step_kernel_ms": kernels,
+           "hand_written_kernel_ms": own, "graphed_step": replay,
+           "note": "frozen_gates and work_lists lie inside the attention "
+                   "and MLP ranges; the hand-written kernels by name"}
+    emit({"hybrid_decode_profile": res})
+    return res
+
+
+def phase_last_families():
+    """The last four families whole, at full width and depth, random f32
+    weights from SEED, one at a time (memory freed between them), run
+    (c)'s wave shape at max_len FAMILY_MAX_LEN, graphed after a warm-up.
+    llava-next-mistral-7b and musicgen-large (stub frontends): dense, τ = 0
+    ≡ dense, the median decode τ graphed ≡ eager, a prefill fed
+    `embeds = embedding[tokens]` ≡ the token prefill; musicgen also the
+    chunked plane at τ = 0. recurrentgemma-9b (12 (rec, rec, attn) groups
+    + 2 rec): the same, 162 frozen weights, the ring decode cache, a
+    decode step's device time by range, and a mixed-length batch and
+    `prefill_chunk` refused. mamba2-1.3b: dense at BATCH × PROMPT_LEN and
+    at BATCH × SSM_LONG_PROMPT (one carried SSD chunk and a remainder),
+    graphed ≡ eager; SpAMM on at recurrentgemma's τ ≡ dense bit for bit
+    with no get-norm or work-list launch; `prefill_chunk` refused. Returns
+    {arch: launches of its τ > 0 wave}."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ParallelConfig, SpammConfig
+    from repro_torch.plans.precompute import frozen_leaves
+    from repro_torch.serving.engine import Engine, Request
+
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=PROMPT_LEN)
+    launches, taus = {}, {}
+
+    def prompts_of(cfg, n=PROMPT_LEN):
+        return np.random.default_rng(SEED).integers(
+            1, cfg.vocab, size=(BATCH, n)).astype(np.int32)
+
+    def refused(cfg, what, words, fn):
+        try:
+            fn()
+        except ValueError as e:
+            emit({"refused": {"model": cfg.name, "what": what,
+                              "error": str(e)}})
+            check(words in str(e), f"{cfg.name} refused {what}: {e}")
+            return
+        raise SmokeFailure(f"{cfg.name} accepted {what}")
+
+    for arch in LAST_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, params = family_model(arch, pcfg)
+        prompts = prompts_of(cfg)
+        if cfg.family != "ssm":
+            tau, eng, counts, dense_toks = gated_family(cfg, pcfg, params,
+                                                        prompts)
+            launches[arch], taus[arch] = counts, tau
+            if cfg.frontend is not None:
+                embeds_equal_tokens(cfg, pcfg, params, prompts, eng)
+            if cfg.family == "hybrid":
+                n = len(list(frozen_leaves(eng._fw_tree)))
+                attn = [c for c in eng._caches[("wave", BATCH)]["layers"]
+                        if "k" in c]
+                emit({"hybrid": {"model": cfg.name, "frozen_weights": n,
+                                 "attention_layers": len(attn),
+                                 "decode_cache_len": attn[0]["k"].shape[1],
+                                 "window": cfg.sliding_window}})
+                check(n == 162 and len(attn) == 12 and all(
+                    c["k"].shape[1] == FAMILY_MAX_LEN <= cfg.sliding_window
+                    for c in attn), f"{cfg.name} frozen {n}, attention "
+                    f"caches {[c['k'].shape for c in attn]}")
+                hybrid_decode_profile(eng, dense_toks[:, :1],
+                                      f"tau={tau:.6g}")
+            del eng
+            torch.cuda.empty_cache()
+            if cfg.name == "musicgen-large":
+                family_chunked_tau0(cfg, pcfg, params)
+        else:
+            sc = SpammConfig(enable=True, tau=taus["recurrentgemma-9b"],
+                             tile=TILE)
+            eng, dense_toks, _, _ = family_wave(
+                cfg, pcfg, params, prompts, None, "dense", None,
+                FAMILY_MAX_LEN, "family")
+            compare_graphed_eager(eng, prompts, f"{cfg.name} dense")
+            d_toks, d_logits, *_ = logged_wave(eng, prompts, MAX_NEW)
+            del eng
+            long = prompts_of(cfg, SSM_LONG_PROMPT)
+            eng, _, _, _ = family_wave(cfg, pcfg, params, long, None,
+                                       f"dense {SSM_LONG_PROMPT} tokens",
+                                       None, FAMILY_MAX_LEN, "family")
+            compare_graphed_eager(eng, long,
+                                  f"{cfg.name} dense {SSM_LONG_PROMPT}")
+            del eng
+            eng, s_toks, out, counts = family_wave(
+                cfg, pcfg, params, prompts, sc, f"tau={sc.tau:.6g}", None,
+                FAMILY_MAX_LEN, "family")
+            g_toks, g_logits, *_ = logged_wave(eng, prompts, MAX_NEW)
+            same = (all(np.array_equal(a, b) for a, b in zip(g_toks, d_toks))
+                    and len(g_logits) == len(d_logits)
+                    and all(torch.equal(a, b)
+                            for a, b in zip(g_logits, d_logits))
+                    and bool(torch.equal(
+                        prefill_logits(cfg, pcfg, params, prompts, eng),
+                        prefill_logits(cfg, pcfg, params, prompts))))
+            sp = out["spamm"]
+            emit({"ssm_spamm_vs_dense": {
+                "model": cfg.name, "tau": sc.tau, "bit_identical": same,
+                "gated_gemms": sp["gated_gemms"],
+                "decode_gated_gemms": sp["decode_gated_gemms"],
+                "launches": counts}})
+            check(same and sp["gated_gemms"] == 0
+                  and sp["decode_gated_gemms"] == 0
+                  and counts["tile_norms"] == 0
+                  and counts["spamm_mm_worklist"] == 0,
+                  f"{cfg.name} with SpAMM on: equal {same}, stats "
+                  f"{sp['gated_gemms']}, launches {counts}")
+            launches[arch] = counts
+            del eng
+        if cfg.family in ("ssm", "hybrid"):
+            refused(cfg, "prefill_chunk", "attention stack", lambda: Engine(
+                cfg, pcfg, params, max_len=FAMILY_MAX_LEN,
+                prefill_chunk=TILE))
+            mixed = [p[:n] for p, n in zip(prompts, (
+                PROMPT_LEN, PROMPT_LEN * 3 // 4, PROMPT_LEN // 2, PROMPT_LEN))]
+            eng = Engine(cfg, pcfg, params, max_len=FAMILY_MAX_LEN)
+            refused(cfg, "a mixed-length batch", "cannot chunk",
+                    lambda: eng.generate([Request(prompt=p,
+                                                  max_new_tokens=MAX_NEW)
+                                          for p in mixed]))
+            del eng
+        emit({"family_done": {"model": cfg.name, "layers": cfg.num_layers,
+                              "seconds": time.perf_counter() - t0,
+                              "peak_allocated_gb":
+                                  torch.cuda.max_memory_allocated() / 1e9}})
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3199,6 +3600,7 @@ def main():
     family_counts = timed("dense_families", phase_dense_families,
                           profile_path)
     moe_counts = timed("moe", phase_moe)
+    last_counts = timed("last_families", phase_last_families)
     lib_counts, pool, dense = timed("library", phase_library)
     emit({"phase_seconds": {**seconds, "note": "serve includes autotune"}})
 
@@ -3215,12 +3617,15 @@ def main():
                   f"layers' {store_counts['mxu_weights']} gated weights into "
                   f"a plan store, use_mxu=True at f32 and int8")
     def other_paths(name):
-        """A kernel's launches on the calibration, the tuned run (c) wave
-        and codeqwen1.5-7b's τ > 0 and autotuned waves."""
+        """A kernel's launches on the calibration, the tuned run (c) wave,
+        codeqwen1.5-7b's τ > 0 and autotuned waves and the τ > 0 waves of
+        the last four families (mamba2-1.3b's: none)."""
         return {"calibrate_launches": cal_counts[name],
                 "autotune_launches": tuned_counts[name],
                 "dense_family_launches": {
-                    k: c[name] for k, c in family_counts.items()}}
+                    k: c[name] for k, c in family_counts.items()},
+                "last_family_launches": {
+                    k: c[name] for k, c in last_counts.items()}}
 
     kernels = [
         {"name": "tile_norms", "route": "cuda",

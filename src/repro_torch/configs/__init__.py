@@ -5,6 +5,8 @@ from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
     ParallelConfig,
+    RGLRUConfig,
     SpammConfig,
+    SSMConfig,
     get_config,
 )

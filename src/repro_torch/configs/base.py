@@ -1,18 +1,19 @@
 """Config dataclasses + registry of the PyTorch port.
 
 Twin of `repro.configs.base`, kept as an independent copy so the port never
-imports the JAX package. The dense attention family (starcoder2-7b,
-codeqwen1.5-7b, qwen2.5-32b, granite-34b) and the MoE family
-(qwen2-moe-a2.7b, mixtral-8x22b) are registered; `get_config` raises
-`NotImplementedError` for the other arch ids (ROADMAP queue A, "other model
-families").
+imports the JAX package. All ten architectures are registered: the dense
+attention family (starcoder2-7b, codeqwen1.5-7b, qwen2.5-32b, granite-34b),
+the stub-frontend configs (llava-next-mistral-7b, musicgen-large: the
+backbone, fed tokens or precomputed embeddings), the MoE family
+(qwen2-moe-a2.7b, mixtral-8x22b), mamba2-1.3b (SSD) and recurrentgemma-9b
+(the RG-LRU hybrid).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 # GEMM backends of the port (kernels/ops.py): `cuda` = the hand-written
 # Hopper kernels, `torch` = their plain PyTorch versions, `auto` = the kernel
@@ -70,6 +71,24 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:                         # Mamba2 / SSD
+    state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    chunk: int = 256
+    conv_dim: int = 4
+    n_groups: int = 1
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:                       # RecurrentGemma
+    lru_width: int = 0                  # 0 → d_model
+    conv_dim: int = 4
+    c_exponent: float = 8.0
+    block_pattern: Tuple[str, ...] = ("rec", "rec", "attn")  # 1 attn : 2 rec
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                         # dense | moe | ssm | hybrid | vlm | audio
@@ -87,7 +106,9 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
-    frontend: Optional[str] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    frontend: Optional[str] = None      # None | "vision_stub" | "audio_stub"
     subquadratic: bool = False
     notes: str = ""
 
@@ -114,6 +135,12 @@ class ModelConfig:
                 shared_ff=64 if self.moe.num_shared else 0,
                 top_k=min(self.moe.top_k, 2),
             )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(self.ssm, state=16, head_dim=16,
+                                            chunk=32)
+        if self.rglru is not None:
+            kw["rglru"] = dataclasses.replace(self.rglru, lru_width=64)
+            kw["num_layers"] = 3  # one full (rec, rec, attn) group
         if self.sliding_window:
             kw["sliding_window"] = 32
         return dataclasses.replace(self, **kw)
@@ -141,17 +168,15 @@ ARCH_IDS = (
     "musicgen-large",
 )
 
-# archs whose config module exists in the port
+# archs whose config module exists in the port: all of them
 PORTED_ARCHS = ("starcoder2-7b", "codeqwen1.5-7b", "qwen2.5-32b",
-                "granite-34b", "qwen2-moe-a2.7b", "mixtral-8x22b")
+                "granite-34b", "qwen2-moe-a2.7b", "mixtral-8x22b",
+                "llava-next-mistral-7b", "musicgen-large", "mamba2-1.3b",
+                "recurrentgemma-9b")
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in PORTED_ARCHS:
-        if name in ARCH_IDS:
-            raise NotImplementedError(
-                f"{name!r} is not ported yet (ROADMAP queue A: the other "
-                f"model families); ported: {PORTED_ARCHS}")
         raise ValueError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")

@@ -15,7 +15,8 @@ fingerprints match. Runs on the card by default; `--device cpu` freezes
 with the plain PyTorch versions of the kernels (use `--reduced` there). The
 artifacts record the backend that ran ("cuda" or "torch"), so a store made
 on one device serves only that device. `--autotune` tunes block_n, levels
-and the bucket floor per gated site (once, from layer 0) against the cost
+and the bucket floor per gated site (once, from the first layer of the
+site; a hybrid stack's tail layers each on their own) against the cost
 model with the coefficients of `--tune-profile` (a `core.cost.CostProfile`
 JSON; the nominal ones without it); the flags become the tuner's defaults,
 and a server finds the artifacts only with the same `--spamm-autotune
@@ -29,6 +30,7 @@ import time
 from repro_torch.configs import (BACKEND_NAMES, ParallelConfig, SpammConfig,
                                  get_config)
 from repro_torch.models import model as M
+from repro_torch.models.transformer import group_len
 from repro_torch.plans.precompute import populate
 from repro_torch.plans.store import PlanStore
 
@@ -73,7 +75,7 @@ def main(argv=None):
     params = M.init_params(cfg, pcfg, args.seed, device=args.device)
     store = PlanStore(args.plan_store)
     t0 = time.time()
-    n = populate(store, params, scfg)
+    n = populate(store, params, scfg, group_len=group_len(cfg))
     dt = time.time() - t0
     tuned_note = " (autotuned block_n/levels/bucket)" if args.autotune else ""
     print(f"precomputed {n} weight plans into {args.plan_store} "

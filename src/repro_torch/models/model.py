@@ -6,10 +6,19 @@ weights.
 
 Parameter tree: {"embed": {"embedding"}, "final_norm", "unembed":
 {"kernel"}, "layers": [per-layer dict, ...]} — the reference's tree with its
-stacked leading L axis unstacked into a list. A layer holds "ln1", "ln2",
-"mix" (attention) and "mlp", or for the MoE family "moe": router (d, E) f32,
-w1/w3 (E, d, ff), w2 (E, ff, d) and, with shared experts, "shared" {w1, w3,
-w2, gate (d, 1) f32}.
+stacked leading L axis unstacked into a list. An attention layer holds
+"ln1", "ln2", "mix" (attention) and "mlp", or for the MoE family "moe":
+router (d, E) f32, w1/w3 (E, d, ff), w2 (E, ff, d) and, with shared
+experts, "shared" {w1, w3, w2, gate (d, 1) f32}. An SSM layer holds "ln"
+and "ssm" (`models/ssm.py`); a hybrid stack's rec layer "ln1", "ln2",
+"mix" (the RG-LRU block, `models/rglru.py`) and "mlp". The reference keeps
+a hybrid stack as {"groups": {"l0", "l1", "l2"} stacked over the groups,
+"tail": {"l0", ...}}; the port keeps one flat list in stack order
+(`transformer.layer_kinds`).
+
+The stub frontends (llava-next's vision, musicgen's audio) are the
+reference's: a batch may carry `embeds` (B, S, d) in place of `tokens`,
+and a decode step a (B, 1, d) input in place of (B, 1) token ids.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import module as spmod
 from repro_torch.device import resolve_device
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tr
 from repro_torch.models.layers import _normal, embed, rms_norm
 
@@ -49,8 +59,8 @@ def init_params(cfg: ModelConfig, pcfg: ParallelConfig, seed: int = 0, *,
                                   device=dev),
         "unembed": {"kernel": _normal(gen, (cfg.d_model, cfg.vocab), s, pdt,
                                       dev)},
-        "layers": [tr.layer_params(gen, cfg, pdt, dev)
-                   for _ in range(cfg.num_layers)],
+        "layers": [tr.layer_params(gen, cfg, pdt, dev, kind)
+                   for kind in tr.layer_kinds(cfg)],
     }
 
 
@@ -58,7 +68,9 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, *,
                     device="cuda") -> dict:
     """The reference's parameter pytree, as numpy arrays, → the port's tree
     on `device`: layers stacked on a leading L axis become a list of L
-    per-layer dicts; every leaf is copied."""
+    per-layer dicts; a hybrid stack's group g sub-layer `l{i}` becomes layer
+    g·len(group) + i, and its tail's `l{i}` the i-th layer after the
+    groups. Every leaf is copied."""
     dev = resolve_device(device)
 
     def conv(x):
@@ -69,44 +81,83 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, *,
             return {k: tmap(fn, v) for k, v in node.items()}
         return fn(node)
 
-    layers = np_tree["layers"]
+    def unstack(tree, i):
+        return tmap(lambda t: conv(np.asarray(t)[i]), tree)
+
+    if tr.stack_kinds(cfg) == "hybrid":
+        n_groups, gkinds, tail = tr.hybrid_pattern(cfg)
+        groups = np_tree["groups"]
+        layers = [unstack(groups[f"l{i}"], g) for g in range(n_groups)
+                  for i in range(len(gkinds))]
+        layers += [tmap(conv, np_tree["tail"][f"l{i}"])
+                   for i in range(len(tail))]
+    else:
+        layers = [unstack(np_tree["layers"], i)
+                  for i in range(cfg.num_layers)]
     return {
         "embed": tmap(conv, np_tree["embed"]),
         "final_norm": conv(np_tree["final_norm"]),
         "unembed": tmap(conv, np_tree["unembed"]),
-        "layers": [tmap(lambda t, i=i: conv(np.asarray(t)[i]), layers)
-                   for i in range(cfg.num_layers)],
+        "layers": layers,
     }
 
 
 def init_cache(cfg: ModelConfig, pcfg: ParallelConfig, batch: int,
                max_len: int, *, full: bool = False, device="cuda") -> dict:
-    """Zeroed decode caches: {"layers": [{"k", "v"} (B, S, Hk, hd)]}. S is
-    max_len, or the sliding window when that is smaller (the decode ring);
-    `full=True` always gives max_len: the chunked plane's LINEAR cache,
-    where a window applies as a mask."""
+    """Zeroed decode caches, one dict per layer in stack order: an attention
+    layer's {"k", "v"} (B, S, Hk, hd), S max_len or the sliding window when
+    that is smaller (the decode ring) — `full=True` always gives max_len,
+    the chunked plane's LINEAR cache, where a window applies as a mask; an
+    SSM layer's {"state" (B, H, P, N) f32, "conv" (B, K-1, conv_ch)}; a rec
+    layer's {"h" (B, W) f32, "conv" (B, K-1, W)} (the reference's dtypes:
+    states f32, conv histories at the compute dtype)."""
     dev = resolve_device(device)
     cdt = _dtype(pcfg.compute_dtype)
-    tr.stack_kinds(cfg)
-    s = (min(max_len, cfg.sliding_window)
-         if cfg.sliding_window and not full else max_len)
-    shape = (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"layers": [{"k": torch.zeros(shape, dtype=cdt, device=dev),
-                        "v": torch.zeros(shape, dtype=cdt, device=dev)}
-                       for _ in range(cfg.num_layers)]}
+    f32 = torch.float32
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def attn_cache():
+        s = (min(max_len, cfg.sliding_window)
+             if cfg.sliding_window and not full else max_len)
+        shape = (batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"k": zeros(shape, cdt), "v": zeros(shape, cdt)}
+
+    def ssm_cache():
+        dims = ssm_mod.ssm_dims(cfg.ssm, cfg.d_model)
+        return {"state": zeros((batch, dims.heads, cfg.ssm.head_dim,
+                                cfg.ssm.state), f32),
+                "conv": zeros((batch, cfg.ssm.conv_dim - 1, dims.conv_ch),
+                              cdt)}
+
+    def rec_cache():
+        w = cfg.rglru.lru_width or cfg.d_model
+        return {"h": zeros((batch, w), f32),
+                "conv": zeros((batch, cfg.rglru.conv_dim - 1, w), cdt)}
+
+    make = {"attn": attn_cache, "ssm": ssm_cache, "rec": rec_cache}
+    return {"layers": [make[kind]() for kind in tr.layer_kinds(cfg)]}
+
+
+def _inputs(params, batch, cdt) -> torch.Tensor:
+    """A batch's (B, S, d) stack input: its `embeds` (the stub frontends'
+    precomputed embeddings) or its `tokens` through the embedding."""
+    if "embeds" in batch:
+        return batch["embeds"].to(cdt)
+    return embed(params["embed"], batch["tokens"].long(), cdt)
 
 
 def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
                       spamm_cfg=None):
     """fn(params, batch, frozen=None) → (cache, last_logits (B, V) f32).
-    `batch["tokens"]` is (B, S) int; `frozen` the FrozenPlan tree for B·S
-    rows (or None: gated GEMMs plan eagerly)."""
+    `batch` holds `tokens` (B, S) int or `embeds` (B, S, d); `frozen` the
+    FrozenPlan tree for B·S rows (or None: gated GEMMs plan eagerly)."""
     spamm_cfg = spmod.as_context(spamm_cfg)
 
     def step(params, batch, frozen=None):
         cdt = _dtype(pcfg.compute_dtype)
-        tokens = batch["tokens"]
-        x = embed(params["embed"], tokens.long(), cdt)
+        x = _inputs(params, batch, cdt)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
@@ -125,18 +176,19 @@ def make_prefill_chunk_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
                             spamm_cfg=None):
     """fn(params, batch, cache, positions, last_idx, frozen=None) →
     (cache, logits (B, V) f32). One chunk of position-offset prefill at ONE
-    static (B, C) shape: `batch["tokens"]` (B, C) runs the stack, writing
-    K/V into the LINEAR decode cache IN PLACE at `positions` (B, C) int
-    (absolute per-row indices; entries ≥ the cache length are idle/pad
-    sentinels whose writes drop). `logits` are read at `last_idx` (B,), the
-    in-chunk index of each row's final prompt token, clamped to [0, C-1]
-    (rows whose prompt does not end in this chunk give values the caller
-    ignores). `frozen` is the FrozenPlan tree for B·C rows."""
+    static (B, C) shape: `batch["tokens"]` (B, C) (or `batch["embeds"]`
+    (B, C, d)) runs the stack, writing K/V into the LINEAR decode cache IN
+    PLACE at `positions` (B, C) int (absolute per-row indices; entries ≥
+    the cache length are idle/pad sentinels whose writes drop). `logits`
+    are read at `last_idx` (B,), the in-chunk index of each row's final
+    prompt token, clamped to [0, C-1] (rows whose prompt does not end in
+    this chunk give values the caller ignores). `frozen` is the
+    FrozenPlan tree for B·C rows."""
     spamm_cfg = spmod.as_context(spamm_cfg)
 
     def step(params, batch, cache, positions, last_idx, frozen=None):
         cdt = _dtype(pcfg.compute_dtype)
-        x = embed(params["embed"], batch["tokens"].long(), cdt)
+        x = _inputs(params, batch, cdt)
         b, c, _ = x.shape
         x, cache = tr.stack_prefill_chunk(params, x, cache, positions, cfg,
                                           pcfg, spamm_cfg=spamm_cfg,
@@ -152,17 +204,19 @@ def make_prefill_chunk_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
 
 def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
                      spamm_cfg=None):
-    """fn(params, tokens (B, 1), cache, pos, frozen=None) → (logits (B, V)
-    f32, cache). `pos` is an int or a 0-d int tensor (lockstep), or a (B,)
-    int32 tensor of per-row positions whose entries ≥ the cache length are
-    sentinels (`transformer.attention_decode`); the cache is written in
-    place. Decode GEMMs gate only through `frozen` plans; sites without one
-    stay dense."""
+    """fn(params, inp, cache, pos, frozen=None) → (logits (B, V) f32,
+    cache). `inp` is (B, 1) token ids or (B, 1, d) embeddings. `pos` is
+    an int or a 0-d int tensor (lockstep), or a (B,) int32 tensor of
+    per-row positions whose entries ≥ the cache length are sentinels
+    (`transformer.attention_decode`); the cache is written in place.
+    Decode GEMMs gate only through `frozen` plans; sites without one stay
+    dense."""
     spamm_cfg = spmod.as_context(spamm_cfg)
 
     def step(params, inp, cache, pos, frozen=None):
         cdt = _dtype(pcfg.compute_dtype)
-        x = embed(params["embed"], inp.long(), cdt)
+        x = (inp.to(cdt) if inp.dim() == 3
+             else embed(params["embed"], inp.long(), cdt))
         x, cache = tr.stack_decode(params, x, cache, pos, cfg, pcfg,
                                    spamm_cfg=spamm_cfg, frozen=frozen)
         h = rms_norm(x[:, 0], params["final_norm"], cfg.norm_eps)

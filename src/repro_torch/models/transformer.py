@@ -1,14 +1,25 @@
-"""Decoder stack of the port: the attention-stack parts of
-`repro.models.transformer` (dense/vlm/audio families: attention + MLP; the
-moe family: attention + MoE block, `models/moe.py`).
+"""Decoder stack of the port (twin of `repro.models.transformer`): one
+generic stack for every family.
+
+  dense / vlm / audio : attention + MLP
+  moe                 : attention + MoE block (`models/moe.py`)
+  ssm                 : Mamba2 block only (`models/ssm.py`)
+  hybrid              : n_groups × (rec, rec, local-attn) groups + a rec
+                        tail, each sub-layer followed by an MLP (the RG-LRU
+                        block is `models/rglru.py`)
 
 Layers are a Python list of per-layer parameter dicts and the stack is a
-Python loop (the reference's `lax.scan` over stacked layers). Frozen plans
-follow the same structure: `frozen["layers"][l]` is layer l's
-{"mix": {...}, "mlp": {...}} dict of FrozenPlans.
+Python loop (the reference's `lax.scan` over stacked layers). A hybrid
+stack is the same flat list in the reference's layer order — group g's
+sub-layer i is layer g·3 + i, the tail's layer i is layer n_groups·3 + i —
+and each layer's kind comes from the config (`layer_kinds`), not from its
+parameters. Frozen plans follow the same structure: `frozen["layers"][l]`
+is layer l's {"mix": {...}, "mlp": {...}} dict of FrozenPlans (an SSM layer
+has none, a rec layer its MLP's only).
 
 The decode step and the prefill chunk write their K/V into the
-preallocated cache IN PLACE (the reference updates a functional copy);
+preallocated cache IN PLACE (the reference updates a functional copy), and
+so do the recurrent layers' decode steps with their state and conv history;
 nothing else is mutated. Positions are Python ints or int tensors on the
 device, never read on the host, so both steps can be captured in a CUDA
 graph (`serving/graphs.py`). Each layer loop labels its gated GEMMs' taps
@@ -17,8 +28,8 @@ records it as a host value) and each GEMM names its site ("wq", "wk",
 "wv", "wo"). A MoE block's taps carry layer -1, as the reference's do
 (its label is cleared for the block). Per-row positions at or past the
 cache length are sentinels whose writes drop, as the reference's
-`.at[].set(mode="drop")` does (`_row_writes`). SSM and hybrid stacks are
-not ported yet (ROADMAP queue A).
+`.at[].set(mode="drop")` does (`_row_writes`). Chunked prefill takes
+attention stacks only, as the reference's does.
 """
 from __future__ import annotations
 
@@ -31,6 +42,8 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.module import SpammContext, maybe_spamm_matmul
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_normal, apply_rope, mlp, mlp_params,
                                        rms_norm)
 
@@ -192,20 +205,54 @@ def _tap_ctx(spamm_cfg) -> Optional[SpammContext]:
 
 
 def stack_kinds(cfg: ModelConfig) -> str:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.family} stacks are not ported yet (ROADMAP queue A: the "
-            f"other model families)")
+    if cfg.family == "ssm":
+        return "ssm"
+    if cfg.family == "hybrid":
+        return "hybrid"
     return "attn"
 
 
-def layer_params(gen: torch.Generator, cfg: ModelConfig, dtype,
-                 device) -> dict:
-    stack_kinds(cfg)
+def hybrid_pattern(cfg: ModelConfig):
+    """(n_groups, group_kinds, tail_kinds) for the hybrid arch."""
+    pat = cfg.rglru.block_pattern  # ("rec", "rec", "attn")
+    kinds = {"rec": "rec", "attn": "attn"}
+    glen = len(pat)
+    n_groups = cfg.num_layers // glen
+    tail = cfg.num_layers - n_groups * glen
+    return n_groups, tuple(kinds[k] for k in pat), ("rec",) * tail
+
+
+def group_len(cfg: ModelConfig) -> int:
+    """Layers per repeated group: a hybrid stack's block pattern, else 1
+    (the reference stacks one group per scan step; `n_groups` whole
+    groups, then the tail)."""
+    if stack_kinds(cfg) != "hybrid":
+        return 1
+    return len(cfg.rglru.block_pattern)
+
+
+def layer_kinds(cfg: ModelConfig) -> tuple:
+    """Each layer's kind ("attn" | "rec" | "ssm"), in stack order."""
+    kind = stack_kinds(cfg)
+    if kind != "hybrid":
+        return (kind,) * cfg.num_layers
+    n_groups, gkinds, tail = hybrid_pattern(cfg)
+    return gkinds * n_groups + tail
+
+
+def layer_params(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                 kind: str) -> dict:
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind == "ssm":
+        return {"ln": torch.zeros(cfg.d_model, **f32),
+                "ssm": ssm_mod.ssm_params(gen, cfg.ssm, cfg.d_model, dtype,
+                                          device)}
     p = {
-        "ln1": torch.zeros(cfg.d_model, dtype=torch.float32, device=device),
-        "ln2": torch.zeros(cfg.d_model, dtype=torch.float32, device=device),
-        "mix": attn_params(gen, cfg, dtype, device),
+        "ln1": torch.zeros(cfg.d_model, **f32),
+        "ln2": torch.zeros(cfg.d_model, **f32),
+        "mix": (rglru_mod.rglru_params(gen, cfg.rglru, cfg.d_model, dtype,
+                                       device) if kind == "rec"
+                else attn_params(gen, cfg, dtype, device)),
     }
     if cfg.moe is not None:
         p["moe"] = moe_mod.moe_params(gen, cfg.moe, cfg.d_model, dtype,
@@ -237,18 +284,29 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, spamm_cfg, frozen=None,
 
 
 def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              pcfg: ParallelConfig, positions: torch.Tensor, *,
+              pcfg: ParallelConfig, positions: torch.Tensor, kind: str, *,
               spamm_cfg=None, collect_cache: bool = False, frozen=None):
-    """One residual layer. Returns (x, cache or None)."""
+    """One residual layer of kind "attn" | "rec" | "ssm". Returns (x,
+    cache or None)."""
     fz = frozen or {}
-    h, (k, v) = attention_layer(
-        p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, pcfg, positions,
-        window=cfg.sliding_window, spamm_cfg=spamm_cfg, return_kv=True,
-        frozen=fz.get("mix"))
+    if kind == "ssm":
+        h, cache = ssm_mod.ssm_block(p["ssm"],
+                                     rms_norm(x, p["ln"], cfg.norm_eps),
+                                     cfg.ssm, norm_eps=cfg.norm_eps)
+        return x + h, (cache if collect_cache else None)
+    if kind == "attn":
+        h, (k, v) = attention_layer(
+            p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, pcfg,
+            positions, window=cfg.sliding_window, spamm_cfg=spamm_cfg,
+            return_kv=True, frozen=fz.get("mix"))
+        cache = {"k": k, "v": v}
+    else:
+        h, cache = rglru_mod.rglru_block(
+            p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg.rglru)
     x = x + h
     f, _ = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
                 fz.get("mlp"))
-    return x + f, ({"k": k, "v": v} if collect_cache else None)
+    return x + f, (cache if collect_cache else None)
 
 
 def layer_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
@@ -269,21 +327,34 @@ def layer_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
 
 
 def layer_decode(p: dict, x: torch.Tensor, cache: dict, pos,
-                 cfg: ModelConfig, pcfg: ParallelConfig, *, spamm_cfg=None,
-                 frozen=None):
-    """One residual decode layer; `pos` as in `attention_decode`."""
+                 cfg: ModelConfig, pcfg: ParallelConfig, kind: str, *,
+                 spamm_cfg=None, frozen=None):
+    """One residual decode layer; `pos` as in `attention_decode` (unused
+    by the recurrent kinds, whose caches carry their state)."""
     fz = frozen or {}
-    # ring buffer iff the cache is exactly the sliding window
-    ring = (cfg.sliding_window is not None
-            and cache["k"].shape[1] <= cfg.sliding_window)
-    h, (ck, cv) = attention_decode(
-        p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cache["k"],
-        cache["v"], pos, cfg, pcfg, window=cfg.sliding_window, ring=ring,
-        spamm_cfg=spamm_cfg, frozen=fz.get("mix"))
+    if kind == "ssm":
+        h, new = ssm_mod.ssm_decode_step(
+            p["ssm"], rms_norm(x[:, 0], p["ln"], cfg.norm_eps), cache,
+            cfg.ssm, norm_eps=cfg.norm_eps)
+        return x + h[:, None], new
+    if kind == "attn":
+        # ring buffer iff the cache is exactly the sliding window
+        ring = (cfg.sliding_window is not None
+                and cache["k"].shape[1] <= cfg.sliding_window)
+        h, (ck, cv) = attention_decode(
+            p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cache["k"],
+            cache["v"], pos, cfg, pcfg, window=cfg.sliding_window,
+            ring=ring, spamm_cfg=spamm_cfg, frozen=fz.get("mix"))
+        new = dict(cache, k=ck, v=cv)
+    else:
+        h1, new = rglru_mod.rglru_decode_step(
+            p["mix"], rms_norm(x[:, 0], p["ln1"], cfg.norm_eps), cache,
+            cfg.rglru)
+        h = h1[:, None]
     x = x + h
     f, _ = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
                 fz.get("mlp"), require_frozen=True)
-    return x + f, dict(cache, k=ck, v=cv)
+    return x + f, new
 
 
 def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -297,13 +368,14 @@ def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     tctx = _tap_ctx(spamm_cfg)
     caches = []
     try:
-        for li, p in enumerate(params["layers"]):
+        for li, (p, kind) in enumerate(zip(params["layers"],
+                                           layer_kinds(cfg))):
             if tctx is not None:
                 tctx.set_layer(li)
-            x, c = layer_fwd(p, x, cfg, pcfg, positions, spamm_cfg=spamm_cfg,
-                             collect_cache=True,
+            x, c = layer_fwd(p, x, cfg, pcfg, positions, kind,
+                             spamm_cfg=spamm_cfg, collect_cache=True,
                              frozen=fz_layers[li] if fz_layers else None)
-            if c["k"].shape[1] > cache_len:
+            if kind == "attn" and c["k"].shape[1] > cache_len:
                 shift = s % cache_len
                 c = {n: torch.roll(c[n][:, -cache_len:], shift, dims=1)
                      for n in ("k", "v")}
@@ -323,7 +395,12 @@ def stack_prefill_chunk(params: dict, x: torch.Tensor, cache: dict,
     its linear cache at `positions` (B, C), in place. Attention stacks
     only: recurrent prefill state does not checkpoint at a chunk
     boundary."""
-    stack_kinds(cfg)
+    kind = stack_kinds(cfg)
+    if kind != "attn":
+        raise NotImplementedError(
+            f"chunked prefill covers stateless-FFN attention stacks only "
+            f"(got stack kind {kind!r}: recurrent prefill state does not "
+            f"checkpoint at a chunk boundary)")
     fz_layers = (frozen or {}).get("layers")
     tctx = _tap_ctx(spamm_cfg)
     caches = []
@@ -352,10 +429,12 @@ def stack_decode(params: dict, x: torch.Tensor, cache: dict, pos,
     tctx = _tap_ctx(spamm_cfg)
     caches = []
     try:
-        for li, (p, c) in enumerate(zip(params["layers"], cache["layers"])):
+        for li, (p, c, kind) in enumerate(zip(params["layers"],
+                                              cache["layers"],
+                                              layer_kinds(cfg))):
             if tctx is not None:
                 tctx.set_layer(li)
-            x, nc = layer_decode(p, x, c, pos, cfg, pcfg,
+            x, nc = layer_decode(p, x, c, pos, cfg, pcfg, kind,
                                  spamm_cfg=spamm_cfg,
                                  frozen=fz_layers[li] if fz_layers else None)
             caches.append(nc)

@@ -8,11 +8,15 @@ layers as a Python list of per-layer dicts (no stacked leading axis), so
 `freeze_tree` mirrors that: a list of per-layer dicts of `FrozenWeight`s;
 each per-layer (K, N) weight hashes like the reference's slice `flat[l]` of
 its stacked leaf, so the two packages address one weight by one
-fingerprint. With `SpammConfig.autotune` each gated site is tuned once, from
-layer 0, and every layer is frozen at that pick, as the reference tunes a
-stacked leaf from its first slice: the two packages then pick the same
-parameters and file the artifacts under the same addresses. `populate` is
-the store writer of `repro_torch.launch.precompute_plans`.
+fingerprint. With `SpammConfig.autotune` the port tunes what the
+reference tunes: a stack of `group_len`-layer groups (1 for an attention or
+SSM stack, the block pattern's 3 for a hybrid one) is tuned once per site —
+its position in the group and its path — from group 0's weight, as the
+reference tunes a stacked leaf from its first slice, and each layer of a
+hybrid stack's tail (the reference's unstacked 2-D weights) on its own.
+The two packages then pick the same parameters and file the artifacts
+under the same addresses. `populate` is the store writer of
+`repro_torch.launch.precompute_plans`.
 """
 from __future__ import annotations
 
@@ -93,8 +97,21 @@ def _freeze_one(w, scfg, *, cache=None, store: Optional[PlanStore] = None,
         tuned=tuned, weight_hash=weight_hash)
 
 
+def _tune_site(path, grouped: int, group_len: int) -> tuple:
+    """The autotuner's site of a gated weight at `path`: its path names
+    with the layer index replaced by the position in its group, or, past
+    the `grouped` layers of whole groups, by the layer itself."""
+    names = tuple(x for x in path if not isinstance(x, int))
+    layer = next((x for x in path if isinstance(x, int)), None)
+    if layer is None:
+        return names
+    if layer < grouped:
+        return ("group", layer % group_len) + names
+    return ("tail", layer) + names
+
+
 def freeze_tree(params, scfg, *, cache=None, store: Optional[PlanStore] = None,
-                use_mxu: bool = False):
+                use_mxu: bool = False, group_len: int = 1):
     """Freeze every gated weight of a params tree at SpAMM config `scfg`.
 
     Returns (tree, count): `tree` mirrors the params structure at the
@@ -102,15 +119,19 @@ def freeze_tree(params, scfg, *, cache=None, store: Optional[PlanStore] = None,
     is the number of weights frozen. `cache` (a `WeightPlanCache`) is the
     in-memory tier, `store` the persistent one: with a warm store the walk
     only loads (no get-norm pass). The content fingerprints are taken up
-    front, on a few threads. With `scfg.autotune` each site (a path with
-    the layer index left out) is tuned once, on its first (layer 0)
-    weight, and every layer of the site is frozen at that pick."""
+    front, on a few threads. With `scfg.autotune` each site
+    (`_tune_site`: the path, with the layer index replaced by its position
+    in a `group_len`-layer group, or by itself in the tail after the whole
+    groups) is tuned once, on its first weight, and every layer of the site
+    is frozen at that pick."""
     profile = None
     if scfg.autotune:
         from repro_torch.core import cost
 
         profile = cost.CostProfile.load_or_default(scfg.tune_profile)
     hashes = iter(fingerprints(w for _, w in iter_gated_weights(params)))
+    n_layers = len(params.get("layers", ()))
+    grouped = n_layers - n_layers % group_len
     tuned_by_site: dict = {}
     count = 0
 
@@ -128,7 +149,7 @@ def freeze_tree(params, scfg, *, cache=None, store: Optional[PlanStore] = None,
             elif _is_gated(p, sub):
                 tuned = None
                 if scfg.autotune:
-                    site = tuple(x for x in p if not isinstance(x, int))
+                    site = _tune_site(p, grouped, group_len)
                     tuned = tuned_by_site.get(site)
                     if tuned is None:
                         tuned = tuned_by_site[site] = tune_for(
@@ -143,10 +164,10 @@ def freeze_tree(params, scfg, *, cache=None, store: Optional[PlanStore] = None,
 
 
 def populate(store: PlanStore, params, scfg, *, cache=None,
-             use_mxu: bool = False) -> int:
+             use_mxu: bool = False, group_len: int = 1) -> int:
     """Populate `store` with frozen plans for every gated GEMM weight of
-    `params` under SpAMM config `scfg`. Returns the number of weights
-    processed (store hits + fresh builds)."""
+    `params` under SpAMM config `scfg` (`group_len` as in `freeze_tree`).
+    Returns the number of weights processed (store hits + fresh builds)."""
     _, count = freeze_tree(params, scfg, cache=cache, store=store,
-                           use_mxu=use_mxu)
+                           use_mxu=use_mxu, group_len=group_len)
     return count

@@ -33,8 +33,13 @@ wave at a new shape. A MoE stack's chunk steps with SpAMM on stay eager
 too: their expert and shared-expert GEMMs plan eagerly, and `plan()` runs
 on the host. The engine decides this at construction from the config
 (never by catching a failed capture) and reports it in each request's
-`out["graphs"]`; a MoE decode step is dense in its experts and captures. The pod-sharded mode and re-sharding are not ported
-yet (ROADMAP queue A).
+`out["graphs"]`; a MoE decode step is dense in its experts and captures.
+Recurrent stacks (mamba2's SSM, recurrentgemma's hybrid) serve on the wave
+plane only, as the reference's do: their prefill state does not checkpoint
+at a chunk boundary, so `prefill_chunk` and mixed-length batches raise.
+Their decode steps update the recurrent state and conv histories in the
+static cache in place, so they capture like the others. The pod-sharded
+mode and re-sharding are not ported yet (ROADMAP queue A).
 
 Telemetry (`obs`, a `repro_torch.obs.Observability` bundle), all on the
 host: every gated GEMM's tap carries its phase, site and layer, so
@@ -67,7 +72,7 @@ from repro_torch.core.cost import bucket
 from repro_torch.device import f32_numerics, resolve_device
 from repro_torch.kernels.ops import resolve_backend
 from repro_torch.models import model as M
-from repro_torch.models.transformer import stack_kinds
+from repro_torch.models.transformer import group_len, stack_kinds
 from repro_torch.obs import (FRACTION_BUCKETS, LATENCY_BUCKETS_S, Histogram,
                              Observability)
 from repro_torch.serving.graphs import StepGraph, pool_bytes
@@ -159,7 +164,11 @@ class Engine:
                 raise ValueError(
                     f"prefill_chunk must be >= 1 (or 0/None), got "
                     f"{prefill_chunk}")
-            stack_kinds(cfg)
+            if stack_kinds(cfg) != "attn":
+                raise ValueError(
+                    f"chunked prefill needs a stateless-FFN attention stack "
+                    f"(got {stack_kinds(cfg)!r}: recurrent prefill state "
+                    f"does not checkpoint at a chunk boundary)")
             if self._gated and c % self.spamm_ctx.cfg.tile:
                 raise ValueError(
                     f"prefill_chunk={c} must be a multiple of the SpAMM "
@@ -292,7 +301,8 @@ class Engine:
             with self.obs.span("freeze", store=self.plan_store is not None):
                 self._fw_tree, _ = freeze_tree(
                     self.params, self.spamm_ctx.cfg,
-                    cache=self.spamm_ctx.cache, store=self.plan_store)
+                    cache=self.spamm_ctx.cache, store=self.plan_store,
+                    group_len=group_len(self.cfg))
 
     def _note_gm(self, gm: int):
         self._gm_hist[gm] = self._gm_hist.get(gm, 0) + 1
@@ -418,14 +428,24 @@ class Engine:
                                else pool_bytes(self._pool))}
 
     def _pad_cache(self, cache, into: dict) -> dict:
-        """Copy the prefill's KV caches into the static decode cache `into`
-        (max_len long, or the sliding window when that is smaller), zeroing
-        the slots past the prompt."""
+        """Copy the prefill's caches into the static decode cache `into`:
+        an attention layer's K/V (max_len long, or the sliding window when
+        that is smaller) with the slots past the prompt zeroed, a recurrent
+        layer's state, and its conv history right-aligned (a prompt
+        shorter than the history leaves zeros before it, the causal conv's
+        own padding)."""
         for src, dst in zip(cache["layers"], into["layers"]):
-            for n in ("k", "v"):
-                s = src[n].shape[1]
-                dst[n][:, :s].copy_(src[n])
-                dst[n][:, s:].zero_()
+            for n, t in src.items():
+                d = dst[n]
+                if n in ("k", "v"):
+                    d[:, :t.shape[1]].copy_(t)
+                    d[:, t.shape[1]:].zero_()
+                elif n == "conv":
+                    lead = d.shape[1] - t.shape[1]
+                    d[:, lead:].copy_(t)
+                    d[:, :lead].zero_()
+                else:
+                    d.copy_(t)
         return into
 
     def _counters0(self):
@@ -566,7 +586,9 @@ class Engine:
         if pc is not None and not pc:      # 0/False: chunking disabled
             return None
         if pc is None:                     # auto: chunk only when needed
-            return self._default_chunk() if mixed else None
+            if not mixed or stack_kinds(self.cfg) != "attn":
+                return None
+            return self._default_chunk()
         return int(pc)
 
     def generate(self, requests: List[Request]) -> List[np.ndarray]:
@@ -574,7 +596,8 @@ class Engine:
         (unless `prefill_chunk` asks for chunks), mixed lengths through the
         chunked slot scheduler; every prompt token is used. Raises on an
         empty batch or prompt, on prompts longer than max_len - 1, and on
-        mixed lengths with `prefill_chunk=0`."""
+        mixed lengths with `prefill_chunk=0` or on a recurrent (ssm or
+        hybrid) stack, which never chunks."""
         if not requests:
             raise ValueError("empty batch")
         plens = [len(r.prompt) for r in requests]
@@ -591,6 +614,12 @@ class Engine:
         if chunk:
             return self._generate_chunked(requests, chunk)
         if mixed:
+            if stack_kinds(self.cfg) != "attn":
+                raise ValueError(
+                    f"{stack_kinds(self.cfg)!r} stacks cannot chunk "
+                    f"mixed-length prompts (recurrent prefill state does "
+                    f"not checkpoint at a chunk boundary); pad client-side "
+                    f"to one length")
             raise ValueError(
                 "mixed-length prompts need chunked prefill, but "
                 "prefill_chunk=0 disabled it; drop the override or pad "

@@ -1312,3 +1312,151 @@ def test_valid_fractions_divide_exactly_on_card(dev):
     w = _rand((60, 2048, 1408), 41, dev)
     _, info = P.spamm_bmm(x, w, 0.0, tile=64)
     assert float(info.valid_fraction) == 1.0
+
+
+# the recurrent families (reduced): mamba2-1.3b's SSM stack, recurrentgemma's
+# hybrid at 3 layers and at 5 (one group plus a two-layer tail)
+RECURRENT = {"mamba2": ("mamba2-1.3b", None),
+             "recurrentgemma": ("recurrentgemma-9b", None),
+             "recurrentgemma_tail": ("recurrentgemma-9b", 5)}
+# the card's f32 run against the CPU's plain run of the same model: matmuls
+# blocked and transcendentals rounded differently, relative to the output's
+# largest magnitude (the bound the CPU tests hold against the reference)
+DEVICE_RTOL = 1e-5
+
+
+def _recurrent_model(name, device):
+    import dataclasses
+
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.models import model as M
+
+    arch, layers = RECURRENT[name]
+    cfg = get_config(arch).reduced()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=8)
+    return cfg, pcfg, M.init_params(cfg, pcfg, 0, device=device)
+
+
+def _median_gate_tau(eng, prompts):
+    """The median of every gate product an eager wave at the engine's τ
+    evaluates."""
+    products = []
+    orig = P._plan_frozen
+
+    def recording(a, fp, **kw):
+        p = orig(a, fp, **kw)
+        prod = p.norm_a[fp.step_i, fp.step_k] * fp.nbmax[fp.step_k, fp.step_j]
+        products.append(prod[fp.step_real].cpu())
+        return p
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(P, "_plan_frozen", recording)
+        _graph_run(eng, prompts)
+    return float(torch.cat(products).median())
+
+
+@pytest.mark.parametrize("name", list(RECURRENT))
+def test_recurrent_engine_graphed_equals_eager_on_card(dev, name):
+    """A recurrent stack's decode step replayed as a CUDA graph ≡ the same
+    step run eagerly, bit for bit (tokens, every step's logits, stats,
+    launches): the step writes its recurrent state and conv history into
+    the static cache in place, so the replays carry it. The cache's state
+    tensors stay the same buffers, and a wave leaves them as the eager wave
+    did. The hybrid stack gates at the median product τ; mamba2 has no
+    gated GEMM, so its wave launches no get-norm or work-list kernel."""
+    from repro_torch.configs import SpammConfig
+    from repro_torch.serving.engine import Engine
+
+    cfg, pcfg, params = _recurrent_model(name, "cuda")
+    prompts = _graph_prompts(cfg, "wave")
+    sc = SpammConfig(enable=True, tau=0.0, tile=GRAPH_TILE)
+    tau = 12.0
+    if name != "mamba2":
+        probe = Engine(cfg, pcfg, params, max_len=64, spamm_cfg=sc)
+        probe.cuda_graphs = False
+        tau = _median_gate_tau(probe, prompts)
+    eng = Engine(cfg, pcfg, params, max_len=64,
+                 spamm_cfg=SpammConfig(enable=True, tau=tau,
+                                       tile=GRAPH_TILE))
+    eng.cuda_graphs = False
+    _graph_run(eng, prompts)
+    eager = _graph_run(eng, prompts)
+    cache = eng._caches[("wave", len(prompts))]["layers"]
+    state_of = [{k: v for k, v in c.items() if k in ("state", "h", "conv")}
+                for c in cache]
+    after_eager = [{k: v.clone() for k, v in c.items()} for c in state_of]
+    ptrs = [{k: v.data_ptr() for k, v in c.items()} for c in state_of]
+    eng.cuda_graphs = True
+    _graph_run(eng, prompts)
+    graphed = _graph_run(eng, prompts)
+    assert eng.graph_stats()["captures"] == 1
+    assert graphed[0] == eager[0] and len(graphed[1]) == len(eager[1]) > 0
+    for got, want in zip(graphed[1], eager[1]):
+        assert torch.equal(got, want)
+    assert _timing_free(graphed[2]) == _timing_free(eager[2])
+    assert graphed[3] == eager[3]
+    assert any(c for c in state_of)
+    for c, want, ptr in zip(state_of, after_eager, ptrs):
+        assert {k: v.data_ptr() for k, v in c.items()} == ptr
+        for k, v in c.items():
+            assert torch.equal(v, want[k]), k
+            assert bool(v.ne(0).any()), k
+    sp = graphed[2]
+    if name == "mamba2":
+        assert sp["gated_gemms"] == sp["decode_gated_gemms"] == 0
+        assert sum(graphed[3]) == 0
+    else:
+        assert 0.0 < sp["decode_valid_fraction"] < 1.0
+        assert sum(graphed[3]) > 0
+
+
+@pytest.mark.parametrize("name", list(RECURRENT))
+def test_recurrent_card_run_matches_the_cpu_plain_run(dev, name):
+    """The same reduced model (weights made on the CPU, copied to the card)
+    through the prefill step and three decode steps on the card and on the
+    CPU (the plain versions): logits and every layer's cache within
+    DEVICE_RTOL."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    cfg, pcfg, params = _recurrent_model(name, "cpu")
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+
+    cparams = to(params, dev)
+    prompts = torch.as_tensor(np.random.default_rng(7).integers(
+        1, cfg.vocab, size=(2, 24)).astype(np.int32))
+    pre, dec = M.make_prefill_step(cfg, pcfg), M.make_decode_step(cfg, pcfg)
+
+    def close(got, want):
+        got, want = got.cpu().float(), want.float()
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= DEVICE_RTOL, err
+
+    def padded(cache, p, d):
+        """The prefill's caches in the engine's decode cache."""
+        return Engine(cfg, pcfg, p, max_len=64, device=d)._pad_cache(
+            cache, M.init_cache(cfg, pcfg, 2, 64, device=d))
+
+    with torch.inference_mode():
+        cache, logits = pre(params, {"tokens": prompts})
+        ccache, clogits = pre(cparams, {"tokens": prompts.to(dev)})
+        close(clogits, logits)
+        cache = padded(cache, params, "cpu")
+        ccache = padded(ccache, cparams, dev)
+        tok = logits.argmax(-1)[:, None]
+        for t in range(3):
+            logits, cache = dec(params, tok, cache, 24 + t)
+            clogits, ccache = dec(cparams, tok.to(dev), ccache, 24 + t)
+            close(clogits, logits)
+            for a, b in zip(ccache["layers"], cache["layers"]):
+                for k in a:
+                    close(a[k], b[k])
+            tok = logits.argmax(-1)[:, None]

@@ -36,7 +36,8 @@ def test_port_has_modules():
                  "serving/engine.py", "launch/serve.py",
                  "launch/precompute_plans.py", "obs/__init__.py",
                  "obs/registry.py", "obs/tracer.py", "obs/residual.py",
-                 "models/moe.py"):
+                 "models/moe.py", "models/ssm.py", "models/rglru.py",
+                 "configs/spamm_synth.py"):
         assert twin in names
 
 
