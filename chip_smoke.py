@@ -124,6 +124,18 @@ and a 64-token remainder), graphed ≡ eager; SpAMM on at recurrentgemma's
 τ ≡ dense bit for bit with no get-norm or work-list launch; prefill_chunk
 and a mixed-length batch refused.
 
+Train (`phase_train`, after the last families): starcoder2-7b at full
+width and TRAIN_LAYERS of its 32 layers, TRAIN_BATCH × TRAIN_SEQ tokens of
+`SyntheticLM` a step, AdamW, remat "full": (t1) dense steps (losses fall;
+step ms, tokens/s, peak GB); (t2) τ = 0 with bwd="spamm" ≡ dense (step
+0's loss within 1e-5, each gradient leaf within 1e-3 of its magnitude,
+rows 1 and 2 launched as the code counts, remat none and full); (t3) the
+median τ of step 0's first gated GEMM with bwd="dense" and bwd="spamm";
+(t4) layer 0's w1 backward products (dx = g @ w1ᵀ, dW = xᵀ @ g) at their
+real operands against the plain version, bit for bit over two calls,
+timed against `torch.matmul`; (t5) a reduced model crashed and resumed
+from its checkpoints on the card, the final loss within 0.15.
+
 Library: the paper's own call. (a) spamm() and plan(levels=3) + execute()
 with the valid-ratio τ-search on two N = 16384 algebraic-decay matrices
 (the paper's §4.1 ensemble) at ratios 0.30 and 0.10: achieved ratio,
@@ -140,7 +152,8 @@ kernel entries (the work-list GEMM twice, f32 and bf16; each of the
 get-norm pair twice, CUDA-core and tensor-core) with their launches on
 their path (the τ > 0 serving run at its dtype, the store walk, the
 library path, or the dense-grid GEMM's qwen2-moe τ > 0 wave; the f32 pair
-also on run (f), the MoE wave and the last families' τ > 0 waves),
+also on run (f), the MoE wave, the last families' τ > 0 waves and the
+training runs, with row 2's times at the backward products' shapes),
 errors, times and bounds;
 the last line is {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
@@ -219,6 +232,28 @@ SSM_LONG_PROMPT = 320
 # the store phase's use_mxu walks run at this depth (the walk's checks do
 # not depend on it; the cold and warm run (c) walks stay at full depth)
 STORE_MXU_LAYERS = 8
+# the training phase: starcoder2-7b at full width and this depth (1.32 B
+# parameters; the whole model's f32 parameters, gradients and two AdamW
+# moments, ≈ 118 GB, exceed the card's 80), TRAIN_BATCH sequences of
+# TRAIN_SEQ tokens from SyntheticLM, TRAIN_STEPS steps of AdamW at
+# TRAIN_LR with TRAIN_WARMUP warm-up steps
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 8, 1e-3, 2
+# (t5): the reduced model crashes at RESUME_CRASH with a checkpoint every
+# RESUME_EVERY steps and resumes to RESUME_STEPS (a full-width checkpoint
+# would be ≈ 16 GB on disk); the final loss within the reference test's
+# RESUME_LOSS_TOL of the uninterrupted run's
+RESUME_CRASH, RESUME_EVERY, RESUME_STEPS = 6, 3, 9
+RESUME_LOSS_TOL = 0.15
+# τ = 0 with bwd="spamm" against dense: step 0's loss (relative), and each
+# gradient leaf relative to its own largest magnitude (the work-list sums
+# in fmaf order, cuBLAS reassociates)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-3
+# the resume check's checkpoints, in a directory .gitignore lists
+TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "chiprun_out", "chip_smoke_train")
 # nvidia-smi's "name, power.limit" line, set by main()
 CARD = None
 # tile norms: f32 sums of 4096 squares in two orders (pooling: four squares
@@ -3138,6 +3173,306 @@ def phase_last_families():
 # library path
 # ---------------------------------------------------------------------------
 
+def train_run(cfg, pcfg, base, batches, spamm_cfg, label):
+    """TRAIN_STEPS AdamW steps from a copy of `base` (fresh moments), one
+    batch each, every launch counter set to 0 just before the first.
+    Emits a "train" line (per-step loss, grad norm, valid fraction, gated
+    GEMMs and host ms ending in a sync; the median ms over steps 2..,
+    tokens/s, peak GB) and returns (losses, launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import module as spmod
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+
+    params = T.map_(lambda t: t.detach().clone(), base)
+    opt = AdamW(TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                            total_steps=TRAIN_STEPS))
+    state = opt.init(params)
+    ctx = spmod.as_context(spamm_cfg)
+    step = M.make_train_step(cfg, pcfg, opt, spamm_cfg=ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    reset_counts()
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch, i)
+        vals = {k: v.tolist() for k, v in met.items()}
+        torch.cuda.synchronize()
+        rows.append({"step": i, "ms": (time.perf_counter() - t0) * 1e3,
+                     "loss": vals["loss"], "grad_norm": vals["grad_norm"],
+                     "valid_fraction": vals.get("spamm_valid_fraction"),
+                     "gated_gemms": vals.get("spamm_gated_gemms")})
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in rows]
+    check(all(np.isfinite(losses)), f"train {label}: losses {losses}")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"train {label}: losses do not fall: {losses}")
+    ms = sorted(r["ms"] for r in rows[2:])
+    med = ms[len(ms) // 2]
+    emit({"train": label, "steps": rows, "median_step_ms": med,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (med / 1e3),
+          "peak_gb": peak, "launches": counts,
+          "launches_per_step": {k: v / len(rows) for k, v in counts.items()
+                                if v}})
+    del params, state
+    torch.cuda.empty_cache()
+    return losses, counts
+
+
+def train_grads(cfg, pcfg, base, batch, spamm_cfg):
+    """(loss, metrics, gradient leaves, launches) of one loss and backward
+    from a copy of `base`, the counters set to 0 just before."""
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.core import module as spmod
+    from repro_torch.models import model as M
+
+    params = T.map_(lambda t: t.detach().clone().requires_grad_(True), base)
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, met = M.loss_fn(cfg, pcfg, params, batch,
+                          spamm_cfg=spmod.as_context(spamm_cfg))
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    grads = [p.grad for p in T.leaves(params)]
+    return (float(loss.detach()), {k: v.tolist() for k, v in met.items()},
+            grads, counts)
+
+
+def layer0_w1_operands(cfg, pcfg, params, batch):
+    """Layer 0's w1 product as the backward meets it: its input x (B·S,
+    d) and the loss gradient g (B·S, ff) at its output, from the model's
+    own pieces split at that product (dense, no SpAMM); also the loss."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import _gelu, chunked_ce_loss, rms_norm
+
+    p0 = params["layers"][0]
+    eps = cfg.norm_eps
+    with torch.no_grad():
+        x = M._inputs(params, batch, torch.float32)
+        b, s, d = x.shape
+        pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(
+            b, s)
+        h = x + tr.attention_layer(p0["mix"], rms_norm(x, p0["ln1"], eps),
+                                   cfg, pcfg, pos,
+                                   window=cfg.sliding_window)
+        xin = rms_norm(h, p0["ln2"], eps)
+        y = xin @ p0["mlp"]["w1"]
+    y.requires_grad_(True)
+    x1 = h + _gelu(y) @ p0["mlp"]["w2"]
+    rest = dataclasses.replace(cfg, num_layers=cfg.num_layers - 1)
+    out, _ = tr.stack_fwd({"layers": params["layers"][1:]}, x1, rest,
+                          dataclasses.replace(pcfg, remat="none"), pos)
+    loss = chunked_ce_loss(rms_norm(out, params["final_norm"], eps),
+                           params["unembed"]["kernel"], batch["labels"],
+                           pcfg.loss_chunk)
+    (g,) = torch.autograd.grad(loss, y)
+    return xin.reshape(b * s, d), g.reshape(b * s, -1), float(loss)
+
+
+def check_train_product(a, b, p, label):
+    """A backward product's work-list kernel against its plain version
+    (check_worklist), bit for bit over two calls, timed back to back."""
+    import torch
+
+    from repro_torch.kernels import spamm_mm
+
+    res = check_worklist(a, b, p, label)
+    w = p.work
+    args = (a, b, w.step_i, w.step_j, w.step_k, w.step_flags, w.runs)
+    one = spamm_mm.spamm_mm_worklist_cuda(*args, tile=TILE)
+    two = spamm_mm.spamm_mm_worklist_cuda(*args, tile=TILE)
+    torch.cuda.synchronize()
+    check(torch.equal(one, two), f"{label}: two calls differ")
+    res["ms_back_to_back"] = time_ms_back_to_back(
+        lambda: spamm_mm.spamm_mm_worklist_cuda(*args, tile=TILE))
+    res["bit_identical_over_two_calls"] = True
+    emit({"train_product": res})
+    return res
+
+
+def phase_train():
+    """Training (`models.model.make_train_step`: the loss, backward, AdamW
+    in place) on starcoder2-7b at full width, TRAIN_LAYERS of its 32
+    layers, random f32 weights from SEED, TRAIN_BATCH × TRAIN_SEQ tokens of
+    SyntheticLM (seed 0) per step, remat "full" (the reference CLI's
+    setting at full size).
+
+    (t1) dense, TRAIN_STEPS steps: losses finite and falling; median step
+    ms, tokens/s, peak GB. (t2) one loss and backward at τ = 0 with
+    bwd="spamm" against dense from the same parameters, remat "none" and
+    "full": the loss within TRAIN_LOSS_RTOL, every gradient leaf within
+    TRAIN_GRAD_RTOL of its largest magnitude, and the launches of rows 1
+    and 2 exactly as the code counts them (per gated GEMM: forward 2
+    get-norms + 1 work-list, backward 1 + 2; remat adds the forward's
+    again). (t3) τ = the median norm product of step 0's first gated GEMM,
+    TRAIN_STEPS steps each with bwd="dense" and bwd="spamm": losses finite
+    and falling, per-step valid fraction. (t4) layer 0's w1 backward
+    products at their real operands — dx = g (B·S × ff) @ w1ᵀ and dW =
+    xᵀ (d × B·S) @ g — each at (t3)'s τ and at its own median product,
+    held against the plain version, bit for bit over two calls, timed
+    against `torch.matmul`. (t5) the resume path on a reduced starcoder2-7b
+    on the card. Returns (the launches of (t3)'s bwd="spamm" run, the
+    (t2) counts, the (t4) results)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import (ParallelConfig, SpammConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.core import plan as P
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import getnorm
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    pcfg = ParallelConfig(compute_dtype="float32", remat="full",
+                          attn_q_chunk=64, loss_chunk=128)
+    t0 = time.perf_counter()
+    base = M.init_params(cfg, pcfg, SEED, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in T.leaves(base))
+    emit({"model": cfg.name, "phase": "train", "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "params": n_params, "train_state_gb": 4 * n_params * 4 / 1e9,
+          "init_s": time.perf_counter() - t0,
+          "depth_cut": f"{TRAIN_LAYERS} of 32 layers"})
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEV)
+    batches = [data.batch_at(i) for i in range(TRAIN_STEPS)]
+
+    # (t1)
+    train_run(cfg, pcfg, base, batches, None, "t1 dense")
+
+    # (t2)
+    none = dataclasses.replace(pcfg, remat="none")
+    tau0 = SpammConfig(enable=True, tau=0.0, tile=TILE, backend="auto",
+                       bwd="spamm")
+    d_loss, _, d_grads, _ = train_grads(cfg, none, base, batches[0], None)
+    t2 = {}
+    for remat in ("none", "full"):
+        pc = dataclasses.replace(pcfg, remat=remat)
+        loss, met, grads, counts = train_grads(cfg, pc, base, batches[0],
+                                               tau0)
+        gated = int(met["spamm_gated_gemms"])
+        per = {"none": (3, 3), "full": (5, 4)}[remat]
+        want = {"tile_norms": per[0] * gated,
+                "spamm_mm_worklist": per[1] * gated}
+        got = {k: counts[k] for k in want}
+        errs = [float((g - d).abs().max() / d.abs().max().clamp(min=1e-30))
+                for g, d in zip(grads, d_grads)]
+        rel = abs(loss - d_loss) / abs(d_loss)
+        emit({"train_tau0": remat, "loss": loss, "dense_loss": d_loss,
+              "loss_rel_err": rel, "max_grad_rel_err": max(errs),
+              "gated_gemms": gated, "valid_fraction":
+              met["spamm_valid_fraction"], "launches": got,
+              "expected_launches": want})
+        check(rel <= TRAIN_LOSS_RTOL, f"t2 {remat}: loss rel err {rel}")
+        check(max(errs) <= TRAIN_GRAD_RTOL,
+              f"t2 {remat}: grad rel err {max(errs)}")
+        check(got == want, f"t2 {remat}: launches {got}, want {want}")
+        check(met["spamm_valid_fraction"] == 1.0, "t2: τ = 0 skipped tiles")
+        t2[remat] = got
+        del grads
+    del d_grads
+    torch.cuda.empty_cache()
+
+    # (t3): τ from step 0's first gated GEMM (layer 0's wq)
+    p0 = base["layers"][0]
+    x0 = rms_norm(M._inputs(base, batches[0], torch.float32),
+                  p0["ln1"], cfg.norm_eps).reshape(-1, cfg.d_model)
+    tau = median_product_tau(getnorm.tile_norms_cuda(x0, TILE),
+                             getnorm.tile_norms_cuda(p0["mix"]["wq"], TILE))
+    del x0
+    t3 = {}
+    for bwd in ("dense", "spamm"):
+        sc = SpammConfig(enable=True, tau=tau, tile=TILE, backend="auto",
+                         bwd=bwd)
+        _, t3[bwd] = train_run(cfg, pcfg, base, batches, sc,
+                               f"t3 tau={tau:.4f} bwd={bwd}")
+
+    # (t4): layer 0's w1 backward products
+    xin, g, loss0 = layer0_w1_operands(cfg, pcfg, base, batches[0])
+    check(abs(loss0 - d_loss) <= TRAIN_LOSS_RTOL * abs(d_loss),
+          f"t4: split loss {loss0} vs {d_loss}")
+    w1 = base["layers"][0]["mlp"]["w1"]
+    nw = getnorm.tile_norms_cuda(w1, TILE)
+    nx = getnorm.tile_norms_cuda(xin, TILE)
+    ng = getnorm.tile_norms_cuda(g, TILE)
+    w1t, xt = w1.T.contiguous(), xin.T.contiguous()
+    m, k = xin.shape
+    n = w1.shape[1]
+    products = []
+    for which, t in (("t3", tau), ("median", None)):
+        tdx = t if t is not None else median_product_tau(ng, nw.T)
+        tdw = t if t is not None else median_product_tau(nx.T, ng)
+        p_dx = P.plan(g, None, tdx, norm_b=nw.T, tile=TILE, backend="cuda")
+        p_dw = P.plan(None, None, tdw, norm_a=nx.T, norm_b=p_dx.norm_a,
+                      tile=TILE, backend="cuda")
+        products.append(check_train_product(
+            g, w1t, p_dx, f"dx g({m}x{n}) @ w1T({n}x{k}), tau={tdx:.6g} "
+            f"({which})"))
+        products.append(check_train_product(
+            xt, g, p_dw, f"dW xT({k}x{m}) @ g({m}x{n}), tau={tdw:.6g} "
+            f"({which})"))
+    del xin, g, w1t, xt, base, batches
+    torch.cuda.empty_cache()
+
+    # (t5): resume on CUDA tensors, reduced
+    rcfg = get_config(ARCH).reduced()
+    rpc = ParallelConfig(compute_dtype="float32", remat="none",
+                         attn_q_chunk=64, loss_chunk=128)
+    rsc = SpammConfig(enable=True, tau=0.0, tile=TILE, backend="auto",
+                      bwd="spamm")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    def tc(name):
+        return TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=RESUME_STEPS, ckpt_every=RESUME_EVERY,
+                           ckpt_dir=os.path.join(TRAIN_DIR, name))
+
+    kw = dict(global_batch=TRAIN_BATCH, seq_len=64, spamm_cfg=rsc,
+              log_every=0, device=DEV)
+    ref = loop.train(rcfg, rpc, tc("uninterrupted"), **kw)
+    raised = None
+    try:
+        loop.train(rcfg, rpc, tc("crashed"), fail_at_step=RESUME_CRASH, **kw)
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised == f"injected failure at step {RESUME_CRASH}",
+          f"t5: the crashed run ended with {raised!r}")
+    res = loop.train(rcfg, rpc, tc("crashed"), resume=True, **kw)
+    gap = abs(res.losses[-1] - ref.losses[-1])
+    emit({"train_resume": rcfg.name, "crash_at": RESUME_CRASH,
+          "ckpt_every": RESUME_EVERY, "final_step": res.final_step,
+          "restarts": res.restarts, "losses": res.losses,
+          "uninterrupted_losses": ref.losses[RESUME_CRASH:],
+          "final_loss_gap": gap,
+          "bit_identical": res.losses == ref.losses[RESUME_CRASH:]})
+    check(res.final_step == RESUME_STEPS and res.restarts == 1,
+          f"t5: final step {res.final_step}, restarts {res.restarts}")
+    check(gap < RESUME_LOSS_TOL, f"t5: final loss gap {gap}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return t3["spamm"], t2, products
+
+
 def algebraic_decay_on_card(n, seed, c=0.1, lam=0.1):
     """`core.spamm.algebraic_decay(n, seed=...)`'s formula made on the card:
     |a_ij| = c / (|i-j|^lam + 1), one float64 value per distance rounded to
@@ -3601,11 +3936,14 @@ def main():
                           profile_path)
     moe_counts = timed("moe", phase_moe)
     last_counts = timed("last_families", phase_last_families)
+    train_counts, train_tau0, train_products = timed("train", phase_train)
     lib_counts, pool, dense = timed("library", phase_library)
     emit({"phase_seconds": {**seconds, "note": "serve includes autotune"}})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
+    train_path = (f"train: {ARCH} at {TRAIN_LAYERS} layers, (t3) τ > 0 "
+                  f"bwd=spamm, {TRAIN_STEPS} steps (remat full)")
     serve_path = "serve: starcoder2-7b wave, run (c)"
     chunked_path = "serve: starcoder2-7b chunked plane, run (f)"
     int8_path = "serve: starcoder2-7b wave, run (d) int8"
@@ -3635,6 +3973,10 @@ def main():
          "chunked_launches": chunked_counts["tile_norms"],
          "chunked_path": chunked_path,
          "moe_launches": moe_counts["tile_norms"], "moe_path": moe_path,
+         "train_launches": train_counts["tile_norms"],
+         "train_path": train_path,
+         "train_tau0_launches": {k: c["tile_norms"]
+                                 for k, c in train_tau0.items()},
          **other_paths("tile_norms"),
          "ms_back_to_back": norms_act["ms_back_to_back"],
          **{k: norms_act[k] for k in keys}},
@@ -3646,6 +3988,13 @@ def main():
          "chunked_path": chunked_path,
          "moe_launches": moe_counts["spamm_mm_worklist"],
          "moe_path": moe_path,
+         "train_launches": train_counts["spamm_mm_worklist"],
+         "train_path": train_path,
+         "train_tau0_launches": {k: c["spamm_mm_worklist"]
+                                 for k, c in train_tau0.items()},
+         "train_products": [{k: r[k] for k in keys + ("ms_back_to_back",
+                                                      "valid_fraction")}
+                            for r in train_products],
          **other_paths("spamm_mm_worklist"),
          **{k: mm_w1[k] for k in keys}},
         {"name": "spamm_mm_worklist_bf16", "route": "cuda",

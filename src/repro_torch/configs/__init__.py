@@ -8,5 +8,6 @@ from repro_torch.configs.base import (
     RGLRUConfig,
     SpammConfig,
     SSMConfig,
+    TrainConfig,
     get_config,
 )

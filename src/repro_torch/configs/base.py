@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import os
+import tempfile
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -149,10 +151,35 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """The single-device subset of the reference's runtime config: the
-    fields the unsharded port reads."""
+    fields the unsharded port reads (the compute dtype defaults to f32,
+    the port's numerics of record, where the reference's is bf16)."""
     compute_dtype: str = "float32"
     param_dtype: str = "float32"
     attn_q_chunk: int = 512             # attention q block (rows per chunk)
+    remat: str = "full"                 # none | dots | full (training
+                                        # stack, `transformer.stack_fwd`)
+    loss_chunk: int = 1024              # chunked-CE seq chunk
+    grad_compression: str = "none"      # none | int8_ef
+
+
+def _default_ckpt_dir() -> str:
+    # the reference's /tmp/repro_ckpt, under the temp directory the
+    # environment names
+    return os.path.join(tempfile.gettempdir(), "repro_ckpt")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    seed: int = 0
+    ckpt_every: int = 100
+    ckpt_dir: str = dataclasses.field(default_factory=_default_ckpt_dir)
 
 
 ARCH_IDS = (

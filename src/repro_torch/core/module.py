@@ -2,10 +2,22 @@
 
 `maybe_spamm_matmul` is the hook every eligible GEMM of the models calls:
 dense `x @ w` when SpAMM is off, the frozen work-list path when a
-`FrozenPlan` is given, the eager plan/execute path otherwise. Only the
-forward exists here: the gated GEMMs refuse tensors that need gradients
-(the `torch.autograd.Function` with dense|spamm backward waits for the
-training slice, ROADMAP queue A).
+`FrozenPlan` is given, the eager plan/execute path otherwise. The eager
+gated GEMM is a `torch.autograd.Function` (`spamm_linear`, the reference's
+`custom_vjp`) with two backward modes:
+
+  * bwd="dense": exact dense gradients in f32 (`torch.matmul`, as the
+    reference computes them outside any Pallas kernel);
+  * bwd="spamm": gradients gated with plans derived from the forward
+    plan's normmaps — dx = g @ wᵀ gated by norms(g)·norms(w)ᵀ, dw = xᵀ @ g
+    gated by norms(x)ᵀ·norms(g) — through the get-norm and work-list
+    kernels. The forward's normmaps are saved, not recomputed.
+
+Gradients ignore the compute dtype and τ gets a zero gradient, as in the
+reference. A weight that requires grad (a trainable parameter, updated in
+place every step) bypasses the `WeightPlanCache`, as the reference's traced
+weights do. The frozen path and the batched MoE path stay forward-only, as
+in the reference: they refuse tensors that need gradients.
 
 `SpammContext` carries the config, a `WeightPlanCache` shared by the
 eager gated GEMMs of a model (the weight's padding and normmap or pyramid
@@ -23,7 +35,10 @@ A step captured in a CUDA graph taps while it is captured, once
 (`record`); each replay then appends its taps as one device block with
 the labels kept from the capture (`tap_block`), so a graphed wave drains
 one labelled tap per gated GEMM per step, as an eager one does, and the
-labels add no graph node.
+labels add no graph node. The training stack collects its taps through a
+trace buffer instead (`begin_trace_buffer`): the valid fractions of one
+forward, as device tensors, which a recomputation under remat never
+reaches.
 
 `spamm_bmm_linear` is the batched gated GEMM for per-slice weights (the MoE
 grouped-FFN shape), forward only.
@@ -38,6 +53,7 @@ import torch
 from repro_torch.core import cost as _cost
 from repro_torch.core import plan as _plan
 from repro_torch.core.plan import WeightPlanCache, pad_to_tile
+from repro_torch.kernels import ops as kops
 
 
 class Tap(NamedTuple):
@@ -78,7 +94,7 @@ class SpammContext:
     call."""
 
     __slots__ = ("cfg", "cache", "_pending", "_collect", "_phase", "_layer",
-                 "cost_coeffs")
+                 "_trace_buffer", "cost_coeffs")
 
     def __init__(self, cfg: Any, cache: Optional[WeightPlanCache] = None):
         self.cfg = cfg
@@ -87,6 +103,7 @@ class SpammContext:
         self._collect = False
         self._phase = "prefill"
         self._layer = None
+        self._trace_buffer: Optional[list] = None
         self.cost_coeffs = None
 
     def __repr__(self):
@@ -102,7 +119,7 @@ class SpammContext:
         self._collect = True
 
     def set_phase(self, phase: str):
-        """Tag subsequent taps ("prefill" | "decode")."""
+        """Tag subsequent taps ("prefill" | "decode" | "train")."""
         self._phase = phase
 
     def set_layer(self, layer: Optional[int]):
@@ -128,12 +145,37 @@ class SpammContext:
         return TapLabel(self._phase, site,
                         -1 if self._layer is None else int(self._layer), cost)
 
+    def begin_trace_buffer(self):
+        """Open the training stack's buffer: until it is drained, a tap
+        appends only its valid fraction (a device tensor) to it."""
+        self._trace_buffer = []
+
+    def drain_trace_buffer(self) -> list:
+        """Close the buffer and return the fractions tapped since it was
+        opened."""
+        buf, self._trace_buffer = (self._trace_buffer or []), None
+        return buf
+
+    def suspend_trace_buffer(self) -> Optional[list]:
+        """Close the buffer for a region whose taps the training stats
+        leave out (a MoE block's, as in the reference) and return it for
+        `resume_trace_buffer`."""
+        buf, self._trace_buffer = self._trace_buffer, None
+        return buf
+
+    def resume_trace_buffer(self, buf: Optional[list]):
+        self._trace_buffer = buf
+
     def tap(self, valid_fraction, nbytes=None, site: Optional[str] = None,
             cost=None):
         """Record one gated GEMM's valid fraction and, optionally, the GEMM
         bytes it moves (0-d tensors, left on their device) with the current
-        phase and layer, `site` and the static cost terms `cost`; no-op
-        unless collecting."""
+        phase and layer, `site` and the static cost terms `cost`. With a
+        trace buffer open the fraction goes there instead; otherwise a
+        no-op unless collecting."""
+        if self._trace_buffer is not None:
+            self._trace_buffer.append(valid_fraction)
+            return
         if self._collect:
             self._pending.append((self.label(site, cost), valid_fraction,
                                   nbytes))
@@ -211,8 +253,9 @@ def _flatten_pad(x: torch.Tensor, tile: int):
 def _forward_only(*tensors):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "the port's gated GEMMs are forward-only; the autograd Function "
-            "(bwd dense|spamm) waits for the training slice (ROADMAP queue A)")
+            "this gated GEMM is forward-only, as in the reference (frozen "
+            "plans serve inference; training MoE keeps dense grads); train "
+            "through spamm_linear / maybe_spamm_matmul")
 
 
 def _fwd_impl(x, w, tau, tile, backend, block_n, ctx=None, levels=0,
@@ -220,7 +263,6 @@ def _fwd_impl(x, w, tau, tile, backend, block_n, ctx=None, levels=0,
     """Plan + execute one gated GEMM eagerly; returns (y, plan). With a
     context, the weight side comes from its cache (levels > 0: the cached
     weight pyramid, the activation's pooled by the backend's kernel)."""
-    _forward_only(x, w)
     xp, (lead, m, k) = _flatten_pad(x, tile)
     n = w.shape[-1]
     if ctx is not None:
@@ -236,13 +278,79 @@ def _fwd_impl(x, w, tau, tile, backend, block_n, ctx=None, levels=0,
     return c[:m, :n].reshape(*lead, n).to(x.dtype), p
 
 
+class _SpammLinear(torch.autograd.Function):
+    """(y, valid_fraction) of one gated GEMM, differentiable in x and w —
+    the reference's `_spamm_linear_stats` custom_vjp. The fraction is an
+    output (non-differentiable) so that callers tap it outside the
+    Function; the forward's normmaps are saved for bwd="spamm"."""
+
+    @staticmethod
+    def forward(ctx, x, w, tau, tile, backend, bwd, block_n, sctx, levels,
+                compute_dtype):
+        if bwd not in ("dense", "spamm"):
+            raise ValueError(f"bwd={bwd!r}")
+        y, p = _fwd_impl(x, w, tau, tile, backend, block_n, sctx, levels,
+                         compute_dtype)
+        frac = p.valid_fraction
+        ctx.mark_non_differentiable(frac)
+        ctx.save_for_backward(x, w, p.norm_a, p.norm_b)
+        ctx.statics = (tau, tile, backend, bwd, block_n)
+        return y, frac
+
+    @staticmethod
+    def backward(ctx, g, _g_frac):
+        # f32 whatever the forward's compute dtype; the fraction's
+        # cotangent is discarded
+        x, w, norm_x, norm_w = ctx.saved_tensors
+        tau, tile, backend, bwd, block_n = ctx.statics
+        need_dx, need_dw, need_tau = ctx.needs_input_grad[:3]
+        lead = x.shape[:-1]
+        k, n = w.shape
+        m = x.numel() // k
+        g2 = g.reshape(m, n).float()
+        x2 = x.reshape(m, k).float()
+        w32 = w.float()
+        dx = dw = None
+        if bwd == "dense":
+            if need_dx:
+                dx = (g2 @ w32.T).reshape(*lead, k).to(x.dtype)
+            if need_dw:
+                dw = (x2.T @ g2).to(w.dtype)
+        else:
+            # g and w pad N to tile·block_n, the column grid of the
+            # forward's weight normmap
+            gp = pad_to_tile(g2, tile, tile * block_n).contiguous()
+            if need_dx:
+                # dx = g @ wᵀ gated by norms(g)·norms(w)ᵀ: the forward
+                # bitmap with its (k, j) axes transposed
+                wp = pad_to_tile(w32, tile, tile * block_n)
+                p_dx = _plan.plan(gp, None, tau, norm_b=norm_w.T, tile=tile,
+                                  backend=backend)
+                norm_g = p_dx.norm_a
+                dx = (_plan.execute(p_dx, gp, wp.T)[:m, :k]
+                      .reshape(*lead, k).to(x.dtype))
+            else:
+                norm_g = kops.get_backend(backend).norms(gp, tile)
+            if need_dw:
+                # dw = xᵀ @ g gated by norms(x)ᵀ·norms(g)
+                xp = pad_to_tile(x2, tile)
+                p_dw = _plan.plan(None, None, tau, norm_a=norm_x.T,
+                                  norm_b=norm_g, tile=tile, backend=backend)
+                dw = _plan.execute(p_dw, xp.T, gp)[:k, :n].to(w.dtype)
+        dtau = torch.zeros_like(tau) if need_tau else None
+        return dx, dw, dtau, None, None, None, None, None, None, None
+
+
 def spamm_linear(x: torch.Tensor, w: torch.Tensor, tau, tile: int = 64,
-                 backend: str = "auto", block_n: int = 1, levels: int = 0,
+                 backend: str = "auto", bwd: str = "dense", block_n: int = 1,
+                 ctx: Optional[SpammContext] = None, levels: int = 0,
                  compute_dtype: str = "float32") -> torch.Tensor:
-    """y[..., n] = SpAMM(x[..., k] @ w[k, n], tau), forward only. Output
-    dtype follows x."""
-    return _fwd_impl(x, w, tau, tile, backend, block_n, None, levels,
-                     compute_dtype)[0]
+    """y[..., n] = SpAMM(x[..., k] @ w[k, n], tau), differentiable in x
+    and w (`bwd` "dense" | "spamm"). Output dtype follows x. `ctx`
+    supplies the WeightPlanCache (not used for a weight that requires
+    grad); `compute_dtype` selects the forward GEMM's operands."""
+    return _SpammLinear.apply(x, w, tau, tile, backend, bwd, block_n, ctx,
+                              levels, compute_dtype)[0]
 
 
 def spamm_bmm_linear(x: torch.Tensor, w: torch.Tensor,
@@ -269,6 +377,7 @@ def spamm_linear_frozen(x: torch.Tensor, w: torch.Tensor, fp,
     GEMM bytes moved, labelled with `site`; with cost taps armed, also the
     static terms of the predicted time (host floats from the plan's
     shapes: no device op)."""
+    _forward_only(x, w)
     tile = fp.tile
     xp, (lead, m, k) = _flatten_pad(x, tile)
     n = w.shape[-1]
@@ -295,7 +404,8 @@ def maybe_spamm_matmul(x: torch.Tensor, w: torch.Tensor, spamm_cfg: Any,
     if frozen is not None:
         return spamm_linear_frozen(x, w, frozen, ctx, site=site)
     cfg = ctx.cfg
-    y, p = _fwd_impl(x, w, cfg.tau, cfg.tile, cfg.backend, cfg.block_n, ctx,
-                     cfg.levels, cfg.dtype)
-    ctx.tap(p.valid_fraction, site=site)
+    y, frac = _SpammLinear.apply(x, w, cfg.tau, cfg.tile, cfg.backend,
+                                 cfg.bwd, cfg.block_n, ctx, cfg.levels,
+                                 cfg.dtype)
+    ctx.tap(frac, site=site)
     return y

@@ -751,7 +751,10 @@ class WeightPlanCache:
     not depend on the batch, so they are computed once per weight. The
     tensor's in-place version counter is part of the key (torch tensors are
     mutable, jax arrays are not), so an updated weight misses instead of
-    serving stale norms. LRU-bounded; `hits`/`misses` count lookups.
+    serving stale norms. A weight that requires grad is never cached (the
+    reference never caches a traced weight): a trainable parameter changes
+    in place every optimizer step, so each step would add an entry and
+    none would hit. LRU-bounded; `hits`/`misses` count lookups.
 
     Frozen tier: `frozen_weight` memoizes `plans.frozen.FrozenWeight`
     artifacts by content fingerprint, falling through to the attached
@@ -797,6 +800,9 @@ class WeightPlanCache:
                                               backend=bk.name)
             return wp, nw
 
+        if w.requires_grad:
+            with torch.no_grad():
+                return compute()
         key = (id(w), w._version, tuple(w.shape), str(w.dtype),
                str(w.device), tile, bk.name, use_mxu, levels, block_n, dtype)
         ent = self._entries.get(key)

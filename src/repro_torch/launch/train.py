@@ -1,0 +1,92 @@
+"""Training CLI of the port (twin of `repro.launch.train`).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \
+      --steps 200 --batch 8 --seq 256 [--spamm --tau 0.0] \
+      [--resume auto] [--reduced] [--device cpu]
+
+Trains from `init_params(seed=0)` on the card by default; `--device cpu`
+runs the plain PyTorch versions of the kernels (use `--reduced` there).
+`--resume auto` restarts from the latest checkpoint in `--ckpt-dir`.
+`--metrics-out FILE` writes the run's metrics registry as Prometheus text
+(train_step_seconds, the per-layer spamm_valid_fraction series);
+`--trace-out FILE` writes its host spans (train_step, checkpoint_save) as
+Chrome-trace JSON; either prints the registry's summary table. The
+reference's production mesh and re-sharding flags wait for the multi-GPU
+slice.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs import (ParallelConfig, SpammConfig, TrainConfig,
+                                 get_config)
+from repro_torch.obs import Observability
+from repro_torch.train.loop import train
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--reduced", action="store_true",
+                    help="reduced same-family config (CPU-sized)")
+    ap.add_argument("--spamm", action="store_true",
+                    help="enable SpAMM on all eligible GEMMs")
+    ap.add_argument("--tau", type=float, default=0.0)
+    ap.add_argument("--spamm-tile", type=int, default=64)
+    ap.add_argument("--resume", default="no", choices=["no", "auto"])
+    ap.add_argument("--ckpt-dir", default=TrainConfig().ckpt_dir)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "int8_ef"])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the run's metrics registry here as a "
+                         "Prometheus text dump (train_step_seconds, "
+                         "per-layer spamm_valid_fraction)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the run's host-side spans here as Chrome-"
+                         "trace JSON (load in Perfetto)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    pcfg = ParallelConfig(
+        compute_dtype="float32",
+        remat="none" if args.reduced else "full",
+        attn_q_chunk=64, loss_chunk=128,
+        grad_compression=args.grad_compression,
+    )
+    tcfg = TrainConfig(
+        lr=args.lr, total_steps=args.steps, warmup=min(100, args.steps // 10),
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+    )
+    spamm_cfg = (SpammConfig(enable=True, tau=args.tau, tile=args.spamm_tile,
+                             backend="auto")
+                 if args.spamm else None)
+    obs = Observability(process_name="repro-train")
+    res = train(cfg, pcfg, tcfg, global_batch=args.batch, seq_len=args.seq,
+                spamm_cfg=spamm_cfg, resume=(args.resume == "auto"), obs=obs,
+                device=args.device)
+    print(f"done: steps={res.final_step} first_loss={res.losses[0]:.4f} "
+          f"last_loss={res.losses[-1]:.4f} stragglers={res.straggler_steps}")
+    if res.spamm_stats:
+        fracs = [s["valid_fraction"] for s in res.spamm_stats
+                 if s["valid_fraction"] is not None]
+        if fracs:
+            print(f"spamm: mean_valid_fraction={sum(fracs)/len(fracs):.3f} "
+                  f"gated_gemms/step={res.spamm_stats[-1]['gated_gemms']}")
+    if args.metrics_out:
+        print(f"metrics -> {obs.write_metrics(args.metrics_out)}")
+    if args.trace_out:
+        print(f"trace -> {obs.write_trace(args.trace_out)}")
+    if args.metrics_out or args.trace_out:
+        print(obs.summary_table())
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,8 @@ Parameters are plain dicts of tensors in the reference's layouts: GEMM
 weights are (K, N) and apply as `x @ w` (not nn.Linear's (N, K)), because
 the frozen plans' (k, j) tables are tiled on the (K, N) grid. Every gated
 GEMM routes through `core.module.maybe_spamm_matmul`, labelled with its
-site ("w1", "w3", "w2") for the telemetry.
+site ("w1", "w3", "w2") for the telemetry. `chunked_ce_loss` is the
+training loss.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.module import maybe_spamm_matmul
 
@@ -96,3 +98,28 @@ def mlp_params(gen: torch.Generator, d_model: int, d_ff: int, act: str,
 
 def embed(params: dict, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     return params["embedding"].to(compute_dtype)[tokens]
+
+
+def _chunk_loss(hc: torch.Tensor, unembed: torch.Tensor, lc: torch.Tensor):
+    logits = (hc @ unembed).float()                      # (B, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc.clamp(min=0).long()[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
+                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Mean cross-entropy of h (B, S, d) final hidden states (already
+    normed) against `labels` (B, S) int, -1 masked, without the whole
+    (B, S, V) logits: a loop over sequence chunks plus the remainder, each
+    recomputed in backward (`torch.utils.checkpoint`, the reference's
+    `jax.checkpoint`)."""
+    s = h.shape[1]
+    chunk = min(chunk, s)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        l, m = checkpoint(_chunk_loss, h[:, c0:c0 + chunk], unembed,
+                          labels[:, c0:c0 + chunk], use_reentrant=False)
+        tot, cnt = tot + l, cnt + m
+    return tot / cnt.clamp(min=1.0)

@@ -1,6 +1,7 @@
 """Top-level model API of the port (twin of `repro.models.model`):
 `init_params`, `init_cache`, `make_prefill_step`, `make_prefill_chunk_step`,
-`make_decode_step`, and `params_from_jax`, which carries a reference
+`make_decode_step`, the training side (`forward_hidden`, `loss_fn`,
+`make_train_step`), and `params_from_jax`, which carries a reference
 parameter tree (as numpy) across so both packages can run the same
 weights.
 
@@ -27,12 +28,13 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import module as spmod
 from repro_torch.device import resolve_device
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tr
-from repro_torch.models.layers import _normal, embed, rms_norm
+from repro_torch.models.layers import _normal, chunked_ce_loss, embed, rms_norm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -146,6 +148,77 @@ def _inputs(params, batch, cdt) -> torch.Tensor:
     if "embeds" in batch:
         return batch["embeds"].to(cdt)
     return embed(params["embed"], batch["tokens"].long(), cdt)
+
+
+def forward_hidden(cfg: ModelConfig, pcfg: ParallelConfig, params, batch,
+                   *, spamm_cfg=None, collect_spamm_stats: bool = False):
+    """tokens or embeds → final-normed hidden states (B, S, d) and the MoE
+    aux loss; with `collect_spamm_stats` a third element (frac_sum,
+    gemm_count, layer_frac_sums, layer_gemm_counts), see
+    `transformer.stack_fwd`."""
+    spamm_cfg = spmod.as_context(spamm_cfg)
+    x = _inputs(params, batch, _dtype(pcfg.compute_dtype))
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    out = tr.stack_fwd(params, x, cfg, pcfg, positions, spamm_cfg=spamm_cfg,
+                       collect_spamm_stats=collect_spamm_stats)
+    h = rms_norm(out[0], params["final_norm"], cfg.norm_eps)
+    return (h,) + tuple(out[1:])
+
+
+def loss_fn(cfg: ModelConfig, pcfg: ParallelConfig, params, batch, *,
+            spamm_cfg=None):
+    """(loss, metrics): the chunked cross-entropy of `batch["labels"]`
+    plus `router_aux_weight` × the MoE aux loss. With SpAMM on the metrics
+    add the mean valid fraction over the step's gated GEMMs
+    (`spamm_valid_fraction`), their count (`spamm_gated_gemms`) and both
+    per layer (`spamm_layer_*`, stack order), as device tensors."""
+    spamm_cfg = spmod.as_context(spamm_cfg)
+    collect = spamm_cfg is not None and spamm_cfg.enable
+    out = forward_hidden(cfg, pcfg, params, batch, spamm_cfg=spamm_cfg,
+                         collect_spamm_stats=collect)
+    h, aux = out[0], out[1]
+    unembed = params["unembed"]["kernel"].to(h.dtype)
+    ce = chunked_ce_loss(h, unembed, batch["labels"], pcfg.loss_chunk)
+    aux_w = cfg.moe.router_aux_weight if cfg.moe is not None else 0.0
+    met = {"ce": ce, "aux": aux}
+    if collect:
+        vs, vc, lvs, lvc = out[2]
+        met["spamm_valid_fraction"] = vs / vc.clamp(min=1.0)
+        met["spamm_gated_gemms"] = vc
+        met["spamm_layer_valid_fraction"] = lvs / lvc.clamp(min=1.0)
+        met["spamm_layer_gated_gemms"] = lvc
+    return ce + aux_w * aux, met
+
+
+def make_train_step(cfg: ModelConfig, pcfg: ParallelConfig, optimizer, *,
+                    spamm_cfg=None):
+    """fn(params, opt_state, batch, step) → (params, opt_state, metrics):
+    one eager step — the loss, `loss.backward()`, then
+    `optimizer.update`, which writes the parameters and moments in place.
+    `metrics` holds the loss, the gradient norm and `loss_fn`'s metrics,
+    detached device tensors."""
+    spamm_cfg = spmod.as_context(spamm_cfg)
+
+    def step(params, opt_state, batch, step_no):
+        for p in T.leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        loss, met = loss_fn(cfg, pcfg, params, batch, spamm_cfg=spamm_cfg)
+        loss.backward()
+        grads = T.map_(lambda p: (p.grad if p.grad is not None
+                                  else torch.zeros_like(p)), params)
+        for p in T.leaves(params):
+            p.grad = None
+        params, opt_state, gnorm = optimizer.update(params, grads,
+                                                    opt_state, step_no)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm,
+                   **{k: (v.detach() if isinstance(v, torch.Tensor) else v)
+                      for k, v in met.items()}}
+        return params, opt_state, metrics
+
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig, pcfg: ParallelConfig, *,

@@ -29,14 +29,19 @@ records it as a host value) and each GEMM names its site ("wq", "wk",
 (its label is cleared for the block). Per-row positions at or past the
 cache length are sentinels whose writes drop, as the reference's
 `.at[].set(mode="drop")` does (`_row_writes`). Chunked prefill takes
-attention stacks only, as the reference's does.
+attention stacks only, as the reference's does. `stack_fwd` is the
+training stack: no caches, each layer under the config's remat, the MoE
+aux losses summed and the gating stats collected once per forward.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.module import SpammContext, maybe_spamm_matmul
@@ -268,12 +273,15 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, spamm_cfg, frozen=None,
     """The MLP or MoE sub-layer on the normalized input h → (out, aux).
     A MoE block gates eagerly (its expert buffers depend on the routing;
     frozen plans cover attention and the dense MLP), with no SpAMM under
-    the decode contract (`require_frozen`), and its taps report layer -1."""
+    the decode contract (`require_frozen`); its taps report layer -1 and
+    stay out of the training stack's trace buffer, as in the reference."""
     if cfg.moe is None:
         return mlp(p["mlp"], h, cfg.act, spamm_cfg, frozen,
                    require_frozen), 0.0
     tctx = _tap_ctx(spamm_cfg)
-    prev = tctx.swap_layer(None) if tctx is not None else None
+    if tctx is not None:
+        prev = tctx.swap_layer(None)
+        buf = tctx.suspend_trace_buffer()
     try:
         return moe_mod.moe_block(
             p["moe"], h, cfg.moe, cfg.act,
@@ -281,19 +289,21 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, spamm_cfg, frozen=None,
     finally:
         if tctx is not None:
             tctx.swap_layer(prev)
+            tctx.resume_trace_buffer(buf)
 
 
 def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
               pcfg: ParallelConfig, positions: torch.Tensor, kind: str, *,
               spamm_cfg=None, collect_cache: bool = False, frozen=None):
-    """One residual layer of kind "attn" | "rec" | "ssm". Returns (x,
-    cache or None)."""
+    """One residual layer of kind "attn" | "rec" | "ssm". Returns (x, aux,
+    cache or None): aux is the MoE block's load-balancing loss (0.0
+    without one)."""
     fz = frozen or {}
     if kind == "ssm":
         h, cache = ssm_mod.ssm_block(p["ssm"],
                                      rms_norm(x, p["ln"], cfg.norm_eps),
                                      cfg.ssm, norm_eps=cfg.norm_eps)
-        return x + h, (cache if collect_cache else None)
+        return x + h, 0.0, (cache if collect_cache else None)
     if kind == "attn":
         h, (k, v) = attention_layer(
             p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, pcfg,
@@ -304,9 +314,9 @@ def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
         h, cache = rglru_mod.rglru_block(
             p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg.rglru)
     x = x + h
-    f, _ = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
-                fz.get("mlp"))
-    return x + f, (cache if collect_cache else None)
+    f, aux = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
+                  fz.get("mlp"))
+    return x + f, aux, (cache if collect_cache else None)
 
 
 def layer_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
@@ -357,6 +367,85 @@ def layer_decode(p: dict, x: torch.Tensor, cache: dict, pos,
     return x + f, new
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat "dots": keep the outputs of
+    matrix products without batch dims (`aten.mm`/`addmm`: x @ w, however
+    many leading dims x has), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat(fn, pcfg: ParallelConfig):
+    """fn under the config's remat: "full" recomputes the whole call in
+    backward (`torch.utils.checkpoint`), "dots" keeps the plain matrix
+    products' outputs (the nearest PyTorch policy to the reference's
+    `checkpoint_dots_with_no_batch_dims`: the gated GEMMs' outputs come
+    from the autograd Function's kernels, not `aten.mm`, and are
+    recomputed), "none" saves everything."""
+    if pcfg.remat == "none":
+        return fn
+    if pcfg.remat == "full":
+        kw = {}
+    elif pcfg.remat == "dots":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)}
+    else:
+        raise ValueError(f"remat={pcfg.remat!r} (none | dots | full)")
+
+    def remat(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return remat
+
+
+def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              pcfg: ParallelConfig, positions: torch.Tensor, *,
+              spamm_cfg=None, collect_spamm_stats: bool = False):
+    """All layers, the training and loss path (no caches). Returns (x,
+    aux), or with `collect_spamm_stats` (x, aux, (frac_sum, gemm_count,
+    layer_frac_sums, layer_gemm_counts)): f32 device tensors, the last two
+    (num_layers,) in stack order. Each layer runs under `pcfg.remat`.
+
+    The stats come from the context's trace buffer, open only while a
+    layer's forward runs: a remat recomputation inside backward taps into
+    no buffer, so every gated GEMM counts once, as through the reference's
+    scan carry. A MoE block's GEMMs stay out (`_ffn`), as in the
+    reference."""
+    tctx = _tap_ctx(spamm_cfg)
+    collect = collect_spamm_stats and tctx is not None and tctx.enable
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(p, h, kind):
+        h, a, _ = layer_fwd(p, h, cfg, pcfg, positions, kind,
+                            spamm_cfg=spamm_cfg)
+        return h, a
+
+    layer = _remat(body, pcfg)
+    aux = vs = vc = zero
+    lvs, lvc = [], []
+    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        if collect:
+            tctx.begin_trace_buffer()
+        try:
+            x, a = layer(p, x, kind)
+        finally:
+            fracs = tctx.drain_trace_buffer() if collect else []
+        s = zero
+        for f in fracs:
+            s = s + f
+        c = torch.full((), float(len(fracs)), dtype=torch.float32,
+                       device=x.device)
+        aux, vs, vc = aux + a, vs + s, vc + c
+        lvs.append(s)
+        lvc.append(c)
+    if collect:
+        return x, aux, (vs, vc, torch.stack(lvs), torch.stack(lvc))
+    return x, aux
+
+
 def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
                   pcfg: ParallelConfig, positions: torch.Tensor,
                   cache_len: int, *, spamm_cfg=None, frozen=None):
@@ -372,9 +461,9 @@ def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
                                            layer_kinds(cfg))):
             if tctx is not None:
                 tctx.set_layer(li)
-            x, c = layer_fwd(p, x, cfg, pcfg, positions, kind,
-                             spamm_cfg=spamm_cfg, collect_cache=True,
-                             frozen=fz_layers[li] if fz_layers else None)
+            x, _, c = layer_fwd(p, x, cfg, pcfg, positions, kind,
+                                spamm_cfg=spamm_cfg, collect_cache=True,
+                                frozen=fz_layers[li] if fz_layers else None)
             if kind == "attn" and c["k"].shape[1] > cache_len:
                 shift = s % cache_len
                 c = {n: torch.roll(c[n][:, -cache_len:], shift, dims=1)

@@ -1460,3 +1460,124 @@ def test_recurrent_card_run_matches_the_cpu_plain_run(dev, name):
                 for k in a:
                     close(a[k], b[k])
             tok = logits.argmax(-1)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# training: the gated GEMM's backward products on the card
+# ---------------------------------------------------------------------------
+
+def _spamm_counts():
+    return getnorm.launches, spamm_mm.launches
+
+
+@pytest.mark.parametrize("block_n", [1, 2])
+def test_backward_products_on_transposed_views_on_card(dev, block_n):
+    """bwd="spamm" on the card: the dx product g @ wᵀ (B a transposed view
+    of the weight) and the dW product xᵀ @ g (A a transposed view of the
+    activations), each against the work-list kernel's plain version on the
+    same operands and plan; the Function's launches (forward 2 get-norms +
+    1 work-list, backward 1 + 2) and its gradients against the same
+    Function on the CPU with the plain versions. N = 200 pads to the
+    forward's tile·block_n grid."""
+    from repro_torch.core import module as mod
+
+    f32_numerics()
+    tile = 64
+    x = _rand((256, 384), 40, dev) * 0.1
+    w = _rand((384, 200), 41, dev) * 0.05
+    g = _rand((256, 200), 42, dev) * 0.1
+    nx = getnorm.tile_norms_cuda(x, tile)
+    nw = getnorm.tile_norms_cuda(P.pad_to_tile(w, tile, tile * block_n)
+                                 .contiguous(), tile)
+    gp = P.pad_to_tile(g, tile, tile * block_n).contiguous()
+    ng = getnorm.tile_norms_cuda(gp, tile)
+    dx_prods = (ng[:, None, :] * nw[None]).flatten()
+    dw_prods = (nx.T[:, None, :] * ng.T[None]).flatten()
+    wp = P.pad_to_tile(w, tile, tile * block_n)
+    p_dx = P.plan(gp, None, float(dx_prods.median()), norm_b=nw.T, tile=tile,
+                  backend="cuda")
+    p_dw = P.plan(None, None, float(dw_prods.median()), norm_a=nx.T,
+                  norm_b=ng, tile=tile, backend="cuda")
+    for p, a, b in ((p_dx, gp, wp.T), (p_dw, x.T, gp)):
+        assert not (a.is_contiguous() and b.is_contiguous())
+        assert 0.0 < float(p.valid_fraction) < 1.0
+        got = P.execute(p, a, b)
+        wk = p.work
+        want = spamm_mm.spamm_mm_worklist_plain(
+            a.contiguous(), b.contiguous(), wk.step_i, wk.step_j, wk.step_k,
+            wk.step_flags, wk.runs, tile=tile)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=MM_TOL, atol=MM_TOL)
+        assert torch.equal(got, P.execute(p, a, b))  # deterministic
+
+    tau = float(torch.cat([dx_prods, dw_prods]).median())
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xs = x.detach().to(d).requires_grad_()
+        ws = w.detach().to(d).requires_grad_()
+        before = _spamm_counts()
+        y = mod.spamm_linear(xs, ws, tau, tile, "auto", "spamm", block_n)
+        y.backward(g.to(d))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            n0, m0 = _spamm_counts()
+            assert (n0 - before[0], m0 - before[1]) == (3, 3)
+        grads.append((y.detach().cpu(), xs.grad.cpu(), ws.grad.cpu()))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=MM_TOL, atol=MM_TOL)
+
+
+def test_tau0_spamm_train_step_equals_dense_on_card(dev):
+    """One train step of a reduced starcoder2-7b at its full width's tile
+    (64) on the card: τ = 0 with bwd="spamm" against SpAMM off from the
+    same parameters — the loss within 1e-5, the moments (the clipped
+    gradients) within 1e-3 of each leaf's largest magnitude, the updated
+    parameters too except where a gradient is within 1e-3 of 0 (AdamW's
+    normalized step can take either sign there; it stays ≤ 2·lr) — and 3
+    get-norm and 3 work-list launches per gated GEMM (remat "none")."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import (ParallelConfig, SpammConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+
+    f32_numerics()
+    cfg = dataclasses.replace(get_config("starcoder2-7b").reduced(),
+                              d_model=128, d_ff=256, head_dim=32)
+    pcfg = ParallelConfig(remat="none", loss_chunk=64)
+    opt = AdamW(TrainConfig(lr=1e-3, warmup=1, total_steps=4))
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        1, cfg.vocab, size=(2, 129)).astype(np.int32), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = []
+    for sc in (None, SpammConfig(enable=True, tau=0.0, tile=64,
+                                 backend="cuda", bwd="spamm")):
+        params = M.init_params(cfg, pcfg, 0, device=dev)
+        state = opt.init(params)
+        before = _spamm_counts()
+        params, state, met = M.make_train_step(cfg, pcfg, opt,
+                                               spamm_cfg=sc)(
+            params, state, batch, 0)
+        torch.cuda.synchronize()
+        after = _spamm_counts()
+        out.append((params, state, met,
+                    (after[0] - before[0], after[1] - before[1])))
+    (p0, s0, m0, c0), (p1, s1, m1, c1) = out
+    gated = int(m1["spamm_gated_gemms"])
+    assert gated == 6 * cfg.num_layers and c0 == (0, 0)
+    assert c1 == (3 * gated, 3 * gated)
+    assert float(m1["spamm_valid_fraction"]) == 1.0
+    assert abs(float(m1["loss"]) - float(m0["loss"])) <= 1e-5 * float(
+        m0["loss"])
+    for got, want in ((s1["mu"], s0["mu"]), (s1["nu"], s0["nu"])):
+        for a, b in zip(T.leaves(got), T.leaves(want)):
+            err = float((a - b).abs().max() / b.abs().max().clamp(
+                min=1e-30))
+            assert err <= 1e-3, err
+    for a, b, m in zip(T.leaves(p1), T.leaves(p0), T.leaves(s0["mu"])):
+        d = (a.detach() - b.detach()).abs()
+        off = d > 1e-3 * b.abs().max()
+        small = m.abs() < 1e-3 * m.abs().max()
+        assert bool(small[off].all()) and float(d.max()) <= 2e-3

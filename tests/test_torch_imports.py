@@ -37,7 +37,10 @@ def test_port_has_modules():
                  "launch/precompute_plans.py", "obs/__init__.py",
                  "obs/registry.py", "obs/tracer.py", "obs/residual.py",
                  "models/moe.py", "models/ssm.py", "models/rglru.py",
-                 "configs/spamm_synth.py"):
+                 "configs/spamm_synth.py", "optim/adamw.py",
+                 "distributed/compression.py", "data/pipeline.py",
+                 "checkpoint/checkpoint.py", "train/loop.py",
+                 "launch/train.py"):
         assert twin in names
 
 
@@ -86,6 +89,39 @@ OBS_ENTRY_POINTS = (
     ("repro_torch.core.module", ("Tap", "TapLabel")),
     ("repro_torch.serving.engine", ("wave_latency", "COUNT_BUCKETS")),
 )
+
+
+# the training path: the differentiable gated GEMM, the loss, the training
+# stack and step, AdamW, compression, data, checkpoints, the loop and CLI
+TRAIN_ENTRY_POINTS = (
+    ("repro_torch.configs", ("TrainConfig",)),
+    ("repro_torch.core.module", ("spamm_linear", "_SpammLinear")),
+    ("repro_torch.models.layers", ("chunked_ce_loss",)),
+    ("repro_torch.models.transformer", ("stack_fwd",)),
+    ("repro_torch.models.model", ("forward_hidden", "loss_fn",
+                                  "make_train_step")),
+    ("repro_torch.optim.adamw", ("AdamW",)),
+    ("repro_torch.distributed.compression", ("Int8EF",)),
+    ("repro_torch.data.pipeline", ("SyntheticLM", "synthesized_decay",
+                                   "ergo_like", "vgg_im2col_shapes",
+                                   "relu_sparse_matrix")),
+    ("repro_torch.checkpoint.checkpoint", ("save", "restore", "all_steps",
+                                           "latest_step",
+                                           "plan_store_pointer",
+                                           "open_plan_store")),
+    ("repro_torch.train.loop", ("train", "TrainResult")),
+    ("repro_torch.launch.train", ("main",)),
+)
+
+
+@pytest.mark.parametrize("module,names", TRAIN_ENTRY_POINTS,
+                         ids=[m for m, _ in TRAIN_ENTRY_POINTS])
+def test_train_entry_points_exist(module, names):
+    import importlib
+
+    mod = importlib.import_module(module)
+    for name in names:
+        assert hasattr(mod, name), f"{module}.{name}"
 
 
 @pytest.mark.parametrize("module,names", OBS_ENTRY_POINTS,
@@ -145,6 +181,10 @@ def test_fresh_import_keeps_jax_out():
         "import repro_torch.obs, repro_torch.obs.registry\n"
         "import repro_torch.obs.tracer, repro_torch.obs.residual\n"
         "import repro_torch.models.moe\n"
+        "import repro_torch.train.loop, repro_torch.launch.train\n"
+        "import repro_torch.optim.adamw, repro_torch.data.pipeline\n"
+        "import repro_torch.checkpoint.checkpoint\n"
+        "import repro_torch.distributed.compression\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -18,6 +18,7 @@ from repro.kernels import ref as rref
 from repro_torch.configs import SpammConfig
 from repro_torch.core import module as tmodule
 from repro_torch.kernels import quantize as tquant
+from repro_torch.plans.frozen import FrozenWeight
 
 TILE = 16
 # f32 GEMM over K = 48 (three tile products): accumulation-order rounding
@@ -113,16 +114,22 @@ def test_maybe_spamm_matmul_eager_matches_reference(kind, block_n):
 
 def test_maybe_spamm_matmul_dense_branches():
     """SpAMM off, and the decode contract without a frozen plan, are the
-    plain product; spamm_linear refuses tensors that need gradients."""
+    plain product; spamm_linear is differentiable, while the frozen path
+    (inference only, as in the reference) refuses tensors that need
+    gradients."""
     x = torch.as_tensor(_rand((4, 48), 2))
     w = torch.as_tensor(_rand((48, 32), 3))
     on = SpammConfig(enable=True, tau=1e9, tile=TILE, backend="torch")
     for cfg, kw in ((None, {}), (SpammConfig(enable=False), {}),
                     (on, {"require_frozen": True})):
         assert torch.equal(tmodule.maybe_spamm_matmul(x, w, cfg, **kw), x @ w)
+    xg = x.clone().requires_grad_()
+    y = tmodule.spamm_linear(xg, w, 0.0, tile=TILE, backend="torch")
+    y.sum().backward()
+    torch.testing.assert_close(xg.grad, w.sum(1).expand(4, 48))
+    fw = FrozenWeight.build(w, 0.0, tile=TILE, backend="torch")
     with pytest.raises(NotImplementedError):
-        tmodule.spamm_linear(x.requires_grad_(), w, 0.0, tile=TILE,
-                             backend="torch")
+        tmodule.spamm_linear_frozen(xg, w, fw.for_rows(1))
 
 
 @pytest.mark.parametrize("spec", ["float32", "f32", "fp32", "bf16",
