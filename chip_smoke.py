@@ -85,8 +85,7 @@ nodes per replayed step), each wave's taps priced with both profiles
 tile the block_n = 1 gate keeps at layer 0; a warm plan store hits every
 tuned artifact.
 
-Dense families, at full width and FAMILY_DEPTH layers (llava-next, in
-the last families, is the whole 7B-class dense model): codeqwen1.5-7b
+Dense families, at full width and FAMILY_DEPTH layers: codeqwen1.5-7b
 (dense, τ = 0 ≡ dense, the median τ graphed ≡ eager, that τ autotuned:
 graphed ≡ eager, its gate ⊇ the untuned gate at layer 0), qwen2.5-32b and
 granite-34b (dense, τ = 0 ≡ dense;
@@ -106,17 +105,17 @@ captured only with SpAMM off). mixtral-8x22b at full width, 4 of 56
 layers (41.7 GB): dense, τ = 0 with moe_bmm, on the sliding-window ring
 decode cache.
 
-Last families (`phase_last_families`), each whole and freed before the
-next, run (c)'s wave at max_len 512: llava-next-mistral-7b (32 layers,
-GQA 32/8, SwiGLU ff 14336) and musicgen-large (48 layers, MHA, GELU MLP)
-behind their stub frontends: dense, τ = 0 ≡ dense tokens (prefill logits
+Last families (`phase_last_families`), each freed before the next, run
+(c)'s wave at max_len 512: llava-next-mistral-7b (8 of 32 layers, GQA
+32/8, SwiGLU ff 14336) and musicgen-large (12 of 48 layers, MHA, GELU
+MLP) behind their stub frontends: dense, τ = 0 ≡ dense tokens (prefill logits
 within 1e-3), the median τ of the first gated GEMM of a decode step
 (graphed ≡ eager bit for bit), a prefill fed embedding[tokens] as
 `embeds` ≡ the token prefill bit for bit; musicgen's chunked plane at
 τ = 0 (4 prompts of 37–128 tokens, 2 slots; graphed ≡ eager, ≡ solo
-waves). recurrentgemma-9b (12 (rec, rec, attn) groups + 2 rec layers,
-MQA 16/1 of head_dim 256, window 2048): the same checks, 162 frozen
-weights, the ring decode cache, a decode step's device time by range
+waves). recurrentgemma-9b (5 of its 12 (rec, rec, attn) groups + the 2
+rec layers of its tail, MQA 16/1 of head_dim 256, window 2048): the same
+checks, every gated weight frozen, the ring decode cache, a decode step's device time by range
 (RG-LRU blocks, attention layers, MLPs, frozen gates, work-lists), and a
 mixed-length batch and prefill_chunk refused. mamba2-1.3b (48 SSD
 layers): dense at 4 × 128 and 4 × 320 tokens (one carried 256-token chunk
@@ -147,6 +146,24 @@ gated GEMM with a pyramid (levels = 2 ≡ levels = 0) on starcoder2-7b's w1;
 (e) spamm(valid_ratio=0.30) with int8 and with bf16 GEMMs on the ensemble;
 (f) spamm(valid_ratio=0.30) with the tensor-core get-norm.
 
+Multi (`phase_multi`, after train), the multi-GPU slice on the one card:
+(m1) spamm_rowpart and spamm_2d on a 1×1 mesh over NCCL on the library
+run's operands at the τ its spamm(valid_ratio=0.30) finds, ≡ the flat
+product bit for bit; (m2) MULTI_RANKS gloo ranks spawned on cuda:0 (the
+kernels built here first): spamm_rowpart under each schedule ≡ flat bit
+for bit, at int8 and bf16 ≡ the flat product at that dtype bit for bit,
+each rank's row-2 device time of its strip (all timed by rank 0, one
+strip at a time), the predicted imbalance (the schedule's coarse
+estimate and the fine V) against the measured; (m3) spamm_2d on a 2×2
+mesh within 1e-4; (m4) starcoder2-7b at full width and MULTI_LAYERS
+layers, one wave of MULTI_BATCH × MULTI_PLEN tokens, sharded over
+MULTI_SHARDS shards of cuda:0 with re-sharding every 2 engine steps:
+tokens ≡ the unsharded engine's, the captures fixed across re-cuts that
+move request groups, each shard's replayed decode step against the live
+predicted imbalance, graphed ≡ eager at the live cut; (m5)
+MULTI_TRAIN_STEPS train-loop steps with re-sharding ≡ without (losses,
+gradient norms, final parameters).
+
 Every result line is a JSON object; the line before the last lists nine
 kernel entries (the work-list GEMM twice, f32 and bf16; each of the
 get-norm pair twice, CUDA-core and tensor-core) with their launches on
@@ -154,7 +171,8 @@ their path (the τ > 0 serving run at its dtype, the store walk, the
 library path, or the dense-grid GEMM's qwen2-moe τ > 0 wave; the f32 pair
 also on run (f), the MoE wave, the last families' τ > 0 waves and the
 training runs, with row 2's times at the backward products' shapes),
-errors, times and bounds;
+errors, times and bounds, and each entry's multi_launches on the multi
+phase's cells ((m2) and (m3) summed over the ranks);
 the last line is {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
 src/ beside it, it exits 2 and prints no result.
@@ -204,8 +222,8 @@ OBS_BYTES_RTOL = 1e-9
 CAL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out", "chip_smoke_calibrate")
 # the dense family at full width and this depth: codeqwen1.5-7b (32 layers
-# whole; cut, for the smoke's time limit, since llava-next-mistral-7b runs
-# whole in the last families), qwen2.5-32b (1.95 GB of f32 a layer) and
+# whole; cut for the smoke's time limit), qwen2.5-32b (1.95 GB of f32 a
+# layer) and
 # granite-34b (88 layers, 187 GB of f32 whole)
 FAMILY_DEPTH = {"codeqwen1.5-7b": 8, "qwen2.5-32b": 8, "granite-34b": 8}
 # granite-34b's chunked plane (MQA in the chunk and decode graphs): mixed
@@ -219,12 +237,17 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 MOE_LAYERS = 12
 MOE_PER_EXPERT_LAYERS = 4
 MOE_MIXTRAL_LAYERS = 4
-# the last four families, each whole: llava-next-mistral-7b (32 layers,
+# the last four families: llava-next-mistral-7b (32 layers,
 # 29.0 GB of f32) and musicgen-large (48, 9.7 GB) behind their stub
 # frontends, recurrentgemma-9b (38: 12 (rec, rec, attn) groups + 2 rec; 38.5
 # GB) and mamba2-1.3b (48, 5.8 GB); their waves at this max_len
 LAST_FAMILIES = ("llava-next-mistral-7b", "musicgen-large",
                  "recurrentgemma-9b", "mamba2-1.3b")
+# cut, for the smoke's time limit, since the multi phase came in:
+# llava-next-mistral-7b, musicgen-large and recurrentgemma-9b (5 (rec, rec,
+# attn) groups + the 2-layer tail) at this depth; mamba2-1.3b stays whole
+LAST_FAMILY_DEPTH = {"llava-next-mistral-7b": 8, "musicgen-large": 12,
+                     "recurrentgemma-9b": 17}
 FAMILY_MAX_LEN = 512
 # mamba2's long prompt: one carried 256-token SSD chunk and a 64-token
 # remainder
@@ -286,6 +309,28 @@ LIB_LEVELS = 3
 MOE_EXPERTS, MOE_D, MOE_FF, MOE_ROWS = 60, 2048, 1408, 64
 # the eager gated GEMM with a pyramid
 EAGER_LEVELS = 2
+
+# the multi phase (after train): the distributed library call and the
+# pod-sharded engine on the one card. (m2)/(m3) spawn MULTI_RANKS gloo
+# ranks on cuda:0 (NCCL refuses two ranks on one GPU); (m4) serves
+# starcoder2-7b at full width and MULTI_LAYERS of its 32 layers over
+# MULTI_SHARDS shards of one card: MULTI_BATCH requests of MULTI_PLEN tokens
+# at tile 64 (8 request groups; at tile 16 a prefill's frozen step tables
+# would hold 434 M steps a layer), MULTI_NEW new tokens, re-sharding every 2
+# engine steps on a probe window of MULTI_PROBE_WINDOW tokens a request.
+# The embedding rows get a hot/cold profile (the reference test's): the
+# probe's norm products of an all-hot tile sit at MULTI_HOT·τ, of an
+# all-cold one at MULTI_COLD·τ, so the prompts' tokens move the work
+# estimate. (m5): MULTI_TRAIN_STEPS steps of the train loop with and without
+# re-sharding.
+MULTI_RANKS = 4
+MULTI_SCHEDULES = ("contiguous", "cyclic", "equal_work", "auto")
+MULTI_LAYERS = 8
+MULTI_SHARDS = 4
+MULTI_BATCH, MULTI_PLEN, MULTI_NEW = 512, 64, 8
+MULTI_PROBE_WINDOW = 32
+MULTI_HOT, MULTI_COLD = 4.0, 0.04
+MULTI_TRAIN_STEPS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -1224,7 +1269,8 @@ def compare_graphed_eager(eng, prompts, label, max_new=MAX_NEW):
     the logits of every decode and chunk step and the spamm stats (per
     (layer, site) cells and predicted seconds included; not the host-clock
     times) must be equal bit for bit, and every launch count the same.
-    Returns the eager wave's numbers."""
+    Returns the comparison (the graphed wave's launches under
+    "launches")."""
     import torch
 
     g = logged_wave(eng, prompts, max_new)
@@ -1249,7 +1295,7 @@ def compare_graphed_eager(eng, prompts, label, max_new=MAX_NEW):
           and res["step_logits_bit_identical"] and res["spamm_equal"]
           and res["launches_equal"],
           f"graphed and eager waves of run {label} differ: {res}")
-    return res["eager"]
+    return res
 
 
 def phase_obs(cfg, pcfg, params, eng, prompts, sct):
@@ -2828,8 +2874,8 @@ def phase_moe():
 # ---------------------------------------------------------------------------
 
 def family_model(arch, pcfg):
-    """(cfg, params) of `arch` whole, random weights from SEED on the
-    card; emits a "model" line."""
+    """(cfg, params) of `arch`, whole or at LAST_FAMILY_DEPTH, random
+    weights from SEED on the card; emits a "model" line."""
     import dataclasses
 
     import torch
@@ -2837,7 +2883,10 @@ def family_model(arch, pcfg):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    depth = LAST_FAMILY_DEPTH.get(arch)
+    cfg = (full if depth is None
+           else dataclasses.replace(full, num_layers=depth))
     t0 = time.perf_counter()
     params = M.init_params(cfg, pcfg, SEED, device=DEV)
     torch.cuda.synchronize()
@@ -2851,7 +2900,9 @@ def family_model(arch, pcfg):
           "params": sum(t.numel() for t in _leaves(params)),
           "param_gb": sum(t.numel() * t.element_size()
                           for t in _leaves(params)) / 1e9,
-          "init_s": time.perf_counter() - t0, "depth_cut": None})
+          "init_s": time.perf_counter() - t0,
+          "depth_cut": (None if depth is None
+                        else f"{depth} of {full.num_layers} layers")})
     return cfg, params
 
 
@@ -3035,14 +3086,15 @@ def hybrid_decode_profile(eng, tokens, label):
 
 
 def phase_last_families():
-    """The last four families whole, at full width and depth, random f32
-    weights from SEED, one at a time (memory freed between them), run
+    """The last four families at full width, whole or at
+    LAST_FAMILY_DEPTH, random f32 weights from SEED, one at a time
+    (memory freed between them), run
     (c)'s wave shape at max_len FAMILY_MAX_LEN, graphed after a warm-up.
     llava-next-mistral-7b and musicgen-large (stub frontends): dense, τ = 0
     ≡ dense, the median decode τ graphed ≡ eager, a prefill fed
     `embeds = embedding[tokens]` ≡ the token prefill; musicgen also the
-    chunked plane at τ = 0. recurrentgemma-9b (12 (rec, rec, attn) groups
-    + 2 rec): the same, 162 frozen weights, the ring decode cache, a
+    chunked plane at τ = 0. recurrentgemma-9b ((rec, rec, attn) groups + 2
+    rec): the same, every gated weight frozen, the ring decode cache, a
     decode step's device time by range, and a mixed-length batch and
     `prefill_chunk` refused. mamba2-1.3b: dense at BATCH × PROMPT_LEN and
     at BATCH × SSM_LONG_PROMPT (one carried SSD chunk and a remainder),
@@ -3055,7 +3107,8 @@ def phase_last_families():
     import torch
 
     from repro_torch.configs import ParallelConfig, SpammConfig
-    from repro_torch.plans.precompute import frozen_leaves
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.plans.precompute import frozen_leaves, iter_gated_weights
     from repro_torch.serving.engine import Engine, Request
 
     pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=PROMPT_LEN)
@@ -3090,13 +3143,16 @@ def phase_last_families():
                 embeds_equal_tokens(cfg, pcfg, params, prompts, eng)
             if cfg.family == "hybrid":
                 n = len(list(frozen_leaves(eng._fw_tree)))
+                gated = len(list(iter_gated_weights(params)))
                 attn = [c for c in eng._caches[("wave", BATCH)]["layers"]
                         if "k" in c]
                 emit({"hybrid": {"model": cfg.name, "frozen_weights": n,
+                                 "gated_weights": gated,
                                  "attention_layers": len(attn),
                                  "decode_cache_len": attn[0]["k"].shape[1],
                                  "window": cfg.sliding_window}})
-                check(n == 162 and len(attn) == 12 and all(
+                check(n == gated and len(attn) == layer_kinds(cfg).count(
+                    "attn") and all(
                     c["k"].shape[1] == FAMILY_MAX_LEN <= cfg.sliding_window
                     for c in attn), f"{cfg.name} frozen {n}, attention "
                     f"caches {[c['k'].shape for c in attn]}")
@@ -3167,6 +3223,524 @@ def phase_last_families():
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# multi: the distributed library call and the pod-sharded engine
+# ---------------------------------------------------------------------------
+
+def _multi_rank(rank, n, tau):
+    """(m2) and (m3) on one of MULTI_RANKS gloo ranks sharing cuda:0: the
+    library run's operands made on the card (every rank the same), the
+    flat product, then the main path with every count at 0 just before it
+    and read just after: spamm_rowpart under each schedule and at int8 and
+    bf16 on a MULTI_RANKS-rank 1-D mesh; spamm_2d on a 2×2 mesh. Rank 0
+    then times every rank's strip under each schedule (the row-2 device
+    time, one profiler session while the other ranks wait, so no two
+    ranks share the card while timed) and returns the predicted loads."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core import plan as P
+    from repro_torch.core import schedule as S
+    from repro_torch.core.spamm import spamm
+    from repro_torch.device import f32_numerics
+    from repro_torch.kernels import getnorm
+    from repro_torch.launch.mesh import make_mesh
+
+    f32_numerics()
+    a = algebraic_decay_on_card(n, SEED)
+    b = algebraic_decay_on_card(n, SEED + 1)
+    t0 = time.perf_counter()
+    c_flat, info = spamm(a, b, tau, tile=TILE)
+    # the flat low-precision products: per-tile quantization, the widened
+    # gate and each output tile's k order do not depend on the other rows,
+    # so each rank's strip equals them bit for bit
+    flat_lowp = {dtype: spamm(a, b, tau, tile=TILE, compute_dtype=dtype)
+                 for dtype in LOWP_DTYPES}
+    out = {"rank": rank, "flat_valid_fraction": float(info.valid_fraction),
+           "schedules": {}, "lowp": {}, "seconds": {}}
+    out["seconds"]["operands_and_flat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = make_mesh((MULTI_RANKS,), ("data",), backend="gloo",
+                     device_type="cuda")
+    torch.cuda.synchronize()
+    dist.barrier()
+    reset_counts()
+    for s in MULTI_SCHEDULES:
+        c, frac = D.spamm_rowpart(a, b, tau, mesh, axis="data", tile=TILE,
+                                  schedule=s)
+        out["schedules"][s] = {"bit_identical": bool(torch.equal(c, c_flat)),
+                               "valid_fraction": float(frac)}
+        del c
+    for dtype in LOWP_DTYPES:
+        c, frac = D.spamm_rowpart(a, b, tau, mesh, axis="data", tile=TILE,
+                                  compute_dtype=dtype)
+        want, winfo = flat_lowp.pop(dtype)
+        out["lowp"][dtype] = {
+            "bit_identical": bool(torch.equal(c, want)),
+            "max_abs_err": float((c - want).abs().max()),
+            "valid_fraction": float(frac),
+            "flat_valid_fraction": float(winfo.valid_fraction),
+            "max_abs_diff_from_f32": float((c - c_flat).abs().max())}
+        del c, want
+    torch.cuda.synchronize()
+    out["m2_launches"] = read_counts()
+    out["seconds"]["m2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh2 = make_mesh((2, 2), ("data", "model"), backend="gloo",
+                      device_type="cuda")
+    dist.barrier()
+    reset_counts()
+    c, frac = D.spamm_2d(a, b, tau, mesh2, tile=TILE)
+    torch.cuda.synchronize()
+    out["m3_launches"] = read_counts()
+    out["m3"] = {"max_abs_err": float((c - c_flat).abs().max()),
+                 "bit_identical": bool(torch.equal(c, c_flat)),
+                 "valid_fraction": float(frac)}
+    del c, c_flat
+    torch.cuda.empty_cache()
+    out["seconds"]["m3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gm = n // TILE
+    torch.cuda.synchronize()
+    dist.barrier()
+    if rank == 0:
+        # one job per distinct strip (schedules that cut alike share it)
+        jobs, strip_of, out["strip_rows"] = {}, {}, {}
+        for s in MULTI_SCHEDULES:
+            for r in range(MULTI_RANKS):
+                rows, _, _ = D._row_layout(a, b, tau, MULTI_RANKS, r,
+                                           tile=TILE, backend="auto",
+                                           sched_levels=3, schedule=s,
+                                           offsets=None)
+                key = strip_of[s, r] = np.asarray(rows, np.int64).tobytes()
+                if key not in jobs:
+                    a_loc = a.reshape(gm, TILE, n)[torch.as_tensor(
+                        rows, device=a.device)].reshape(-1, n)
+                    jobs[key] = (P.plan(a_loc, b, tau, tile=TILE), a_loc)
+                out["strip_rows"][s, r] = int(rows.shape[0])
+        ms = dict(zip(jobs, kernel_device_ms_each(
+            [lambda p=p, x=x: P.execute(p, x, b) for p, x in jobs.values()],
+            "spamm_worklist", calls=5)))
+        out["kernel_ms"] = {sr: ms[k] for sr, k in strip_of.items()}
+        out["distinct_strips"] = len(jobs)
+        del jobs
+        torch.cuda.synchronize()
+    dist.barrier()
+    out["seconds"]["timed_strips"] = time.perf_counter() - t0
+    if rank == 0:
+        v, lv, _ = D._work_estimate(a, b, tau, MULTI_RANKS, tile=TILE,
+                                    backend="auto", sched_levels=3)
+        pick, offs = D._pick_schedule(a, b, tau, MULTI_RANKS, tile=TILE,
+                                      backend="auto", sched_levels=3)
+        # the estimate the schedules decide from (level lv), and the fine
+        # one (level 0) for the same row ownership
+        v0 = S.v_matrix(getnorm.tile_norms_cuda(a, TILE),
+                        getnorm.tile_norms_cuda(b, TILE), tau)
+        pred = {}
+        for s in MULTI_SCHEDULES:
+            sched = pick if s == "auto" else s
+            own = offs if s == "auto" else None
+            loads = S.device_loads(v, MULTI_RANKS, sched, level=lv,
+                                   fine_rows=gm, offsets=own)
+            if sched == "equal_work" and own is None:
+                own = S.equal_work_partition(v, MULTI_RANKS, level=lv,
+                                             fine_rows=gm)
+            fine = S.device_loads(v0, MULTI_RANKS, sched, offsets=own)
+            pred[s] = {"schedule": sched, "level": lv,
+                       "loads": [float(x) for x in loads],
+                       "imbalance": float(loads.max()
+                                          / max(loads.mean(), 1e-9)),
+                       "level0_loads": [float(x) for x in fine],
+                       "level0_imbalance": float(fine.max()
+                                                 / max(fine.mean(), 1e-9))}
+        out["predicted"] = pred
+        out["auto_offsets"] = None if offs is None else np.asarray(
+            offs).tolist()
+    return out
+
+
+def multi_library():
+    """(m1)-(m3): the library run's operands (the paper's §4.1 ensemble at
+    N = LIB_N) at the τ its flat spamm(valid_ratio=0.30) finds. (m1) a
+    1×1 mesh on NCCL in this process: spamm_rowpart and spamm_2d ≡ the
+    flat product bit for bit. (m2)/(m3) MULTI_RANKS gloo ranks spawned on
+    the one card (`_multi_rank`), kernels built here first. Returns
+    {cell: launches}."""
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.spamm import spamm
+    from repro_torch.launch import mesh as MS
+
+    a = algebraic_decay_on_card(LIB_N, SEED)
+    b = algebraic_decay_on_card(LIB_N, SEED + 1)
+    c_flat, info = spamm(a, b, valid_ratio=LIB_RATIOS[0], tile=TILE)
+    tau = float(info.tau)
+    MS.init_group("nccl", rank=0, world_size=1, addr="localhost",
+                  port=MS.free_port(), device=torch.device("cuda", 0))
+    try:
+        mesh = MS.make_host_mesh(backend="nccl", device_type="cuda")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        c_row, f_row = D.spamm_rowpart(a, b, tau, mesh, axis="data",
+                                       tile=TILE)
+        c_2d, f_2d = D.spamm_2d(a, b, tau, mesh, tile=TILE)
+        torch.cuda.synchronize()
+        m1_s = time.perf_counter() - t0
+        m1 = read_counts()
+    finally:
+        MS.destroy_group()
+    res = {"card": CARD, "n": LIB_N, "tile": TILE, "tau": tau,
+           "valid_ratio": LIB_RATIOS[0], "backend": "nccl", "world": 1,
+           "seconds": m1_s, "launches": m1,
+           "rowpart_bit_identical": bool(torch.equal(c_row, c_flat)),
+           "spamm_2d_bit_identical": bool(torch.equal(c_2d, c_flat)),
+           "spamm_2d_max_abs_err": float((c_2d - c_flat).abs().max()),
+           "valid_fraction": [float(info.valid_fraction), float(f_row),
+                              float(f_2d)]}
+    emit({"multi_m1": res})
+    check(res["rowpart_bit_identical"]
+          and res["spamm_2d_max_abs_err"] <= 1e-4
+          and float(f_row) == float(info.valid_fraction),
+          f"(m1) on NCCL: {res}")
+    del a, b, c_flat, c_row, c_2d
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = MS.spawn_ranks(_multi_rank, MULTI_RANKS, backend="gloo",
+                           devices=[torch.device("cuda", 0)] * MULTI_RANKS,
+                           args=(LIB_N, tau), timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    pred = ranks[0]["predicted"]
+    sched = {}
+    for s in MULTI_SCHEDULES:
+        ms = [ranks[0]["kernel_ms"][s, r] for r in range(MULTI_RANKS)]
+        meas = (max(ms) / (sum(ms) / len(ms))
+                if all(isinstance(x, float) for x in ms) else "not measured")
+        sched[s] = {"picked": pred[s]["schedule"],
+                    "bit_identical": [r["schedules"][s]["bit_identical"]
+                                      for r in ranks],
+                    "valid_fraction": ranks[0]["schedules"][s]
+                    ["valid_fraction"],
+                    "strip_rows": [ranks[0]["strip_rows"][s, r]
+                                   for r in range(MULTI_RANKS)],
+                    "predicted_loads": pred[s]["loads"],
+                    "predicted_imbalance": pred[s]["imbalance"],
+                    "level0_predicted_loads": pred[s]["level0_loads"],
+                    "level0_predicted_imbalance":
+                        pred[s]["level0_imbalance"],
+                    "rank_worklist_ms": ms, "measured_imbalance": meas}
+    m2 = {k: sum(r["m2_launches"][k] for r in ranks) for k in ranks[0][
+        "m2_launches"]}
+    m3 = {k: sum(r["m3_launches"][k] for r in ranks) for k in ranks[0][
+        "m3_launches"]}
+    emit({"multi_m2": {"card": CARD, "n": LIB_N, "tile": TILE, "tau": tau,
+                       "ranks": MULTI_RANKS, "backend": "gloo",
+                       "devices": "cuda:0 shared", "seconds": spawn_s,
+                       "level": pred["auto"]["level"],
+                       "auto_offsets": ranks[0]["auto_offsets"],
+                       "distinct_strips_timed": ranks[0]["distinct_strips"],
+                       "schedules": sched,
+                       "lowp": {r["rank"]: r["lowp"] for r in ranks},
+                       "rank_seconds": [r["seconds"] for r in ranks],
+                       "launches": m2,
+                       "note": "ranks time their strips one after another "
+                               "(barriers); not a multi-card time"}})
+    emit({"multi_m3": {"card": CARD, "mesh": [2, 2], "backend": "gloo",
+                       "per_rank": [r["m3"] for r in ranks],
+                       "launches": m3}})
+    check(all(all(v["bit_identical"]) for v in sched.values()),
+          f"(m2) rowpart differs from the flat product: {sched}")
+    check(all(r["lowp"][d]["bit_identical"]
+              for r in ranks for d in LOWP_DTYPES),
+          f"(m2) low-precision rowpart differs from the flat product: "
+          f"{[r['lowp'] for r in ranks]}")
+    check(all(r["m3"]["max_abs_err"] <= 1e-4 for r in ranks),
+          f"(m3) spamm_2d: {[r['m3'] for r in ranks]}")
+    check(all(m2[k] > 0 for k in ("tile_norms", "spamm_mm_worklist",
+                                  "pool_norms", "tile_norms_quant",
+                                  "spamm_mm_worklist_int8",
+                                  "spamm_mm_worklist_bf16")),
+          f"(m2) launches {m2}")
+    return {"m1": m1, "m2": m2, "m3": m3}
+
+
+def probe_scales(params, tau, cfg):
+    """The hot and cold factors of the embedding profile: the median tile
+    norm of 4096 embedding rows times the median tile norm of the
+    unembedding, scaled to MULTI_HOT·τ and MULTI_COLD·τ."""
+    import torch
+
+    from repro_torch.kernels import getnorm
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    ids = torch.randint(0, cfg.vocab, (4096,), generator=gen, device=DEV)
+    na = getnorm.tile_norms_cuda(params["embed"]["embedding"][ids], TILE)
+    nb = getnorm.tile_norms_cuda(params["unembed"]["kernel"], TILE)
+    base = float(na.median()) * float(nb.median())
+    return MULTI_HOT * tau / base, MULTI_COLD * tau / base
+
+
+def multi_engine():
+    """(m4): starcoder2-7b at full width, MULTI_LAYERS layers, τ derived as
+    run (c)'s, the embedding's hot/cold profile, one wave whose first half
+    of the prompts is hot. The unsharded engine serves it; the sharded
+    engine (mesh_devices=MULTI_SHARDS on [cuda:0] × MULTI_SHARDS,
+    re-sharding every 2 engine steps) serves it with every count at 0
+    just before and read just after: tokens ≡ unsharded bit for bit,
+    captures fixed across the re-cuts, at least one re-cut that moved
+    request groups. Then each shard's captured decode step replayed
+    (device ms against the live predicted imbalance) and, at the live
+    cut, the same wave graphed ≡ eager, whose graphed launches split
+    evenly over the shards. Returns the launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ParallelConfig, SpammConfig, get_config
+    from repro_torch.core.schedule import ReshardConfig
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MULTI_LAYERS)
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=MULTI_PLEN)
+    params = M.init_params(cfg, pcfg, SEED, device=DEV)
+    rng = np.random.default_rng(SEED)
+    half = cfg.vocab // 2
+    cold = rng.integers(1, half, size=(MULTI_BATCH, MULTI_PLEN)).astype(
+        np.int32)
+    first = prefill_logits(cfg, pcfg, params, cold).argmax(-1).cpu().numpy()
+    tau, _ = derive_tau(cfg, params, cold, first[:, None])
+    hot_f, cold_f = probe_scales(params, tau, cfg)
+    scale = torch.full((cfg.vocab, 1), cold_f, device=DEV)
+    scale[half:] = hot_f
+    params["embed"]["embedding"].mul_(scale)
+    prompts = cold.copy()
+    prompts[:MULTI_BATCH // 2] = rng.integers(
+        half, cfg.vocab, size=(MULTI_BATCH // 2, MULTI_PLEN))
+    emit({"model": cfg.name, "phase": "multi", "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "tau": tau,
+          "embedding_profile": {"cold": cold_f, "hot": hot_f},
+          "depth_cut": f"{MULTI_LAYERS} of 32 layers"})
+    max_len = MULTI_PLEN + MULTI_NEW + 16
+    seconds = {"setup": time.perf_counter() - t_phase}
+
+    def serve(eng):
+        reqs = [Request(prompt=p, max_new_tokens=MULTI_NEW) for p in prompts]
+        t0 = time.perf_counter()
+        toks = np.stack(eng.generate(reqs))
+        return toks, reqs[0].out, time.perf_counter() - t0
+
+    ref = Engine(cfg, pcfg, params, max_len=max_len,
+                 spamm_cfg=SpammConfig(enable=True, tau=tau, tile=TILE))
+    ref_toks, ref_meta, seconds["unsharded_wave"] = serve(ref)
+    del ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sh = Engine(cfg, pcfg, params, max_len=max_len,
+                spamm_cfg=SpammConfig(enable=True, tau=tau, tile=TILE),
+                mesh_devices=MULTI_SHARDS,
+                devices=[torch.device("cuda", 0)] * MULTI_SHARDS,
+                reshard_cfg=ReshardConfig(every=2, drift_threshold=1.0,
+                                          probe_window=MULTI_PROBE_WINDOW))
+    moves = []
+    refresh = sh._refresh_shard
+
+    def counting():
+        src = refresh()
+        if src is not None:
+            moves.append([int(x) for x in sh._shard["offs_g"]])
+        return src
+
+    sh._refresh_shard = counting     # the group-level cuts that moved
+    seconds["sharded_init"] = time.perf_counter() - t0
+    reset_counts()
+    toks, meta, seconds["sharded_wave"] = serve(sh)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    captures = sh.graph_stats()["captures"]
+    rs = sh._resharder
+    per = sh.shard_layout["slot_width"]
+    t0 = time.perf_counter()
+    # the median CUDA-event ms of one replay over 20 (a replay's ≈ 20 ms
+    # of device work dwarfs its launch)
+    shard_ms = [time_ms(sh._steps[(("shard_wave", d, per, False),
+                                   True)]._graph.replay, reps=20, warmup=2)
+                for d in range(MULTI_SHARDS)]
+    seconds["shard_replay"] = time.perf_counter() - t0
+    res = {"card": CARD, "tau": tau, "batch": MULTI_BATCH,
+           "prompt_len": MULTI_PLEN, "new_tokens": MULTI_NEW,
+           "hot_prompts": MULTI_BATCH // 2,
+           "shards": MULTI_SHARDS, "devices": "cuda:0 shared",
+           "tokens_equal_unsharded": bool(np.array_equal(toks, ref_toks)),
+           "captures": captures,
+           "resharded": rs.resharded, "reshard_probes": rs.probes,
+           "group_cuts_moved_to": moves,
+           "history": [{k: h[k] for k in ("step", "grid", "live_imbalance",
+                                          "fresh_imbalance", "resharded")}
+                       for h in rs.history],
+           "layout": {"offsets": [int(x) for x in
+                                  sh.shard_layout["offsets"]],
+                      "slot_width": per},
+           "live_imbalance": rs.live_imbalance,
+           "live_loads": [float(x) for x in rs.live_loads],
+           "shard_decode_replay_ms": shard_ms,
+           "measured_shard_imbalance": max(shard_ms) / (sum(shard_ms)
+                                                        / len(shard_ms)),
+           "decode_ms_per_step": {
+               "sharded": (meta["latency"]["decode_mean_s"] or 0) * 1e3,
+               "unsharded": (ref_meta["latency"]["decode_mean_s"] or 0)
+               * 1e3},
+           "spamm": {k: meta["spamm"][k] for k in (
+               "valid_fraction", "decode_valid_fraction", "gated_gemms",
+               "decode_gated_gemms", "resharded", "reshard_probes",
+               "partition_imbalance")},
+           "launches": counts,
+           "note": "the shards share one card and run one after another: "
+                   "decode ms/step is the shards' sum, not a multi-card "
+                   "time"}
+    check(res["tokens_equal_unsharded"],
+          f"(m4) sharded tokens differ from the unsharded engine's: {res}")
+    check(captures == MULTI_SHARDS and rs.resharded >= 1 and moves,
+          f"(m4) captures {captures}, re-cuts {rs.resharded}, group cuts "
+          f"moved {moves}")
+    sh._resharder = None           # graphed ≡ eager at the live cut
+    t0 = time.perf_counter()
+    try:
+        ge = compare_graphed_eager(sh, prompts,
+                                   f"m4 sharded x{MULTI_SHARDS}",
+                                   max_new=MULTI_NEW)
+    finally:
+        sh._resharder = rs
+    seconds["graphed_vs_eager"] = time.perf_counter() - t0
+    # the graphed wave at a fixed cut: every launch is one shard's
+    fixed = ge["launches"]
+    res.update(captures_after_graphed_vs_eager=sh.graph_stats()["captures"],
+               fixed_cut_launches=fixed,
+               fixed_cut_launches_per_shard={
+                   k: fixed[k] / MULTI_SHARDS
+                   for k in ("tile_norms", "spamm_mm_worklist")},
+               seconds={**seconds, "total": time.perf_counter() - t_phase})
+    emit({"multi_m4": res})
+    check(res["captures_after_graphed_vs_eager"] == MULTI_SHARDS
+          and fixed["spamm_mm_worklist"] > 0
+          and fixed["tile_norms"] % MULTI_SHARDS == 0
+          and fixed["spamm_mm_worklist"] % MULTI_SHARDS == 0,
+          f"(m4) fixed-cut launches {fixed}, captures "
+          f"{res['captures_after_graphed_vs_eager']}")
+    del sh, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def multi_train():
+    """(m5): the train phase's model (starcoder2-7b, TRAIN_LAYERS layers,
+    TRAIN_BATCH × TRAIN_SEQ tokens a step, remat full) through the train
+    loop for MULTI_TRAIN_STEPS steps at (t3)'s rule for τ, with re-sharding
+    every step over 4 strips and without: the losses, every step's
+    gradient norm and the final parameters bit for bit. Returns the
+    launches of the re-sharding run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import (ParallelConfig, SpammConfig,
+                                     TrainConfig, get_config)
+    from repro_torch.core.schedule import ReshardConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import getnorm
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.train import loop
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    pcfg = ParallelConfig(compute_dtype="float32", remat="full",
+                          attn_q_chunk=64, loss_chunk=128)
+    base = M.init_params(cfg, pcfg, SEED, device=DEV)
+    batch = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0,
+                        device=DEV).batch_at(0)
+    p0 = base["layers"][0]
+    x0 = rms_norm(M._inputs(base, batch, torch.float32), p0["ln1"],
+                  cfg.norm_eps).reshape(-1, cfg.d_model)
+    tau = median_product_tau(getnorm.tile_norms_cuda(x0, TILE),
+                             getnorm.tile_norms_cuda(p0["mix"]["wq"], TILE))
+    del base, x0
+    torch.cuda.empty_cache()
+    record = {}
+    orig = M.make_train_step
+
+    def recording(*a, **k):
+        step = orig(*a, **k)
+
+        def run(params, state, b, i):
+            params, state, met = step(params, state, b, i)
+            record.setdefault("grad_norm", []).append(
+                float(met["grad_norm"]))
+            record["params"] = params
+            return params, state, met
+
+        return run
+
+    runs, seconds = {}, {}
+    M.make_train_step = recording
+    try:
+        for label, rc in (("reshard", ReshardConfig(num_devices=4, every=1)),
+                          ("off", None)):
+            record.clear()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = loop.train(
+                cfg, pcfg, TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                       total_steps=MULTI_TRAIN_STEPS,
+                                       ckpt_every=0),
+                global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                spamm_cfg=SpammConfig(enable=True, tau=tau, tile=TILE,
+                                      backend="auto", bwd="spamm"),
+                reshard_cfg=rc, log_every=0, device=DEV)
+            torch.cuda.synchronize()
+            runs[label] = (res, dict(record), read_counts())
+            seconds[label] = time.perf_counter() - t0
+    finally:
+        M.make_train_step = orig
+    (on, rec_on, counts), (off, rec_off, _) = runs["reshard"], runs["off"]
+    same_params = all(torch.equal(x, y) for x, y in zip(
+        _leaves(rec_on["params"]), _leaves(rec_off["params"])))
+    res = {"card": CARD, "layers": TRAIN_LAYERS, "tau": tau,
+           "steps": MULTI_TRAIN_STEPS, "losses": on.losses,
+           "losses_off": off.losses, "grad_norms": rec_on["grad_norm"],
+           "grad_norms_off": rec_off["grad_norm"],
+           "final_params_bit_identical": same_params,
+           "reshard": [{k: s.get(k) for k in ("imbalance", "resharded",
+                                               "offsets", "loads")}
+                       for s in on.spamm_stats],
+           "launches": counts, "seconds": seconds}
+    emit({"multi_m5": res})
+    check(on.losses == off.losses
+          and rec_on["grad_norm"] == rec_off["grad_norm"] and same_params
+          and all(s["imbalance"] is not None for s in on.spamm_stats),
+          f"(m5) re-sharding changed the training run: {res}")
+    del rec_on, rec_off, runs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_multi():
+    """The multi-GPU slice on the one card: (m1)-(m3) the distributed
+    library call (`multi_library`), (m4) the pod-sharded engine
+    (`multi_engine`), (m5) the train loop with re-sharding (`multi_train`).
+    Returns {cell: launches}."""
+    counts = multi_library()
+    counts["m4"] = multi_engine()
+    counts["m5"] = multi_train()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3758,6 +4332,36 @@ def kernel_device_ms(fn, kernel, calls=20):
     return us / n / 1e3 if us > 0 else "not measured"
 
 
+def kernel_device_ms_each(fns, kernel, calls=5):
+    """`kernel_device_ms` of several functions, each launching `kernel`
+    once a call, in one profiler session: `calls` rounds, each calling
+    every function once (a drift of the card's clock spreads over all of
+    them); the median of a function's device records, in launch order.
+    "not measured" for each when the profiler kept another number of
+    records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    recs = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and kernel in e.name),
+                  key=lambda e: e.time_range.start)
+    if len(recs) != len(fns) * calls:
+        return ["not measured"] * len(fns)
+    us = [sorted(e.time_range.elapsed_us() for e in recs[i::len(fns)])
+          for i in range(len(fns))]
+    return [u[calls // 2] / 1e3 for u in us]
+
+
 def check_pool(x, label):
     """(c): the pooling kernel against its plain version and one torch
     expression (square, pad, 2×2 sum, sqrt)."""
@@ -3937,6 +4541,7 @@ def main():
     moe_counts = timed("moe", phase_moe)
     last_counts = timed("last_families", phase_last_families)
     train_counts, train_tau0, train_products = timed("train", phase_train)
+    multi_counts = timed("multi", phase_multi)
     lib_counts, pool, dense = timed("library", phase_library)
     emit({"phase_seconds": {**seconds, "note": "serve includes autotune"}})
 
@@ -3954,11 +4559,18 @@ def main():
     store_path = (f"store: freeze {ARCH}'s first {STORE_MXU_LAYERS} "
                   f"layers' {store_counts['mxu_weights']} gated weights into "
                   f"a plan store, use_mxu=True at f32 and int8")
+    def multi_path(name):
+        """A kernel's launches on each cell of the multi phase ((m2) and
+        (m3): summed over the ranks)."""
+        return {cell: c[name] for cell, c in multi_counts.items()}
+
     def other_paths(name):
         """A kernel's launches on the calibration, the tuned run (c) wave,
-        codeqwen1.5-7b's τ > 0 and autotuned waves and the τ > 0 waves of
-        the last four families (mamba2-1.3b's: none)."""
-        return {"calibrate_launches": cal_counts[name],
+        codeqwen1.5-7b's τ > 0 and autotuned waves, the τ > 0 waves of
+        the last four families (mamba2-1.3b's: none) and the multi
+        phase's cells."""
+        return {"multi_launches": multi_path(name),
+                "calibrate_launches": cal_counts[name],
                 "autotune_launches": tuned_counts[name],
                 "dense_family_launches": {
                     k: c[name] for k, c in family_counts.items()},
@@ -3998,16 +4610,19 @@ def main():
          **other_paths("spamm_mm_worklist"),
          **{k: mm_w1[k] for k in keys}},
         {"name": "spamm_mm_worklist_bf16", "route": "cuda",
+         "multi_launches": multi_path("spamm_mm_worklist_bf16"),
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:203",
          "launches": lowp_counts["bfloat16"]["spamm_mm_worklist_bf16"],
          "path": bf16_path, **{k: lowp["bf16"][k] for k in keys}},
         {"name": "pool_norms", "route": "cuda",
+         "multi_launches": multi_path("pool_norms"),
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:98",
          "launches": lib_counts["pool_norms"], "path": lib_path,
          **{k: pool[k] for k in keys}},
         {"name": "spamm_mm", "route": "cuda",
+         "multi_launches": multi_path("spamm_mm"),
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:109",
          "launches": moe_counts["spamm_mm"], "path": moe_path,
@@ -4015,6 +4630,7 @@ def main():
          "library_path": lib_path,
          **{k: dense[k] for k in keys}},
         {"name": "tile_norms_quant", "route": "cuda",
+         "multi_launches": multi_path("tile_norms_quant"),
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:180",
          "launches": lowp_counts["int8"]["tile_norms_quant"],
@@ -4022,6 +4638,7 @@ def main():
          "ms_back_to_back": lowp["quant"]["ms_back_to_back"],
          **{k: lowp["quant"][k] for k in keys}},
         {"name": "spamm_mm_worklist_int8", "route": "cuda",
+         "multi_launches": multi_path("spamm_mm_worklist_int8"),
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:322",
          "launches": lowp_counts["int8"]["spamm_mm_worklist_int8"],
@@ -4031,6 +4648,7 @@ def main():
          "geometry": lowp["int8"]["geometry"],
          **{k: lowp["int8"][k] for k in keys}},
         {"name": "tile_norms_mxu", "route": "cuda",
+         "multi_launches": multi_path("tile_norms_mxu"),
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:147",
          "variant": "use_mxu=True (_tile_sumsq :36-46)",
@@ -4041,6 +4659,7 @@ def main():
          "ms_back_to_back": lowp["mxu"][0]["ms_back_to_back"],
          **{k: lowp["mxu"][0][k] for k in keys}},
         {"name": "tile_norms_quant_mxu", "route": "cuda",
+         "multi_launches": multi_path("tile_norms_quant_mxu"),
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:180",
          "variant": "use_mxu=True (_tile_sumsq :36-46)",

@@ -182,11 +182,12 @@ class SpammWork(NamedTuple):
 
 def compact_from_triples(ii, jj, kk, *, gm: int, gn: int, gk: int,
                          block_n: int = 1, steps: bool = True,
-                         assume_sorted: bool = False):
+                         assume_sorted: bool = False, bucket_min: int = 16):
     """Work-list straight from surviving (i, j, k) triples, without a dense
     (gm, gn, gk) bitmap: one fused-key sort (skipped when `assume_sorted`),
     super-column folding, then linear passes. Host numpy, array for array
-    the reference's `compact_from_triples`.
+    the reference's `compact_from_triples`; `bucket_min` floors the step
+    tables' power-of-two bucket.
 
     Returns (work: SpammWork of numpy arrays, nvalid (gm, gn//block_n)
     int32); `work.runs` is the pair offsets."""
@@ -212,7 +213,7 @@ def compact_from_triples(ii, jj, kk, *, gm: int, gn: int, gk: int,
     nvalid = np.zeros((gm, gnb), np.int32)
     step_i = step_j = step_k = step_flags = None
     if steps:
-        s = kcost.bucket(v)
+        s = kcost.bucket(v, bucket_min)
         step_i = np.zeros(s, np.int32)
         step_j = np.zeros(s, np.int32)
         step_k = np.zeros(s, np.int32)
@@ -584,7 +585,7 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
          tau=None, *, valid_ratio=None, norm_a=None, norm_b=None,
          tile: int = 64, block_n: int = 1, backend: str = "auto",
          use_mxu_norm: bool = False, levels: int = 0, frozen_weight=None,
-         compute_dtype: str = "float32") -> SpammPlan:
+         compute_dtype: str = "float32", bucket_min: int = 16) -> SpammPlan:
     """Gating phase for (M, K) @ (K, N), dims divisible by tile (N by
     tile·block_n). Either side may be the matrix or its precomputed normmap
     or NormPyramid (norm_a= / norm_b=). Exactly one of `tau` / `valid_ratio`
@@ -611,6 +612,9 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
     with no widening (the ratio is the spec). Precomputed norm_a/norm_b
     must already describe the quantized view
     (`WeightPlanCache.weight_side(dtype=…)` makes them so).
+
+    bucket_min floors the work-list step tables' power-of-two bucket
+    (`core.cost.bucket`), as the autotuner's `TunedParams.bucket` does.
 
     Operands of any strides are taken: a non-contiguous or misaligned one
     is copied (`kernel_operand`), with the same plan as its contiguous
@@ -687,12 +691,13 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
     gn = norm_b.shape[-1]
     if hier:
         work_np, nvalid_np = compact_from_triples(
-            *triples, gm=gm, gn=gn, gk=gk, block_n=block_n)
+            *triples, gm=gm, gn=gn, gk=gk, block_n=block_n,
+            bucket_min=bucket_min)
     else:
         # the chunked scan emits triples in row-major order, grouped
         work_np, nvalid_np = compact_from_triples(
             *triples, gm=gm, gn=gn // block_n, gk=gk, block_n=1,
-            assume_sorted=True)
+            assume_sorted=True, bucket_min=bucket_min)
     work = SpammWork(*(torch.as_tensor(x, device=dev) for x in work_np))
     return SpammPlan(tau_f, norm_a, norm_b,
                      torch.as_tensor(nvalid_np, device=dev),

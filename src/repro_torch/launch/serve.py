@@ -25,7 +25,12 @@ registry as Prometheus text (per-(phase, layer, site) gated-GEMM series,
 TTFT and decode-step histograms, plan cache and store counters, the
 chunked plane's counters); `--trace-out FILE` writes its host spans as
 Chrome-trace JSON (load in Perfetto); either prints the registry's
-summary table at the end.
+summary table at the end. `--reshard-every N` (with `--spamm-tau`) probes
+the drift-triggered re-sharding controller every N engine steps
+(`--reshard-devices`, `--reshard-threshold`, `--reshard-level`) and prints
+the live partition; `--spamm-mesh-devices N` serves pod-sharded over
+cuda:0 … cuda:N-1 (`--spamm-shard-width` pins the per-shard width in
+request groups; batch and prompt length multiples of `--spamm-tile`).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import numpy as np
 
 from repro_torch.configs import (BACKEND_NAMES, ParallelConfig, SpammConfig,
                                  get_config)
+from repro_torch.core.schedule import ReshardConfig
 from repro_torch.models import model as M
 from repro_torch.obs import Observability
 from repro_torch.plans.precompute import frozen_leaves
@@ -102,6 +108,29 @@ def main(argv=None):
                          "repro_torch.launch.precompute_plans); the engine "
                          "warm-starts from it instead of running a planning "
                          "pass")
+    ap.add_argument("--reshard-every", type=int, default=0,
+                    help="drift-triggered re-sharding probe cadence in "
+                         "engine steps (prefill + decode); 0 = off; needs "
+                         "--spamm-tau. The engine keeps the equal-work row "
+                         "partition a multi-GPU deployment passes to "
+                         "core.distributed.spamm_rowpart(offsets=)")
+    ap.add_argument("--reshard-devices", type=int, default=0,
+                    help="strips to cut (0 = --spamm-mesh-devices, or 1)")
+    ap.add_argument("--reshard-threshold", type=float, default=1.2,
+                    help="re-cut when the live partition's predicted "
+                         "imbalance exceeds the fresh cut's by this factor")
+    ap.add_argument("--reshard-level", type=int, default=0,
+                    help="norm-pyramid level of the re-sharding probe "
+                         "estimate (coarser = cheaper)")
+    ap.add_argument("--spamm-mesh-devices", type=int, default=0,
+                    help="pod-sharded serving over cuda:0 … cuda:N-1, the "
+                         "batch cut into request groups by the live "
+                         "equal-work offsets (needs --spamm-tau; batch and "
+                         "prompt length multiples of --spamm-tile)")
+    ap.add_argument("--spamm-shard-width", type=int, default=0,
+                    help="static per-shard width in request GROUPS (of "
+                         "--spamm-tile requests each); 0 = 2·ceil(groups/"
+                         "devices)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--metrics-out", default=None,
@@ -131,11 +160,21 @@ def main(argv=None):
                                 dtype=args.spamm_dtype,
                                 autotune=args.spamm_autotune,
                                 tune_profile=args.spamm_tune_profile)
+    reshard_cfg = None
+    if args.reshard_every > 0:
+        if spamm_cfg is None:
+            raise SystemExit("--reshard-every needs --spamm-tau (the probe "
+                             "gates the live tokens at that τ)")
+        reshard_cfg = ReshardConfig(
+            num_devices=args.reshard_devices, every=args.reshard_every,
+            drift_threshold=args.reshard_threshold, level=args.reshard_level)
     obs = Observability(process_name="repro-serve")
     eng = Engine(cfg, pcfg, params, max_len=args.max_len,
                  spamm_cfg=spamm_cfg, plan_store=args.plan_store,
                  prefill_chunk=args.prefill_chunk, max_slots=args.max_slots,
-                 device=args.device, obs=obs)
+                 device=args.device, obs=obs, reshard_cfg=reshard_cfg,
+                 mesh_devices=args.spamm_mesh_devices,
+                 shard_max_width=args.spamm_shard_width or None)
 
     rng = np.random.default_rng(args.seed)
     if args.mixed_lengths:
@@ -180,6 +219,26 @@ def main(argv=None):
         if "plan_store_hits" in sp:
             print(f"  plan_store: {sp['plan_store_hits']}h/"
                   f"{sp['plan_store_misses']}m")
+        if "resharded" in sp:
+            imb = sp["partition_imbalance"]
+            print(f"  reshard: events={sp['resharded']} "
+                  f"probes={sp['reshard_probes']} partition_imbalance="
+                  f"{f'{imb:.3f}' if imb is not None else 'n/a'}")
+            offs = eng.partition_offsets
+            loads = eng._resharder.live_loads
+            if offs is not None:
+                for d in range(len(offs) - 1):
+                    ld = f"{loads[d]:.3f}" if loads is not None else "n/a"
+                    print(f"    strip {d}: rows [{offs[d]}, {offs[d + 1]}) "
+                          f"predicted_load={ld}")
+    lay = eng.shard_layout
+    if lay is not None:
+        o = lay["offsets"]
+        print(f"  pod-sharded over {args.spamm_mesh_devices} devices: "
+              f"slot_width={lay['slot_width']} reqs/shard")
+        for d, n in enumerate(lay["real"]):
+            print(f"    shard {d}: reqs [{o[d]}, {o[d + 1]}) ({n} live, "
+                  f"{lay['slot_width'] - n} pad slots)")
     lat = out["latency"]
     line = (f"  latency: ttft={lat['ttft_s'] * 1e3:.1f}ms"
             if lat["ttft_s"] is not None else "  latency: ttft=n/a")

@@ -10,9 +10,11 @@ runs the plain PyTorch versions of the kernels (use `--reduced` there).
 `--metrics-out FILE` writes the run's metrics registry as Prometheus text
 (train_step_seconds, the per-layer spamm_valid_fraction series);
 `--trace-out FILE` writes its host spans (train_step, checkpoint_save) as
-Chrome-trace JSON; either prints the registry's summary table. The
-reference's production mesh and re-sharding flags wait for the multi-GPU
-slice.
+Chrome-trace JSON; either prints the registry's summary table.
+`--reshard-every N` (with `--spamm`) probes the drift-triggered
+re-sharding controller every N steps (`--reshard-devices` strips,
+`--reshard-threshold` drift factor). The reference's production mesh has
+no counterpart yet.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import argparse
 
 from repro_torch.configs import (ParallelConfig, SpammConfig, TrainConfig,
                                  get_config)
+from repro_torch.core.schedule import ReshardConfig
 from repro_torch.obs import Observability
 from repro_torch.train.loop import train
 
@@ -42,6 +45,14 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "int8_ef"])
+    ap.add_argument("--reshard-every", type=int, default=0,
+                    help="drift-triggered re-sharding probe cadence in "
+                         "train steps; 0 = off (needs --spamm)")
+    ap.add_argument("--reshard-devices", type=int, default=0,
+                    help="strips to cut (0 = one device's: 1)")
+    ap.add_argument("--reshard-threshold", type=float, default=1.2,
+                    help="re-cut when the live partition's predicted "
+                         "imbalance exceeds the fresh cut's by this factor")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--metrics-out", default=None,
                     help="write the run's metrics registry here as a "
@@ -68,10 +79,14 @@ def main(argv=None):
     spamm_cfg = (SpammConfig(enable=True, tau=args.tau, tile=args.spamm_tile,
                              backend="auto")
                  if args.spamm else None)
+    reshard_cfg = (ReshardConfig(num_devices=args.reshard_devices,
+                                 every=args.reshard_every,
+                                 drift_threshold=args.reshard_threshold)
+                   if args.reshard_every > 0 else None)
     obs = Observability(process_name="repro-train")
     res = train(cfg, pcfg, tcfg, global_batch=args.batch, seq_len=args.seq,
-                spamm_cfg=spamm_cfg, resume=(args.resume == "auto"), obs=obs,
-                device=args.device)
+                spamm_cfg=spamm_cfg, reshard_cfg=reshard_cfg,
+                resume=(args.resume == "auto"), obs=obs, device=args.device)
     print(f"done: steps={res.final_step} first_loss={res.losses[0]:.4f} "
           f"last_loss={res.losses[-1]:.4f} stragglers={res.straggler_steps}")
     if res.spamm_stats:
@@ -80,6 +95,12 @@ def main(argv=None):
         if fracs:
             print(f"spamm: mean_valid_fraction={sum(fracs)/len(fracs):.3f} "
                   f"gated_gemms/step={res.spamm_stats[-1]['gated_gemms']}")
+        last = res.spamm_stats[-1]
+        if "resharded" in last:
+            imb = last["imbalance"]
+            imb_s = f"{imb:.3f}" if imb is not None else "n/a"
+            print(f"reshard: events={last['resharded']} "
+                  f"partition_imbalance={imb_s}")
     if args.metrics_out:
         print(f"metrics -> {obs.write_metrics(args.metrics_out)}")
     if args.trace_out:

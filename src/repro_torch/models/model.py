@@ -297,3 +297,32 @@ def make_decode_step(cfg: ModelConfig, pcfg: ParallelConfig, *,
         return logits, cache
 
     return step
+
+
+def reshard_probe(controller, spamm_ctx, params, step: int, *,
+                  tokens=None, x=None) -> None:
+    """The re-sharding probe body the serving engine and the train loop
+    share. Activation rows come from `x` (frontend archs feed embeddings)
+    or from `tokens` through the embedding table (ids taken modulo the
+    vocabulary). Their norms are fresh; the weight side is the cached
+    `WeightPlanCache.weight_side` of the unembedding (every arch has one,
+    shaped like a gated GEMM's weight side), so a probe costs one
+    activation get-norm. Feeds the controller when the row grid has at
+    least one row tile per strip."""
+    from repro_torch.core import schedule as _schedule
+
+    scfg = spamm_ctx.cfg
+    lv = controller.cfg.level
+    with torch.no_grad():
+        if x is None:
+            emb = params["embed"]["embedding"]
+            ids = torch.as_tensor(np.asarray(tokens, np.int64) % emb.shape[0],
+                                  device=emb.device)
+            x = emb[ids]
+        _, nw = spamm_ctx.cache.weight_side(
+            params["unembed"]["kernel"], tile=scfg.tile, backend=scfg.backend,
+            levels=lv)
+        v, fine_rows = _schedule.probe_v_estimate(
+            x, nw, scfg.tau, tile=scfg.tile, backend=scfg.backend, level=lv)
+    if fine_rows >= controller.cfg.num_devices:
+        controller.probe(v, step, level=lv, fine_rows=fine_rows)

@@ -34,13 +34,15 @@ get-norm variant `use_mxu` and the compute dtype); `plans.store.PlanStore`
 files it under their hash.
 
 Per-layer plans stay a Python list (one FrozenPlan per layer): the port's
-layer loop is a Python loop, so the reference's `stack_plans` (stacking for
-`lax.scan`) has no counterpart. `slice_rows`/`shard_by_offsets` wait for the
-multi-GPU slice (ROADMAP queue A).
+layer loop is a Python loop. Row shards (`slice_rows`, `shard_by_offsets`)
+are one FrozenPlan per shard, all of one static shape, so the sharded
+engine copies a re-cut's tables into a captured step's buffers
+(`FrozenPlan.copy_`); `stack_plans` stacks plans of one shape along a
+leading dim for a caller that wants one tensor per table.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -174,24 +176,77 @@ class FrozenWeight:
             tuned=tuned,
         )
 
-    def for_rows(self, gm: int) -> "FrozenPlan":
+    def for_rows(self, gm: int, *, min_steps: int = 0) -> "FrozenPlan":
         """Specialize to an activation row grid of `gm` tiles: step tables
         pair-major ((i, j) runs contiguous, k ascending within a run),
-        padded to a power-of-two bucket of at least `bucket_floor`; padding
-        repeats the last real triple with `real` clear. Cached per gm."""
-        hit = self._rows_cache.get(gm)
-        if hit is not None:
-            return hit
+        padded to a power-of-two bucket of at least max(`min_steps`,
+        `bucket_floor`); padding repeats the last real triple with `real`
+        clear. Cached per (gm, bucket)."""
+        return self._specialize(gm, gm, min_steps)
+
+    def slice_rows(self, lo: int, hi: int, *, gm: Optional[int] = None,
+                   min_steps: int = 0) -> "FrozenPlan":
+        """The per-shard plan of row-tile strip [lo, hi) on a LOCAL grid of
+        `gm` tiles (≥ the strip width; default the width): the shard's
+        rows renumbered from 0, real steps over local tiles [0, hi - lo),
+        local tiles beyond untargeted clamp padding that does no gated
+        work. The weight-side pair list is activation-row-agnostic, so the
+        content depends only on the width; (lo, hi) names the strip and
+        validates the cut. Plans of one local grid and bucket share every
+        shape (the run table is padded to the grid's most runs with empty
+        runs), so one can be copied into another's buffers."""
+        if not 0 <= lo <= hi:
+            raise ValueError(f"bad row strip [{lo}, {hi})")
+        width = hi - lo
+        gm = width if gm is None else gm
+        if gm < width:
+            raise ValueError(
+                f"local grid {gm} smaller than strip width {width}")
+        return self._specialize(width, gm, min_steps)
+
+    def shard_by_offsets(self, offsets, *, width: Optional[int] = None,
+                         min_steps: int = 0) -> list:
+        """One `slice_rows` plan per strip of a variable-width partition
+        (`offsets` in this weight's row-tile units), all on one local grid
+        of `width` tiles (≥ the widest strip; default the widest) and one
+        step bucket computed at that width, so every shard — and every
+        later cut at this width — has the same shapes. `stack_plans`
+        stacks them along a leading dim for a caller that wants one
+        tensor per table."""
+        offs = np.asarray(offsets, np.int64)
+        if offs.ndim != 1 or offs.shape[0] < 2 or offs[0] != 0 \
+                or np.any(np.diff(offs) < 1):
+            raise ValueError(f"malformed offset table {offs}")
+        wmax = int(np.diff(offs).max())
+        if width is not None:
+            if width < wmax:
+                raise ValueError(
+                    f"fixed width {width} < widest strip {wmax}")
+            wmax = int(width)
+        steps = bucket(max(wmax * self.num_kj, min_steps), self.bucket_floor)
+        return [self.slice_rows(int(offs[d]), int(offs[d + 1]), gm=wmax,
+                                min_steps=steps)
+                for d in range(offs.shape[0] - 1)]
+
+    def _specialize(self, width: int, gm: int,
+                    min_steps: int) -> "FrozenPlan":
+        """Shared body of `for_rows` (width == gm) and `slice_rows` (width ≤
+        gm: real steps cover local tiles [0, width), tiles beyond are
+        untargeted clamp padding)."""
         gk, gnb = self.grid
         w = self.num_kj
-        s_real = gm * w
-        s = bucket(s_real, self.bucket_floor)
+        s_real = width * w
+        s = bucket(max(s_real, min_steps), self.bucket_floor)
+        key = (width, gm, s)
+        hit = self._rows_cache.get(key)
+        if hit is not None:
+            return hit
         kj_k = np.asarray(self.kj_k, np.int32)
         kj_j = np.asarray(self.kj_j, np.int32)
         if s_real:
-            step_i = np.repeat(np.arange(gm, dtype=np.int32), w)
-            step_j = np.tile(kj_j, gm)
-            step_k = np.tile(kj_k, gm)
+            step_i = np.repeat(np.arange(width, dtype=np.int32), w)
+            step_j = np.tile(kj_j, width)
+            step_k = np.tile(kj_k, width)
             pad = s - s_real
             if pad:
                 step_i = np.concatenate([step_i, np.full(pad, step_i[-1])])
@@ -217,8 +272,15 @@ class FrozenWeight:
         # into the final segment is never active, and the one flag it can
         # carry (an all-inactive segment's INIT|FLUSH at its last step)
         # writes zeros over the zero-initialised output — walking it would
-        # serialise up to half the bucket in one thread block
+        # serialise up to half the bucket in one thread block. A strip
+        # narrower than its local grid pads the table with empty runs
+        # (start == end: a thread block that walks nothing) up to the
+        # grid's most runs, so every strip of the grid has one shape.
         runs = np.append(starts[starts < s_real], s_real).astype(np.int32)
+        if width < gm:
+            most = gm * len(np.unique(kj_j)) + 1
+            runs = np.append(runs, np.full(most - runs.shape[0], s_real,
+                                           np.int32))
         dev = self.nbmax.device
 
         def up(x):
@@ -238,7 +300,7 @@ class FrozenWeight:
             backend=self.backend, gm=gm, gk=gk, gnb=gnb,
             compute_dtype=self.compute_dtype,
         )
-        self._rows_cache[gm] = fp
+        self._rows_cache[key] = fp
         return fp
 
 
@@ -276,3 +338,84 @@ class FrozenPlan:
         self.gm = gm
         self.gk = gk
         self.gnb = gnb
+
+    _TABLES = ("norm_b", "nbmax", "step_i", "step_j", "step_k", "step_real",
+               "seg_first", "seg_last", "runs", "b_scale")
+
+    def signature(self) -> tuple:
+        """Metadata and table shapes: plans of one signature can take each
+        other's tables in place (`copy_`) and stack (`stack_plans`)."""
+        return (self.tau, self.tile, self.block_n, self.num_levels,
+                self.backend, self.gm, self.gk, self.gnb,
+                self.compute_dtype) + tuple(
+            None if getattr(self, n) is None else tuple(getattr(self, n).shape)
+            for n in self._TABLES)
+
+    def to(self, device) -> "FrozenPlan":
+        """This plan with its tables on `device` (itself when already
+        there)."""
+        device = torch.device(device)
+        if self.step_i.device == device:
+            return self
+        moved = {n: (None if getattr(self, n) is None
+                     else getattr(self, n).to(device)) for n in self._TABLES}
+        return FrozenPlan(
+            self.tau, moved["norm_b"], moved["nbmax"], moved["step_i"],
+            moved["step_j"], moved["step_k"], moved["step_real"],
+            moved["seg_first"], moved["seg_last"], moved["runs"],
+            moved["b_scale"], tile=self.tile, block_n=self.block_n,
+            num_levels=self.num_levels, backend=self.backend, gm=self.gm,
+            gk=self.gk, gnb=self.gnb, compute_dtype=self.compute_dtype)
+
+    def clone(self) -> "FrozenPlan":
+        """A plan with its own copies of the row-grid tables (the step,
+        segment and run tables) and the weight-side tables shared."""
+        own = {n: getattr(self, n).clone() for n in
+               ("step_i", "step_j", "step_k", "step_real", "seg_first",
+                "seg_last", "runs")}
+        return FrozenPlan(
+            self.tau, self.norm_b, self.nbmax, own["step_i"], own["step_j"],
+            own["step_k"], own["step_real"], own["seg_first"],
+            own["seg_last"], own["runs"], self.b_scale, tile=self.tile,
+            block_n=self.block_n, num_levels=self.num_levels,
+            backend=self.backend, gm=self.gm, gk=self.gk, gnb=self.gnb,
+            compute_dtype=self.compute_dtype)
+
+    def copy_(self, other: "FrozenPlan") -> "FrozenPlan":
+        """Write `other`'s tables into this plan's tensors in place (a
+        re-cut swapped into a captured step: the graph reads these
+        buffers). The two must share a signature."""
+        if other.signature() != self.signature():
+            raise ValueError(
+                f"cannot copy a plan of signature {other.signature()} into "
+                f"one of {self.signature()}")
+        for n in self._TABLES:
+            dst = getattr(self, n)
+            if dst is not None and dst is not getattr(other, n):
+                dst.copy_(getattr(other, n))
+        return self
+
+
+def stack_plans(fps) -> FrozenPlan:
+    """Stack FrozenPlans of one signature (`slice_rows` plans of one local
+    grid and bucket, or `for_rows(gm, min_steps=)` with a common bucket)
+    into ONE plan whose tables carry a leading dim."""
+    fps = list(fps)
+    if not fps:
+        raise ValueError("stack_plans of nothing")
+    sig = fps[0].signature()
+    for fp in fps[1:]:
+        if fp.signature() != sig:
+            raise ValueError(
+                "stack_plans needs identical metadata and shapes: "
+                f"{fp.signature()} != {sig}")
+    st = {n: (None if getattr(fps[0], n) is None
+              else torch.stack([getattr(fp, n) for fp in fps]))
+          for n in FrozenPlan._TABLES}
+    f0 = fps[0]
+    return FrozenPlan(
+        f0.tau, st["norm_b"], st["nbmax"], st["step_i"], st["step_j"],
+        st["step_k"], st["step_real"], st["seg_first"], st["seg_last"],
+        st["runs"], st["b_scale"], tile=f0.tile, block_n=f0.block_n,
+        num_levels=f0.num_levels, backend=f0.backend, gm=f0.gm, gk=f0.gk,
+        gnb=f0.gnb, compute_dtype=f0.compute_dtype)

@@ -38,8 +38,33 @@ Recurrent stacks (mamba2's SSM, recurrentgemma's hybrid) serve on the wave
 plane only, as the reference's do: their prefill state does not checkpoint
 at a chunk boundary, so `prefill_chunk` and mixed-length batches raise.
 Their decode steps update the recurrent state and conv histories in the
-static cache in place, so they capture like the others. The pod-sharded
-mode and re-sharding are not ported yet (ROADMAP queue A).
+static cache in place, so they capture like the others.
+
+Drift-triggered re-sharding (`reshard_cfg`, a `core.schedule.ReshardConfig`):
+the engine owns a `ReshardController` holding the equal-work row partition
+a multi-GPU deployment places by. Every `reshard_cfg.every` engine steps
+(a prefill or a chunk step counts one, each decode step one, across waves)
+it probes the work estimate (`models.model.reshard_probe`: the live tokens'
+embedding norms against the cached weight-side norms of the unembedding)
+and re-cuts on drift. Pure control plane: tokens are bit-identical with
+re-sharding on, off or at any cadence; `out["spamm"]` reports the wave's
+`resharded` events, `reshard_probes` and the live `partition_imbalance`.
+
+Pod-sharded mode (`mesh_devices=N > 1`): single-controller, as the
+reference's is — one host drives N devices (`devices`, default cuda:0 …
+cuda:N-1; one card shared by N shards is an explicit list). Frozen plans
+are required and MoE archs refused. A wave's requests are cut into
+contiguous groups of `tile` requests, placed by the live offsets
+(`schedule.rescale_offsets` onto the group grid, `schedule.strip_tables`
+for the clamp-padded slots), every shard padded to one static width
+(`shard_max_width` groups, default 2·ceil(G/N)). Each shard's step tables
+are `FrozenWeight.shard_by_offsets` plans sliced on the host at
+(re-)shard time; pad rows do no gated work. Each shard's decode and chunk
+steps are `StepGraph`s captured on its device; a re-cut copies the new
+tables into the captured buffers (`FrozenPlan.copy_`) and moves request
+rows between the shards' caches, and never recaptures, so the capture
+counts stay fixed. Cuts fall on request groups and prompts must be
+tile-aligned, so the tokens equal the unsharded engine's bit for bit.
 
 Telemetry (`obs`, a `repro_torch.obs.Observability` bundle), all on the
 host: every gated GEMM's tap carries its phase, site and layer, so
@@ -58,6 +83,7 @@ no latency block under `out["spamm"]`, no cost terms; tokens are the same.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional
@@ -65,9 +91,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core import cost as _cost
 from repro_torch.core import module as spmod
+from repro_torch.core import schedule as _schedule
 from repro_torch.core.cost import bucket
 from repro_torch.device import f32_numerics, resolve_device
 from repro_torch.kernels.ops import resolve_backend
@@ -104,6 +132,17 @@ def _floor_pow2(n: int) -> int:
     return 1 << (int(n).bit_length() - 1)
 
 
+def _emit_tokens(requests, outs, done, vis) -> None:
+    """A lockstep wave's step on the host: each unfinished request takes
+    its token from `vis` and finishes at its EOS or max_new_tokens."""
+    for i, r in enumerate(requests):
+        if not done[i]:
+            outs[i].append(int(vis[i]))
+            if ((r.eos_id is not None and int(vis[i]) == r.eos_id)
+                    or len(outs[i]) >= r.max_new_tokens):
+                done[i] = True
+
+
 @dataclasses.dataclass
 class Request:
     prompt: np.ndarray           # (S,) int32
@@ -137,13 +176,18 @@ class Engine:
     both ways for comparison; each mode keeps its own steps.
     `obs`: an `Observability` bundle to share (the CLI passes one, so its
     dump covers the run), None for a private enabled bundle, False for
-    hard-off (see the module docstring)."""
+    hard-off (see the module docstring). `reshard_cfg` arms the
+    re-sharding controller; `mesh_devices`, `shard_max_width` and
+    `devices` the pod-sharded mode (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, pcfg: ParallelConfig, params, *,
                  max_len: int = 512, spamm_cfg=None, plan_store=None,
                  prefill_chunk: Optional[int] = None,
                  max_slots: Optional[int] = None, cuda_graphs: bool = True,
-                 device="cuda", obs=None):
+                 device="cuda", obs=None,
+                 reshard_cfg: Optional[_schedule.ReshardConfig] = None,
+                 mesh_devices: int = 0,
+                 shard_max_width: Optional[int] = None, devices=None):
         self.device = resolve_device(device)
         f32_numerics()
         emb = params["embed"]["embedding"]
@@ -195,13 +239,39 @@ class Engine:
         # a gated MoE chunk step plans on the host (see the module
         # docstring): decided here, from the config
         self._chunk_capturable = not (self._gated and cfg.moe is not None)
-        self._pool = None         # the graph memory pool, on first capture
+        self._pools: dict = {}    # device → graph memory pool, on capture
         self._steps: dict = {}    # (step key, captured) → StepGraph
         self._caches: dict = {}   # cache key → static KV cache
         self.trace_counts = {"prefill": 0, "decode": 0}
         self.chunk_steps = 0      # chunked-prefill steps, all waves
         self.admissions = 0       # requests admitted into a slot
         self.obs = Observability.ensure(obs, process_name="repro-engine")
+        self._ndev = int(mesh_devices) if mesh_devices else 0
+        self._sharded = self._ndev > 1
+        self._shard_width = shard_max_width
+        self._shard = None        # the live wave's sharding tables
+        self._wave_full = False   # the live wave's caches are linear
+        self._sfp_cache: dict = {}  # (tpg, width, offsets) → shard trees
+        self._live: dict = {}     # (kind, shard, tpg, width) → [tree, cut]
+        self._shard_caches: dict = {}  # (shard, slots, full) → KV cache
+        if self._sharded:
+            self._check_shardable(cfg)
+            self._devices = self._shard_devices(devices, emb.device)
+            self._params_on = {emb.device: params}
+            for d in self._devices:
+                if d not in self._params_on:
+                    self._params_on[d] = T.map_(lambda t: t.to(d), params)
+        self._engine_steps = 0    # prefill, chunk and decode steps, all waves
+        self._resharder = None
+        if reshard_cfg is not None and self._gated and reshard_cfg.every > 0:
+            reshard_cfg = _schedule.resolve_reshard_devices(
+                reshard_cfg, self._ndev if self._sharded else 1)
+            if self._sharded and reshard_cfg.num_devices != self._ndev:
+                raise ValueError(
+                    f"reshard_cfg cuts {reshard_cfg.num_devices} strips but "
+                    f"the engine shards over {self._ndev} devices — they "
+                    f"must match (the cut IS the placement)")
+            self._resharder = _schedule.ReshardController(reshard_cfg)
         if self._gated and self.obs.enabled:
             # cost coefficients resolve once, before the first capture,
             # from the tune profile (or the nominal table) for the backend
@@ -216,8 +286,8 @@ class Engine:
             self._register_metrics()
 
     def _register_metrics(self):
-        """The reference engine's metrics, names, labels and buckets
-        (those of the re-sharder and the sharded engine are not ported)."""
+        """The reference engine's metrics, names, labels and buckets (the
+        re-sharder's own series come from `ReshardController.publish`)."""
         reg = self.obs.registry
         self._m_ttft = reg.histogram(
             "serve_ttft_seconds", labelnames=(),
@@ -304,8 +374,8 @@ class Engine:
                     cache=self.spamm_ctx.cache, store=self.plan_store,
                     group_len=group_len(self.cfg))
 
-    def _note_gm(self, gm: int):
-        self._gm_hist[gm] = self._gm_hist.get(gm, 0) + 1
+    def _note_gm(self, gm: int, n: int = 1):
+        self._gm_hist[gm] = self._gm_hist.get(gm, 0) + n
 
     @property
     def gm_histogram(self) -> dict:
@@ -315,6 +385,299 @@ class Engine:
         `core.cost.tune_weight(gm_hist=...)` so the tuner prices the grids
         this engine runs instead of the synthetic `DEFAULT_TUNE_GM`."""
         return dict(self._gm_hist)
+
+    # -- drift-triggered re-sharding (control plane) -------------------------
+    @property
+    def partition_offsets(self):
+        """The live equal-work row-offset table (None until the first
+        probe) — what a multi-GPU deployment passes to
+        `core.distributed.spamm_rowpart(offsets=)`."""
+        return self._resharder.offsets if self._resharder else None
+
+    def _maybe_reshard(self, requests, outs, cur=None):
+        """Advance the engine step counter; at the configured cadence,
+        probe the work estimate from the live tokens (each request's
+        prompt and generated tokens, the most recent `probe_window`) and
+        let the controller re-cut on drift. Never touches the computed
+        values. In pod-sharded mode a re-cut also moves the live wave's
+        requests between shards: the shard caches in place and `cur`, the
+        host array of the slots' next tokens, along the slot permutation
+        (returned)."""
+        step = self._engine_steps
+        self._engine_steps += 1
+        rs = self._resharder
+        if rs is None or not rs.due(step):
+            return cur
+        win = rs.cfg.probe_window
+
+        def recent(r, o):
+            t = np.concatenate([np.asarray(r.prompt, np.int64),
+                                np.asarray(o, np.int64)])
+            return t[-win:] if win else t
+
+        toks = np.concatenate([recent(r, o) for r, o in zip(requests, outs)])
+        with self.obs.span("reshard_probe", step=step):
+            M.reshard_probe(rs, self.spamm_ctx, self.params, step,
+                            tokens=toks)
+        if self._sharded and self._shard is not None:
+            src = self._refresh_shard()
+            if src is not None and cur is not None:
+                with self.obs.span("cache_permute", step=step):
+                    self._permute_caches(src)
+                    cur = cur[src]
+        if self.obs.enabled:
+            rs.publish(self.obs.registry)
+        return cur
+
+    # -- pod-sharded layout --------------------------------------------------
+    def _check_shardable(self, cfg):
+        if not self._gated:
+            raise ValueError(
+                "mesh_devices > 1 needs frozen plans (per-shard step tables "
+                "ARE the sharding mechanism) — enable spamm_cfg")
+        if cfg.moe is not None:
+            raise ValueError(
+                "pod-sharded serving cannot take MoE archs yet: the expert "
+                "block is not split across devices (ROADMAP queue A)")
+
+    def _shard_devices(self, devices, home) -> list:
+        """The shards' devices: `devices` as given (N of them; one card may
+        repeat), or cuda:0 … cuda:N-1, which must all be present."""
+        if devices is None:
+            have = (torch.cuda.device_count() if self.device.type == "cuda"
+                    else 0)
+            if have < self._ndev:
+                raise ValueError(
+                    f"mesh_devices={self._ndev} but only {have} CUDA "
+                    f"devices visible (pass devices= to share one)")
+            devices = [f"cuda:{i}" for i in range(self._ndev)]
+        devs = []
+        for d in devices:
+            d = torch.device(d)
+            if d.type == "cuda" and d.index is None:
+                d = torch.device("cuda", torch.cuda.current_device())
+            if d.type != home.type:
+                raise ValueError(f"shard device {d} is not a {home.type} "
+                                 f"device like the params'")
+            devs.append(d)
+        if len(devs) != self._ndev:
+            raise ValueError(f"{len(devs)} devices for mesh_devices="
+                             f"{self._ndev}")
+        return devs
+
+    @property
+    def shard_layout(self):
+        """The live wave's layout in REQUEST units (None unsharded or before
+        the first wave): `offsets` cut the batch into per-shard request
+        ranges, `slot_width` is every shard's padded slot count, `real` its
+        live request count."""
+        if not self._sharded or self._shard is None:
+            return None
+        tile = self.spamm_ctx.cfg.tile
+        offs = self._shard["offs_g"] * tile
+        return {"offsets": offs,
+                "slot_width": int(self._shard["wmax_g"]) * tile,
+                "real": [int(r) for r in np.diff(offs)]}
+
+    def _group_offsets(self, G: int, wmax_g: int) -> np.ndarray:
+        """The live cut on the wave's request-group grid, clamped to the
+        static shard width (uniform until the first probe)."""
+        rs = self._resharder
+        src = (np.asarray(rs.offsets, np.int64)
+               if rs is not None and rs.offsets is not None
+               else np.arange(self._ndev + 1, dtype=np.int64))
+        return _schedule.rescale_offsets(src, G, max_width=wmax_g)
+
+    def _shard_tables(self, offs_g: np.ndarray, wmax_g: int, G: int) -> dict:
+        """Request-level gather tables of one cut: `perm` names, per padded
+        slot in (shard, slot) order, the request that fills it (pad slots
+        clamp-replicate their strip's last group, so every slot carries
+        live data); `keep` marks real slots; `real_slots[r]` is the one
+        kept slot of request r."""
+        tile = self.spamm_ctx.cfg.tile
+        perm_g, keep_g = _schedule.strip_tables(offs_g, G, self._ndev,
+                                                width=wmax_g)
+        perm = (perm_g[:, None] * tile + np.arange(tile)).reshape(-1)
+        keep = np.repeat(keep_g, tile)
+        slots = np.nonzero(keep)[0]
+        real = np.empty(G * tile, np.int64)
+        real[perm[slots]] = slots
+        return {"G": int(G), "wmax_g": int(wmax_g),
+                "offs_g": np.asarray(offs_g, np.int64),
+                "perm": perm, "keep": keep, "real_slots": real}
+
+    def _begin_wave(self, b: int, plen: int):
+        """Lay a wave out on the shards: cut the request groups by the live
+        offsets and pin the per-shard width for the whole wave, so a
+        mid-wave re-cut never changes a shape."""
+        tile = self.spamm_ctx.cfg.tile
+        ndev = self._ndev
+        if b % tile:
+            raise ValueError(
+                f"pod-sharded serving needs batch % tile == 0 (got b={b}, "
+                f"tile={tile}): gating is per row tile, and a shard cut "
+                f"inside a tile would change tile membership and the gate")
+        if plen % tile:
+            raise ValueError(
+                f"pod-sharded serving needs prompt length % tile == 0 (got "
+                f"plen={plen}, tile={tile}) so prefill row tiles never "
+                f"straddle a request boundary")
+        G = b // tile
+        if G < ndev:
+            raise ValueError(
+                f"{G} request group(s) of tile={tile} requests cannot fill "
+                f"{ndev} shards — grow the batch to at least tile*ndev="
+                f"{tile * ndev}")
+        ceil_g = -(-G // ndev)
+        cap = int(self._shard_width) if self._shard_width else 2 * ceil_g
+        wmax_g = max(ceil_g, min(G, cap))
+        self._shard = self._shard_tables(
+            self._group_offsets(G, wmax_g), wmax_g, G)
+
+    def _refresh_shard(self):
+        """Re-cut the live wave from the controller's offsets. Returns the
+        old→new global-slot gather, or None when the cut (at request-group
+        granularity) did not move."""
+        sh = self._shard
+        offs_g = self._group_offsets(sh["G"], sh["wmax_g"])
+        if np.array_equal(offs_g, sh["offs_g"]):
+            return None
+        new = self._shard_tables(offs_g, sh["wmax_g"], sh["G"])
+        src = sh["real_slots"][new["perm"]]
+        self._shard = new
+        return src
+
+    def _cut_key(self, tpg: int) -> tuple:
+        sh = self._shard
+        return (tpg, sh["wmax_g"], tuple(int(x) for x in sh["offs_g"]))
+
+    def _sharded_frozen_for(self, tpg: int) -> list:
+        """One FrozenPlan tree per shard, on its device, for the live cut:
+        `tpg` is row tiles per request group (the prompt length for
+        prefill, the chunk for a chunk step, 1 for decode). Sliced on the
+        host from the frozen weight side, cached per (tpg, width, cut): a
+        re-cut to a seen cut is a dict hit, and every cut of one width has
+        the same shapes."""
+        key = self._cut_key(tpg)
+        hit = self._sfp_cache.get(key)
+        if hit is not None:
+            return hit
+        self._ensure_fw_tree()
+        with self.obs.span("plan_assembly", tpg=tpg, sharded=True):
+            return self._assemble_sharded(tpg, key)
+
+    def _assemble_sharded(self, tpg: int, key) -> list:
+        sh = self._shard
+        offs = sh["offs_g"] * tpg
+        width = sh["wmax_g"] * tpg
+
+        def shard(node):
+            if isinstance(node, dict):
+                parts = {k: shard(v) for k, v in node.items()}
+                return [{k: p[d] for k, p in parts.items()}
+                        for d in range(self._ndev)]
+            if isinstance(node, list):
+                parts = [shard(v) for v in node]
+                return [[p[d] for p in parts] for d in range(self._ndev)]
+            return [fp.to(dev) for fp, dev in
+                    zip(node.shard_by_offsets(offs, width=width),
+                        self._devices)]
+
+        trees = shard(self._fw_tree)
+        self._sfp_cache[key] = trees
+        return trees
+
+    def _live_frozen(self, kind: str, d: int, tpg: int) -> dict:
+        """Shard d's frozen tree that its `kind` step reads: a private copy
+        made with the step, into which a later cut's tables are copied in
+        place (the captured graph reads these buffers)."""
+        want = self._sharded_frozen_for(tpg)[d]
+        key = self._cut_key(tpg)
+        slot = (kind, d, tpg, self._shard["wmax_g"])
+        live = self._live.get(slot)
+        if live is None:
+            live = self._live[slot] = [
+                T.map_(lambda fp: fp.clone(), want), key]
+        elif live[1] != key:
+            T.map_(lambda dst, src: dst.copy_(src), live[0], want)
+            live[1] = key
+        return live[0]
+
+    def _shard_cache(self, d: int, slots: int, full: bool) -> dict:
+        key = (d, slots, full)
+        cache = self._shard_caches.get(key)
+        if cache is None:
+            cache = M.init_cache(self.cfg, self.pcfg, slots, self.max_len,
+                                 full=full, device=self._devices[d])
+            self._shard_caches[key] = cache
+        return cache
+
+    def _permute_caches(self, src: np.ndarray):
+        """Move the live wave's request rows between the shards' caches
+        along the old→new global-slot gather `src`, in place (the captured
+        steps read these tensors): every leaf gathered across shards,
+        permuted, and copied back."""
+        sh = self._shard
+        per = sh["wmax_g"] * self.spamm_ctx.cfg.tile
+        caches = [self._shard_cache(d, per, self._wave_full)
+                  for d in range(self._ndev)]
+        home = self._devices[0]
+        idx = torch.as_tensor(src, device=home)
+        for li, layer in enumerate(caches[0]["layers"]):
+            for name in layer:
+                leaves = [c["layers"][li][name] for c in caches]
+                whole = torch.cat([t.to(home) for t in leaves])[idx]
+                for d, t in enumerate(leaves):
+                    t.copy_(whole[d * per:(d + 1) * per])
+
+    def _shard_decode_step(self, d: int, per: int, full: bool) -> StepGraph:
+        """Shard d's lockstep decode over its `per` padded slots at one
+        position held in a 0-d device buffer, on its static cache, reading
+        its live decode tables."""
+        dev = self._devices[d]
+
+        def make():
+            cache = self._shard_cache(d, per, full)
+            frozen = self._live_frozen("decode", d, 1)
+            params = self._params_on[dev]
+            inp = {"tokens": self._buffer(per, 1, device=dev),
+                   "pos": self._buffer(device=dev)}
+
+            def body():
+                logits, _ = self._decode(params, inp["tokens"], cache,
+                                         inp["pos"], frozen)
+                return self._outputs(logits)
+
+            return body, inp
+
+        self._live_frozen("decode", d, 1)
+        return self._step(("shard_wave", d, per, full), "decode", make,
+                          device=dev)
+
+    def _shard_chunk_step(self, d: int, per: int, chunk: int) -> StepGraph:
+        """Shard d's prefill chunk at one static (per, chunk) shape on its
+        full-length linear cache, reading its live chunk tables."""
+        dev = self._devices[d]
+
+        def make():
+            cache = self._shard_cache(d, per, True)
+            frozen = self._live_frozen("chunk", d, chunk)
+            params = self._params_on[dev]
+            inp = {"tokens": self._buffer(per, chunk, device=dev),
+                   "positions": self._buffer(per, chunk, device=dev),
+                   "last_idx": self._buffer(per, device=dev)}
+
+            def body():
+                _, logits = self._chunk(params, {"tokens": inp["tokens"]},
+                                        cache, inp["positions"],
+                                        inp["last_idx"], frozen)
+                return self._outputs(logits)
+
+            return body, inp
+
+        self._live_frozen("chunk", d, chunk)
+        return self._step(("shard_chunk", d, per, chunk), "prefill", make,
+                          device=dev)
 
     # -- step graphs ---------------------------------------------------------
     def _static_cache(self, key, batch: int, full: bool) -> dict:
@@ -337,25 +700,34 @@ class Engine:
         return {"decode": self._capture,
                 "chunk": self._capture and self._chunk_capturable}
 
-    def _step(self, key, kind: str, make):
+    def _step(self, key, kind: str, make, device=None):
         """The StepGraph at `key` in the current mode, built by `make()` →
         (body, inputs) on first use; `trace_counts[kind]` counts the keys
-        (on the card, each one capture; eager steps count too)."""
+        (on the card, each one capture; eager steps count too). `device`
+        (a shard's card; None: the engine's) gets the step's graph pool,
+        one per device, and its captures."""
         step = self._steps.get((key, self._capture))
         if step is None:
             capture = self.step_graphs["chunk" if kind == "prefill"
                                        else "decode"]
-            if capture and self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
+            pool = None
+            if capture:
+                with (contextlib.nullcontext() if device is None
+                      else torch.cuda.device(device)):
+                    pool = self._pools.get(device)
+                    if pool is None:
+                        pool = self._pools[device] = \
+                            torch.cuda.graph_pool_handle()
             body, inputs = make()
-            step = StepGraph(body, inputs, capture=capture,
-                             pool=self._pool, spamm_ctx=self.spamm_ctx)
+            step = StepGraph(body, inputs, capture=capture, pool=pool,
+                             spamm_ctx=self.spamm_ctx, device=device)
             self._steps[(key, self._capture)] = step
             self.trace_counts[kind] += 1
         return step
 
-    def _buffer(self, *shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=torch.int32, device=self.device)
+    def _buffer(self, *shape, device=None) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.int32,
+                           device=self.device if device is None else device)
 
     def _outputs(self, logits) -> dict:
         return {"logits": logits,
@@ -424,8 +796,9 @@ class Engine:
         caps = [s.capture_s for s in self._steps.values()
                 if s.capture_s is not None]
         return {"captures": len(caps), "capture_s": float(sum(caps)),
-                "pool_bytes": (None if self._pool is None
-                               else pool_bytes(self._pool))}
+                "pool_bytes": (sum(pool_bytes(p) or 0
+                                   for p in self._pools.values())
+                               if self._pools else None)}
 
     def _pad_cache(self, cache, into: dict) -> dict:
         """Copy the prefill's caches into the static decode cache `into`:
@@ -449,15 +822,17 @@ class Engine:
         return into
 
     def _counters0(self):
-        """(plan-cache, plan-store) counters at a wave's start, whose
-        deltas `_spamm_stats` reports."""
+        """(plan-cache, plan-store, re-sharder) counters at a wave's start,
+        whose deltas `_spamm_stats` reports."""
         cache = (self.spamm_ctx.cache.hits, self.spamm_ctx.cache.misses)
         store = (None if self.plan_store is None
                  else (self.plan_store.hits, self.plan_store.misses))
-        return cache, store
+        rs = self._resharder
+        return cache, store, (None if rs is None
+                              else (rs.resharded, rs.probes))
 
     def _spamm_stats(self, taps, cache0, store0=None, ttft_s=None,
-                     decode_lat=()) -> dict:
+                     decode_lat=(), reshard0=None) -> dict:
         """Per-wave gating stats, as the reference's engine reports them:
         mean valid fraction and gated-GEMM count per phase, the configured
         compute dtype, the GEMM bytes moved per phase (sums over the frozen
@@ -465,13 +840,17 @@ class Engine:
         hits and misses during this wave (deltas from `cache0`/`store0`,
         the counters at the wave's start), and:
 
+        - `resharded`, `reshard_probes` (the wave's deltas from
+          `reshard0`) and `partition_imbalance` (the live partition's
+          predicted imbalance at the last probe), with re-sharding on.
         - `per_layer`: {layer: {site: cell}} over the same taps — fractions
           average, counts and bytes sum within each (layer, site) cell, so
           the cells' counts sum to the aggregates; taps without a layer
           label (layer < 0) stay in the aggregates only.
         - `latency` (obs on): `wave_latency(ttft_s, decode_lat)`.
         - `cost_residual` (obs on, cost taps armed): per phase, the
-          predicted seconds summed over the wave's frozen GEMMs, the
+          predicted seconds summed over the wave's frozen GEMMs (divided by
+          the mesh size when sharded), the
           measured seconds (TTFT for prefill, the decode steps' sum for
           decode) and log2(measured / predicted), where both are positive.
 
@@ -500,6 +879,11 @@ class Engine:
         if store0 is not None:
             stats["plan_store_hits"] = self.plan_store.hits - store0[0]
             stats["plan_store_misses"] = self.plan_store.misses - store0[1]
+        if reshard0 is not None:
+            rs = self._resharder
+            stats["resharded"] = rs.resharded - reshard0[0]
+            stats["reshard_probes"] = rs.probes - reshard0[1]
+            stats["partition_imbalance"] = rs.live_imbalance
         acc: dict = {}
         for t in taps:
             if t.layer < 0:
@@ -530,8 +914,13 @@ class Engine:
             stats["latency"] = wave_latency(ttft_s, decode_lat)
         cost = [t for t in taps if t.predicted_s is not None]
         if cost:
-            pred_pre = sum(t.predicted_s for t in cost if t.phase != "decode")
-            pred_dec = sum(t.predicted_s for t in cost if t.phase == "decode")
+            # sharded: every shard taps its GEMMs, and the shards of a
+            # deployment run at once, so the phase takes a shard's share
+            ndev = self._ndev if self._sharded else 1
+            pred_pre = sum(t.predicted_s for t in cost
+                           if t.phase != "decode") / ndev
+            pred_dec = sum(t.predicted_s for t in cost
+                           if t.phase == "decode") / ndev
             meas_dec = float(np.sum(decode_lat)) if decode_lat else 0.0
             cres = {}
             for phase, pred, meas in (("prefill", pred_pre, ttft_s or 0.0),
@@ -611,6 +1000,13 @@ class Engine:
                 f"tokens")
         mixed = len(set(plens)) > 1
         chunk = self._resolve_chunk(mixed)
+        if self._sharded:
+            if mixed:
+                raise ValueError(
+                    "pod-sharded serving needs equal-length prompts (the "
+                    "chunked mixed-length scheduler is unsharded-only); "
+                    "pad client-side or serve unsharded")
+            return self._generate_sharded(requests, chunk)
         if chunk:
             return self._generate_chunked(requests, chunk)
         if mixed:
@@ -640,7 +1036,7 @@ class Engine:
         obs_on = self.obs.enabled
         tile = self.spamm_ctx.cfg.tile if self._gated else 0
         if self._gated:
-            cache0, store0 = self._counters0()
+            cache0, store0, reshard0 = self._counters0()
         t_wave0 = time.perf_counter_ns()
         frozen_pre = self._frozen_for(b * plen)
         outs = [[] for _ in range(b)]
@@ -651,6 +1047,7 @@ class Engine:
             self.spamm_ctx.set_phase("prefill")
         try:
             with torch.inference_mode():
+                self._maybe_reshard(requests, outs)
                 pend = ("prefill", time.perf_counter_ns())
                 cache, logits = self._prefill(
                     self.params,
@@ -669,29 +1066,14 @@ class Engine:
                     self.spamm_ctx.set_phase("decode")
                 for t in range(budget):
                     vis = cur.cpu().numpy()   # blocks on the previous step
-                    t1 = time.perf_counter_ns()
-                    name, t0 = pend
+                    ttft_s = self._close_step(pend, t, t_wave0, ttft_s,
+                                              decode_lat)
                     pend = None
-                    if name == "prefill":
-                        ttft_s = (t1 - t_wave0) / 1e9
-                    else:
-                        decode_lat.append((t1 - t0) / 1e9)
-                    if obs_on:
-                        self.obs.tracer.add_complete(name, t0, t1, step=t)
-                        if name == "prefill":
-                            self._m_ttft.observe(ttft_s)
-                        else:
-                            self._m_decode_s.observe(decode_lat[-1])
-                    for i, r in enumerate(requests):
-                        if not done[i]:
-                            outs[i].append(int(vis[i]))
-                            if ((r.eos_id is not None
-                                 and int(vis[i]) == r.eos_id)
-                                    or len(outs[i]) >= r.max_new_tokens):
-                                done[i] = True
+                    _emit_tokens(requests, outs, done, vis)
                     if done.all() or pos >= self.max_len - 1:
                         break
                     pend = ("decode_step", time.perf_counter_ns())
+                    self._maybe_reshard(requests, outs)
                     cur = self._wave_decode_step(b)(tokens=cur,
                                                     pos=pos)["tokens"]
                     if self._gated:
@@ -707,10 +1089,30 @@ class Engine:
                 self.obs.tracer.add_complete(pend[0], pend[1],
                                              time.perf_counter_ns())
         spamm_meta = (self._spamm_stats(taps, cache0, store0, ttft_s,
-                                        decode_lat) if self._gated else None)
+                                        decode_lat, reshard0)
+                      if self._gated else None)
         return self._finish_wave(requests, outs, spamm_meta, ttft_s,
                                  decode_lat, t_wave0, batch=b,
                                  prompt_len=plen)
+
+    def _close_step(self, pend, step, t_wave0, ttft_s, decode_lat):
+        """Close the dispatched step `pend` = (span name, t0 ns) at the
+        wave loop's blocking point: the prefill's TTFT from the wave's
+        start, or one more decode latency; with obs on, its span and
+        histogram. Returns the wave's TTFT so far."""
+        t1 = time.perf_counter_ns()
+        name, t0 = pend
+        if name == "prefill":
+            ttft_s = (t1 - t_wave0) / 1e9
+        else:
+            decode_lat.append((t1 - t0) / 1e9)
+        if self.obs.enabled:
+            self.obs.tracer.add_complete(name, t0, t1, step=step)
+            if name == "prefill":
+                self._m_ttft.observe(ttft_s)
+            else:
+                self._m_decode_s.observe(decode_lat[-1])
+        return ttft_s
 
     def _finish_wave(self, requests, outs, spamm_meta, ttft_s, decode_lat,
                      t_wave0, **span_args) -> List[np.ndarray]:
@@ -728,6 +1130,126 @@ class Engine:
             r.out = {"tokens": toks_out, "spamm": spamm_meta,
                      "latency": latency, "graphs": dict(graphs)}
         return results
+
+    def _generate_sharded(self, requests: List[Request],
+                          chunk: Optional[int]) -> List[np.ndarray]:
+        """The pod-sharded wave: the requests laid out on the shards by the
+        live cut (`_begin_wave`), each shard's prefill (one shot, eager; or
+        `chunk`-token chunks through its chunk step) on its device, then
+        lockstep decode, each step one captured step per shard. The step-0
+        probe may lay the first cut before the prefill; a mid-wave re-cut
+        moves requests between the shards' caches before the next decode
+        step. The slots' next tokens live on the host between steps (one
+        read per shard and step, the loop's blocking point); latency spans
+        as in `_generate_wave`."""
+        b = len(requests)
+        plen = len(requests[0].prompt)
+        toks = np.stack([r.prompt for r in requests]).astype(np.int32)
+        tile = self.spamm_ctx.cfg.tile
+        ndev = self._ndev
+        obs_on = self.obs.enabled
+        self._begin_wave(b, plen)
+        self._wave_full = bool(chunk)
+        cache0, store0, reshard0 = self._counters0()
+        t_wave0 = time.perf_counter_ns()
+        outs = [[] for _ in range(b)]
+        ttft_s, decode_lat, taps = None, [], []
+        pend = None
+        self.spamm_ctx.begin_stats()
+        self.spamm_ctx.set_phase("prefill")
+        try:
+            with torch.inference_mode():
+                self._maybe_reshard(requests, outs)
+                per = self._shard["wmax_g"] * tile
+                toks_in = toks[self._shard["perm"]]
+                pend = ("prefill", time.perf_counter_ns())
+                if chunk:
+                    heads = self._sharded_chunk_prefill(toks_in, plen, chunk)
+                else:
+                    heads = self._sharded_prefill(toks_in, plen, per)
+                self.spamm_ctx.set_phase("decode")
+                pos = plen
+                done = np.zeros(b, bool)
+                budget = max(r.max_new_tokens for r in requests)
+                for t in range(budget):
+                    cur = np.concatenate([h.cpu().numpy() for h in heads])
+                    ttft_s = self._close_step(pend, t, t_wave0, ttft_s,
+                                              decode_lat)
+                    pend = None
+                    # pad slots mirror their strip's last real group; the
+                    # kept-slot table reads each request once
+                    _emit_tokens(requests, outs, done,
+                                 cur[self._shard["real_slots"]])
+                    if done.all() or pos >= self.max_len - 1:
+                        break
+                    pend = ("decode_step", time.perf_counter_ns())
+                    cur = self._maybe_reshard(requests, outs, cur)
+                    heads = [self._shard_decode_step(d, per, bool(chunk))(
+                        tokens=cur[d * per:(d + 1) * per], pos=pos)["tokens"]
+                        for d in range(ndev)]
+                    self._note_gm(self._shard["wmax_g"], ndev)
+                    pos += 1
+        finally:
+            taps = self.spamm_ctx.end_stats()
+            self.spamm_ctx.set_phase("prefill")
+            if pend is not None and obs_on:
+                self.obs.tracer.add_complete(pend[0], pend[1],
+                                             time.perf_counter_ns())
+        spamm_meta = self._spamm_stats(taps, cache0, store0, ttft_s,
+                                       decode_lat, reshard0)
+        return self._finish_wave(requests, outs, spamm_meta, ttft_s,
+                                 decode_lat, t_wave0, batch=b,
+                                 prompt_len=plen, shards=ndev)
+
+    def _sharded_prefill(self, toks_in: np.ndarray, plen: int,
+                         per: int) -> list:
+        """One-shot prefill of each shard's `per` padded slots on its
+        device (eager: once per wave), its caches copied into the shard's
+        static decode cache. Returns each shard's first tokens."""
+        frozen = self._sharded_frozen_for(plen)
+        heads = []
+        for d, dev in enumerate(self._devices):
+            tk = torch.as_tensor(toks_in[d * per:(d + 1) * per], device=dev)
+            cache, logits = self._prefill(self._params_on[dev],
+                                          {"tokens": tk}, frozen[d])
+            self._pad_cache(cache, self._shard_cache(d, per, False))
+            heads.append(logits.argmax(dim=-1).to(torch.int32))
+        self._note_gm(self._shard["wmax_g"] * plen, self._ndev)
+        return heads
+
+    def _sharded_chunk_prefill(self, toks_in: np.ndarray, plen: int,
+                               chunk: int) -> list:
+        """Prefill each shard's padded slots in `chunk`-token chunks at one
+        static shape, through its captured chunk step, into its zeroed
+        full-length linear cache. Pad slots replicate live rows; a partial
+        last chunk clamp-pads its token tail at sentinel positions (≥
+        max_len), whose cache writes drop. Returns each shard's first
+        tokens (from the last chunk's logits)."""
+        per = self._shard["wmax_g"] * self.spamm_ctx.cfg.tile
+        for d in range(self._ndev):
+            for layer in self._shard_cache(d, per, True)["layers"]:
+                for t in layer.values():
+                    t.zero_()
+        heads = None
+        for lo in range(0, plen, chunk):
+            n = min(chunk, plen - lo)
+            tk = np.empty((toks_in.shape[0], chunk), np.int32)
+            tk[:, :n] = toks_in[:, lo:lo + n]
+            if n < chunk:
+                tk[:, n:] = tk[:, n - 1:n]
+            posr = np.full(chunk, self.max_len, np.int32)
+            posr[:n] = lo + np.arange(n)
+            last = np.full(per, n - 1 if lo + n >= plen else -1, np.int32)
+            heads = [self._shard_chunk_step(d, per, chunk)(
+                tokens=tk[d * per:(d + 1) * per],
+                positions=np.broadcast_to(posr, (per, chunk)),
+                last_idx=last)["tokens"].clone()
+                for d in range(self._ndev)]
+            self.chunk_steps += 1
+            self._note_gm(self._shard["wmax_g"] * chunk, self._ndev)
+            if self.obs.enabled:
+                self._m_chunks.inc()
+        return heads
 
     def _slot_count(self, b: int) -> int:
         """The slot pool for `b` requests: the power-of-two bucket of
@@ -762,7 +1284,7 @@ class Engine:
         obs_on = self.obs.enabled
         tile = self.spamm_ctx.cfg.tile if self._gated else 0
         if self._gated:
-            cache0, store0 = self._counters0()
+            cache0, store0, reshard0 = self._counters0()
         t_wave0 = time.perf_counter_ns()
         outs: List[list] = [[] for _ in range(b)]
         queue = list(range(b))
@@ -827,6 +1349,7 @@ class Engine:
                         self.chunk_steps += 1
                         if self._gated:
                             self._note_gm(-(-(nslots * chunk) // tile))
+                        self._maybe_reshard(requests, outs)
                         if obs_on:
                             self.obs.tracer.add_complete(
                                 "prefill_chunk", t0, time.perf_counter_ns())
@@ -868,6 +1391,7 @@ class Engine:
                         decode_lat.append((t1 - t0) / 1e9)
                         if self._gated:
                             self._note_gm(-(-nslots // tile))
+                        self._maybe_reshard(requests, outs)
                         if obs_on:
                             self.obs.tracer.add_complete("decode_step", t0,
                                                          t1)
@@ -880,7 +1404,8 @@ class Engine:
                 taps = self.spamm_ctx.end_stats()
                 self.spamm_ctx.set_phase("prefill")
         spamm_meta = (self._spamm_stats(taps, cache0, store0, ttft_s,
-                                        decode_lat) if self._gated else None)
+                                        decode_lat, reshard0)
+                      if self._gated else None)
         return self._finish_wave(requests, outs, spamm_meta, ttft_s,
                                  decode_lat, t_wave0, batch=b, slots=nslots,
                                  chunk=chunk)

@@ -77,17 +77,22 @@ class StepGraph:
 
     `body` takes no arguments: it reads `inputs` (name → static tensor) and
     the cache it closes over, and returns a dict of output tensors.
-    `pool` is the engine's `torch.cuda.graph_pool_handle()`, shared by all
-    its graphs; `spamm_ctx` the engine's SpAMM context (or None)."""
+    `pool` is the engine's graph pool of the step's device
+    (`torch.cuda.graph_pool_handle()`), shared by its graphs there;
+    `spamm_ctx` the engine's SpAMM context (or None). `device` is the card
+    the step runs on: a captured step captures, replays and stages under
+    `torch.cuda.device(device)`, so a step of another card than the
+    current one records its own streams (None: the current card)."""
 
     def __init__(self, body: Callable[[], Dict[str, torch.Tensor]],
                  inputs: Dict[str, torch.Tensor], *, capture: bool,
-                 pool=None, spamm_ctx=None):
+                 pool=None, spamm_ctx=None, device=None):
         self.body = body
         self.inputs = inputs
         self.capture = capture
         self.pool = pool
         self.spamm_ctx = spamm_ctx
+        self.device = device
         self.outputs: Optional[Dict[str, torch.Tensor]] = None
         self.capture_s: Optional[float] = None
         self._graph = None
@@ -100,13 +105,16 @@ class StepGraph:
         """Copy `values` (name → numpy array, int or tensor) into the
         static inputs, run the step, return its outputs. The outputs are
         the step's static buffers: the next call overwrites them."""
-        self._stage(values)
         if not self.capture:
+            self._stage(values)
             self.outputs = self.body()
             return self.outputs
-        if self._graph is None:
-            self._capture()
-        self._graph.replay()
+        with (contextlib.nullcontext() if self.device is None
+              else torch.cuda.device(self.device)):
+            self._stage(values)
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
         _add_counters(self._launches)
         if self._taps is not None:
             vals, nbytes, has, labels = self._taps

@@ -12,8 +12,16 @@ Each step is eager PyTorch (`models.model.make_train_step`): the loss,
 `loss.backward()`, then the AdamW update in place. With SpAMM on, each
 step's gating stats (the mean valid fraction and the count of gated GEMMs,
 overall and per layer) come back with its loss in one transfer and feed
-the `spamm_valid_fraction{phase="train"}` histogram. The drift-triggered
-re-sharding probe of the reference waits for the multi-GPU slice.
+the `spamm_valid_fraction{phase="train"}` histogram.
+
+Drift-triggered re-sharding (`reshard_cfg`, the serving engine's control
+plane): every `reshard_cfg.every` steps, after the step, the shared probe
+(`models.model.reshard_probe`: the step's token embeddings, or its
+`embeds`, against the cached weight-side norms of the unembedding) feeds a
+`ReshardController`, which re-cuts the equal-work partition on drift. It
+never touches the computed values; each step's stats gain the live
+partition's `imbalance`, the `resharded` count, its `offsets` and per-strip
+predicted `loads`. `num_devices=0` resolves to 1 (one device trains).
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.core import module as spmod
+from repro_torch.core import schedule as _schedule
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.distributed.compression import Int8EF
@@ -43,7 +52,8 @@ class TrainResult:
     final_step: int
     # one entry per executed step with SpAMM on: {"step", "valid_fraction",
     # "gated_gemms", "per_layer": {layer: {"valid_fraction",
-    # "gated_gemms"}}}; empty with SpAMM off
+    # "gated_gemms"}}}, and with re-sharding "imbalance", "resharded",
+    # "offsets", "loads"; empty with SpAMM off
     spamm_stats: list = dataclasses.field(default_factory=list)
     # the run's Observability bundle (train_step_seconds, the per-layer
     # spamm_valid_fraction series, train_step and checkpoint_save spans)
@@ -57,12 +67,8 @@ def train(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig, *,
           log_every: int = 10, obs=None, device="cuda") -> TrainResult:
     """Train from `init_params(seed=tcfg.seed)` (or the latest checkpoint
     with `resume`) up to `tcfg.total_steps` on `device` (the card unless
-    asked otherwise)."""
-    if reshard_cfg is not None:
-        raise NotImplementedError(
-            "drift-triggered re-sharding (core/schedule.py's "
-            "ReshardController) waits for the multi-GPU slice (ROADMAP "
-            "queue A, item 2)")
+    asked otherwise). `reshard_cfg` (a `core.schedule.ReshardConfig`)
+    arms the re-sharding probe when SpAMM is on."""
     dev = resolve_device(device)
     obs = Observability.ensure(obs, process_name="repro-train")
     # keep_recent=50 retains the raw samples the straggler watchdog's
@@ -93,6 +99,10 @@ def train(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig, *,
     if spamm_ctx is not None:
         spamm_ctx.set_phase("train")
     step_fn = M.make_train_step(cfg, pcfg, opt, spamm_cfg=spamm_ctx)
+    resharder = None
+    if reshard_cfg is not None and collect_spamm and reshard_cfg.every > 0:
+        resharder = _schedule.ReshardController(
+            _schedule.resolve_reshard_devices(reshard_cfg, 1))
 
     losses, spamm_stats = [], []
     stragglers = 0
@@ -115,6 +125,17 @@ def train(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig, *,
         loss = host["loss"][0]
         obs.tracer.add_complete("train_step", t0_ns, time.perf_counter_ns(),
                                 step=step)
+        if resharder is not None and resharder.due(step):
+            with obs.span("reshard_probe", step=step):
+                if "tokens" in batch:
+                    M.reshard_probe(resharder, spamm_ctx, params, step,
+                                    tokens=batch["tokens"].reshape(-1).cpu())
+                else:
+                    M.reshard_probe(resharder, spamm_ctx, params, step,
+                                    x=batch["embeds"].reshape(-1,
+                                                              cfg.d_model))
+            if obs.enabled:
+                resharder.publish(obs.registry)
         sp = None
         if collect_spamm:
             n_gemms = int(host["spamm_gated_gemms"][0])
@@ -128,6 +149,14 @@ def train(cfg: ModelConfig, pcfg: ParallelConfig, tcfg: TrainConfig, *,
                       i: {"valid_fraction": lvf[i] if lvc[i] else None,
                           "gated_gemms": int(lvc[i])}
                       for i in range(len(lvf))}}
+            if resharder is not None:
+                offs, loads = resharder.offsets, resharder.live_loads
+                sp["imbalance"] = resharder.live_imbalance
+                sp["resharded"] = resharder.resharded
+                sp["offsets"] = (None if offs is None
+                                 else [int(o) for o in offs])
+                sp["loads"] = (None if loads is None
+                               else [float(x) for x in loads])
             if m_vf is not None:
                 for i in range(len(lvf)):
                     if lvc[i]:

@@ -1581,3 +1581,125 @@ def test_tau0_spamm_train_step_equals_dense_on_card(dev):
         off = d > 1e-3 * b.abs().max()
         small = m.abs() < 1e-3 * m.abs().max()
         assert bool(small[off].all()) and float(d.max()) <= 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the multi-GPU slice on one card
+# ---------------------------------------------------------------------------
+
+def test_rowpart_on_a_one_rank_nccl_mesh_equals_flat_on_card(dev):
+    """spamm_rowpart and spamm_2d on a 1×1 mesh over NCCL (world size 1:
+    the collectives run on the card) ≡ the flat spamm() bit for bit."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh as MS
+
+    a = torch.as_tensor(S.exponential_decay(512, lam=0.6, seed=0), device=dev)
+    b = torch.as_tensor(S.exponential_decay(512, lam=0.6, seed=1), device=dev)
+    c_flat, info = S.spamm(a, b, 0.02, tile=64)
+    MS.init_group("nccl", rank=0, world_size=1, addr="localhost",
+                  port=MS.free_port(), device=torch.device("cuda", 0))
+    try:
+        mesh = MS.make_host_mesh(backend="nccl", device_type="cuda")
+        for sched in ("contiguous", "cyclic", "equal_work", "auto"):
+            c, frac = D.spamm_rowpart(a, b, 0.02, mesh, tile=64,
+                                      schedule=sched)
+            assert torch.equal(c, c_flat), sched
+            assert float(frac) == float(info.valid_fraction)
+        c2, _ = D.spamm_2d(a, b, 0.02, mesh, tile=64)
+        assert torch.equal(c2, c_flat)
+    finally:
+        MS.destroy_group()
+
+
+def _sharded(served, **kw):
+    from repro_torch.configs import SpammConfig
+    from repro_torch.serving.engine import Engine
+
+    cfg, pcfg, params, tau = served
+    return Engine(cfg, pcfg, params, max_len=64,
+                  spamm_cfg=SpammConfig(enable=True, tau=tau,
+                                        tile=GRAPH_TILE), **kw)
+
+
+def _shard_prompts(cfg, b, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab, 16).astype(np.int32)
+            for _ in range(b)]
+
+
+def test_sharded_engine_graphed_equals_eager_and_unsharded_on_card(served):
+    """Engine(mesh_devices=2, devices=[cuda:0] × 2): graphed ≡ eager
+    (tokens, every shard step's logits, stats, launches) ≡ the unsharded
+    engine's tokens, each shard's decode step one capture."""
+    cfg = served[0]
+    prompts = _shard_prompts(cfg, 4 * GRAPH_TILE, 7)
+    ref = _graph_run(_sharded(served), prompts)
+    eng = _sharded(served, mesh_devices=2,
+                   devices=[torch.device("cuda", 0)] * 2)
+    eng.cuda_graphs = False
+    _graph_run(eng, prompts)           # freezes the weights
+    eager = _graph_run(eng, prompts)
+    eng.cuda_graphs = True
+    captured = _graph_run(eng, prompts)
+    replayed = _graph_run(eng, prompts)
+    assert eng.graph_stats()["captures"] == 2
+    assert eager[0] == ref[0]
+    for run in (captured, replayed):
+        assert run[0] == eager[0]
+        assert len(run[1]) == len(eager[1])
+        for got, want in zip(run[1], eager[1]):
+            assert torch.equal(got, want)
+        assert _timing_free(run[2]) == _timing_free(eager[2])
+        assert run[3] == eager[3]
+
+
+def test_sharded_recut_without_recapture_on_card(served, monkeypatch):
+    """Re-cuts between and within waves (every engine step, drift
+    threshold 1.0; the embedding's hot/cold rows put the probe's norm
+    products at 4τ and τ/25, and a growing share of each wave's prompts
+    is hot) move requests between the shards and copy the new tables into
+    the captured steps: the capture count stays one per shard and width,
+    tokens ≡ unsharded."""
+    from repro_torch import tree as T
+    from repro_torch.core.schedule import ReshardConfig
+    from repro_torch.serving.engine import Engine
+
+    cfg, pcfg, params, tau = served
+    params = T.map_(torch.clone, params)
+    emb = params["embed"]["embedding"]
+    base = (float(getnorm.tile_norms_cuda(emb[:(cfg.vocab // 16) * 16],
+                                          16).median())
+            * float(getnorm.tile_norms_cuda(params["unembed"]["kernel"],
+                                            16).median()))
+    half = cfg.vocab // 2
+    scale = torch.full((cfg.vocab, 1), 0.04 * tau / base, device="cuda")
+    scale[half:] = 4 * tau / base
+    emb.mul_(scale)
+    served = (cfg, pcfg, params, tau)
+    moves = []
+    orig = Engine._refresh_shard
+
+    def refresh(self):
+        src = orig(self)
+        if src is not None:
+            moves.append(tuple(int(x) for x in self._shard["offs_g"]))
+        return src
+
+    monkeypatch.setattr(Engine, "_refresh_shard", refresh)
+    ref = _sharded(served)
+    eng = _sharded(served, mesh_devices=2,
+                   devices=[torch.device("cuda", 0)] * 2,
+                   reshard_cfg=ReshardConfig(every=1, drift_threshold=1.0,
+                                             probe_window=8))
+    caps = []
+    for seed, b in ((1, 4), (2, 6), (3, 6), (4, 6)):
+        rng = np.random.default_rng(seed)
+        hot = b * GRAPH_TILE * seed // 8
+        prompts = [rng.integers(half, cfg.vocab, 16).astype(np.int32)
+                   if i < hot else
+                   rng.integers(1, half, 16).astype(np.int32)
+                   for i in range(b * GRAPH_TILE)]
+        assert _graph_run(eng, prompts)[0] == _graph_run(ref, prompts)[0]
+        caps.append(eng.graph_stats()["captures"])
+    assert caps == [2, 4, 4, 4], caps
+    assert len(moves) >= 2, (moves, eng._resharder.history)

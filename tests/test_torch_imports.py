@@ -40,7 +40,8 @@ def test_port_has_modules():
                  "configs/spamm_synth.py", "optim/adamw.py",
                  "distributed/compression.py", "data/pipeline.py",
                  "checkpoint/checkpoint.py", "train/loop.py",
-                 "launch/train.py"):
+                 "launch/train.py", "core/schedule.py",
+                 "core/distributed.py", "launch/mesh.py"):
         assert twin in names
 
 
@@ -114,6 +115,42 @@ TRAIN_ENTRY_POINTS = (
 )
 
 
+# the multi-GPU slice: schedules, distributed SpAMM, meshes, row shards of
+# the frozen plans, the halo wire format, the shared re-sharding probe
+MULTI_ENTRY_POINTS = (
+    ("repro_torch.core.schedule", (
+        "v_matrix", "rows_for_device", "rows_for_partition",
+        "device_permutation", "equal_work_partition", "partition_loads",
+        "partition_imbalance", "strip_tables", "rescale_offsets",
+        "device_loads", "imbalance", "tile_imbalance", "auto_schedule",
+        "ReshardConfig", "ReshardController", "resolve_reshard_devices",
+        "probe_v_estimate")),
+    ("repro_torch.core.distributed", ("spamm_rowpart", "spamm_2d",
+                                      "_pick_schedule", "_resolve_schedule")),
+    ("repro_torch.launch.mesh", ("make_mesh", "make_host_mesh", "init_group",
+                                 "destroy_group", "spawn_ranks")),
+    ("repro_torch.plans.frozen", ("stack_plans",)),
+    ("repro_torch.distributed.compression", ("compress_tiles",
+                                             "decompress_tiles",
+                                             "halo_wire_bytes")),
+    ("repro_torch.models.model", ("reshard_probe",)),
+)
+
+
+@pytest.mark.parametrize("module,names", MULTI_ENTRY_POINTS,
+                         ids=[m for m, _ in MULTI_ENTRY_POINTS])
+def test_multi_entry_points_exist(module, names):
+    import importlib
+
+    mod = importlib.import_module(module)
+    for name in names:
+        assert hasattr(mod, name), f"{module}.{name}"
+    from repro_torch.plans.frozen import FrozenWeight
+
+    assert callable(FrozenWeight.slice_rows)
+    assert callable(FrozenWeight.shard_by_offsets)
+
+
 @pytest.mark.parametrize("module,names", TRAIN_ENTRY_POINTS,
                          ids=[m for m, _ in TRAIN_ENTRY_POINTS])
 def test_train_entry_points_exist(module, names):
@@ -185,6 +222,8 @@ def test_fresh_import_keeps_jax_out():
         "import repro_torch.optim.adamw, repro_torch.data.pipeline\n"
         "import repro_torch.checkpoint.checkpoint\n"
         "import repro_torch.distributed.compression\n"
+        "import repro_torch.core.schedule, repro_torch.core.distributed\n"
+        "import repro_torch.launch.mesh\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

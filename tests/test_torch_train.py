@@ -647,10 +647,66 @@ def test_int8_ef_compression_converges(tmp_path):
     assert np.mean(res.losses[-5:]) < np.mean(res.losses[:5]) - 0.03
 
 
-def test_reshard_waits_for_multi_gpu():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tloop.train(_loop_cfg(), LOOP_PCFG, TrainConfig(total_steps=1),
-                    reshard_cfg=object(), device="cpu")
+def test_reshard_waits_for_multi_gpu(monkeypatch):
+    """Re-sharding in the train loop (this test held the loop's refusal
+    before the multi-GPU slice ported it): probing every step never
+    touches the computed values — losses and gating stats equal the run
+    with re-sharding off, bit for bit — and each step's `imbalance`,
+    `resharded` and `offsets` equal the reference loop's controller fed
+    the reference's probe body on the same parameters and tokens. The
+    embedding gets a seeded id→norm profile, so the probe's V varies
+    with the batch."""
+    from repro.core import schedule as RS
+    from repro_torch.core.schedule import ReshardConfig
+
+    cfg = get_config("starcoder2-7b").reduced()
+    params = M.init_params(cfg, LOOP_PCFG, 0, device="cpu")
+    scale = np.exp(2.0 * np.random.default_rng(0).standard_normal(cfg.vocab))
+    params["embed"]["embedding"].mul_(
+        torch.as_tensor(scale, dtype=torch.float32)[:, None])
+    monkeypatch.setattr(M, "init_params",
+                        lambda *a, **k: T.map_(torch.clone, params))
+    probes = []
+    orig = M.reshard_probe
+
+    def recording(controller, ctx, p, step, **kw):
+        probes.append((step, p["embed"]["embedding"].detach().numpy().copy(),
+                       p["unembed"]["kernel"].detach().numpy().copy(),
+                       np.asarray(kw["tokens"])))
+        return orig(controller, ctx, p, step, **kw)
+
+    monkeypatch.setattr(M, "reshard_probe", recording)
+    tau = 32.0
+    kw = dict(global_batch=4, seq_len=64, log_every=0, device="cpu",
+              spamm_cfg=SpammConfig(enable=True, tau=tau, tile=TILE,
+                                    backend="torch"))
+    tcfg = TrainConfig(lr=1e-3, total_steps=5, warmup=1, ckpt_every=0)
+    on = tloop.train(cfg, LOOP_PCFG, tcfg, reshard_cfg=ReshardConfig(
+        num_devices=4, every=1, drift_threshold=1.0), **kw)
+    off = tloop.train(cfg, LOOP_PCFG, tcfg, **kw)
+    assert on.losses == off.losses
+    keys = ("imbalance", "resharded", "offsets", "loads")
+    assert [{k: v for k, v in s.items() if k not in keys}
+            for s in on.spamm_stats] == off.spamm_stats
+    assert "resharded" not in off.spamm_stats[0]
+    rc = RS.ReshardController(RS.ReshardConfig(num_devices=4, every=1,
+                                               drift_threshold=1.0))
+    rctx = rmodule.SpammContext(RSpamm(enable=True, tau=tau, tile=TILE,
+                                       backend="jnp"))
+    assert [p[0] for p in probes] == list(range(5))
+    for (step, emb, unemb, toks), sp in zip(probes, on.spamm_stats):
+        RM.reshard_probe(rc, rctx, {"embed": {"embedding": jnp.asarray(emb)},
+                                    "unembed": {"kernel": jnp.asarray(unemb)}},
+                         step, tokens=toks)
+        assert sp["resharded"] == rc.resharded, step
+        assert sp["offsets"] == [int(o) for o in rc.offsets], step
+        assert sp["imbalance"] == pytest.approx(rc.live_imbalance,
+                                                rel=1e-6), step
+        np.testing.assert_allclose(sp["loads"], rc.live_loads, rtol=1e-6)
+    assert rc.resharded >= 1, rc.history
+    assert on.obs.tracer.span_names() >= {"reshard_probe"}
+    text = on.obs.registry.render_prometheus()
+    assert "spamm_reshard_probes_total 5" in text
 
 
 def test_train_cli_on_cpu(tmp_path):
