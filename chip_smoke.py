@@ -23,7 +23,8 @@ bit. The device time of each get-norm kernel at the prefill and decode
 activation shapes and at w1 is read from the profiler, beside the
 wrapper's host cost per call; the get-norm pair is also timed back to back
 at w1 and at the prefill activation. It then serves starcoder2-7b at full
-width (d=4608, ff=18432, 36/4 heads, 32 layers, random weights from a seed) through `Engine.generate`: dense, τ = 0 and a τ > 0 derived from the first
+width (d=4608, ff=18432, 36/4 heads, SERVE_LAYERS of its 32 layers, random
+weights from a seed) through `Engine.generate`: dense, τ = 0 and a τ > 0 derived from the first
 gated GEMM of a decode step (so that both prefill and decode keep part of
 their tiles), then at that τ with int8 and with bf16 GEMMs; and checks at
 layer-0 wq that the int8 and bf16 gates keep every tile the f32 gate keeps.
@@ -37,7 +38,7 @@ bit, and its device time is read at tiles 16 and 32 of the activation and
 on one N = 16384 library operand, beside the CUDA-core pair's; an empty
 kernel's device time is printed as launch_floor_ms.
 
-Store: at run (c)'s τ, every gated weight of the full-depth model is frozen
+Store: at run (c)'s τ, every gated weight of run (c)'s model is frozen
 into a fresh plan store (the offline `populate` walk); a fresh
 `Engine(plan_store=…)` then serves the wave from store hits only, with no
 get-norm launch while it freezes and run (c)'s tokens and prefill logits
@@ -57,7 +58,7 @@ bytes, valid fractions) and served again eagerly, bit for bit.
 Obs: run (c)'s engine (the observability bundle on, graphed) against a
 second engine of the same params and frozen weights with obs=False: tokens,
 every step's logits and launches bit for bit, the same device nodes per
-replayed decode step, per_layer with all 32 layers × 6 sites (192 cells)
+replayed decode step, per_layer with every layer × 6 sites
 summing to the wave's aggregates, a graphed wave's cells equal to an eager
 wave's, the Prometheus dump through `parse_prometheus`, and the Chrome
 trace (written under chiprun_out/chip_smoke_obs/) holding the engine's
@@ -164,6 +165,31 @@ predicted imbalance, graphed ≡ eager at the live cut; (m5)
 MULTI_TRAIN_STEPS train-loop steps with re-sharding ≡ without (losses,
 gradient norms, final parameters).
 
+Tp (`phase_tp`, after multi), the model parallelism of the model on the
+one card: 4 gloo ranks share cuda:0 as a 2×2 (data, model) mesh (not a
+multi-card time), each holding its shards (`models.model.placements`,
+`shard_params`); the unsharded runs first on cuda:0. (p1) starcoder2-7b
+at full width and TP_LAYERS layers, FSDP off: prefill of TP_BATCH ×
+TP_PLEN tokens and TP_NEW decode steps on a sequence-sharded cache
+(flash-decoding merge over "model"), dense, τ = 0 and τ > 0 (layer 0
+wq's median product; decode through each rank's frozen slices), fed the
+unsharded port's greedy tokens per data shard: logits within
+TP_LOGIT_RTOL, dense and τ = 0 tokens equal, each gated prefill GEMM's
+global valid fraction (the model ranks' counts summed) equal to the
+unsharded one, rows 1 and 2 launched on every rank; (p2) (p1)'s prefill
+under Megatron-SP; (p3) TP_TRAIN_STEPS train-loop steps with FSDP and
+remat full against the same loop on one device (losses within 1e-5,
+parameters within TP_PARAM_ATOL, first moments within TP_MU_RTOL), then
+one int8_ef step against the same step on one device (its residuals' and
+its update's sums of squares per shard within TP_INT8_RTOL, the loss of a
+following forward within 1e-5); (p4)
+qwen2-moe-a2.7b at full width and TP_MOE_LAYERS layers, impl tp and ep
+at τ > 0 with `moe_bmm` (row 6 launches): tp ≡ ep and both against the
+unsharded prefill per data shard; (p5) (p3)'s parameters and moments
+written as each rank's shards, put together by the 3 surviving ranks
+and re-placed on `best_mesh_shape(3, 2)` = (3, 1) bit for bit, then one
+step with a finite loss.
+
 Every result line is a JSON object; the line before the last lists nine
 kernel entries (the work-list GEMM twice, f32 and bf16; each of the
 get-norm pair twice, CUDA-core and tensor-core) with their launches on
@@ -171,8 +197,8 @@ their path (the τ > 0 serving run at its dtype, the store walk, the
 library path, or the dense-grid GEMM's qwen2-moe τ > 0 wave; the f32 pair
 also on run (f), the MoE wave, the last families' τ > 0 waves and the
 training runs, with row 2's times at the backward products' shapes),
-errors, times and bounds, and each entry's multi_launches on the multi
-phase's cells ((m2) and (m3) summed over the ranks);
+errors, times and bounds, and each entry's multi_launches and
+tp_launches on the multi and tp phases' cells (summed over the ranks);
 the last line is {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
 src/ beside it, it exits 2 and prints no result.
@@ -198,6 +224,10 @@ DEV = "cuda"
 STORE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "plan_store")
 ARCH = "starcoder2-7b"
+# the serving, store, chunked, obs and autotune runs: starcoder2-7b at full
+# width and this depth of its 32 layers, cut for the smoke's time limit
+# (the checks do not depend on the depth; every gated site of a layer runs)
+SERVE_LAYERS = 8
 TILE = 64
 BATCH, PROMPT_LEN, MAX_NEW = 4, 128, 16
 DECAY_N, DECAY_LAM = 4096, 0.999
@@ -253,7 +283,8 @@ FAMILY_MAX_LEN = 512
 # remainder
 SSM_LONG_PROMPT = 320
 # the store phase's use_mxu walks run at this depth (the walk's checks do
-# not depend on it; the cold and warm run (c) walks stay at full depth)
+# not depend on it; the cold and warm run (c) walks take every layer of run
+# (c)'s model)
 STORE_MXU_LAYERS = 8
 # the training phase: starcoder2-7b at full width and this depth (1.32 B
 # parameters; the whole model's f32 parameters, gradients and two AdamW
@@ -286,7 +317,7 @@ NORM_RTOL = 1e-5
 # the output's largest magnitude; also the bf16 kernel (tensor-core MMA
 # sums) against the f32 kernel on the rounded operands and its plain version
 MM_RTOL = 1e-4
-# τ = 0 vs dense prefill logits after 32 f32 layers (reassociated sums),
+# τ = 0 vs dense prefill logits after up to 32 f32 layers (reassociated sums),
 # relative to the logits' largest magnitude
 LOGIT_RTOL = 1e-3
 # int8 work-list vs the f32 kernel on the dequantized operands, relative to
@@ -331,6 +362,40 @@ MULTI_BATCH, MULTI_PLEN, MULTI_NEW = 512, 64, 8
 MULTI_PROBE_WINDOW = 32
 MULTI_HOT, MULTI_COLD = 4.0, 0.04
 MULTI_TRAIN_STEPS = 2
+# the tp phase (after multi): model parallelism of the model over a 2×2
+# (data, model) mesh of TP_RANKS gloo ranks sharing cuda:0 (not a
+# multi-card time). (p1) starcoder2-7b at full width and TP_LAYERS of its
+# 32 layers, TP_BATCH prompts of TP_PLEN tokens, TP_NEW decode steps on a
+# TP_MAX_LEN-slot sequence-sharded cache, dense, τ = 0 and τ > 0, FSDP off
+# (serving); (p2) (p1)'s prefill under Megatron-SP; (p3) TP_TRAIN_STEPS
+# train-loop steps with FSDP and remat full, TP_BATCH × TP_TRAIN_SEQ
+# tokens, then one int8_ef step; (p4) qwen2-moe-a2.7b at full width and
+# TP_MOE_LAYERS of its 24 layers, impl tp and ep at τ > 0 (moe_bmm);
+# (p5) (p3)'s state re-placed onto the 3 surviving ranks.
+TP_RANKS = 4
+TP_MESH = (2, 2)
+TP_LAYERS = 2
+TP_BATCH, TP_PLEN, TP_NEW, TP_MAX_LEN = 4, 128, 8, 256
+TP_TRAIN_SEQ, TP_TRAIN_STEPS = 256, 2
+TP_MOE_LAYERS = 2
+# sharded against unsharded logits, relative to the logits' largest
+# magnitude: f32 row-parallel partial sums added over the model ranks (and,
+# at τ > 0, a gate flipped at a tie by an ulp of a layer-1 norm)
+TP_LOGIT_RTOL = 1e-4
+# parameters after TP_TRAIN_STEPS steps (lr_at(1) = TRAIN_LR / 2, then
+# TRAIN_LR), absolute: a fifth of one step. AdamW divides each gradient
+# element by its own magnitude, so only an element whose gradient sits at
+# the rounding level of the reordered sums may move by more; wrong, zero
+# or sign-flipped gradients move most elements by a whole step
+TP_PARAM_ATOL = TRAIN_LR / 5
+# first moments after TP_TRAIN_STEPS steps, per leaf: ‖Δμ‖ / ‖μ‖ on each
+# rank's shard (μ is linear in the gradients, so a gradient off by any
+# factor shows here even where AdamW's normalization hides it)
+TP_MU_RTOL = 1e-4
+# the int8_ef step, per leaf and shard: the sums of squares of the error
+# feedback residuals and of the parameters' update (a scale taken over
+# one shard, not the whole leaf, re-grids every residual)
+TP_INT8_RTOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -1615,13 +1680,15 @@ def check_superset(cfg, params, prompts, tau):
 
 
 def phase_serve(profile_path):
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch.configs import ParallelConfig, SpammConfig, get_config
     from repro_torch.models import model as M
 
-    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=SERVE_LAYERS)
     pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=PROMPT_LEN)
     t0 = time.perf_counter()
     params = M.init_params(cfg, pcfg, SEED, device=DEV)
@@ -1631,7 +1698,7 @@ def phase_serve(profile_path):
           "d_ff": cfg.d_ff, "heads": cfg.num_heads,
           "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab,
           "params": n_params, "init_s": time.perf_counter() - t0,
-          "depth_cut": None})
+          "depth_cut": f"{SERVE_LAYERS} of 32 layers"})
     prompts = np.random.default_rng(SEED).integers(
         1, cfg.vocab, size=(BATCH, PROMPT_LEN)).astype(np.int32)
 
@@ -1731,7 +1798,7 @@ def phase_serve(profile_path):
 
 
 def phase_chunked(cfg, pcfg, params, sct):
-    """Run (f), the chunked plane at full width and depth: CHUNK_PLENS
+    """Run (f), the chunked plane at run (c)'s width and depth: CHUNK_PLENS
     prompts (seed 0) through CHUNK_SLOTS slots, chunks of one tile (the
     auto chunk at tile 64), CUDA graphs. At τ = 0 every request's tokens
     equal its solo wave's; at run (c)'s τ a warm wave is measured with
@@ -1837,7 +1904,7 @@ def compare_artifacts(base, other):
 
 
 def phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c):
-    """The offline plan-store path at full width and depth, at run (c)'s
+    """The offline plan-store path at run (c)'s width and depth, at its
     τ: (1) freeze every gated weight into a fresh store (the cold pass of
     `populate`: one get-norm launch per weight, every lookup a miss); (2)
     a fresh `Engine(plan_store=…)` serves the wave warm-started from it:
@@ -1872,7 +1939,7 @@ def phase_store(cfg, pcfg, params, prompts, sct, toks_c, logits_c):
         disk = sum(os.path.getsize(os.path.join(d, f))
                    for d, _, fs in os.walk(root) for f in fs)
         emit({"store_cold": {"weights": n_weights, "layers": cfg.num_layers,
-                             "depth_cut": None, "freeze_s": cold_s / 1e3,
+                             "freeze_s": cold_s / 1e3,
                              "artifacts": len(store), "bytes_on_disk": disk,
                              "hits": store.hits, "misses": store.misses,
                              "launches": cold_counts}})
@@ -2180,7 +2247,7 @@ def phase_autotune(cfg, pcfg, params, prompts, sct, eng_c, profile_path):
     """The roofline autotuner on starcoder2-7b at run (c)'s τ. Tuning: each
     gated site once, on layer 0's weight (`tune_for`, as `freeze_tree`
     tunes), with the calibrated profile and with the nominal one: the
-    picks' histogram over the 192 weights, Σ predicted_us against Σ
+    picks' histogram over the model's gated weights, Σ predicted_us against Σ
     default_predicted_us, the tuning seconds; and with run (c)'s engine's
     observed row grids (`gm_histogram`). Serving: run (c) graphed on the
     tuned artifacts (an engine priced by the calibrated profile) and on run
@@ -2221,7 +2288,7 @@ def phase_autotune(cfg, pcfg, params, prompts, sct, eng_c, profile_path):
         return {"sites": {s: [t.block_n, t.levels, t.bucket, t.predicted_us,
                               t.default_predicted_us, t.profile_key]
                           for s, t in picks.items()},
-                "histogram_192": {str(k): v * cfg.num_layers
+                "histogram": {str(k): v * cfg.num_layers
                                   for k, v in sorted(hist.items())},
                 "predicted_us_sum": cfg.num_layers * sum(
                     t.predicted_us for t in picks.values()),
@@ -3673,50 +3740,31 @@ def multi_train():
                              getnorm.tile_norms_cuda(p0["mix"]["wq"], TILE))
     del base, x0
     torch.cuda.empty_cache()
-    record = {}
-    orig = M.make_train_step
-
-    def recording(*a, **k):
-        step = orig(*a, **k)
-
-        def run(params, state, b, i):
-            params, state, met = step(params, state, b, i)
-            record.setdefault("grad_norm", []).append(
-                float(met["grad_norm"]))
-            record["params"] = params
-            return params, state, met
-
-        return run
-
     runs, seconds = {}, {}
-    M.make_train_step = recording
-    try:
-        for label, rc in (("reshard", ReshardConfig(num_devices=4, every=1)),
-                          ("off", None)):
-            record.clear()
-            torch.cuda.synchronize()
-            reset_counts()
-            t0 = time.perf_counter()
-            res = loop.train(
-                cfg, pcfg, TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP,
-                                       total_steps=MULTI_TRAIN_STEPS,
-                                       ckpt_every=0),
-                global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                spamm_cfg=SpammConfig(enable=True, tau=tau, tile=TILE,
-                                      backend="auto", bwd="spamm"),
-                reshard_cfg=rc, log_every=0, device=DEV)
-            torch.cuda.synchronize()
-            runs[label] = (res, dict(record), read_counts())
-            seconds[label] = time.perf_counter() - t0
-    finally:
-        M.make_train_step = orig
-    (on, rec_on, counts), (off, rec_off, _) = runs["reshard"], runs["off"]
+    for label, rc in (("reshard", ReshardConfig(num_devices=4, every=1)),
+                      ("off", None)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = loop.train(
+            cfg, pcfg, TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                   total_steps=MULTI_TRAIN_STEPS,
+                                   ckpt_every=0),
+            global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+            spamm_cfg=SpammConfig(enable=True, tau=tau, tile=TILE,
+                                  backend="auto", bwd="spamm"),
+            reshard_cfg=rc, log_every=0, device=DEV)
+        torch.cuda.synchronize()
+        res.opt_state = None  # the card keeps one run's moments at a time
+        runs[label] = (res, read_counts())
+        seconds[label] = time.perf_counter() - t0
+    (on, counts), (off, _) = runs["reshard"], runs["off"]
     same_params = all(torch.equal(x, y) for x, y in zip(
-        _leaves(rec_on["params"]), _leaves(rec_off["params"])))
+        _leaves(on.params), _leaves(off.params)))
     res = {"card": CARD, "layers": TRAIN_LAYERS, "tau": tau,
            "steps": MULTI_TRAIN_STEPS, "losses": on.losses,
-           "losses_off": off.losses, "grad_norms": rec_on["grad_norm"],
-           "grad_norms_off": rec_off["grad_norm"],
+           "losses_off": off.losses, "grad_norms": on.grad_norms,
+           "grad_norms_off": off.grad_norms,
            "final_params_bit_identical": same_params,
            "reshard": [{k: s.get(k) for k in ("imbalance", "resharded",
                                                "offsets", "loads")}
@@ -3724,10 +3772,10 @@ def multi_train():
            "launches": counts, "seconds": seconds}
     emit({"multi_m5": res})
     check(on.losses == off.losses
-          and rec_on["grad_norm"] == rec_off["grad_norm"] and same_params
+          and on.grad_norms == off.grad_norms and same_params
           and all(s["imbalance"] is not None for s in on.spamm_stats),
           f"(m5) re-sharding changed the training run: {res}")
-    del rec_on, rec_off, runs
+    del on, off, runs
     torch.cuda.empty_cache()
     return counts
 
@@ -3740,6 +3788,722 @@ def phase_multi():
     counts = multi_library()
     counts["m4"] = multi_engine()
     counts["m5"] = multi_train()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# tp: model parallelism of the model over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+def _tp_ctx(mesh, cfg, pcfg, params=None):
+    """The NetCtx of `mesh` with the placements of `params` (or of the
+    model's own shapes)."""
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import model as M
+
+    ctx = MS.make_ctx(mesh, tile=TILE)
+    if params is None:
+        return M.with_placements(ctx, cfg, pcfg)
+    return ctx.replace(specs=M.placements(cfg, pcfg, params, ctx,
+                                          tile=TILE))
+
+
+def _tp_rows(t, ctx):
+    w = t.shape[0] // ctx.ndata
+    return t[ctx.data_index * w:(ctx.data_index + 1) * w]
+
+
+def _tp_specialize(tree, gm):
+    if isinstance(tree, dict):
+        return {k: _tp_specialize(v, gm) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tp_specialize(v, gm) for v in tree]
+    return tree.for_rows(gm)
+
+
+def _tp_serve(cfg, pcfg, params, prompts, feed, spamm_cfg, ctx=None):
+    """Prefill of `prompts`, then TP_NEW decode steps fed `feed` (B, TP_NEW)
+    (each step's input token; None: greedy, the previous logits' argmax),
+    decode gated through frozen plans of the weights this rank computes
+    with. Returns (prefill logits, [decode logits], prefill taps, the fed
+    tokens) as host arrays."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.module import SpammContext
+    from repro_torch.models import model as M
+    from repro_torch.plans.precompute import freeze_tree
+
+    sc = SpammContext(spamm_cfg) if spamm_cfg is not None else None
+    with torch.no_grad():
+        if sc is not None:
+            sc.begin_stats()
+        cache, logits = M.make_prefill_step(cfg, pcfg, spamm_cfg=sc,
+                                            ctx=ctx)(
+            params, {"tokens": torch.as_tensor(prompts, device=DEV)})
+        taps = [t.value for t in sc.end_stats()] if sc is not None else []
+        cache = M.place_cache(cache, cfg, pcfg, TP_MAX_LEN, ctx=ctx)
+        frozen = None
+        if sc is not None:
+            fw, _ = freeze_tree(M.compute_params(params, cfg, ctx),
+                                spamm_cfg)
+            frozen = _tp_specialize(fw, -(-prompts.shape[0] // TILE))
+        step = M.make_decode_step(cfg, pcfg, spamm_cfg=sc, ctx=ctx)
+        greedy = feed is None
+        if greedy:
+            feed = np.zeros((prompts.shape[0], TP_NEW), np.int64)
+        lg = logits
+        dec = []
+        for i in range(TP_NEW):
+            if greedy:
+                feed[:, i] = lg.argmax(-1).cpu().numpy()
+            lg, cache = step(params, torch.as_tensor(
+                feed[:, i:i + 1], device=DEV), cache, TP_PLEN + i, frozen)
+            dec.append(lg.cpu().numpy())
+    torch.cuda.synchronize()
+    return logits.cpu().numpy(), dec, taps, feed
+
+
+def _tp_train(cfg, pcfg, tcfg, ctx=None):
+    """TP_TRAIN_STEPS steps of the train loop (`train.loop.train`) from
+    init_params(SEED), over `ctx`'s mesh when given; returns (losses,
+    params, opt_state) after the last step."""
+    from repro_torch.train import loop
+
+    res = loop.train(cfg, pcfg, tcfg, global_batch=TP_BATCH,
+                     seq_len=TP_TRAIN_SEQ, log_every=0, device=DEV, ctx=ctx)
+    return res.losses, res.params, res.opt_state
+
+
+def _tp_int8_step(cfg, pcfg, tcfg, params, state, batch, ctx=None):
+    """One AdamW step with int8_ef compression (fresh residuals) from
+    `params`/`state` (updated in place), at step TP_TRAIN_STEPS of a
+    schedule two steps longer (so its learning rate is not 0). Returns its
+    loss, the loss of a following forward on the same batch, the
+    parameters before the step, and the parameters and state after it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.distributed.compression import Int8EF
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+
+    opt = AdamW(dataclasses.replace(tcfg, total_steps=TP_TRAIN_STEPS + 2),
+                compression=Int8EF())
+    st = dict(state, ef=T.map_(torch.zeros_like, state["mu"]))
+    before = T.map_(lambda t: t.detach().clone(), params)
+    step = M.make_train_step(cfg, pcfg, opt, ctx=ctx)
+    params, st, met = step(params, st, batch, TP_TRAIN_STEPS)
+    with torch.no_grad():
+        nxt, _ = M.loss_fn(cfg, pcfg, params, batch, ctx=ctx)
+    torch.cuda.synchronize()
+    return float(met["loss"]), float(nxt), before, params, st
+
+
+def _tp_sumsq(params, before, ef, specs, coord=None):
+    """{path: [Σ ef², Σ (params − before)²]} over each leaf as held (a
+    rank's shards), or over the shard at `coord` of whole leaves, in
+    f64."""
+    out = {}
+    for path, spec in _tp_spec_items(specs):
+        p, b, e = (_tp_leaf(t, path).detach() for t in (params, before, ef))
+        if coord is not None:
+            p, b, e = (_tp_cut(t, spec, coord) for t in (p, b, e))
+        p, b, e = p.double(), b.double(), e.double()
+        out[path] = [float((e * e).sum()), float(((p - b) ** 2).sum())]
+    return out
+
+
+class _TpCoord:
+    """The (data, model) coordinates of one rank of TP_MESH, for `_tp_cut`
+    in the process that holds the whole trees."""
+
+    def __init__(self, data, model):
+        self._ix = {"data": data, "model": model}
+
+    def size(self, ax):
+        return TP_MESH[("data", "model").index(ax)]
+
+    def index(self, ax):
+        return self._ix[ax]
+
+
+def _tp_rel(got, want, scale=None):
+    """|got − want| / |scale| (scale: want); 0 or inf where the scale is
+    0."""
+    scale = want if scale is None else scale
+    d = abs(got - want)
+    return d / abs(scale) if scale else (0.0 if d == 0 else float("inf"))
+
+
+def _tp_configs():
+    import dataclasses
+
+    from repro_torch.configs import ParallelConfig, TrainConfig, get_config
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TP_LAYERS)
+    serve = ParallelConfig(compute_dtype="float32", attn_q_chunk=TP_PLEN,
+                           fsdp=False, decode_seq_shard=True)
+    train = ParallelConfig(compute_dtype="float32", remat="full",
+                           attn_q_chunk=TP_TRAIN_SEQ, loss_chunk=128,
+                           fsdp=True)
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                       total_steps=TP_TRAIN_STEPS, ckpt_every=0)
+    moe = dataclasses.replace(get_config(MOE_ARCH), num_layers=TP_MOE_LAYERS)
+    return cfg, serve, train, tcfg, moe
+
+
+def _tp_rank(rank, job):
+    """One of TP_RANKS gloo ranks on cuda:0, a 2×2 (data, model) mesh:
+    (p1)/(p2) serving, (p3) training and (p5) the elastic move of its
+    state, (p4) the MoE block split both ways. Every launch count is set
+    to 0 just before each run and read just after. Returns host arrays
+    (logits of model rank 0 only) and numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree as T
+    from repro_torch.configs import SpammConfig
+    from repro_torch.core.module import SpammContext
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.device import f32_numerics
+    from repro_torch.distributed import elastic as E
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+
+    f32_numerics()
+    cfg, spcfg, tpcfg, tcfg, moe_cfg = _tp_configs()
+    out = {"rank": rank, "seconds": {}, "launches": {}}
+    mesh = make_mesh(TP_MESH, ("data", "model"), backend="gloo",
+                     device_type="cuda")
+    t0 = time.perf_counter()
+    ctx = _tp_ctx(mesh, cfg, spcfg)
+    local = M.init_params(cfg, spcfg, SEED, device=DEV, ctx=ctx)
+    out["data_index"], out["mrank"] = ctx.data_index, ctx.mrank
+    keep = ctx.mrank == 0
+    prompts = _tp_rows(job["prompts"], ctx)
+    out["seconds"]["setup"] = time.perf_counter() - t0
+
+    # (p1) dense, τ = 0, τ > 0; (p2) SP prefill
+    for mode, tau in (("dense", None), ("tau0", 0.0), ("tau", job["tau"])):
+        sc = (None if tau is None
+              else SpammConfig(enable=True, tau=tau, tile=TILE))
+        feed = _tp_rows(job["feed"][mode], ctx)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        reset_counts()
+        pre, dec, taps, _ = _tp_serve(cfg, spcfg, local, prompts, feed, sc,
+                                      ctx)
+        out["launches"]["p1_" + mode] = read_counts()
+        out["seconds"]["p1_" + mode] = time.perf_counter() - t0
+        out["p1_" + mode] = {"taps": taps,
+                             "argmax": [d.argmax(-1).tolist() for d in dec]}
+        if keep:
+            out["p1_" + mode].update(prefill=pre, decode=dec)
+        if mode != "tau0":
+            sp = dataclasses.replace(spcfg, seq_shard_acts=True)
+            dist.barrier()
+            t0 = time.perf_counter()
+            reset_counts()
+            with torch.no_grad():
+                _, lg = M.make_prefill_step(
+                    cfg, sp, spamm_cfg=(SpammContext(sc) if sc else None),
+                    ctx=ctx)(local, {"tokens": torch.as_tensor(prompts,
+                                                               device=DEV)})
+            torch.cuda.synchronize()
+            out["launches"]["p2_" + mode] = read_counts()
+            out["seconds"]["p2_" + mode] = time.perf_counter() - t0
+            lg = lg.cpu().numpy()
+            out["p2_" + mode] = {"max_abs_vs_p1": float(np.abs(lg - pre)
+                                                       .max())}
+            if keep:
+                out["p2_" + mode]["prefill"] = lg
+    del local
+    torch.cuda.empty_cache()
+
+    # (p3) the train loop with FSDP, then an int8_ef step
+    dist.barrier()
+    t0 = time.perf_counter()
+    reset_counts()
+    tctx = _tp_ctx(mesh, cfg, tpcfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, params, state = _tp_train(cfg, tpcfg, tcfg, tctx)
+    out["launches"]["p3"] = read_counts()
+    out["p3"] = {"losses": losses,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    ref = torch.load(job["train_ref"], mmap=True)
+    worst, mu_err = {}, {}
+    for path, spec in _tp_spec_items(tctx.specs):
+        want = _tp_cut(ref["params/" + path], spec, tctx).to(DEV)
+        got = _tp_leaf(params, path).detach()
+        worst[path] = float((got - want).abs().max())
+        want = _tp_cut(ref["mu/" + path], spec, tctx).to(DEV).double()
+        got = _tp_leaf(state["mu"], path).double()
+        mu_err[path] = _tp_rel(float((got - want).norm()), 0.0,
+                               float(want.norm()))
+    del ref, want, got
+    out["p3"]["param_max_abs_err"] = max(worst.values())
+    out["p3"]["param_worst_leaf"] = max(worst, key=worst.get)
+    out["p3"]["mu_rel_err"] = max(mu_err.values())
+    out["p3"]["mu_worst_leaf"] = max(mu_err, key=mu_err.get)
+    batch = SyntheticLM(cfg, TP_BATCH, TP_TRAIN_SEQ, seed=tcfg.seed,
+                        device=DEV).batch_at(TP_TRAIN_STEPS)
+    batch = {k: _tp_rows(v, tctx) for k, v in batch.items()}
+    loss8, next8, before, p8, st8 = _tp_int8_step(
+        cfg, tpcfg, tcfg, T.map_(lambda t: t.detach().clone(), params),
+        {k: T.map_(lambda t: t.clone(), v) for k, v in state.items()},
+        batch, tctx)
+    out["p3"]["int8"] = {"loss": loss8, "next_loss": next8,
+                         "coord": (tctx.index("data"), tctx.mrank),
+                         "sumsq": _tp_sumsq(p8, before, st8["ef"],
+                                            tctx.specs)}
+    del before, p8, st8
+    out["seconds"]["p3"] = time.perf_counter() - t0
+
+    # (p5) the state onto the surviving ranks 0-2: each rank writes its
+    # shards (the sharded checkpoint), the survivors put the whole state
+    # together from the four files and re-place it on the best mesh
+    dist.barrier()
+    t0 = time.perf_counter()
+    flat = {f"{name}/{path}": t.detach().cpu() for name, tree in
+            (("params", params), ("mu", state["mu"]), ("nu", state["nu"]))
+            for path, t in T.flatten_with_paths(tree)}
+    flat["coords"] = (tctx.index("data"), tctx.mrank)
+    torch.save(flat, os.path.join(job["shard_dir"], f"rank{rank}.pt"))
+    del flat, params, state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"]["p5_write"] = time.perf_counter() - t0
+    new_mesh = E.build_elastic_mesh(range(3), model_parallel=TP_MESH[1],
+                                    device_type="cuda")
+    out["p5"] = {"mesh": list(new_mesh.shape)}
+    if new_mesh.get_coordinate() is not None:
+        files = [torch.load(os.path.join(job["shard_dir"], f"rank{r}.pt"),
+                            mmap=True) for r in range(TP_RANKS)]
+        by_coord = {f["coords"]: f for f in files}
+        whole = {name: _tp_tree(by_coord, name, tctx.specs)
+                 for name in ("params", "mu", "nu")}
+        del files, by_coord
+        moved = E.reshard_state(
+            {"params": whole["params"],
+             "opt_state": {"mu": whole["mu"], "nu": whole["nu"]}},
+            cfg, tpcfg, new_mesh, tile=TILE, device=DEV)
+        c3 = MS.make_ctx(new_mesh, tile=TILE, specs=moved["specs"])
+        same = True
+        for path, spec in _tp_spec_items(c3.specs):
+            for name, got in (("params", moved["params"]),
+                              ("mu", moved["opt_state"]["mu"]),
+                              ("nu", moved["opt_state"]["nu"])):
+                want = _tp_slice3(_tp_leaf(whole[name], path), spec,
+                                  c3.data_index)
+                same &= torch.equal(_tp_leaf(got, path).cpu(), want)
+        out["p5"]["bitwise"] = bool(same)
+        del whole
+        out["seconds"]["p5_move"] = time.perf_counter() - t0
+        from repro_torch.optim.adamw import AdamW
+
+        step = M.make_train_step(cfg, tpcfg, AdamW(tcfg), ctx=c3)
+        b3 = SyntheticLM(cfg, 3, TP_TRAIN_SEQ, seed=tcfg.seed,
+                         device=DEV).batch_at(TP_TRAIN_STEPS)
+        b3 = {k: _tp_rows(v, c3) for k, v in b3.items()}
+        _, _, met = step(moved["params"], moved["opt_state"], b3,
+                         TP_TRAIN_STEPS)
+        out["p5"]["loss"] = float(met["loss"])
+        del moved, step
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["seconds"]["p5"] = time.perf_counter() - t0
+
+    # (p4) the MoE block split over "model": tp, then ep
+    dist.barrier()
+    t0 = time.perf_counter()
+    mprompts = _tp_rows(job["moe_prompts"], ctx)
+    sc = SpammConfig(enable=True, tau=job["moe_tau"], tile=TILE,
+                     moe_bmm=True)
+    impls = {impl: dataclasses.replace(moe_cfg, moe=dataclasses.replace(
+        moe_cfg.moe, impl=impl)) for impl in ("tp", "ep")}
+    for impl, c in impls.items():
+        mctx = _tp_ctx(mesh, c, spcfg)
+        loc = M.init_params(c, spcfg, SEED, device=DEV, ctx=mctx)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t1 = time.perf_counter()
+        reset_counts()
+        msc = SpammContext(sc)
+        msc.begin_stats()
+        with torch.no_grad():
+            _, lg = M.make_prefill_step(c, spcfg, spamm_cfg=msc, ctx=mctx)(
+                loc, {"tokens": torch.as_tensor(mprompts, device=DEV)})
+        torch.cuda.synchronize()
+        out["launches"]["p4_" + impl] = read_counts()
+        out["p4_taps_" + impl] = [(t.site, t.value)
+                                  for t in msc.end_stats()]
+        out["seconds"]["p4_" + impl] = time.perf_counter() - t1
+        with torch.no_grad():
+            _, dense = M.make_prefill_step(c, spcfg, ctx=mctx)(
+                loc, {"tokens": torch.as_tensor(mprompts, device=DEV)})
+        if keep:
+            out["p4_" + impl] = lg.cpu().numpy()
+            out["p4_dense_" + impl] = dense.cpu().numpy()
+        del loc
+        torch.cuda.empty_cache()
+    out["seconds"]["p4"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_spec_items(specs, prefix=""):
+    """[(path, placement)] of a placement tree, paths as
+    `tree.flatten_with_paths` writes them."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs)
+                for x in _tp_spec_items(specs[k], f"{prefix}{k}/")]
+    if isinstance(specs, list):
+        return [x for i, v in enumerate(specs)
+                for x in _tp_spec_items(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], specs)]
+
+
+def _tp_leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+def _tp_cut(t, spec, ctx):
+    """The rank's shard of a whole leaf (the placement's cut)."""
+    for dim, entry in enumerate(spec):
+        for ax in ((entry,) if isinstance(entry, str) else entry or ()):
+            n, i = ctx.size(ax), ctx.index(ax)
+            w = t.shape[dim] // n
+            t = t.narrow(dim, i * w, w)
+    return t
+
+
+def _tp_tree(by_coord, name, specs):
+    """The whole `name` tree ("params", "mu" or "nu") put together from the
+    ranks' saved shards, {(data, model) coordinate: flat shard dict}: each
+    leaf's shards concatenated along its placed dims."""
+    def whole(spec, prefix):
+        if isinstance(spec, dict):
+            return {k: whole(v, f"{prefix}{k}/") for k, v in spec.items()}
+        if isinstance(spec, list):
+            return [whole(v, f"{prefix}{i}/") for i, v in enumerate(spec)]
+        key = f"{name}/{prefix[:-1]}"
+        dims = {e: d for d, e in enumerate(spec) if e is not None}
+        rows = []
+        for di in range(TP_MESH[0]) if "data" in dims else (0,):
+            parts = [by_coord[di, mi][key] for mi in
+                     (range(TP_MESH[1]) if "model" in dims else (0,))]
+            rows.append(torch.cat(parts, dims["model"]) if "model" in dims
+                        else parts[0])
+        return torch.cat(rows, dims["data"]) if "data" in dims else rows[0]
+
+    import torch
+
+    return whole(specs, "")
+
+
+def _tp_slice3(t, spec, r):
+    """What data rank r of a (3, 1) mesh must hold of a whole leaf: chunk r
+    of 3 along the dim placed on "data", else all of it (written apart
+    from `shard_params`)."""
+    for dim, entry in enumerate(spec):
+        if entry == "data":
+            w = t.shape[dim] // 3
+            return t[(slice(None),) * dim + (slice(r * w, (r + 1) * w),)]
+    return t
+
+
+def _tp_keep_some(cfg, pcfg, params, prompts, tau, **kw):
+    """τ, halved until every gated GEMM of an unsharded prefill of
+    `prompts` keeps at least 5 % of its tiles (a GEMM gated to 0 would
+    hide the sums of its split). Returns τ."""
+    import torch
+
+    from repro_torch.configs import SpammConfig
+    from repro_torch.core.module import SpammContext
+    from repro_torch.models import model as M
+
+    for _ in range(12):
+        probe = SpammContext(SpammConfig(enable=True, tau=tau, tile=TILE,
+                                         **kw))
+        probe.begin_stats()
+        with torch.no_grad():
+            M.make_prefill_step(cfg, pcfg, spamm_cfg=probe)(
+                params, {"tokens": torch.as_tensor(prompts, device=DEV)})
+        if min(t.value for t in probe.end_stats()) >= 0.05:
+            return tau
+        tau /= 2
+    raise SmokeFailure(f"no τ keeps 5 % of every gated GEMM: {tau}")
+
+
+def phase_tp():
+    """(p1)-(p5), the model parallelism of the port on the one card (see
+    the TP_* constants): the unsharded runs on cuda:0 here, then TP_RANKS
+    gloo ranks spawned on cuda:0 (`_tp_rank`; the kernels are built
+    already). Returns {cell: launches summed over the ranks}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.configs import SpammConfig
+    from repro_torch.kernels import getnorm
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rms_norm
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    main_gb = torch.cuda.memory_reserved() / 1e9
+    cfg, spcfg, tpcfg, tcfg, moe_cfg = _tp_configs()
+    rng = np.random.default_rng(SEED + 7)
+    prompts = rng.integers(1, cfg.vocab, size=(TP_BATCH, TP_PLEN))
+    moe_prompts = rng.integers(1, moe_cfg.vocab, size=(TP_BATCH, TP_PLEN))
+    params = M.init_params(cfg, spcfg, SEED, device=DEV)
+    x0 = rms_norm(params["embed"]["embedding"][torch.as_tensor(
+        prompts[:TP_BATCH // 2], device=DEV)], params["layers"][0]["ln1"],
+        cfg.norm_eps).reshape(-1, cfg.d_model)
+    tau = median_product_tau(
+        getnorm.tile_norms_cuda(x0, TILE),
+        getnorm.tile_norms_cuda(params["layers"][0]["mix"]["wq"], TILE))
+    tau = _tp_keep_some(cfg, spcfg, params, prompts[:TP_BATCH // 2], tau)
+    # the unsharded port on each data shard's rows (a decode row tile holds
+    # only its shard's rows), greedy: its tokens feed the sharded run
+    half = TP_BATCH // TP_MESH[0]
+    unsharded, feed = {}, {}
+    for mode, t in (("dense", None), ("tau0", 0.0), ("tau", tau)):
+        sc = None if t is None else SpammConfig(enable=True, tau=t, tile=TILE)
+        runs = []
+        for d in range(TP_MESH[0]):
+            pre, dec, taps, fd = _tp_serve(
+                cfg, spcfg, params, prompts[d * half:(d + 1) * half], None,
+                sc)
+            runs.append({"prefill": pre, "decode": dec, "taps": taps,
+                         "feed": fd})
+        unsharded[mode] = runs
+        feed[mode] = np.concatenate([r["feed"] for r in runs])
+    del params, x0
+    torch.cuda.empty_cache()
+    # (p3) unsharded: the same loop on one device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    losses1, p1, st1 = _tp_train(cfg, tpcfg, tcfg)
+    train1_s = time.perf_counter() - t0
+    train1_gb = torch.cuda.max_memory_allocated() / 1e9
+    ref_path = os.path.join(tempfile.gettempdir(), "chip_smoke_tp_ref.pt")
+    torch.save({f"{name}/{path}": t.detach().cpu()
+                for name, tree in (("params", p1), ("mu", st1["mu"]))
+                for path, t in T.flatten_with_paths(tree)}, ref_path)
+    from repro_torch.data.pipeline import SyntheticLM
+
+    batch = SyntheticLM(cfg, TP_BATCH, TP_TRAIN_SEQ, seed=tcfg.seed,
+                        device=DEV).batch_at(TP_TRAIN_STEPS)
+    loss8, next8, before, p8, st8 = _tp_int8_step(cfg, tpcfg, tcfg, p1, st1,
+                                                  batch)
+    tspecs = M.placements(cfg, tpcfg, M.init_params(
+        cfg, tpcfg, device="meta", model_axis_size=TP_MESH[1]),
+        dict(zip(("data", "model"), TP_MESH)), tile=TILE)
+    sumsq8 = {(d, m): _tp_sumsq(p8, before, st8["ef"], tspecs,
+                                _TpCoord(d, m))
+              for d in range(TP_MESH[0]) for m in range(TP_MESH[1])}
+    del p1, st1, batch, before, p8, st8
+    torch.cuda.empty_cache()
+    # (p4) unsharded: the MoE model's prefill per data shard at τ > 0
+    mp = M.init_params(moe_cfg, spcfg, SEED, device=DEV)
+    mx = rms_norm(mp["embed"]["embedding"][torch.as_tensor(
+        moe_prompts[:half], device=DEV)], mp["layers"][0]["ln2"],
+        moe_cfg.norm_eps).reshape(-1, moe_cfg.d_model)
+    moe_tau = median_product_tau(
+        getnorm.tile_norms_cuda(mx, TILE),
+        getnorm.tile_norms_cuda(mp["layers"][0]["moe"]["w1"][0], TILE))
+    from repro_torch.core.module import SpammContext
+
+    # the routed experts' buffers hold ≈ t·k/E rows of each 64-row tile
+    # and the down-projections' inputs are smaller than the layer's, so
+    # their products sit below layer 0's
+    moe_tau = _tp_keep_some(moe_cfg, spcfg, mp, moe_prompts[:half], moe_tau,
+                            moe_bmm=True)
+    msc = SpammConfig(enable=True, tau=moe_tau, tile=TILE, moe_bmm=True)
+    moe1, moe1_dense = [], []
+    with torch.no_grad():
+        for d in range(TP_MESH[0]):
+            rows = {"tokens": torch.as_tensor(
+                moe_prompts[d * half:(d + 1) * half], device=DEV)}
+            _, lg = M.make_prefill_step(moe_cfg, spcfg,
+                                        spamm_cfg=SpammContext(msc))(mp, rows)
+            moe1.append(lg.cpu().numpy())
+            _, lg = M.make_prefill_step(moe_cfg, spcfg)(mp, rows)
+            moe1_dense.append(lg.cpu().numpy())
+    del mp, mx
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    shard_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    job = {"prompts": prompts, "feed": feed, "tau": tau,
+           "moe_prompts": moe_prompts, "moe_tau": moe_tau,
+           "train_ref": ref_path, "shard_dir": shard_dir}
+    try:
+        ranks = MS.spawn_ranks(_tp_rank, TP_RANKS, backend="gloo",
+                               devices=[torch.device("cuda", 0)] * TP_RANKS,
+                               args=(job,), timeout_s=600)
+    finally:
+        os.remove(ref_path)
+        shutil.rmtree(shard_dir, ignore_errors=True)
+    spawn_s = time.perf_counter() - t0
+
+    def by_shard(key, sub):
+        return {r["data_index"]: r[key][sub] for r in ranks
+                if r["mrank"] == 0}
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    res = {"card": CARD, "mesh": list(TP_MESH), "backend": "gloo",
+           "devices": "cuda:0 shared by 4 ranks", "tau": tau,
+           "moe_tau": moe_tau, "layers": TP_LAYERS,
+           "main_process_reserved_gb": main_gb,
+           "note": "ranks share one card: not a multi-card time"}
+    for mode in ("dense", "tau0", "tau"):
+        pre = by_shard("p1_" + mode, "prefill")
+        dec = by_shard("p1_" + mode, "decode")
+        ref = unsharded[mode]
+        cell = {"prefill_rel_err": max(rel(pre[d], ref[d]["prefill"])
+                                       for d in pre),
+                "decode_rel_err": max(rel(dec[d][i], ref[d]["decode"][i])
+                                      for d in dec for i in range(TP_NEW)),
+                "tokens_equal": all(
+                    r["p1_" + mode]["argmax"] == [
+                        x.argmax(-1).tolist() for x in
+                        ref[r["data_index"]]["decode"]] for r in ranks)}
+        if mode != "dense":
+            # the global fraction of each gated prefill GEMM: the model
+            # ranks' counts summed in the taps; the data shards' equal
+            # shares averaged against the unsharded port per shard
+            got = [r["p1_" + mode]["taps"] for r in ranks]
+            want = [ref[r["data_index"]]["taps"] for r in ranks]
+            cell["taps"] = len(got[0])
+            cell["fraction_max_abs_diff"] = max(
+                abs(a - b) for g, w in zip(got, want) for a, b in zip(g, w))
+            cell["fractions"] = got[0]
+        cell["seconds"] = [r["seconds"]["p1_" + mode] for r in ranks]
+        res["p1_" + mode] = cell
+    for mode in ("dense", "tau"):
+        res["p2_" + mode] = {
+            "prefill_rel_err": max(rel(by_shard("p2_" + mode, "prefill")[d],
+                                       unsharded[mode][d]["prefill"])
+                                   for d in range(TP_MESH[0])),
+            "max_abs_vs_p1": max(r["p2_" + mode]["max_abs_vs_p1"]
+                                 for r in ranks)}
+    int8_err = {}
+    for r in ranks:
+        i8 = r["p3"]["int8"]
+        for path, pair in i8["sumsq"].items():
+            want = sumsq8[tuple(i8["coord"])][path]
+            for what, g, w in zip(("ef", "update"), pair, want):
+                key = f"{what}:{path}"
+                int8_err[key] = max(int8_err.get(key, 0.0), _tp_rel(g, w))
+    worst8 = max(int8_err, key=int8_err.get)
+    res["p3"] = {"losses": ranks[0]["p3"]["losses"],
+                 "losses_unsharded": losses1,
+                 "param_max_abs_err": max(r["p3"]["param_max_abs_err"]
+                                          for r in ranks),
+                 "param_worst_leaf": ranks[0]["p3"]["param_worst_leaf"],
+                 "param_atol": TP_PARAM_ATOL,
+                 "mu_rel_err": max(r["p3"]["mu_rel_err"] for r in ranks),
+                 "mu_worst_leaf": max(
+                     ranks, key=lambda r: r["p3"]["mu_rel_err"])["p3"][
+                         "mu_worst_leaf"],
+                 "mu_rtol": TP_MU_RTOL,
+                 "int8_ef_losses": [r["p3"]["int8"]["loss"] for r in ranks],
+                 "int8_ef_loss_unsharded": loss8,
+                 "int8_ef_next_losses": [r["p3"]["int8"]["next_loss"]
+                                         for r in ranks],
+                 "int8_ef_next_loss_unsharded": next8,
+                 "int8_sumsq_rel_err": int8_err[worst8],
+                 "int8_sumsq_worst": worst8, "int8_rtol": TP_INT8_RTOL,
+                 "unsharded_seconds": train1_s,
+                 "peak_gb_per_rank": [r["p3"]["peak_gb"] for r in ranks],
+                 "peak_gb_unsharded": train1_gb,
+                 "seconds": [r["seconds"]["p3"] for r in ranks]}
+    m4 = {impl: {r["data_index"]: r["p4_" + impl] for r in ranks
+                 if r["mrank"] == 0} for impl in ("tp", "ep")}
+    m4d = {impl: {r["data_index"]: r["p4_dense_" + impl] for r in ranks
+                  if r["mrank"] == 0} for impl in ("tp", "ep")}
+    res["p4"] = {"tp_vs_ep_rel_err": max(rel(m4["tp"][d], m4["ep"][d])
+                                         for d in m4["tp"]),
+                 "dense": {f"{impl}_rel_err": max(
+                     rel(m4d[impl][d], moe1_dense[d]) for d in m4d[impl])
+                     for impl in ("tp", "ep")},
+                 "logit_max_abs": float(np.abs(moe1[0]).max()),
+                 **{f"{impl}_rel_err": max(rel(m4[impl][d], moe1[d])
+                                           for d in m4[impl])
+                    for impl in ("tp", "ep")},
+                 "taps": {impl: ranks[0]["p4_taps_" + impl]
+                          for impl in ("tp", "ep")},
+                 "seconds": {impl: [r["seconds"]["p4_" + impl]
+                                    for r in ranks] for impl in ("tp", "ep")}}
+    res["p5"] = {"mesh": ranks[0]["p5"]["mesh"],
+                 "bitwise": [r["p5"].get("bitwise") for r in ranks],
+                 "losses": [r["p5"].get("loss") for r in ranks],
+                 "seconds": [r["seconds"]["p5"] for r in ranks]}
+    counts = {}
+    for cell in ("p1_dense", "p1_tau0", "p1_tau", "p2_dense", "p2_tau", "p3",
+                 "p4_tp", "p4_ep"):
+        counts[cell] = {k: sum(r["launches"][cell][k] for r in ranks)
+                        for k in ranks[0]["launches"][cell]}
+    res["launches"] = counts
+    res["launches_per_rank_p1_tau"] = [
+        {k: v for k, v in r["launches"]["p1_tau"].items() if v}
+        for r in ranks]
+    res["seconds"] = {"unsharded_setup": setup_s, "spawn": spawn_s,
+                      "per_rank": [r["seconds"] for r in ranks]}
+    emit({"tp": res})
+    for mode in ("dense", "tau0", "tau"):
+        c = res["p1_" + mode]
+        check(c["prefill_rel_err"] <= TP_LOGIT_RTOL
+              and c["decode_rel_err"] <= TP_LOGIT_RTOL,
+              f"(p1) {mode}: sharded logits against the unsharded: {c}")
+        if mode != "tau":
+            check(c["tokens_equal"], f"(p1) {mode}: tokens differ: {c}")
+        else:
+            check(c["fraction_max_abs_diff"] <= 1e-4,
+                  f"(p1) the global valid fraction: {c}")
+    check(all(r["launches"]["p1_tau"]["tile_norms"] > 0
+              and r["launches"]["p1_tau"]["spamm_mm_worklist"] > 0
+              for r in ranks), f"(p1) a rank launched no row 1 or 2: "
+          f"{res['launches_per_rank_p1_tau']}")
+    check(all(res[f"p2_{m}"]["prefill_rel_err"] <= TP_LOGIT_RTOL
+              for m in ("dense", "tau")), f"(p2) SP prefill: {res}")
+    p3 = res["p3"]
+    check(np.allclose(p3["losses"], p3["losses_unsharded"], rtol=1e-5,
+                      atol=0)
+          and all(_tp_rel(x, p3["int8_ef_loss_unsharded"]) <= 1e-5
+                  for x in p3["int8_ef_losses"])
+          and all(_tp_rel(x, p3["int8_ef_next_loss_unsharded"]) <= 1e-5
+                  for x in p3["int8_ef_next_losses"])
+          and p3["param_max_abs_err"] <= TP_PARAM_ATOL
+          and p3["mu_rel_err"] <= TP_MU_RTOL
+          and p3["int8_sumsq_rel_err"] <= TP_INT8_RTOL, f"(p3) {p3}")
+    p4 = res["p4"]
+    check(max(p4["tp_vs_ep_rel_err"], p4["tp_rel_err"], p4["ep_rel_err"],
+              *p4["dense"].values()) <= TP_LOGIT_RTOL and counts["p4_tp"]["spamm_mm"] > 0
+          and counts["p4_ep"]["spamm_mm"] > 0, f"(p4) {p4}")
+    p5 = res["p5"]
+    check(p5["mesh"] == [3, 1] and p5["bitwise"][:3] == [True] * 3
+          and all(np.isfinite(x) for x in p5["losses"][:3])
+          and p5["losses"][3] is None, f"(p5) {p5}")
     return counts
 
 
@@ -4542,6 +5306,7 @@ def main():
     last_counts = timed("last_families", phase_last_families)
     train_counts, train_tau0, train_products = timed("train", phase_train)
     multi_counts = timed("multi", phase_multi)
+    tp_counts = timed("tp", phase_tp)
     lib_counts, pool, dense = timed("library", phase_library)
     emit({"phase_seconds": {**seconds, "note": "serve includes autotune"}})
 
@@ -4564,12 +5329,18 @@ def main():
         (m3): summed over the ranks)."""
         return {cell: c[name] for cell, c in multi_counts.items()}
 
+    def tp_path(name):
+        """A kernel's launches on each cell of the tp phase, summed over
+        its 4 ranks."""
+        return {cell: c[name] for cell, c in tp_counts.items()}
+
     def other_paths(name):
         """A kernel's launches on the calibration, the tuned run (c) wave,
         codeqwen1.5-7b's τ > 0 and autotuned waves, the τ > 0 waves of
-        the last four families (mamba2-1.3b's: none) and the multi
-        phase's cells."""
+        the last four families (mamba2-1.3b's: none) and the multi and tp
+        phases' cells."""
         return {"multi_launches": multi_path(name),
+                "tp_launches": tp_path(name),
                 "calibrate_launches": cal_counts[name],
                 "autotune_launches": tuned_counts[name],
                 "dense_family_launches": {
@@ -4626,6 +5397,7 @@ def main():
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:109",
          "launches": moe_counts["spamm_mm"], "path": moe_path,
+         "tp_launches": tp_path("spamm_mm"),
          "library_path_launches": lib_counts["spamm_mm"],
          "library_path": lib_path,
          **{k: dense[k] for k in keys}},

@@ -34,12 +34,14 @@ def _to_savable(x) -> np.ndarray:
     return np.array(x)
 
 
-def _from_saved(arr: np.ndarray, like, device) -> torch.Tensor:
+def _from_saved(arr: np.ndarray, like, device, cut=None) -> torch.Tensor:
     dtype = like.dtype if isinstance(like, torch.Tensor) else None
     if dtype == torch.bfloat16 and arr.dtype == np.uint16:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
+    if cut is not None:
+        t = cut(t)
     return t.to(device=device, dtype=dtype)
 
 
@@ -144,16 +146,22 @@ def open_plan_store(ckpt_dir: str, step: int):
     return PlanStore(ptr["path"])
 
 
-def restore(ckpt_dir: str, step: int, like: Any, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, device=None, *,
+            cut=None) -> Any:
     """Step `step` in the structure of `like` (a tree of tensors: their
-    dtypes, and their device unless `device` is given). Raises KeyError
-    when a leaf of `like` is not in the checkpoint."""
+    dtypes, and their device unless `device` is given). `cut` (a dict
+    {path: fn}) keeps fn(saved leaf) of the leaves it names, on the host
+    before the move to the device (a rank's shard: the saved leaf is read
+    whole, one leaf at a time). Raises KeyError when a leaf of `like` is
+    not in the checkpoint."""
     path = os.path.join(ckpt_dir, f"step_{step}", "arrays.npz")
+    cut = cut or {}
     with np.load(path) as data:
         flat = dict(T.flatten_with_paths(like))
         got = {k: _from_saved(data[k], leaf,
                               device if device is not None
-                              else getattr(leaf, "device", "cpu"))
+                              else getattr(leaf, "device", "cpu"),
+                              cut.get(k))
                for k, leaf in flat.items()}
 
     def build(node, prefix=""):

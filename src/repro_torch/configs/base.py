@@ -150,15 +150,23 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The single-device subset of the reference's runtime config: the
-    fields the unsharded port reads (the compute dtype defaults to f32,
-    the port's numerics of record, where the reference's is bf16)."""
-    compute_dtype: str = "float32"
-    param_dtype: str = "float32"
-    attn_q_chunk: int = 512             # attention q block (rows per chunk)
+    """The runtime config of the reference, except the compute dtype's
+    default (f32, the port's numerics of record, where the reference's is
+    bf16) and two fields the port has no use for: `scan_layers` (its stack
+    is a Python loop) and `attn_kv_chunk` (its attention takes each q chunk
+    against the whole KV in one softmax). `fsdp`, `seq_shard_acts` and
+    `decode_seq_shard` act over a (data, model) mesh
+    (`transformer.NetCtx`); on one device they change nothing."""
+    fsdp: bool = True                   # ZeRO-3 param sharding over data
     remat: str = "full"                 # none | dots | full (training
                                         # stack, `transformer.stack_fwd`)
+    compute_dtype: str = "float32"
+    param_dtype: str = "float32"
     loss_chunk: int = 1024              # chunked-CE seq chunk
+    attn_q_chunk: int = 512             # attention q block (rows per chunk)
+    decode_seq_shard: bool = True       # seq-sharded KV decode over model
+    seq_shard_acts: bool = False        # Megatron-SP: residual stream
+                                        # sharded on seq over model
     grad_compression: str = "none"      # none | int8_ef
 
 

@@ -94,7 +94,7 @@ class SpammContext:
     call."""
 
     __slots__ = ("cfg", "cache", "_pending", "_collect", "_phase", "_layer",
-                 "_trace_buffer", "cost_coeffs")
+                 "_trace_buffer", "cost_coeffs", "_frac_reduce")
 
     def __init__(self, cfg: Any, cache: Optional[WeightPlanCache] = None):
         self.cfg = cfg
@@ -105,6 +105,7 @@ class SpammContext:
         self._layer = None
         self._trace_buffer: Optional[list] = None
         self.cost_coeffs = None
+        self._frac_reduce = None
 
     def __repr__(self):
         return f"SpammContext({self.cfg!r}, cache={len(self.cache)} entries)"
@@ -166,6 +167,14 @@ class SpammContext:
     def resume_trace_buffer(self, buf: Optional[list]):
         self._trace_buffer = buf
 
+    def swap_fraction_reduce(self, fn):
+        """Set the map a tap applies to its valid fraction before recording
+        it (a GEMM split over model ranks reports the whole product's,
+        `models.parallel.split_matmul`); None clears it. Returns the
+        previous one."""
+        prev, self._frac_reduce = self._frac_reduce, fn
+        return prev
+
     def tap(self, valid_fraction, nbytes=None, site: Optional[str] = None,
             cost=None):
         """Record one gated GEMM's valid fraction and, optionally, the GEMM
@@ -173,6 +182,9 @@ class SpammContext:
         phase and layer, `site` and the static cost terms `cost`. With a
         trace buffer open the fraction goes there instead; otherwise a
         no-op unless collecting."""
+        if self._frac_reduce is not None and (
+                self._trace_buffer is not None or self._collect):
+            valid_fraction = self._frac_reduce(valid_fraction)
         if self._trace_buffer is not None:
             self._trace_buffer.append(valid_fraction)
             return

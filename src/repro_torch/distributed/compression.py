@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 
@@ -29,17 +30,32 @@ from repro_torch import tree as T
 class Int8EF(NamedTuple):
     enabled: bool = True
 
-    def apply(self, grads, state):
+    def apply(self, grads, state, *, ctx=None):
         """grads and state["ef"]: trees of the same structure (f32).
-        Returns (dequantized grads, state with the new residuals)."""
-        def comp(g, e):
+        Returns (dequantized grads, state with the new residuals). Over a
+        mesh (`ctx`, a `transformer.NetCtx` with the leaves' placements;
+        each rank passing its shards) a leaf's scale is the max over all
+        its shards, as the whole leaf's."""
+        def comp(g, e, spec=None):
             g = g + e
-            scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+            amax = g.abs().max()
+            if spec is not None:
+                from repro_torch.optim.adamw import split_axes
+
+                for ax in sorted(split_axes(spec)):
+                    if ctx.size(ax) > 1:
+                        dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                                        group=ctx.group(ax))
+            scale = torch.clamp(amax, min=1e-12) / 127.0
             q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
             deq = q.float() * scale
             return deq, g - deq
 
-        pairs = T.map_(comp, grads, state["ef"])
+        if ctx is None:
+            pairs = T.map_(comp, grads, state["ef"])
+        else:
+            pairs = T.map_specs(lambda spec, g, e: comp(g, e, spec),
+                                ctx.specs, grads, state["ef"])
         return _pick(pairs, 0), dict(state, ef=_pick(pairs, 1))
 
     def wire_bytes_saved(self, grads) -> float:

@@ -11,8 +11,13 @@ MASTER_PORT, RANK, WORLD_SIZE), `make_mesh` lays a `DeviceMesh` over it
 ranks on their own cards, "gloo" for CPU ranks or for several ranks on one
 card (NCCL refuses two ranks on one GPU); nothing switches between them.
 
-The reference's `make_production_mesh` (a 16×16 TPU pod slice) has no
-counterpart yet (ROADMAP queue A).
+`mesh_from_devices` lays a (data, model) mesh over a given list of ranks
+(in torch a mesh is over ranks, not devices: the elastic restart builds one
+over the survivors, `distributed.elastic`), `make_ctx` makes a model's
+`transformer.NetCtx` of a mesh, and `make_production_mesh` is the H100
+counterpart of the reference's 16×16 pod slice: "model" spans the GPUs of
+one NVLink node (8), "data" the nodes, and with `multi_pod` a leading
+"pod" axis of 2.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 BACKENDS = ("nccl", "gloo")
+NODE_GPUS = 8           # GPUs of one NVLink node: the production model axis
 
 
 def free_port() -> int:
@@ -142,3 +148,58 @@ def make_host_mesh(*, backend: str, device_type: str = "cuda") -> DeviceMesh:
     """The 1×1 mesh with the production axis names ("data", "model")."""
     return make_mesh((1, 1), ("data", "model"), backend=backend,
                      device_type=device_type)
+
+
+def mesh_from_devices(ranks, shape: Sequence[int],
+                      axis_names=("data", "model"), *,
+                      device_type: str = "cuda") -> DeviceMesh:
+    """A `DeviceMesh` over the given ranks of the default group, laid
+    row-major into `shape`. Every rank of the default group must call it
+    (each axis's process groups are made collectively); a rank outside
+    `ranks` gets a mesh it is not on (`get_coordinate()` is None)."""
+    if len(shape) != len(axis_names):
+        raise ValueError(f"shape {tuple(shape)} for axes {axis_names}")
+    mesh = torch.tensor([int(r) for r in ranks],
+                        dtype=torch.int64).reshape(tuple(shape))
+    return DeviceMesh(device_type, mesh, mesh_dim_names=tuple(axis_names))
+
+
+def production_shape(world_size: int, *, multi_pod: bool = False) -> tuple:
+    """(axis shape, axis names) of the production mesh over `world_size`
+    ranks: "model" the NODE_GPUS GPUs of one NVLink node, "data" the
+    nodes (of each pod: `multi_pod` adds a leading "pod" axis of 2).
+    Raises ValueError when the world does not fill whole nodes (and, multi-
+    pod, two equal pods)."""
+    node_gpus = NODE_GPUS
+    per_pod = world_size // 2 if multi_pod else world_size
+    if (world_size < node_gpus or world_size % node_gpus
+            or (multi_pod and (world_size % 2 or per_pod % node_gpus))):
+        raise ValueError(
+            f"the production mesh needs whole {node_gpus}-GPU nodes"
+            f"{' in two equal pods' if multi_pod else ''}: world size "
+            f"{world_size} does not fit")
+    if multi_pod:
+        return (2, per_pod // node_gpus, node_gpus), ("pod", "data", "model")
+    return (world_size // node_gpus, node_gpus), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl",
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The production mesh over the default group's ranks
+    (`production_shape`; one rank per GPU, so NCCL)."""
+    shape, names = production_shape(dist.get_world_size(),
+                                    multi_pod=multi_pod)
+    return make_mesh(shape, names, backend=backend, device_type=device_type)
+
+
+def make_ctx(mesh, *, tile: int = 64, batch_axes=None, specs=None):
+    """The `transformer.NetCtx` of a mesh: batch axes "pod" and "data"
+    (those the mesh has), model axis "model" (`models.model.
+    with_placements` adds a model's placements)."""
+    from repro_torch.models.transformer import NetCtx
+
+    if batch_axes is None:
+        batch_axes = tuple(a for a in mesh.mesh_dim_names
+                           if a in ("pod", "data"))
+    return NetCtx(mesh, batch_axes=batch_axes, model_axis="model",
+                  specs=specs, tile=tile)

@@ -13,16 +13,33 @@ runs the plain PyTorch versions of the kernels (use `--reduced` there).
 Chrome-trace JSON; either prints the registry's summary table.
 `--reshard-every N` (with `--spamm`) probes the drift-triggered
 re-sharding controller every N steps (`--reshard-devices` strips,
-`--reshard-threshold` drift factor). The reference's production mesh has
-no counterpart yet.
+`--reshard-threshold` drift factor).
+
+Over a mesh, one process per rank (torchrun sets RANK, WORLD_SIZE,
+MASTER_ADDR, MASTER_PORT and LOCAL_RANK):
+
+  torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+      --arch starcoder2-7b --mesh 2,4 --backend nccl ...
+
+`--mesh DATA,MODEL` lays a (data, model) mesh over the world;
+`--production-mesh` the production one (`launch.mesh.production_shape`:
+model = the 8 GPUs of a node, data = the nodes) and a bf16 compute dtype,
+as the reference's flag. `--backend` is stated, never switched: "nccl"
+for one rank per card (rank r on cuda:LOCAL_RANK), "gloo" for ranks that
+share a card or run on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 
+import os
+
+import torch
+
 from repro_torch.configs import (ParallelConfig, SpammConfig, TrainConfig,
                                  get_config)
 from repro_torch.core.schedule import ReshardConfig
+from repro_torch.launch import mesh as MS
 from repro_torch.obs import Observability
 from repro_torch.train.loop import train
 
@@ -49,11 +66,22 @@ def main(argv=None):
                     help="drift-triggered re-sharding probe cadence in "
                          "train steps; 0 = off (needs --spamm)")
     ap.add_argument("--reshard-devices", type=int, default=0,
-                    help="strips to cut (0 = one device's: 1)")
+                    help="strips to cut (0 = the mesh's batch-axis extent; "
+                         "1 on one device)")
     ap.add_argument("--reshard-threshold", type=float, default=1.2,
                     help="re-cut when the live partition's predicted "
                          "imbalance exceeds the fresh cut's by this factor")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="DATA,MODEL: train over a (data, model) mesh of the "
+                         "torchrun world")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the production mesh (model = 8 GPUs of a node, "
+                         "data = the nodes) and a bf16 compute dtype")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="process-group backend over a mesh: nccl for one "
+                         "rank per card, gloo for ranks sharing a card or "
+                         "on the CPU")
     ap.add_argument("--metrics-out", default=None,
                     help="write the run's metrics registry here as a "
                          "Prometheus text dump (train_step_seconds, "
@@ -67,7 +95,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     pcfg = ParallelConfig(
-        compute_dtype="float32",
+        compute_dtype="bfloat16" if args.production_mesh else "float32",
         remat="none" if args.reduced else "full",
         attn_q_chunk=64, loss_chunk=128,
         grad_compression=args.grad_compression,
@@ -84,11 +112,25 @@ def main(argv=None):
                                  drift_threshold=args.reshard_threshold)
                    if args.reshard_every > 0 else None)
     obs = Observability(process_name="repro-train")
-    res = train(cfg, pcfg, tcfg, global_batch=args.batch, seq_len=args.seq,
-                spamm_cfg=spamm_cfg, reshard_cfg=reshard_cfg,
-                resume=(args.resume == "auto"), obs=obs, device=args.device)
+    ctx, device = None, args.device
+    if args.mesh or args.production_mesh:
+        ctx, device = _mesh_ctx(args)
+    try:
+        res = train(cfg, pcfg, tcfg, global_batch=args.batch,
+                    seq_len=args.seq, spamm_cfg=spamm_cfg,
+                    reshard_cfg=reshard_cfg, resume=(args.resume == "auto"),
+                    obs=obs, device=device, ctx=ctx)
+    finally:
+        if ctx is not None:
+            MS.destroy_group()
+    if ctx is not None and int(os.environ.get("RANK", "0")) != 0:
+        return
     print(f"done: steps={res.final_step} first_loss={res.losses[0]:.4f} "
           f"last_loss={res.losses[-1]:.4f} stragglers={res.straggler_steps}")
+    if torch.device(device).type == "cuda":
+        # this rank's peak allocated card memory (its shards over a mesh)
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        print(f"peak_card_gb={peak:.3f}")
     if res.spamm_stats:
         fracs = [s["valid_fraction"] for s in res.spamm_stats
                  if s["valid_fraction"] is not None]
@@ -107,6 +149,29 @@ def main(argv=None):
         print(f"trace -> {obs.write_trace(args.trace_out)}")
     if args.metrics_out or args.trace_out:
         print(obs.summary_table())
+
+
+def _mesh_ctx(args):
+    """Join the torchrun world and lay its mesh: (NetCtx, this rank's
+    device)."""
+    if args.device == "cpu":
+        device = torch.device("cpu")
+    elif args.backend == "nccl":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    else:
+        device = torch.device(
+            "cuda", int(os.environ.get("LOCAL_RANK", "0"))
+            % max(torch.cuda.device_count(), 1))
+    MS.init_group(args.backend, device=device)
+    dtype = "cpu" if device.type == "cpu" else "cuda"
+    if args.production_mesh:
+        mesh = MS.make_production_mesh(backend=args.backend,
+                                       device_type=dtype)
+    else:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        mesh = MS.make_mesh(shape, ("data", "model"), backend=args.backend,
+                            device_type=dtype)
+    return MS.make_ctx(mesh, tile=args.spamm_tile), device
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@ Plain PyTorch: the reference's attention is `lax.scan` code, not a Pallas
 kernel. `flash_attention` walks q chunks and attends each chunk to the whole
 KV with the reference's additive-bias mask contract (`_mask_bias`: causal,
 sliding window, kv_limit; per-row q offsets); `decode_attention` attends one
-new token per row against a cache. Matmuls run in f32 (TF32 off).
+new token per row against a cache; `decode_attention_seqsharded` does so
+over a cache cut on the sequence across a process group (flash-decoding:
+per-rank softmax partials merged by all-reduces). Matmuls run in f32 (TF32
+off).
 
 Offsets and lengths are a Python int or an int tensor on the operands'
 device: the int form builds its positions on the device (`arange`, `full`),
@@ -116,3 +119,64 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     o = o / l.clamp(min=1e-30)[..., None]
     return o.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_attention_seqsharded(q: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor, length, *, group,
+                                window: Optional[int] = None,
+                                ring: bool = False):
+    """Flash-decoding over a cache cut on the sequence across the ranks of
+    `group` (twin of the reference's shard_map body): q (B, Hq, D) and this
+    step's k_new/v_new (B, 1, Hk, D), the same on every rank; k_cache and
+    v_cache (B, S/n, Hk, D), rank r's slots [r·S/n, (r+1)·S/n) of an S-slot
+    cache. `length` (int or 0-d int tensor) counts the valid positions
+    after this step: the token at position length-1 (modulo S for a ring)
+    is written, in place, by the rank that owns its slot, and no other.
+    Each rank's partial softmax (o, m, l) over its slots merges by an
+    all-reduce of the max over the group, then sums of l·corr and o·corr.
+    Returns (out (B, Hq, D), k_cache, v_cache)."""
+    import torch.distributed as dist
+
+    b, hq, d = q.shape
+    s_loc, hk = k_cache.shape[1], k_cache.shape[2]
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    s = s_loc * n
+    g = hq // hk
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    if not isinstance(length, torch.Tensor):
+        length = torch.full((), length, dtype=torch.int64, device=dev)
+    pos = length.reshape(()) - 1
+    slot = torch.remainder(pos, s) if ring else pos
+    loc = slot - r * s_loc
+    mine = (loc >= 0) & (loc < s_loc)
+    locc = loc.clamp(0, s_loc - 1).reshape(1).long()
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        old = cache.index_select(1, locc)
+        cache.index_copy_(1, locc, torch.where(mine, new.to(cache.dtype),
+                                               old))
+    lb = length.reshape(1).expand(b)
+    slots = r * s_loc + torch.arange(s_loc, device=dev)
+    kpos = _slot_positions(slots, lb, ring, s)
+    q4 = q.float().reshape(b, hk, g, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", q4, k_cache.float()) * scale
+    valid = (kpos < lb[:, None]) & (kpos >= 0)
+    if window is not None:
+        valid &= kpos >= (lb[:, None] - window)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    m_g = m.clone()
+    dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - m_g)
+    l_g = l * corr
+    o_g = o * corr[..., None]
+    dist.all_reduce(l_g, group=group)
+    dist.all_reduce(o_g, group=group)
+    out = o_g / l_g.clamp(min=1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype), k_cache, v_cache

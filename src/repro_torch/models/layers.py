@@ -9,6 +9,7 @@ training loss.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.module import maybe_spamm_matmul
+from repro_torch.models import parallel as par
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
@@ -50,32 +52,54 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def mlp_weights(params: dict, spec, ctx):
+    """(the weights this rank's MLP computes with, its ff cut (lo, hi) or
+    None): over more than one model rank the ff columns of w1/w3 and rows
+    of w2, when the ff cuts into whole tiles (`ctx.tile`); else every leaf
+    whole."""
+    if ctx is None or spec is None:
+        return params, None
+    ff = par.full_shape(params["w1"], spec["w1"], ctx)[1]
+    cut = par.ff_split(ff, ctx, ctx.tile)
+    if cut is None:
+        return {n: par.full_weight(t, spec[n], ctx)
+                for n, t in params.items()}, None
+    dims = {"w1": 1, "w3": 1, "w2": 0}
+    return {n: par.model_slice(t, spec[n], ctx, dims[n], *cut)
+            for n, t in params.items()}, cut
+
+
 def mlp(params: dict, x: torch.Tensor, act: str, spamm_cfg=None, frozen=None,
-        require_frozen: bool = False) -> torch.Tensor:
+        require_frozen: bool = False, *, ctx=None, spec=None,
+        sp: bool = False) -> torch.Tensor:
     """SwiGLU ('silu'), GeGLU ('gelu'), or classic 4x MLP ('gelu_mlp').
-    `frozen` is this layer's dict of per-weight FrozenPlans."""
+    `frozen` is this layer's dict of per-weight FrozenPlans. Over a mesh
+    (`ctx`, the layer's placements `spec`) the ff splits over "model":
+    column-parallel w1/w3, row-parallel w2, the partial outputs summed (`sp`:
+    x and the output are the rank's sequence chunk)."""
     cdt = x.dtype
     fz = frozen or {}
+    params, cut = mlp_weights(params, spec, ctx)
+    split = cut is not None
+    x = par.block_in(x, ctx, split, sp)
+    if split:
+        mm = functools.partial(par.split_matmul, ctx=ctx)
+    else:
+        mm = maybe_spamm_matmul
+
+    def gemm(a, name):
+        return mm(a, params[name].to(cdt), spamm_cfg, frozen=fz.get(name),
+                  require_frozen=require_frozen, site=name)
+
     if act in ("silu", "gelu"):
-        g = maybe_spamm_matmul(x, params["w1"].to(cdt), spamm_cfg,
-                               frozen=fz.get("w1"),
-                               require_frozen=require_frozen, site="w1")
-        u = maybe_spamm_matmul(x, params["w3"].to(cdt), spamm_cfg,
-                               frozen=fz.get("w3"),
-                               require_frozen=require_frozen, site="w3")
+        g, u = gemm(x, "w1"), gemm(x, "w3")
         g = F.silu(g) if act == "silu" else _gelu(g)
-        return maybe_spamm_matmul(g * u, params["w2"].to(cdt), spamm_cfg,
-                                  frozen=fz.get("w2"),
-                                  require_frozen=require_frozen, site="w2")
-    if act == "gelu_mlp":
-        h = _gelu(maybe_spamm_matmul(x, params["w1"].to(cdt), spamm_cfg,
-                                     frozen=fz.get("w1"),
-                                     require_frozen=require_frozen,
-                                     site="w1"))
-        return maybe_spamm_matmul(h, params["w2"].to(cdt), spamm_cfg,
-                                  frozen=fz.get("w2"),
-                                  require_frozen=require_frozen, site="w2")
-    raise ValueError(act)
+        y = gemm(g * u, "w2")
+    elif act == "gelu_mlp":
+        y = gemm(_gelu(gemm(x, "w1")), "w2")
+    else:
+        raise ValueError(act)
+    return par.block_out(y, ctx, split, sp)
 
 
 def _normal(gen, shape, scale, dtype, device):
@@ -108,13 +132,14 @@ def _chunk_loss(hc: torch.Tensor, unembed: torch.Tensor, lc: torch.Tensor):
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
-def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
-                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
-    """Mean cross-entropy of h (B, S, d) final hidden states (already
-    normed) against `labels` (B, S) int, -1 masked, without the whole
-    (B, S, V) logits: a loop over sequence chunks plus the remainder, each
-    recomputed in backward (`torch.utils.checkpoint`, the reference's
-    `jax.checkpoint`)."""
+def chunked_ce_parts(h: torch.Tensor, unembed: torch.Tensor,
+                     labels: torch.Tensor, chunk: int):
+    """(summed cross-entropy, count of unmasked labels) of h (B, S, d)
+    against `labels` (B, S) int, -1 masked, without the whole (B, S, V)
+    logits: a loop over sequence chunks plus the remainder, each recomputed
+    in backward (`torch.utils.checkpoint`, the reference's
+    `jax.checkpoint`). A data-parallel loss sums both over the batch ranks
+    before the one division."""
     s = h.shape[1]
     chunk = min(chunk, s)
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -122,4 +147,12 @@ def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
         l, m = checkpoint(_chunk_loss, h[:, c0:c0 + chunk], unembed,
                           labels[:, c0:c0 + chunk], use_reentrant=False)
         tot, cnt = tot + l, cnt + m
+    return tot, cnt
+
+
+def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor,
+                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Mean cross-entropy of h (B, S, d) final hidden states (already
+    normed) against `labels` (B, S) int, -1 masked (`chunked_ce_parts`)."""
+    tot, cnt = chunked_ce_parts(h, unembed, labels, chunk)
     return tot / cnt.clamp(min=1.0)

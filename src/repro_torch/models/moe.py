@@ -1,13 +1,24 @@
-"""Mixture-of-Experts block of the port (twin of `repro.models.moe`), on one
-device.
+"""Mixture-of-Experts block of the port (twin of `repro.models.moe`).
 
 The reference runs the block as a shard_map over a (data, model) mesh with
-two strategies: `impl="tp"` (every chip holds all experts, ff sharded) and
-`impl="ep"` (experts sharded over `model`). On one device both compute the
-same function: every expert is owned, the expert axis is not padded past
-the experts the parameters hold, and the model-axis psum is the identity.
-`moe_block` is that one-device body (the reference's `local`), for either
-`impl`; the split across cards waits for the multi-GPU slice.
+two strategies, and so does the port over a `DeviceMesh` (`ctx`):
+
+* impl="tp": every model rank holds all experts with their ff cut over
+  "model" (w1/w3 columns, w2 rows); its partial outputs are summed over
+  "model" in f32;
+* impl="ep": the experts, padded to a multiple of the model axis
+  (`moe_params(model_axis_size=)`), are cut over "model"; a rank computes
+  its own experts, an assignment to another rank's expert goes to the
+  spill row like a dropped one, and the disjoint contributions are summed
+  over "model".
+
+The shared expert is column- and row-parallel in both, its partials summed
+apart, as in the reference. Tokens stay on their data rank: the capacity is
+reckoned from the rank's own B·S tokens (the reference's global count over
+the data shards). On one device (`ctx=None`) both strategies compute the
+same function: every expert is owned and the model-axis sum is the
+identity. A cut that is not even, or not whole tiles (`ctx.tile`), runs the
+block whole on every model rank.
 
 Dispatch is sort-based, as in the reference: the top-k assignments are
 sorted by expert (stable), each assignment's slot within its expert comes
@@ -17,8 +28,9 @@ count, so a decode step that holds the block captures into a CUDA graph:
 
 * the reference's scatter with `mode="drop"` becomes a scatter into an
   (E, C + 1, d) buffer whose extra row takes every dropped assignment, then
-  sliced to (E, C, d). A dropped row is never clamped onto a real slot,
-  where it would overwrite the token that owns it;
+  sliced to (E, C, d) (under EP an extra expert row takes the other ranks'
+  assignments). A dropped row is never clamped onto a real slot, where it
+  would overwrite the token that owns it;
 * the reference's combine `y.at[st].add(...)` runs its updates in sorted
   order, so each token gets its k contributions in ascending expert order.
   The port gathers them back per token (T, k, d) in that order and adds
@@ -35,21 +47,33 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.module import (as_context, maybe_spamm_matmul,
                                      spamm_bmm_linear)
+from repro_torch.models import parallel as par
 from repro_torch.models.layers import _gelu, _normal
 
 
+def padded_experts(cfg: MoEConfig, model_axis_size: int = 1) -> int:
+    """The expert count the parameters hold: EP pads it to a multiple of
+    the model axis, as the reference's `moe_params`."""
+    e = cfg.num_experts
+    if cfg.impl == "ep":
+        e = math.ceil(e / model_axis_size) * model_axis_size
+    return e
+
+
 def moe_params(gen: torch.Generator, cfg: MoEConfig, d_model: int, dtype,
-               device) -> dict:
-    """The reference's `moe_params` tree at one model shard: router (d, E)
-    f32, w1/w3 (E, d, ff), w2 (E, ff, d) and, with shared experts,
-    shared.{w1, w3 (d, sff), w2 (sff, d), gate (d, 1) f32}."""
+               device, model_axis_size: int = 1) -> dict:
+    """The reference's `moe_params` tree: router (d, E) f32, w1/w3 (E', d,
+    ff), w2 (E', ff, d) with E' the experts padded for EP
+    (`padded_experts`), and, with shared experts, shared.{w1, w3 (d, sff),
+    w2 (sff, d), gate (d, 1) f32}."""
     e, ff = cfg.num_experts, cfg.expert_ff
+    e_pad = padded_experts(cfg, model_axis_size)
     s_in, s_ff = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(ff)
     p = {
         "router": _normal(gen, (d_model, e), s_in, torch.float32, device),
-        "w1": _normal(gen, (e, d_model, ff), s_in, dtype, device),
-        "w3": _normal(gen, (e, d_model, ff), s_in, dtype, device),
-        "w2": _normal(gen, (e, ff, d_model), s_ff, dtype, device),
+        "w1": _normal(gen, (e_pad, d_model, ff), s_in, dtype, device),
+        "w3": _normal(gen, (e_pad, d_model, ff), s_in, dtype, device),
+        "w2": _normal(gen, (e_pad, ff, d_model), s_ff, dtype, device),
     }
     if cfg.num_shared:
         sff = cfg.shared_ff
@@ -143,11 +167,24 @@ def _shared_ffn(params: dict, x: torch.Tensor, act: str, spamm_cfg):
     return out * gate.to(cdt)
 
 
-def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str, *,
-              spamm_cfg=None):
-    """x (B, S, d) → (y (B, S, d), aux). The reference's `local` body on
-    one device, for `impl` "tp" and "ep" alike; the capacity is reckoned
-    from the step's B·S tokens."""
+def _combine(out, rows, pos, weight, st, t: int, k: int, cap: int):
+    """y (T, d) f32: each sorted assignment's output row out[rows, pos]
+    times its weight (0 when dropped), then per token its k rows in sorted
+    (ascending expert) order — a stable sort of the sorted assignments by
+    token — added from 0."""
+    contrib = (out[rows, torch.clamp(pos, max=cap - 1).long()].float()
+               * weight[:, None])
+    per_token = contrib[torch.argsort(st, stable=True).reshape(t, k)]
+    y = torch.zeros((t, out.shape[-1]), dtype=torch.float32,
+                    device=out.device)
+    for j in range(k):
+        y = y + per_token[:, j]
+    return y
+
+
+def _moe_local(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
+               spamm_cfg):
+    """The reference's `local` body with every expert owned."""
     b, s, d = x.shape
     cdt = x.dtype
     xt = x.reshape(b * s, d)
@@ -163,17 +200,101 @@ def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str, *,
     buf.index_put_((se_l, slot), xt[st_l])
     out = _grouped_ffn(buf[:, :cap], params["w1"], params["w3"],
                        params["w2"], act, spamm_cfg)
-
-    # combine: each sorted assignment's weighted row (0 when dropped), then
-    # per token its k rows in sorted (ascending expert) order — a stable
-    # sort of the sorted assignments by token — added from 0
-    contrib = (out[se_l, torch.clamp(pos, max=cap - 1).long()].float()
-               * (sg * keep.float())[:, None])
-    per_token = contrib[torch.argsort(st, stable=True).reshape(t, k)]
-    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    for j in range(k):
-        y = y + per_token[:, j]
-
+    y = _combine(out, se_l, pos, sg * keep.float(), st, t, k, cap)
     if "shared" in params:
         y = y + _shared_ffn(params["shared"], xt, act, spamm_cfg).float()
     return y.reshape(b, s, d).to(cdt), aux
+
+
+def _moe_split(params: dict, spec, x: torch.Tensor, cfg: MoEConfig,
+               act: str, spamm_cfg, ctx):
+    """The block over a model axis (`moe_block`), or None when its cut does
+    not split evenly into whole tiles."""
+    m, r = ctx.nmodel, ctx.mrank
+    mg = ctx.group(ctx.model_axis)
+    if cfg.impl == "ep":
+        e_pad = par.full_shape(params["w1"], spec["w1"], ctx)[0]
+        if e_pad % m:
+            return None
+        e_loc = e_pad // m
+        cut = (r * e_loc, (r + 1) * e_loc)
+        dims = {"w1": 0, "w3": 0, "w2": 0}
+    else:
+        cut = par.ff_split(cfg.expert_ff, ctx, ctx.tile)
+        if cut is None:
+            return None
+        dims = {"w1": 2, "w3": 2, "w2": 1}
+    shared_cut = (par.ff_split(cfg.shared_ff, ctx, ctx.tile)
+                  if "shared" in params else None)
+    if "shared" in params and shared_cut is None:
+        return None
+    w = {n: par.model_slice(params[n], spec[n], ctx, dims[n], *cut)
+         for n in dims}
+    router = par.full_weight(params["router"], spec["router"], ctx)
+
+    b, s, d = x.shape
+    cdt = x.dtype
+    xt = x.reshape(b * s, d)
+    t, k = xt.shape[0], cfg.top_k
+    cap = capacity(t, cfg)
+    se, st, sg, pos, keep, aux = _dispatch(xt, router, cfg, cap)
+    xe = par.enter(xt, mg)            # each rank computes its own part
+    sg = par.enter(sg, mg)
+    st_l = st.long()
+    slot = torch.where(keep, pos, cap).long()
+    if cfg.impl == "ep":
+        e_loc = cut[1] - cut[0]
+        le = se.long() - cut[0]
+        owned = (le >= 0) & (le < e_loc)
+        # other ranks' experts go to the spill expert row e_loc
+        buf = torch.zeros((e_loc + 1, cap + 1, d), dtype=cdt,
+                          device=x.device)
+        buf.index_put_((torch.where(owned, le, e_loc), slot), xe[st_l])
+        out = _grouped_ffn(buf[:e_loc, :cap], w["w1"], w["w3"], w["w2"],
+                           act, spamm_cfg)
+        rows = torch.clamp(le, 0, e_loc - 1)
+        weight = sg * (owned & keep).float()
+    else:
+        e_pad = params["w1"].shape[0]
+        buf = torch.zeros((e_pad, cap + 1, d), dtype=cdt, device=x.device)
+        buf.index_put_((se.long(), slot), xe[st_l])
+        out = _grouped_ffn(buf[:, :cap], w["w1"], w["w3"], w["w2"], act,
+                           spamm_cfg)
+        rows = se.long()
+        weight = sg * keep.float()
+    y = par.leave(_combine(out, rows, pos, weight, st, t, k, cap), mg)
+    if "shared" in params:
+        sp_ = spec["shared"]
+        sdims = {"w1": 1, "w3": 1, "w2": 0}
+        ws = {n: par.model_slice(params["shared"][n], sp_[n], ctx, sdims[n],
+                                 *shared_cut) for n in sdims}
+        # the gate scales each rank's partial: its gradient is the ranks'
+        ws["gate"] = par.enter(par.full_weight(params["shared"]["gate"],
+                                               sp_["gate"], ctx), mg)
+        ysh = _shared_ffn(ws, xe, act, spamm_cfg).float()
+        y = y + par.leave(ysh, mg)
+    return y.reshape(b, s, d).to(cdt), aux
+
+
+def moe_block(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str, *,
+              spamm_cfg=None, ctx=None, spec=None, sp: bool = False):
+    """x (B, S, d) → (y (B, S, d), aux): this rank's tokens through the
+    block, the capacity reckoned from its own B·S tokens, aux its switch
+    loss (the caller averages it over the data ranks). Over a mesh
+    (`ctx`, the block's placements `spec`) the experts (ep) or their ff
+    (tp) split over "model"; `sp`: x and y are the rank's sequence
+    chunk."""
+    if ctx is None or spec is None:
+        return _moe_local(params, x, cfg, act, spamm_cfg)
+    mg = ctx.group(ctx.model_axis)
+    if sp:
+        x = par.gather(x, mg, 1, "slice")
+    out = (_moe_split(params, spec, x, cfg, act, spamm_cfg, ctx)
+           if ctx.nmodel > 1 else None)
+    if out is None:
+        out = _moe_local(par.full_tree(params, spec, ctx), x, cfg, act,
+                         spamm_cfg)
+    y, aux = out
+    if sp:
+        y = par.scatter(y, mg, 1)
+    return y, aux

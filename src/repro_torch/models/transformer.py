@@ -32,6 +32,19 @@ cache length are sentinels whose writes drop, as the reference's
 attention stacks only, as the reference's does. `stack_fwd` is the
 training stack: no caches, each layer under the config's remat, the MoE
 aux losses summed and the gating stats collected once per forward.
+
+Over a (data, model) mesh every function takes a `NetCtx` (`ctx=None` is
+one device): each rank holds its batch rows and its parameter shards
+(`ctx.specs`, from `models.model.placements`). An attention layer splits
+its q heads over "model" (column-parallel wq/wk/wv, row-parallel wo) and
+an MLP its ff; their partial outputs are all-reduced over "model", or under
+`seq_shard_acts` reduce-scattered onto the rank's sequence chunk
+(Megatron-SP), and FSDP shards are all-gathered over "data" before use
+(`models.parallel`). A layer whose heads or ff do not cut into whole
+tiles, and every recurrent block, runs whole on each model rank from
+gathered weights. Decode under `decode_seq_shard` keeps each rank's
+sequence slice of the cache and merges the slices' softmax partials
+(`attention.decode_attention_seqsharded`).
 """
 from __future__ import annotations
 
@@ -45,12 +58,106 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.module import SpammContext, maybe_spamm_matmul
+from repro_torch.core.distributed import _axis
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import parallel as par
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (_normal, apply_rope, mlp, mlp_params,
                                        rms_norm)
+
+
+class NetCtx:
+    """Where a step runs: a `DeviceMesh` (None: one device), its batch axes
+    and model axis, this rank's size, index and process group per axis,
+    the placed parameter specs (`models.model.placements`; needed once the
+    mesh has more than one rank) and the tile the model cuts align to (the
+    SpAMM tile)."""
+
+    def __init__(self, mesh=None, batch_axes=("data",), model_axis="model",
+                 specs=None, tile: int = 64):
+        self.mesh = mesh
+        self.model_axis = model_axis
+        self.specs = specs
+        self.tile = int(tile)
+        self._axes = {}
+        if mesh is not None:
+            for name in mesh.mesh_dim_names:
+                self._axes[name] = _axis(mesh, name)
+        self.batch_axes = tuple(a for a in batch_axes if a in self._axes)
+
+    def replace(self, **kw) -> "NetCtx":
+        args = dict(mesh=self.mesh, batch_axes=self.batch_axes,
+                    model_axis=self.model_axis, specs=self.specs,
+                    tile=self.tile)
+        args.update(kw)
+        return NetCtx(**args)
+
+    def size(self, axis: str) -> int:
+        return self._axes[axis][0] if axis in self._axes else 1
+
+    def index(self, axis: str) -> int:
+        return self._axes[axis][1] if axis in self._axes else 0
+
+    def group(self, axis: str):
+        return self._axes[axis][2] if axis in self._axes else None
+
+    @property
+    def nmodel(self) -> int:
+        return self.size(self.model_axis)
+
+    @property
+    def mrank(self) -> int:
+        return self.index(self.model_axis)
+
+    @property
+    def ndata(self) -> int:
+        n = 1
+        for a in self.batch_axes:
+            n *= self.size(a)
+        return n
+
+    @property
+    def data_index(self) -> int:
+        """This rank's batch shard: row-major over the batch axes."""
+        i = 0
+        for a in self.batch_axes:
+            i = i * self.size(a) + self.index(a)
+        return i
+
+    def layer_spec(self, li: int):
+        return None if self.specs is None else self.specs["layers"][li]
+
+    def spec(self, *path):
+        node = self.specs
+        for k in path:
+            if node is None:
+                return None
+            node = node[k]
+        return node
+
+
+def sharded(ctx) -> bool:
+    """Whether `ctx` spans more than one rank."""
+    return ctx is not None and ctx.mesh is not None and (
+        ctx.nmodel > 1 or ctx.ndata > 1)
+
+
+def _lspec(ctx, li):
+    return ctx.layer_spec(li) if sharded(ctx) else None
+
+
+def seq_sharded(pcfg: ParallelConfig, ctx, s: int) -> bool:
+    """Whether the residual stream of an s-token step is cut on the
+    sequence over "model" (Megatron-SP)."""
+    if not (pcfg.seq_shard_acts and ctx is not None and ctx.nmodel > 1
+            and s > 1):
+        return False
+    if s % ctx.nmodel:
+        raise ValueError(f"seq_shard_acts: {s} tokens do not cut over "
+                         f"{ctx.nmodel} model ranks")
+    return True
 
 
 def attn_params(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -71,35 +178,82 @@ def attn_params(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
+def attn_weights(p: dict, spec, cfg: ModelConfig, ctx):
+    """(the weights this rank's attention computes with, its
+    `parallel.AttnSplit` or None): the q heads' columns of wq (and bq),
+    the kv columns of wk/wv, the q heads' rows of wo; or every leaf whole
+    when the layer does not split over "model"."""
+    split = par.attn_split(cfg, ctx, ctx.tile) if sharded(ctx) else None
+    if split is None:
+        return {n: par.full_weight(t, spec and spec[n], ctx)
+                for n, t in p.items()}, None
+    q = (split.q0 * split.hd, (split.q0 + split.qh) * split.hd)
+    kv = (split.c0, split.c1)
+    cut = {"wq": (1, q), "wk": (1, kv), "wv": (1, kv), "wo": (0, q),
+           "bq": (0, q), "bk": (0, kv), "bv": (0, kv)}
+    return {n: par.model_slice(t, spec[n], ctx, cut[n][0], *cut[n][1])
+            for n, t in p.items()}, split
+
+
+def _mm(split, ctx):
+    """The GEMM of a site: `parallel.split_matmul` for a rank's part of a
+    GEMM split over "model", else `maybe_spamm_matmul`."""
+    if split:
+        return functools.partial(par.split_matmul, ctx=ctx)
+    return maybe_spamm_matmul
+
+
 def _qkv(p, x, cfg: ModelConfig, positions, spamm_cfg=None, frozen=None,
-         require_frozen: bool = False):
+         require_frozen: bool = False, split=None, ctx=None):
+    """q, k, v of x (B, S, d) at `positions`, roped. Split over "model", q
+    holds the rank's heads and k/v the columns it computes (all heads when
+    its kv heads are not whole tiles: `_pick_kv` takes the rank's)."""
     b, s, _ = x.shape
-    hq, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
     cdt = x.dtype
     fz = frozen or {}
-    q, k, v = (maybe_spamm_matmul(x, p[name].to(cdt), spamm_cfg,
-                                  frozen=fz.get(name),
-                                  require_frozen=require_frozen, site=name)
+    kv_split = split is not None and split.kv_pick is None
+    mms = {"wq": _mm(split, ctx), "wk": _mm(kv_split, ctx),
+           "wv": _mm(kv_split, ctx)}
+    q, k, v = (mms[name](x, p[name].to(cdt), spamm_cfg, frozen=fz.get(name),
+                         require_frozen=require_frozen, site=name)
                for name in ("wq", "wk", "wv"))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
-    q = apply_rope(q.reshape(b, s, hq, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(b, s, hk, hd), positions, cfg.rope_theta)
-    return q, k, v.reshape(b, s, hk, hd)
+    q = apply_rope(q.reshape(b, s, -1, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, s, -1, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(b, s, -1, hd)
+
+
+def _pick_kv(t: torch.Tensor, split) -> torch.Tensor:
+    """The rank's kv heads of a computed K or V (B, S, H, hd)."""
+    if split is None or split.kv_pick is None:
+        return t
+    h0, n = split.kv_pick
+    return t[:, :, h0:h0 + n]
 
 
 def attention_layer(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     pcfg: ParallelConfig, positions: torch.Tensor, *,
                     window: Optional[int] = None, spamm_cfg=None,
-                    return_kv: bool = False, frozen=None):
-    q, k, v = _qkv(p, x, cfg, positions, spamm_cfg, frozen)
+                    return_kv: bool = False, frozen=None, ctx=None,
+                    spec=None, sp: bool = False):
+    """Causal self-attention of x (B, S, d); with `return_kv` also the
+    roped K/V (this rank's kv heads under a model split). `sp`: x is the
+    rank's sequence chunk (Megatron-SP), and so is the output."""
+    w, split = attn_weights(p, spec, cfg, ctx)
+    xin = par.block_in(x, ctx, split is not None, sp)
+    q, k, v = _qkv(w, xin, cfg, positions, spamm_cfg, frozen, split=split,
+                   ctx=ctx)
+    k, v = _pick_kv(k, split), _pick_kv(v, split)
     o = attn_mod.flash_attention(q, k, v, causal=True, window=window,
                                  q_chunk=pcfg.attn_q_chunk)
-    o = o.reshape(*x.shape[:2], -1)
-    out = maybe_spamm_matmul(o, p["wo"].to(x.dtype), spamm_cfg,
-                             frozen=(frozen or {}).get("wo"), site="wo")
+    o = o.reshape(*xin.shape[:2], -1)
+    out = _mm(split, ctx)(o, w["wo"].to(x.dtype), spamm_cfg,
+                          frozen=(frozen or {}).get("wo"), site="wo")
+    out = par.block_out(out, ctx, split is not None, sp)
     if return_kv:
         return out, (k, v)
     return out
@@ -138,7 +292,8 @@ def _scatter_rows(cache: torch.Tensor, plan, vals: torch.Tensor):
 def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos, cfg: ModelConfig,
                      pcfg: ParallelConfig, *, window: Optional[int] = None,
-                     ring: bool = False, spamm_cfg=None, frozen=None):
+                     ring: bool = False, spamm_cfg=None, frozen=None,
+                     ctx=None, spec=None):
     """One decode step for x (B, 1, d). `pos` is the incoming token's
     position: a Python int or a 0-d int tensor (lockstep: every row at one
     position; a ring cache takes it modulo its length), or a (B,) int
@@ -148,36 +303,63 @@ def attention_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     LINEAR full-length cache and never take the ring modulo, which would
     wrap a sentinel onto slot 0 and clobber a prefilling lane's K/V. The
     cache is written in place. Decode gates only through frozen plans
-    (require_frozen)."""
-    del pcfg
+    (require_frozen).
+
+    Over more than one model rank with `decode_seq_shard`, the cache is
+    this rank's sequence slice of every kv head
+    (`attention.decode_attention_seqsharded`), at a lockstep position only
+    (a per-row one raises, as in the reference); otherwise a model split
+    keeps the rank's kv heads over the whole sequence."""
     b = x.shape[0]
-    hq, hd = cfg.num_heads, cfg.resolved_head_dim
     s = cache_k.shape[1]
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.int32, device=x.device)
+    seqshard = (pcfg.decode_seq_shard and sharded(ctx) and ctx.nmodel > 1)
+    if seqshard and pos.dim():
+        raise NotImplementedError(
+            "decode_seq_shard expects a lockstep scalar position; per-row "
+            "decode positions (chunked serving) need the unsharded decode "
+            "path")
+    w, split = attn_weights(p, spec, cfg, ctx)
+    xin = par.block_in(x, ctx, split is not None, False)
     posb = pos.reshape(b, 1) if pos.dim() else pos.reshape(1, 1).expand(b, 1)
-    q, k, v = _qkv(p, x, cfg, posb, spamm_cfg, frozen, require_frozen=True)
-    if pos.dim() == 0:
-        slot = (torch.remainder(pos, s) if ring else pos).reshape(1).long()
-        cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
-        cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
+    q, k, v = _qkv(w, xin, cfg, posb, spamm_cfg, frozen,
+                   require_frozen=True, split=split, ctx=ctx)
+    if seqshard:
+        mg = ctx.group(ctx.model_axis)
+        if split is not None:
+            q = par.gather(q, mg, 2)
+            k = par.all_kv_heads(k, split, cfg, ctx)
+            v = par.all_kv_heads(v, split, cfg, ctx)
+        o, cache_k, cache_v = attn_mod.decode_attention_seqsharded(
+            q[:, 0], k, v, cache_k, cache_v, pos + 1, group=mg,
+            window=window, ring=ring)
+        if split is not None:
+            o = o[:, split.q0:split.q0 + split.qh]
     else:
-        plan = _row_writes(posb, s)
-        _scatter_rows(cache_k, plan, k)
-        _scatter_rows(cache_v, plan, v)
-    o = attn_mod.decode_attention(q[:, 0], cache_k, cache_v, pos + 1,
-                                  window=window, ring=ring)
-    out = maybe_spamm_matmul(o.reshape(b, 1, hq * hd), p["wo"].to(x.dtype),
-                             spamm_cfg, frozen=(frozen or {}).get("wo"),
-                             require_frozen=True, site="wo")
-    return out, (cache_k, cache_v)
+        k, v = _pick_kv(k, split), _pick_kv(v, split)
+        if pos.dim() == 0:
+            slot = (torch.remainder(pos, s) if ring else pos).reshape(1).long()
+            cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
+            cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
+        else:
+            plan = _row_writes(posb, s)
+            _scatter_rows(cache_k, plan, k)
+            _scatter_rows(cache_v, plan, v)
+        o = attn_mod.decode_attention(q[:, 0], cache_k, cache_v, pos + 1,
+                                      window=window, ring=ring)
+    out = _mm(split, ctx)(o.reshape(b, 1, -1), w["wo"].to(x.dtype),
+                          spamm_cfg, frozen=(frozen or {}).get("wo"),
+                          require_frozen=True, site="wo")
+    return par.block_out(out, ctx, split is not None, False), (cache_k,
+                                                               cache_v)
 
 
 def attention_prefill_chunk(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                             cache_v: torch.Tensor, positions: torch.Tensor,
                             cfg: ModelConfig, pcfg: ParallelConfig, *,
                             window: Optional[int] = None, spamm_cfg=None,
-                            frozen=None):
+                            frozen=None, ctx=None, spec=None):
     """One chunk of position-offset prefill for x (B, C, d) at `positions`
     (B, C) int, absolute per-row token indices; entries ≥ the cache length
     are sentinels whose K/V writes drop and whose rows are garbage the
@@ -186,20 +368,29 @@ def attention_prefill_chunk(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     queries to the whole cache with a per-row causal bias from
     positions[:, 0]. The port attends all keys in one softmax where the
     reference scans KV blocks, so chunked and one-shot prefill agree to f32
-    rounding, not bit for bit."""
+    rounding, not bit for bit. Under a model split the cache holds the
+    rank's kv heads (a sequence-sharded cache takes no chunks)."""
     b, c, _ = x.shape
-    hq, hd = cfg.num_heads, cfg.resolved_head_dim
-    q, k, v = _qkv(p, x, cfg, positions, spamm_cfg, frozen)
+    if pcfg.decode_seq_shard and sharded(ctx) and ctx.nmodel > 1:
+        raise NotImplementedError(
+            "chunked prefill writes a whole-sequence cache; set "
+            "decode_seq_shard=False to chunk over a model axis")
+    w, split = attn_weights(p, spec, cfg, ctx)
+    xin = par.block_in(x, ctx, split is not None, False)
+    q, k, v = _qkv(w, xin, cfg, positions, spamm_cfg, frozen, split=split,
+                   ctx=ctx)
+    k, v = _pick_kv(k, split), _pick_kv(v, split)
     plan = _row_writes(positions, cache_k.shape[1])
     _scatter_rows(cache_k, plan, k)
     _scatter_rows(cache_v, plan, v)
     o = attn_mod.flash_attention(q, cache_k, cache_v, causal=True,
                                  window=window, q_chunk=pcfg.attn_q_chunk,
                                  q_offset=positions[:, 0])
-    out = maybe_spamm_matmul(o.reshape(b, c, hq * hd), p["wo"].to(x.dtype),
-                             spamm_cfg, frozen=(frozen or {}).get("wo"),
-                             site="wo")
-    return out, (cache_k, cache_v)
+    out = _mm(split, ctx)(o.reshape(b, c, -1), w["wo"].to(x.dtype),
+                          spamm_cfg, frozen=(frozen or {}).get("wo"),
+                          site="wo")
+    return par.block_out(out, ctx, split is not None, False), (cache_k,
+                                                               cache_v)
 
 
 def _tap_ctx(spamm_cfg) -> Optional[SpammContext]:
@@ -246,7 +437,9 @@ def layer_kinds(cfg: ModelConfig) -> tuple:
 
 
 def layer_params(gen: torch.Generator, cfg: ModelConfig, dtype, device,
-                 kind: str) -> dict:
+                 kind: str, model_axis_size: int = 1) -> dict:
+    """One layer's parameters; `model_axis_size` pads an EP MoE block's
+    experts to a multiple of it, as the reference's `layer_params`."""
     f32 = dict(dtype=torch.float32, device=device)
     if kind == "ssm":
         return {"ln": torch.zeros(cfg.d_model, **f32),
@@ -261,7 +454,7 @@ def layer_params(gen: torch.Generator, cfg: ModelConfig, dtype, device,
     }
     if cfg.moe is not None:
         p["moe"] = moe_mod.moe_params(gen, cfg.moe, cfg.d_model, dtype,
-                                      device)
+                                      device, model_axis_size)
     else:
         p["mlp"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype,
                               device)
@@ -269,15 +462,19 @@ def layer_params(gen: torch.Generator, cfg: ModelConfig, dtype, device,
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, spamm_cfg, frozen=None,
-         require_frozen: bool = False):
+         require_frozen: bool = False, ctx=None, spec=None, sp: bool = False):
     """The MLP or MoE sub-layer on the normalized input h → (out, aux).
     A MoE block gates eagerly (its expert buffers depend on the routing;
     frozen plans cover attention and the dense MLP), with no SpAMM under
     the decode contract (`require_frozen`); its taps report layer -1 and
-    stay out of the training stack's trace buffer, as in the reference."""
+    stay out of the training stack's trace buffer, as in the reference.
+    Over a mesh the MLP splits its ff over "model" (`mlp(ctx=)`) and the
+    MoE block its experts or their ff (`moe.moe_block(ctx=)`)."""
+    on_mesh = sharded(ctx)
     if cfg.moe is None:
-        return mlp(p["mlp"], h, cfg.act, spamm_cfg, frozen,
-                   require_frozen), 0.0
+        return mlp(p["mlp"], h, cfg.act, spamm_cfg, frozen, require_frozen,
+                   ctx=ctx if on_mesh else None,
+                   spec=spec["mlp"] if on_mesh else None, sp=sp), 0.0
     tctx = _tap_ctx(spamm_cfg)
     if tctx is not None:
         prev = tctx.swap_layer(None)
@@ -285,85 +482,135 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, spamm_cfg, frozen=None,
     try:
         return moe_mod.moe_block(
             p["moe"], h, cfg.moe, cfg.act,
-            spamm_cfg=None if require_frozen else spamm_cfg)
+            spamm_cfg=None if require_frozen else spamm_cfg,
+            ctx=ctx if on_mesh else None,
+            spec=spec["moe"] if on_mesh else None, sp=sp)
     finally:
         if tctx is not None:
             tctx.swap_layer(prev)
             tctx.resume_trace_buffer(buf)
 
 
+def _whole(p: dict, spec, ctx, sp: bool, fn, x):
+    """A recurrent block over a mesh: its weights gathered whole, run alike
+    on every model rank (under SP on the gathered sequence, the output cut
+    back to the rank's chunk)."""
+    if not sharded(ctx):
+        return fn(p, x)
+    w = par.full_tree(p, spec, ctx)
+    out = fn(w, par.block_in(x, ctx, False, sp))
+    h, rest = out
+    return par.block_out(h, ctx, False, sp), rest
+
+
 def layer_fwd(p: dict, x: torch.Tensor, cfg: ModelConfig,
               pcfg: ParallelConfig, positions: torch.Tensor, kind: str, *,
-              spamm_cfg=None, collect_cache: bool = False, frozen=None):
+              spamm_cfg=None, collect_cache: bool = False, frozen=None,
+              ctx=None, spec=None, sp: bool = False):
     """One residual layer of kind "attn" | "rec" | "ssm". Returns (x, aux,
     cache or None): aux is the MoE block's load-balancing loss (0.0
-    without one)."""
+    without one). Over a mesh `spec` is the layer's placements and `sp`
+    says x is the rank's sequence chunk (Megatron-SP): the norms then act
+    on that chunk alone, so their weights' gradients are summed over
+    "model" (`parallel.enter`)."""
     fz = frozen or {}
+    sp_ = spec or {}
+    if sharded(ctx):
+        norms = {n: par.full_weight(p[n], sp_[n], ctx)
+                 for n in ("ln", "ln1", "ln2") if n in p}
+        if sp:
+            g = ctx.group(ctx.model_axis)
+            norms = {n: par.enter(w, g) for n, w in norms.items()}
+    else:
+        norms = p
     if kind == "ssm":
-        h, cache = ssm_mod.ssm_block(p["ssm"],
-                                     rms_norm(x, p["ln"], cfg.norm_eps),
-                                     cfg.ssm, norm_eps=cfg.norm_eps)
+        h, cache = _whole(
+            p["ssm"], sp_.get("ssm"), ctx, sp,
+            lambda w, xx: ssm_mod.ssm_block(w, xx, cfg.ssm,
+                                            norm_eps=cfg.norm_eps),
+            rms_norm(x, norms["ln"], cfg.norm_eps))
         return x + h, 0.0, (cache if collect_cache else None)
     if kind == "attn":
         h, (k, v) = attention_layer(
-            p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, pcfg,
+            p["mix"], rms_norm(x, norms["ln1"], cfg.norm_eps), cfg, pcfg,
             positions, window=cfg.sliding_window, spamm_cfg=spamm_cfg,
-            return_kv=True, frozen=fz.get("mix"))
+            return_kv=True, frozen=fz.get("mix"), ctx=ctx,
+            spec=sp_.get("mix"), sp=sp)
         cache = {"k": k, "v": v}
     else:
-        h, cache = rglru_mod.rglru_block(
-            p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg.rglru)
+        h, cache = _whole(
+            p["mix"], sp_.get("mix"), ctx, sp,
+            lambda w, xx: rglru_mod.rglru_block(w, xx, cfg.rglru),
+            rms_norm(x, norms["ln1"], cfg.norm_eps))
     x = x + h
-    f, aux = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
-                  fz.get("mlp"))
+    f, aux = _ffn(p, rms_norm(x, norms["ln2"], cfg.norm_eps), cfg, spamm_cfg,
+                  fz.get("mlp"), ctx=ctx, spec=spec, sp=sp)
     return x + f, aux, (cache if collect_cache else None)
 
 
 def layer_prefill_chunk(p: dict, x: torch.Tensor, cache: dict,
                         positions: torch.Tensor, cfg: ModelConfig,
-                        pcfg: ParallelConfig, *, spamm_cfg=None, frozen=None):
+                        pcfg: ParallelConfig, *, spamm_cfg=None, frozen=None,
+                        ctx=None, spec=None):
     """One residual layer of chunked prefill: attention writes the chunk's
     K/V into the linear cache at its positions; the FFN is the plain
     prefill body (stateless per position)."""
     fz = frozen or {}
+    sp_ = spec or {}
+    norms = ({n: par.full_weight(p[n], sp_[n], ctx) for n in ("ln1", "ln2")}
+             if sharded(ctx) else p)
     h, (ck, cv) = attention_prefill_chunk(
-        p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cache["k"],
+        p["mix"], rms_norm(x, norms["ln1"], cfg.norm_eps), cache["k"],
         cache["v"], positions, cfg, pcfg, window=cfg.sliding_window,
-        spamm_cfg=spamm_cfg, frozen=fz.get("mix"))
+        spamm_cfg=spamm_cfg, frozen=fz.get("mix"), ctx=ctx,
+        spec=sp_.get("mix"))
     x = x + h
-    f, _ = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
-                fz.get("mlp"))
+    f, _ = _ffn(p, rms_norm(x, norms["ln2"], cfg.norm_eps), cfg, spamm_cfg,
+                fz.get("mlp"), ctx=ctx, spec=spec)
     return x + f, dict(cache, k=ck, v=cv)
 
 
 def layer_decode(p: dict, x: torch.Tensor, cache: dict, pos,
                  cfg: ModelConfig, pcfg: ParallelConfig, kind: str, *,
-                 spamm_cfg=None, frozen=None):
+                 spamm_cfg=None, frozen=None, ctx=None, spec=None):
     """One residual decode layer; `pos` as in `attention_decode` (unused
     by the recurrent kinds, whose caches carry their state)."""
     fz = frozen or {}
+    sp_ = spec or {}
+    if sharded(ctx):
+        norms = {n: par.full_weight(p[n], sp_[n], ctx)
+                 for n in ("ln", "ln1", "ln2") if n in p}
+    else:
+        norms = p
     if kind == "ssm":
+        w = par.full_tree(p["ssm"], sp_.get("ssm"), ctx)
         h, new = ssm_mod.ssm_decode_step(
-            p["ssm"], rms_norm(x[:, 0], p["ln"], cfg.norm_eps), cache,
+            w, rms_norm(x[:, 0], norms["ln"], cfg.norm_eps), cache,
             cfg.ssm, norm_eps=cfg.norm_eps)
         return x + h[:, None], new
     if kind == "attn":
-        # ring buffer iff the cache is exactly the sliding window
+        # ring buffer iff the cache is exactly the sliding window (a
+        # sequence-sharded cache holds 1/model of it)
+        slen = cache["k"].shape[1]
+        if pcfg.decode_seq_shard and sharded(ctx):
+            slen *= ctx.nmodel
         ring = (cfg.sliding_window is not None
-                and cache["k"].shape[1] <= cfg.sliding_window)
+                and slen <= cfg.sliding_window)
         h, (ck, cv) = attention_decode(
-            p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cache["k"],
+            p["mix"], rms_norm(x, norms["ln1"], cfg.norm_eps), cache["k"],
             cache["v"], pos, cfg, pcfg, window=cfg.sliding_window,
-            ring=ring, spamm_cfg=spamm_cfg, frozen=fz.get("mix"))
+            ring=ring, spamm_cfg=spamm_cfg, frozen=fz.get("mix"), ctx=ctx,
+            spec=sp_.get("mix"))
         new = dict(cache, k=ck, v=cv)
     else:
+        w = par.full_tree(p["mix"], sp_.get("mix"), ctx)
         h1, new = rglru_mod.rglru_decode_step(
-            p["mix"], rms_norm(x[:, 0], p["ln1"], cfg.norm_eps), cache,
+            w, rms_norm(x[:, 0], norms["ln1"], cfg.norm_eps), cache,
             cfg.rglru)
         h = h1[:, None]
     x = x + h
-    f, _ = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg, spamm_cfg,
-                fz.get("mlp"), require_frozen=True)
+    f, _ = _ffn(p, rms_norm(x, norms["ln2"], cfg.norm_eps), cfg, spamm_cfg,
+                fz.get("mlp"), require_frozen=True, ctx=ctx, spec=spec)
     return x + f, new
 
 
@@ -401,9 +648,24 @@ def _remat(fn, pcfg: ParallelConfig):
     return remat
 
 
+def _sp_in(x, pcfg, ctx):
+    """The stack's input: under Megatron-SP the rank's sequence chunk."""
+    sp = seq_sharded(pcfg, ctx, x.shape[1])
+    if sp:
+        x = par.scatter(x, ctx.group(ctx.model_axis), 1)
+    return x, sp
+
+
+def _sp_out(x, ctx, sp: bool):
+    """The stack's output, whole on every model rank again."""
+    if sp:
+        x = par.gather(x, ctx.group(ctx.model_axis), 1, "slice")
+    return x
+
+
 def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
               pcfg: ParallelConfig, positions: torch.Tensor, *,
-              spamm_cfg=None, collect_spamm_stats: bool = False):
+              spamm_cfg=None, collect_spamm_stats: bool = False, ctx=None):
     """All layers, the training and loss path (no caches). Returns (x,
     aux), or with `collect_spamm_stats` (x, aux, (frac_sum, gemm_count,
     layer_frac_sums, layer_gemm_counts)): f32 device tensors, the last two
@@ -413,24 +675,26 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
     layer's forward runs: a remat recomputation inside backward taps into
     no buffer, so every gated GEMM counts once, as through the reference's
     scan carry. A MoE block's GEMMs stay out (`_ffn`), as in the
-    reference."""
+    reference. Over a mesh a split GEMM's fraction is the whole GEMM's
+    (`parallel.split_matmul`)."""
     tctx = _tap_ctx(spamm_cfg)
     collect = collect_spamm_stats and tctx is not None and tctx.enable
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, sp = _sp_in(x, pcfg, ctx)
 
-    def body(p, h, kind):
+    def body(p, h, kind, spec):
         h, a, _ = layer_fwd(p, h, cfg, pcfg, positions, kind,
-                            spamm_cfg=spamm_cfg)
+                            spamm_cfg=spamm_cfg, ctx=ctx, spec=spec, sp=sp)
         return h, a
 
     layer = _remat(body, pcfg)
     aux = vs = vc = zero
     lvs, lvc = [], []
-    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+    for li, (p, kind) in enumerate(zip(params["layers"], layer_kinds(cfg))):
         if collect:
             tctx.begin_trace_buffer()
         try:
-            x, a = layer(p, x, kind)
+            x, a = layer(p, x, kind, _lspec(ctx, li))
         finally:
             fracs = tctx.drain_trace_buffer() if collect else []
         s = zero
@@ -441,6 +705,7 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
         aux, vs, vc = aux + a, vs + s, vc + c
         lvs.append(s)
         lvc.append(c)
+    x = _sp_out(x, ctx, sp)
     if collect:
         return x, aux, (vs, vc, torch.stack(lvs), torch.stack(lvc))
     return x, aux
@@ -448,7 +713,7 @@ def stack_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
                   pcfg: ParallelConfig, positions: torch.Tensor,
-                  cache_len: int, *, spamm_cfg=None, frozen=None):
+                  cache_len: int, *, spamm_cfg=None, frozen=None, ctx=None):
     """Forward + collect caches. Returns (x, {"layers": [cache per layer]}).
     Sliding-window caches keep their last `cache_len` tokens as a ring
     (token t at slot t % W)."""
@@ -456,6 +721,7 @@ def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     fz_layers = (frozen or {}).get("layers")
     tctx = _tap_ctx(spamm_cfg)
     caches = []
+    x, sp = _sp_in(x, pcfg, ctx)
     try:
         for li, (p, kind) in enumerate(zip(params["layers"],
                                            layer_kinds(cfg))):
@@ -463,7 +729,8 @@ def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
                 tctx.set_layer(li)
             x, _, c = layer_fwd(p, x, cfg, pcfg, positions, kind,
                                 spamm_cfg=spamm_cfg, collect_cache=True,
-                                frozen=fz_layers[li] if fz_layers else None)
+                                frozen=fz_layers[li] if fz_layers else None,
+                                ctx=ctx, spec=_lspec(ctx, li), sp=sp)
             if kind == "attn" and c["k"].shape[1] > cache_len:
                 shift = s % cache_len
                 c = {n: torch.roll(c[n][:, -cache_len:], shift, dims=1)
@@ -472,13 +739,13 @@ def stack_prefill(params: dict, x: torch.Tensor, cfg: ModelConfig,
     finally:
         if tctx is not None:
             tctx.set_layer(None)
-    return x, {"layers": caches}
+    return _sp_out(x, ctx, sp), {"layers": caches}
 
 
 def stack_prefill_chunk(params: dict, x: torch.Tensor, cache: dict,
                         positions: torch.Tensor, cfg: ModelConfig,
                         pcfg: ParallelConfig, *, spamm_cfg=None,
-                        frozen=None):
+                        frozen=None, ctx=None):
     """Chunked prefill over the stack at ONE static (B, C) shape, wherever
     in the prompt the chunk lands: each layer writes the chunk's K/V into
     its linear cache at `positions` (B, C), in place. Attention stacks
@@ -499,7 +766,8 @@ def stack_prefill_chunk(params: dict, x: torch.Tensor, cache: dict,
                 tctx.set_layer(li)
             x, nc = layer_prefill_chunk(
                 p, x, c, positions, cfg, pcfg, spamm_cfg=spamm_cfg,
-                frozen=fz_layers[li] if fz_layers else None)
+                frozen=fz_layers[li] if fz_layers else None, ctx=ctx,
+                spec=_lspec(ctx, li))
             caches.append(nc)
     finally:
         if tctx is not None:
@@ -509,7 +777,7 @@ def stack_prefill_chunk(params: dict, x: torch.Tensor, cache: dict,
 
 def stack_decode(params: dict, x: torch.Tensor, cache: dict, pos,
                  cfg: ModelConfig, pcfg: ParallelConfig, *, spamm_cfg=None,
-                 frozen=None):
+                 frozen=None, ctx=None):
     """One decode step over the stack; `pos` as in `attention_decode` (an
     int, a 0-d tensor, or a (B,) tensor of per-row positions). Gated sites
     need a FrozenPlan; sites without one stay dense (require_frozen in
@@ -525,7 +793,8 @@ def stack_decode(params: dict, x: torch.Tensor, cache: dict, pos,
                 tctx.set_layer(li)
             x, nc = layer_decode(p, x, c, pos, cfg, pcfg, kind,
                                  spamm_cfg=spamm_cfg,
-                                 frozen=fz_layers[li] if fz_layers else None)
+                                 frozen=fz_layers[li] if fz_layers else None,
+                                 ctx=ctx, spec=_lspec(ctx, li))
             caches.append(nc)
     finally:
         if tctx is not None:

@@ -9,6 +9,12 @@ in `torch.optim.AdamW`). The update writes the parameters and moments in
 place under `no_grad`; the scalars (clip scale, learning rate, bias
 corrections) are 0-d f32 tensors on the parameters' device, so a step
 reads nothing back to the host.
+
+Over a mesh (`ctx`, a `transformer.NetCtx` with the leaves' placements:
+each rank passes its shards of the parameters, gradients and moments) the
+update is the same elementwise; the global norm sums each parameter's squares once —
+a shard's on every rank, a leaf replicated over an axis only on that
+axis's rank 0 — and adds them over the mesh.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.configs.base import TrainConfig
@@ -50,19 +57,28 @@ class AdamW(NamedTuple):
             torch.tensor(math.pi, dtype=f32) * prog))
 
     @torch.no_grad()
-    def update(self, params, grads, state, step):
+    def update(self, params, grads, state, step, *, ctx=None):
         """One step on the trees `params`, `grads` (same structure) and
         `state`; params and moments are written in place. Returns (params,
-        state, global grad norm as a 0-d f32 tensor)."""
+        state, global grad norm as a 0-d f32 tensor). Over a mesh, `ctx`
+        (a `transformer.NetCtx` with the placements)."""
         t = self.tcfg
         grads = T.map_(lambda g: g.float(), grads)
         if self.compression is not None:
-            grads, state = self.compression.apply(grads, state)
+            grads, state = self.compression.apply(grads, state, ctx=ctx)
         flat_g = T.leaves(grads)
         dev = flat_g[0].device
         total = torch.zeros((), dtype=torch.float32, device=dev)
-        for g in flat_g:
-            total = total + (g * g).sum()
+        if ctx is None:
+            for g in flat_g:
+                total = total + (g * g).sum()
+        else:
+            for g, spec in T.pairs(grads, ctx.specs):
+                if _owns(spec, ctx):
+                    total = total + (g * g).sum()
+            for ax in ctx.mesh.mesh_dim_names:
+                if ctx.size(ax) > 1:
+                    dist.all_reduce(total, group=ctx.group(ax))
         gnorm = torch.sqrt(total)
         scale = torch.clamp(t.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
@@ -80,3 +96,21 @@ class AdamW(NamedTuple):
                      + t.weight_decay * p32)
             p.copy_(p32 - lr * delta)
         return params, state, gnorm
+
+
+def split_axes(spec) -> set:
+    """The mesh axes a placement cuts its leaf over."""
+    out = set()
+    for entry in spec:
+        if entry is not None:
+            out.update(entry if isinstance(entry, tuple) else (entry,))
+    return out
+
+
+def _owns(spec, ctx) -> bool:
+    """Whether this rank counts the leaf's shard in a sum over the mesh:
+    on every axis the leaf is replicated over, the rank is that axis's
+    rank 0."""
+    cut = split_axes(spec)
+    return all(ctx.index(ax) == 0 for ax in ctx.mesh.mesh_dim_names
+               if ax not in cut)

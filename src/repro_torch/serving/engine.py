@@ -436,9 +436,13 @@ class Engine:
                 "mesh_devices > 1 needs frozen plans (per-shard step tables "
                 "ARE the sharding mechanism) — enable spamm_cfg")
         if cfg.moe is not None:
+            # the reference refuses MoE here too: its expert FFNs run their
+            # own shard_map over the outer mesh and take no per-expert
+            # frozen plans (`repro.serving.engine.Engine.__init__`)
             raise ValueError(
-                "pod-sharded serving cannot take MoE archs yet: the expert "
-                "block is not split across devices (ROADMAP queue A)")
+                "pod-sharded serving cannot take MoE archs: the expert FFNs "
+                "gate eagerly and take no per-shard frozen plans, as in the "
+                "reference")
 
     def _shard_devices(self, devices, home) -> list:
         """The shards' devices: `devices` as given (N of them; one card may

@@ -31,3 +31,25 @@ def map_(fn, tree, *rest):
         return type(tree)(map_(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def map_specs(fn, specs, *trees):
+    """Like `map_` over a tree of placements (`models.model.param_specs`),
+    whose tuples are leaves: fn(spec, *matching leaves of `trees`)."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v, *(t[k] for t in trees))
+                for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [map_specs(fn, v, *(t[i] for t in trees))
+                for i, v in enumerate(specs)]
+    return fn(specs, *trees)
+
+
+def pairs(tree, specs) -> list:
+    """[(leaf, spec), ...] in `leaves(tree)` order, `specs` a placement
+    tree of the same structure (its tuples are leaves)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in pairs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in pairs(v, specs[i])]
+    return [(tree, specs)]

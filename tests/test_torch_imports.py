@@ -41,7 +41,8 @@ def test_port_has_modules():
                  "distributed/compression.py", "data/pipeline.py",
                  "checkpoint/checkpoint.py", "train/loop.py",
                  "launch/train.py", "core/schedule.py",
-                 "core/distributed.py", "launch/mesh.py"):
+                 "core/distributed.py", "launch/mesh.py",
+                 "distributed/elastic.py", "models/parallel.py"):
         assert twin in names
 
 
@@ -135,6 +136,40 @@ MULTI_ENTRY_POINTS = (
                                              "halo_wire_bytes")),
     ("repro_torch.models.model", ("reshard_probe",)),
 )
+
+
+# model parallelism: placements, NetCtx, the TP/SP/FSDP layers, seq-sharded
+# decode, the sharded MoE block, elastic re-meshing, the production mesh
+TP_ENTRY_POINTS = (
+    ("repro_torch.models.model", (
+        "param_specs", "sanitize_spec", "place_spec", "placements",
+        "with_placements", "shard_params", "gather_params",
+        "compute_params", "place_cache")),
+    ("repro_torch.models.transformer", ("NetCtx", "attn_weights",
+                                        "seq_sharded")),
+    ("repro_torch.models.parallel", (
+        "gather", "scatter", "reduce_scatter", "enter", "leave",
+        "full_weight", "model_slice", "attn_split", "ff_split",
+        "split_matmul", "block_in", "block_out", "all_kv_heads")),
+    ("repro_torch.models.attention", ("decode_attention_seqsharded",)),
+    ("repro_torch.models.moe", ("padded_experts",)),
+    ("repro_torch.models.layers", ("chunked_ce_parts", "mlp_weights")),
+    ("repro_torch.distributed.elastic", ("best_mesh_shape",
+                                         "build_elastic_mesh",
+                                         "reshard_state")),
+    ("repro_torch.launch.mesh", ("make_ctx", "mesh_from_devices",
+                                 "make_production_mesh", "production_shape")),
+)
+
+
+@pytest.mark.parametrize("module,names", TP_ENTRY_POINTS,
+                         ids=[m for m, _ in TP_ENTRY_POINTS])
+def test_tp_entry_points_exist(module, names):
+    import importlib
+
+    mod = importlib.import_module(module)
+    for name in names:
+        assert hasattr(mod, name), f"{module}.{name}"
 
 
 @pytest.mark.parametrize("module,names", MULTI_ENTRY_POINTS,

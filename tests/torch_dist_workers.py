@@ -48,3 +48,235 @@ def mesh_2d_jobs(rank, jobs):
                                           axes).num_devices
                 for axes in (("data",), ("data", "model"))]
     return out, (c.numpy(), float(frac)), resolved
+
+
+# ---------------------------------------------------------------------------
+# model parallelism (tests/test_torch_tp.py): one spawn runs every job
+# ---------------------------------------------------------------------------
+
+def tp_jobs(rank, jobs):
+    """Each job (kind, kwargs) on this rank, in order; returns the list of
+    per-job results (numpy)."""
+    torch.set_num_threads(1)
+    return [_TP_JOBS[kind](rank, **kw) for kind, kw in jobs]
+
+
+def _ctx(shape, cfg, pcfg, tile, params):
+    """The NetCtx of a `shape` mesh with the placements of `params`."""
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import model as M
+
+    mesh = make_mesh(shape, ("data", "model"), backend="gloo",
+                     device_type="cpu")
+    ctx = MS.make_ctx(mesh, tile=tile)
+    return ctx.replace(specs=M.placements(cfg, pcfg, params, ctx, tile=tile))
+
+
+def _rows(t, ctx):
+    w = t.shape[0] // ctx.ndata
+    return t[ctx.data_index * w:(ctx.data_index + 1) * w]
+
+
+def _specialize(tree, gm):
+    if isinstance(tree, dict):
+        return {k: _specialize(v, gm) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_specialize(v, gm) for v in tree]
+    return tree.for_rows(gm)
+
+
+def _fw_tables(tree):
+    """{(layer, part, name): (nbmax, kj_k, kj_j)} of a freeze_tree."""
+    out = {}
+    for li, layer in enumerate(tree["layers"]):
+        for part, sub in layer.items():
+            for name, fw in sub.items():
+                out[li, part, name] = (fw.nbmax.numpy(), fw.kj_k, fw.kj_j)
+    return out
+
+
+def _serve_model(rank, *, cfg, pcfg, params, tokens, labels, dec_tokens,
+                 max_len, shape, tile, spamm=None, freeze=False,
+                 decode=True):
+    """Loss and hidden states, prefill logits, then decode steps at the
+    given tokens, of this rank's rows over a `shape` mesh. With `freeze`,
+    decode gates through the frozen plans of this rank's compute weights
+    (their tables returned too). The gated GEMMs' taps come back with the
+    prefill (global over "model")."""
+    from repro_torch.core.module import SpammContext
+    from repro_torch.models import model as M
+    from repro_torch.plans.precompute import freeze_tree
+
+    ctx = _ctx(shape, cfg, pcfg, tile, params)
+    local = M.shard_params(params, ctx.specs, ctx)
+    batch = {"tokens": _rows(torch.from_numpy(tokens), ctx),
+             "labels": _rows(torch.from_numpy(labels), ctx)}
+    sc = SpammContext(spamm) if spamm is not None else None
+    out = {"data_index": ctx.data_index, "mrank": ctx.mrank}
+    with torch.no_grad():
+        loss, met = M.loss_fn(cfg, pcfg, local, batch, spamm_cfg=sc, ctx=ctx)
+        out["loss"] = float(loss)
+        out["h"] = M.forward_hidden(cfg, pcfg, local, batch, ctx=ctx)[0].numpy()
+        if sc is not None:
+            sc.begin_stats()
+        cache, logits = M.make_prefill_step(cfg, pcfg, spamm_cfg=sc,
+                                            ctx=ctx)(local, batch)
+        if sc is not None:
+            out["prefill_taps"] = [t.value for t in sc.end_stats()]
+        out["prefill"] = logits.numpy()
+        if not decode:
+            return out
+        cache = M.place_cache(cache, cfg, pcfg, max_len, ctx=ctx)
+        frozen = None
+        if freeze:
+            fw, _ = freeze_tree(M.compute_params(local, cfg, ctx), spamm)
+            out["frozen_tables"] = _fw_tables(fw)
+            b_loc = batch["tokens"].shape[0]
+            frozen = _specialize(fw, -(-b_loc // spamm.tile))
+        step = M.make_decode_step(cfg, pcfg, spamm_cfg=sc, ctx=ctx)
+        s0 = tokens.shape[1]
+        dec, taps = [], []
+        for i in range(dec_tokens.shape[1]):
+            if sc is not None:
+                sc.begin_stats()
+            inp = _rows(torch.from_numpy(dec_tokens[:, i:i + 1]), ctx)
+            lg, cache = step(local, inp, cache, s0 + i, frozen)
+            dec.append(lg.numpy())
+            if sc is not None:
+                taps.append([t.value for t in sc.end_stats()])
+        out["decode"] = dec
+        out["decode_taps"] = taps
+    return out
+
+
+def _train(rank, *, cfg, pcfg, params, batches, tcfg, shape, tile,
+           compression=False, elastic_batch=None):
+    """`len(batches)` train steps over a `shape` mesh from whole `params`;
+    returns the losses and (gathered, rank 0) parameters and moments. With
+    `elastic_batch`, the state then moves onto the best mesh of ranks 0-2
+    (`distributed.elastic`): each survivor's re-gathered params and moments
+    are compared bit for bit with the state, and one step runs there."""
+    from repro_torch import tree as T
+    from repro_torch.distributed import elastic as E
+    from repro_torch.distributed.compression import Int8EF
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+
+    ctx = _ctx(shape, cfg, pcfg, tile, params)
+    opt = AdamW(tcfg, compression=Int8EF() if compression else None)
+    local = M.shard_params(params, ctx.specs, ctx)
+    state = opt.init(local)
+    step = M.make_train_step(cfg, pcfg, opt, ctx=ctx)
+    losses = []
+    for i, (tok, lab) in enumerate(batches):
+        b = {"tokens": _rows(torch.from_numpy(tok), ctx),
+             "labels": _rows(torch.from_numpy(lab), ctx)}
+        local, state, met = step(local, state, b, i)
+        losses.append(float(met["loss"]))
+    full = {"params": M.gather_params(local, ctx.specs, ctx),
+            "opt_state": {k: M.gather_params(v, ctx.specs, ctx)
+                          for k, v in state.items()}}
+    out = {"losses": losses}
+    if rank == 0:
+        out["params"] = T.map_(lambda t: t.numpy(), full["params"])
+        for k in ("mu", "ef"):
+            if k in full["opt_state"]:
+                out[k] = T.map_(lambda t: t.numpy(), full["opt_state"][k])
+    if elastic_batch is None:
+        return out
+    new_mesh = E.build_elastic_mesh(range(3), model_parallel=shape[1],
+                                    device_type="cpu")
+    out["elastic_shape"] = tuple(new_mesh.shape)
+    moved = E.reshard_state(full, cfg, pcfg, new_mesh, tile=tile)
+    if moved is None:
+        return out
+    from repro_torch.launch import mesh as MS
+
+    ctx3 = MS.make_ctx(new_mesh, tile=tile, specs=moved["specs"])
+    back = {"params": M.gather_params(moved["params"], ctx3.specs, ctx3)}
+    back.update({k: M.gather_params(moved["opt_state"][k], ctx3.specs, ctx3)
+                 for k in ("mu", "nu")})
+    want = {"params": full["params"], "mu": full["opt_state"]["mu"],
+            "nu": full["opt_state"]["nu"]}
+    out["elastic_bitwise"] = all(
+        torch.equal(a, b) for k in want
+        for a, b in zip(T.leaves(back[k]), T.leaves(want[k])))
+    step3 = M.make_train_step(cfg, pcfg, opt, ctx=ctx3)
+    tok, lab = elastic_batch
+    b = {"tokens": _rows(torch.from_numpy(tok), ctx3),
+         "labels": _rows(torch.from_numpy(lab), ctx3)}
+    _, _, met = step3(moved["params"], moved["opt_state"], b, len(batches))
+    out["elastic_loss"] = float(met["loss"])
+    return out
+
+
+def _moe(rank, *, cfg, pcfg, params, x, shape, tile, spamm=None):
+    """Layer 0's moe_block of a MoE model (`params` whole) on this rank's
+    rows of x over a `shape` mesh → {"y" rows, "aux"}."""
+    from repro_torch.core.module import SpammContext
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MoE
+
+    ctx = _ctx(shape, cfg, pcfg, tile, params)
+    local = M.shard_params(params, ctx.specs, ctx)
+    sc = SpammContext(spamm) if spamm is not None else None
+    with torch.no_grad():
+        y, aux = MoE.moe_block(local["layers"][0]["moe"],
+                               _rows(torch.from_numpy(x), ctx), cfg.moe,
+                               cfg.act, spamm_cfg=sc, ctx=ctx,
+                               spec=ctx.specs["layers"][0]["moe"])
+    return {"y": y.numpy(), "aux": float(aux), "data_index": ctx.data_index}
+
+
+def _loop(rank, *, cfg, pcfg, tcfg, shape, tile, ckpt_dir, batch, seq,
+          spamm=None, reshard=None):
+    """The train loop over a `shape` mesh (`train(ctx=)`, SpAMM and the
+    re-sharding probe as given): tcfg's steps with checkpoints, then a
+    resume from the latest to two more steps. Returns both runs' losses,
+    the restart count and the first run's gating stats."""
+    import dataclasses
+
+    from repro_torch.launch import mesh as MS
+    from repro_torch.train.loop import train
+
+    mesh = make_mesh(shape, ("data", "model"), backend="gloo",
+                     device_type="cpu")
+    ctx = MS.make_ctx(mesh, tile=tile)
+    run = train(cfg, pcfg, dataclasses.replace(tcfg, ckpt_dir=ckpt_dir),
+                global_batch=batch, seq_len=seq, log_every=0, device="cpu",
+                ctx=ctx, spamm_cfg=spamm, reshard_cfg=reshard)
+    more = dataclasses.replace(tcfg, ckpt_dir=ckpt_dir,
+                               total_steps=tcfg.total_steps + 2)
+    resumed = train(cfg, pcfg, more, global_batch=batch, seq_len=seq,
+                    log_every=0, device="cpu", ctx=ctx, resume=True)
+    return {"losses": run.losses, "resumed": resumed.losses,
+            "restarts": resumed.restarts, "spamm_stats": run.spamm_stats}
+
+
+def _init(rank, *, cfg, pcfg, shape, tile):
+    """Whether `init_params(ctx=)` (each piece cut as it is made) equals
+    `shard_params` of the whole init bit for bit, and what a rank that
+    does not keep a `gather_params` gets: {"same", "dropped", "whole"}."""
+    from repro_torch import tree as T
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import model as M
+
+    mesh = make_mesh(shape, ("data", "model"), backend="gloo",
+                     device_type="cpu")
+    ctx = M.with_placements(MS.make_ctx(mesh, tile=tile), cfg, pcfg)
+    mine = M.init_params(cfg, pcfg, 3, device="cpu", ctx=ctx)
+    whole = M.init_params(cfg, pcfg, 3, device="cpu",
+                          model_axis_size=ctx.nmodel)
+    cut = M.shard_params(whole, ctx.specs, ctx)
+    same = all(torch.equal(a, b) for a, b in zip(T.leaves(mine),
+                                                 T.leaves(cut)))
+    keep = rank == 0
+    back = M.gather_params(mine, ctx.specs, ctx, keep=keep, device="cpu")
+    return {"same": same,
+            "dropped": all(t is None for t in T.leaves(back)) != keep,
+            "whole": keep and all(torch.equal(a, b) for a, b in zip(
+                T.leaves(back), T.leaves(whole)))}
+
+
+_TP_JOBS = {"serve": _serve_model, "train": _train, "moe": _moe,
+            "loop": _loop, "init": _init}
