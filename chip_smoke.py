@@ -190,6 +190,20 @@ written as each rank's shards, put together by the 3 surviving ranks
 and re-placed on `best_mesh_shape(3, 2)` = (3, 1) bit for bit, then one
 step with a finite loss.
 
+Dryrun (`phase_dryrun`, after tp), the dry-run tooling: this process as
+rank 0 of a fake process group of the production world (256 ranks as a
+32×8 (data, model) mesh, 512 as 2×32×8), collectives counted by
+`launch.op_analysis.OpAnalysis` and not performed. The SpAMM variants of
+`launch.dryrun_spamm` (rowpart contiguous and cyclic, 2d, 2d at bf16, 2d
+over two pods) on the N = 32768 decay matrix at the τ calibrated for a
+0.10 ratio at N = 4096: rank 0's own product (before its first
+collective) ≡ flat `spamm()` on its rows at that τ, tile and dtype, bit
+for bit; the counted tile products = its plan's real steps; the counted
+all-gather wire bytes = the ring model. Then qwen2.5-32b's train_4k and
+starcoder2-7b's decode_32k cells of `launch.dryrun` (rank 0's shards,
+moments, batch and cache, one real step): peak memory, FLOPs, bytes, wire
+bytes per axis and the roofline terms (H100 SXM data-sheet rates).
+
 Every result line is a JSON object; the line before the last lists nine
 kernel entries (the work-list GEMM twice, f32 and bf16; each of the
 get-norm pair twice, CUDA-core and tensor-core) with their launches on
@@ -198,7 +212,8 @@ library path, or the dense-grid GEMM's qwen2-moe τ > 0 wave; the f32 pair
 also on run (f), the MoE wave, the last families' τ > 0 waves and the
 training runs, with row 2's times at the backward products' shapes),
 errors, times and bounds, and each entry's multi_launches and
-tp_launches on the multi and tp phases' cells (summed over the ranks);
+tp_launches on the multi and tp phases' cells (summed over the ranks; rows
+1, 2 and 2 bf16 also dryrun_launches per SpAMM variant);
 the last line is {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
 src/ beside it, it exits 2 and prints no result.
@@ -396,6 +411,20 @@ TP_MU_RTOL = 1e-4
 # feedback residuals and of the parameters' update (a scale taken over
 # one shard, not the whole leaf, re-grids every residual)
 TP_INT8_RTOL = 1e-3
+# the dryrun phase (after tp): this process as rank 0 of a fake process
+# group of the production world (`launch.mesh.fake_world`; 256 ranks as
+# (data 32, model 8), 512 as (pod 2, data 32, model 8)). The SpAMM
+# variants of `launch.dryrun_spamm` on the N = DRYRUN_N decay matrix at
+# the τ calibrated for DRYRUN_RATIO on a DRYRUN_CALIBRATE_N proxy, and
+# DRYRUN_CELLS of `launch.dryrun` (one train step, one decode step of a
+# 32k cache: the rank's shards, moments, batch and cache). starcoder2-7b's
+# train_4k peaks at 59 GB a rank, which beside the ≈ 24 GB the earlier
+# phases leave allocated does not fit the card; qwen2.5-32b's at 34 GB
+DRYRUN_N = 32768
+DRYRUN_RATIO = 0.10
+DRYRUN_CALIBRATE_N = 4096
+DRYRUN_CELLS = (("qwen2.5-32b", "train_4k"), ("starcoder2-7b",
+                                              "decode_32k"))
 
 
 class SmokeFailure(RuntimeError):
@@ -4511,6 +4540,143 @@ def phase_tp():
 # library path
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# dryrun: the dry runs as rank 0 of a fake production world
+# ---------------------------------------------------------------------------
+
+def _ring_all_gather_bytes(kind, n, rows, cols):
+    """The result all-gathers' wire bytes of one SpAMM variant by the ring
+    model, written out: C's f32 bytes over the row ranks (2d: first the
+    rank's column blocks over the column ranks) and the 4-byte valid
+    fractions the same way."""
+    out = n * n * 4 * (rows - 1) / rows + 4 * (rows - 1)
+    if kind == "2d":
+        out += (n // rows) * n * 4 * (cols - 1) / cols + 4 * (cols - 1)
+    return out
+
+
+def phase_dryrun():
+    """The SpAMM variants and DRYRUN_CELLS as rank 0 of the fake production
+    world (see the DRYRUN_* constants). Each variant's rank-0 product
+    (before its first collective) ≡ flat `spamm()` on the same rows at the
+    same τ, tile and dtype, bit for bit; its counted tile products = the
+    rank's plan's real steps. At these shapes (an A strip of 1024 × 32768
+    against the whole 32768² B; 1024 × 4096 against 4096 × 32768 in 2d)
+    the kernels are also held against their plain versions: the plan's
+    norms within NORM_RTOL of `tile_norms_plain` on the same operands, the
+    product within MM_RTOL of `spamm_mm_worklist_plain` on the plan's own
+    step tables (so no gate decision an ulp from τ can differ), and the
+    counted tile products = the (i, j, k) that pass na·nb ≥ τ, counted on
+    the norms with no step table. Its all-gathers' counted wire bytes =
+    the ring model on C's bytes. Returns {variant: launches of the
+    variant's run}."""
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.core import spamm as cs
+    from repro_torch.kernels import getnorm, spamm_mm
+    from repro_torch.kernels.quantize import quantized_view
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import dryrun_spamm as DS
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tau, ratio = DS.calibrate_tau(DRYRUN_CALIBRATE_N, TILE, DRYRUN_RATIO)
+    check(abs(ratio - DRYRUN_RATIO) <= RATIO_TOL,
+          f"dryrun: calibrated ratio {ratio} for {DRYRUN_RATIO}")
+    a = DS.decay_operand(DRYRUN_N)
+    corner = min(2048, DRYRUN_N)       # Toeplitz: the corner is the whole
+    check(torch.equal(a[:corner, :corner].cpu(),
+                      torch.as_tensor(cs.algebraic_decay(corner))),
+          "dryrun: the decay operand differs from numpy's")
+    counts = {}
+    for name, (kind, _, dtype, multi) in DS.VARIANTS.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        out, loc = DS.run_variant(name, a, tau, ratio, tile=TILE,
+                                  verbose=False)
+        counts[name] = read_counts()
+        row2 = ("spamm_mm_worklist_bf16" if dtype == "bfloat16"
+                else "spamm_mm_worklist")
+        check(counts[name]["tile_norms"] >= 1 and counts[name][row2] == 1,
+              f"dryrun {name}: rows 1 and 2 not launched: {counts[name]}")
+        c_flat, _ = cs.spamm(loc["a"], loc["b"], tau, tile=TILE,
+                             compute_dtype=dtype)
+        check(torch.equal(c_flat, loc["product"]),
+              f"dryrun {name}: rank 0's product differs from flat spamm()")
+        del c_flat
+        p = P.plan(loc["a"], loc["b"], tau, tile=TILE, compute_dtype=dtype)
+        steps = int(p.valid_tiles)
+        gated = int((p.norm_a[:, :, None] * p.norm_b[None] >= p.tau).sum())
+        check(out["tile_products"] == steps == gated,
+              f"dryrun {name}: {out['tile_products']} counted tile "
+              f"products, the plan has {steps}, the gate passes {gated}")
+        norm_rel = max(
+            float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
+            for got, want in (
+                (p.norm_a, getnorm.tile_norms_plain(
+                    quantized_view(loc["a"], dtype, TILE), TILE)),
+                (p.norm_b, getnorm.tile_norms_plain(
+                    quantized_view(loc["b"], dtype, TILE), TILE))))
+        w = p.work
+        plain = spamm_mm.spamm_mm_worklist_plain(
+            loc["a"], loc["b"], w.step_i, w.step_j, w.step_k, w.step_flags,
+            w.runs, tile=TILE)
+        abs_err, mm_rel = errors(loc["product"], plain)
+        check(norm_rel <= NORM_RTOL and mm_rel <= MM_RTOL,
+              f"dryrun {name}: against the plain versions, norms max rel "
+              f"err {norm_rel}, product {mm_rel}")
+        del p, plain
+        rows = 64 if multi else 32
+        cols = 8 if kind == "2d" else 1
+        wire = out["collectives"]["all-gather"]["wire_bytes"]
+        want = _ring_all_gather_bytes(kind, DRYRUN_N, rows, cols)
+        check(wire == want, f"dryrun {name}: all-gather wire bytes {wire}, "
+                            f"ring model {want}")
+        r = out["roofline"]
+        emit({"dryrun_spamm": {
+            "variant": name, "mesh": out["mesh"], "n": DRYRUN_N,
+            "tile": TILE, "tau": tau, "calibrated_ratio": ratio,
+            "rank0_valid_fraction": out["rank_valid_fraction"],
+            "tile_products": out["tile_products"],
+            "flops": out["flops_per_device"],
+            "hbm_bytes": out["hbm_bytes_per_device"],
+            "wire_bytes": {k: v["wire_bytes"]
+                           for k, v in out["collectives"].items()},
+            "roofline": r, "peak_gb": out["memory"]["peak_bytes"] / 1e9,
+            "argument_gb": out["memory"]["argument_bytes"] / 1e9,
+            "seconds": out["seconds"], "launches": counts[name],
+            "plain_norm_rel_err": norm_rel, "plain_product_abs_err": abs_err,
+            "plain_product_rel_err": mm_rel, "card": CARD}})
+        del loc
+    del a
+    torch.cuda.empty_cache()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    for arch, shape in DRYRUN_CELLS:
+        out = dryrun.run_cell(arch, shape, verbose=False)
+        h, r, mem = out["hlo"], out["roofline"], out["memory"]
+        check(h["flops_per_device"] > 0 and h["hbm_bytes_per_device"] > 0
+              and h["collective_wire_bytes_per_device"] > 0
+              and not h["warnings"]
+              and mem["argument_bytes"] < mem["peak_bytes"] <= card_bytes
+              and r["dominant"] in ("compute_s", "memory_s", "collective_s"),
+              f"dryrun {arch} × {shape}: {h['warnings']} {mem} {r}")
+        emit({"dryrun_cell": {
+            "arch": arch, "shape": shape, "mesh": out["mesh"],
+            "batch_per_rank": out["batch_per_rank"],
+            "flops": h["flops_per_device"],
+            "hbm_bytes": h["hbm_bytes_per_device"],
+            "wire_bytes": {k: v["wire_bytes"]
+                           for k, v in h["collectives"].items()},
+            "roofline": r, "peak_gb": mem["peak_bytes"] / 1e9,
+            "argument_gb": mem["argument_bytes"] / 1e9,
+            "top_bytes": out["top_bytes"],
+            "seconds": out["compile_s"], "card": CARD}})
+        torch.cuda.empty_cache()
+    emit({"dryrun_phase": {"seconds": time.perf_counter() - t_phase}})
+    return counts
+
+
 def train_run(cfg, pcfg, base, batches, spamm_cfg, label):
     """TRAIN_STEPS AdamW steps from a copy of `base` (fresh moments), one
     batch each, every launch counter set to 0 just before the first.
@@ -5307,6 +5473,7 @@ def main():
     train_counts, train_tau0, train_products = timed("train", phase_train)
     multi_counts = timed("multi", phase_multi)
     tp_counts = timed("tp", phase_tp)
+    dry_counts = timed("dryrun", phase_dryrun)
     lib_counts, pool, dense = timed("library", phase_library)
     emit({"phase_seconds": {**seconds, "note": "serve includes autotune"}})
 
@@ -5334,6 +5501,11 @@ def main():
         its 4 ranks."""
         return {cell: c[name] for cell, c in tp_counts.items()}
 
+    def dryrun_path(name):
+        """A kernel's launches on each SpAMM variant of the dryrun phase."""
+        return {"dryrun_launches": {v: c[name]
+                                    for v, c in dry_counts.items()}}
+
     def other_paths(name):
         """A kernel's launches on the calibration, the tuned run (c) wave,
         codeqwen1.5-7b's τ > 0 and autotuned waves, the τ > 0 waves of
@@ -5360,7 +5532,7 @@ def main():
          "train_path": train_path,
          "train_tau0_launches": {k: c["tile_norms"]
                                  for k, c in train_tau0.items()},
-         **other_paths("tile_norms"),
+         **other_paths("tile_norms"), **dryrun_path("tile_norms"),
          "ms_back_to_back": norms_act["ms_back_to_back"],
          **{k: norms_act[k] for k in keys}},
         {"name": "spamm_mm_worklist", "route": "cuda",
@@ -5379,9 +5551,11 @@ def main():
                                                       "valid_fraction")}
                             for r in train_products],
          **other_paths("spamm_mm_worklist"),
+         **dryrun_path("spamm_mm_worklist"),
          **{k: mm_w1[k] for k in keys}},
         {"name": "spamm_mm_worklist_bf16", "route": "cuda",
          "multi_launches": multi_path("spamm_mm_worklist_bf16"),
+         **dryrun_path("spamm_mm_worklist_bf16"),
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:203",
          "launches": lowp_counts["bfloat16"]["spamm_mm_worklist_bf16"],

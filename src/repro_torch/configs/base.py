@@ -148,6 +148,26 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+# ---------------------------------------------------------------------------
+# shape cells (the reference's; the same for all ten archs)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
     """The runtime config of the reference, except the compute dtype's
@@ -210,9 +230,29 @@ PORTED_ARCHS = ("starcoder2-7b", "codeqwen1.5-7b", "qwen2.5-32b",
                 "recurrentgemma-9b")
 
 
+# archs for which long_500k runs (sub-quadratic sequence mixing); the rest
+# are documented skips
+LONG_CONTEXT_ARCHS = ("mamba2-1.3b", "recurrentgemma-9b", "mixtral-8x22b")
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in PORTED_ARCHS:
         raise ValueError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape, skipped) dry-run cells: 33 runnable and 7
+    documented skips (long_500k outside LONG_CONTEXT_ARCHS; the reference's
+    docstring says 37 + 3, its code gives these)."""
+    out = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES.values():
+            skipped = (shape.name == "long_500k"
+                       and arch not in LONG_CONTEXT_ARCHS)
+            if skipped and not include_skipped:
+                continue
+            out.append((arch, shape.name, skipped))
+    return out

@@ -25,7 +25,9 @@ norm-pyramid estimate). Results are the same under any partition: gating
 and each output tile's k order do not depend on the other rows.
 
 Collectives: the module's only calls into `torch.distributed` are
-`_all_gather` and `_reduce_scatter`, on the operands' own tensors: NCCL
+`_all_gather` and `_reduce_scatter`, on the operands' own tensors, through
+`repro_torch.compat` (the collectives' names moved between torch
+versions): NCCL
 for ranks on their own cards, gloo for CPU ranks or several ranks on one
 card (gloo takes CUDA tensors for both collectives and stages them
 through host memory itself).
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import compat
 from repro_torch.core import plan as _plan
 from repro_torch.core import schedule as _schedule
 
@@ -49,7 +52,7 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     n = dist.get_world_size(group)
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(out, x, group=group)
+    compat.all_gather_single(out, x, group=group)
     return out
 
 
@@ -59,12 +62,20 @@ def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     n = dist.get_world_size(group)
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    compat.reduce_scatter_single(out, x, op=dist.ReduceOp.SUM,
+                                 group=group)
     return out
 
 
-def _axis(mesh, axis: str):
-    """(size, this rank's index, process group) of one mesh axis."""
+def _axis(mesh, axis):
+    """(size, this rank's index, process group) of one mesh axis, or of a
+    tuple of axes taken as one (row-major, the first the slowest: the
+    reference's ("pod", "data") row axis)."""
+    if isinstance(axis, (tuple, list)):
+        if len(axis) > 1:
+            flat = mesh[tuple(axis)]._flatten()
+            return flat.size(0), flat.get_local_rank(0), flat.get_group(0)
+        axis = axis[0]
     dim = mesh.mesh_dim_names.index(axis)
     return mesh.size(dim), mesh.get_local_rank(dim), mesh.get_group(dim)
 
@@ -214,11 +225,12 @@ def spamm_rowpart(a: torch.Tensor, b: torch.Tensor, tau, mesh, *,
     return c.reshape(m, -1), _fraction(fracs, weights)
 
 
-def _local_spamm_psum(a_loc, b_loc, tau, tile, backend, block_n, col_group):
+def _local_spamm_psum(a_loc, b_loc, tau, tile, backend, block_n, col_group,
+                      compute_dtype="float32"):
     """One rank's partial product on its k-slice, summed over `col_group`
     with a reduce-scatter along N: rank q keeps column block q."""
     p = _plan.plan(a_loc, b_loc, tau, tile=tile, backend=backend,
-                   block_n=block_n)
+                   block_n=block_n, compute_dtype=compute_dtype)
     c_part = _plan.execute(p, a_loc, b_loc)
     ncol = dist.get_world_size(col_group)
     rows, n = c_part.shape
@@ -231,13 +243,14 @@ def spamm_2d(a: torch.Tensor, b: torch.Tensor, tau, mesh, *,
              row_axis: str = "data", col_axis: str = "model", tile: int = 64,
              backend: str = "auto", block_n: int = 1,
              schedule: str = "contiguous", sched_levels: int = 3,
-             offsets=None):
-    """Beyond-paper SUMMA-style 2-D SpAMM: A's rows over `row_axis` and
-    its K over `col_axis`, B's K over `col_axis`; each rank gates its local
-    k-slice (exact), the partials are reduce-scattered over `col_axis`
-    along N, and the blocks are all-gathered back. schedule='auto',
-    'equal_work' and `offsets=` vary the row partition as in
-    `spamm_rowpart` (only the row grid may be ragged).
+             offsets=None, compute_dtype: str = "float32"):
+    """Beyond-paper SUMMA-style 2-D SpAMM: A's rows over `row_axis` (one
+    axis, or a tuple of axes taken as one) and its K over `col_axis`, B's
+    K over `col_axis`; each rank gates its local k-slice (exact), the
+    partials are reduce-scattered over `col_axis` along N, and the blocks
+    are all-gathered back. schedule='auto', 'equal_work' and `offsets=`
+    vary the row partition as in `spamm_rowpart` (only the row grid may
+    be ragged); compute_dtype as there.
 
     Returns (C, mean valid fraction), both whole on every rank."""
     _check_operands(a, b, tile, block_n)
@@ -255,7 +268,8 @@ def spamm_2d(a: torch.Tensor, b: torch.Tensor, tau, mesh, *,
     a_loc = a.reshape(gm, tile, k)[torch.as_tensor(rows, device=a.device)]
     a_loc = a_loc.reshape(-1, k)[:, q * kw:(q + 1) * kw]
     c_blk, frac = _local_spamm_psum(a_loc, b[q * kw:(q + 1) * kw], tau, tile,
-                                    backend, block_n, col_group)
+                                    backend, block_n, col_group,
+                                    compute_dtype)
     # column blocks of this row strip, then the row strips
     rows_loc, nb = c_blk.shape
     c_row = _all_gather(c_blk, col_group).reshape(ncol, rows_loc, nb)

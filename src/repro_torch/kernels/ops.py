@@ -74,11 +74,49 @@ class Backend:
         return tuple(maps)
 
 
+# The open `launch.op_analysis.OpAnalysis`, or None. Each entry point of a
+# backend reports its launch to it (the kernels launch through ctypes, where
+# no dispatch mode sees them); with none open a launch costs this one check,
+# and nothing reads the device.
+analysis = None
+
+
+def _acc_steps(flags: torch.Tensor) -> int:
+    """The real steps of a step table: those with the ACC bit (a device
+    read; only an open analysis asks)."""
+    return int(((flags & _spamm_mm.STEP_ACC) != 0).sum())
+
+
+def _worklist_name(dtype) -> str:
+    return {torch.bfloat16: "spamm_mm_worklist_bf16",
+            torch.int8: "spamm_mm_worklist_int8"}.get(dtype,
+                                                      "spamm_mm_worklist")
+
+
+def _counted_worklist(call, a, b, work, tile, block_n, operands):
+    m, k = a.shape
+    return analysis.kernel(
+        _worklist_name(a.dtype), call, operands,
+        flops=0.0, products=lambda: _acc_steps(work.step_flags),
+        product_flops=2.0 * tile * tile * tile * block_n,
+        dense_flops=2.0 * m * k * b.shape[1], dtype=a.dtype)
+
+
+def _tables(work) -> tuple:
+    return (work.step_i, work.step_j, work.step_k, work.step_flags,
+            work.runs)
+
+
 def _worklist(fn):
     def matmul_worklist(a, b, work, tile, block_n, out_dtype):
-        return fn(a, b, work.step_i, work.step_j, work.step_k,
-                  work.step_flags, work.runs, tile=tile, block_n=block_n,
-                  out_dtype=out_dtype)
+        if analysis is None:
+            return fn(a, b, work.step_i, work.step_j, work.step_k,
+                      work.step_flags, work.runs, tile=tile, block_n=block_n,
+                      out_dtype=out_dtype)
+        return _counted_worklist(
+            lambda: fn(a, b, *_tables(work), tile=tile, block_n=block_n,
+                       out_dtype=out_dtype),
+            a, b, work, tile, block_n, (a, b) + _tables(work))
 
     return matmul_worklist
 
@@ -86,9 +124,15 @@ def _worklist(fn):
 def _worklist_int8(fn):
     def matmul_worklist_int8(a_q, b_q, a_scale, b_scale, work, tile, block_n,
                              out_dtype):
-        return fn(a_q, b_q, a_scale, b_scale, work.step_i, work.step_j,
-                  work.step_k, work.step_flags, work.runs, tile=tile,
-                  block_n=block_n, out_dtype=out_dtype)
+        if analysis is None:
+            return fn(a_q, b_q, a_scale, b_scale, work.step_i, work.step_j,
+                      work.step_k, work.step_flags, work.runs, tile=tile,
+                      block_n=block_n, out_dtype=out_dtype)
+        return _counted_worklist(
+            lambda: fn(a_q, b_q, a_scale, b_scale, *_tables(work), tile=tile,
+                       block_n=block_n, out_dtype=out_dtype),
+            a_q, b_q, work, tile, block_n,
+            (a_q, b_q, a_scale, b_scale) + _tables(work))
 
     return matmul_worklist_int8
 
@@ -96,26 +140,63 @@ def _worklist_int8(fn):
 def _dense(fn):
     def matmul(a, b, mask, kidx, nvalid, tile, block_n, out_dtype):
         del mask  # the kernel reads the compaction
-        return fn(a, b, kidx, nvalid, tile=tile, block_n=block_n,
-                  out_dtype=out_dtype)
+        if analysis is None:
+            return fn(a, b, kidx, nvalid, tile=tile, block_n=block_n,
+                      out_dtype=out_dtype)
+        m, k = a.shape[-2:]
+        batch = a.shape[0] if a.dim() == 3 else 1
+        return analysis.kernel(
+            "spamm_mm", lambda: fn(a, b, kidx, nvalid, tile=tile,
+                                   block_n=block_n, out_dtype=out_dtype),
+            (a, b, kidx, nvalid), flops=0.0,
+            products=lambda: int(nvalid.sum()),
+            product_flops=2.0 * tile * tile * tile * block_n,
+            dense_flops=2.0 * batch * m * k * b.shape[-1], dtype=a.dtype)
 
     return matmul
 
 
+def _norms(fn, quant: bool = False):
+    """A get-norm entry: one kernel, 2 operations (square, add) an
+    element."""
+    base = "tile_norms_quant" if quant else "tile_norms"
+
+    def norms(x, tile, use_mxu=False):
+        if analysis is None:
+            return fn(x, tile, use_mxu=use_mxu)
+        return analysis.kernel(base + ("_mxu" if use_mxu else ""),
+                               lambda: fn(x, tile, use_mxu=use_mxu), (x,),
+                               flops=2.0 * x.numel())
+
+    return norms
+
+
+def _pool(fn):
+    def pool_norms(normmap):
+        if analysis is None:
+            return fn(normmap)
+        return analysis.kernel("pool_norms", lambda: fn(normmap), (normmap,),
+                               flops=2.0 * normmap.numel())
+
+    return pool_norms
+
+
 BACKENDS = {
-    "cuda": Backend("cuda", _getnorm.tile_norms_cuda,
-                    _getnorm.tile_norms_quant_cuda, _getnorm.pool_norms_cuda,
+    "cuda": Backend("cuda", _norms(_getnorm.tile_norms_cuda),
+                    _norms(_getnorm.tile_norms_quant_cuda, quant=True),
+                    _pool(_getnorm.pool_norms_cuda),
                     _worklist(_spamm_mm.spamm_mm_worklist_cuda),
                     _worklist_int8(_spamm_mm.spamm_mm_worklist_int8_cuda),
                     _dense(_spamm_mm.spamm_mm_cuda)),
-    "torch": Backend("torch", _getnorm.tile_norms_plain,
-                     _getnorm.tile_norms_quant_plain,
-                     _getnorm.pool_norms_plain,
+    "torch": Backend("torch", _norms(_getnorm.tile_norms_plain),
+                     _norms(_getnorm.tile_norms_quant_plain, quant=True),
+                     _pool(_getnorm.pool_norms_plain),
                      _worklist(_spamm_mm.spamm_mm_worklist_plain),
                      _worklist_int8(_spamm_mm.spamm_mm_worklist_int8_plain),
                      _dense(_spamm_mm.spamm_mm_plain)),
-    "auto": Backend("auto", _getnorm.tile_norms, _getnorm.tile_norms_quant,
-                    _getnorm.pool_norms,
+    "auto": Backend("auto", _norms(_getnorm.tile_norms),
+                    _norms(_getnorm.tile_norms_quant, quant=True),
+                    _pool(_getnorm.pool_norms),
                     _worklist(_spamm_mm.spamm_mm_worklist),
                     _worklist_int8(_spamm_mm.spamm_mm_worklist_int8),
                     _dense(_spamm_mm.spamm_mm)),

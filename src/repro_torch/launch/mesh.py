@@ -18,10 +18,19 @@ over the survivors, `distributed.elastic`), `make_ctx` makes a model's
 counterpart of the reference's 16×16 pod slice: "model" spans the GPUs of
 one NVLink node (8), "data" the nodes, and with `multi_pod` a leading
 "pod" axis of 2.
+
+`fake_world` is the counterpart of the reference's 512 fake XLA host
+devices: this process joins a "fake" process group as rank 0 of a world
+of any size, whose collectives return at once without
+moving data, and gets the production mesh (or a given one) over it. The
+dry runs (`launch.dryrun`, `launch.dryrun_spamm`) run rank 0's real share
+of a step in it.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
+import math
 import multiprocessing
 import os
 import queue as _queue
@@ -190,6 +199,33 @@ def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl",
     shape, names = production_shape(dist.get_world_size(),
                                     multi_pod=multi_pod)
     return make_mesh(shape, names, backend=backend, device_type=device_type)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, *, multi_pod: bool = False, shape=None,
+               axis_names=None, device_type: str = "cuda"):
+    """`with fake_world(256) as mesh:` — this process as rank 0 of a
+    "fake" process group of `world_size` ranks (no other process exists:
+    collectives return at once and move nothing), and a `DeviceMesh` over
+    it: `shape`/`axis_names` when given, else the production mesh
+    (`production_shape`). The group is destroyed on exit."""
+    # importing it registers the "fake" backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    if shape is None:
+        shape, axis_names = production_shape(world_size, multi_pod=multi_pod)
+    if math.prod(shape) != world_size:
+        raise ValueError(f"mesh {tuple(shape)} does not hold "
+                         f"{world_size} ranks")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield make_mesh(shape, axis_names, backend="fake",
+                        device_type=device_type)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_ctx(mesh, *, tile: int = 64, batch_axes=None, specs=None):

@@ -42,8 +42,23 @@ def test_port_has_modules():
                  "checkpoint/checkpoint.py", "train/loop.py",
                  "launch/train.py", "core/schedule.py",
                  "core/distributed.py", "launch/mesh.py",
-                 "distributed/elastic.py", "models/parallel.py"):
+                 "distributed/elastic.py", "models/parallel.py",
+                 "compat.py", "launch/op_analysis.py", "launch/dryrun.py",
+                 "launch/dryrun_spamm.py"):
         assert twin in names
+
+
+# the reference's modules whose twin has another name
+RENAMED_TWINS = {"launch/hlo_analysis.py": "launch/op_analysis.py"}
+
+
+def test_every_reference_module_has_a_twin():
+    ref = SRC / "repro"
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()}
+    missing = [m for m in (p.relative_to(ref).as_posix()
+                           for p in sorted(ref.rglob("*.py")))
+               if RENAMED_TWINS.get(m, m) not in names]
+    assert not missing, missing
 
 
 # the low-precision entry points: the fused int8 get-norm, the int8 work-list
@@ -162,6 +177,34 @@ TP_ENTRY_POINTS = (
 )
 
 
+# the dry-run tooling: the version shims, the shape cells, the op-level
+# roofline counter, the two dry runs and the fake production world
+DRYRUN_ENTRY_POINTS = (
+    ("repro_torch.compat", ("all_gather_single", "reduce_scatter_single")),
+    ("repro_torch.configs", ("ShapeConfig", "SHAPES", "LONG_CONTEXT_ARCHS",
+                             "cells")),
+    ("repro_torch.launch.op_analysis", ("OpAnalysis", "COLLECTIVES",
+                                        "_wire_bytes")),
+    ("repro_torch.launch.dryrun", ("batch_specs", "model_flops_estimate",
+                                   "build_cell", "run_cell", "cell_ctx",
+                                   "main")),
+    ("repro_torch.launch.dryrun_spamm", ("calibrate_tau", "decay_operand",
+                                         "run_variant", "main")),
+    ("repro_torch.launch.mesh", ("fake_world",)),
+    ("repro_torch.kernels.ops", ("analysis",)),
+)
+
+
+@pytest.mark.parametrize("module,names", DRYRUN_ENTRY_POINTS,
+                         ids=[m for m, _ in DRYRUN_ENTRY_POINTS])
+def test_dryrun_entry_points_exist(module, names):
+    import importlib
+
+    mod = importlib.import_module(module)
+    for name in names:
+        assert hasattr(mod, name), f"{module}.{name}"
+
+
 @pytest.mark.parametrize("module,names", TP_ENTRY_POINTS,
                          ids=[m for m, _ in TP_ENTRY_POINTS])
 def test_tp_entry_points_exist(module, names):
@@ -258,7 +301,9 @@ def test_fresh_import_keeps_jax_out():
         "import repro_torch.checkpoint.checkpoint\n"
         "import repro_torch.distributed.compression\n"
         "import repro_torch.core.schedule, repro_torch.core.distributed\n"
-        "import repro_torch.launch.mesh\n"
+        "import repro_torch.launch.mesh, repro_torch.compat\n"
+        "import repro_torch.launch.op_analysis, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.dryrun_spamm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -280,3 +280,32 @@ def _init(rank, *, cfg, pcfg, shape, tile):
 
 _TP_JOBS = {"serve": _serve_model, "train": _train, "moe": _moe,
             "loop": _loop, "init": _init}
+
+
+def compat_job(rank, n):
+    """`_all_gather` and `_reduce_scatter` (through `repro_torch.compat`)
+    with every warning recorded, beside the same collectives called by
+    their older torch names; returns (warning categories and messages,
+    gathered, scattered, gathered by the old name, scattered by it)."""
+    import warnings
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    group = dist.group.WORLD
+    x = torch.arange(3 * n, dtype=torch.float32).reshape(3, n) + 100 * rank
+    y = torch.arange(2 * 4 * n, dtype=torch.float32).reshape(8, n) * (rank + 1)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        gathered = D._all_gather(x, group)
+        scattered = D._reduce_scatter(y, group)
+    old_g = x.new_empty((2 * 3, n))
+    old_s = y.new_empty((4, n))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        dist.all_gather_into_tensor(old_g, x, group=group)
+        dist.reduce_scatter_tensor(old_s, y, op=dist.ReduceOp.SUM,
+                                   group=group)
+    return ([(w.category.__name__, str(w.message)) for w in seen],
+            gathered.numpy(), scattered.numpy(), old_g.numpy(),
+            old_s.numpy())
