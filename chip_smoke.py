@@ -195,14 +195,34 @@ rank 0 of a fake process group of the production world (256 ranks as a
 32×8 (data, model) mesh, 512 as 2×32×8), collectives counted by
 `launch.op_analysis.OpAnalysis` and not performed. The SpAMM variants of
 `launch.dryrun_spamm` (rowpart contiguous and cyclic, 2d, 2d at bf16, 2d
-over two pods) on the N = 32768 decay matrix at the τ calibrated for a
-0.10 ratio at N = 4096: rank 0's own product (before its first
-collective) ≡ flat `spamm()` on its rows at that τ, tile and dtype, bit
-for bit; the counted tile products = its plan's real steps; the counted
+over two pods) on the N = 32768 decay matrix at its default tile, the
+reference's 128, at the τ calibrated for a 0.10 ratio at N = 4096: rank
+0's own product (before its first collective) ≡ flat `spamm()` on its
+rows at that τ, tile and dtype, bit for bit; the counted tile products = its plan's real steps; the counted
 all-gather wire bytes = the ring model. Then qwen2.5-32b's train_4k and
 starcoder2-7b's decode_32k cells of `launch.dryrun` (rank 0's shards,
 moments, batch and cache, one real step): peak memory, FLOPs, bytes, wire
 bytes per axis and the roofline terms (H100 SXM data-sheet rates).
+
+Large tiles (`phase_large_tiles`, after library): the gated GEMM kernels
+at the reference's tiles 128, 256 and 512, walked in K-chunks of a
+64-wide sub-tile on the planner's own step tables. (l1) spamm() at ratio
+0.30 on the library's N = 16384 ensemble at tiles 128 and 256, f32, bf16
+and int8: the achieved ratio, plan() + execute() ≡ spamm() with their
+times, and on the plan's first row band the product against the plain
+version (int8 bit for bit, f32 and bf16 within 1e-4) and, f32 and bf16,
+bit for bit against the 64-tile kernel on the refined step tables; at
+128 work-list ≡ dense-grid and a levels-3 plan ≡ flat. (l2)
+starcoder2-7b's w1 frozen at 128, 256 and 512 for the 512-row prefill:
+frozen ≡ eager at each dtype; rows 2, 2 bf16 and 5 at about half their
+tile products against their plain versions and the 64-tile kernels,
+timed single and back to back beside their bound and `torch.matmul` /
+`torch._int_mm`; the use_mxu freezes at 128. (l3) the get-norm kernels
+(rows 1, 1 mxu, 4, 4 mxu) at 128 and 256 on w1 and the activation.
+(l4) spamm_bmm at 128 on 8 slices of 256 × 2048 @ 2048 × 1408
+(qwen2-moe's expert widths): row 6 ≡ the per-slice work-list and the
+64-tile dense-grid kernel on the refined gate bit for bit, within 1e-4
+of its plain version, beside `torch.bmm`.
 
 Every result line is a JSON object; the line before the last lists nine
 kernel entries (the work-list GEMM twice, f32 and bf16; each of the
@@ -213,7 +233,9 @@ also on run (f), the MoE wave, the last families' τ > 0 waves and the
 training runs, with row 2's times at the backward products' shapes),
 errors, times and bounds, and each entry's multi_launches and
 tp_launches on the multi and tp phases' cells (summed over the ranks; rows
-1, 2 and 2 bf16 also dryrun_launches per SpAMM variant);
+1, 2 and 2 bf16 also dryrun_launches per SpAMM variant), and its
+large_tile_launches on the large_tiles phase's main path with its
+numbers there (`large_tiles`, one entry per tile and shape);
 the last line is {"ok": true, "device": {...}}.
 Any failed check exits non-zero. Without CUDA, or without the repository's
 src/ beside it, it exits 2 and prints no result.
@@ -420,11 +442,30 @@ TP_INT8_RTOL = 1e-3
 # 32k cache: the rank's shards, moments, batch and cache). starcoder2-7b's
 # train_4k peaks at 59 GB a rank, which beside the ≈ 24 GB the earlier
 # phases leave allocated does not fit the card; qwen2.5-32b's at 34 GB
+# at `launch.dryrun_spamm`'s default tile DRYRUN_TILE, the reference's
 DRYRUN_N = 32768
 DRYRUN_RATIO = 0.10
 DRYRUN_CALIBRATE_N = 4096
+DRYRUN_TILE = 128
 DRYRUN_CELLS = (("qwen2.5-32b", "train_4k"), ("starcoder2-7b",
                                               "decode_32k"))
+# the large_tiles phase (after library): the gated GEMMs at the reference's
+# large tiles, walked in K-chunks of a 64-wide sub-tile. (l1) spamm() at
+# LIB_RATIOS[0] on the library's N = LIB_N ensemble at LT_LIB_TILES, f32,
+# bf16 and int8, and a levels = LIB_LEVELS plan at the first; (l2)
+# starcoder2-7b's w1 (4608 × 18432, divisible by 128, 256 and 512) frozen
+# at LT_TILES for the 512-row prefill activation, each dtype at about half
+# its tile products; (l3) the get-norm kernels at LT_NORM_TILES on w1 and
+# the activation; (l4) spamm_bmm at LT_MOE_TILE on LT_MOE_SLICES slices of
+# qwen2-moe's expert GEMM at LT_MOE_ROWS rows (the serving capacity of 64
+# rows does not divide by 128). Plain versions at N = LIB_N run on the
+# first row band of the plan only (rows 0 .. T, all of its runs)
+LT_TILES = (128, 256, 512)
+LT_LIB_TILES = (128, 256)
+LT_NORM_TILES = (128, 256)
+LT_MOE_TILE = 128
+LT_MOE_SLICES, LT_MOE_ROWS = 8, 256
+LT_W1_RATIO = 0.50
 
 
 class SmokeFailure(RuntimeError):
@@ -531,12 +572,12 @@ def errors(got, want):
     return float(d.max()), float(d.max() / scale)
 
 
-def check_tile_norms(x, label):
+def check_tile_norms(x, label, tile=TILE):
     import torch
 
     from repro_torch.kernels import getnorm
 
-    t = TILE
+    t = tile
     m, k = x.shape
     got = getnorm.tile_norms_cuda(x, t)
     want = getnorm.tile_norms_plain(x, t)
@@ -647,7 +688,7 @@ def check_frozen(x, w, label):
     return res
 
 
-def check_tile_norms_quant(x, label):
+def check_tile_norms_quant(x, label, tile=TILE):
     """The fused int8 get-norm: bit for bit against the unfused composition
     on the card (quantize → dequantize → the f32 get-norm kernel; scales
     against the quantizer's), within NORM_RTOL of the plain composition.
@@ -658,7 +699,7 @@ def check_tile_norms_quant(x, label):
     from repro_torch.kernels import getnorm
     from repro_torch.kernels import quantize as Q
 
-    t = TILE
+    t = tile
     m, k = x.shape
     norms, scales = getnorm.tile_norms_quant_cuda(x, t)
     q, s = Q.quantize_tiles(x, t)
@@ -696,7 +737,7 @@ def check_tile_norms_quant(x, label):
     return res
 
 
-def check_tile_norms_mxu(x, label):
+def check_tile_norms_mxu(x, label, tile=TILE):
     """The tensor-core get-norm pair (use_mxu=True, paper Eq. 3-4) against
     their plain versions within NORM_RTOL (scales bit for bit), and fused ≡
     unfused bit for bit under use_mxu=True. Yardsticks: `vector_norm` for
@@ -707,7 +748,7 @@ def check_tile_norms_mxu(x, label):
     from repro_torch.kernels import getnorm
     from repro_torch.kernels import quantize as Q
 
-    t = TILE
+    t = tile
     m, k = x.shape
     gm, gk = m // t, k // t
     x4 = x.view(gm, t, gk, t)
@@ -770,20 +811,23 @@ def check_tile_norms_mxu(x, label):
     return res, res_q
 
 
-def lowp_median_tau(x, w, dtype):
+def lowp_median_tau(x, w, dtype, tile=TILE):
     """A τ whose widened gate sits at the median of the norm products of
     the quantized operands, so that a `dtype` plan keeps about half of its
     tile products (the f32 median would keep nearly all of them at int8:
-    the gate is widened by (1 − 64/254)² ≈ 0.56 at tile 64)."""
+    the gate is widened by (1 − 64/254)² ≈ 0.56 at tile 64). At int8 and
+    tiles ≥ 254 the widening is to 0 (`quantize.gate_eps` is 1): every τ
+    keeps every tile, and the median product itself is returned."""
     from repro_torch.kernels import getnorm
     from repro_torch.kernels import quantize as Q
 
     if dtype == "int8":
-        na, nb = (getnorm.tile_norms_quant_cuda(t, TILE)[0] for t in (x, w))
+        na, nb = (getnorm.tile_norms_quant_cuda(t, tile)[0] for t in (x, w))
     else:
-        na, nb = (getnorm.tile_norms_cuda(t.bfloat16().float(), TILE)
+        na, nb = (getnorm.tile_norms_cuda(t.bfloat16().float(), tile)
                   for t in (x, w))
-    return median_product_tau(na, nb) / (1.0 - Q.gate_eps(dtype, TILE)) ** 2
+    eps = Q.gate_eps(dtype, tile)
+    return median_product_tau(na, nb) / ((1.0 - eps) ** 2 if eps < 1 else 1)
 
 
 def check_int8_frozen(x, w, label, block_n=1):
@@ -4557,8 +4601,9 @@ def _ring_all_gather_bytes(kind, n, rows, cols):
 
 def phase_dryrun():
     """The SpAMM variants and DRYRUN_CELLS as rank 0 of the fake production
-    world (see the DRYRUN_* constants). Each variant's rank-0 product
-    (before its first collective) ≡ flat `spamm()` on the same rows at the
+    world (see the DRYRUN_* constants), the variants at the dry run's
+    default tile DRYRUN_TILE (the reference's 128). Each variant's rank-0
+    product (before its first collective) ≡ flat `spamm()` on the same rows at the
     same τ, tile and dtype, bit for bit; its counted tile products = the
     rank's plan's real steps. At these shapes (an A strip of 1024 × 32768
     against the whole 32768² B; 1024 × 4096 against 4096 × 32768 in 2d)
@@ -4581,7 +4626,8 @@ def phase_dryrun():
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    tau, ratio = DS.calibrate_tau(DRYRUN_CALIBRATE_N, TILE, DRYRUN_RATIO)
+    tau, ratio = DS.calibrate_tau(DRYRUN_CALIBRATE_N, DRYRUN_TILE,
+                                  DRYRUN_RATIO)
     check(abs(ratio - DRYRUN_RATIO) <= RATIO_TOL,
           f"dryrun: calibrated ratio {ratio} for {DRYRUN_RATIO}")
     a = DS.decay_operand(DRYRUN_N)
@@ -4593,19 +4639,22 @@ def phase_dryrun():
     for name, (kind, _, dtype, multi) in DS.VARIANTS.items():
         torch.cuda.synchronize()
         reset_counts()
-        out, loc = DS.run_variant(name, a, tau, ratio, tile=TILE,
-                                  verbose=False)
+        # at the dry run's own default tile, the reference's
+        out, loc = DS.run_variant(name, a, tau, ratio, verbose=False)
+        check(out["tile"] == DRYRUN_TILE,
+              f"dryrun {name}: ran at tile {out['tile']}")
         counts[name] = read_counts()
         row2 = ("spamm_mm_worklist_bf16" if dtype == "bfloat16"
                 else "spamm_mm_worklist")
         check(counts[name]["tile_norms"] >= 1 and counts[name][row2] == 1,
               f"dryrun {name}: rows 1 and 2 not launched: {counts[name]}")
-        c_flat, _ = cs.spamm(loc["a"], loc["b"], tau, tile=TILE,
+        c_flat, _ = cs.spamm(loc["a"], loc["b"], tau, tile=DRYRUN_TILE,
                              compute_dtype=dtype)
         check(torch.equal(c_flat, loc["product"]),
               f"dryrun {name}: rank 0's product differs from flat spamm()")
         del c_flat
-        p = P.plan(loc["a"], loc["b"], tau, tile=TILE, compute_dtype=dtype)
+        p = P.plan(loc["a"], loc["b"], tau, tile=DRYRUN_TILE,
+                   compute_dtype=dtype)
         steps = int(p.valid_tiles)
         gated = int((p.norm_a[:, :, None] * p.norm_b[None] >= p.tau).sum())
         check(out["tile_products"] == steps == gated,
@@ -4615,13 +4664,15 @@ def phase_dryrun():
             float(((got - want).abs() / want.abs().clamp(min=1e-30)).max())
             for got, want in (
                 (p.norm_a, getnorm.tile_norms_plain(
-                    quantized_view(loc["a"], dtype, TILE), TILE)),
+                    quantized_view(loc["a"], dtype, DRYRUN_TILE),
+                    DRYRUN_TILE)),
                 (p.norm_b, getnorm.tile_norms_plain(
-                    quantized_view(loc["b"], dtype, TILE), TILE))))
+                    quantized_view(loc["b"], dtype, DRYRUN_TILE),
+                    DRYRUN_TILE))))
         w = p.work
         plain = spamm_mm.spamm_mm_worklist_plain(
             loc["a"], loc["b"], w.step_i, w.step_j, w.step_k, w.step_flags,
-            w.runs, tile=TILE)
+            w.runs, tile=DRYRUN_TILE)
         abs_err, mm_rel = errors(loc["product"], plain)
         check(norm_rel <= NORM_RTOL and mm_rel <= MM_RTOL,
               f"dryrun {name}: against the plain versions, norms max rel "
@@ -4636,7 +4687,7 @@ def phase_dryrun():
         r = out["roofline"]
         emit({"dryrun_spamm": {
             "variant": name, "mesh": out["mesh"], "n": DRYRUN_N,
-            "tile": TILE, "tau": tau, "calibrated_ratio": ratio,
+            "tile": DRYRUN_TILE, "tau": tau, "calibrated_ratio": ratio,
             "rank0_valid_fraction": out["rank_valid_fraction"],
             "tile_products": out["tile_products"],
             "flops": out["flops_per_device"],
@@ -5017,13 +5068,13 @@ def moe_operands(gen):
     return {"w1": (x1, w1), "w2": (x2, w2)}
 
 
-def slice_norms(x):
+def slice_norms(x, tile=TILE):
     """(E, M/t, K/t) normmaps of a batch of slices, one get-norm launch."""
     from repro_torch.kernels import getnorm
 
     e, m, k = x.shape
-    return getnorm.tile_norms_cuda(x.reshape(e * m, k), TILE).reshape(
-        e, m // TILE, k // TILE)
+    return getnorm.tile_norms_cuda(x.reshape(e * m, k), tile).reshape(
+        e, m // tile, k // tile)
 
 
 def library_main_path(a, b, moe, eager):
@@ -5188,10 +5239,12 @@ def check_mxu_library(info_f32, run):
           f"spamm(use_mxu_norm=True) at ratio {LIB_RATIOS[0]}: achieved {vf}")
 
 
-def check_dense_grid(name, x, w, tau, c, info):
-    """(b): the dense-grid kernel against its plain version on the batched
-    gate, bit for bit against the work-list kernel on each slice's own plan,
-    and its time against torch.bmm and its bound."""
+def check_dense_grid(name, x, w, tau, c, info, tile=TILE):
+    """(b) and (l4): the dense-grid kernel against its plain version on the
+    batched gate, bit for bit against the work-list kernel on each slice's
+    own plan (and, above tile 64, against the 64-tile dense-grid kernel on
+    the refined gate), and its time against torch.bmm and its bound."""
+    import numpy as np
     import torch
 
     from repro_torch.core import plan as P
@@ -5199,12 +5252,12 @@ def check_dense_grid(name, x, w, tau, c, info):
 
     vf = float(info.valid_fraction)
     check(0.0 < vf < 1.0, f"moe {name}: valid fraction {vf} not in (0, 1)")
-    mask = P.gate_mask(slice_norms(x), slice_norms(w), tau)
+    mask = P.gate_mask(slice_norms(x, tile), slice_norms(w, tile), tau)
     kidx, nvalid = ref.spamm_compact_ref(mask)
     args = (x, w, kidx, nvalid)
-    got = spamm_mm.spamm_mm_cuda(*args, tile=TILE)
+    got = spamm_mm.spamm_mm_cuda(*args, tile=tile)
     geometry = dict(spamm_mm.last_geometry)
-    want = spamm_mm.spamm_mm_plain(*args, tile=TILE)
+    want = spamm_mm.spamm_mm_plain(*args, tile=tile)
     torch.cuda.synchronize()
     abs_err, rel = errors(got, want)
     check(rel <= MM_RTOL, f"spamm_mm {name}: max rel err {rel}")
@@ -5212,24 +5265,37 @@ def check_dense_grid(name, x, w, tau, c, info):
           f"output")
     same = True
     for s in range(x.shape[0]):
-        p = P.plan(x[s], w[s], tau, tile=TILE)
+        p = P.plan(x[s], w[s], tau, tile=tile)
         same = same and torch.equal(P.execute(p, x[s], w[s]), c[s])
     check(same, f"moe {name}: dense-grid differs from work-list")
+    res = {}
+    if tile > 64:
+        r = tile // 64
+        fine = torch.as_tensor(np.repeat(np.repeat(np.repeat(
+            mask.cpu().numpy(), r, 1), r, 2), r, 3), device=x.device)
+        sub = spamm_mm.spamm_mm_cuda(x, w, *ref.spamm_compact_ref(fine),
+                                     tile=64)
+        res["bit_identical_to_sub_tile_kernel"] = torch.equal(got, sub)
+        check(res["bit_identical_to_sub_tile_kernel"],
+              f"moe {name}: differs from the 64-tile kernel")
     steps = int(nvalid.sum())
     a_tiles = int(mask.any(dim=2).sum())   # (slice, i, k) read by some j
     b_tiles = int(mask.any(dim=1).sum())   # (slice, k, j) read by some i
-    nbytes = ((a_tiles + b_tiles) * TILE * TILE * 4 + c.numel() * 4
+    nbytes = ((a_tiles + b_tiles) * tile * tile * 4 + c.numel() * 4
               + (kidx.numel() + nvalid.numel()) * 4)
-    bms, by = bound_ms(nbytes, 2 * TILE ** 3 * steps)
+    bms, by = bound_ms(nbytes, 2 * tile ** 3 * steps)
     e, m, k = x.shape
-    res = {"name": "spamm_mm",
+    res = {"name": "spamm_mm", "tile": tile,
            "shape": f"{e}x{m}x{k}x{w.shape[2]} per-slice ({name})",
            "tau": tau, "valid_fraction": vf, "valid_steps": steps,
            "geometry": geometry, "max_abs_err": abs_err, "max_rel_err": rel,
-           "bit_identical_to_worklist": same,
-           "ms": time_ms(lambda: spamm_mm.spamm_mm_cuda(*args, tile=TILE)),
+           "bit_identical_to_worklist": same, **res,
+           "ms": time_ms(lambda: spamm_mm.spamm_mm_cuda(*args, tile=tile)),
+           "ms_back_to_back": time_ms_back_to_back(
+               lambda: spamm_mm.spamm_mm_cuda(*args, tile=tile), calls=10,
+               reps=3),
            "plain_ms": time_ms(lambda: spamm_mm.spamm_mm_plain(
-               *args, tile=TILE), reps=3, warmup=1),
+               *args, tile=tile), reps=3, warmup=1),
            "library_ms": time_ms(lambda: torch.bmm(x, w)),
            "bound_ms": bms, "bound_by": by}
     emit({"kernel_check": res})
@@ -5409,6 +5475,398 @@ def phase_library():
     return counts, pool, mm["w1"]
 
 
+def refined_tables(mask, r, block_n=1):
+    """Step tables and runs of the gate `mask` ((gm, gnb, gk) at tile T)
+    at the sub-tile T / r and block_n 1: each kept (i, j, k) becomes its r
+    × r·block_n output sub-blocks, each with the r sub-tile k's of k in
+    ascending order. The sub-tile kernels on these tables add every
+    element's products in the chunked kernels' order (f32: fmaf over
+    ascending q; bf16: the k16 slices in order), so they are the chunked
+    kernels' oracle bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import plan as P
+
+    m = mask.cpu().numpy()
+    fine = np.repeat(np.repeat(np.repeat(m, r, 0), r * block_n, 1), r, 2)
+    work, _ = P.compact_from_triples(*np.nonzero(fine), gm=fine.shape[0],
+                                     gn=fine.shape[1], gk=fine.shape[2])
+    return tuple(torch.as_tensor(getattr(work, n), device=mask.device)
+                 for n in ("step_i", "step_j", "step_k", "step_flags",
+                           "runs"))
+
+
+def first_band(p):
+    """(step tables, runs) of plan p's first row band: the runs of row tile
+    0, which an eager plan orders first."""
+    w = p.work
+    n0 = int((w.step_i[w.runs[:-1].long()] == 0).sum())
+    return (w.step_i, w.step_j, w.step_k, w.step_flags, w.runs[:n0 + 1])
+
+
+def lt_library_main(a, b):
+    """(l1) as a user calls it: spamm(valid_ratio) at each tile of
+    LT_LIB_TILES and dtype, then a levels = LIB_LEVELS plan at the first
+    tile's f32 τ. Returns {(tile, dtype): {c, info, spamm_host_ms},
+    "hier": plan}."""
+    from repro_torch.core import plan as P
+    from repro_torch.core.spamm import spamm
+
+    out = {}
+    for t in LT_LIB_TILES:
+        for dtype in ("float32", "bfloat16", "int8"):
+            (c, info), ms = host_ms(lambda: spamm(
+                a, b, valid_ratio=LIB_RATIOS[0], tile=t, compute_dtype=dtype))
+            out[(t, dtype)] = {"c": c, "info": info, "spamm_host_ms": ms}
+    t = LT_LIB_TILES[0]
+    out["hier"] = P.plan(a, b, out[(t, "float32")]["info"].tau, tile=t,
+                         levels=LIB_LEVELS)
+    return out
+
+
+def check_lt_library(a, b, runs):
+    """(l1): the achieved ratio within RATIO_TOL; plan() + execute() ≡
+    spamm() bit for bit, with their times; on the plan's own first row band
+    of step tables, C against the plain version (int8 bit for bit; f32 and
+    bf16 within MM_RTOL: the kernel adds with fmaf, the plain version
+    rounds product and sum apart) and, f32 and bf16, bit for bit against
+    the 64-tile kernel on the refined tables; at the first tile, work-list
+    ≡ dense-grid over the whole product and the levels plan's tables ≡
+    the flat plan's."""
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import ref, spamm_mm
+    from repro_torch.kernels import quantize as Q
+
+    r = LIB_RATIOS[0]
+    dense_ms = time_ms(lambda: torch.matmul(a, b), reps=3, warmup=1)
+    for (t, dtype), run in ((k, v) for k, v in runs.items() if k != "hier"):
+        c, info = run["c"], run["info"]
+        vf = float(info.valid_fraction)
+        p, plan_ms = host_ms(lambda: P.plan(a, b, valid_ratio=r, tile=t,
+                                            compute_dtype=dtype))
+        exec_ms = time_ms(lambda: P.execute(p, a, b), reps=3, warmup=1)
+        same_exec = torch.equal(P.execute(p, a, b), c)
+        tabs = first_band(p)
+        if dtype == "int8":
+            a_q, a_s = Q.quantize_tiles(a[:t], t, scales=p.a_scale[:1])
+            b_q, b_s = Q.quantize_tiles(b, t, scales=p.b_scale)
+            plain = spamm_mm.spamm_mm_worklist_int8_plain(a_q, b_q, a_s, b_s,
+                                                          *tabs, tile=t)
+            del b_q
+            sub_same = None
+        else:
+            ops = ((a[:t], b) if dtype == "float32"
+                   else (a[:t].bfloat16(), b.bfloat16()))
+            plain = spamm_mm.spamm_mm_worklist_plain(*ops, *tabs, tile=t)
+            fine = spamm_mm.spamm_mm_worklist_cuda(
+                *ops, *refined_tables(p.mask[:1], t // 64), tile=64)
+            sub_same = torch.equal(c[:t], fine)
+            del ops, fine
+        abs_err, rel = errors(c[:t], plain)
+        plain_same = torch.equal(c[:t], plain)
+        del plain
+        flops, n_acc, nbytes = worklist_work(
+            p.work, t, 1, itemsize={"float32": 4, "bfloat16": 2,
+                                    "int8": 1}[dtype])
+        peak = {"float32": PEAK_F32_FLOP_S, "bfloat16": PEAK_BF16_FLOP_S,
+                "int8": PEAK_INT8_OP_S}[dtype]
+        bms, by = bound_ms(nbytes + c.numel() * 4, flops, peak)
+        res = {"n": a.shape[0], "tile": t, "compute_dtype": dtype,
+               "valid_ratio": r, "tau": info.tau, "achieved_ratio": vf,
+               "acc_steps": n_acc, "spamm_host_ms": run["spamm_host_ms"],
+               "plan_host_ms": plan_ms, "execute_ms": exec_ms,
+               "dense_matmul_ms": dense_ms, "execute_bound_ms": bms,
+               "bound_by": by, "plan_execute_bit_identical": same_exec,
+               "band_rows": t, "band_runs": int(tabs[4].numel() - 1),
+               "band_max_abs_err_vs_plain": abs_err,
+               "band_max_rel_err_vs_plain": rel,
+               "band_bit_identical_to_plain": plain_same,
+               "band_bit_identical_to_sub_tile_kernel": sub_same}
+        ok = (abs(vf - r) <= RATIO_TOL and p.tau == info.tau and same_exec
+              and (plain_same if dtype == "int8" else
+                   rel <= MM_RTOL and sub_same))
+        if t == LT_LIB_TILES[0] and dtype == "float32":
+            kidx, nvalid = ref.spamm_compact_ref(p.mask)
+            res["dense_grid_bit_identical"] = torch.equal(
+                spamm_mm.spamm_mm_cuda(a, b, kidx, nvalid, tile=t), c)
+            del kidx, nvalid
+            hier = runs["hier"]
+            res["hier_tables_equal_flat"] = all(
+                torch.equal(x, y) for x, y in zip(hier.work, p.work))
+            res["hier_output_bit_identical"] = torch.equal(
+                P.execute(hier, a, b), c)
+            ok = ok and res["dense_grid_bit_identical"] and \
+                res["hier_tables_equal_flat"] and \
+                res["hier_output_bit_identical"]
+        emit({"large_tile_library": res})
+        check(ok, f"large tiles library {t} {dtype}: {res}")
+        del p
+        torch.cuda.empty_cache()
+
+
+def lt_w1_taus(x, w1):
+    """The τ of each (tile, dtype) of (l2): the median norm product of the
+    (quantized) operands, before widening."""
+    from repro_torch.kernels import getnorm
+
+    taus = {}
+    for t in LT_TILES:
+        taus[(t, "float32")] = median_product_tau(
+            getnorm.tile_norms_cuda(x, t), getnorm.tile_norms_cuda(w1, t))
+        for dtype in LOWP_DTYPES:
+            taus[(t, dtype)] = lowp_median_tau(x, w1, dtype, t)
+    return taus
+
+
+def lt_w1_main(x, w1, taus):
+    """(l2) as the serving path runs a gated weight: freeze w1 at each tile
+    and dtype, plan the activation against it, execute; then, at the first
+    tile, the same with the tensor-core get-norm (use_mxu) at f32 and int8.
+    Returns {(tile, dtype): (frozen plan, C)}."""
+    from repro_torch.core import plan as P
+    from repro_torch.plans.frozen import FrozenWeight
+
+    out = {}
+    for t in LT_TILES:
+        for dtype in ("float32", "bfloat16", "int8"):
+            fw = FrozenWeight.build(w1, taus[(t, dtype)], tile=t,
+                                    compute_dtype=dtype)
+            frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // t))
+            out[(t, dtype)] = (frozen, P.execute(frozen, x, w1))
+    t = LT_TILES[0]
+    for dtype in ("float32", "int8"):
+        fw = FrozenWeight.build(w1, taus[(t, dtype)], tile=t, use_mxu=True,
+                                compute_dtype=dtype)
+        frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // t),
+                        use_mxu_norm=True)
+        out[("mxu", dtype)] = (frozen, P.execute(frozen, x, w1))
+    return out
+
+
+def check_lt_w1(x, w1, taus, runs):
+    """(l2) at each tile: frozen ≡ eager bit for bit at each dtype (at int8
+    and tiles ≥ 254 the widened gate keeps every tile); the f32 and bf16
+    kernels on the frozen plan's tables, the int8 kernel on a
+    valid_ratio = LT_W1_RATIO plan's (its frozen gate keeps all at 256 and
+    512), against their plain versions (int8 bit for bit, f32 and bf16
+    within MM_RTOL), bit for bit against the 64-tile kernel on the refined
+    tables (f32, bf16), bf16 against the f32 kernel on the rounded
+    operands and twice equal; each timed single and back to back beside
+    its bound and the library call (`torch.matmul` f32 / bf16,
+    `torch._int_mm` with B row- and column-major). Returns the
+    kernel_check results by (tile, dtype)."""
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import spamm_mm
+    from repro_torch.kernels import quantize as Q
+
+    d, ff = w1.shape
+    xb, wb = x.bfloat16(), w1.bfloat16()
+    out = {}
+    for t in LT_TILES:
+        r = t // 64
+        for dtype in ("float32", "bfloat16", "int8"):
+            frozen, c = runs[(t, dtype)]
+            eager = P.plan(x, w1, taus[(t, dtype)], tile=t,
+                           compute_dtype=dtype)
+            same_fe = torch.equal(P.execute(eager, x, w1), c)
+            vf_frozen = float(frozen.valid_fraction)
+            del eager
+            label = f"frozen w1 {x.shape[0]}x{d}x{ff} tile {t}"
+            if dtype == "int8":
+                p = P.plan(x, w1, valid_ratio=LT_W1_RATIO, tile=t,
+                           compute_dtype="int8")
+                wk = p.work
+                a_q, a_s = Q.quantize_tiles(x, t, scales=p.a_scale)
+                b_q, b_s = Q.quantize_tiles(w1, t, scales=p.b_scale)
+                tabs = (wk.step_i, wk.step_j, wk.step_k, wk.step_flags,
+                        wk.runs)
+                args = (a_q, b_q, a_s, b_s, *tabs)
+
+                def fn(args=args, t=t):
+                    return spamm_mm.spamm_mm_worklist_int8_cuda(*args,
+                                                                tile=t)
+
+                got = fn()
+                geometry = dict(spamm_mm.last_geometry)
+                want = spamm_mm.spamm_mm_worklist_int8_plain(*args, tile=t)
+                f32 = spamm_mm.spamm_mm_worklist_cuda(
+                    Q.dequantize_tiles(a_q, a_s, t),
+                    Q.dequantize_tiles(b_q, b_s, t), *tabs, tile=t)
+                same = torch.equal(got, want)
+                abs_f, rel_f = errors(got, f32)
+                ok = same and rel_f <= INT8_DEQ_RTOL
+                flops, n_acc, nbytes = worklist_work(wk, t, 1, itemsize=1)
+                nbytes += got.numel() * 4 + (a_s.numel() + b_s.numel()) * 4
+                bms, by = bound_ms(nbytes, flops, PEAK_INT8_OP_S)
+                b_cm = b_q.t().contiguous().t()
+                res = {"max_abs_err": float((got - want).abs().max()),
+                       "bit_identical_to_plain": same,
+                       "max_rel_err_vs_f32_dequantized": rel_f,
+                       "valid_fraction": float(p.valid_fraction),
+                       "plain_ms": time_ms(lambda: spamm_mm.
+                                           spamm_mm_worklist_int8_plain(
+                                               *args, tile=t), reps=1,
+                                           warmup=0),
+                       "library_ms": time_ms(lambda: torch._int_mm(a_q,
+                                                                   b_cm)),
+                       "library_call": "torch._int_mm on the int8 codes, B "
+                                       "column-major (dense, no scales)",
+                       "library_rowmajor_b_ms": time_ms(
+                           lambda: torch._int_mm(a_q, b_q))}
+                del p, a_q, b_q, b_cm, f32, want
+            else:
+                wk = frozen.work
+                tabs = (wk.step_i, wk.step_j, wk.step_k, wk.step_flags,
+                        wk.runs)
+                ops = (x, w1) if dtype == "float32" else (xb, wb)
+
+                def fn(ops=ops, tabs=tabs, t=t):
+                    return spamm_mm.spamm_mm_worklist_cuda(*ops, *tabs,
+                                                           tile=t)
+
+                got = fn()
+                geometry = dict(spamm_mm.last_geometry)
+                want = spamm_mm.spamm_mm_worklist_plain(*ops, *tabs, tile=t)
+                fine = spamm_mm.spamm_mm_worklist_cuda(
+                    *ops, *refined_tables(frozen.mask, r), tile=64)
+                abs_err, rel = errors(got, want)
+                sub_same = torch.equal(got, fine)
+                ok = rel <= MM_RTOL and sub_same and torch.equal(got, c)
+                res = {"max_abs_err": abs_err, "max_rel_err": rel,
+                       "bit_identical_to_sub_tile_kernel": sub_same,
+                       "valid_fraction": vf_frozen}
+                if dtype == "bfloat16":
+                    f32 = spamm_mm.spamm_mm_worklist_cuda(
+                        xb.float(), wb.float(), *tabs, tile=t)
+                    _, rel32 = errors(got, f32)
+                    det = torch.equal(got, fn())
+                    ok = ok and rel32 <= MM_RTOL and det
+                    res.update({"max_rel_err_vs_f32_on_rounded": rel32,
+                                "deterministic": det})
+                    del f32
+                flops, n_acc, nbytes = worklist_work(
+                    wk, t, 1, itemsize=4 if dtype == "float32" else 2)
+                nbytes += got.numel() * 4
+                bms, by = bound_ms(nbytes, flops,
+                                   PEAK_F32_FLOP_S if dtype == "float32"
+                                   else PEAK_BF16_FLOP_S)
+                res.update({
+                    "plain_ms": time_ms(lambda: spamm_mm.
+                                        spamm_mm_worklist_plain(
+                                            *ops, *tabs, tile=t), reps=1,
+                                        warmup=0),
+                    "library_ms": time_ms(lambda: torch.matmul(*ops)),
+                    "library_call": f"torch.matmul on the {dtype} "
+                                    f"operands (dense)"})
+                del want, fine
+            res = {"name": {"float32": "spamm_mm_worklist",
+                            "bfloat16": "spamm_mm_worklist_bf16",
+                            "int8": "spamm_mm_worklist_int8"}[dtype],
+                   "shape": label, "tile": t, "acc_steps": n_acc,
+                   "geometry": geometry, **res,
+                   "frozen_equals_eager": same_fe,
+                   "frozen_valid_fraction": vf_frozen,
+                   "ms": time_ms(fn),
+                   "ms_back_to_back": time_ms_back_to_back(fn, calls=10,
+                                                           reps=3),
+                   "bound_ms": bms, "bound_by": by, "card": CARD}
+            emit({"kernel_check": res})
+            check(ok and same_fe, f"large tiles w1 {t} {dtype}: {res}")
+            out[(t, dtype)] = res
+            del got
+    for dtype in ("float32", "int8"):
+        t = LT_TILES[0]
+        mxu = runs[("mxu", dtype)]
+        emit({"large_tile_mxu_freeze": {
+            "tile": t, "compute_dtype": dtype,
+            "valid_fraction": float(mxu[0].valid_fraction),
+            "finite": bool(torch.isfinite(mxu[1]).all())}})
+        check(bool(torch.isfinite(mxu[1]).all()),
+              f"large tiles use_mxu freeze {dtype}: non-finite output")
+    return out
+
+
+def phase_large_tiles():
+    """The gated GEMMs at the reference's large tiles (LT_* above):
+    operands made on the card, the main path ((l1) spamm() at each tile and
+    dtype and a levels plan, (l2) frozen w1 at each tile and dtype and the
+    use_mxu freezes, (l4) spamm_bmm) driven once with every count at 0 just
+    before and read just after, then the checks and timings, (l3) the
+    get-norm kernels at LT_NORM_TILES among them. Returns (counts, the
+    kernel_check results by kernel name)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import plan as P
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    a = algebraic_decay_on_card(LIB_N, SEED)
+    b = algebraic_decay_on_card(LIB_N, SEED + 1)
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    d, ff = cfg.d_model, cfg.d_ff
+    w1 = torch.randn(d, ff, generator=gen, device=DEV).mul_(d ** -0.5)
+    x = torch.randn(BATCH * PROMPT_LEN, d, generator=gen, device=DEV)
+    gen_m = torch.Generator(device=DEV).manual_seed(SEED)
+    xm = torch.randn(LT_MOE_SLICES, LT_MOE_ROWS, MOE_D, generator=gen_m,
+                     device=DEV)
+    wm = torch.randn(LT_MOE_SLICES, MOE_D, MOE_FF, generator=gen_m,
+                     device=DEV).mul_(MOE_D ** -0.5)
+    taus = lt_w1_taus(x, w1)
+    tau_m = batched_median_tau(slice_norms(xm, LT_MOE_TILE),
+                               slice_norms(wm, LT_MOE_TILE))
+    torch.cuda.synchronize()
+    emit({"large_tiles_setup": {
+        "seconds": time.perf_counter() - t_phase,
+        "w1_taus": {f"{t} {dt}": v for (t, dt), v in taus.items()},
+        "moe_tau": tau_m}})
+
+    reset_counts()
+    t0 = time.perf_counter()
+    lib = lt_library_main(a, b)
+    w1_runs = lt_w1_main(x, w1, taus)
+    c_m, info_m = P.spamm_bmm(xm, wm, tau_m, tile=LT_MOE_TILE)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    emit({"large_tiles_path": {"seconds": time.perf_counter() - t0,
+                               "launches": counts}})
+    check(all(v > 0 for v in counts.values()),
+          f"large tiles launches {counts}")
+
+    results = {}
+    check_lt_library(a, b, lib)
+    del lib, a, b
+    torch.cuda.empty_cache()
+    for (t, dtype), res in check_lt_w1(x, w1, taus, w1_runs).items():
+        results.setdefault(res["name"], []).append(res)
+    del w1_runs
+    torch.cuda.empty_cache()
+    for t in LT_NORM_TILES:
+        for m, label in ((w1, f"w1 {d}x{ff}"),
+                         (x, f"activation {x.shape[0]}x{d}")):
+            label = f"{label} tile {t}"
+            results.setdefault("tile_norms", []).append(
+                check_tile_norms(m, label, tile=t))
+            results.setdefault("tile_norms_quant", []).append(
+                check_tile_norms_quant(m, label, tile=t))
+            mxu, mxu_q = check_tile_norms_mxu(m, label, tile=t)
+            results.setdefault("tile_norms_mxu", []).append(mxu)
+            results.setdefault("tile_norms_quant_mxu", []).append(mxu_q)
+    results["spamm_mm"] = [check_dense_grid("qwen2-moe expert w1", xm, wm,
+                                            tau_m, c_m, info_m,
+                                            tile=LT_MOE_TILE)]
+    del x, w1, xm, wm, c_m
+    torch.cuda.empty_cache()
+    emit({"large_tiles_phase": {"seconds": time.perf_counter() - t_phase}})
+    return counts, results
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5475,6 +5933,7 @@ def main():
     tp_counts = timed("tp", phase_tp)
     dry_counts = timed("dryrun", phase_dryrun)
     lib_counts, pool, dense = timed("library", phase_library)
+    lt_counts, lt = timed("large_tiles", phase_large_tiles)
     emit({"phase_seconds": {**seconds, "note": "serve includes autotune"}})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5506,6 +5965,14 @@ def main():
         return {"dryrun_launches": {v: c[name]
                                     for v, c in dry_counts.items()}}
 
+    def large_tile_path(name):
+        """A kernel's launches on the large_tiles phase's main path and its
+        kernel_check numbers there, one entry per tile and shape."""
+        lt_keys = keys + ("tile", "ms_back_to_back", "valid_fraction")
+        return {"large_tile_launches": lt_counts[name],
+                "large_tiles": [{k: r[k] for k in lt_keys if k in r}
+                                for r in lt.get(name, [])]}
+
     def other_paths(name):
         """A kernel's launches on the calibration, the tuned run (c) wave,
         codeqwen1.5-7b's τ > 0 and autotuned waves, the τ > 0 waves of
@@ -5522,6 +5989,7 @@ def main():
 
     kernels = [
         {"name": "tile_norms", "route": "cuda",
+         **large_tile_path("tile_norms"),
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:147",
          "launches": counts["tile_norms"], "path": serve_path,
@@ -5536,6 +6004,7 @@ def main():
          "ms_back_to_back": norms_act["ms_back_to_back"],
          **{k: norms_act[k] for k in keys}},
         {"name": "spamm_mm_worklist", "route": "cuda",
+         **large_tile_path("spamm_mm_worklist"),
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:203",
          "launches": counts["spamm_mm_worklist"], "path": serve_path,
@@ -5554,6 +6023,7 @@ def main():
          **dryrun_path("spamm_mm_worklist"),
          **{k: mm_w1[k] for k in keys}},
         {"name": "spamm_mm_worklist_bf16", "route": "cuda",
+         **large_tile_path("spamm_mm_worklist_bf16"),
          "multi_launches": multi_path("spamm_mm_worklist_bf16"),
          **dryrun_path("spamm_mm_worklist_bf16"),
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
@@ -5561,12 +6031,14 @@ def main():
          "launches": lowp_counts["bfloat16"]["spamm_mm_worklist_bf16"],
          "path": bf16_path, **{k: lowp["bf16"][k] for k in keys}},
         {"name": "pool_norms", "route": "cuda",
+         **large_tile_path("pool_norms"),
          "multi_launches": multi_path("pool_norms"),
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:98",
          "launches": lib_counts["pool_norms"], "path": lib_path,
          **{k: pool[k] for k in keys}},
         {"name": "spamm_mm", "route": "cuda",
+         **large_tile_path("spamm_mm"),
          "multi_launches": multi_path("spamm_mm"),
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:109",
@@ -5576,6 +6048,7 @@ def main():
          "library_path": lib_path,
          **{k: dense[k] for k in keys}},
         {"name": "tile_norms_quant", "route": "cuda",
+         **large_tile_path("tile_norms_quant"),
          "multi_launches": multi_path("tile_norms_quant"),
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:180",
@@ -5584,6 +6057,7 @@ def main():
          "ms_back_to_back": lowp["quant"]["ms_back_to_back"],
          **{k: lowp["quant"][k] for k in keys}},
         {"name": "spamm_mm_worklist_int8", "route": "cuda",
+         **large_tile_path("spamm_mm_worklist_int8"),
          "multi_launches": multi_path("spamm_mm_worklist_int8"),
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:322",
@@ -5594,6 +6068,7 @@ def main():
          "geometry": lowp["int8"]["geometry"],
          **{k: lowp["int8"][k] for k in keys}},
         {"name": "tile_norms_mxu", "route": "cuda",
+         **large_tile_path("tile_norms_mxu"),
          "multi_launches": multi_path("tile_norms_mxu"),
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:147",
@@ -5605,6 +6080,7 @@ def main():
          "ms_back_to_back": lowp["mxu"][0]["ms_back_to_back"],
          **{k: lowp["mxu"][0][k] for k in keys}},
         {"name": "tile_norms_quant_mxu", "route": "cuda",
+         **large_tile_path("tile_norms_quant_mxu"),
          "multi_launches": multi_path("tile_norms_quant_mxu"),
          "source": "src/repro_torch/kernels/csrc/getnorm.cu",
          "replaces": "src/repro/kernels/getnorm.py:180",

@@ -38,6 +38,20 @@
 // slice walks the same list over its W columns. The rule is the host
 // function `column_slices` in kernels/spamm_mm.py.
 //
+// Tiles: every multiple of 16 up to kMaxTile (512), as the reference's
+// kernels take any tile that divides the operands. The tile products are
+// built for a sub-tile SUB of 16, 32 or 64 (the largest that divides the
+// tile T). At T = SUB (tiles 16, 32, 64) a block owns a whole output block,
+// as above. At T > SUB the work-list (or valid-k list) stays the planner's
+// own T-level one, so every step table, flag and scale is the reference's;
+// each T × T·block_n output block is cut into R = T / SUB row bands
+// (gridDim.x: run × band) and R column sub-blocks of SUB columns, each cut
+// into the slices above (gridDim.y: group × sub-block × slice), and each
+// ACC entry of the list is walked as R K-chunks of SUB: chunk kc loads A
+// rows i·T + band·SUB, columns k·T + kc·SUB, and B rows k·T + kc·SUB,
+// through the same ring, kc ascending. A ring stage stays one SUB-tile
+// product's, so shared memory does not grow with T.
+//
 // f32 (the numerics of record): no tensor cores, no TF32. 128 threads per
 // block (64 at t = 16): W/4 threads along a row, each owning one float4 of
 // 4 columns in RM rows strided by the thread rows (8 × 4 outputs at t = 64
@@ -48,8 +62,10 @@
 // (different banks through the 4-float row pad). Every output element is
 // accumulated with fmaf over the run's ACC steps in table order and, within
 // a tile, over ascending q: the order of the earlier one-FMA-per-q kernel,
-// whatever the slices, the thread layout or the pipeline. So frozen ≡
-// eager, dense-grid ≡ work-list and any two geometries agree bit for bit.
+// whatever the slices, the thread layout or the pipeline; at T > SUB the
+// chunks ascend, so q still runs from 0 to T − 1 within a step, the order
+// of the plain version. So frozen ≡ eager, dense-grid ≡ work-list and any
+// two geometries agree bit for bit.
 // Bound: 2·t³ operations per ACC step at the 67 TFLOP/s f32 peak of the
 // CUDA cores, or (decode) the A and B tile bytes.
 //
@@ -101,10 +117,13 @@
 // layout. Gathering each lane's B bytes straight from the landed tile
 // instead (byte loads, no transpose) was slower at every serving shape:
 // every warp reads all of B, a byte at a time. Each ACC step starts
-// its s32 fragments afresh (its scales are its own) and folds them into
-// the f32 accumulator with the exact expression above. The integer tile
-// dot is exact in any order (|dot| ≤ 64·127² < 2²⁴, so f32(dot) is exact
-// too), and the tensor-core sum equals the plain version's.
+// its s32 fragments afresh (its scales are its own), carries them across
+// its R K-chunks, and folds them into the f32 accumulator once, after the
+// last chunk, with the exact expression above and the step's T-tile
+// scales (folding per chunk would round partial sums). The integer tile
+// dot is exact in any order (|dot| ≤ T·127² < 2²⁴ up to T = 1040, so
+// f32(dot) is exact too at T = 512), and the tensor-core sum equals the
+// plain version's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -121,6 +140,16 @@ constexpr int kStagesBf16 = 3;
 constexpr int kStagesInt8 = 4;
 // threads of an f32 block that has at least this many float4 outputs
 constexpr int kThreadsF32 = 128;
+// the largest tile the kernels take (a multiple of 16)
+constexpr int kMaxTile = 512;
+
+// The sub-tile of the tile products a tile T is walked with: 64, 32 or 16,
+// the largest that divides T; 0 for a tile the kernels do not take (the
+// rule of `sub_tile` in kernels/spamm_mm.py).
+inline int sub_tile(int tile) {
+  if (tile < 16 || tile > kMaxTile || tile % 16) return 0;
+  return tile % 64 == 0 ? 64 : tile % 32 == 0 ? 32 : 16;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -167,11 +196,17 @@ __device__ __forceinline__ void store_m16n8(float* og, size_t ldo,
 }
 
 // ---------------------------------------------------------------------------
-// f32 tile product: CUDA-core FMAs in ascending q.
+// Tile products of TILE × TILE (the walk's sub-tile SUB) times TILE × W:
+// zero() at INIT; per ACC step begin(), then compute() on each of the
+// step's K-chunks in ascending order, then finish() on the last chunk's
+// stage; store() at FLUSH.
 // ---------------------------------------------------------------------------
+
+// f32 tile product: CUDA-core FMAs in ascending q.
 template <int TILE, int SL>
 struct F32Product {
   using T = float;
+  static constexpr int SUB = TILE;
   static constexpr int W = TILE / SL;          // output columns per block
   static constexpr int TC = W / 4;             // threads along a row
   static constexpr int TR =
@@ -191,6 +226,10 @@ struct F32Product {
 #pragma unroll
     for (int m = 0; m < RM; ++m) acc.v[m] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+
+  // the chunks add straight into the accumulator
+  __device__ static void begin(Acc&) {}
+  __device__ static void finish(const unsigned char*, Acc&) {}
 
   // cp.async of the (TILE × TILE) A tile at `ag` and the (TILE × W) B tile
   // at `bg` into one stage (the list entry is the int8 product's)
@@ -261,6 +300,7 @@ struct F32Product {
 template <int TILE, int SL>
 struct Bf16Product {
   using T = __nv_bfloat16;
+  static constexpr int SUB = TILE;
   static constexpr int W = TILE / SL;
   static constexpr int NB = W / 8;             // m16n8 accumulators per warp
   static constexpr int NT = 32 * (TILE / 16);  // one warp per 16 rows
@@ -280,6 +320,10 @@ struct Bf16Product {
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc.c[nb][r] = 0.f;
   }
+
+  // the f32 fragments carry across the chunks
+  __device__ static void begin(Acc&) {}
+  __device__ static void finish(const unsigned char*, Acc&) {}
 
   __device__ static void load(unsigned char* stage, const T* ag, size_t lda,
                               const T* bg, size_t ldb, int4) {
@@ -350,6 +394,7 @@ struct Bf16Product {
 template <int TILE, int SL>
 struct Int8Product {
   using T = signed char;
+  static constexpr int SUB = TILE;
   static constexpr int W = TILE / SL;
   static constexpr int NB = W / 8;             // m16n8 accumulators per warp
   static constexpr int NT = 32 * (TILE / 16);  // one warp per 16 rows
@@ -366,12 +411,13 @@ struct Int8Product {
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES + 16;
   static_assert(NB % 2 == 0, "ldmatrix.x4 takes two n8 blocks");
 
-  const float* a_scale;  // (gm, gk)
-  const float* b_scale;  // (gk, gn), per fine tile
+  const float* a_scale;  // (gm, gk) at the walk's tile T
+  const float* b_scale;  // (gk, gn) at T, per fine tile
   int gk, gn, block_n, group;
 
   struct Acc {
-    float c[NB][4];
+    float c[NB][4];  // the f32 accumulator
+    int d[NB][4];    // the s32 tile dot of the current ACC step
   };
 
   __device__ static void zero(Acc& acc) {
@@ -379,6 +425,14 @@ struct Int8Product {
     for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc.c[nb][r] = 0.f;
+  }
+
+  // a step's s32 dot starts afresh and runs over all of its chunks
+  __device__ static void begin(Acc& acc) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc.d[nb][r] = 0;
   }
 
   // slot of B row k in the landed tile: rows k ≡ q (mod 4) together, so
@@ -440,7 +494,7 @@ struct Int8Product {
     }
   }
 
-  // acc += (f32(A_q·B_q)·a_scale)·b_scale for the stage's tiles
+  // acc.d += A_q·B_q for the stage's tiles (one K-chunk of the step)
   __device__ void compute(const unsigned char* stage, Acc& acc) const {
     __shared__ __align__(16) unsigned char bt[W * LDA];
     const unsigned char* as = stage;
@@ -472,11 +526,7 @@ struct Int8Product {
     // 2. the exact s32 tile dots on the tensor cores
     const int warp = threadIdx.x / 32;
     const int ln = threadIdx.x % 32;
-    int d[NB][4];
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) d[nb][r] = 0;
+    int(&d)[NB][4] = acc.d;
 #pragma unroll
     for (int kk = 0; kk < TILE; kk += KS) {
       unsigned a0, a1, a2 = 0, a3 = 0;
@@ -522,8 +572,13 @@ struct Int8Product {
         }
       }
     }
-    // 3. fold into the f32 accumulator in the plain version's order
-    const float* sc = reinterpret_cast<const float*>(bs + B_BYTES);
+  }
+
+  // after the step's last chunk: fold its dot into the f32 accumulator in
+  // the plain version's order, with the step's scales (landed in `stage`)
+  __device__ static void finish(const unsigned char* stage, Acc& acc) {
+    const float* sc =
+        reinterpret_cast<const float*>(stage + A_BYTES + B_BYTES);
     const float sa = sc[0];
     const float sb = sc[1];
 #pragma unroll
@@ -531,8 +586,8 @@ struct Int8Product {
 #pragma unroll
       for (int r = 0; r < 4; ++r)
         acc.c[nb][r] = __fadd_rn(
-            acc.c[nb][r], __fmul_rn(__fmul_rn(__int2float_rn(d[nb][r]), sa),
-                                    sb));
+            acc.c[nb][r],
+            __fmul_rn(__fmul_rn(__int2float_rn(acc.d[nb][r]), sa), sb));
   }
 
   __device__ static void store(float* og, size_t ldo, const Acc& acc) {
@@ -582,40 +637,54 @@ __device__ int fill_worklist(int4* list, int* wsum, const int* step_i,
   return cnt;
 }
 
-// Walks `n` list entries with the tile product `prod`: INIT zeroes `acc`,
-// ACC adds the entry's tile product (tiles prefetched STAGES-1 ACC entries
-// ahead through the ring in `smem`; the product's load sees the entry, for
-// per-step scales), FLUSH stores `acc`. An entry (k, i, j) reads A's tile
-// (i, k) and B's tile at rows k·TILE, columns j·jstride + col0, and flushes
-// to the output at rows i·TILE, the same columns. Every branch is uniform
-// across the block (flags come from shared memory).
-template <class P, int TILE>
+// The walk's tile: T = `tile` for a chunked (CH) kernel, else P's own
+// tile, a compile-time constant (tiles 16, 32 and 64 keep their kernels).
+template <class P, bool CH>
+__device__ __forceinline__ int walk_tile(int tile) {
+  return CH ? tile : P::SUB;
+}
+
+// Walks `n` list entries with the tile product `prod` at tile T (see
+// walk_tile): INIT zeroes `acc`, ACC adds the entry's tile product as R =
+// T/SUB K-chunks (each chunk's tiles prefetched STAGES-1 chunks ahead
+// through the ring in `smem`; the product's load sees the entry, for
+// per-step scales), FLUSH stores `acc`. An entry (k, i, j) reads, for
+// chunk kc, A's SUB × SUB tile at rows i·T + row0, columns k·T + kc·SUB and
+// B's SUB × W tile at rows k·T + kc·SUB, columns j·jstride + col0, and
+// flushes to the output at rows i·T + row0, the same columns. Every branch
+// is uniform across the block (flags come from shared memory).
+template <class P, bool CH>
 __device__ void walk_list(const P& prod, unsigned char* smem,
                           const int4* list, int n, const typename P::T* a,
                           size_t lda, const typename P::T* b, size_t ldb,
                           float* out, size_t ldo, size_t jstride, size_t col0,
-                          typename P::Acc& acc) {
+                          size_t row0, int tile, typename P::Acc& acc) {
+  const int t = walk_tile<P, CH>(tile);
+  const int chunks = t / P::SUB;
   auto next_acc = [&](int e) {
     while (e < n && !(list[e].w & kAcc)) ++e;
     return e;
   };
-  auto load = [&](int e, int st) {
-    const int4 en = list[e];
+  // the next chunk to load: entry ld, chunk ldc
+  int ld = next_acc(0), ldc = 0;
+  auto load = [&](int st) {
+    const int4 en = list[ld];
+    const size_t kc = static_cast<size_t>(ldc) * P::SUB;
     prod.load(smem + st * P::STAGE_BYTES,
-              a + static_cast<size_t>(en.y) * TILE * lda +
-                  static_cast<size_t>(en.x) * TILE,
+              a + (static_cast<size_t>(en.y) * t + row0) * lda +
+                  static_cast<size_t>(en.x) * t + kc,
               lda,
-              b + static_cast<size_t>(en.x) * TILE * ldb +
+              b + (static_cast<size_t>(en.x) * t + kc) * ldb +
                   static_cast<size_t>(en.z) * jstride + col0,
               ldb, en);
-  };
-  int ld = next_acc(0);
-#pragma unroll
-  for (int p = 0; p < P::STAGES - 1; ++p) {
-    if (ld < n) {
-      load(ld, p);
+    if (++ldc == chunks) {
+      ldc = 0;
       ld = next_acc(ld + 1);
     }
+  };
+#pragma unroll
+  for (int p = 0; p < P::STAGES - 1; ++p) {
+    if (ld < n) load(p);
     cp_async_commit();
   }
   int stage = 0;
@@ -623,52 +692,64 @@ __device__ void walk_list(const P& prod, unsigned char* smem,
     const int4 en = list[e];
     if (en.w & kInit) P::zero(acc);
     if (en.w & kAcc) {
-      cp_async_wait<P::STAGES - 2>();
-      __syncthreads();  // the stage has landed; the previous one is free
-      if (ld < n) {
-        load(ld, (stage + P::STAGES - 1) % P::STAGES);
-        ld = next_acc(ld + 1);
+      P::begin(acc);
+      for (int c = 0; c < chunks; ++c) {
+        cp_async_wait<P::STAGES - 2>();
+        __syncthreads();  // the stage has landed; the previous one is free
+        if (ld < n) load((stage + P::STAGES - 1) % P::STAGES);
+        cp_async_commit();
+        prod.compute(smem + stage * P::STAGE_BYTES, acc);
+        if (c == chunks - 1) P::finish(smem + stage * P::STAGE_BYTES, acc);
+        stage = (stage + 1) % P::STAGES;
       }
-      cp_async_commit();
-      prod.compute(smem + stage * P::STAGE_BYTES, acc);
-      stage = (stage + 1) % P::STAGES;
     }
     if (en.w & kFlush)
-      P::store(out + static_cast<size_t>(en.y) * TILE * ldo +
+      P::store(out + (static_cast<size_t>(en.y) * t + row0) * ldo +
                    static_cast<size_t>(en.z) * jstride + col0,
                ldo, acc);
   }
 }
 
-// One block per (run, column group × column slice): the run's flagged
-// steps, chunk by chunk, through walk_list with the tile product `prod`.
-template <class P, int TILE>
+// One block per (run, column group × column slice) at T = SUB; per (run ×
+// row band, column group × column sub-block × column slice) at T > SUB: the
+// run's flagged steps, chunk by chunk, through walk_list with the tile
+// product `prod`.
+template <class P, bool CH>
 __device__ void worklist_block(const P& prod, const typename P::T* a,
                                const typename P::T* b, const int* step_i,
                                const int* step_j, const int* step_k,
                                const int* step_flags, const int* runs,
-                               float* out, int k, int n, int block_n) {
+                               float* out, int k, int n, int block_n,
+                               int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int4 list[kListCap];
   __shared__ int wsum[P::NT / 32];
-  constexpr int SL = TILE / P::W;
-  const int group = blockIdx.y / SL;
-  const int slice = blockIdx.y % SL;
-  const size_t col0 = static_cast<size_t>(group) * TILE + slice * P::W;
-  int base = runs[blockIdx.x];
-  const int s1 = runs[blockIdx.x + 1];
+  const int t = walk_tile<P, CH>(tile);
+  const int bands = t / P::SUB;
+  const int run = blockIdx.x / bands;
+  const int band = blockIdx.x % bands;
+  const int slices = t / P::W;  // column slices of a t-wide group
+  const int group = blockIdx.y / slices;
+  const int slice = blockIdx.y % slices;
+  const size_t col0 = static_cast<size_t>(group) * t + slice * P::W;
+  int base = runs[run];
+  const int s1 = runs[run + 1];
   typename P::Acc acc;
   P::zero(acc);
   while (base < s1) {
     __syncthreads();  // every thread is done with the previous chunk
     const int cnt = fill_worklist<P::NT>(list, wsum, step_i, step_j, step_k,
                                          step_flags, base, s1);
-    walk_list<P, TILE>(prod, smem, list, cnt, a, k, b, n, out, n,
-                       static_cast<size_t>(block_n) * TILE, col0, acc);
+    walk_list<P, CH>(prod, smem, list, cnt, a, k, b, n, out, n,
+                     static_cast<size_t>(block_n) * t, col0,
+                     static_cast<size_t>(band) * P::SUB, tile, acc);
   }
 }
 
-template <int TILE, int SL>
+// The kernels, templated on the sub-tile TILE, the column slices SL of a
+// TILE-wide block and CH: false for the tile TILE itself (the `tile`
+// argument is then TILE), true for a larger tile `tile` walked in chunks.
+template <int TILE, int SL, bool CH>
 __global__ void __launch_bounds__(F32Product<TILE, SL>::NT, 3)
 spamm_worklist_f32_kernel(const float* __restrict__ a,
                           const float* __restrict__ b,
@@ -678,13 +759,13 @@ spamm_worklist_f32_kernel(const float* __restrict__ a,
                           const int* __restrict__ step_flags,
                           const int* __restrict__ runs,
                           float* __restrict__ out, int k, int n,
-                          int block_n) {
-  worklist_block<F32Product<TILE, SL>, TILE>({}, a, b, step_i, step_j,
-                                             step_k, step_flags, runs, out,
-                                             k, n, block_n);
+                          int block_n, int tile) {
+  worklist_block<F32Product<TILE, SL>, CH>({}, a, b, step_i, step_j, step_k,
+                                           step_flags, runs, out, k, n,
+                                           block_n, tile);
 }
 
-template <int TILE, int SL>
+template <int TILE, int SL, bool CH>
 __global__ void __launch_bounds__(Bf16Product<TILE, SL>::NT)
 spamm_worklist_bf16_kernel(const __nv_bfloat16* __restrict__ a,
                            const __nv_bfloat16* __restrict__ b,
@@ -694,13 +775,13 @@ spamm_worklist_bf16_kernel(const __nv_bfloat16* __restrict__ a,
                            const int* __restrict__ step_flags,
                            const int* __restrict__ runs,
                            float* __restrict__ out, int k, int n,
-                           int block_n) {
-  worklist_block<Bf16Product<TILE, SL>, TILE>({}, a, b, step_i, step_j,
-                                              step_k, step_flags, runs, out,
-                                              k, n, block_n);
+                           int block_n, int tile) {
+  worklist_block<Bf16Product<TILE, SL>, CH>({}, a, b, step_i, step_j, step_k,
+                                            step_flags, runs, out, k, n,
+                                            block_n, tile);
 }
 
-template <int TILE, int SL>
+template <int TILE, int SL, bool CH>
 __global__ void __launch_bounds__(Int8Product<TILE, SL>::NT)
 spamm_worklist_int8_kernel(const signed char* __restrict__ a,
                            const signed char* __restrict__ b,
@@ -712,39 +793,46 @@ spamm_worklist_int8_kernel(const signed char* __restrict__ a,
                            const int* __restrict__ step_flags,
                            const int* __restrict__ runs,
                            float* __restrict__ out, int k, int n,
-                           int block_n) {
-  const Int8Product<TILE, SL> prod{a_scale, b_scale, k / TILE, n / TILE,
-                                   block_n,
-                                   static_cast<int>(blockIdx.y) / SL};
-  worklist_block<Int8Product<TILE, SL>, TILE>(prod, a, b, step_i, step_j,
-                                              step_k, step_flags, runs, out,
-                                              k, n, block_n);
+                           int block_n, int tile) {
+  using P = Int8Product<TILE, SL>;
+  const int t = walk_tile<P, CH>(tile);
+  // the scales are the T-level tiles': per (i, k) of A, per fine (k, j) of B
+  const P prod{a_scale, b_scale, k / t, n / t, block_n,
+               static_cast<int>(blockIdx.y) / (t / P::W)};
+  worklist_block<P, CH>(prod, a, b, step_i, step_j, step_k, step_flags, runs,
+                        out, k, n, block_n, tile);
 }
 
-// One block per (slice, i, j, column group × column slice): the valid-k
-// list kidx[slice, i, j, 0 .. nvalid) as ACC entries (INIT on the first,
-// FLUSH on the last; one INIT|FLUSH entry when nvalid is 0, so the block
-// writes zeros), chunk by chunk, through walk_list.
-template <int TILE, int SL>
+// One block per (slice, i, j, column group × column slice) at T = SUB; per
+// (slice, (i, j) × row band, column group × column sub-block × column
+// slice) at T > SUB: the valid-k list kidx[slice, i, j, 0 .. nvalid) as ACC
+// entries (INIT on the first, FLUSH on the last; one INIT|FLUSH entry when
+// nvalid is 0, so the block writes zeros), chunk by chunk, through
+// walk_list.
+template <int TILE, int SL, bool CH>
 __global__ void __launch_bounds__(F32Product<TILE, SL>::NT, 3)
 spamm_dense_f32_kernel(const float* __restrict__ a,
                        const float* __restrict__ b,
                        const int* __restrict__ kidx,
                        const int* __restrict__ nvalid,
                        float* __restrict__ out, int m, int k, int n,
-                       int gnb, int block_n) {
+                       int gnb, int block_n, int tile) {
   using P = F32Product<TILE, SL>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int4 list[kListCap];
-  const int pair = blockIdx.x;  // i * gnb + j
+  const int t = walk_tile<P, CH>(tile);
+  const int bands = t / P::SUB;
+  const int pair = blockIdx.x / bands;  // i * gnb + j
+  const int band = blockIdx.x % bands;
   const int i = pair / gnb;
   const int j = pair - i * gnb;
-  const int group = blockIdx.y / SL;
-  const int slice = blockIdx.y % SL;
-  const size_t col0 = static_cast<size_t>(group) * TILE + slice * P::W;
+  const int slices = t / P::W;
+  const int group = blockIdx.y / slices;
+  const int slice = blockIdx.y % slices;
+  const size_t col0 = static_cast<size_t>(group) * t + slice * P::W;
   const size_t z = blockIdx.z;
-  const int gk = k / TILE;
-  const size_t pair_id = z * (m / TILE) * gnb + pair;
+  const int gk = k / t;
+  const size_t pair_id = z * (m / t) * gnb + pair;
   const int nv = nvalid[pair_id];
   const int* kl = kidx + pair_id * gk;
   const int total = nv > 0 ? nv : 1;
@@ -754,15 +842,15 @@ spamm_dense_f32_kernel(const float* __restrict__ a,
     const int cnt = min(kListCap, total - t0);
     __syncthreads();  // every thread is done with the previous chunk
     for (int e = threadIdx.x; e < cnt; e += P::NT) {
-      const int t = t0 + e;
-      const int f = (nv > 0 ? kAcc : 0) | (t == 0 ? kInit : 0) |
-                    (t == total - 1 ? kFlush : 0);
-      list[e] = make_int4(nv > 0 ? kl[t] : 0, i, j, f);
+      const int s = t0 + e;
+      const int f = (nv > 0 ? kAcc : 0) | (s == 0 ? kInit : 0) |
+                    (s == total - 1 ? kFlush : 0);
+      list[e] = make_int4(nv > 0 ? kl[s] : 0, i, j, f);
     }
     __syncthreads();
-    walk_list<P, TILE>(P{}, smem, list, cnt, a + z * m * k, k,
-                       b + z * k * n, n, out + z * m * n, n,
-                       static_cast<size_t>(block_n) * TILE, col0, acc);
+    walk_list<P, CH>(P{}, smem, list, cnt, a + z * m * k, k, b + z * k * n,
+                     n, out + z * m * n, n, static_cast<size_t>(block_n) * t,
+                     col0, static_cast<size_t>(band) * P::SUB, tile, acc);
   }
 }
 
@@ -778,59 +866,89 @@ int launch(K kern, dim3 grid, cudaStream_t stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launches: at tile == TILE the kernel built for that tile, one block
+// per run (or output block) and column group × slice; above it the chunked
+// kernel, with R = tile / TILE row bands in gridDim.x and R column
+// sub-blocks in gridDim.y.
 template <int TILE, int SL>
 int worklist_f32(const float* a, const float* b, const int* si,
                  const int* sj, const int* sk, const int* sf,
                  const int* runs, int num_runs, float* out, int k, int n,
-                 int block_n, cudaStream_t st) {
-  return launch<F32Product<TILE, SL>>(
-      spamm_worklist_f32_kernel<TILE, SL>, dim3(num_runs, block_n * SL), st,
-      a, b, si, sj, sk, sf, runs, out, k, n, block_n);
+                 int tile, int block_n, cudaStream_t st) {
+  using P = F32Product<TILE, SL>;
+  const int r = tile / TILE;
+  if (r == 1)
+    return launch<P>(spamm_worklist_f32_kernel<TILE, SL, false>,
+                     dim3(num_runs, block_n * SL), st, a, b, si, sj, sk, sf,
+                     runs, out, k, n, block_n, tile);
+  return launch<P>(spamm_worklist_f32_kernel<TILE, SL, true>,
+                   dim3(num_runs * r, block_n * r * SL), st, a, b, si, sj,
+                   sk, sf, runs, out, k, n, block_n, tile);
 }
 
 template <int TILE, int SL>
 int worklist_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
                   const int* si, const int* sj, const int* sk, const int* sf,
                   const int* runs, int num_runs, float* out, int k, int n,
-                  int block_n, cudaStream_t st) {
-  return launch<Bf16Product<TILE, SL>>(
-      spamm_worklist_bf16_kernel<TILE, SL>, dim3(num_runs, block_n * SL), st,
-      a, b, si, sj, sk, sf, runs, out, k, n, block_n);
+                  int tile, int block_n, cudaStream_t st) {
+  using P = Bf16Product<TILE, SL>;
+  const int r = tile / TILE;
+  if (r == 1)
+    return launch<P>(spamm_worklist_bf16_kernel<TILE, SL, false>,
+                     dim3(num_runs, block_n * SL), st, a, b, si, sj, sk, sf,
+                     runs, out, k, n, block_n, tile);
+  return launch<P>(spamm_worklist_bf16_kernel<TILE, SL, true>,
+                   dim3(num_runs * r, block_n * r * SL), st, a, b, si, sj,
+                   sk, sf, runs, out, k, n, block_n, tile);
 }
 
 template <int TILE, int SL>
 int worklist_int8(const signed char* a, const signed char* b, const float* sa,
                   const float* sb, const int* si, const int* sj,
                   const int* sk, const int* sf, const int* runs, int num_runs,
-                  float* out, int k, int n, int block_n, cudaStream_t st) {
-  return launch<Int8Product<TILE, SL>>(
-      spamm_worklist_int8_kernel<TILE, SL>, dim3(num_runs, block_n * SL), st,
-      a, b, sa, sb, si, sj, sk, sf, runs, out, k, n, block_n);
+                  float* out, int k, int n, int tile, int block_n,
+                  cudaStream_t st) {
+  using P = Int8Product<TILE, SL>;
+  const int r = tile / TILE;
+  if (r == 1)
+    return launch<P>(spamm_worklist_int8_kernel<TILE, SL, false>,
+                     dim3(num_runs, block_n * SL), st, a, b, sa, sb, si, sj,
+                     sk, sf, runs, out, k, n, block_n, tile);
+  return launch<P>(spamm_worklist_int8_kernel<TILE, SL, true>,
+                   dim3(num_runs * r, block_n * r * SL), st, a, b, sa, sb,
+                   si, sj, sk, sf, runs, out, k, n, block_n, tile);
 }
 
 template <int TILE, int SL>
 int dense_f32(const float* a, const float* b, const int* kidx,
               const int* nvalid, float* out, int batch, int m, int k, int n,
-              int block_n, cudaStream_t st) {
-  const int gnb = n / (TILE * block_n);
-  return launch<F32Product<TILE, SL>>(
-      spamm_dense_f32_kernel<TILE, SL>,
-      dim3((m / TILE) * gnb, block_n * SL, batch), st, a, b, kidx, nvalid,
-      out, m, k, n, gnb, block_n);
+              int tile, int block_n, cudaStream_t st) {
+  using P = F32Product<TILE, SL>;
+  const int r = tile / TILE;
+  const int gnb = n / (tile * block_n);
+  if (r == 1)
+    return launch<P>(spamm_dense_f32_kernel<TILE, SL, false>,
+                     dim3((m / tile) * gnb, block_n * SL, batch), st, a, b,
+                     kidx, nvalid, out, m, k, n, gnb, block_n, tile);
+  return launch<P>(spamm_dense_f32_kernel<TILE, SL, true>,
+                   dim3((m / tile) * gnb * r, block_n * r * SL, batch), st, a,
+                   b, kidx, nvalid, out, m, k, n, gnb, block_n, tile);
 }
 
-// Calls F<TILE, SL>(args...) for the (tile, slices) pairs the kernels are
-// built for: tile 16, 32 or 64 and slices 1 .. tile/16 (a power of two, at
-// most 4), so that a slice is at least 16 columns wide. Anything else
-// returns cudaErrorInvalidValue without launching.
+// Calls F<SUB, SL>(args...) for the tiles the kernels take: tile a multiple
+// of 16 up to kMaxTile, walked with SUB = sub_tile(tile), and slices 1 ..
+// SUB/16 (a power of two, at most 4), so that a slice is at least 16
+// columns wide. Anything else returns cudaErrorInvalidValue without
+// launching.
 #define SPAMM_DISPATCH(F, tile, slices, ...)                               \
   do {                                                                     \
-    if ((tile) == 16 && (slices) == 1) return F<16, 1>(__VA_ARGS__);       \
-    if ((tile) == 32 && (slices) == 1) return F<32, 1>(__VA_ARGS__);       \
-    if ((tile) == 32 && (slices) == 2) return F<32, 2>(__VA_ARGS__);       \
-    if ((tile) == 64 && (slices) == 1) return F<64, 1>(__VA_ARGS__);       \
-    if ((tile) == 64 && (slices) == 2) return F<64, 2>(__VA_ARGS__);       \
-    if ((tile) == 64 && (slices) == 4) return F<64, 4>(__VA_ARGS__);       \
+    const int sub_ = sub_tile(tile);                                       \
+    if (sub_ == 16 && (slices) == 1) return F<16, 1>(__VA_ARGS__);         \
+    if (sub_ == 32 && (slices) == 1) return F<32, 1>(__VA_ARGS__);         \
+    if (sub_ == 32 && (slices) == 2) return F<32, 2>(__VA_ARGS__);         \
+    if (sub_ == 64 && (slices) == 1) return F<64, 1>(__VA_ARGS__);         \
+    if (sub_ == 64 && (slices) == 2) return F<64, 2>(__VA_ARGS__);         \
+    if (sub_ == 64 && (slices) == 4) return F<64, 4>(__VA_ARGS__);         \
     return static_cast<int>(cudaErrorInvalidValue);                        \
   } while (0)
 
@@ -844,9 +962,10 @@ extern "C" int spamm_mm_stages(int dtype) {
 // a: (m, k), b: (k, n) row-major float32, 16-byte aligned; step tables
 // (S,) int32; runs (num_runs + 1,) int32 run boundaries into the step
 // tables; out: (m, n) float32, zero-initialised and 16-byte aligned;
-// slices: column slices per output block. tile 16, 32 or 64 and slices 1 ..
-// tile/16 (a power of two), else returns cudaErrorInvalidValue without
-// launching. Returns cudaGetLastError().
+// slices: column slices per sub-tile-wide column block. tile a multiple of
+// 16 up to 512 and slices 1 .. sub_tile(tile)/16 (a power of two, at most
+// 4), else returns cudaErrorInvalidValue without launching. Returns
+// cudaGetLastError().
 extern "C" int spamm_mm_worklist_f32(const float* a, const float* b,
                                      const int* step_i, const int* step_j,
                                      const int* step_k, const int* step_flags,
@@ -856,7 +975,7 @@ extern "C" int spamm_mm_worklist_f32(const float* a, const float* b,
                                      void* stream) {
   (void)m;
   SPAMM_DISPATCH(worklist_f32, tile, slices, a, b, step_i, step_j, step_k,
-                 step_flags, runs, num_runs, out, k, n, block_n,
+                 step_flags, runs, num_runs, out, k, n, tile, block_n,
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -872,7 +991,7 @@ extern "C" int spamm_mm_worklist_bf16(const __nv_bfloat16* a,
                                       int slices, void* stream) {
   (void)m;
   SPAMM_DISPATCH(worklist_bf16, tile, slices, a, b, step_i, step_j, step_k,
-                 step_flags, runs, num_runs, out, k, n, block_n,
+                 step_flags, runs, num_runs, out, k, n, tile, block_n,
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -892,7 +1011,7 @@ extern "C" int spamm_mm_worklist_int8(const signed char* a,
                                       int slices, void* stream) {
   (void)m;
   SPAMM_DISPATCH(worklist_int8, tile, slices, a, b, a_scale, b_scale, step_i,
-                 step_j, step_k, step_flags, runs, num_runs, out, k, n,
+                 step_j, step_k, step_flags, runs, num_runs, out, k, n, tile,
                  block_n, static_cast<cudaStream_t>(stream));
 }
 
@@ -900,14 +1019,14 @@ extern "C" int spamm_mm_worklist_int8(const signed char* a,
 // kidx: (batch, m/tile, n/(tile·block_n), k/tile) int32 valid-k lists, the
 // first nvalid entries of each in ascending order; nvalid: (batch, m/tile,
 // n/(tile·block_n)) int32; out: (batch, m, n) float32, 16-byte aligned,
-// every element written; slices: column slices per output block. tile and
-// slices as spamm_mm_worklist_f32 (else returns cudaErrorInvalidValue
-// without launching). Returns cudaGetLastError().
+// every element written; slices: column slices per sub-tile-wide column
+// block. tile and slices as spamm_mm_worklist_f32 (else returns
+// cudaErrorInvalidValue without launching). Returns cudaGetLastError().
 extern "C" int spamm_mm_dense_f32(const float* a, const float* b,
                                   const int* kidx, const int* nvalid,
                                   float* out, int batch, int m, int k, int n,
                                   int tile, int block_n, int slices,
                                   void* stream) {
   SPAMM_DISPATCH(dense_f32, tile, slices, a, b, kidx, nvalid, out, batch, m,
-                 k, n, block_n, static_cast<cudaStream_t>(stream));
+                 k, n, tile, block_n, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,7 @@
 """Backend registry for the port's SpAMM kernels.
 
 Twin of the registry in `repro.kernels.ops` (`Backend`, `BACKENDS`,
-`get_backend`) and of its module functions. Backends:
+`register_backend`, `get_backend`) and of its module functions. Backends:
 
   "cuda"  — the hand-written Hopper kernels (CUDA tensors only);
   "torch" — their plain PyTorch versions (any device; the oracle);
@@ -203,6 +203,12 @@ BACKENDS = {
 }
 
 VALID_BACKENDS = tuple(BACKENDS)
+
+
+def register_backend(backend: Backend):
+    """Extension hook: make a new backend visible to the whole pipeline
+    (`get_backend`, plans, frozen weights) under `backend.name`."""
+    BACKENDS[backend.name] = backend
 
 
 def get_backend(backend: str) -> Backend:

@@ -19,7 +19,7 @@ driven by the step tables `repro_torch.core.plan.compact_from_triples`
 Output blocks never flushed stay exactly zero. Entry points as in
 `getnorm`: `spamm_mm_worklist_plain`, `spamm_mm_worklist_cuda` (the kernels
 of `csrc/spamm_mm.cu`: two f32 operands on the CUDA cores, or two bf16
-operands on the tensor cores; f32 out, tile 16/32/64) and
+operands on the tensor cores; f32 out, any tile `sub_tile` takes) and
 `spamm_mm_worklist` (dispatch on the operands' device). The f32 kernel adds
 every element's products with one FMA each, in table order and ascending
 inner index. The bf16 kernel's tensor-core MMA adds a 16-deep slice of
@@ -53,14 +53,29 @@ order (kernel: one shared device function; plain: the same rank-1 updates),
 so with the same valid k's dense-grid ≡ work-list bit for bit, whatever
 the column slices of either.
 
+Tiles: the kernels take every multiple of 16 from 16 to MAX_CUDA_TILE
+(512), as the reference's kernels take any tile that divides the operands;
+`sub_tile` is the rule, and the wrappers raise on any other tile. The tile
+products are built for a sub-tile of 16, 32 or 64, the largest that
+divides the tile T. At T = 16, 32, 64 a thread block owns a whole output
+block. Above, the step tables stay the planner's T-level ones (so every
+table, flag and int8 scale is the reference's) and each T × T·block_n
+output block is cut into R = T/sub row bands and R column sub-blocks, one
+thread block each; every ACC step is walked as R K-chunks of the sub-tile,
+in ascending order, so each f32 output is still summed over ascending q
+from 0 to T − 1 (the plain version's order) and the int8 kernel carries
+its exact s32 dot over the chunks and scales it once a step (≡ the plain
+version bit for bit).
+
 Launch geometry (every work-list kernel and dense-grid): one thread block per
-run (dense-grid: per output block) × block_n column groups × `slices`
-column slices. `column_slices` is the rule: a decode step's few runs are
-split into up to 4 slices of at least 16 columns until the launch has two
-blocks per SM; each slice walks the same steps over its columns, so the
-per-element order does not change. Every operand pointer the kernels read
-with 16-byte copies must be 16-byte aligned (the wrappers raise
-otherwise). `last_geometry` holds the geometry of the latest launch.
+run (dense-grid: per output block) × R row bands × block_n column groups ×
+R column sub-blocks × `slices` column slices. `column_slices` is the rule:
+a decode step's few runs are split into up to 4 slices of at least 16
+columns until the launch has two blocks per SM; each slice walks the same
+steps over its columns, so the per-element order does not change. Every
+operand pointer the kernels read with 16-byte copies must be 16-byte
+aligned (the wrappers raise otherwise). `last_geometry` holds the geometry
+of the latest launch.
 
 Launch counts, one per kernel: `launches` (f32 work-list),
 `bf16_launches` (bf16 work-list), `int8_launches` (int8 work-list),
@@ -77,9 +92,14 @@ from repro_torch.kernels import build
 # step_flags bits — the planner encodes them, the kernel decodes them
 STEP_INIT, STEP_ACC, STEP_FLUSH = 1, 2, 4
 
-CUDA_TILES = (16, 32, 64)
+# the largest tile the kernels take (the kernel's kMaxTile)
+MAX_CUDA_TILE = 512
+# the sub-tiles the tile products are built for (TILE of the templates)
+SUB_TILES = (64, 32, 16)
 # column slices per output block: a slice is at least 16 columns wide
 MAX_COLUMN_SLICES = 4
+# gridDim.y of a launch: block_n × column sub-blocks × column slices
+MAX_GRID_Y = 65535
 # ring depth of the pipelined kernels, as `spamm_mm_stages` reports it
 PIPELINE_STAGES = {torch.float32: 2, torch.bfloat16: 3, torch.int8: 4}
 # threads of an f32 block that holds at least this many float4 outputs (the
@@ -119,13 +139,25 @@ def _lib():
     return _LIB
 
 
+def sub_tile(tile: int) -> int:
+    """The sub-tile the kernels walk a tile with: 64, 32 or 16, the largest
+    that divides it. Raises ValueError for a tile the kernels do not take:
+    one that is not a multiple of 16 from 16 to MAX_CUDA_TILE."""
+    if not (16 <= tile <= MAX_CUDA_TILE and tile % 16 == 0):
+        raise ValueError(f"tile {tile}: the kernels take a multiple of 16 "
+                         f"from 16 to {MAX_CUDA_TILE}")
+    return next(s for s in SUB_TILES if tile % s == 0)
+
+
 def column_slices(num_blocks: int, tile: int, num_sms: int) -> int:
-    """Column slices per output block for a launch of `num_blocks` blocks
-    (runs × block_n column groups; dense-grid: batch slices × output
-    blocks × column groups) on `num_sms` SMs: doubled from 1 while the
-    launch has fewer than two blocks per SM, up to tile/16 (a slice keeps
-    at least 16 columns) and MAX_COLUMN_SLICES. Slices only split launches
-    below 2·num_sms blocks, so block_n × slices stays far inside gridDim.y."""
+    """Column slices per `tile`-wide column block for a launch of
+    `num_blocks` blocks (runs × block_n column groups; dense-grid: batch
+    slices × output blocks × column groups; times the row bands and column
+    sub-blocks of a chunked tile) on `num_sms` SMs: doubled from 1 while
+    the launch has fewer than two blocks per SM, up to tile/16 (a slice
+    keeps at least 16 columns) and MAX_COLUMN_SLICES. Slices only split
+    launches below 2·num_sms blocks, so block_n × slices stays far inside
+    gridDim.y."""
     most = min(MAX_COLUMN_SLICES, tile // 16)
     slices = 1
     while slices < most and num_blocks * slices < 2 * num_sms:
@@ -136,17 +168,39 @@ def column_slices(num_blocks: int, tile: int, num_sms: int) -> int:
 def launch_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
                     num_sms: int) -> dict:
     """The launch of a work-list (f32, bf16 or int8) or dense-grid kernel
-    over `num_blocks` (output block, column group) pairs: column slices,
-    thread blocks, threads per block and ring stages. f32: width/4 threads
-    along a row, each owning one float4 of columns in as many rows as keep
-    128 threads (64 at tile 16); bf16 and int8 (tensor cores): one warp per
-    16 rows of the tile."""
-    slices = column_slices(num_blocks, tile, num_sms)
-    width = tile // slices
-    threads = (min(tile, F32_THREADS // (width // 4)) * (width // 4)
-               if dtype == torch.float32 else 2 * tile)
-    return {"blocks": num_blocks * slices, "column_slices": slices,
-            "threads": threads, "stages": PIPELINE_STAGES[dtype]}
+    over `num_blocks` (output block, column group) pairs at `tile`: its
+    sub-tile (`sub_tile`), the R = tile/sub_tile row bands and column
+    sub-blocks of each output block (1 at tiles 16, 32, 64), the column
+    slices of a sub-tile-wide block (`column_slices` over the num_blocks·R²
+    blocks), thread blocks, threads per block, ring stages and the ring's
+    shared memory. f32: width/4 threads along a row, each owning one float4
+    of columns in as many rows as keep 128 threads (64 at sub-tile 16);
+    bf16 and int8 (tensor cores): one warp per 16 rows of the sub-tile."""
+    sub = sub_tile(tile)
+    r = tile // sub
+    slices = column_slices(num_blocks * r * r, sub, num_sms)
+    width = sub // slices
+    threads = (min(sub, F32_THREADS // (width // 4)) * (width // 4)
+               if dtype == torch.float32 else 2 * sub)
+    return {"blocks": num_blocks * r * r * slices, "column_slices": slices,
+            "threads": threads, "stages": PIPELINE_STAGES[dtype],
+            "sub_tile": sub, "row_bands": r, "column_sub_blocks": r,
+            "ring_bytes": ring_bytes(sub, width, dtype)}
+
+
+def ring_bytes(sub: int, width: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a block's ring, by the kernels' stage
+    formulas (`STAGE_BYTES` of F32Product, Bf16Product, Int8Product) at
+    sub-tile `sub` and slice width `width`; it does not grow with the
+    tile."""
+    if dtype == torch.float32:
+        stage = (sub * (sub + 4) + sub * width) * 4
+    elif dtype == torch.bfloat16:
+        stage = (sub * (sub + 8) + sub * (width + 8)) * 2
+    else:
+        lda = sub if (sub // 16) % 2 else sub + 16
+        stage = sub * lda + sub * width + 16
+    return PIPELINE_STAGES[dtype] * stage
 
 
 def _num_sms(dev) -> int:
@@ -154,6 +208,17 @@ def _num_sms(dev) -> int:
     if idx not in _SMS:
         _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _SMS[idx]
+
+
+def _geometry(num_blocks, tile, block_n, dtype, dev) -> dict:
+    """`launch_geometry` on `dev`'s SMs; raises when the launch's gridDim.y
+    (block_n × column sub-blocks × column slices) exceeds MAX_GRID_Y."""
+    geo = launch_geometry(num_blocks, tile, dtype, _num_sms(dev))
+    y = block_n * geo["column_sub_blocks"] * geo["column_slices"]
+    if y > MAX_GRID_Y:
+        raise ValueError(f"block_n {block_n} at tile {tile} needs gridDim.y "
+                         f"{y} > {MAX_GRID_Y}")
+    return geo
 
 
 def _check_aligned(named):
@@ -251,9 +316,8 @@ def _check_cuda_worklist(named, tables, runs, tile, block_n, out_dtype):
         raise TypeError("step tables and runs must be int32")
     if out_dtype != torch.float32:
         raise TypeError(f"the kernel writes float32, not {out_dtype}")
-    if tile not in CUDA_TILES:
-        raise ValueError(f"tile {tile} not in the kernel's {CUDA_TILES}")
-    if not 1 <= block_n <= 65535:
+    sub_tile(tile)
+    if not 1 <= block_n <= MAX_GRID_Y:
         raise ValueError(f"block_n {block_n} out of range")
     return dev
 
@@ -262,10 +326,10 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
                            *, tile: int = 64, block_n: int = 1,
                            out_dtype=torch.float32) -> torch.Tensor:
     """The CUDA kernels: one thread block per run × block_n column groups ×
-    `column_slices`. Takes two contiguous, 16-byte aligned float32 or
-    bfloat16 operands and int32 tables on one CUDA device, tile in
-    CUDA_TILES and a float32 output; raises on anything else (mixed operand
-    types too)."""
+    `column_slices` (× R² row bands and column sub-blocks above tile 64).
+    Takes two contiguous, 16-byte aligned float32 or bfloat16 operands and
+    int32 tables on one CUDA device, a tile `sub_tile` takes and a float32
+    output; raises on anything else (mixed operand types too)."""
     global launches, bf16_launches, last_geometry
     tables = (step_i, step_j, step_k, step_flags)
     m, k, n = _check_shapes(a, b, tables, runs, tile, block_n)
@@ -279,7 +343,7 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
     num_runs = runs.shape[0] - 1
     if num_runs == 0:
         return out
-    geo = launch_geometry(num_runs * block_n, tile, a.dtype, _num_sms(dev))
+    geo = _geometry(num_runs * block_n, tile, block_n, a.dtype, dev)
     lib = _lib()
     fn = (lib.spamm_mm_worklist_f32 if a.dtype == torch.float32
           else lib.spamm_mm_worklist_bf16)
@@ -377,10 +441,11 @@ def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
                                 block_n: int = 1,
                                 out_dtype=torch.float32) -> torch.Tensor:
     """The CUDA int8 kernel: one thread block per run × block_n column
-    groups × `column_slices`, exact s32 tile dots on the tensor cores
-    (`mma.sync` s8) through the work-list pipeline. Takes contiguous,
-    16-byte aligned int8 codes, float32 scales and int32 tables on one CUDA
-    device, tile in CUDA_TILES and a float32 output; raises on anything
+    groups × `column_slices` (× R² above tile 64), exact s32 tile dots on
+    the tensor cores (`mma.sync` s8) through the work-list pipeline, each
+    step's dot scaled once. Takes contiguous, 16-byte aligned int8 codes,
+    float32 scales (per T-level tile) and int32 tables on one CUDA device,
+    a tile `sub_tile` takes and a float32 output; raises on anything
     else."""
     global int8_launches, last_geometry
     tables = (step_i, step_j, step_k, step_flags)
@@ -396,7 +461,7 @@ def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
     num_runs = runs.shape[0] - 1
     if num_runs == 0:
         return out
-    geo = launch_geometry(num_runs * block_n, tile, torch.int8, _num_sms(dev))
+    geo = _geometry(num_runs * block_n, tile, block_n, torch.int8, dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -479,9 +544,10 @@ def spamm_mm_plain(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
 def spamm_mm_cuda(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
                   out_dtype=torch.float32) -> torch.Tensor:
     """The CUDA dense-grid kernel: one thread block per (slice, i, j,
-    column group) × `column_slices`. Takes contiguous, 16-byte aligned
-    float32 operands and int32 kidx/nvalid on one CUDA device, tile in
-    CUDA_TILES and a float32 output; raises on anything else."""
+    column group) × `column_slices` (× R² above tile 64). Takes
+    contiguous, 16-byte aligned float32 operands and int32 kidx/nvalid on
+    one CUDA device, a tile `sub_tile` takes and a float32 output; raises
+    on anything else."""
     global dense_launches, last_geometry
     batch, m, k, n, gm, gnb, gk = _check_dense(a, b, kidx, nvalid, tile,
                                                block_n)
@@ -500,16 +566,15 @@ def spamm_mm_cuda(a, b, kidx, nvalid, *, tile: int = 64, block_n: int = 1,
         raise TypeError("kidx and nvalid must be int32")
     if out_dtype != torch.float32:
         raise TypeError(f"the kernel writes float32, not {out_dtype}")
-    if tile not in CUDA_TILES:
-        raise ValueError(f"tile {tile} not in the kernel's {CUDA_TILES}")
-    if not 1 <= block_n <= 65535 or batch > 65535:
+    sub_tile(tile)
+    if not 1 <= block_n <= MAX_GRID_Y or batch > 65535:
         raise ValueError(f"block_n {block_n} or batch {batch} out of range")
     _check_aligned((("a", a), ("b", b)))
     out = torch.empty(a.shape[:-2] + (m, n), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    geo = launch_geometry(batch * gm * gnb * block_n, tile, torch.float32,
-                          _num_sms(dev))
+    geo = _geometry(batch * gm * gnb * block_n, tile, block_n, torch.float32,
+                    dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

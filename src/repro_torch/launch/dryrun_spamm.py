@@ -26,12 +26,11 @@ kernels' real steps) over the peak, not dense × ratio — the jnp lowering
 cannot count them, and rank 0's own fraction differs under contiguous and
 cyclic cuts (§3.5.1's point); `memory_effective_s` scales by that counted
 fraction; `argument_bytes` counts the whole A and B, because the port's
-`spamm_rowpart` / `spamm_2d` take whole operands; the default tile is 64,
-the tile of the rest of the port (the kernels take 16, 32 and 64; the
-reference's 128 raises here as the library does); the collective term
-uses each axis's link rate (`dryrun.LINK_BW`). A = B is the unsigned
-decay matrix (its tile norms are the signed one's exactly, so the gate
-and the work-lists are the same).
+`spamm_rowpart` / `spamm_2d` take whole operands; the collective term
+uses each axis's link rate (`dryrun.LINK_BW`). The default tile is the
+reference's, 128 (the kernels take every multiple of 16 up to 512). A = B
+is the unsigned decay matrix (its tile norms are the signed one's
+exactly, so the gate and the work-lists are the same).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun_spamm [--n 32768] [--ratio 0.1] [--multi-pod]
 """
@@ -101,7 +100,7 @@ def decay_operand(n: int, *, device="cuda", c: float = 0.1,
 
 
 def run_variant(name: str, a: torch.Tensor, tau: float, ratio: float, *,
-                tile: int = 64, mesh_shape=None, out_dir=None,
+                tile: int = 128, mesh_shape=None, out_dir=None,
                 verbose: bool = True):
     """One variant as rank 0 of the production world (`mesh_shape`, (shape,
     axis names), overrides it) on A = B = `a`. Returns (the reference's
@@ -228,9 +227,9 @@ def run_variant(name: str, a: torch.Tensor, tau: float, ratio: float, *,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=32768)
-    ap.add_argument("--tile", type=int, default=64,
-                    help="the port's tile (the kernels take 16, 32, 64; "
-                         "the reference's default is 128)")
+    ap.add_argument("--tile", type=int, default=128,
+                    help="the SpAMM tile, the reference's 128 by default "
+                         "(the kernels take multiples of 16 up to 512)")
     ap.add_argument("--ratio", type=float, default=0.10)
     ap.add_argument("--out", default="experiments/dryrun_spamm")
     ap.add_argument("--device", default="cuda")

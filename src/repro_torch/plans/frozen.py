@@ -396,6 +396,19 @@ class FrozenPlan:
         return self
 
 
+def freeze_weight(w, tau, *, tile: int = 64, block_n: int = 1,
+                  levels: int = 0, backend: str = "auto",
+                  use_mxu: bool = False, weight_hash: str = "",
+                  compute_dtype: str = "float32",
+                  tuned: TunedParams | None = None) -> FrozenWeight:
+    """Convenience alias for `FrozenWeight.build` (the reference's
+    `freeze_weight`)."""
+    return FrozenWeight.build(w, tau, tile=tile, block_n=block_n,
+                              levels=levels, backend=backend, use_mxu=use_mxu,
+                              weight_hash=weight_hash,
+                              compute_dtype=compute_dtype, tuned=tuned)
+
+
 def stack_plans(fps) -> FrozenPlan:
     """Stack FrozenPlans of one signature (`slice_rows` plans of one local
     grid and bucket, or `for_rows(gm, min_steps=)` with a common bucket)

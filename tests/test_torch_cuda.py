@@ -1703,3 +1703,210 @@ def test_sharded_recut_without_recapture_on_card(served, monkeypatch):
         caps.append(eng.graph_stats()["captures"])
     assert caps == [2, 4, 4, 4], caps
     assert len(moves) >= 2, (moves, eng._resharder.history)
+
+
+# ---------------------------------------------------------------------------
+# the gated GEMMs at tiles above 64: K-chunked sub-tile walks
+# ---------------------------------------------------------------------------
+
+LARGE_TILES = (128, 256, 512)
+
+
+def _refined(mask, r, block_n, dev):
+    """Step tables and runs of the same gate at the sub-tile (tile / r,
+    block_n 1): every kept T-level (i, j, k) becomes its r × r·block_n
+    output sub-blocks, each with the r sub-tile k's of k in ascending order
+    — the same fmaf (f32) and k16 (bf16) order per element as the chunked
+    walk, so the sub-tile kernel on these tables is its oracle bit for
+    bit."""
+    m = mask.cpu().numpy()
+    fine = np.repeat(np.repeat(np.repeat(m, r, 0), r * block_n, 1), r, 2)
+    ii, jj, kk = np.nonzero(fine)
+    work, _ = P.compact_from_triples(ii, jj, kk, gm=fine.shape[0],
+                                     gn=fine.shape[1], gk=fine.shape[2])
+    return tuple(torch.as_tensor(getattr(work, n), device=dev)
+                 for n in ("step_i", "step_j", "step_k", "step_flags",
+                           "runs"))
+
+
+def _large_case(tile, block_n, dev, seed, gm=2, gk=3, gn=2):
+    a = _rand((gm * tile, gk * tile), seed, dev)
+    b = _rand((gk * tile, gn * block_n * tile), seed + 1, dev)
+    p = P.plan(a, b, _median_tau(a, b, tile), tile=tile, block_n=block_n,
+               backend="cuda")
+    assert 0.0 < float(p.valid_fraction) < 1.0
+    w = p.work
+    return a, b, p, (w.step_i, w.step_j, w.step_k, w.step_flags, w.runs)
+
+
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", LARGE_TILES)
+def test_large_tile_f32_worklist_and_dense_grid_on_card(dev, tile, block_n):
+    """Rows 2 and 6 at tile T > 64: the chunked f32 kernel within MM_TOL of
+    its plain version (fmaf against multiply-add) and bit for bit the
+    tile-64 kernel on the refined tables; the dense-grid kernel ≡ the
+    work-list kernel bit for bit; the launch geometry has T/64 row bands
+    and column sub-blocks."""
+    a, b, p, tables = _large_case(tile, block_n, dev, 70)
+    kw = {"tile": tile, "block_n": block_n}
+    before = (spamm_mm.launches, spamm_mm.dense_launches)
+    got = spamm_mm.spamm_mm_worklist(a, b, *tables, **kw)
+    geo = dict(spamm_mm.last_geometry)
+    kidx, nvalid = ref.spamm_compact_ref(p.mask)
+    dense = spamm_mm.spamm_mm(a, b, kidx, nvalid, **kw)
+    torch.cuda.synchronize()
+    assert (spamm_mm.launches, spamm_mm.dense_launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    r = tile // 64
+    assert (geo["sub_tile"], geo["row_bands"],
+            geo["column_sub_blocks"]) == (64, r, r)
+    assert geo["blocks"] == ((tables[4].numel() - 1) * block_n * r * r
+                             * geo["column_slices"])
+    assert float(got.abs().max()) > 0.0
+    assert _max_rel(got, spamm_mm.spamm_mm_worklist_plain(a, b, *tables,
+                                                          **kw)) <= MM_TOL
+    fine = spamm_mm.spamm_mm_worklist_cuda(
+        a, b, *_refined(p.mask, r, block_n, dev), tile=64)
+    assert torch.equal(got, fine)
+    assert torch.equal(dense, got)
+    assert _max_rel(dense, spamm_mm.spamm_mm_plain(a, b, kidx, nvalid,
+                                                   **kw)) <= MM_TOL
+
+
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", LARGE_TILES)
+def test_large_tile_bf16_worklist_on_card(dev, tile, block_n):
+    """Row 2 bf16 at T > 64: within MM_TOL of the f32 kernel on the rounded
+    operands and of its plain version, deterministic, and bit for bit the
+    tile-64 bf16 kernel on the refined tables (the f32 fragments carry
+    across the chunks in the same k16 order)."""
+    a, b, p, tables = _large_case(tile, block_n, dev, 72)
+    ab, bb = a.bfloat16(), b.bfloat16()
+    kw = {"tile": tile, "block_n": block_n}
+    before = spamm_mm.bf16_launches
+    got = spamm_mm.spamm_mm_worklist(ab, bb, *tables, **kw)
+    again = spamm_mm.spamm_mm_worklist(ab, bb, *tables, **kw)
+    torch.cuda.synchronize()
+    assert spamm_mm.bf16_launches == before + 2
+    assert torch.equal(got, again)
+    f32 = spamm_mm.spamm_mm_worklist_cuda(ab.float(), bb.float(), *tables,
+                                          **kw)
+    assert _max_rel(got, f32) <= MM_TOL
+    assert _max_rel(got, spamm_mm.spamm_mm_worklist_plain(
+        ab, bb, *tables, **kw)) <= MM_TOL
+    fine = spamm_mm.spamm_mm_worklist_cuda(
+        ab, bb, *_refined(p.mask, tile // 64, block_n, dev), tile=64)
+    assert torch.equal(got, fine)
+
+
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", LARGE_TILES)
+def test_large_tile_int8_worklist_equals_plain_on_card(dev, tile, block_n):
+    """Row 5 at T > 64: one s32 dot over all T columns of a step, scaled
+    once by the step's T-tile scales: ≡ the plain version bit for bit,
+    and within 1e-5 of the f32 kernel on the dequantized operands."""
+    a = _rand((2 * tile, 3 * tile), 74, dev)
+    b = _rand((3 * tile, 2 * block_n * tile), 75, dev)
+    args = _int8_args(a, b, tile, block_n)
+    kw = {"tile": tile, "block_n": block_n}
+    before = spamm_mm.int8_launches
+    got = spamm_mm.spamm_mm_worklist_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert spamm_mm.int8_launches == before + 1
+    assert spamm_mm.last_geometry["row_bands"] == tile // 64
+    want = spamm_mm.spamm_mm_worklist_int8_plain(*args, **kw)
+    assert float(want.abs().max()) > 0.0
+    assert torch.equal(got, want)
+    a_q, b_q, a_s, b_s = args[:4]
+    f32 = spamm_mm.spamm_mm_worklist_cuda(
+        Q.dequantize_tiles(a_q, a_s, tile), Q.dequantize_tiles(b_q, b_s, tile),
+        *args[4:], **kw)
+    assert float((got - f32).abs().max()) <= 1e-5 * float(f32.abs().max())
+
+
+@pytest.mark.parametrize("tile", [80, 96, 192])
+def test_other_sub_tiles_on_card(dev, tile):
+    """Tiles walked with a 16- or 32-wide sub-tile (80 = 5·16, 96 = 3·32)
+    and 192 = 3·64: f32 ≡ the sub-tile kernel on the refined tables, int8
+    ≡ plain, bit for bit."""
+    a, b, p, tables = _large_case(tile, 1, dev, 76)
+    sub = spamm_mm.sub_tile(tile)
+    got = spamm_mm.spamm_mm_worklist_cuda(a, b, *tables, tile=tile)
+    assert spamm_mm.last_geometry["sub_tile"] == sub
+    fine = spamm_mm.spamm_mm_worklist_cuda(
+        a, b, *_refined(p.mask, tile // sub, 1, dev), tile=sub)
+    assert torch.equal(got, fine)
+    args = _int8_args(a, b, tile)
+    assert torch.equal(spamm_mm.spamm_mm_worklist_int8_cuda(*args, tile=tile),
+                       spamm_mm.spamm_mm_worklist_int8_plain(*args,
+                                                             tile=tile))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("tile", LARGE_TILES)
+def test_large_tile_frozen_equals_eager_on_card(dev, tile, dtype):
+    """Frozen ≡ eager bit for bit at T > 64, at every dtype."""
+    x = _rand((2 * tile, 3 * tile), 78, dev)
+    w = _rand((3 * tile, 2 * tile), 79, dev)
+    tau = _median_tau(x, w, tile)
+    eager = P.plan(x, w, tau, tile=tile, backend="cuda", compute_dtype=dtype)
+    fw = FrozenWeight.build(w, tau, tile=tile, backend="cuda",
+                            compute_dtype=dtype)
+    frozen = P.plan(x, frozen_weight=fw.for_rows(2))
+    assert int(eager.valid_tiles) == int(frozen.valid_tiles) > 0
+    c = P.execute(frozen, x, w)
+    assert float(c.abs().max()) > 0.0
+    assert torch.equal(P.execute(eager, x, w), c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_large_tile_flag_patterns_on_card(dev, dtype):
+    """At tile 128: a run of 600 steps (more than one 256-entry step-list
+    chunk) with flag-0 steps between its ACC steps, and a run of flag-0
+    steps ending in a lone FLUSH, against the plain version (the
+    lone-FLUSH block stays zero); int8 on the same tables bit for bit."""
+    tile, gk = 128, 5
+    tables = _flag_tables(tile, gk, dev)
+    a = _rand((tile, gk * tile), 80, dev)
+    b = _rand((gk * tile, 2 * tile), 81, dev)
+    got = spamm_mm.spamm_mm_worklist_cuda(a.to(dtype), b.to(dtype), *tables,
+                                          tile=tile)
+    want = spamm_mm.spamm_mm_worklist_plain(a.to(dtype), b.to(dtype),
+                                            *tables, tile=tile)
+    torch.cuda.synchronize()
+    assert _max_rel(got, want) <= MM_TOL
+    assert float(got[:, :tile].abs().max()) > 0.0
+    assert not bool(got[:, tile:].any())
+    a_q, a_s = Q.quantize_tiles(a, tile)
+    b_q, b_s = Q.quantize_tiles(b, tile)
+    q = spamm_mm.spamm_mm_worklist_int8_cuda(a_q, b_q, a_s, b_s, *tables,
+                                             tile=tile)
+    assert torch.equal(q, spamm_mm.spamm_mm_worklist_int8_plain(
+        a_q, b_q, a_s, b_s, *tables, tile=tile))
+    assert not bool(q[:, tile:].any())
+
+
+def test_large_tile_kernels_raise_on_what_they_do_not_take(dev):
+    """A tile that is not a multiple of 16 (24) or is above 512 (576)
+    raises on CUDA tensors, in every wrapper, before any launch."""
+    for tile in (24, 576):
+        a = _rand((tile, 2 * tile), 82, dev)
+        b = _rand((2 * tile, tile), 83, dev)
+        w = P.plan(a, b, 0.0, tile=tile, backend="torch").work
+        tables = (w.step_i, w.step_j, w.step_k, w.step_flags, w.runs)
+        tables = tuple(t.to(dev) for t in tables)
+        before = (spamm_mm.launches, spamm_mm.int8_launches,
+                  spamm_mm.dense_launches)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            spamm_mm.spamm_mm_worklist_cuda(a, b, *tables, tile=tile)
+        a_q, a_s = Q.quantize_tiles(a, tile)
+        b_q, b_s = Q.quantize_tiles(b, tile)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            spamm_mm.spamm_mm_worklist_int8_cuda(a_q, b_q, a_s, b_s, *tables,
+                                                 tile=tile)
+        kidx = torch.zeros(1, 1, 2, dtype=torch.int32, device=dev)
+        nvalid = torch.ones(1, 1, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            spamm_mm.spamm_mm_cuda(a, b, kidx, nvalid, tile=tile)
+        assert (spamm_mm.launches, spamm_mm.int8_launches,
+                spamm_mm.dense_launches) == before

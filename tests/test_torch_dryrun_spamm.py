@@ -2,7 +2,8 @@
 N = 1024, tile 64, as rank 0 of a fake 2×2 world (2×2×2 for the
 multi-pod variant) on the CPU: τ calibration against the reference's,
 the operands against numpy's decay matrix, and each variant's rank-0
-product, tile products and dense FLOPs against the flat library call.
+product, tile products and dense FLOPs against the flat library call;
+then each variant again at the default tile, the reference's 128.
 
 Tolerances: the calibrated ratio within 0.01 of the reference's (the
 τ-search stops within its own tolerance of 0.01 and sums the mean norm
@@ -118,3 +119,69 @@ def test_rowpart_cuts_differ_in_rank0_work(operand):
                             verbose=False)[0]["tile_products"]
           for s in ("contiguous", "cyclic")}
     assert fr["contiguous"] < fr["cyclic"]
+
+
+@pytest.fixture(scope="module")
+def operand_default_tile():
+    from repro_torch.launch.dryrun_spamm import calibrate_tau, decay_operand
+
+    tau, ratio = calibrate_tau(N, DEFAULT_TILE, RATIO, device="cpu")
+    return decay_operand(N, device="cpu"), tau, ratio
+
+
+DEFAULT_TILE = 128
+
+
+def test_default_tile_is_the_references():
+    import inspect
+
+    from repro.launch import dryrun_spamm as RDS
+    from repro_torch.launch import dryrun_spamm as DS
+
+    assert inspect.signature(DS.run_variant).parameters["tile"].default \
+        == DEFAULT_TILE
+    assert "default=128" in inspect.getsource(RDS.main)
+    assert "default=128" in inspect.getsource(DS.main)
+
+
+def test_calibrate_tau_at_the_default_tile_matches_reference():
+    """At N = 1024 a tile-128 normmap has 8 × 8 tiles (512 products): the
+    search stops where the reference's does, above the 0.01 band around
+    the target that finer normmaps reach."""
+    from repro.launch.dryrun_spamm import calibrate_tau as rcalibrate
+    from repro_torch.launch.dryrun_spamm import calibrate_tau
+
+    ref_tau, ref_ratio = rcalibrate(N, DEFAULT_TILE, RATIO)
+    tau, ratio = calibrate_tau(N, DEFAULT_TILE, RATIO, device="cpu")
+    assert abs(ratio - ref_ratio) <= 0.01
+    assert abs(tau - ref_tau) <= 1e-5 * ref_tau
+
+
+@pytest.mark.parametrize("name", ["rowpart_contiguous", "rowpart_cyclic",
+                                  "2d_psum_scatter", "2d_bf16",
+                                  "2d_multipod"])
+def test_variant_at_the_default_tile_equals_flat_spamm(operand_default_tile,
+                                                        name):
+    """`run_variant` with no tile runs at 128: rank 0's product ≡ flat
+    `spamm()` at tile 128 bit for bit, and its counted tile products = the
+    plan's real steps at tile 128."""
+    from repro_torch.core import plan as P
+    from repro_torch.core.spamm import spamm
+    from repro_torch.launch import dryrun_spamm as DS
+
+    a, tau, ratio = operand_default_tile
+    kind, _, dtype, multi = DS.VARIANTS[name]
+    out, loc = DS.run_variant(name, a, tau, ratio, mesh_shape=MESH[multi],
+                              verbose=False)
+    assert out["tile"] == DEFAULT_TILE
+    c, _ = spamm(loc["a"], loc["b"], tau, tile=DEFAULT_TILE,
+                 compute_dtype=dtype)
+    assert torch.equal(c, loc["product"])
+    p = P.plan(loc["a"], loc["b"], tau, tile=DEFAULT_TILE,
+               compute_dtype=dtype)
+    assert out["tile_products"] == int(p.valid_tiles) > 0
+    worklist = ("spamm_mm_worklist_bf16" if dtype == "bfloat16"
+                else "spamm_mm_worklist")
+    k = out["kernels"][worklist]
+    assert k["launches"] == 1
+    assert k["flops"] == 2.0 * DEFAULT_TILE ** 3 * out["tile_products"]

@@ -7,6 +7,8 @@ interpret mode. The CUDA kernels themselves only run on a card: their tests
 are in test_torch_cuda.py (no JAX import, so they also run where JAX is
 not installed).
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch
 
 from repro.core import plan as rplan
 from repro.kernels import getnorm as rgetnorm
+from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro.kernels import spamm_mm as rmm
 from repro_torch.kernels import getnorm as tgetnorm
@@ -109,3 +112,33 @@ def test_spamm_mm_worklist_plain_honours_flags():
     fl0 = torch.tensor([tmm.STEP_INIT, 0, 0, tmm.STEP_FLUSH], dtype=torch.int32)
     assert not tmm.spamm_mm_worklist_plain(a, b, si, sj, sk, fl0, runs,
                                            tile=tile).any()
+
+
+def test_register_backend_matches_reference():
+    """`register_backend`, the twin of the reference's extension hook: a
+    registered backend resolves by name in both packages and drives a
+    plan (here the plain entries under a new name: the same tables and
+    product as the "torch" backend); VALID_BACKENDS, a tuple fixed at
+    import in both, is left as it was."""
+    from repro_torch.core import plan as tplan
+
+    valid, rvalid = tops.VALID_BACKENDS, rops.VALID_BACKENDS
+    mine = dataclasses.replace(tops.get_backend("torch"), name="plain_copy")
+    rmine = dataclasses.replace(rops.get_backend("jnp"), name="plain_copy")
+    try:
+        tops.register_backend(mine)
+        rops.register_backend(rmine)
+        assert tops.get_backend("plain_copy") is mine
+        assert rops.get_backend("plain_copy") is rmine
+        assert tops.resolve_backend("plain_copy", "cpu") == "plain_copy"
+        assert (tops.VALID_BACKENDS, rops.VALID_BACKENDS) == (valid, rvalid)
+        a, b = (torch.as_tensor(_rand((64, 64), s)) for s in (40, 41))
+        p = tplan.plan(a, b, 0.5, tile=16, backend="plain_copy")
+        q = tplan.plan(a, b, 0.5, tile=16, backend="torch")
+        assert p.backend == "plain_copy"
+        for x, y in zip(p.work, q.work):
+            assert torch.equal(x, y)
+        assert torch.equal(tplan.execute(p, a, b), tplan.execute(q, a, b))
+    finally:
+        tops.BACKENDS.pop("plain_copy", None)
+        rops.BACKENDS.pop("plain_copy", None)

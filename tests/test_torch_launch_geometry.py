@@ -79,3 +79,79 @@ def test_check_aligned_refuses_offset_views():
     spamm_mm._check_aligned((("b", half[8:].view(64, 64)),))   # 16 B in
     with pytest.raises(ValueError, match="b must be 16-byte aligned"):
         spamm_mm._check_aligned((("b", half[4:4 + 64 * 64].view(64, 64)),))
+
+
+# -- tiles above 64: a sub-tile of 64, 32 or 16, R = tile / sub row bands
+# and column sub-blocks per output block --------------------------------
+
+LARGE = {80: 16, 96: 32, 128: 64, 192: 64, 256: 64, 512: 64}
+SMEM_PER_BLOCK = 232_448   # an H100's 227 KB a block can use
+
+
+@pytest.mark.parametrize("tile", list(LARGE))
+def test_sub_tile_is_the_largest_template_tile_dividing_the_tile(tile):
+    sub = spamm_mm.sub_tile(tile)
+    assert sub == LARGE[tile] and tile % sub == 0
+    assert all(tile % s for s in spamm_mm.SUB_TILES if s > sub)
+    for t in (16, 32, 64):
+        assert spamm_mm.sub_tile(t) == t
+
+
+@pytest.mark.parametrize("tile", [0, 8, 24, 40, 100, 520, 1024])
+def test_tiles_the_kernels_do_not_take_raise(tile):
+    with pytest.raises(ValueError, match="multiple of 16 from 16 to 512"):
+        spamm_mm.sub_tile(tile)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("tile", list(LARGE))
+@pytest.mark.parametrize("blocks", [1, 8, 72, 2304])
+def test_launch_geometry_at_large_tiles(tile, blocks, dtype):
+    """Each (run, group) pair's T × T output block is R row bands × R
+    column sub-blocks of the sub-tile, each cut into the slices the
+    sub-tile's rule gives on the R²-fold launch; threads and stages are the
+    sub-tile's; gridDim.y (block_n × R × slices) stays ≤ 65535 at block_n
+    4; the ring fits a block's shared memory and does not grow with T."""
+    geo = spamm_mm.launch_geometry(blocks, tile, dtype, SMS)
+    sub = LARGE[tile]
+    r = tile // sub
+    assert (geo["sub_tile"], geo["row_bands"],
+            geo["column_sub_blocks"]) == (sub, r, r)
+    s = geo["column_slices"]
+    assert s == spamm_mm.column_slices(blocks * r * r, sub, SMS)
+    assert geo["blocks"] == blocks * r * r * s
+    sub_geo = spamm_mm.launch_geometry(blocks * r * r, sub, dtype, SMS)
+    for key in ("column_slices", "threads", "stages", "ring_bytes"):
+        assert geo[key] == sub_geo[key], key
+    assert 4 * r * s <= spamm_mm.MAX_GRID_Y
+    assert geo["ring_bytes"] <= SMEM_PER_BLOCK
+
+
+def test_ring_bytes_by_the_kernels_stage_formulas():
+    """(TILE·(TILE+4) + TILE·W)·4 f32, (TILE·(TILE+8) + TILE·(W+8))·2 bf16,
+    TILE·LDA + TILE·W + 16 int8 (LDA: TILE padded to an odd number of
+    16-byte units), times the ring depth: at sub-tile 64, one slice."""
+    ring = {d: spamm_mm.ring_bytes(64, 64, d)
+            for d in (torch.float32, torch.bfloat16, torch.int8)}
+    assert ring == {torch.float32: 2 * (64 * 68 + 64 * 64) * 4,
+                    torch.bfloat16: 3 * (64 * 72 + 64 * 72) * 2,
+                    torch.int8: 4 * (64 * 80 + 64 * 64 + 16)}
+    assert spamm_mm.ring_bytes(16, 16, torch.int8) == 4 * (16 * 16 + 256
+                                                           + 16)
+
+
+def test_kernel_source_holds_the_same_tile_rule():
+    """kMaxTile and the dispatched (sub-tile, slices) pairs of
+    csrc/spamm_mm.cu are the host rule's."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(spamm_mm.__file__).parent / "csrc"
+           / "spamm_mm.cu").read_text()
+    assert f"constexpr int kMaxTile = {spamm_mm.MAX_CUDA_TILE};" in src
+    pairs = set(re.findall(r"sub_ == (\d+) && \(slices\) == (\d+)", src))
+    want = {(str(s), str(n)) for s in spamm_mm.SUB_TILES
+            for n in (1, 2, 4) if n <= min(spamm_mm.MAX_COLUMN_SLICES,
+                                           s // 16)}
+    assert pairs == want

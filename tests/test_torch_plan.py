@@ -188,3 +188,44 @@ def test_frozen_equals_eager_bitwise(block_n):
     assert float(full.valid_fraction) == 1.0
     torch.testing.assert_close(tplan.execute(full, x, w), x @ w,
                                rtol=1e-5, atol=1e-5)
+
+
+def _exact_matrix_at(gr, gc, tile, seed, zero_frac=0.2):
+    """`_exact_matrix` at any tile: (gr·tile, gc·tile), every tile ±2^e
+    times a sign pattern, so its norm 2^e·tile is exact in f32."""
+    rng = np.random.default_rng(seed)
+    scale = 2.0 ** rng.integers(-3, 3, size=(gr, gc))
+    scale[rng.random((gr, gc)) < zero_frac] = 0.0
+    signs = rng.choice([-1.0, 1.0], size=(gr, tile, gc, tile))
+    x = signs * scale[:, None, :, None]
+    return x.reshape(gr * tile, gc * tile).astype(np.float32)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("block_n", [1, 2])
+def test_freeze_weight_matches_reference(tile, block_n):
+    """`freeze_weight`, the twin of the reference's alias of
+    `FrozenWeight.build`: its tables equal the reference's `freeze_weight`
+    on the same weight (pair lists, nbmax, the step tables for 1 and 3 row
+    tiles) and the port's own `FrozenWeight.build`."""
+    w = _exact_matrix_at(4, 6, tile, seed=9)
+    tau = float(2.0 ** 0 * tile * tile)
+    rfw = rfrozen.freeze_weight(jnp.asarray(w), tau, tile=tile,
+                                block_n=block_n, backend="jnp")
+    tfw = tfrozen.freeze_weight(torch.as_tensor(w), tau, tile=tile,
+                                block_n=block_n, backend="torch")
+    built = tfrozen.FrozenWeight.build(torch.as_tensor(w), tau, tile=tile,
+                                       block_n=block_n, backend="torch")
+    assert 0 < tfw.num_kj < 6 * (6 // block_n)
+    for mine in (tfw, built):
+        np.testing.assert_array_equal(mine.kj_k, _np(rfw.kj_k))
+        np.testing.assert_array_equal(mine.kj_j, _np(rfw.kj_j))
+        np.testing.assert_array_equal(mine.nbmax.numpy(), _np(rfw.nbmax))
+    for gm in (1, 3):
+        rfp, tfp = rfw.for_rows(gm), tfw.for_rows(gm)
+        assert (tfp.tile, tfp.block_n) == (tile, block_n)
+        for name in ("step_i", "step_j", "step_k", "step_real",
+                     "seg_first", "seg_last"):
+            np.testing.assert_array_equal(getattr(tfp, name).numpy(),
+                                          _np(getattr(rfp, name)),
+                                          err_msg=name)
