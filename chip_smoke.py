@@ -190,6 +190,22 @@ written as each rank's shards, put together by the 3 surviving ranks
 and re-placed on `best_mesh_shape(3, 2)` = (3, 1) bit for bit, then one
 step with a finite loss.
 
+Serve_tp (inside the tp phase's spawn, after (p4)), the serving engine over
+a model axis: each rank builds its shards of `init_params(SEED)` and
+serves through `Engine(ctx=)`, against the unsharded `Engine` on cuda:0.
+(s1) starcoder2-7b at full width, ST_LAYERS layers, model axis 4: a wave
+at τ = 0 and at derive_tau's τ moved into a gap of the gate products, and
+the chunked plane at τ = 0 (ST_SLOTS slots, queued prompts of
+ST_CHUNK_PLENS tokens): tokens ≡, per-layer and aggregate valid fractions
+equal, prefill logits within ST_LOGIT_RTOL, steps reported eager under
+gloo, rows 1 and 2 launched on every rank; reported beside the gate
+margin, how far the activation tile norms of a split prefill stray from
+the unsharded ones. (s2) qwen2-moe-a2.7b, ST_LAYERS layers, model axis 2, experts tp
+then ep with `moe_bmm` (row 6 on every rank) at τ = 0: tokens ≡. (s3) the
+legacy path (`freeze_plans=False`) of (s1)'s model at its τ on cuda:0:
+prefill logits ≡ the frozen engine's bit for bit, a decode step launches
+no get-norm or work-list kernel.
+
 Dryrun (`phase_dryrun`, after tp), the dry-run tooling: this process as
 rank 0 of a fake process group of the production world (256 ranks as a
 32×8 (data, model) mesh, 512 as 2×32×8), collectives counted by
@@ -433,6 +449,29 @@ TP_MU_RTOL = 1e-4
 # feedback residuals and of the parameters' update (a scale taken over
 # one shard, not the whole leaf, re-grids every residual)
 TP_INT8_RTOL = 1e-3
+# the serve_tp phase (inside tp's spawn of TP_RANKS gloo ranks on cuda:0):
+# `Engine(ctx=)` over a model axis against the unsharded `Engine` on the
+# same whole weights. (s1) starcoder2-7b at full width and ST_LAYERS
+# layers, model axis 4: a wave of ST_BATCH × ST_PLEN prompts with ST_NEW
+# new tokens at τ = 0 and at derive_tau's τ (moved into a gap of the
+# products around it: up to ST_GAP_TRIES gaps tried, each on its own run,
+# until every product is ST_GATE_MARGIN away, relative, else the best;
+# the phase fails unless that margin is ST_MARGIN_OVER_DEV times the
+# largest relative deviation by which the row-parallel sums moved an
+# activation tile's norm on the ranks, so that no gate flips), and the
+# chunked plane at τ = 0 (ST_SLOTS slots, prompts of ST_CHUNK_PLENS tokens
+# in chunks of ST_CHUNK); (s2) qwen2-moe-a2.7b at full width and ST_LAYERS
+# layers, model axis 2 (a 2×2 mesh of replicas), experts tp then ep,
+# moe_bmm at τ = 0; (s3) the legacy path (freeze_plans=False) of (s1)'s
+# model on cuda:0.
+ST_LAYERS = 2
+ST_BATCH, ST_PLEN, ST_NEW, ST_MAX_LEN = 4, 128, 8, 256
+ST_SLOTS, ST_CHUNK = 4, 64
+ST_CHUNK_PLENS = (64, 192, 128, 96, 160, 64)
+ST_GATE_MARGIN = 3e-6
+ST_GAP_TRIES = 10
+ST_MARGIN_OVER_DEV = 10.0
+ST_LOGIT_RTOL = 1e-4
 # the dryrun phase (after tp): this process as rank 0 of a fake process
 # group of the production world (`launch.mesh.fake_world`; 256 ranks as
 # (data 32, model 8), 512 as (pod 2, data 32, model 8)). The SpAMM
@@ -4031,9 +4070,10 @@ def _tp_configs():
 def _tp_rank(rank, job):
     """One of TP_RANKS gloo ranks on cuda:0, a 2×2 (data, model) mesh:
     (p1)/(p2) serving, (p3) training and (p5) the elastic move of its
-    state, (p4) the MoE block split both ways. Every launch count is set
-    to 0 just before each run and read just after. Returns host arrays
-    (logits of model rank 0 only) and numbers."""
+    state, (p4) the MoE block split both ways, then serve_tp's (s1)/(s2)
+    (`_serve_tp_rank`). Every launch count is set to 0 just before each
+    run and read just after. Returns host arrays (logits of model rank 0
+    only) and numbers."""
     import dataclasses
 
     import numpy as np
@@ -4228,6 +4268,10 @@ def _tp_rank(rank, job):
         del loc
         torch.cuda.empty_cache()
     out["seconds"]["p4"] = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    out["serve_tp"] = _serve_tp_rank(job["serve_tp"])
+    out["seconds"]["serve_tp"] = time.perf_counter() - t0
     return out
 
 
@@ -4294,6 +4338,414 @@ def _tp_slice3(t, spec, r):
     return t
 
 
+# ---------------------------------------------------------------------------
+# serve_tp: the serving engine over a model axis (inside tp's spawn)
+# ---------------------------------------------------------------------------
+
+def _st_configs():
+    """(s1)'s and (s2)'s model configs at ST_LAYERS layers, the serving
+    ParallelConfig, and the wave and chunked-plane prompts."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ParallelConfig, get_config
+
+    dense = dataclasses.replace(get_config(ARCH), num_layers=ST_LAYERS)
+    moe = dataclasses.replace(get_config(MOE_ARCH), num_layers=ST_LAYERS)
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=ST_PLEN,
+                          fsdp=False, decode_seq_shard=True)
+    rng = np.random.default_rng(SEED + 11)
+    wave = list(rng.integers(1, dense.vocab, size=(ST_BATCH, ST_PLEN))
+                .astype(np.int32))
+    mixed = [rng.integers(1, dense.vocab, size=n).astype(np.int32)
+             for n in ST_CHUNK_PLENS]
+    moe_wave = list(rng.integers(1, moe.vocab, size=(ST_BATCH, ST_PLEN))
+                    .astype(np.int32))
+    return dense, moe, pcfg, wave, mixed, moe_wave
+
+
+def _st_cells(tau):
+    """{cell: (arch key, impl, model ranks, spamm kwargs, plane)}."""
+    return {"s1_tau0": ("dense", None, 4, dict(tau=0.0), "wave"),
+            "s1_tau": ("dense", None, 4, dict(tau=tau), "wave"),
+            "s1_chunked": ("dense", None, 4, dict(tau=0.0), "chunked"),
+            "s2_tp": ("moe", "tp", 2, dict(tau=0.0, moe_bmm=True), "wave"),
+            "s2_ep": ("moe", "ep", 2, dict(tau=0.0, moe_bmm=True), "wave")}
+
+
+def _st_serve(eng, prompts, params):
+    """One wave through `eng`: (tokens, out["spamm"] without its clock
+    readings, out["graphs"], the wave's prefill logits through the
+    engine's own step and frozen plans when its prompts are of one
+    length, the launch counts read just after the wave)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving.engine import Request
+
+    reqs = [Request(prompt=p, max_new_tokens=ST_NEW) for p in prompts]
+    toks = [o.tolist() for o in eng.generate(reqs)]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    logits = None
+    if len({len(p) for p in prompts}) == 1:
+        t = torch.as_tensor(np.stack(prompts), device=DEV)
+        with torch.inference_mode():
+            _, lg = eng._prefill(params, {"tokens": t},
+                                 eng._frozen_for(t.numel()))
+        logits = lg.cpu().numpy()
+    return (toks, timing_free(reqs[0].out["spamm"]), reqs[0].out["graphs"],
+            logits, launches)
+
+
+def _st_free():
+    """Drop what deleted engines still hold on the card: an engine's steps
+    close over the engine, so it goes only when the cycle collector runs
+    (its params, caches, graph pools and plan cache with it)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _st_engine(cfg, pcfg, params, cell, spamm_kw, ctx=None, **kw):
+    """The engine of a serve_tp cell (its plane from `_st_cells`) on DEV,
+    SpAMM at TILE with `spamm_kw`."""
+    from repro_torch.configs import SpammConfig
+    from repro_torch.serving.engine import Engine
+
+    plane = _st_cells(0.0)[cell][4]
+    extra = (dict(prefill_chunk=ST_CHUNK, max_slots=ST_SLOTS)
+             if plane == "chunked" else {})
+    return Engine(cfg, pcfg, params, max_len=ST_MAX_LEN, device=DEV,
+                  spamm_cfg=SpammConfig(enable=True, tile=TILE, **spamm_kw),
+                  ctx=ctx, **extra, **kw)
+
+
+def _serve_tp_rank(job):
+    """(s1) and (s2) on this rank: for each cell a (1, model)-shaped ctx of
+    the 4 ranks (model 2: a 2×2 mesh whose rows are replicas), this
+    rank's shards of `init_params(SEED)`, one wave through `Engine(ctx=)`;
+    launch counts set to 0 just before the wave and read just after.
+    Returns per cell the tokens, stats, graphs, launches, seconds and (model
+    rank 0) the prefill logits."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+
+    dense, moe, pcfg, wave, mixed, moe_wave = _st_configs()
+    out = {}
+    made = {}
+    for cell, (arch, impl, model, spamm_kw, plane) in _st_cells(
+            job["tau"]).items():
+        cfg = dense if arch == "dense" else dataclasses.replace(
+            moe, moe=dataclasses.replace(moe.moe, impl=impl))
+        key = (arch, impl, model)
+        if key not in made:
+            made.clear()
+            _st_free()
+            mesh = make_mesh((TP_RANKS // model, model), ("data", "model"),
+                             backend="gloo", device_type="cuda")
+            ctx = M.with_placements(
+                MS.make_ctx(mesh, tile=TILE, batch_axes=()), cfg, pcfg)
+            made[key] = (ctx, M.init_params(cfg, pcfg, SEED, device=DEV,
+                                            ctx=ctx))
+        ctx, local = made[key]
+        eng = _st_engine(cfg, pcfg, local, cell, spamm_kw, ctx=ctx)
+        prompts = (mixed if plane == "chunked" else
+                   moe_wave if arch == "moe" else wave)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        reset_counts()
+        toks, sp, graphs, logits, launches = _st_serve(eng, prompts, local)
+        out[cell] = {"tokens": toks, "spamm": sp, "graphs": graphs,
+                     "launches": launches, "mrank": ctx.mrank,
+                     "seconds": time.perf_counter() - t0,
+                     "logits": logits if ctx.mrank == 0 else None}
+        if cell == "s1_tau":
+            # the activation tile norms a split prefill gates with
+            norms = _st_prefill_norms(eng, wave, local)
+            if ctx.mrank == 0:
+                out["prefill_norms"] = norms
+        del eng
+        _st_free()
+    made.clear()
+    _st_free()
+    return out
+
+
+def _st_record(run, norms=False):
+    """What the frozen plans evaluate during `run()`, read to the host
+    with `core.plan._plan_frozen` wrapped (`run` must be eager): every
+    gate product (f64, the positive ones), or with `norms` each call's
+    activation normmap in call order. Returns that and run()'s value."""
+    import numpy as np
+
+    from repro_torch.core import plan as P
+
+    got = []
+    orig = P._plan_frozen
+
+    def rec(a, fp, **kw):
+        p = orig(a, fp, **kw)
+        if norms:
+            got.append(p.norm_a.double().cpu().numpy())
+        else:
+            prod = (p.norm_a[fp.step_i, fp.step_k]
+                    * fp.nbmax[fp.step_k, fp.step_j])
+            got.append(prod[fp.step_real].double().cpu().numpy())
+        return p
+
+    P._plan_frozen = rec
+    try:
+        out = run()
+    finally:
+        P._plan_frozen = orig
+    if norms:
+        return got, out
+    p = np.concatenate(got)
+    return p[p > 0], out
+
+
+def _st_prefill_norms(eng, prompts, params):
+    """The activation normmap of each frozen GEMM of one eager prefill of
+    `prompts` through `eng`'s step and frozen plans, in call order."""
+    import numpy as np
+    import torch
+
+    t = torch.as_tensor(np.stack(prompts), device=DEV)
+    with torch.inference_mode():
+        got, _ = _st_record(lambda: eng._prefill(
+            params, {"tokens": t}, eng._frozen_for(t.numel())), norms=True)
+    return got
+
+
+def _st_gap_tau(run, tau):
+    """τ moved into a gap of the gate products `run(τ)` evaluates: the
+    ST_GAP_TRIES widest gaps (relative) among the 10 % of the products
+    nearest τ by rank, each tried at its middle on a run of its own
+    (downstream products move with the gate) until one keeps every
+    product ST_GATE_MARGIN away; else the best. Returns (τ, its run's
+    margin, the (τ, margin) pairs tried)."""
+    import numpy as np
+
+    p = np.sort(_st_record(lambda: run(tau))[0])
+    tried = [(tau, float(np.min(np.abs(p - tau)) / tau))]
+    i = int(np.searchsorted(p, tau))
+    w = max(8, p.size // 20)
+    lo, hi = max(i - w, 0), min(i + w, p.size - 1)
+    ratio = p[lo + 1:hi + 1] / p[lo:hi]
+    for g in lo + np.argsort(ratio)[::-1][:ST_GAP_TRIES]:
+        t = float(np.sqrt(p[g] * p[g + 1]))
+        q = _st_record(lambda: run(t))[0]
+        tried.append((t, float(np.min(np.abs(q - t)) / t)))
+        if tried[-1][1] >= ST_GATE_MARGIN:
+            break
+    tau, margin = max(tried, key=lambda x: x[1])
+    return tau, margin, tried
+
+
+def _serve_tp_setup():
+    """The unsharded side of (s1)-(s3) on cuda:0: (s1)'s τ, each cell's
+    unsharded wave (tokens, stats, prefill logits, the smallest top-2
+    margin of the wave's prefill logits), and (s3). Returns (the ranks'
+    job, the unsharded results)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    t0 = time.perf_counter()
+    gb0 = torch.cuda.memory_allocated() / 1e9
+    dense, moe, pcfg, wave, mixed, moe_wave = _st_configs()
+    params = M.init_params(dense, pcfg, SEED, device=DEV)
+    deng = Engine(dense, pcfg, params, max_len=ST_MAX_LEN, device=DEV)
+    reqs = [Request(prompt=p, max_new_tokens=1) for p in wave]
+    first = np.array([[t[0]] for t in deng.generate(reqs)])
+    del deng
+    _st_free()
+    derived, _ = derive_tau(dense, params, np.stack(wave), first)
+
+    def eager(tau):
+        eng = _st_engine(dense, pcfg, params, "s1_tau", dict(tau=tau),
+                         cuda_graphs=False)
+        _st_serve(eng, wave, params)
+        del eng
+        _st_free()
+
+    t1 = time.perf_counter()
+    tau, margin, tried = _st_gap_tau(eager, derived)
+    res = {"tau": tau, "tau_derived": derived, "gate_margin": margin,
+           "gap_tries": tried, "gap_seconds": time.perf_counter() - t1}
+    cells = _st_cells(tau)
+    for cell, (arch, impl, model, spamm_kw, plane) in cells.items():
+        if arch != "dense":
+            continue
+        eng = _st_engine(dense, pcfg, params, cell, spamm_kw)
+        toks, sp, graphs, logits, _ = _st_serve(
+            eng, mixed if plane == "chunked" else wave, params)
+        res[cell] = {"tokens": toks, "spamm": sp, "graphs": graphs,
+                     "logits": logits}
+        if cell == "s1_tau":
+            frozen_logits = logits
+            res["prefill_norms"] = _st_prefill_norms(eng, wave, params)
+        del eng
+        _st_free()
+    # (s3) the legacy path at (s1)'s τ: eager prefill gates, dense decode
+    legacy = _st_engine(dense, pcfg, params, "s1_tau", dict(tau=tau),
+                        freeze_plans=False)
+    reset_counts()
+    ltoks, lsp, _, llogits, wave_launches = _st_serve(legacy, wave, params)
+    reset_counts()
+    with torch.inference_mode():
+        legacy._wave_decode_step(ST_BATCH)(
+            tokens=np.array(first, np.int32), pos=ST_PLEN)
+    torch.cuda.synchronize()
+    res["s3"] = {"tokens": ltoks, "wave_launches": wave_launches,
+                 "decode_step_launches": read_counts(),
+                 "prefill_bitwise": bool(np.array_equal(llogits,
+                                                        frozen_logits)),
+                 "prefill_max_abs_diff": float(np.abs(
+                     llogits - frozen_logits).max()),
+                 "gated_gemms": lsp["gated_gemms"],
+                 "decode_gated_gemms": lsp["decode_gated_gemms"],
+                 "fw_tree_frozen": legacy._fw_tree is not None}
+    del legacy, params
+    _st_free()
+    for cell, (arch, impl, model, spamm_kw, plane) in cells.items():
+        if arch != "moe":
+            continue
+        cfg = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe,
+                                                               impl=impl))
+        mp = M.init_params(cfg, pcfg, SEED, device=DEV,
+                           model_axis_size=model)
+        eng = _st_engine(cfg, pcfg, mp, cell, spamm_kw)
+        toks, sp, graphs, logits, _ = _st_serve(eng, moe_wave, mp)
+        res[cell] = {"tokens": toks, "spamm": sp, "graphs": graphs,
+                     "logits": logits}
+        del eng, mp
+        _st_free()
+    for cell in cells:
+        lg = res[cell]["logits"]
+        if lg is not None:
+            top = np.sort(lg, axis=-1)[:, -2:]
+            res[cell]["top2_margin"] = float(
+                (top[:, 1] - top[:, 0]).min() / np.abs(lg).max())
+    _st_free()
+    # what the unsharded side leaves allocated for the ranks' spawn
+    res["main_allocated_gb"] = {"before": gb0,
+                                "after": torch.cuda.memory_allocated() / 1e9}
+    res["seconds"] = time.perf_counter() - t0
+    return {"tau": tau}, res
+
+
+def _serve_tp_check(ranks, unsharded):
+    """Hold every rank's (s1)/(s2) waves against the unsharded ones and
+    (s3)'s legacy engine against the frozen one; emit the phase's line.
+    Returns {cell: [launches per rank]}."""
+    import numpy as np
+
+    def fractions(sp):
+        return {(layer, site): (c["valid_fraction"],
+                                c["decode_valid_fraction"])
+                for layer, sites in sp["per_layer"].items()
+                for site, c in sites.items()}
+
+    res = {"card": CARD, "backend": "gloo",
+           "devices": "cuda:0 shared by 4 ranks", "layers": ST_LAYERS,
+           "tau": unsharded["tau"], "tau_derived": unsharded["tau_derived"],
+           "gate_margin": unsharded["gate_margin"],
+           "gap_tries": unsharded["gap_tries"],
+           "gap_seconds": unsharded["gap_seconds"],
+           "unsharded_seconds": unsharded["seconds"],
+           "main_allocated_gb": unsharded["main_allocated_gb"],
+           "note": "ranks share one card: not a multi-card time"}
+    counts = {}
+    for cell in _st_cells(0.0):
+        want = unsharded[cell]
+        got = [r["serve_tp"][cell] for r in ranks]
+        lg = [g["logits"] for g in got if g["logits"] is not None]
+        c = {"tokens_equal": all(g["tokens"] == want["tokens"] for g in got),
+             "fractions_equal": all(fractions(g["spamm"])
+                                    == fractions(want["spamm"])
+                                    for g in got),
+             "aggregates_equal": all(
+                 g["spamm"][k] == want["spamm"][k] for g in got
+                 for k in ("valid_fraction", "gated_gemms",
+                           "decode_valid_fraction", "decode_gated_gemms")),
+             "valid_fraction": want["spamm"]["valid_fraction"],
+             "decode_valid_fraction": want["spamm"]["decode_valid_fraction"],
+             "graphs": got[0]["graphs"],
+             "unsharded_graphs": want["graphs"],
+             "seconds": [g["seconds"] for g in got]}
+        if want["logits"] is not None:
+            c["prefill_rel_err"] = max(
+                float(np.abs(x - want["logits"]).max()
+                      / np.abs(want["logits"]).max()) for x in lg)
+            c["unsharded_top2_margin"] = want["top2_margin"]
+        counts[cell] = [g["launches"] for g in got]
+        c["launches_per_rank"] = [{k: v for k, v in n.items() if v}
+                                  for n in counts[cell]]
+        res[cell] = c
+    # how far the row-parallel sums move the activation tile norms the
+    # gates read (the GEMMs whose activation is whole on a rank: wq, wk,
+    # wv, w1), relative, on model rank 0's prefill at (s1)'s τ
+    mine = next(r["serve_tp"]["prefill_norms"] for r in ranks
+                if "prefill_norms" in r["serve_tp"])
+    dev = [float(np.max(np.abs(a - b)[b > 0] / b[b > 0]))
+           for a, b in zip(mine, unsharded["prefill_norms"])
+           if a.shape == b.shape]
+    res["prefill_norm_rel_dev"] = {"max": max(dev), "gemms": len(dev)}
+    res["margin_over_dev"] = res["gate_margin"] / max(max(dev), 1e-30)
+    res["s3"] = unsharded["s3"]
+    res["seconds"] = {"per_rank": [r["seconds"]["serve_tp"] for r in ranks],
+                      "unsharded": unsharded["seconds"]}
+    emit({"serve_tp": res})
+    for cell in _st_cells(0.0):
+        c = res[cell]
+        check(c["tokens_equal"], f"(serve_tp) {cell}: tokens: {c}")
+        check(c["fractions_equal"] and c["aggregates_equal"],
+              f"(serve_tp) {cell}: valid fractions: {c}")
+        check(c.get("prefill_rel_err", 0.0) <= ST_LOGIT_RTOL,
+              f"(serve_tp) {cell}: prefill logits: {c}")
+        check(c["graphs"]["decode"] is False
+              and "gloo" in c["graphs"].get("eager", ""),
+              f"(serve_tp) {cell}: graphs under gloo: {c['graphs']}")
+        check(all(n["tile_norms"] > 0 and (n["spamm_mm_worklist"] > 0
+                                           or n["spamm_mm"] > 0)
+                  for n in counts[cell]),
+              f"(serve_tp) {cell}: a rank launched no get-norm or gated "
+              f"GEMM: {c['launches_per_rank']}")
+    # a product nearer τ than ten times the split's norm deviation could
+    # flip its gate on a rank: no τ tried was far enough from a tie
+    check(res["margin_over_dev"] >= ST_MARGIN_OVER_DEV,
+          f"(s1) the gate margin is not {ST_MARGIN_OVER_DEV}× the split "
+          f"prefill's norm deviation: {res['gate_margin']}, "
+          f"{res['prefill_norm_rel_dev']}, tried {res['gap_tries']}")
+    check(0.0 < res["s1_tau"]["valid_fraction"] < 1.0
+          and 0.0 < res["s1_tau"]["decode_valid_fraction"] < 1.0,
+          f"(s1) τ keeps part of prefill and decode: {res['s1_tau']}")
+    s3 = res["s3"]
+    check(s3["prefill_bitwise"] and s3["gated_gemms"] > 0
+          and s3["decode_gated_gemms"] == 0 and not s3["fw_tree_frozen"]
+          and s3["wave_launches"]["spamm_mm_worklist"] > 0
+          and s3["decode_step_launches"]["spamm_mm_worklist"] == 0
+          and s3["decode_step_launches"]["tile_norms"] == 0,
+          f"(s3) the legacy path: {s3}")
+    return counts
+
+
 def _tp_keep_some(cfg, pcfg, params, prompts, tau, **kw):
     """τ, halved until every gated GEMM of an unsharded prefill of
     `prompts` keeps at least 5 % of its tiles (a GEMM gated to 0 would
@@ -4319,9 +4771,11 @@ def _tp_keep_some(cfg, pcfg, params, prompts, tau, **kw):
 
 def phase_tp():
     """(p1)-(p5), the model parallelism of the port on the one card (see
-    the TP_* constants): the unsharded runs on cuda:0 here, then TP_RANKS
-    gloo ranks spawned on cuda:0 (`_tp_rank`; the kernels are built
-    already). Returns {cell: launches summed over the ranks}."""
+    the TP_* constants), and the serve_tp phase's (s1)-(s3): the unsharded
+    runs on cuda:0 here, then TP_RANKS gloo ranks spawned on cuda:0
+    (`_tp_rank`; the kernels are built already). Returns ({cell: launches
+    summed over the ranks}, {serve_tp cell: [launches per rank]}, the
+    serve_tp phase's seconds)."""
     import shutil
     import tempfile
 
@@ -4336,7 +4790,7 @@ def phase_tp():
     from repro_torch.models.layers import rms_norm
 
     t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
+    _st_free()
     main_gb = torch.cuda.memory_reserved() / 1e9
     cfg, spcfg, tpcfg, tcfg, moe_cfg = _tp_configs()
     rng = np.random.default_rng(SEED + 7)
@@ -4421,12 +4875,14 @@ def phase_tp():
     del mp, mx
     torch.cuda.empty_cache()
     setup_s = time.perf_counter() - t_phase
+    st_job, st_unsharded = _serve_tp_setup()
 
     t0 = time.perf_counter()
     shard_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     job = {"prompts": prompts, "feed": feed, "tau": tau,
            "moe_prompts": moe_prompts, "moe_tau": moe_tau,
-           "train_ref": ref_path, "shard_dir": shard_dir}
+           "train_ref": ref_path, "shard_dir": shard_dir,
+           "serve_tp": st_job}
     try:
         ranks = MS.spawn_ranks(_tp_rank, TP_RANKS, backend="gloo",
                                devices=[torch.device("cuda", 0)] * TP_RANKS,
@@ -4577,7 +5033,11 @@ def phase_tp():
     check(p5["mesh"] == [3, 1] and p5["bitwise"][:3] == [True] * 3
           and all(np.isfinite(x) for x in p5["losses"][:3])
           and p5["losses"][3] is None, f"(p5) {p5}")
-    return counts
+    t0 = time.perf_counter()
+    st_counts = _serve_tp_check(ranks, st_unsharded)
+    st_seconds = (st_unsharded["seconds"] + time.perf_counter() - t0
+                  + max(r["seconds"]["serve_tp"] for r in ranks))
+    return counts, st_counts, st_seconds
 
 
 # ---------------------------------------------------------------------------
@@ -5930,11 +6390,12 @@ def main():
     last_counts = timed("last_families", phase_last_families)
     train_counts, train_tau0, train_products = timed("train", phase_train)
     multi_counts = timed("multi", phase_multi)
-    tp_counts = timed("tp", phase_tp)
+    tp_counts, st_counts, seconds["serve_tp"] = timed("tp", phase_tp)
     dry_counts = timed("dryrun", phase_dryrun)
     lib_counts, pool, dense = timed("library", phase_library)
     lt_counts, lt = timed("large_tiles", phase_large_tiles)
-    emit({"phase_seconds": {**seconds, "note": "serve includes autotune"}})
+    emit({"phase_seconds": {**seconds, "note": "serve includes autotune; "
+                                               "tp includes serve_tp"}})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
@@ -5960,6 +6421,12 @@ def main():
         its 4 ranks."""
         return {cell: c[name] for cell, c in tp_counts.items()}
 
+    def serve_tp_path(name):
+        """A kernel's launches on each rank in each cell of the serve_tp
+        phase (`Engine(ctx=)` over a model axis)."""
+        return {"serve_tp_launches_per_rank": {
+            cell: [n[name] for n in per] for cell, per in st_counts.items()}}
+
     def dryrun_path(name):
         """A kernel's launches on each SpAMM variant of the dryrun phase."""
         return {"dryrun_launches": {v: c[name]
@@ -5979,7 +6446,7 @@ def main():
         the last four families (mamba2-1.3b's: none) and the multi and tp
         phases' cells."""
         return {"multi_launches": multi_path(name),
-                "tp_launches": tp_path(name),
+                "tp_launches": tp_path(name), **serve_tp_path(name),
                 "calibrate_launches": cal_counts[name],
                 "autotune_launches": tuned_counts[name],
                 "dense_family_launches": {
@@ -6043,7 +6510,7 @@ def main():
          "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
          "replaces": "src/repro/kernels/spamm_mm.py:109",
          "launches": moe_counts["spamm_mm"], "path": moe_path,
-         "tp_launches": tp_path("spamm_mm"),
+         "tp_launches": tp_path("spamm_mm"), **serve_tp_path("spamm_mm"),
          "library_path_launches": lib_counts["spamm_mm"],
          "library_path": lib_path,
          **{k: dense[k] for k in keys}},

@@ -808,6 +808,10 @@ class WeightPlanCache:
         if w.requires_grad:
             with torch.no_grad():
                 return compute()
+        if w.is_inference():
+            # no version counter to key on: a weight made under inference
+            # mode (one gathered whole for a step) is planned each time
+            return compute()
         key = (id(w), w._version, tuple(w.shape), str(w.dtype),
                str(w.device), tile, bk.name, use_mxu, levels, block_n, dtype)
         ent = self._entries.get(key)

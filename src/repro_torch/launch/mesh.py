@@ -19,6 +19,9 @@ counterpart of the reference's 16×16 pod slice: "model" spans the GPUs of
 one NVLink node (8), "data" the nodes, and with `multi_pod` a leading
 "pod" axis of 2.
 
+`join_mesh` is what the train and serve CLIs run under `torchrun`: join the
+world with a stated backend, lay the (data, model) mesh and make its ctx.
+
 `fake_world` is the counterpart of the reference's 512 fake XLA host
 devices: this process joins a "fake" process group as rank 0 of a world
 of any size, whose collectives return at once without
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import gc
 import math
 import multiprocessing
 import os
@@ -87,13 +91,17 @@ def _rank_main(rank, world_size, backend, port, devices, fn, args, results):
         init_group(backend, rank=rank, world_size=world_size,
                    addr="localhost", port=port,
                    device=None if devices is None else devices[rank])
-        try:
-            results.put((rank, fn(rank, *args), None))
-        finally:
-            destroy_group()
+        value = fn(rank, *args)
     except BaseException:
+        # reported without leaving the group: leaving an nccl group can
+        # block behind a step that failed on the card
         results.put((rank, None, traceback.format_exc()))
         raise
+    try:
+        results.put((rank, value, None))
+    finally:
+        gc.collect()    # CUDA graphs left by `fn` go before the group
+        destroy_group()
 
 
 def spawn_ranks(fn: Callable, world_size: int, *, backend: str,
@@ -239,3 +247,29 @@ def make_ctx(mesh, *, tile: int = 64, batch_axes=None, specs=None):
                            if a in ("pod", "data"))
     return NetCtx(mesh, batch_axes=batch_axes, model_axis="model",
                   specs=specs, tile=tile)
+
+
+def join_mesh(device: str, backend: str, *, mesh: Optional[str] = None,
+              production: bool = False, tile: int = 64):
+    """Join the torchrun world (`init_group`) and lay its mesh: `mesh`
+    "DATA,MODEL", or the production mesh. Rank r runs on the CPU
+    (`device` "cpu"), on cuda:LOCAL_RANK (nccl) or on cuda:LOCAL_RANK
+    modulo the visible cards (gloo: ranks may share a card). Returns
+    (the mesh's NetCtx at `tile`, this rank's device)."""
+    if device == "cpu":
+        dev = torch.device("cpu")
+    elif backend == "nccl":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    else:
+        dev = torch.device(
+            "cuda", int(os.environ.get("LOCAL_RANK", "0"))
+            % max(torch.cuda.device_count(), 1))
+    init_group(backend, device=dev)
+    dtype = "cpu" if dev.type == "cpu" else "cuda"
+    if production:
+        dm = make_production_mesh(backend=backend, device_type=dtype)
+    else:
+        shape = tuple(int(x) for x in mesh.split(","))
+        dm = make_mesh(shape, ("data", "model"), backend=backend,
+                       device_type=dtype)
+    return make_ctx(dm, tile=tile), dev

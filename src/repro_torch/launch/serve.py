@@ -31,18 +31,40 @@ the drift-triggered re-sharding controller every N engine steps
 the live partition; `--spamm-mesh-devices N` serves pod-sharded over
 cuda:0 … cuda:N-1 (`--spamm-shard-width` pins the per-shard width in
 request groups; batch and prompt length multiples of `--spamm-tile`).
+`--no-freeze-plans` is the reference's legacy path (prefill and chunk
+steps gate through eager plans, decode stays dense).
+
+Tensor-parallel over a model axis, one process per rank (torchrun sets
+RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT and LOCAL_RANK):
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen2.5-32b --mesh 1,4 --backend nccl ...
+
+`--mesh DATA,MODEL` lays a (data, model) mesh over the world (DATA must be
+1: data-parallel serving is `--spamm-mesh-devices`); each rank makes its
+own shards of the seeded weights and serves every request. `--backend` is
+stated, never switched: "nccl" for one rank per card, "gloo" for ranks
+that share a card or run on the CPU. Under nccl the decode and chunk steps
+are captured as CUDA graphs with their collectives inside; under gloo
+they run eagerly (the report's `eager:` line says why). Rank 0 alone
+prints and writes `--metrics-out`/`--trace-out`; the report adds each
+rank's peak card memory.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import (BACKEND_NAMES, ParallelConfig, SpammConfig,
                                  get_config)
 from repro_torch.core.schedule import ReshardConfig
+from repro_torch.launch import mesh as MS
 from repro_torch.models import model as M
 from repro_torch.obs import Observability
 from repro_torch.plans.precompute import frozen_leaves
@@ -131,8 +153,18 @@ def main(argv=None):
                     help="static per-shard width in request GROUPS (of "
                          "--spamm-tile requests each); 0 = 2·ceil(groups/"
                          "devices)")
+    ap.add_argument("--no-freeze-plans", action="store_true",
+                    help="legacy path: prefill and chunk steps gate through "
+                         "eager plans, decode GEMMs stay dense")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None,
+                    help="DATA,MODEL: serve tensor-parallel over a (data, "
+                         "model) mesh of the torchrun world (DATA 1)")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="process-group backend over a mesh: nccl for one "
+                         "rank per card, gloo for ranks sharing a card or "
+                         "on the CPU")
     ap.add_argument("--metrics-out", default=None,
                     help="write the run's metrics registry here as a "
                          "Prometheus text dump (TTFT/decode latency "
@@ -144,12 +176,28 @@ def main(argv=None):
                          "decode steps, prefill chunks, waves; load in "
                          "Perfetto)")
     args = ap.parse_args(argv)
+    if args.mesh is None:
+        return _serve(args, None, args.device)
+    ctx, device = MS.join_mesh(args.device, args.backend, mesh=args.mesh,
+                               tile=args.spamm_tile)
+    # a failure leaves the group with the process: leaving an nccl group
+    # can block behind a step that failed on the card, before the
+    # traceback is shown
+    _serve(args, ctx, device)
+    # the engine's CUDA graphs hold nccl work of the group; its steps close
+    # over it, so only the cycle collector frees them, before leaving
+    gc.collect()
+    MS.destroy_group()
 
+
+def _serve(args, ctx, device):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=64)
-    params = M.init_params(cfg, pcfg, args.seed, device=args.device)
+    if ctx is not None:
+        ctx = M.with_placements(ctx, cfg, pcfg)
+    params = M.init_params(cfg, pcfg, args.seed, device=device, ctx=ctx)
     spamm_cfg = None
     if args.spamm_tau is not None:
         spamm_cfg = SpammConfig(enable=True, tau=args.spamm_tau,
@@ -172,9 +220,11 @@ def main(argv=None):
     eng = Engine(cfg, pcfg, params, max_len=args.max_len,
                  spamm_cfg=spamm_cfg, plan_store=args.plan_store,
                  prefill_chunk=args.prefill_chunk, max_slots=args.max_slots,
-                 device=args.device, obs=obs, reshard_cfg=reshard_cfg,
+                 device=device, obs=obs, reshard_cfg=reshard_cfg,
                  mesh_devices=args.spamm_mesh_devices,
-                 shard_max_width=args.spamm_shard_width or None)
+                 shard_max_width=args.spamm_shard_width or None,
+                 ctx=ctx,
+                 freeze_plans=False if args.no_freeze_plans else None)
 
     rng = np.random.default_rng(args.seed)
     if args.mixed_lengths:
@@ -191,9 +241,24 @@ def main(argv=None):
         t0 = time.time()
         outs = eng.generate(reqs)
         dt = time.time() - t0
+    peaks = None
+    if torch.device(device).type == "cuda":
+        # this rank's peak allocated card memory (its shards over a mesh)
+        peaks = [torch.cuda.max_memory_allocated(device) / 1e9]
+    if ctx is not None:
+        got = [None] * dist.get_world_size()
+        dist.all_gather_object(got, peaks)
+        if dist.get_rank() != 0:
+            return
+        peaks = None if got[0] is None else [p[0] for p in got]
     total = sum(len(o) for o in outs)
     print(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
           f"({total/dt:.1f} tok/s)")
+    if ctx is not None:
+        print(f"  tensor-parallel over mesh {args.mesh} ({args.backend}): "
+              f"{ctx.nmodel} model ranks")
+    if peaks is not None:
+        print("  peak_card_gb=" + ",".join(f"{p:.3f}" for p in peaks))
     for i, o in enumerate(outs[:4]):
         print(f"  req{i}: {o[:12].tolist()}")
     out = reqs[0].out
@@ -254,11 +319,14 @@ def main(argv=None):
     g = eng.graph_stats()
     pool = (f"{g['pool_bytes'] / 1e6:.1f}MB" if g["pool_bytes"] is not None
             else "n/a")
-    graphed = ",".join(k for k, v in eng.step_graphs.items() if v)
+    sg = eng.step_graphs
+    graphed = ",".join(k for k in ("decode", "chunk") if sg[k])
     print(f"  steps: prefill_keys={eng.trace_counts['prefill']} "
           f"decode_keys={eng.trace_counts['decode']} "
           f"captures={g['captures']} capture_s={g['capture_s']:.2f} "
           f"graph_pool={pool} graphed={graphed or 'none'}")
+    if "eager" in sg:
+        print(f"  eager: {sg['eager']}")
     if args.metrics_out:
         print(f"metrics -> {obs.write_metrics(args.metrics_out)}")
     if args.trace_out:

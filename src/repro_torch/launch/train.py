@@ -31,7 +31,6 @@ share a card or run on the CPU.
 from __future__ import annotations
 
 import argparse
-
 import os
 
 import torch
@@ -114,7 +113,10 @@ def main(argv=None):
     obs = Observability(process_name="repro-train")
     ctx, device = None, args.device
     if args.mesh or args.production_mesh:
-        ctx, device = _mesh_ctx(args)
+        ctx, device = MS.join_mesh(args.device, args.backend,
+                                   mesh=args.mesh,
+                                   production=args.production_mesh,
+                                   tile=args.spamm_tile)
     try:
         res = train(cfg, pcfg, tcfg, global_batch=args.batch,
                     seq_len=args.seq, spamm_cfg=spamm_cfg,
@@ -149,29 +151,6 @@ def main(argv=None):
         print(f"trace -> {obs.write_trace(args.trace_out)}")
     if args.metrics_out or args.trace_out:
         print(obs.summary_table())
-
-
-def _mesh_ctx(args):
-    """Join the torchrun world and lay its mesh: (NetCtx, this rank's
-    device)."""
-    if args.device == "cpu":
-        device = torch.device("cpu")
-    elif args.backend == "nccl":
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-    else:
-        device = torch.device(
-            "cuda", int(os.environ.get("LOCAL_RANK", "0"))
-            % max(torch.cuda.device_count(), 1))
-    MS.init_group(args.backend, device=device)
-    dtype = "cpu" if device.type == "cpu" else "cuda"
-    if args.production_mesh:
-        mesh = MS.make_production_mesh(backend=args.backend,
-                                       device_type=dtype)
-    else:
-        shape = tuple(int(x) for x in args.mesh.split(","))
-        mesh = MS.make_mesh(shape, ("data", "model"), backend=args.backend,
-                            device_type=dtype)
-    return MS.make_ctx(mesh, tile=args.spamm_tile), device
 
 
 if __name__ == "__main__":

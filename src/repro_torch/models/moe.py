@@ -18,7 +18,11 @@ reckoned from the rank's own B·S tokens (the reference's global count over
 the data shards). On one device (`ctx=None`) both strategies compute the
 same function: every expert is owned and the model-axis sum is the
 identity. A cut that is not even, or not whole tiles (`ctx.tile`), runs the
-block whole on every model rank.
+block whole on every model rank. Over a model axis the gated GEMMs tap
+what the block on one device taps: the split ones the whole product's
+fraction (`parallel.split_matmul`, `parallel.split_bmm`), and under EP
+each expert's fractions, gathered from its rank, in the global expert
+order.
 
 Dispatch is sort-based, as in the reference: the top-k assignments are
 sorted by expert (stable), each assignment's slot within its expert comes
@@ -39,6 +43,7 @@ count, so a decode step that holds the block captures into a CUDA graph:
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -132,14 +137,17 @@ def _act(g: torch.Tensor, act: str) -> torch.Tensor:
     return F.silu(g) if act == "silu" else _gelu(g)
 
 
-def _grouped_ffn(buf: torch.Tensor, w1, w3, w2, act: str, spamm_cfg):
+def _grouped_ffn(buf: torch.Tensor, w1, w3, w2, act: str, spamm_cfg,
+                 mm=maybe_spamm_matmul, bmm=spamm_bmm_linear):
     """buf (E, C, d) → (E, C, d) through each expert's SwiGLU. With SpAMM
     on and `moe_bmm`, the three GEMMs are batched gated GEMMs
-    (`spamm_bmm_linear`: one dense-grid launch over all experts each);
-    with SpAMM on otherwise, each expert's GEMMs gate one by one through
-    `maybe_spamm_matmul` (the reference's `jax.vmap(one)`, whose taps fire
-    once per expert: all experts' w1, then w3, then w2, as here); with
-    SpAMM off, batched dense products."""
+    (`bmm`, `spamm_bmm_linear`: one dense-grid launch over all experts
+    each); with SpAMM on otherwise, each expert's GEMMs gate one by one
+    through `mm`, `maybe_spamm_matmul` (the reference's `jax.vmap(one)`,
+    whose taps fire once per expert: all experts' w1, then w3, then w2, as
+    here); with SpAMM off, batched dense products. Over a model axis `mm`
+    and `bmm` are the split GEMMs that tap the whole product's fraction
+    (`_moe_split`)."""
     cdt = buf.dtype
     ctx = as_context(spamm_cfg)
     w1, w3, w2 = w1.to(cdt), w3.to(cdt), w2.to(cdt)
@@ -147,22 +155,22 @@ def _grouped_ffn(buf: torch.Tensor, w1, w3, w2, act: str, spamm_cfg):
         return torch.bmm(_act(torch.bmm(buf, w1), act) * torch.bmm(buf, w3),
                          w2)
     if ctx.cfg.moe_bmm:
-        g = spamm_bmm_linear(buf, w1, ctx)
-        u = spamm_bmm_linear(buf, w3, ctx)
-        return spamm_bmm_linear(_act(g, act) * u, w2, ctx)
+        g = bmm(buf, w1, ctx)
+        u = bmm(buf, w3, ctx)
+        return bmm(_act(g, act) * u, w2, ctx)
     experts = range(buf.shape[0])
-    g = [maybe_spamm_matmul(buf[i], w1[i], ctx) for i in experts]
-    u = [maybe_spamm_matmul(buf[i], w3[i], ctx) for i in experts]
-    return torch.stack([maybe_spamm_matmul(_act(g[i], act) * u[i], w2[i],
-                                           ctx) for i in experts])
+    g = [mm(buf[i], w1[i], ctx) for i in experts]
+    u = [mm(buf[i], w3[i], ctx) for i in experts]
+    return torch.stack([mm(_act(g[i], act) * u[i], w2[i], ctx)
+                        for i in experts])
 
 
-def _shared_ffn(params: dict, x: torch.Tensor, act: str, spamm_cfg):
+def _shared_ffn(params: dict, x: torch.Tensor, act: str, spamm_cfg,
+                mm=maybe_spamm_matmul):
     cdt = x.dtype
-    g = maybe_spamm_matmul(x, params["w1"].to(cdt), spamm_cfg)
-    u = maybe_spamm_matmul(x, params["w3"].to(cdt), spamm_cfg)
-    out = maybe_spamm_matmul(_act(g, act) * u, params["w2"].to(cdt),
-                             spamm_cfg)
+    g = mm(x, params["w1"].to(cdt), spamm_cfg)
+    u = mm(x, params["w3"].to(cdt), spamm_cfg)
+    out = mm(_act(g, act) * u, params["w2"].to(cdt), spamm_cfg)
     gate = torch.sigmoid(x.float() @ params["gate"])
     return out * gate.to(cdt)
 
@@ -206,6 +214,26 @@ def _moe_local(params: dict, x: torch.Tensor, cfg: MoEConfig, act: str,
     return y.reshape(b, s, d).to(cdt), aux
 
 
+def _ep_experts(buf, w, act, sctx, ctx):
+    """`_grouped_ffn` of this rank's experts under EP, tapping as the
+    whole block does: with `moe_bmm` the batch's fraction over every
+    expert; otherwise each expert's three fractions, every rank's
+    gathered and tapped in the global expert order (all w1, then w3, then
+    w2)."""
+    if sctx.cfg.moe_bmm:
+        return _grouped_ffn(buf, w["w1"], w["w3"], w["w2"], act, sctx,
+                            bmm=functools.partial(par.split_bmm, ctx=ctx))
+    with sctx.record() as taps:
+        out = _grouped_ffn(buf, w["w1"], w["w3"], w["w2"], act, sctx)
+    mine = torch.stack([torch.as_tensor(v).detach().float().reshape(())
+                        for _, v, _ in taps])
+    every = par._gather_dim(mine[None], ctx.group(ctx.model_axis), 0)
+    e_loc = buf.shape[0]
+    for v in every.reshape(-1, 3, e_loc).transpose(0, 1).reshape(-1):
+        sctx.tap(v)
+    return out
+
+
 def _moe_split(params: dict, spec, x: torch.Tensor, cfg: MoEConfig,
                act: str, spamm_cfg, ctx):
     """The block over a model axis (`moe_block`), or None when its cut does
@@ -231,6 +259,10 @@ def _moe_split(params: dict, spec, x: torch.Tensor, cfg: MoEConfig,
     w = {n: par.model_slice(params[n], spec[n], ctx, dims[n], *cut)
          for n in dims}
     router = par.full_weight(params["router"], spec["router"], ctx)
+    # the gated GEMMs tap the fraction of the whole block's product
+    sctx = as_context(spamm_cfg)
+    gated = sctx is not None and sctx.enable
+    mm = functools.partial(par.split_matmul, ctx=ctx)
 
     b, s, d = x.shape
     cdt = x.dtype
@@ -250,8 +282,9 @@ def _moe_split(params: dict, spec, x: torch.Tensor, cfg: MoEConfig,
         buf = torch.zeros((e_loc + 1, cap + 1, d), dtype=cdt,
                           device=x.device)
         buf.index_put_((torch.where(owned, le, e_loc), slot), xe[st_l])
-        out = _grouped_ffn(buf[:e_loc, :cap], w["w1"], w["w3"], w["w2"],
-                           act, spamm_cfg)
+        out = (_ep_experts(buf[:e_loc, :cap], w, act, sctx, ctx) if gated
+               else _grouped_ffn(buf[:e_loc, :cap], w["w1"], w["w3"],
+                                 w["w2"], act, spamm_cfg))
         rows = torch.clamp(le, 0, e_loc - 1)
         weight = sg * (owned & keep).float()
     else:
@@ -259,7 +292,8 @@ def _moe_split(params: dict, spec, x: torch.Tensor, cfg: MoEConfig,
         buf = torch.zeros((e_pad, cap + 1, d), dtype=cdt, device=x.device)
         buf.index_put_((se.long(), slot), xe[st_l])
         out = _grouped_ffn(buf[:, :cap], w["w1"], w["w3"], w["w2"], act,
-                           spamm_cfg)
+                           spamm_cfg, mm=mm,
+                           bmm=functools.partial(par.split_bmm, ctx=ctx))
         rows = se.long()
         weight = sg * keep.float()
     y = par.leave(_combine(out, rows, pos, weight, st, t, k, cap), mg)
@@ -271,7 +305,7 @@ def _moe_split(params: dict, spec, x: torch.Tensor, cfg: MoEConfig,
         # the gate scales each rank's partial: its gradient is the ranks'
         ws["gate"] = par.enter(par.full_weight(params["shared"]["gate"],
                                                sp_["gate"], ctx), mg)
-        ysh = _shared_ffn(ws, xe, act, spamm_cfg).float()
+        ysh = _shared_ffn(ws, xe, act, spamm_cfg, mm=mm).float()
         y = y + par.leave(ysh, mg)
     return y.reshape(b, s, d).to(cdt), aux
 

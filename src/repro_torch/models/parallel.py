@@ -427,9 +427,16 @@ def all_kv_heads(k: torch.Tensor, split: AttnSplit, cfg, ctx,
         sr = _attn_split(cfg, m, r, ctx.tile)
         for h in range(sr.k0, sr.k1):
             where.setdefault(h, r * cnt + h - sr.k0)
-    idx = torch.tensor([where[h] for h in range(cfg.num_kv_heads)],
-                       device=k.device)
-    return got.index_select(dim, idx)
+    # runs of consecutive heads, narrowed and joined: no index tensor
+    # crosses from the host, so a CUDA graph can capture the step
+    runs = []
+    for h in range(cfg.num_kv_heads):
+        if runs and where[h] == runs[-1][0] + runs[-1][1]:
+            runs[-1][1] += 1
+        else:
+            runs.append([where[h], 1])
+    parts = [got.narrow(dim, start, n) for start, n in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 def ff_split(width: int, ctx, tile: int) -> Optional[tuple]:
@@ -495,3 +502,21 @@ def split_matmul(x, w, spamm_cfg, ctx, *, frozen=None,
                                   require_frozen=require_frozen, site=site)
     finally:
         sctx.swap_fraction_reduce(prev)
+
+
+def split_bmm(x, w, spamm_cfg, ctx):
+    """`spamm_bmm_linear` of this model rank's part of a batched GEMM (a
+    MoE block's experts, or their ff slices). Its tap reports the valid
+    fraction of the whole batch, as `split_matmul`'s does. Every model
+    rank must make the same calls."""
+    from repro_torch.core.module import spamm_bmm_linear
+
+    t, bn = spamm_cfg.cfg.tile, spamm_cfg.cfg.block_n
+    total = (x.shape[0] * -(-x.shape[1] // t) * -(-w.shape[1] // t)
+             * -(-w.shape[2] // (t * bn)))
+    prev = spamm_cfg.swap_fraction_reduce(
+        _count_fraction(ctx.group(ctx.model_axis), total))
+    try:
+        return spamm_bmm_linear(x, w, spamm_cfg)
+    finally:
+        spamm_cfg.swap_fraction_reduce(prev)

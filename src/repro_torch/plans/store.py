@@ -3,8 +3,12 @@
 
 Layout:  <root>/<key>/manifest.json + arrays.npz, written to a tmp dir and
 moved into place with `os.rename`, so a crashed put is never taken for a
-complete artifact. A root-level STORE_FORMAT.json marker records the format
-version.
+complete artifact. Each put writes its own tmp dir, so several processes
+(tensor-parallel ranks that hold one shard) may put one key at once; the
+move into place runs under an exclusive lock on `<root>/.put.lock`, so the
+first writer's artifact stays and the others drop their copy. A complete
+artifact is never removed, so a reader may load it while writers race. A
+root-level STORE_FORMAT.json marker records the format version.
 
 The key is a content address: sha256 over the weight's fingerprint and the
 full gating config echo (τ, tile, block_n, levels, resolved backend,
@@ -20,10 +24,12 @@ a marker of another version, refuses at open time.
 """
 from __future__ import annotations
 
+import fcntl
 import hashlib
 import json
 import os
 import shutil
+import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -36,6 +42,7 @@ from repro_torch.kernels import quantize as kquant
 from repro_torch.plans.frozen import PLAN_FORMAT_VERSION, FrozenWeight
 
 _MARKER = "STORE_FORMAT.json"
+_PUT_LOCK = ".put.lock"
 
 
 class PlanStoreError(RuntimeError):
@@ -104,6 +111,9 @@ class PlanStore:
         misses and a warm start would silently re-freeze beside them. A
         fresh root gets the current marker."""
         mpath = os.path.join(self.root, _MARKER)
+        # listed before the marker is looked for: a process of this format
+        # writes the marker before its first artifact
+        keys = self.keys()
         if os.path.isfile(mpath):
             with open(mpath) as f:
                 fmt = json.load(f).get("format_version")
@@ -114,13 +124,17 @@ class PlanStore:
                     f"{PLAN_FORMAT_VERSION} — re-run precompute_plans into "
                     "a fresh root")
             return
-        if self.keys():
+        if keys:
             raise PlanStoreError(
                 f"plan store at {self.root!r} predates compute-dtype keying "
                 f"(format version < {PLAN_FORMAT_VERSION}: no {_MARKER}) — "
                 "re-run precompute_plans into a fresh root")
-        with open(mpath, "w") as f:
+        # written whole, then renamed: a process opening the root at once
+        # reads the marker whole or not at all
+        tmp = f"{mpath}.{os.getpid()}.{uuid.uuid4().hex}"
+        with open(tmp, "w") as f:
             json.dump({"format_version": PLAN_FORMAT_VERSION}, f)
+        os.replace(tmp, mpath)
 
     # -- addressing ---------------------------------------------------------
     @staticmethod
@@ -159,8 +173,11 @@ class PlanStore:
             raise ValueError("a FrozenWeight needs a weight_hash to be stored")
         key = self.key_for(fw.weight_hash, **fw.config_key())
         final = self._dir(key)
-        tmp = os.path.join(self.root, f".tmp_{key}")
-        os.makedirs(tmp, exist_ok=True)
+        # a writer's own tmp dir: ranks that hold one shard (or a weight
+        # every model rank keeps whole) put one key at once
+        tmp = os.path.join(self.root,
+                           f".tmp_{key}_{os.getpid()}_{uuid.uuid4().hex}")
+        os.makedirs(tmp)
 
         def host(x):
             return x.detach().cpu().numpy()
@@ -187,9 +204,20 @@ class PlanStore:
             manifest["tuned"] = fw.tuned.as_manifest()
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1, sort_keys=True)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
+        with open(os.path.join(self.root, _PUT_LOCK), "a") as lock:
+            # writers move into place one at a time; readers take no lock
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.isfile(os.path.join(final, "manifest.json")):
+                # another writer stored this key first: the key addresses
+                # the content, so its artifact is this one (and a reader
+                # may be loading it)
+                shutil.rmtree(tmp, ignore_errors=True)
+                return key
+            if os.path.exists(final):
+                # no manifest, so no reader loads it, and under the lock no
+                # writer is placing it: a leftover, not an artifact
+                shutil.rmtree(final)
+            os.rename(tmp, final)
         return key
 
     def get(self, weight_hash: str, *, tau, tile: int, block_n: int,

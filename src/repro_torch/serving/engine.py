@@ -66,6 +66,27 @@ rows between the shards' caches, and never recaptures, so the capture
 counts stay fixed. Cuts fall on request groups and prompts must be
 tile-aligned, so the tokens equal the unsharded engine's bit for bit.
 
+Tensor-parallel mode (`ctx`, a `transformer.NetCtx` over a (data, model)
+mesh with the model's placements): SPMD, one engine per rank. Every rank is
+given the same requests and returns every request's tokens (the logits are
+whole on every rank: the head all-gathers the vocabulary cut). `params` are
+this rank's shards (`init_params(ctx=)` or `shard_params`; a whole tree
+raises); the frozen plans are those of the weights the rank computes with
+(`models.model.compute_params`), so a warm plan store hits each rank's own
+shards; the caches hold the rank's kv heads, or with `decode_seq_shard` its
+sequence slice of every kv head (the wave plane only: the chunked plane's
+linear cache and per-slot decode always cut kv heads, as a sentinel write
+cannot land in another rank's slice). A gated GEMM split over "model" taps
+the fraction of the whole GEMM (`parallel.split_matmul`), so `out["spamm"]`
+and the registry equal the unsharded engine's. Whether steps run as CUDA
+graphs is decided once, from the model group's backend: under nccl the
+decode and chunk steps are captured with their collectives inside (a
+failed capture raises); under gloo (ranks that share a card, or CPU ranks)
+the collectives pass through the host, so the steps run eagerly and
+`out["graphs"]["eager"]` says why. The
+batch axes must hold one rank: data-parallel serving is the pod-sharded
+mode, whose cuts keep decode row tiles whole.
+
 Telemetry (`obs`, a `repro_torch.obs.Observability` bundle), all on the
 host: every gated GEMM's tap carries its phase, site and layer, so
 `Request.out["spamm"]["per_layer"]` breaks the wave's valid fractions,
@@ -90,6 +111,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig, ParallelConfig
@@ -100,7 +122,7 @@ from repro_torch.core.cost import bucket
 from repro_torch.device import f32_numerics, resolve_device
 from repro_torch.kernels.ops import resolve_backend
 from repro_torch.models import model as M
-from repro_torch.models.transformer import group_len, stack_kinds
+from repro_torch.models.transformer import group_len, sharded, stack_kinds
 from repro_torch.obs import (FRACTION_BUCKETS, LATENCY_BUCKETS_S, Histogram,
                              Observability)
 from repro_torch.serving.graphs import StepGraph, pool_bytes
@@ -178,7 +200,13 @@ class Engine:
     dump covers the run), None for a private enabled bundle, False for
     hard-off (see the module docstring). `reshard_cfg` arms the
     re-sharding controller; `mesh_devices`, `shard_max_width` and
-    `devices` the pod-sharded mode (see the module docstring)."""
+    `devices` the pod-sharded mode (see the module docstring).
+
+    `ctx` (a `transformer.NetCtx` with placements) serves tensor-parallel
+    over its model axis, one engine per rank (see the module docstring).
+    `freeze_plans` (default: on whenever SpAMM is) False is the
+    reference's legacy path: the prefill and chunk steps gate through
+    eager plans (`WeightPlanCache`), the decode steps stay dense."""
 
     def __init__(self, cfg: ModelConfig, pcfg: ParallelConfig, params, *,
                  max_len: int = 512, spamm_cfg=None, plan_store=None,
@@ -187,7 +215,8 @@ class Engine:
                  device="cuda", obs=None,
                  reshard_cfg: Optional[_schedule.ReshardConfig] = None,
                  mesh_devices: int = 0,
-                 shard_max_width: Optional[int] = None, devices=None):
+                 shard_max_width: Optional[int] = None, devices=None,
+                 ctx=None, freeze_plans: Optional[bool] = None):
         self.device = resolve_device(device)
         f32_numerics()
         emb = params["embed"]["embedding"]
@@ -198,6 +227,13 @@ class Engine:
         self.max_len = max_len
         self.spamm_ctx = spmod.as_context(spamm_cfg)
         self._gated = self.spamm_ctx is not None and self.spamm_ctx.enable
+        self._freeze = self._gated if freeze_plans is None else (
+            bool(freeze_plans) and self._gated)
+        self.ctx = ctx
+        self._tp = ctx is not None and sharded(ctx)
+        self._eager_reason = None   # why steps run eagerly under a ctx
+        if ctx is not None and ctx.mesh is not None:
+            self._check_ctx(ctx, mesh_devices, reshard_cfg)
         self._prefill_chunk = prefill_chunk
         self._max_slots = int(max_slots) if max_slots else None
         if self._max_slots is not None and self._max_slots < 1:
@@ -229,16 +265,27 @@ class Engine:
         self._fw_tree = None     # params-shaped tree of FrozenWeight
         self._fp_cache: dict = {}  # row-tile grid gm → FrozenPlan tree
         self._gm_hist: dict = {}   # observed row-tile grid gm → step count
+        # the legacy path's decode steps are dense, as the reference's
+        dec_sc = self.spamm_ctx if self._freeze else None
         self._prefill = M.make_prefill_step(cfg, pcfg,
-                                            spamm_cfg=self.spamm_ctx)
-        self._decode = M.make_decode_step(cfg, pcfg,
-                                          spamm_cfg=self.spamm_ctx)
-        self._chunk = M.make_prefill_chunk_step(cfg, pcfg,
-                                                spamm_cfg=self.spamm_ctx)
+                                            spamm_cfg=self.spamm_ctx, ctx=ctx)
+        self._decode = M.make_decode_step(cfg, pcfg, spamm_cfg=dec_sc,
+                                          ctx=ctx)
+        # the chunked plane's linear cache cuts kv heads over "model"
+        self._slot_pcfg = (dataclasses.replace(pcfg, decode_seq_shard=False)
+                           if self._tp and pcfg.decode_seq_shard else pcfg)
+        self._slot_decode = (self._decode if self._slot_pcfg is pcfg else
+                             M.make_decode_step(cfg, self._slot_pcfg,
+                                                spamm_cfg=dec_sc, ctx=ctx))
+        self._chunk = M.make_prefill_chunk_step(cfg, self._slot_pcfg,
+                                                spamm_cfg=self.spamm_ctx,
+                                                ctx=ctx)
         self.cuda_graphs = bool(cuda_graphs)
-        # a gated MoE chunk step plans on the host (see the module
-        # docstring): decided here, from the config
-        self._chunk_capturable = not (self._gated and cfg.moe is not None)
+        # a gated MoE chunk step, and a chunk step on the legacy path, plan
+        # on the host (see the module docstring): decided here, from the
+        # config
+        self._chunk_capturable = not (self._gated and (
+            cfg.moe is not None or not self._freeze))
         self._pools: dict = {}    # device → graph memory pool, on capture
         self._steps: dict = {}    # (step key, captured) → StepGraph
         self._caches: dict = {}   # cache key → static KV cache
@@ -272,7 +319,7 @@ class Engine:
                     f"the engine shards over {self._ndev} devices — they "
                     f"must match (the cut IS the placement)")
             self._resharder = _schedule.ReshardController(reshard_cfg)
-        if self._gated and self.obs.enabled:
+        if self._freeze and self.obs.enabled:
             # cost coefficients resolve once, before the first capture,
             # from the tune profile (or the nominal table) for the backend
             # and card the engine runs on
@@ -339,7 +386,7 @@ class Engine:
     def _frozen_for(self, rows: int) -> dict:
         """The FrozenPlan tree for a step whose gated GEMMs see `rows`
         flattened activation rows — built once per row-tile grid."""
-        if not self._gated:
+        if not self._freeze:
             return {}
         tile = self.spamm_ctx.cfg.tile
         gm = (rows + tile - 1) // tile
@@ -364,13 +411,17 @@ class Engine:
 
     def _ensure_fw_tree(self):
         """Freeze the weight-side gating artifacts once, through the
-        context's cache and the plan store (a warm store makes it a load)."""
+        context's cache and the plan store (a warm store makes it a load).
+        Under a ctx: the weights this rank computes with (a layer that runs
+        whole on every model rank freezes its whole weight)."""
         if self._fw_tree is None:
             from repro_torch.plans.precompute import freeze_tree
 
+            weights = (self.params if self.ctx is None else
+                       M.compute_params(self.params, self.cfg, self.ctx))
             with self.obs.span("freeze", store=self.plan_store is not None):
                 self._fw_tree, _ = freeze_tree(
-                    self.params, self.spamm_ctx.cfg,
+                    weights, self.spamm_ctx.cfg,
                     cache=self.spamm_ctx.cache, store=self.plan_store,
                     group_len=group_len(self.cfg))
 
@@ -431,10 +482,11 @@ class Engine:
 
     # -- pod-sharded layout --------------------------------------------------
     def _check_shardable(self, cfg):
-        if not self._gated:
+        if not self._freeze:
             raise ValueError(
                 "mesh_devices > 1 needs frozen plans (per-shard step tables "
-                "ARE the sharding mechanism) — enable spamm_cfg")
+                "ARE the sharding mechanism) — enable spamm_cfg and keep "
+                "freeze_plans on")
         if cfg.moe is not None:
             # the reference refuses MoE here too: its expert FFNs run their
             # own shard_map over the outer mesh and take no per-expert
@@ -443,6 +495,71 @@ class Engine:
                 "pod-sharded serving cannot take MoE archs: the expert FFNs "
                 "gate eagerly and take no per-shard frozen plans, as in the "
                 "reference")
+
+    # -- tensor-parallel mode -------------------------------------------------
+    def _check_ctx(self, ctx, mesh_devices, reshard_cfg):
+        """Refuse what the tensor-parallel mode does not serve, check that
+        `params` are this rank's shards, and decide the step graphs from
+        the model group's backend."""
+        if ctx.ndata > 1:
+            raise ValueError(
+                f"the ctx's batch axes {ctx.batch_axes} hold {ctx.ndata} "
+                f"ranks: the engine serves over the model axis only (a data "
+                f"split of a decode row tile changes its norm at τ > 0); "
+                f"serve data-parallel through mesh_devices=, whose cuts "
+                f"keep row tiles whole")
+        if mesh_devices and int(mesh_devices) > 1:
+            raise ValueError(
+                "ctx= and mesh_devices > 1 are two placements of one engine: "
+                "serve tensor-parallel over the ctx's model axis, or "
+                "pod-sharded over mesh_devices, not both")
+        if reshard_cfg is not None and reshard_cfg.every > 0:
+            raise ValueError(
+                "reshard_cfg re-cuts a data placement, and a ctx serves over "
+                "the model axis only; re-shard the pod-sharded engine "
+                "(mesh_devices=) instead")
+        if self._gated and ctx.tile % self.spamm_ctx.cfg.tile:
+            raise ValueError(
+                f"the ctx cuts the model at tile {ctx.tile}, not a multiple "
+                f"of the SpAMM tile {self.spamm_ctx.cfg.tile}: a rank's part "
+                f"of a gated GEMM must be whole gate tiles")
+        if self._tp:
+            self._check_shards(ctx)
+        group = ctx.group(ctx.model_axis)
+        backend = dist.get_backend(group) if group is not None else None
+        if backend != "nccl":
+            self._eager_reason = (
+                f"the model group runs {backend}: its collectives pass "
+                f"through the host, so steps run eagerly")
+
+    def _check_shards(self, ctx):
+        """Every leaf of `params` must have the shape of this rank's shard
+        of the model's whole leaf under `ctx.specs`."""
+        if ctx.specs is None:
+            raise ValueError(
+                "the ctx has no placements: make it with models.model."
+                "with_placements(ctx, cfg, pcfg)")
+        whole = M.init_params(self.cfg, self.pcfg, device="meta",
+                              model_axis_size=ctx.nmodel)
+
+        def local(t, spec):
+            shape = list(t.shape)
+            for dim, entry in enumerate(spec):
+                for ax in ((entry,) if isinstance(entry, str)
+                           else entry or ()):
+                    shape[dim] //= ctx.size(ax)
+            return tuple(shape)
+
+        got = T.flatten_with_paths(self.params)
+        want = dict(zip((p for p, _ in T.flatten_with_paths(whole)),
+                        (local(t, s) for t, s in T.pairs(whole, ctx.specs))))
+        bad = [(p, tuple(t.shape), want.get(p)) for p, t in got
+               if tuple(t.shape) != want.get(p)]
+        if bad or len(got) != len(want):
+            raise ValueError(
+                f"params are not this rank's shards under the ctx's "
+                f"placements (path, shape, shard shape): {bad[:3]} — pass "
+                f"init_params(ctx=) or shard_params(params, ctx.specs, ctx)")
 
     def _shard_devices(self, devices, home) -> list:
         """The shards' devices: `devices` as given (N of them; one card may
@@ -687,22 +804,30 @@ class Engine:
     def _static_cache(self, key, batch: int, full: bool) -> dict:
         cache = self._caches.get(key)
         if cache is None:
-            cache = M.init_cache(self.cfg, self.pcfg, batch, self.max_len,
-                                 full=full, device=self.device)
+            cache = M.init_cache(self.cfg,
+                                 self._slot_pcfg if full else self.pcfg,
+                                 batch, self.max_len, full=full,
+                                 device=self.device, ctx=self.ctx)
             self._caches[key] = cache
         return cache
 
     @property
     def _capture(self) -> bool:
-        return self.cuda_graphs and self.device.type == "cuda"
+        return (self.cuda_graphs and self.device.type == "cuda"
+                and self._eager_reason is None)
 
     @property
     def step_graphs(self) -> dict:
         """Whether decode steps and chunk steps run as CUDA graphs in the
         current mode: decode whenever the engine captures; chunk steps
-        unless a MoE stack gates them (they plan on the host)."""
-        return {"decode": self._capture,
-                "chunk": self._capture and self._chunk_capturable}
+        unless a MoE stack gates them or they gate on the legacy path (they
+        plan on the host). Under a ctx whose model group runs gloo,
+        "eager" gives the reason nothing captures."""
+        out = {"decode": self._capture,
+               "chunk": self._capture and self._chunk_capturable}
+        if self._eager_reason is not None:
+            out["eager"] = self._eager_reason
+        return out
 
     def _step(self, key, kind: str, make, device=None):
         """The StepGraph at `key` in the current mode, built by `make()` →
@@ -765,8 +890,8 @@ class Engine:
                    "positions": self._buffer(nslots)}
 
             def body():
-                logits, _ = self._decode(self.params, inp["tokens"], cache,
-                                         inp["positions"], frozen)
+                logits, _ = self._slot_decode(self.params, inp["tokens"],
+                                              cache, inp["positions"], frozen)
                 return self._outputs(logits)
 
             return body, inp
@@ -1059,6 +1184,11 @@ class Engine:
                     frozen_pre)
                 if self._gated:
                     self._note_gm(-(-(b * plen) // tile))
+                if self._tp:
+                    # the rank's decode layout (seq-sharded: every kv head
+                    # gathered, its sequence slice kept)
+                    cache = M.place_cache(cache, self.cfg, self.pcfg,
+                                          self.max_len, ctx=self.ctx)
                 self._pad_cache(cache, self._static_cache(("wave", b), b,
                                                           full=False))
                 del cache

@@ -1910,3 +1910,98 @@ def test_large_tile_kernels_raise_on_what_they_do_not_take(dev):
             spamm_mm.spamm_mm_cuda(a, b, kidx, nvalid, tile=tile)
         assert (spamm_mm.launches, spamm_mm.int8_launches,
                 spamm_mm.dense_launches) == before
+
+
+def _tp_engine_cases(dev):
+    """The cases of `Engine(ctx=)` on two ranks of the card(s), each with
+    the unsharded engine's tokens and graphs on `dev`: reduced
+    starcoder2-7b on the wave plane and on the chunked plane, and reduced
+    qwen2-moe-a2.7b's wave with its experts split tp and ep, all gated at
+    τ = 0 at tile 16."""
+    import dataclasses
+
+    from repro_torch.configs import ParallelConfig, SpammConfig, get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    pcfg = ParallelConfig(compute_dtype="float32", attn_q_chunk=16,
+                          fsdp=False)
+    rng = np.random.default_rng(0)
+    dense = get_config("starcoder2-7b").reduced()
+    moe = get_config("qwen2-moe-a2.7b").reduced()
+    wave = list(rng.integers(1, dense.vocab, size=(4, 16)).astype(np.int32))
+    mixed = [rng.integers(1, dense.vocab, n).astype(np.int32)
+             for n in (5, 16, 23, 9)]
+    moe_wave = list(rng.integers(1, moe.vocab, size=(4, 16)).astype(
+        np.int32))
+    cases = {"wave": (dense, wave, {}, {}),
+             "chunked": (dense, mixed, dict(prefill_chunk=16, max_slots=2),
+                         {})}
+    for impl in ("tp", "ep"):
+        cfg = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe,
+                                                               impl=impl))
+        cases[f"moe_{impl}"] = (cfg, moe_wave, {}, dict(moe_bmm=True))
+    out = {}
+    for name, (cfg, prompts, kw, skw) in cases.items():
+        spamm = SpammConfig(enable=True, tau=0.0, tile=16, **skw)
+        eng = Engine(cfg, pcfg, M.init_params(cfg, pcfg, 0, device=dev,
+                                              model_axis_size=2),
+                     max_len=64, spamm_cfg=spamm, device=dev, **kw)
+        reqs = [Request(prompt=p, max_new_tokens=4) for p in prompts]
+        want = [o.tolist() for o in eng.generate(reqs)]
+        out[name] = (dict(cfg=cfg, pcfg=pcfg, seed=0, spamm=spamm,
+                          prompts=prompts, max_new=4, kw=kw),
+                     want, reqs[0].out["graphs"])
+    return out
+
+
+def test_tp_engine_on_gloo_ranks_of_one_card_on_card(dev):
+    """`Engine(ctx=)` on 2 gloo ranks sharing cuda:0, on both planes and
+    for MoE tp and ep: the unsharded engine's tokens, with the steps eager
+    whatever `cuda_graphs` asks and the reason reported."""
+    import torch_dist_workers as W
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cases = _tp_engine_cases(dev)
+    ranks = spawn_ranks(W.engine_tp_on_card, 2, backend="gloo",
+                        devices=[torch.device("cuda", 0)] * 2,
+                        args=({n: c[0] for n, c in cases.items()}, "gloo"),
+                        timeout_s=300)
+    for r in ranks:
+        for name, (_, want, _) in cases.items():
+            for graphs in (True, False):
+                got = r[name][graphs]
+                assert "error" not in got, (name, graphs, got)
+                assert got["tokens"] == want, (name, graphs)
+                g = got["graphs"]
+                assert g["decode"] is False and g["chunk"] is False
+                assert "gloo" in g["eager"]
+
+
+def test_tp_engine_on_nccl_ranks_of_two_cards_on_card(dev):
+    """Under nccl (one rank per card), on both planes and for MoE tp and
+    ep: the steps are captured with their collectives inside, as the
+    unsharded engine's are on one card, and give its tokens, graphed and
+    eager."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"an nccl model group needs two cards; "
+                    f"{torch.cuda.device_count()} visible")
+    import torch_dist_workers as W
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cases = _tp_engine_cases(dev)
+    ranks = spawn_ranks(W.engine_tp_on_card, 2, backend="nccl",
+                        devices=[torch.device("cuda", i) for i in range(2)],
+                        args=({n: c[0] for n, c in cases.items()}, "nccl"),
+                        timeout_s=300)
+    for r in ranks:
+        for name, (_, want, one_card) in cases.items():
+            for graphs in (True, False):
+                got = r[name][graphs]
+                assert "error" not in got, (name, graphs, got)
+                assert got["tokens"] == want, (name, graphs)
+                assert got["graphs"] == (one_card if graphs else
+                                         {"decode": False, "chunk": False})
+            assert r[name][True]["graphs"]["decode"] is True
+            assert r[name][True]["captures"] > 0
+

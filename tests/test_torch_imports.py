@@ -313,3 +313,53 @@ def test_fresh_import_keeps_jax_out():
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+# reference CLI flags the port states it does not take: the port's
+# attention takes each q chunk against the whole KV in one softmax, so the
+# dry run has no KV chunk to set
+FLAG_DEPARTURES = {"dryrun.py": {"--kv-chunk"}}
+
+
+def _cli_flags(path):
+    flags = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if (isinstance(node, ast.Call)
+                and getattr(node.func, "attr", None) == "add_argument"):
+            flags.update(a.value for a in node.args
+                         if isinstance(a, ast.Constant)
+                         and str(a.value).startswith("-"))
+    return flags
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in (SRC / "repro" / "launch").glob("*.py")))
+def test_every_reference_cli_flag_has_a_twin(name):
+    """Each `add_argument` flag of a reference launcher has a twin in the
+    port's launcher of the same role, or stands in FLAG_DEPARTURES."""
+    twin = PORT / "launch" / RENAMED_TWINS.get(f"launch/{name}",
+                                               f"launch/{name}")[7:]
+    missing = (_cli_flags(SRC / "repro" / "launch" / name)
+               - _cli_flags(twin) - FLAG_DEPARTURES.get(name, set()))
+    assert not missing, f"{name}: {sorted(missing)}"
+
+
+def _init_params(path, cls):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name == cls:
+            for item in node.body:
+                if (isinstance(item, ast.FunctionDef)
+                        and item.name == "__init__"):
+                    a = item.args
+                    return {x.arg for x in a.posonlyargs + a.args
+                            + a.kwonlyargs} - {"self"}
+    raise AssertionError(f"no {cls}.__init__ in {path}")
+
+
+def test_engine_takes_every_reference_parameter():
+    rel = "serving/engine.py"
+    ref = _init_params(SRC / "repro" / rel, "Engine")
+    port = _init_params(PORT / rel, "Engine")
+    assert "ctx" in ref and "freeze_plans" in ref
+    assert not ref - port, sorted(ref - port)

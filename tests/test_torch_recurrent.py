@@ -483,16 +483,23 @@ def _serve(model, eng, reng):
             (np.stack(reng.generate(rreqs)), rreqs[0].out))
 
 
+@pytest.fixture(scope="module")
+def dense_served(model):
+    """One dense wave of each engine, shared by the dense and τ = 0
+    cases."""
+    return _serve(model, *_engines(model, None))
+
+
 @pytest.mark.parametrize("tau", [None, 0.0], ids=["dense", "tau0"])
-def test_engine_tokens_match_reference(model, tau):
-    (toks, out), (rtoks, rout) = _serve(model, *_engines(model, tau))
+def test_engine_tokens_match_reference(model, tau, dense_served):
+    (toks, out), (rtoks, rout) = (dense_served if tau is None else
+                                  _serve(model, *_engines(model, tau)))
     assert toks.shape == (B, MAX_NEW) and out["graphs"]["decode"] is False
     np.testing.assert_array_equal(toks, rtoks)
     if tau is None:
         assert out["spamm"] is None
         return
-    dense, _ = _serve(model, *_engines(model, None))
-    np.testing.assert_array_equal(toks, dense[0])
+    np.testing.assert_array_equal(toks, dense_served[0][0])
     sp, rsp = out["spamm"], rout["spamm"]
     for key in ("gated_gemms", "decode_gated_gemms", "valid_fraction",
                 "decode_valid_fraction"):
@@ -559,11 +566,19 @@ def _gap_tau(model):
     raise AssertionError(f"no τ {GATE_MARGIN} away from every product")
 
 
-def test_hybrid_gap_tau_matches_reference(hybrid):
+@pytest.fixture(scope="module")
+def hybrid_gap(hybrid):
+    """The hybrid stack's gap τ, and one wave of each engine at it: (τ, the
+    port's engine, the two waves), shared by the tests that serve there."""
+    tau = _gap_tau(hybrid)
+    eng, reng = _engines(hybrid, tau)
+    return tau, eng, _serve(hybrid, eng, reng)
+
+
+def test_hybrid_gap_tau_matches_reference(hybrid_gap):
     """τ > 0 through frozen plans on the hybrid stack: the reference's
     tokens, valid fractions and per-(layer, site) cells."""
-    tau = _gap_tau(hybrid)
-    (toks, out), (rtoks, rout) = _serve(hybrid, *_engines(hybrid, tau))
+    _, _, ((toks, out), (rtoks, rout)) = hybrid_gap
     sp, rsp = out["spamm"], rout["spamm"]
     assert 0.0 < sp["decode_valid_fraction"] < 1.0
     np.testing.assert_array_equal(toks, rtoks)
@@ -573,7 +588,7 @@ def test_hybrid_gap_tau_matches_reference(hybrid):
     assert sp["decode_gated_gemms"] == rsp["decode_gated_gemms"]
 
 
-def test_hybrid_frozen_equals_eager(hybrid):
+def test_hybrid_frozen_equals_eager(hybrid, hybrid_gap):
     """Twin of the reference's frozen-parity test on the hybrid arch
     (`tests/test_frozen_plans.py`: τ 0.05, tile 16, weights from key 1,
     two 20-token prompts, 3 new tokens): the port's frozen engine emits the
@@ -606,7 +621,7 @@ def test_hybrid_frozen_equals_eager(hybrid):
                                  eng._frozen_for(x.numel()))
         _, eager = eng._prefill(params, {"tokens": x}, None)
     assert torch.equal(frozen, eager)
-    eng, _ = _engines(hybrid, _gap_tau(hybrid))
+    eng, _ = _engines(hybrid, hybrid_gap[0])
     x = torch.as_tensor(hybrid["prompts"])
     with torch.inference_mode():
         _, frozen = eng._prefill(hybrid["params"], {"tokens": x},
@@ -615,14 +630,12 @@ def test_hybrid_frozen_equals_eager(hybrid):
     assert torch.equal(frozen, eager)
 
 
-def test_per_layer_labels_on_hybrid(hybrid):
+def test_per_layer_labels_on_hybrid(hybrid, hybrid_gap):
     """Twin of the reference's per-layer test on the hybrid arch: every tap
     carries its flat layer index (group g's sub-layer i is 3g + i, the
     tail's after the groups), rec layers hold only MLP sites, the cells sum
     to the aggregates and equal the reference's."""
-    tau = _gap_tau(hybrid)
-    eng, reng = _engines(hybrid, tau)
-    (_, out), (_, rout) = _serve(hybrid, eng, reng)
+    _, eng, ((_, out), (_, rout)) = hybrid_gap
     pl, rpl = out["spamm"]["per_layer"], rout["spamm"]["per_layer"]
     kinds = tr.layer_kinds(hybrid["cfg"])
     assert sorted(pl) == list(range(len(kinds)))

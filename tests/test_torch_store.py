@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_dist_workers as W
 
 from repro.configs import ParallelConfig as RParallel
 from repro.configs import SpammConfig as RSpamm
@@ -228,6 +229,40 @@ def test_store_keeps_tuned_records(tmp_path):
     assert _mk_fw(w).bucket_floor == 16
     assert st.manifest_pointer() == {"path": os.path.abspath(str(tmp_path)),
                                      "format_version": PLAN_FORMAT_VERSION}
+
+
+def test_store_put_races_with_writers_and_a_reader(tmp_path):
+    """Three processes put one key at once, round after round, while a
+    fourth loads it: every put returns the key, the first writer's
+    artifact stays (once a load hits, every later load hits the same
+    artifact), and no tmp dir is left. Every other round starts over a
+    leftover dir without a manifest (a crashed put of another build) at
+    the key's place, which the writers replace."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    w = _decay(64, 96, 23)
+    taus = [TAU * (1 + r / 8) for r in range(8)]
+    root = str(tmp_path / "store")
+    PlanStore(root)
+    keys = []
+    for r, tau in enumerate(taus):
+        fw = _mk_fw(w, tau=tau)
+        keys.append(PlanStore.key_for(fw.weight_hash, **fw.config_key()))
+        if r % 2:
+            os.makedirs(os.path.join(root, keys[-1]))
+            with open(os.path.join(root, keys[-1], "arrays.npz"), "w") as f:
+                f.write("partial")
+    got = spawn_ranks(W.store_race, 4, backend="gloo",
+                      args=(root, w, taus, 3), timeout_s=120)
+    for rank in range(3):
+        assert got[rank] == keys, rank
+    for r, loads in enumerate(got[3]):
+        first = next((i for i, x in enumerate(loads) if x is not None),
+                     len(loads))
+        assert all(loads[first:]) and len(loads) - first > 40, (r, loads)
+    st = PlanStore(root)
+    assert st.keys() == sorted(keys)
+    assert not [d for d in os.listdir(root) if d.startswith(".tmp_")]
 
 
 # ---------------------------------------------------------------------------

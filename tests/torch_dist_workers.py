@@ -309,3 +309,220 @@ def compat_job(rank, n):
     return ([(w.category.__name__, str(w.message)) for w in seen],
             gathered.numpy(), scattered.numpy(), old_g.numpy(),
             old_s.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the plan store under several writers (tests/test_torch_store.py)
+# ---------------------------------------------------------------------------
+
+def store_race(rank, root, w, taus, writers, loads_after_hit=40,
+               deadline_s=60.0):
+    """Round by round, one key each (`w`'s artifact at a τ of `taus`):
+    the ranks below `writers` put it into the store at `root` at once,
+    the other ranks load it meanwhile, until `loads_after_hit` loads have
+    followed the first hit. Returns per round the writer's key, or the
+    reader's loads in order: None for a miss, else whether the artifact
+    equals this rank's own build."""
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.plans.frozen import FrozenWeight
+    from repro_torch.plans.store import PlanStore, fingerprint
+
+    torch.set_num_threads(1)
+    wt = torch.from_numpy(w)
+    h = fingerprint(wt)
+    cfg = dict(tile=32, block_n=1, levels=1, backend="torch")
+    st = PlanStore(root)
+    out = []
+    for tau in taus:
+        fw = FrozenWeight.build(wt, tau, weight_hash=h, **cfg)
+        dist.barrier()
+        if rank < writers:
+            out.append(st.put(fw))
+            continue
+        seen, hits, t0 = [], 0, time.perf_counter()
+        while hits <= loads_after_hit and time.perf_counter() - t0 < deadline_s:
+            got = st.get(h, tau=tau, device="cpu", **cfg)
+            if got is None:
+                seen.append(None)
+                continue
+            hits += 1
+            seen.append(torch.equal(got.nbmax, fw.nbmax)
+                        and all(torch.equal(a, b)
+                                for a, b in zip(got.levels, fw.levels)))
+        out.append(seen)
+    dist.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the serving engine over a model axis (tests/test_torch_engine_mesh.py)
+# ---------------------------------------------------------------------------
+
+def engine_mesh_jobs(rank, jobs):
+    """Each job (kind, kwargs) on this rank of a 4-rank world, in order;
+    returns the list of per-job results (numpy and Python values)."""
+    torch.set_num_threads(1)
+    return [_ENGINE_JOBS[kind](rank, **kw) for kind, kw in jobs]
+
+
+def _model_ctx(model, cfg, pcfg, tile, batch_axes=()):
+    """The ctx of a (4 / model, model) mesh with the model's placements.
+    Without batch axes the "data" rows are replicas: each serves the same
+    requests over its own `model` ranks."""
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import model as M
+
+    mesh = make_mesh((4 // model, model), ("data", "model"), backend="gloo",
+                     device_type="cpu")
+    ctx = MS.make_ctx(mesh, tile=tile, batch_axes=batch_axes)
+    return M.with_placements(ctx, cfg, pcfg)
+
+
+def _engine(rank, *, cfg, pcfg, params, model, tile, spamm, prompts,
+            max_new, max_len, kw):
+    """One wave of `prompts` through `Engine(ctx=)` on this rank's shards.
+    Returns the tokens, the first request's `out` (stats and graphs), and
+    on the wave plane the prefill logits of the engine's own step and
+    frozen plans and the last decode step's logits."""
+    import numpy as np
+
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    ctx = _model_ctx(model, cfg, pcfg, tile)
+    local = M.shard_params(params, ctx.specs, ctx)
+    eng = Engine(cfg, pcfg, local, max_len=max_len, spamm_cfg=spamm,
+                 device="cpu", ctx=ctx, **kw)
+    reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+    out = {"mrank": ctx.mrank,
+           "tokens": [o.tolist() for o in eng.generate(reqs)],
+           "spamm": reqs[0].out["spamm"], "graphs": reqs[0].out["graphs"],
+           "shared_out": all(r.out["spamm"] is reqs[0].out["spamm"]
+                             for r in reqs)}
+    if not kw:
+        toks = np.stack(prompts)
+        b, s = toks.shape
+        with torch.inference_mode():
+            _, lg = eng._prefill(local, {"tokens": torch.as_tensor(toks)},
+                                 eng._frozen_for(b * s))
+        out["prefill"] = lg.numpy()
+        step = eng._steps[(("wave", b), False)]
+        out["decode"] = step.outputs["logits"].numpy()
+    return out
+
+
+def _engine_store(rank, *, cfg, pcfg, params, model, tile, spamm, prompts,
+                  max_new, max_len, store):
+    """Two engines on one plan store: the first populates it (every rank
+    its own shards' plans; replicas and whole-weight layers put the same
+    keys at once), the second warm-starts. Returns each wave's store hits
+    and misses and both waves' tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    ctx = _model_ctx(model, cfg, pcfg, tile)
+    local = M.shard_params(params, ctx.specs, ctx)
+    out = []
+    for _ in range(2):
+        eng = Engine(cfg, pcfg, local, max_len=max_len, spamm_cfg=spamm,
+                     device="cpu", ctx=ctx, plan_store=store)
+        reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+        toks = [o.tolist() for o in eng.generate(reqs)]
+        sp = reqs[0].out["spamm"]
+        out.append((sp["plan_store_hits"], sp["plan_store_misses"], toks))
+        dist.barrier()
+    return out
+
+
+def _engine_refusals(rank, *, cfg, pcfg, params, tile, spamm):
+    """The messages of what `Engine(ctx=)` refuses: a batch axis of two
+    ranks, a ctx with mesh_devices, a whole tree."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    def refused(ctx, p, **kw):
+        try:
+            Engine(cfg, pcfg, p, spamm_cfg=spamm, device="cpu", ctx=ctx,
+                   **kw)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    data = _model_ctx(2, cfg, pcfg, tile, batch_axes=("data",))
+    model = _model_ctx(4, cfg, pcfg, tile)
+    local = M.shard_params(params, model.specs, model)
+    return {"batch": refused(data, M.shard_params(params, data.specs, data)),
+            "mesh_devices": refused(model, local, mesh_devices=2),
+            "whole": refused(model, params)}
+
+
+def serve_cli(rank, argv, port):
+    """`launch.serve.main(argv)` as torchrun runs it: this process leaves
+    the spawned group and joins the CLI's own world from the environment.
+    Returns what it printed."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.launch import mesh as MS
+    from repro_torch.launch import serve
+
+    torch.set_num_threads(1)
+    world = torch.distributed.get_world_size()
+    MS.destroy_group()
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    return buf.getvalue()
+
+
+_ENGINE_JOBS = {"engine": _engine, "store": _engine_store,
+                "refusals": _engine_refusals}
+
+
+def engine_tp_on_card(rank, cases, backend):
+    """`Engine(ctx=)` on a (1, 2) mesh of `backend` ranks on the card(s),
+    graphed and eager, from this rank's shards of `init_params(seed)`, for
+    each case {name: job}; a job holds cfg, pcfg, seed, spamm, prompts,
+    max_new and the engine's keywords. Returns {name: {cuda_graphs:
+    {"tokens", "graphs", "captures"} or {"error": traceback}}}; a case's
+    failure is returned, so the others still run."""
+    import traceback
+
+    from repro_torch.launch import mesh as MS
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+
+    mesh = make_mesh((1, 2), ("data", "model"), backend=backend,
+                     device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for name, job in cases.items():
+        cfg, pcfg, spamm = job["cfg"], job["pcfg"], job["spamm"]
+        ctx = M.with_placements(MS.make_ctx(mesh, tile=spamm.tile), cfg,
+                                pcfg)
+        params = M.init_params(cfg, pcfg, job["seed"], device=dev, ctx=ctx)
+        out[name] = {}
+        for graphs in (True, False):
+            try:
+                eng = Engine(cfg, pcfg, params, max_len=64, spamm_cfg=spamm,
+                             device=dev, ctx=ctx, cuda_graphs=graphs,
+                             **job["kw"])
+                reqs = [Request(prompt=p, max_new_tokens=job["max_new"])
+                        for p in job["prompts"]]
+                toks = [o.tolist() for o in eng.generate(reqs)]
+                torch.cuda.synchronize()
+                out[name][graphs] = {
+                    "tokens": toks, "graphs": reqs[0].out["graphs"],
+                    "captures": eng.graph_stats()["captures"]}
+            except Exception:
+                out[name][graphs] = {"error": traceback.format_exc()}
+    return out
