@@ -4,10 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from src/repro_torch/kernels/csrc, checks
-that the int8 work-list kernel's SASS runs on the tensor cores (IMMA, no
-IDP4A) and that the tensor-core get-norm kernels do (HMMA on TF32, the
+that the tensor-core work-list kernels' SASS runs on the tensor cores (the
+`wgmma` kernels of tiles that are multiples of 64, which serve every path
+below at tile 64 and the large tiles: IGMMA int8, HGMMA bf16; the
+`mma.sync` kernels of tiles 16·odd and 32·odd: IMMA int8, HMMA bf16; no
+IDP4A anywhere) and that the tensor-core get-norm kernels do (HMMA on TF32, the
 int8 one loading no more than the f32 one), and drives two paths of the
-port.
+port. Each work-list kernel_check line names the kernel that ran and its
+instruction family ("wgmma", "mma.sync", "fma").
 
 Serving: holds the get-norm and work-list kernels against their plain
 PyTorch versions at the serving path's shapes, prefill and decode (and
@@ -238,13 +242,20 @@ timed single and back to back beside their bound and `torch.matmul` /
 (l4) spamm_bmm at 128 on 8 slices of 256 × 2048 @ 2048 × 1408
 (qwen2-moe's expert widths): row 6 ≡ the per-slice work-list and the
 64-tile dense-grid kernel on the refined gate bit for bit, within 1e-4
-of its plain version, beside `torch.bmm`.
+of its plain version, beside `torch.bmm`. (l5) the `mma.sync` bf16 and
+int8 work-list kernels (tiles walked with a sub-tile of 16 or 32):
+starcoder2-7b's w1 frozen at 96 and 48 for the prefill activation padded
+to the tile, w2 at 32 for a decode step (2 column slices): int8 bit for
+bit and bf16 within 1e-4 against their plain versions, frozen ≡ eager,
+timed single and back to back beside their bound and the library call.
 
-Every result line is a JSON object; the line before the last lists nine
-kernel entries (the work-list GEMM twice, f32 and bf16; each of the
+Every result line is a JSON object; the line before the last lists
+eleven kernel entries (the work-list GEMM twice, f32 and bf16, and the
+bf16 and int8 ones again for their `mma.sync` kernels; each of the
 get-norm pair twice, CUDA-core and tensor-core) with their launches on
 their path (the τ > 0 serving run at its dtype, the store walk, the
-library path, or the dense-grid GEMM's qwen2-moe τ > 0 wave; the f32 pair
+library path, the large_tiles phase's (l5), or the dense-grid GEMM's
+qwen2-moe τ > 0 wave; the f32 pair
 also on run (f), the MoE wave, the last families' τ > 0 waves and the
 training runs, with row 2's times at the backward products' shapes),
 errors, times and bounds, and each entry's multi_launches and
@@ -497,7 +508,12 @@ DRYRUN_CELLS = (("qwen2.5-32b", "train_4k"), ("starcoder2-7b",
 # its tile products; (l3) the get-norm kernels at LT_NORM_TILES on w1 and
 # the activation; (l4) spamm_bmm at LT_MOE_TILE on LT_MOE_SLICES slices of
 # qwen2-moe's expert GEMM at LT_MOE_ROWS rows (the serving capacity of 64
-# rows does not divide by 128). Plain versions at N = LIB_N run on the
+# rows does not divide by 128); (l5) the `mma.sync` bf16 and int8 work-list
+# kernels, which serve the tiles walked with a sub-tile of 16 or 32: w1
+# frozen at LT_MMA_SYNC_TILES (a 32·odd and a 16·odd tile dividing 4608 and
+# 18432) for the prefill activation zero-padded to the tile, and w2 frozen
+# at LT_MMA_SYNC_DECODE_TILE for a decode step (BATCH real rows in one row
+# tile: 144 runs, 2 column slices). Plain versions at N = LIB_N run on the
 # first row band of the plan only (rows 0 .. T, all of its runs)
 LT_TILES = (128, 256, 512)
 LT_LIB_TILES = (128, 256)
@@ -505,6 +521,8 @@ LT_NORM_TILES = (128, 256)
 LT_MOE_TILE = 128
 LT_MOE_SLICES, LT_MOE_ROWS = 8, 256
 LT_W1_RATIO = 0.50
+LT_MMA_SYNC_TILES = (96, 48)
+LT_MMA_SYNC_DECODE_TILE = 32
 
 
 class SmokeFailure(RuntimeError):
@@ -570,20 +588,30 @@ def reset_counts():
     getnorm.mxu_launches = getnorm.quant_mxu_launches = 0
     spamm_mm.launches = spamm_mm.dense_launches = 0
     spamm_mm.bf16_launches = spamm_mm.int8_launches = 0
+    spamm_mm.bf16_mma_sync_launches = spamm_mm.int8_mma_sync_launches = 0
 
 
 def read_counts():
+    """Every kernel's launch count: the bf16 and int8 work-list wrappers'
+    split by family, "spamm_mm_worklist_bf16" / "_int8" the `wgmma`
+    kernels' and "..._mma_sync" the `mma.sync` kernels'."""
     from repro_torch.kernels import getnorm, spamm_mm
 
     return {"tile_norms": getnorm.launches,
             "spamm_mm_worklist": spamm_mm.launches,
-            "spamm_mm_worklist_bf16": spamm_mm.bf16_launches,
+            "spamm_mm_worklist_bf16": (spamm_mm.bf16_launches
+                                       - spamm_mm.bf16_mma_sync_launches),
             "pool_norms": getnorm.pool_launches,
             "spamm_mm": spamm_mm.dense_launches,
             "tile_norms_quant": getnorm.quant_launches,
-            "spamm_mm_worklist_int8": spamm_mm.int8_launches,
+            "spamm_mm_worklist_int8": (spamm_mm.int8_launches
+                                       - spamm_mm.int8_mma_sync_launches),
             "tile_norms_mxu": getnorm.mxu_launches,
-            "tile_norms_quant_mxu": getnorm.quant_mxu_launches}
+            "tile_norms_quant_mxu": getnorm.quant_mxu_launches,
+            "spamm_mm_worklist_bf16_mma_sync":
+                spamm_mm.bf16_mma_sync_launches,
+            "spamm_mm_worklist_int8_mma_sync":
+                spamm_mm.int8_mma_sync_launches}
 
 
 def host_ms(fn):
@@ -660,6 +688,19 @@ def worklist_work(work, tile, block_n, itemsize=4):
                           + tables)
 
 
+def kernel_name(geometry, dtype):
+    """The work-list kernel a launch of `geometry` ran at operand type
+    `dtype` ("float32", "bfloat16", "int8"): `wgmma` ones of
+    spamm_wgmma.cu by width, the others of spamm_mm.cu by sub-tile, slices
+    and whether the tile is walked in K-chunks."""
+    dt = {"float32": "f32", "bfloat16": "bf16", "int8": "int8"}[dtype]
+    if geometry["mma"] == "wgmma":
+        return f"spamm_worklist_{dt}_wgmma_kernel<{geometry['width']}>"
+    return (f"spamm_worklist_{dt}_kernel<{geometry['sub_tile']}, "
+            f"{geometry['column_slices']}, "
+            f"{str(geometry['row_bands'] > 1).lower()}>")
+
+
 def check_worklist(a, b, p, label):
     import torch
 
@@ -678,6 +719,7 @@ def check_worklist(a, b, p, label):
     bms, by = bound_ms(nbytes, flops)
     res = {
         "name": "spamm_mm_worklist", "shape": label,
+        "kernel": kernel_name(geometry, "float32"), "mma": geometry["mma"],
         "valid_fraction": float(p.valid_fraction), "acc_steps": n_acc,
         "steps": int(w.step_i.numel()), "runs": int(w.runs.numel() - 1),
         "geometry": geometry, "max_abs_err": abs_err, "max_rel_err": rel,
@@ -869,7 +911,7 @@ def lowp_median_tau(x, w, dtype, tile=TILE):
     return median_product_tau(na, nb) / ((1.0 - eps) ** 2 if eps < 1 else 1)
 
 
-def check_int8_frozen(x, w, label, block_n=1):
+def check_int8_frozen(x, w, label, block_n=1, tile=TILE):
     """The frozen int8 plan of `w` for x's row grid at `lowp_median_tau`:
     the int8 work-list kernel bit for bit against its plain
     version and within INT8_DEQ_RTOL of the f32 kernel on the dequantized
@@ -884,29 +926,29 @@ def check_int8_frozen(x, w, label, block_n=1):
     from repro_torch.kernels import quantize as Q
     from repro_torch.plans.frozen import FrozenWeight
 
-    tau = lowp_median_tau(x, w, "int8")
-    fw = FrozenWeight.build(w, tau, tile=TILE, block_n=block_n,
+    tau = lowp_median_tau(x, w, "int8", tile)
+    fw = FrozenWeight.build(w, tau, tile=tile, block_n=block_n,
                             backend="cuda", compute_dtype="int8")
-    frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // TILE))
+    frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // tile))
     vf = float(frozen.valid_fraction)
     check(0.0 < vf < 1.0, f"{label}: int8 frozen plan keeps all or nothing "
           f"({vf})")
     wk = frozen.work
-    a_q, a_s = Q.quantize_tiles(x, TILE, scales=frozen.a_scale)
-    b_q, b_s = Q.quantize_tiles(w, TILE, scales=frozen.b_scale)
+    a_q, a_s = Q.quantize_tiles(x, tile, scales=frozen.a_scale)
+    b_q, b_s = Q.quantize_tiles(w, tile, scales=frozen.b_scale)
     tables = (wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
     args = (a_q, b_q, a_s, b_s, *tables)
-    kw = {"tile": TILE, "block_n": block_n}
+    kw = {"tile": tile, "block_n": block_n}
     got = spamm_mm.spamm_mm_worklist_int8_cuda(*args, **kw)
     geometry = dict(spamm_mm.last_geometry)
     want = spamm_mm.spamm_mm_worklist_int8_plain(*args, **kw)
-    f32 = spamm_mm.spamm_mm_worklist_cuda(Q.dequantize_tiles(a_q, a_s, TILE),
-                                          Q.dequantize_tiles(b_q, b_s, TILE),
+    f32 = spamm_mm.spamm_mm_worklist_cuda(Q.dequantize_tiles(a_q, a_s, tile),
+                                          Q.dequantize_tiles(b_q, b_s, tile),
                                           *tables, **kw)
     torch.cuda.synchronize()
     same = torch.equal(got, want)
     abs_err, rel = errors(got, f32)
-    eager = P.plan(x, w, tau, tile=TILE, block_n=block_n, backend="cuda",
+    eager = P.plan(x, w, tau, tile=tile, block_n=block_n, backend="cuda",
                    compute_dtype="int8")
     same_fe = torch.equal(P.execute(frozen, x, w), P.execute(eager, x, w))
     emit({"frozen_equals_eager": {"shape": label, "dtype": "int8",
@@ -916,11 +958,12 @@ def check_int8_frozen(x, w, label, block_n=1):
     check(same and rel <= INT8_DEQ_RTOL and same_fe,
           f"spamm_mm_worklist_int8 {label}: plain bit-identical {same}, rel "
           f"err to f32 on dequantized {rel}, frozen ≡ eager {same_fe}")
-    flops, n_acc, nbytes = worklist_work(wk, TILE, block_n, itemsize=1)
+    flops, n_acc, nbytes = worklist_work(wk, tile, block_n, itemsize=1)
     nbytes += got.numel() * 4 + (a_s.numel() + b_s.numel()) * 4
     bms, by = bound_ms(nbytes, flops, PEAK_INT8_OP_S)
     b_cm = b_q.t().contiguous().t()
-    res = {"name": "spamm_mm_worklist_int8", "shape": label,
+    res = {"name": "spamm_mm_worklist_int8", "shape": label, "tile": tile,
+           "kernel": kernel_name(geometry, "int8"), "mma": geometry["mma"],
            "block_n": block_n, "valid_fraction": vf, "acc_steps": n_acc,
            "geometry": geometry,
            "max_abs_err": 0.0 if same else float((got - want).abs().max()),
@@ -945,7 +988,7 @@ def check_int8_frozen(x, w, label, block_n=1):
     return res
 
 
-def check_bf16_frozen(x, w, label):
+def check_bf16_frozen(x, w, label, tile=TILE):
     """The frozen bf16 plan of `w` at `lowp_median_tau`: the bf16
     work-list kernel (tensor cores) within MM_RTOL of the output's
     magnitude against the f32 kernel on the bf16-rounded operands and
@@ -957,27 +1000,27 @@ def check_bf16_frozen(x, w, label):
     from repro_torch.kernels import spamm_mm
     from repro_torch.plans.frozen import FrozenWeight
 
-    tau = lowp_median_tau(x, w, "bfloat16")
-    fw = FrozenWeight.build(w, tau, tile=TILE, backend="cuda",
+    tau = lowp_median_tau(x, w, "bfloat16", tile)
+    fw = FrozenWeight.build(w, tau, tile=tile, backend="cuda",
                             compute_dtype="bfloat16")
-    frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // TILE))
+    frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // tile))
     vf = float(frozen.valid_fraction)
     check(0.0 < vf < 1.0, f"{label}: bf16 frozen plan keeps all or nothing "
           f"({vf})")
     wk = frozen.work
     xb, wb = x.bfloat16(), w.bfloat16()
     tables = (wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
-    got = spamm_mm.spamm_mm_worklist_cuda(xb, wb, *tables, tile=TILE)
+    got = spamm_mm.spamm_mm_worklist_cuda(xb, wb, *tables, tile=tile)
     geometry = dict(spamm_mm.last_geometry)
-    again = spamm_mm.spamm_mm_worklist_cuda(xb, wb, *tables, tile=TILE)
+    again = spamm_mm.spamm_mm_worklist_cuda(xb, wb, *tables, tile=tile)
     f32 = spamm_mm.spamm_mm_worklist_cuda(xb.float(), wb.float(), *tables,
-                                          tile=TILE)
-    want = spamm_mm.spamm_mm_worklist_plain(xb, wb, *tables, tile=TILE)
+                                          tile=tile)
+    want = spamm_mm.spamm_mm_worklist_plain(xb, wb, *tables, tile=tile)
     torch.cuda.synchronize()
     deterministic = torch.equal(got, again)
     abs_err, rel = errors(got, want)
     abs32, rel32 = errors(got, f32)
-    eager = P.plan(x, w, tau, tile=TILE, backend="cuda",
+    eager = P.plan(x, w, tau, tile=tile, backend="cuda",
                    compute_dtype="bfloat16")
     same_fe = torch.equal(P.execute(frozen, x, w), P.execute(eager, x, w))
     emit({"frozen_equals_eager": {"shape": label, "dtype": "bfloat16",
@@ -988,19 +1031,24 @@ def check_bf16_frozen(x, w, label):
           f"spamm_mm_worklist bf16 {label}: rel err to plain {rel}, to f32 "
           f"on rounded {rel32}, deterministic {deterministic}, frozen ≡ "
           f"eager {same_fe}")
-    flops, n_acc, nbytes = worklist_work(wk, TILE, 1, itemsize=2)
+    flops, n_acc, nbytes = worklist_work(wk, tile, 1, itemsize=2)
     nbytes += got.numel() * 4
     bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_S)
-    res = {"name": "spamm_mm_worklist_bf16", "shape": label,
+    res = {"name": "spamm_mm_worklist_bf16", "shape": label, "tile": tile,
+           "kernel": kernel_name(geometry, "bfloat16"),
+           "mma": geometry["mma"],
            "valid_fraction": vf, "acc_steps": n_acc, "geometry": geometry,
            "max_abs_err": abs_err, "max_rel_err": rel,
            "max_abs_err_vs_f32_on_rounded": abs32,
            "max_rel_err_vs_f32_on_rounded": rel32,
            "tolerance_rel": MM_RTOL, "deterministic": deterministic,
            "ms": time_ms(lambda: spamm_mm.spamm_mm_worklist_cuda(
-               xb, wb, *tables, tile=TILE)),
+               xb, wb, *tables, tile=tile)),
+           "ms_back_to_back": time_ms_back_to_back(
+               lambda: spamm_mm.spamm_mm_worklist_cuda(xb, wb, *tables,
+                                                       tile=tile)),
            "plain_ms": time_ms(lambda: spamm_mm.spamm_mm_worklist_plain(
-               xb, wb, *tables, tile=TILE), reps=3, warmup=1),
+               xb, wb, *tables, tile=tile), reps=3, warmup=1),
            "library_ms": time_ms(lambda: torch.matmul(xb, wb)),
            "library_call": "torch.matmul on the bf16 operands (dense, bf16 "
                            "out)",
@@ -1010,27 +1058,47 @@ def check_bf16_frozen(x, w, label):
 
 
 def int8_sass():
-    """Opcode counts of the int8 work-list kernels in the built library's
-    SASS (`cuobjdump -sass`): they must run on the tensor cores (IMMA) and
-    hold no CUDA-core dot (IDP4A)."""
+    """Opcode counts of the tensor-core work-list kernels in the built
+    libraries' SASS (`cuobjdump -sass`): the `wgmma` kernels of
+    spamm_wgmma.cu (tiles that are multiples of 64) must run the int8
+    product on IGMMA and the bf16 one on HGMMA, the `mma.sync` kernels of
+    spamm_mm.cu (tiles walked with a sub-tile of 16 or 32) the int8 one on
+    IMMA and the bf16 one on HMMA, and neither library may hold a
+    CUDA-core dot (IDP4A)."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(build.library_path(
-        "spamm_mm.cu"))], capture_output=True, text=True, check=True).stdout
-    lines = sass.splitlines()
-    counts, fn = {"functions": 0, "IMMA": 0}, ""
-    for line in lines:
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts["functions"] += "spamm_worklist_int8_kernel" in fn
-        elif "spamm_worklist_int8_kernel" in fn:
-            counts["IMMA"] += " IMMA." in line or " IMMA " in line
-    counts["IDP4A_in_library"] = sum(" IDP4A" in ln for ln in lines)
+    rows = {"wgmma_int8": ("spamm_wgmma.cu",
+                           "spamm_worklist_int8_wgmma_kernel", "IGMMA"),
+            "wgmma_bf16": ("spamm_wgmma.cu",
+                           "spamm_worklist_bf16_wgmma_kernel", "HGMMA"),
+            "mma_sync_int8": ("spamm_mm.cu", "spamm_worklist_int8_kernel",
+                              "IMMA"),
+            "mma_sync_bf16": ("spamm_mm.cu", "spamm_worklist_bf16_kernel",
+                              "HMMA")}
+    counts, idp4a = {}, 0
+    for source in ("spamm_wgmma.cu", "spamm_mm.cu"):
+        lines = subprocess.run(
+            [tool, "-sass", str(build.library_path(source))],
+            capture_output=True, text=True, check=True).stdout.splitlines()
+        idp4a += sum(" IDP4A" in ln for ln in lines)
+        for row, (src, kernel, op) in rows.items():
+            if src != source:
+                continue
+            c, fn = {"functions": 0, op: 0}, ""
+            for line in lines:
+                if "Function :" in line:
+                    fn = line.split("Function :")[1].strip()
+                    c["functions"] += kernel in fn
+                elif kernel in fn:
+                    c[op] += f" {op}." in line or f" {op} " in line
+            counts[row] = c
+    counts["IDP4A_in_libraries"] = idp4a
     emit({"int8_sass": counts})
-    check(counts["functions"] > 0 and counts["IMMA"] > 0
-          and counts["IDP4A_in_library"] == 0,
-          f"int8 work-list SASS: {counts}")
+    check(all(c["functions"] > 0 and c[op] > 0
+              for row, (_, _, op) in rows.items()
+              for c in [counts[row]]) and idp4a == 0,
+          f"tensor-core work-list SASS: {counts}")
     return counts
 
 
@@ -1696,9 +1764,9 @@ def profile_wave(label, eng, prompts):
           "frozen_gate_ops_ms": gate_ms,
           "tile_norms_ms": share("tile_norms_f32_kernel"),
           "spamm_mm_worklist_ms": share("spamm_worklist_f32_kernel"),
-          "spamm_mm_worklist_bf16_ms": share("spamm_worklist_bf16_kernel"),
+          "spamm_mm_worklist_bf16_ms": share("spamm_worklist_bf16_"),
           "tile_norms_quant_ms": share("tile_norms_quant_f32_kernel"),
-          "spamm_mm_worklist_int8_ms": share("spamm_worklist_int8_kernel"),
+          "spamm_mm_worklist_int8_ms": share("spamm_worklist_int8_"),
           "quantize_tiles_ms": (None if graphed
                                 else inclusive("chip_smoke::quantize_tiles")),
           "to_copy_ms": None if graphed else inclusive("aten::_to_copy"),
@@ -5895,9 +5963,11 @@ def phase_library():
                            "launches": counts,
                            "eager_pool_launches":
                                out["eager"]["pool_launches"]}})
-    # the fused int8 get-norm's tensor-core variant runs on the store path
+    # the fused int8 get-norm's tensor-core variant runs on the store path,
+    # the `mma.sync` work-list kernels on the large_tiles phase's
     check(all(v > 0 for k, v in counts.items()
-              if k != "tile_norms_quant_mxu"), f"library launches {counts}")
+              if k != "tile_norms_quant_mxu" and not k.endswith("_mma_sync")),
+          f"library launches {counts}")
 
     check_mxu_library(out["paper"][LIB_RATIOS[0]]["info"], out["mxu"])
     del out["mxu"]
@@ -6227,7 +6297,9 @@ def check_lt_w1(x, w1, taus, runs):
             res = {"name": {"float32": "spamm_mm_worklist",
                             "bfloat16": "spamm_mm_worklist_bf16",
                             "int8": "spamm_mm_worklist_int8"}[dtype],
-                   "shape": label, "tile": t, "acc_steps": n_acc,
+                   "shape": label, "tile": t,
+                   "kernel": kernel_name(geometry, dtype),
+                   "mma": geometry["mma"], "acc_steps": n_acc,
                    "geometry": geometry, **res,
                    "frozen_equals_eager": same_fe,
                    "frozen_valid_fraction": vf_frozen,
@@ -6251,13 +6323,71 @@ def check_lt_w1(x, w1, taus, runs):
     return out
 
 
+def lt_mma_sync_cases(x, w1, w2, gen):
+    """(label, activation, weight, tile) of (l5): the prefill activation
+    zero-padded to each of LT_MMA_SYNC_TILES against w1, a decode step's
+    activation (BATCH real rows of one row tile) against w2 at
+    LT_MMA_SYNC_DECODE_TILE."""
+    import torch
+
+    from repro_torch.core import plan as P
+
+    d, ff = w1.shape
+    out = []
+    for t in LT_MMA_SYNC_TILES:
+        xp = P.pad_to_tile(x, t).contiguous()
+        out.append((f"frozen w1 {xp.shape[0]}({x.shape[0]})x{d}x{ff} tile "
+                    f"{t}", xp, w1, t))
+    t = LT_MMA_SYNC_DECODE_TILE
+    xd = torch.zeros(t, ff, device=DEV)
+    xd[:BATCH] = torch.randn(BATCH, ff, generator=gen, device=DEV)
+    out.append((f"frozen w2 decode {t}({BATCH})x{ff}x{d} tile {t}", xd, w2,
+                t))
+    return out
+
+
+def lt_mma_sync_main(cases, taus):
+    """(l5) as the serving path runs a gated weight: freeze each case's
+    weight at its tile at bf16 and int8, plan its activation against it,
+    execute."""
+    from repro_torch.core import plan as P
+    from repro_torch.plans.frozen import FrozenWeight
+
+    for label, xa, w, t in cases:
+        for dtype in LOWP_DTYPES:
+            fw = FrozenWeight.build(w, taus[(label, dtype)], tile=t,
+                                    compute_dtype=dtype)
+            frozen = P.plan(xa, frozen_weight=fw.for_rows(xa.shape[0] // t))
+            P.execute(frozen, xa, w)
+
+
+def check_lt_mma_sync(cases):
+    """(l5): each case at int8 (`check_int8_frozen`: ≡ plain bit for bit)
+    and bf16 (`check_bf16_frozen`: within MM_RTOL, deterministic), frozen ≡
+    eager, on the `mma.sync` kernels; the decode case at 2 column slices.
+    Returns the kernel_check results by kernel name."""
+    out = {}
+    for label, xa, w, t in cases:
+        for name, res in (
+                ("spamm_mm_worklist_int8_mma_sync",
+                 check_int8_frozen(xa, w, label, tile=t)),
+                ("spamm_mm_worklist_bf16_mma_sync",
+                 check_bf16_frozen(xa, w, label, tile=t))):
+            geo = res["geometry"]
+            check(geo["mma"] == "mma.sync" and (
+                t != LT_MMA_SYNC_DECODE_TILE or geo["column_slices"] == 2),
+                f"large tiles {label}: {name} ran {geo}")
+            out.setdefault(name, []).append(res)
+    return out
+
+
 def phase_large_tiles():
     """The gated GEMMs at the reference's large tiles (LT_* above):
     operands made on the card, the main path ((l1) spamm() at each tile and
     dtype and a levels plan, (l2) frozen w1 at each tile and dtype and the
-    use_mxu freezes, (l4) spamm_bmm) driven once with every count at 0 just
-    before and read just after, then the checks and timings, (l3) the
-    get-norm kernels at LT_NORM_TILES among them. Returns (counts, the
+    use_mxu freezes, (l4) spamm_bmm, (l5) the `mma.sync` tiles) driven once
+    with every count at 0 just before and read just after, then the checks
+    and timings, (l3) the get-norm kernels at LT_NORM_TILES among them. Returns (counts, the
     kernel_check results by kernel name)."""
     import torch
 
@@ -6273,18 +6403,23 @@ def phase_large_tiles():
     d, ff = cfg.d_model, cfg.d_ff
     w1 = torch.randn(d, ff, generator=gen, device=DEV).mul_(d ** -0.5)
     x = torch.randn(BATCH * PROMPT_LEN, d, generator=gen, device=DEV)
+    w2 = torch.randn(ff, d, generator=gen, device=DEV).mul_(ff ** -0.5)
+    mma_sync = lt_mma_sync_cases(x, w1, w2, gen)
     gen_m = torch.Generator(device=DEV).manual_seed(SEED)
     xm = torch.randn(LT_MOE_SLICES, LT_MOE_ROWS, MOE_D, generator=gen_m,
                      device=DEV)
     wm = torch.randn(LT_MOE_SLICES, MOE_D, MOE_FF, generator=gen_m,
                      device=DEV).mul_(MOE_D ** -0.5)
     taus = lt_w1_taus(x, w1)
+    taus_ms = {(label, dt): lowp_median_tau(xa, w, dt, t)
+               for label, xa, w, t in mma_sync for dt in LOWP_DTYPES}
     tau_m = batched_median_tau(slice_norms(xm, LT_MOE_TILE),
                                slice_norms(wm, LT_MOE_TILE))
     torch.cuda.synchronize()
     emit({"large_tiles_setup": {
         "seconds": time.perf_counter() - t_phase,
         "w1_taus": {f"{t} {dt}": v for (t, dt), v in taus.items()},
+        "mma_sync_taus": {f"{k} {dt}": v for (k, dt), v in taus_ms.items()},
         "moe_tau": tau_m}})
 
     reset_counts()
@@ -6292,6 +6427,7 @@ def phase_large_tiles():
     lib = lt_library_main(a, b)
     w1_runs = lt_w1_main(x, w1, taus)
     c_m, info_m = P.spamm_bmm(xm, wm, tau_m, tile=LT_MOE_TILE)
+    lt_mma_sync_main(mma_sync, taus_ms)
     torch.cuda.synchronize()
     counts = read_counts()
     emit({"large_tiles_path": {"seconds": time.perf_counter() - t0,
@@ -6306,6 +6442,9 @@ def phase_large_tiles():
     for (t, dtype), res in check_lt_w1(x, w1, taus, w1_runs).items():
         results.setdefault(res["name"], []).append(res)
     del w1_runs
+    torch.cuda.empty_cache()
+    results.update(check_lt_mma_sync(mma_sync))
+    del mma_sync, w2
     torch.cuda.empty_cache()
     for t in LT_NORM_TILES:
         for m, label in ((w1, f"w1 {d}x{ff}"),
@@ -6405,6 +6544,9 @@ def main():
     chunked_path = "serve: starcoder2-7b chunked plane, run (f)"
     int8_path = "serve: starcoder2-7b wave, run (d) int8"
     bf16_path = "serve: starcoder2-7b wave, run (e) bf16"
+    mma_sync_path = (f"large_tiles (l5): {ARCH} w1 frozen at tiles "
+                     f"{', '.join(map(str, LT_MMA_SYNC_TILES))} (prefill), "
+                     f"w2 at {LT_MMA_SYNC_DECODE_TILE} (decode)")
     lib_path = "library: (a) paper ensemble, (b) moe spamm_bmm, (d) eager"
     moe_path = (f"serve: {MOE_ARCH} wave, derived τ > 0, moe_bmm "
                 f"(one prefill, {MAX_NEW - 1} graphed decode steps)")
@@ -6435,7 +6577,8 @@ def main():
     def large_tile_path(name):
         """A kernel's launches on the large_tiles phase's main path and its
         kernel_check numbers there, one entry per tile and shape."""
-        lt_keys = keys + ("tile", "ms_back_to_back", "valid_fraction")
+        lt_keys = keys + ("tile", "ms_back_to_back", "valid_fraction",
+                          "kernel", "mma")
         return {"large_tile_launches": lt_counts[name],
                 "large_tiles": [{k: r[k] for k in lt_keys if k in r}
                                 for r in lt.get(name, [])]}
@@ -6493,10 +6636,16 @@ def main():
          **large_tile_path("spamm_mm_worklist_bf16"),
          "multi_launches": multi_path("spamm_mm_worklist_bf16"),
          **dryrun_path("spamm_mm_worklist_bf16"),
-         "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
+         "source": "src/repro_torch/kernels/csrc/spamm_wgmma.cu",
+         "kernel": lowp["bf16"]["kernel"], "mma": lowp["bf16"]["mma"],
+         "mma_sync_source": "src/repro_torch/kernels/csrc/spamm_mm.cu "
+                            "(tiles walked with a sub-tile of 16 or 32)",
          "replaces": "src/repro/kernels/spamm_mm.py:203",
          "launches": lowp_counts["bfloat16"]["spamm_mm_worklist_bf16"],
-         "path": bf16_path, **{k: lowp["bf16"][k] for k in keys}},
+         "path": bf16_path,
+         "ms_back_to_back": lowp["bf16"]["ms_back_to_back"],
+         "geometry": lowp["bf16"]["geometry"],
+         **{k: lowp["bf16"][k] for k in keys}},
         {"name": "pool_norms", "route": "cuda",
          **large_tile_path("pool_norms"),
          "multi_launches": multi_path("pool_norms"),
@@ -6526,7 +6675,10 @@ def main():
         {"name": "spamm_mm_worklist_int8", "route": "cuda",
          **large_tile_path("spamm_mm_worklist_int8"),
          "multi_launches": multi_path("spamm_mm_worklist_int8"),
-         "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
+         "source": "src/repro_torch/kernels/csrc/spamm_wgmma.cu",
+         "kernel": lowp["int8"]["kernel"], "mma": lowp["int8"]["mma"],
+         "mma_sync_source": "src/repro_torch/kernels/csrc/spamm_mm.cu "
+                            "(tiles walked with a sub-tile of 16 or 32)",
          "replaces": "src/repro/kernels/spamm_mm.py:322",
          "launches": lowp_counts["int8"]["spamm_mm_worklist_int8"],
          "path": int8_path, "library_call": lowp["int8"]["library_call"],
@@ -6534,6 +6686,19 @@ def main():
          "ms_back_to_back": lowp["int8"]["ms_back_to_back"],
          "geometry": lowp["int8"]["geometry"],
          **{k: lowp["int8"][k] for k in keys}},
+        *({"name": name, "route": "cuda", **large_tile_path(name),
+           "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
+           "kernel": lt[name][0]["kernel"], "mma": "mma.sync",
+           "replaces": replaces, "launches": lt_counts[name],
+           "path": mma_sync_path,
+           "ms_back_to_back": lt[name][0]["ms_back_to_back"],
+           "geometry": lt[name][0]["geometry"],
+           **{k: lt[name][0][k] for k in keys}}
+          for name, replaces in (
+              ("spamm_mm_worklist_bf16_mma_sync",
+               "src/repro/kernels/spamm_mm.py:203"),
+              ("spamm_mm_worklist_int8_mma_sync",
+               "src/repro/kernels/spamm_mm.py:322"))),
         {"name": "tile_norms_mxu", "route": "cuda",
          **large_tile_path("tile_norms_mxu"),
          "multi_launches": multi_path("tile_norms_mxu"),

@@ -4,8 +4,9 @@ Each `csrc/*.cu` file is compiled by its own `nvcc` process into a shared
 library with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`,
 Hopper), and loaded with `ctypes`. All compiles start together, so the build
 takes as long as the slowest file. Libraries are named by a hash of their
-source and flags and cached under `kernels/_build/` (listed in .gitignore):
-a changed source rebuilds, an unchanged one loads. Nothing is built at
+source, the headers of `csrc/` (`*.cuh`, which the sources include) and the
+flags, and cached under `kernels/_build/` (listed in .gitignore): a changed
+source or header rebuilds, an unchanged one loads. Nothing is built at
 import time — the first kernel call (or `build_all()`) triggers the build.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("getnorm.cu", "spamm_mm.cu")
+SOURCES = ("getnorm.cu", "spamm_mm.cu", "spamm_wgmma.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,9 +44,19 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+    """The library of `source`, named by a hash of the source, every header
+    of csrc/ and the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(source: Path, out: Path) -> list:
+    """The compile of `source` (a csrc/ file or a variant of one elsewhere)
+    into the shared library `out`; csrc/ is on the include path."""
+    return [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(source)]
 
 
 def build_all() -> dict:
@@ -61,7 +72,7 @@ def build_all() -> dict:
             report[source] = {"seconds": 0.0, "cached": True, "ptxas": ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        cmd = nvcc_command(CSRC / source, tmp)
         procs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True),
                          tmp, out, time.perf_counter())

@@ -39,7 +39,10 @@
 // function `column_slices` in kernels/spamm_mm.py.
 //
 // Tiles: every multiple of 16 up to kMaxTile (512), as the reference's
-// kernels take any tile that divides the operands. The tile products are
+// kernels take any tile that divides the operands; at bf16 and int8, the
+// tiles that are multiples of 64 run the `wgmma` kernels of
+// spamm_wgmma.cu instead, so here those two take the tiles walked with a
+// sub-tile of 16 or 32 (SPAMM_DISPATCH_MMA). The tile products are
 // built for a sub-tile SUB of 16, 32 or 64 (the largest that divides the
 // tile T). At T = SUB (tiles 16, 32, 64) a block owns a whole output block,
 // as above. At T > SUB the work-list (or valid-k list) stays the planner's
@@ -69,19 +72,20 @@
 // Bound: 2·t³ operations per ACC step at the 67 TFLOP/s f32 peak of the
 // CUDA cores, or (decode) the A and B tile bytes.
 //
-// bf16: tensor cores, mma.sync.aligned.m16n8k16 bf16 × bf16 → f32. Warp w
-// owns rows 16w .. 16w+15 of the output block and all W columns (W/8
-// m16n8 accumulators in registers, f32); A fragments come from the
-// row-major A tile by ldmatrix.x4, B fragments from the row-major (k, n)
-// B tile by ldmatrix.x4.trans. Tile rows are padded by 16 bytes so the 8
-// row addresses of an ldmatrix hit 8 distinct bank groups. The tensor core
-// adds the products of one k16 slice in its own order, so the bf16 kernel
-// is NOT bit-identical to the f32 kernel on the bf16-rounded operands: it
-// agrees within 1e-4 of the output's largest magnitude (the port's
-// contract; a product of two bf16 values is exact in f32, only the order
-// of the additions differs). It is deterministic, and frozen ≡ eager bit
-// for bit (same kernel, same steps). Bound: the bf16 tensor-core peak (989
-// TFLOP/s) or, at serving shapes, the bf16 operand bytes.
+// bf16 (sub-tiles 16 and 32): tensor cores, mma.sync.aligned.m16n8k16
+// bf16 × bf16 → f32. Warp w owns rows 16w .. 16w+15 of the output block
+// and all W columns (W/8 m16n8 accumulators in registers, f32); A
+// fragments come from the row-major A tile by ldmatrix.x4, B fragments
+// from the row-major (k, n) B tile by ldmatrix.x4.trans. Tile rows are
+// padded by 16 bytes so the 8 row addresses of an ldmatrix hit 8 distinct
+// bank groups. The tensor core adds the products of one k16 slice in its
+// own order, so the bf16 kernel is NOT bit-identical to the f32 kernel on
+// the bf16-rounded operands: it agrees within 1e-4 of the output's
+// largest magnitude (the port's contract; a product of two bf16 values is
+// exact in f32, only the order of the additions differs). It is
+// deterministic, and frozen ≡ eager bit for bit (same kernel, same steps).
+// Bound: the bf16 tensor-core peak (989 TFLOP/s) or, at serving shapes,
+// the bf16 operand bytes.
 //
 // The dense-grid kernel replaces the Pallas TPU kernel
 // src/repro/kernels/spamm_mm.py::spamm_mm (_spamm_mm_kernel), which walks
@@ -113,8 +117,9 @@
 // each ACC step first transposes it once, shared to shared, into a (W × t)
 // buffer (4 × 4 byte blocks, 4 word loads, 8 prmt, 4 word stores; rows
 // XOR-swizzled so the stores spread over the banks and each ldmatrix hits
-// 8 distinct bank groups); a later wgmma s8 design needs the same K-major
-// layout. Gathering each lane's B bytes straight from the landed tile
+// 8 distinct bank groups); the `wgmma` s8 kernel of spamm_wgmma.cu (tiles
+// that are multiples of 64) transposes into a K-major layout the same
+// way. Gathering each lane's B bytes straight from the landed tile
 // instead (byte loads, no transpose) was slower at every serving shape:
 // every warp reads all of B, a byte at a time. Each ACC step starts
 // its s32 fragments afresh (its scales are its own), carries them across
@@ -127,13 +132,17 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "worklist.cuh"
+
 namespace {
 
-constexpr int kInit = 1;
-constexpr int kAcc = 2;
-constexpr int kFlush = 4;
-// entries of a block's shared-memory step list (int4 each: k, i, j, flags)
-constexpr int kListCap = 256;
+using spamm::fill_worklist;
+using spamm::kAcc;
+using spamm::kFlush;
+using spamm::kInit;
+using spamm::kListCap;
+using spamm::smem_addr;
+
 // ring depth of the pipelined tile products
 constexpr int kStagesF32 = 2;
 constexpr int kStagesBf16 = 3;
@@ -149,10 +158,6 @@ constexpr int kMaxTile = 512;
 inline int sub_tile(int tile) {
   if (tile < 16 || tile > kMaxTile || tile % 16) return 0;
   return tile % 64 == 0 ? 64 : tile % 32 == 0 ? 32 : 16;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -599,44 +604,6 @@ struct Int8Product {
 // Step lists and the pipelined walk, shared by every kernel above.
 // ---------------------------------------------------------------------------
 
-// Appends the flagged steps of [base, s1) to `list` (entries: k, i, j,
-// flags), in table order, in rounds of NT steps while a whole round still
-// fits; advances `base` past the steps read. Returns the entry count.
-template <int NT>
-__device__ int fill_worklist(int4* list, int* wsum, const int* step_i,
-                             const int* step_j, const int* step_k,
-                             const int* step_flags, int& base, int s1) {
-  const int ln = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  int cnt = 0;
-  while (base < s1 && cnt + NT <= kListCap) {
-    const int s = base + threadIdx.x;
-    int f = 0, kk = 0, ii = 0, jj = 0;
-    if (s < s1) {
-      f = step_flags[s];
-      kk = step_k[s];
-      ii = step_i[s];
-      jj = step_j[s];
-    }
-    const unsigned bal = __ballot_sync(0xffffffffu, f != 0);
-    if (ln == 0) wsum[warp] = __popc(bal);
-    __syncthreads();
-    int off = cnt, total = 0;
-#pragma unroll
-    for (int w = 0; w < NT / 32; ++w) {
-      const int c = wsum[w];
-      total += c;
-      if (w < warp) off += c;
-    }
-    if (f != 0)
-      list[off + __popc(bal & ((1u << ln) - 1u))] = make_int4(kk, ii, jj, f);
-    cnt += total;
-    base += NT;
-    __syncthreads();  // list complete; wsum free for the next round
-  }
-  return cnt;
-}
-
 // The walk's tile: T = `tile` for a chunked (CH) kernel, else P's own
 // tile, a compile-time constant (tiles 16, 32 and 64 keep their kernels).
 template <class P, bool CH>
@@ -952,6 +919,19 @@ int dense_f32(const float* a, const float* b, const int* kidx,
     return static_cast<int>(cudaErrorInvalidValue);                        \
   } while (0)
 
+// The same for the mma.sync tensor-core kernels (bf16, int8), which take
+// the tiles walked with a sub-tile of 16 or 32: a tile that is a multiple
+// of 64 is the wgmma kernels' (spamm_wgmma.cu) and returns
+// cudaErrorInvalidValue here without launching.
+#define SPAMM_DISPATCH_MMA(F, tile, slices, ...)                           \
+  do {                                                                     \
+    const int sub_ = sub_tile(tile);                                       \
+    if (sub_ == 16 && (slices) == 1) return F<16, 1>(__VA_ARGS__);         \
+    if (sub_ == 32 && (slices) == 1) return F<32, 1>(__VA_ARGS__);         \
+    if (sub_ == 32 && (slices) == 2) return F<32, 2>(__VA_ARGS__);         \
+    return static_cast<int>(cudaErrorInvalidValue);                        \
+  } while (0)
+
 }  // namespace
 
 // Ring depth of the pipelined kernels: f32 (dtype 0), bf16 (1), int8 (2).
@@ -990,9 +970,9 @@ extern "C" int spamm_mm_worklist_bf16(const __nv_bfloat16* a,
                                       int n, int tile, int block_n,
                                       int slices, void* stream) {
   (void)m;
-  SPAMM_DISPATCH(worklist_bf16, tile, slices, a, b, step_i, step_j, step_k,
-                 step_flags, runs, num_runs, out, k, n, tile, block_n,
-                 static_cast<cudaStream_t>(stream));
+  SPAMM_DISPATCH_MMA(worklist_bf16, tile, slices, a, b, step_i, step_j,
+                     step_k, step_flags, runs, num_runs, out, k, n, tile,
+                     block_n, static_cast<cudaStream_t>(stream));
 }
 
 // a: (m, k), b: (k, n) row-major int8 codes, 16-byte aligned; a_scale:
@@ -1010,9 +990,9 @@ extern "C" int spamm_mm_worklist_int8(const signed char* a,
                                       int n, int tile, int block_n,
                                       int slices, void* stream) {
   (void)m;
-  SPAMM_DISPATCH(worklist_int8, tile, slices, a, b, a_scale, b_scale, step_i,
-                 step_j, step_k, step_flags, runs, num_runs, out, k, n, tile,
-                 block_n, static_cast<cudaStream_t>(stream));
+  SPAMM_DISPATCH_MMA(worklist_int8, tile, slices, a, b, a_scale, b_scale,
+                     step_i, step_j, step_k, step_flags, runs, num_runs, out,
+                     k, n, tile, block_n, static_cast<cudaStream_t>(stream));
 }
 
 // a: (batch, m, k), b: (batch, k, n) row-major float32, 16-byte aligned;

@@ -28,13 +28,21 @@ bf16-rounded operands, and with its plain version, within 1e-4 of the
 output's largest magnitude (the products are exact in f32 in all three;
 only the order of the additions differs), and is deterministic.
 
+Tensor-core families (`mma_family`): bf16 and int8 at a tile that is a
+multiple of 64 run the Hopper kernels of `csrc/spamm_wgmma.cu` (`wgmma`
+fed by TMA copies into an mbarrier ring: one producer warp, one consumer
+warpgroup per block, a block owning a 64-row band and up to
+WGMMA_MAX_WIDTH columns); at tiles walked with a sub-tile of 16 or 32 they
+run the `mma.sync` kernels of `csrc/spamm_mm.cu`. f32 always runs on the
+CUDA cores ("fma"). A CUDA call launches its family's kernel or raises.
+
 Int8 work-list: twin of `repro.kernels.spamm_mm.spamm_mm_worklist_int8`.
 Per-tile int8 codes a_q (M, K) and b_q (K, N), f32 scales a_scale (gm, gk)
 and b_scale (gk, gn) per FINE tile (block_n > 1 reads one scale per column
 group), the same step tables: an ACC step adds (f32(int32 tile dot) ·
 a_scale[i, k]) · b_scale[k, fine j]. Entry points
-`spamm_mm_worklist_int8_plain`, `_cuda` (the tensor-core kernel:
-`mma.sync` s8 × s8 → s32 on the work-list pipeline) and
+`spamm_mm_worklist_int8_plain`, `_cuda` (the tensor-core kernels: `wgmma`
+or `mma.sync` s8 × s8 → s32, by `mma_family`) and
 `spamm_mm_worklist_int8`; the kernel ≡ the plain version bit for bit (the
 integer tile dot is exact in both).
 
@@ -72,18 +80,23 @@ run (dense-grid: per output block) × R row bands × block_n column groups ×
 R column sub-blocks × `slices` column slices. `column_slices` is the rule:
 a decode step's few runs are split into up to 4 slices of at least 16
 columns until the launch has two blocks per SM; each slice walks the same
-steps over its columns, so the per-element order does not change. Every
-operand pointer the kernels read with 16-byte copies must be 16-byte
-aligned (the wrappers raise otherwise). `last_geometry` holds the geometry
-of the latest launch.
+steps over its columns, so the per-element order does not change. The
+`wgmma` kernels: T/64 row bands × block_n column groups × T/base column
+pieces × slices, base the widest power of two dividing T up to
+WGMMA_MAX_WIDTH (or the wrapper's `max_width`), a block's width base /
+slices. Every operand pointer the kernels read with 16-byte copies or TMA
+must be 16-byte aligned (the wrappers raise otherwise). `last_geometry` holds the geometry of the
+latest launch, its family under "mma".
 
-Launch counts, one per kernel: `launches` (f32 work-list),
-`bf16_launches` (bf16 work-list), `int8_launches` (int8 work-list),
-`dense_launches` (dense-grid).
+Launch counts: `launches` (f32 work-list), `bf16_launches` (bf16
+work-list, either family), `int8_launches` (int8 work-list, either
+family), `dense_launches` (dense-grid); of these, the `mma.sync` kernels'
+own launches in `bf16_mma_sync_launches` and `int8_mma_sync_launches`.
 """
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -105,14 +118,26 @@ PIPELINE_STAGES = {torch.float32: 2, torch.bfloat16: 3, torch.int8: 4}
 # threads of an f32 block that holds at least this many float4 outputs (the
 # kernel's kThreadsF32)
 F32_THREADS = 128
+# the wgmma kernels (csrc/spamm_wgmma.cu, kStagesWgmma, kThreads,
+# kMaxWidthBf16 / kMaxWidthInt8): ring depth, threads of a block (one
+# consumer warpgroup and one producer warp), the widest column range of a
+# block, and the rows of a band (wgmma's M, the depth of a K-chunk)
+WGMMA_STAGES = 4
+WGMMA_THREADS = 160
+WGMMA_MAX_WIDTH = types.MappingProxyType({torch.bfloat16: 256,
+                                          torch.int8: 64})
+WGMMA_BAND = 64
 
 launches = 0
 bf16_launches = 0
 int8_launches = 0
 dense_launches = 0
+bf16_mma_sync_launches = 0
+int8_mma_sync_launches = 0
 last_geometry: dict = {}
 
 _LIB = None
+_WGMMA_LIB = None
 _SMS: dict = {}
 
 
@@ -137,6 +162,23 @@ def _lib():
         lib.spamm_mm_stages.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _wgmma_lib():
+    global _WGMMA_LIB
+    if _WGMMA_LIB is None:
+        lib = build.load("spamm_wgmma.cu")
+        lib.spamm_wgmma_worklist_bf16.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.spamm_wgmma_worklist_int8.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        for fn in (lib.spamm_wgmma_worklist_bf16,
+                   lib.spamm_wgmma_worklist_int8):
+            fn.restype = ctypes.c_int
+        _WGMMA_LIB = lib
+    return _WGMMA_LIB
 
 
 def sub_tile(tile: int) -> int:
@@ -165,34 +207,86 @@ def column_slices(num_blocks: int, tile: int, num_sms: int) -> int:
     return slices
 
 
+def mma_family(tile: int, dtype: torch.dtype) -> str:
+    """The instructions of the kernel that serves `tile` at operand type
+    `dtype`: "wgmma" (csrc/spamm_wgmma.cu) for bf16 and int8 at a tile that
+    is a multiple of 64, "mma.sync" (csrc/spamm_mm.cu) for bf16 and int8 at
+    a tile walked with a sub-tile of 16 or 32, "fma" (the CUDA cores) for
+    f32. Raises ValueError for a tile the kernels do not take."""
+    sub = sub_tile(tile)
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma" if sub == WGMMA_BAND else "mma.sync"
+
+
 def launch_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
-                    num_sms: int) -> dict:
+                    num_sms: int, max_width: int | None = None) -> dict:
     """The launch of a work-list (f32, bf16 or int8) or dense-grid kernel
     over `num_blocks` (output block, column group) pairs at `tile`: its
-    sub-tile (`sub_tile`), the R = tile/sub_tile row bands and column
-    sub-blocks of each output block (1 at tiles 16, 32, 64), the column
-    slices of a sub-tile-wide block (`column_slices` over the num_blocks·R²
-    blocks), thread blocks, threads per block, ring stages and the ring's
+    instruction family (`mma_family`), sub-tile (`sub_tile`), the R =
+    tile/sub_tile row bands and column sub-blocks of each output block (1
+    at tiles 16, 32, 64), the column slices of a sub-tile-wide block
+    (`column_slices` over the num_blocks·R² blocks), a block's width,
+    thread blocks, threads per block, ring stages and the block's dynamic
     shared memory. f32: width/4 threads along a row, each owning one float4
     of columns in as many rows as keep 128 threads (64 at sub-tile 16);
-    bf16 and int8 (tensor cores): one warp per 16 rows of the sub-tile."""
+    bf16 and int8 on `mma.sync`: one warp per 16 rows of the sub-tile; on
+    `wgmma`: `wgmma_geometry` (`max_width` goes to it)."""
+    family = mma_family(tile, dtype)
+    if family == "wgmma":
+        return wgmma_geometry(num_blocks, tile, dtype, num_sms, max_width)
     sub = sub_tile(tile)
     r = tile // sub
     slices = column_slices(num_blocks * r * r, sub, num_sms)
     width = sub // slices
     threads = (min(sub, F32_THREADS // (width // 4)) * (width // 4)
                if dtype == torch.float32 else 2 * sub)
-    return {"blocks": num_blocks * r * r * slices, "column_slices": slices,
-            "threads": threads, "stages": PIPELINE_STAGES[dtype],
-            "sub_tile": sub, "row_bands": r, "column_sub_blocks": r,
+    return {"mma": family, "blocks": num_blocks * r * r * slices,
+            "column_slices": slices, "width": width, "threads": threads,
+            "stages": PIPELINE_STAGES[dtype], "sub_tile": sub,
+            "row_bands": r, "column_sub_blocks": r,
             "ring_bytes": ring_bytes(sub, width, dtype)}
 
 
+def wgmma_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
+                   num_sms: int, max_width: int | None = None) -> dict:
+    """The launch of a `wgmma` kernel (bf16 or int8, tile a multiple of
+    64): each (output block, column group) pair's T × T block is T/64 row
+    bands (`row_bands`) × T/base column pieces (`column_sub_blocks`), base
+    the widest power of two that divides T and is at most `max_width`
+    (default WGMMA_MAX_WIDTH[dtype], the widest the kernels are built
+    for), each piece cut into the slices `column_slices` gives on the
+    launch (at T = 64 the decode split of 4 × 16 columns); a
+    block owns one band and width = base/slices columns, and runs
+    WGMMA_THREADS threads over a WGMMA_STAGES ring."""
+    bands = tile // WGMMA_BAND
+    widest = max_width or WGMMA_MAX_WIDTH[dtype]
+    base = max(w for w in (16, 32, 64, 128, 256)
+               if w <= widest and tile % w == 0)
+    pieces = tile // base
+    slices = column_slices(num_blocks * bands * pieces, base, num_sms)
+    width = base // slices
+    return {"mma": "wgmma", "blocks": num_blocks * bands * pieces * slices,
+            "column_slices": slices, "width": width,
+            "threads": WGMMA_THREADS, "stages": WGMMA_STAGES,
+            "sub_tile": WGMMA_BAND, "row_bands": bands,
+            "column_sub_blocks": pieces,
+            "ring_bytes": ring_bytes(WGMMA_BAND, width, dtype)}
+
+
 def ring_bytes(sub: int, width: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of a block's ring, by the kernels' stage
-    formulas (`STAGE_BYTES` of F32Product, Bf16Product, Int8Product) at
-    sub-tile `sub` and slice width `width`; it does not grow with the
-    tile."""
+    """Dynamic shared memory of a block at sub-tile `sub` and width
+    `width`, by the kernels' stage formulas; it does not grow with the
+    tile. f32 at every sub-tile, bf16 and int8 at 16 and 32
+    (`STAGE_BYTES` of F32Product, Bf16Product, Int8Product): the ring.
+    bf16 and int8 at 64, the `wgmma` kernels (`kDynamicBytes`): the ring of
+    (64·64 + 64·width)-element stages, int8's two transposed-B buffers of
+    64·width bytes, and 1024 bytes to align the ring."""
+    if dtype != torch.float32 and sub == WGMMA_BAND:
+        item = 2 if dtype == torch.bfloat16 else 1
+        stage = (WGMMA_BAND * WGMMA_BAND + WGMMA_BAND * width) * item
+        extra = 0 if dtype == torch.bfloat16 else 2 * width * WGMMA_BAND
+        return WGMMA_STAGES * stage + extra + 1024
     if dtype == torch.float32:
         stage = (sub * (sub + 4) + sub * width) * 4
     elif dtype == torch.bfloat16:
@@ -210,10 +304,10 @@ def _num_sms(dev) -> int:
     return _SMS[idx]
 
 
-def _geometry(num_blocks, tile, block_n, dtype, dev) -> dict:
+def _geometry(num_blocks, tile, block_n, dtype, dev, max_width=None) -> dict:
     """`launch_geometry` on `dev`'s SMs; raises when the launch's gridDim.y
     (block_n × column sub-blocks × column slices) exceeds MAX_GRID_Y."""
-    geo = launch_geometry(num_blocks, tile, dtype, _num_sms(dev))
+    geo = launch_geometry(num_blocks, tile, dtype, _num_sms(dev), max_width)
     y = block_n * geo["column_sub_blocks"] * geo["column_slices"]
     if y > MAX_GRID_Y:
         raise ValueError(f"block_n {block_n} at tile {tile} needs gridDim.y "
@@ -222,8 +316,8 @@ def _geometry(num_blocks, tile, block_n, dtype, dev) -> dict:
 
 
 def _check_aligned(named):
-    """The kernels copy tiles with 16-byte cp.async: every operand must
-    start on a 16-byte boundary."""
+    """The kernels copy tiles with 16-byte cp.async or TMA: every operand
+    must start on a 16-byte boundary."""
     for name, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned for the "
@@ -324,13 +418,16 @@ def _check_cuda_worklist(named, tables, runs, tile, block_n, out_dtype):
 
 def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
                            *, tile: int = 64, block_n: int = 1,
-                           out_dtype=torch.float32) -> torch.Tensor:
-    """The CUDA kernels: one thread block per run × block_n column groups ×
-    `column_slices` (× R² row bands and column sub-blocks above tile 64).
-    Takes two contiguous, 16-byte aligned float32 or bfloat16 operands and
-    int32 tables on one CUDA device, a tile `sub_tile` takes and a float32
-    output; raises on anything else (mixed operand types too)."""
-    global launches, bf16_launches, last_geometry
+                           out_dtype=torch.float32,
+                           max_width: int | None = None) -> torch.Tensor:
+    """The CUDA kernels, by `mma_family`: f32 on the CUDA cores, bf16 on
+    `wgmma` (tiles that are multiples of 64) or `mma.sync`; the launch of
+    `launch_geometry`. Takes two contiguous, 16-byte aligned float32 or
+    bfloat16 operands and int32 tables on one CUDA device, a tile
+    `sub_tile` takes and a float32 output; raises on anything else (mixed
+    operand types too). `max_width` caps a `wgmma` block's columns below
+    WGMMA_MAX_WIDTH (a width the kernels are built for)."""
+    global launches, bf16_launches, bf16_mma_sync_launches, last_geometry
     tables = (step_i, step_j, step_k, step_flags)
     m, k, n = _check_shapes(a, b, tables, runs, tile, block_n)
     dev = _check_cuda_worklist((("a", a), ("b", b)), tables, runs, tile,
@@ -343,16 +440,21 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
     num_runs = runs.shape[0] - 1
     if num_runs == 0:
         return out
-    geo = _geometry(num_runs * block_n, tile, block_n, a.dtype, dev)
-    lib = _lib()
-    fn = (lib.spamm_mm_worklist_f32 if a.dtype == torch.float32
-          else lib.spamm_mm_worklist_bf16)
+    geo = _geometry(num_runs * block_n, tile, block_n, a.dtype, dev,
+                    max_width)
+    if geo["mma"] == "wgmma":
+        fn, split = _wgmma_lib().spamm_wgmma_worklist_bf16, geo["width"]
+    else:
+        lib = _lib()
+        fn = (lib.spamm_mm_worklist_f32 if a.dtype == torch.float32
+              else lib.spamm_mm_worklist_bf16)
+        split = geo["column_slices"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(a.data_ptr(), b.data_ptr(), step_i.data_ptr(),
                 step_j.data_ptr(), step_k.data_ptr(), step_flags.data_ptr(),
                 runs.data_ptr(), num_runs, out.data_ptr(), m, k, n, tile,
-                block_n, geo["column_slices"], stream)
+                block_n, split, stream)
     if rc != 0:
         raise RuntimeError(
             f"spamm_mm_worklist kernel launch failed: CUDA error {rc}")
@@ -361,6 +463,7 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
         launches += 1
     else:
         bf16_launches += 1
+        bf16_mma_sync_launches += geo["mma"] == "mma.sync"
     return out
 
 
@@ -438,16 +541,16 @@ def spamm_mm_worklist_int8_plain(a_q, b_q, a_scale, b_scale, step_i, step_j,
 
 def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
                                 step_k, step_flags, runs, *, tile: int = 64,
-                                block_n: int = 1,
-                                out_dtype=torch.float32) -> torch.Tensor:
-    """The CUDA int8 kernel: one thread block per run × block_n column
-    groups × `column_slices` (× R² above tile 64), exact s32 tile dots on
-    the tensor cores (`mma.sync` s8) through the work-list pipeline, each
-    step's dot scaled once. Takes contiguous, 16-byte aligned int8 codes,
+                                block_n: int = 1, out_dtype=torch.float32,
+                                max_width: int | None = None) -> torch.Tensor:
+    """The CUDA int8 kernels: exact s32 tile dots on the tensor cores,
+    `wgmma` s8 at tiles that are multiples of 64, `mma.sync` s8 at the
+    others (`mma_family`), each step's dot scaled once; the launch of
+    `launch_geometry`. Takes contiguous, 16-byte aligned int8 codes,
     float32 scales (per T-level tile) and int32 tables on one CUDA device,
     a tile `sub_tile` takes and a float32 output; raises on anything
-    else."""
-    global int8_launches, last_geometry
+    else. `max_width` as in `spamm_mm_worklist_cuda`."""
+    global int8_launches, int8_mma_sync_launches, last_geometry
     tables = (step_i, step_j, step_k, step_flags)
     m, k, n = _check_int8(a_q, b_q, a_scale, b_scale, tables, runs, tile,
                           block_n)
@@ -461,21 +564,25 @@ def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
     num_runs = runs.shape[0] - 1
     if num_runs == 0:
         return out
-    geo = _geometry(num_runs * block_n, tile, block_n, torch.int8, dev)
-    lib = _lib()
+    geo = _geometry(num_runs * block_n, tile, block_n, torch.int8, dev,
+                    max_width)
+    if geo["mma"] == "wgmma":
+        fn, split = _wgmma_lib().spamm_wgmma_worklist_int8, geo["width"]
+    else:
+        fn, split = _lib().spamm_mm_worklist_int8, geo["column_slices"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        rc = lib.spamm_mm_worklist_int8(
-            a_q.data_ptr(), b_q.data_ptr(), a_scale.data_ptr(),
-            b_scale.data_ptr(), step_i.data_ptr(), step_j.data_ptr(),
-            step_k.data_ptr(), step_flags.data_ptr(), runs.data_ptr(),
-            num_runs, out.data_ptr(), m, k, n, tile, block_n,
-            geo["column_slices"], stream)
+        rc = fn(a_q.data_ptr(), b_q.data_ptr(), a_scale.data_ptr(),
+                b_scale.data_ptr(), step_i.data_ptr(), step_j.data_ptr(),
+                step_k.data_ptr(), step_flags.data_ptr(), runs.data_ptr(),
+                num_runs, out.data_ptr(), m, k, n, tile, block_n, split,
+                stream)
     if rc != 0:
         raise RuntimeError(
             f"spamm_mm_worklist_int8 kernel launch failed: CUDA error {rc}")
     last_geometry = geo
     int8_launches += 1
+    int8_mma_sync_launches += geo["mma"] == "mma.sync"
     return out
 
 

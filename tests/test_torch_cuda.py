@@ -566,8 +566,14 @@ def test_int8_worklist_every_column_slice_count_on_card(dev, monkeypatch,
         assert spamm_mm.int8_launches == before + 2
         assert geo["column_slices"] == slices
         assert geo["blocks"] == blocks * slices
-        assert geo["threads"] == 2 * tile
-        assert geo["stages"] == spamm_mm.PIPELINE_STAGES[torch.int8]
+        if tile == 64:
+            assert geo["mma"] == "wgmma"
+            assert geo["threads"] == spamm_mm.WGMMA_THREADS
+            assert geo["stages"] == spamm_mm.WGMMA_STAGES
+        else:
+            assert geo["mma"] == "mma.sync"
+            assert geo["threads"] == 2 * tile
+            assert geo["stages"] == spamm_mm.PIPELINE_STAGES[torch.int8]
         assert torch.equal(got, want), (slices, float((got - want).abs().max()))
         assert torch.equal(got, again)
 
@@ -1840,6 +1846,220 @@ def test_other_sub_tiles_on_card(dev, tile):
     assert torch.equal(spamm_mm.spamm_mm_worklist_int8_cuda(*args, tile=tile),
                        spamm_mm.spamm_mm_worklist_int8_plain(*args,
                                                              tile=tile))
+
+
+# the wgmma kernels (csrc/spamm_wgmma.cu): bf16 and int8 at every tile that
+# is a multiple of 64
+WGMMA_TILES = (64, 128, 256, 512)
+
+
+def _force_slices(monkeypatch, blocks, slices):
+    """Make `column_slices` pick `slices` for a launch of `blocks` blocks
+    (1, 2 or 4) by the SM count it sees."""
+    sms = {1: 0, 2: blocks, 4: 10 ** 6}[slices]
+    monkeypatch.setattr(spamm_mm, "_num_sms", lambda _dev, s=sms: s)
+
+
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", WGMMA_TILES)
+def test_wgmma_int8_equals_plain_at_every_tile_and_slice_count_on_card(
+        dev, monkeypatch, tile, block_n):
+    """Row 5 on `wgmma`: ≡ the plain version bit for bit at tiles 64–512,
+    block_n 1 and 2, and 1, 2 and 4 column slices; the launches count the
+    wgmma kernel and `last_geometry` names its family."""
+    a = _rand((2 * tile, 3 * tile), 90, dev)
+    b = _rand((3 * tile, 2 * block_n * tile), 91, dev)
+    args = _int8_args(a, b, tile, block_n)
+    kw = {"tile": tile, "block_n": block_n}
+    want = spamm_mm.spamm_mm_worklist_int8_plain(*args, **kw)
+    assert float(want.abs().max()) > 0.0
+    bands = tile // 64
+    pieces = tile // max(w for w in (16, 32, 64, 128, 256) if tile % w == 0 and
+                         w <= spamm_mm.WGMMA_MAX_WIDTH[torch.int8])
+    blocks = (args[-1].numel() - 1) * block_n * bands * pieces
+    for slices in (1, 2, 4):
+        _force_slices(monkeypatch, blocks, slices)
+        before = spamm_mm.int8_launches
+        got = spamm_mm.spamm_mm_worklist_int8(*args, **kw)
+        geo = dict(spamm_mm.last_geometry)
+        torch.cuda.synchronize()
+        assert spamm_mm.int8_launches == before + 1
+        assert (geo["mma"], geo["column_slices"]) == ("wgmma", slices)
+        assert geo["blocks"] == blocks * slices
+        assert torch.equal(got, want), (slices,
+                                        float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("tile", WGMMA_TILES)
+def test_wgmma_bf16_tolerance_determinism_frozen_on_card(dev, tile):
+    """Row 2 bf16 on `wgmma`: within MM_TOL of the output's largest
+    magnitude against the plain version, two launches bit-equal, frozen ≡
+    eager bit for bit."""
+    x = _rand((2 * tile, 3 * tile), 92, dev)
+    w = _rand((3 * tile, 2 * tile), 93, dev)
+    tau = _median_tau(x, w, tile)
+    eager = P.plan(x, w, tau, tile=tile, backend="cuda",
+                   compute_dtype="bfloat16")
+    wk = eager.work
+    tables = (wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
+    xb, wb = x.bfloat16(), w.bfloat16()
+    before = spamm_mm.bf16_launches
+    got = spamm_mm.spamm_mm_worklist(xb, wb, *tables, tile=tile)
+    assert spamm_mm.last_geometry["mma"] == "wgmma"
+    again = spamm_mm.spamm_mm_worklist(xb, wb, *tables, tile=tile)
+    torch.cuda.synchronize()
+    assert spamm_mm.bf16_launches == before + 2
+    assert torch.equal(got, again)
+    assert float(got.abs().max()) > 0.0
+    assert _max_rel(got, spamm_mm.spamm_mm_worklist_plain(
+        xb, wb, *tables, tile=tile)) <= MM_TOL
+    fw = FrozenWeight.build(w, tau, tile=tile, backend="cuda",
+                            compute_dtype="bfloat16")
+    frozen = P.plan(x, frozen_weight=fw.for_rows(2))
+    assert torch.equal(P.execute(frozen, x, w), P.execute(eager, x, w))
+
+
+@pytest.mark.parametrize("tile", [192, 320])
+def test_wgmma_at_odd_multiples_of_64_on_card(dev, tile):
+    """Tiles 3·64 and 5·64 run `wgmma` in pieces of 64 columns (the widest
+    power of two dividing them), each cut into the launch's slices: bf16
+    within MM_TOL of its plain version, int8 ≡ plain bit for bit."""
+    a, b, _, tables = _large_case(tile, 1, dev, 94)
+    ab, bb = a.bfloat16(), b.bfloat16()
+    got = spamm_mm.spamm_mm_worklist_cuda(ab, bb, *tables, tile=tile)
+    geo = spamm_mm.last_geometry
+    assert (geo["mma"], geo["column_sub_blocks"]) == ("wgmma", tile // 64)
+    assert geo["width"] * geo["column_slices"] == 64
+    assert _max_rel(got, spamm_mm.spamm_mm_worklist_plain(
+        ab, bb, *tables, tile=tile)) <= MM_TOL
+    args = _int8_args(a, b, tile)
+    assert torch.equal(spamm_mm.spamm_mm_worklist_int8_cuda(*args, tile=tile),
+                       spamm_mm.spamm_mm_worklist_int8_plain(*args,
+                                                             tile=tile))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_wgmma_captured_replay_equals_eager_on_card(dev, dtype):
+    """A CUDA graph of a `wgmma` launch (its tensor maps captured by value)
+    replays to the eager output bit for bit, on new operand values in the
+    same buffers too."""
+    tile = 64
+    a = _rand((2 * tile, 4 * tile), 95, dev)
+    b = _rand((4 * tile, 2 * tile), 96, dev)
+    if dtype == "int8":
+        args = _int8_args(a, b, tile)
+
+        def call():
+            return spamm_mm.spamm_mm_worklist_int8_cuda(*args, tile=tile)
+    else:
+        w = P.plan(a, b, _median_tau(a, b, tile), tile=tile,
+                   backend="cuda").work
+        args = (a.bfloat16(), b.bfloat16(), w.step_i, w.step_j, w.step_k,
+                w.step_flags, w.runs)
+
+        def call():
+            return spamm_mm.spamm_mm_worklist_cuda(*args, tile=tile)
+    eager = call()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    args[0].copy_(args[0].flip(0))
+    g.replay()
+    fresh = call()
+    torch.cuda.synchronize()
+    assert not torch.equal(fresh, eager)
+    assert torch.equal(out, fresh)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_wgmma_raises_on_misaligned_operands_on_card(dev, dtype):
+    """TMA needs 16-byte aligned bases: a contiguous view 4 bytes off a
+    boundary raises ValueError before any launch, for either operand."""
+    tile = 64
+    a = _rand((tile, 2 * tile), 97, dev)
+    b = _rand((2 * tile, tile), 98, dev)
+    if dtype == "int8":
+        args = list(_int8_args(a, b, tile))
+        fn = spamm_mm.spamm_mm_worklist_int8_cuda
+    else:
+        w = P.plan(a, b, 0.0, tile=tile, backend="cuda").work
+        args = [a.bfloat16(), b.bfloat16(), w.step_i, w.step_j, w.step_k,
+                w.step_flags, w.runs]
+        fn = spamm_mm.spamm_mm_worklist_cuda
+
+    def shifted(t):
+        pad = 4 // t.element_size()
+        buf = torch.empty(t.numel() + pad, dtype=t.dtype, device=dev)
+        view = buf[pad:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    before = (spamm_mm.bf16_launches, spamm_mm.int8_launches)
+    for i in (0, 1):
+        bad = list(args)
+        bad[i] = shifted(bad[i])
+        with pytest.raises(ValueError, match="aligned"):
+            fn(*bad, tile=tile)
+    assert (spamm_mm.bf16_launches, spamm_mm.int8_launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_wgmma_max_width_maps_and_mma_sync_counts_on_card(dev, dtype):
+    """At tile 128 a launch capped at max_width 32 runs column pieces of
+    32 and agrees with the plain version as the default width does (int8
+    bit for bit, bf16 within 1e-4); the same operands again after their
+    contents change in place (the host's cached tensor maps, keyed by
+    address and shape) agree with the plain version on the new contents;
+    only the launches at tile 32 (`mma.sync`) add to the mma_sync
+    counters."""
+    fam = {"bfloat16": "bf16", "int8": "int8"}[dtype]
+
+    def case(tile):
+        a = _rand((2 * tile, 3 * tile), 91, dev)
+        b = _rand((3 * tile, 2 * tile), 92, dev)
+        if dtype == "int8":
+            return (list(_int8_args(a, b, tile)),
+                    spamm_mm.spamm_mm_worklist_int8_cuda,
+                    spamm_mm.spamm_mm_worklist_int8_plain)
+        w = P.plan(a, b, _median_tau(a, b, tile), tile=tile,
+                   backend="cuda").work
+        return ([a.bfloat16(), b.bfloat16(), w.step_i, w.step_j, w.step_k,
+                 w.step_flags, w.runs], spamm_mm.spamm_mm_worklist_cuda,
+                spamm_mm.spamm_mm_worklist_plain)
+
+    def agrees(got, want):
+        return (torch.equal(got, want) if dtype == "int8"
+                else _max_rel(got, want) <= 1e-4)
+
+    def counts():
+        return (getattr(spamm_mm, f"{fam}_launches"),
+                getattr(spamm_mm, f"{fam}_mma_sync_launches"))
+
+    args, fn, plain = case(128)
+    before = counts()
+    default = fn(*args, tile=128)
+    pieces = spamm_mm.last_geometry["column_sub_blocks"]
+    capped = fn(*args, tile=128, max_width=32)
+    geo = dict(spamm_mm.last_geometry)
+    want = plain(*args, tile=128)
+    assert geo["mma"] == "wgmma" and geo["column_sub_blocks"] == 4 > pieces
+    assert geo["width"] <= 32
+    assert agrees(default, want) and agrees(capped, want)
+    args[0].copy_(args[0].flip(0))
+    again = fn(*args, tile=128)
+    assert agrees(again, plain(*args, tile=128))
+    assert not torch.equal(again, default)
+    assert counts() == (before[0] + 3, before[1])
+    args, fn, plain = case(32)
+    got = fn(*args, tile=32)
+    assert spamm_mm.last_geometry["mma"] == "mma.sync"
+    assert agrees(got, plain(*args, tile=32))
+    assert counts() == (before[0] + 4, before[1] + 1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])

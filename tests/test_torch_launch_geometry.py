@@ -5,6 +5,8 @@ when the blocks alone give fewer than two per SM; `launch_geometry` adds
 the threads and ring stages the kernels are built with; `_check_aligned`
 refuses operands the kernels' 16-byte copies cannot read.
 """
+import re
+
 import pytest
 import torch
 
@@ -50,16 +52,33 @@ def test_column_slices_double_until_two_blocks_per_sm(tile):
 @pytest.mark.parametrize("blocks", [8, 72, 2304])
 def test_launch_geometry_covers_every_output(tile, blocks, dtype):
     """Blocks = (run, group) pairs × slices; the threads of a block own
-    its tile × width outputs exactly (f32: whole float4s; bf16 and int8:
-    one warp per 16 rows, m16n8 accumulators of 4 outputs a thread)."""
+    its tile × width outputs exactly (f32: whole float4s; bf16 and int8 on
+    `mma.sync`: one warp per 16 rows, m16n8 accumulators of 4 outputs a
+    thread; on `wgmma` at tile 64: one consumer warpgroup of 128 threads
+    holding the REGS accumulators each that the kernels declare, beside
+    one producer warp)."""
     geo = spamm_mm.launch_geometry(blocks, tile, dtype, SMS)
     s = geo["column_slices"]
     assert s == spamm_mm.column_slices(blocks, tile, SMS)
     assert geo["blocks"] == blocks * s
-    assert geo["stages"] == spamm_mm.PIPELINE_STAGES[dtype] >= 2
     width = tile // s
-    assert width >= 16 and tile % s == 0
+    assert geo["width"] == width >= 16 and tile % s == 0
     threads = geo["threads"]
+    if geo["mma"] == "wgmma":
+        assert (dtype, tile) != (torch.float32, 64)
+        assert threads == spamm_mm.WGMMA_THREADS == 128 + 32
+        assert geo["stages"] == spamm_mm.WGMMA_STAGES >= 2
+        assert geo["row_bands"] * spamm_mm.WGMMA_BAND == tile
+        consumers = threads - 32
+        regs = re.findall(r"static constexpr int REGS = W / (\d+);",
+                          _source("spamm_wgmma.cu"))
+        assert len(regs) == 2                       # bf16, int8
+        for per in regs:                            # 64 rows × width
+            assert spamm_mm.WGMMA_BAND * width == consumers * (
+                width // int(per))
+        assert width % 16 == 0
+        return
+    assert geo["stages"] == spamm_mm.PIPELINE_STAGES[dtype] >= 2
     assert threads % 32 == 0 and threads <= 128
     per_thread = tile * width // threads
     assert per_thread * threads == tile * width
@@ -112,46 +131,204 @@ def test_launch_geometry_at_large_tiles(tile, blocks, dtype):
     column sub-blocks of the sub-tile, each cut into the slices the
     sub-tile's rule gives on the R²-fold launch; threads and stages are the
     sub-tile's; gridDim.y (block_n × R × slices) stays ≤ 65535 at block_n
-    4; the ring fits a block's shared memory and does not grow with T."""
+    4; the ring fits a block's shared memory and does not grow with T. On
+    `wgmma` (bf16, int8 at multiples of 64) the column sub-blocks are
+    pieces of the widest power-of-two width up to WGMMA_MAX_WIDTH that
+    divides T, cut into the slices of that width's rule."""
     geo = spamm_mm.launch_geometry(blocks, tile, dtype, SMS)
     sub = LARGE[tile]
     r = tile // sub
-    assert (geo["sub_tile"], geo["row_bands"],
-            geo["column_sub_blocks"]) == (sub, r, r)
+    assert (geo["sub_tile"], geo["row_bands"]) == (sub, r)
     s = geo["column_slices"]
-    assert s == spamm_mm.column_slices(blocks * r * r, sub, SMS)
-    assert geo["blocks"] == blocks * r * r * s
-    sub_geo = spamm_mm.launch_geometry(blocks * r * r, sub, dtype, SMS)
-    for key in ("column_slices", "threads", "stages", "ring_bytes"):
-        assert geo[key] == sub_geo[key], key
-    assert 4 * r * s <= spamm_mm.MAX_GRID_Y
+    if geo["mma"] == "wgmma":
+        base = max(w for w in (16, 32, 64, 128, 256)
+                   if w <= spamm_mm.WGMMA_MAX_WIDTH[dtype] and tile % w == 0)
+        pieces = tile // base
+        assert geo["column_sub_blocks"] == pieces
+        assert s == spamm_mm.column_slices(blocks * r * pieces, base, SMS)
+        assert geo["width"] * s == base and tile % geo["width"] == 0
+        assert geo["blocks"] == blocks * r * pieces * s
+        assert 4 * pieces * s <= spamm_mm.MAX_GRID_Y
+        assert geo["ring_bytes"] == spamm_mm.ring_bytes(64, geo["width"],
+                                                        dtype)
+    else:
+        assert geo["column_sub_blocks"] == r
+        assert s == spamm_mm.column_slices(blocks * r * r, sub, SMS)
+        assert geo["blocks"] == blocks * r * r * s
+        sub_geo = spamm_mm.launch_geometry(blocks * r * r, sub, dtype, SMS)
+        for key in ("column_slices", "threads", "stages", "ring_bytes"):
+            assert geo[key] == sub_geo[key], key
+        assert 4 * r * s <= spamm_mm.MAX_GRID_Y
     assert geo["ring_bytes"] <= SMEM_PER_BLOCK
 
 
 def test_ring_bytes_by_the_kernels_stage_formulas():
     """(TILE·(TILE+4) + TILE·W)·4 f32, (TILE·(TILE+8) + TILE·(W+8))·2 bf16,
     TILE·LDA + TILE·W + 16 int8 (LDA: TILE padded to an odd number of
-    16-byte units), times the ring depth: at sub-tile 64, one slice."""
-    ring = {d: spamm_mm.ring_bytes(64, 64, d)
-            for d in (torch.float32, torch.bfloat16, torch.int8)}
-    assert ring == {torch.float32: 2 * (64 * 68 + 64 * 64) * 4,
-                    torch.bfloat16: 3 * (64 * 72 + 64 * 72) * 2,
-                    torch.int8: 4 * (64 * 80 + 64 * 64 + 16)}
+    16-byte units), times the ring depth, for the `mma.sync` and CUDA-core
+    kernels; for the `wgmma` kernels (bf16 and int8 at sub-tile 64) the
+    ring of (64·64 + 64·W)-element stages, int8's two transposed-B buffers
+    of 64·W bytes and 1024 bytes of alignment room."""
+    assert spamm_mm.ring_bytes(64, 64, torch.float32) == 2 * (64 * 68
+                                                              + 64 * 64) * 4
+    assert spamm_mm.ring_bytes(32, 32, torch.bfloat16) == 3 * (
+        32 * 40 + 32 * 40) * 2
     assert spamm_mm.ring_bytes(16, 16, torch.int8) == 4 * (16 * 16 + 256
                                                            + 16)
+    assert spamm_mm.ring_bytes(32, 16, torch.int8) == 4 * (32 * 48 + 32 * 16
+                                                           + 16)
+    assert spamm_mm.ring_bytes(64, 64, torch.bfloat16) == (
+        4 * (64 * 64 + 64 * 64) * 2 + 1024)
+    assert spamm_mm.ring_bytes(64, 16, torch.int8) == (
+        4 * (64 * 64 + 64 * 16) + 2 * 16 * 64 + 1024)
+
+
+def _source(name):
+    import pathlib
+
+    return (pathlib.Path(spamm_mm.__file__).parent / "csrc" / name
+            ).read_text()
 
 
 def test_kernel_source_holds_the_same_tile_rule():
     """kMaxTile and the dispatched (sub-tile, slices) pairs of
-    csrc/spamm_mm.cu are the host rule's."""
-    import pathlib
-    import re
-
-    src = (pathlib.Path(spamm_mm.__file__).parent / "csrc"
-           / "spamm_mm.cu").read_text()
+    csrc/spamm_mm.cu are the host rule's: every pair for f32 and the
+    dense grid (SPAMM_DISPATCH), the sub-tiles 16 and 32 only for the
+    `mma.sync` bf16 and int8 kernels (SPAMM_DISPATCH_MMA; 64 is wgmma's)."""
+    src = _source("spamm_mm.cu")
     assert f"constexpr int kMaxTile = {spamm_mm.MAX_CUDA_TILE};" in src
-    pairs = set(re.findall(r"sub_ == (\d+) && \(slices\) == (\d+)", src))
+    macros = dict(re.findall(r"#define (SPAMM_DISPATCH\w*)\(F, tile, slices, "
+                             r"\.\.\.\)(.*?)while \(0\)", src, re.S))
+    assert set(macros) == {"SPAMM_DISPATCH", "SPAMM_DISPATCH_MMA"}
+    pairs = {name: set(re.findall(r"sub_ == (\d+) && \(slices\) == (\d+)",
+                                  body))
+             for name, body in macros.items()}
     want = {(str(s), str(n)) for s in spamm_mm.SUB_TILES
             for n in (1, 2, 4) if n <= min(spamm_mm.MAX_COLUMN_SLICES,
                                            s // 16)}
-    assert pairs == want
+    assert pairs["SPAMM_DISPATCH"] == want
+    assert pairs["SPAMM_DISPATCH_MMA"] == {p for p in want
+                                           if p[0] != str(
+                                               spamm_mm.WGMMA_BAND)}
+    assert src.count("SPAMM_DISPATCH_MMA(worklist_") == 2
+
+
+# -- the instruction families: `wgmma` (csrc/spamm_wgmma.cu) for bf16 and
+# int8 at multiples of 64, `mma.sync` for their other tiles --------------
+
+ALL_TILES = list(range(16, spamm_mm.MAX_CUDA_TILE + 1, 16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_route_rule_multiples_of_64_go_to_wgmma(dtype):
+    """bf16 and int8: every multiple of 64 runs `wgmma`, 16·odd and 32·odd
+    tiles `mma.sync`; f32 always the CUDA cores; the launch geometry
+    carries the family."""
+    for tile in ALL_TILES:
+        fam = spamm_mm.mma_family(tile, dtype)
+        if dtype == torch.float32:
+            want = "fma"
+        else:
+            want = "wgmma" if tile % 64 == 0 else "mma.sync"
+        assert fam == want, tile
+        assert spamm_mm.launch_geometry(8, tile, dtype, SMS)["mma"] == fam
+    for odd in (1, 3, 5, 7):
+        for unit in (16, 32):
+            if odd * unit <= spamm_mm.MAX_CUDA_TILE:
+                assert spamm_mm.mma_family(odd * unit, torch.int8) == \
+                    "mma.sync"
+    with pytest.raises(ValueError, match="multiple of 16"):
+        spamm_mm.mma_family(24, dtype)
+
+
+def _wgmma_widths(src, macro):
+
+    return {int(w) for w in re.findall(rf"{macro}\((\d+)\)", src)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_wgmma_ring_fits_a_block_at_every_tile_and_width(dtype):
+    """Every width a `wgmma` launch picks at tiles 64–512 (any block count)
+    is one the kernel is built for and divides the tile, and every width
+    it is built for keeps the dynamic shared memory within a block's
+    227 KB."""
+    src = _source("spamm_wgmma.cu")
+    built = _wgmma_widths(src, "SPAMM_BF16_AT" if dtype == torch.bfloat16
+                          else "SPAMM_INT8_AT")
+    assert max(built) == spamm_mm.WGMMA_MAX_WIDTH[dtype]
+    assert min(built) == 16
+    for width in built:
+        assert spamm_mm.ring_bytes(64, width, dtype) <= SMEM_PER_BLOCK
+    for tile in range(64, spamm_mm.MAX_CUDA_TILE + 1, 64):
+        for blocks in (1, 8, 72, 288, 2304):
+            geo = spamm_mm.launch_geometry(blocks, tile, dtype, SMS)
+            assert geo["width"] in built and tile % geo["width"] == 0
+            assert geo["ring_bytes"] <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_wgmma_max_width_caps_the_pieces_and_the_table_is_fixed(dtype):
+    """`max_width` narrows a `wgmma` block's column pieces below the widest
+    the kernels are built for (the ablation's width variants pass it); by
+    default the geometry is the widest's; the table of widest widths
+    cannot be changed at run time."""
+    for tile in (128, 256, 512):
+        for cap in (16, 32, 64):
+            geo = spamm_mm.launch_geometry(2304, tile, dtype, SMS,
+                                           max_width=cap)
+            assert (geo["width"], geo["column_sub_blocks"]) == (
+                cap, tile // cap)
+        assert spamm_mm.launch_geometry(2304, tile, dtype, SMS) == \
+            spamm_mm.launch_geometry(2304, tile, dtype, SMS,
+                                     spamm_mm.WGMMA_MAX_WIDTH[dtype])
+    with pytest.raises(TypeError):
+        spamm_mm.WGMMA_MAX_WIDTH[dtype] = 128
+
+
+def test_wgmma_source_holds_the_python_mirror():
+    """csrc/spamm_wgmma.cu's constants and stage formulas are the ones
+    kernels/spamm_mm.py computes launches with: ring depth, threads, band,
+    widest widths, largest tile, the stage, the transposed-B buffers and
+    the dynamic shared memory of a launch."""
+    src = _source("spamm_wgmma.cu")
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("kStagesWgmma") == spamm_mm.WGMMA_STAGES
+    assert const("kBand") == spamm_mm.WGMMA_BAND
+    assert const("kMaxTile") == spamm_mm.MAX_CUDA_TILE
+    assert "constexpr int kThreads = kConsumers + 32;" in src
+    assert const("kConsumers") + 32 == spamm_mm.WGMMA_THREADS
+    assert const("kMaxWidthBf16") == spamm_mm.WGMMA_MAX_WIDTH[torch.bfloat16]
+    assert const("kMaxWidthInt8") == spamm_mm.WGMMA_MAX_WIDTH[torch.int8]
+    stage = re.search(r"constexpr int kStageBytes = (.*?);", src)[1]
+    assert "kDynamicBytes = kStagesWgmma * P::STAGE + P::EXTRA + 1024;" in src
+    assert "static constexpr int EXTRA = 0;" in src            # bf16
+    assert "static constexpr int EXTRA = 2 * W * kBand;" in src  # int8
+    for dtype, item in ((torch.bfloat16, 2), (torch.int8, 1)):
+        for width in (16, 32, 64, 128):
+            st = eval(stage.replace("sizeof(T)", str(item)),   # noqa: S307
+                      {"kBand": 64, "W": width})
+            extra = 0 if dtype == torch.bfloat16 else 2 * width * 64
+            assert spamm_mm.ring_bytes(64, width, dtype) == (
+                const("kStagesWgmma") * st + extra + 1024)
+
+
+def test_wgmma_ablation_variants_change_the_source_where_they_say():
+    """Each source variant of launch/ablate_wgmma.py finds its anchors in
+    csrc/spamm_wgmma.cu and differs from it; the width variants launch at
+    widths the kernels take (so an edit that breaks one fails here, not on
+    the card)."""
+    from repro_torch.launch import ablate_wgmma
+
+    src = _source("spamm_wgmma.cu")
+    table = ablate_wgmma.variants(src)
+    rebuilt = {"narrow", "int8_w32", "baseline"}
+    for name, (text, _) in table.items():
+        assert (text == src) == (name in rebuilt), name
+    for name, (rule, _) in ablate_wgmma.widths().items():
+        built = _wgmma_widths(table[name][0], "SPAMM_INT8_AT") | \
+            _wgmma_widths(table[name][0], "SPAMM_BF16_AT")
+        assert set(rule.values()) <= built, name
