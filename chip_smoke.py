@@ -15,7 +15,11 @@ instruction family ("wgmma", "mma.sync", "fma").
 
 Serving: holds the get-norm and work-list kernels against their plain
 PyTorch versions at the serving path's shapes, prefill and decode (and
-frozen ≡ eager bit for bit), and the low-precision kernels the same way:
+frozen ≡ eager bit for bit), the f32 decode kernel (csrc/spamm_decode.cu)
+at w1 and w2 decode with BATCH, 1 and 16 live rows (on the live rows bit
+for bit the 64-row kernel on every row, within 1e-4 of its plain version,
+timed by device beside the 64-row kernel and `torch.matmul` at the live
+and the padded rows), and the low-precision kernels the same way:
 the fused int8 get-norm bit for bit against the unfused composition, the
 int8 work-list (tensor cores) bit for bit against its plain version at
 prefill, decode w1 and decode w2 (column slices), block_n 1 and 2, and
@@ -250,10 +254,11 @@ bit and bf16 within 1e-4 against their plain versions, frozen ≡ eager,
 timed single and back to back beside their bound and the library call.
 
 Every result line is a JSON object; the line before the last lists
-eleven kernel entries (the work-list GEMM twice, f32 and bf16, and the
-bf16 and int8 ones again for their `mma.sync` kernels; each of the
-get-norm pair twice, CUDA-core and tensor-core) with their launches on
-their path (the τ > 0 serving run at its dtype, the store walk, the
+twelve kernel entries (the work-list GEMM three times, f32's 64-row and
+decode kernels and bf16, and the bf16 and int8 ones again for their
+`mma.sync` kernels; each of the get-norm pair twice, CUDA-core and
+tensor-core) with their launches on their path (the τ > 0 serving run at
+its dtype, run (c)'s decode steps for the decode kernel, the store walk, the
 library path, the large_tiles phase's (l5), or the dense-grid GEMM's
 qwen2-moe τ > 0 wave; the f32 pair
 also on run (f), the MoE wave, the last families' τ > 0 waves and the
@@ -587,18 +592,22 @@ def reset_counts():
     getnorm.launches = getnorm.pool_launches = getnorm.quant_launches = 0
     getnorm.mxu_launches = getnorm.quant_mxu_launches = 0
     spamm_mm.launches = spamm_mm.dense_launches = 0
+    spamm_mm.decode_launches = 0
     spamm_mm.bf16_launches = spamm_mm.int8_launches = 0
     spamm_mm.bf16_mma_sync_launches = spamm_mm.int8_mma_sync_launches = 0
 
 
 def read_counts():
-    """Every kernel's launch count: the bf16 and int8 work-list wrappers'
-    split by family, "spamm_mm_worklist_bf16" / "_int8" the `wgmma`
-    kernels' and "..._mma_sync" the `mma.sync` kernels'."""
+    """Every kernel's launch count: the f32 work-list split by kernel
+    ("spamm_mm_worklist" the 64-row kernels', "spamm_mm_worklist_decode"
+    the decode kernel's), the bf16 and int8 work-list wrappers' split by
+    family, "spamm_mm_worklist_bf16" / "_int8" the `wgmma` kernels' and
+    "..._mma_sync" the `mma.sync` kernels'."""
     from repro_torch.kernels import getnorm, spamm_mm
 
     return {"tile_norms": getnorm.launches,
             "spamm_mm_worklist": spamm_mm.launches,
+            "spamm_mm_worklist_decode": spamm_mm.decode_launches,
             "spamm_mm_worklist_bf16": (spamm_mm.bf16_launches
                                        - spamm_mm.bf16_mma_sync_launches),
             "pool_norms": getnorm.pool_launches,
@@ -690,10 +699,14 @@ def worklist_work(work, tile, block_n, itemsize=4):
 
 def kernel_name(geometry, dtype):
     """The work-list kernel a launch of `geometry` ran at operand type
-    `dtype` ("float32", "bfloat16", "int8"): `wgmma` ones of
-    spamm_wgmma.cu by width, the others of spamm_mm.cu by sub-tile, slices
-    and whether the tile is walked in K-chunks."""
+    `dtype` ("float32", "bfloat16", "int8"): the f32 decode kernel of
+    spamm_decode.cu by row block and width, `wgmma` ones of spamm_wgmma.cu
+    by width, the others of spamm_mm.cu by sub-tile, slices and whether
+    the tile is walked in K-chunks."""
     dt = {"float32": "f32", "bfloat16": "bf16", "int8": "int8"}[dtype]
+    if geometry["mma"] == "fma_decode":
+        return (f"spamm_worklist_f32_decode_kernel<{geometry['row_block']}, "
+                f"{geometry['width']}>")
     if geometry["mma"] == "wgmma":
         return f"spamm_worklist_{dt}_wgmma_kernel<{geometry['width']}>"
     return (f"spamm_worklist_{dt}_kernel<{geometry['sub_tile']}, "
@@ -766,6 +779,87 @@ def check_frozen(x, w, label):
                                   "frozen_valid_tiles":
                                       int(frozen.valid_tiles)}})
     check(same, f"{label}: frozen and eager plans differ")
+    return res
+
+
+def decode_work(work, rows, k, n, tile=TILE):
+    """(flops, ACC steps, bytes) of a work-list call at `rows` live rows:
+    2·rows·t² per ACC step; each B tile the ACC steps touch, the live rows
+    of A and of the output, and the step tables, once each."""
+    import torch
+
+    acc = (work.step_flags & 2) != 0
+    sj, sk = (t[acc].long() for t in (work.step_j, work.step_k))
+    n_acc = int(acc.sum())
+    b_tiles = int(torch.unique(sk * 1_000_003 + sj).numel())
+    tables = 4 * work.step_i.numel() * 4 + work.runs.numel() * 4
+    return (2 * rows * tile * tile * n_acc, n_acc,
+            b_tiles * tile * tile * 4 + rows * (k + n) * 4 + tables)
+
+
+def check_decode(x, w, rows, label):
+    """The f32 decode kernel at `rows` live rows of x (its other rows
+    zeroed) on the frozen plan of `w` at the median norm product: on the
+    live rows bit for bit the 64-row kernel on every row, within MM_RTOL
+    of its plain version, "fma_decode"; timed single, back to back and by
+    device (a CUDA graph of 20 calls, `ablate_wgmma.graph_ms`) beside the
+    64-row kernel's device time and `torch.matmul` at the live and the
+    padded rows."""
+    import torch
+
+    from repro_torch.core import plan as P
+    from repro_torch.kernels import getnorm, spamm_mm
+    from repro_torch.launch.ablate_wgmma import graph_ms
+    from repro_torch.plans.frozen import FrozenWeight
+
+    x = x.clone()
+    x[rows:] = 0.0
+    tau = median_product_tau(getnorm.tile_norms_cuda(x, TILE),
+                             getnorm.tile_norms_cuda(w, TILE))
+    fw = FrozenWeight.build(w, tau, tile=TILE, backend="cuda")
+    p = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // TILE))
+    wk = p.work
+    args = (x, w, wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
+
+    def call():
+        return spamm_mm.spamm_mm_worklist_cuda(*args, tile=TILE, rows=rows)
+
+    got = call()
+    geometry = dict(spamm_mm.last_geometry)
+    every_row = spamm_mm.spamm_mm_worklist_cuda(*args, tile=TILE)
+    want = spamm_mm.spamm_mm_worklist_plain(*args, tile=TILE, rows=rows)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got[:rows], every_row[:rows])
+                and not got[rows:].any())
+    abs_err, rel = errors(got, want)
+    check(geometry["mma"] == "fma_decode",
+          f"decode {label}: ran {geometry['mma']}")
+    check(same, f"decode {label}: live rows differ from the 64-row kernel")
+    check(rel <= MM_RTOL, f"decode {label}: max rel err {rel}")
+    flops, n_acc, nbytes = decode_work(wk, rows, w.shape[0], w.shape[1])
+    bms, by = bound_ms(nbytes, flops)
+    xr = x[:rows].contiguous()
+    res = {
+        "name": "spamm_mm_worklist_decode", "shape": label, "rows": rows,
+        "kernel": kernel_name(geometry, "float32"), "mma": geometry["mma"],
+        "valid_fraction": float(p.valid_fraction), "acc_steps": n_acc,
+        "geometry": geometry, "bit_identical_to_64_row_kernel": same,
+        "max_abs_err": abs_err, "max_rel_err": rel,
+        "ms": time_ms(call), "ms_back_to_back": time_ms_back_to_back(call),
+        "device_ms": graph_ms(call),
+        "device_ms_64_row_kernel": graph_ms(
+            lambda: spamm_mm.spamm_mm_worklist_cuda(*args, tile=TILE)),
+        "plain_ms": time_ms(
+            lambda: spamm_mm.spamm_mm_worklist_plain(*args, tile=TILE,
+                                                     rows=rows),
+            reps=3, warmup=1),
+        "library_ms": time_ms(lambda: torch.matmul(xr, w)),
+        "library_device_ms": graph_ms(lambda: torch.matmul(xr, w)),
+        "library_64_rows_device_ms": graph_ms(lambda: torch.matmul(x, w)),
+        "library_call": "torch.matmul f32 at the live rows",
+        "bound_ms": bms, "bound_by": by,
+    }
+    emit({"kernel_check": res})
     return res
 
 
@@ -1260,7 +1354,7 @@ def phase_kernels():
 
     from repro_torch.configs import get_config
     from repro_torch.core import plan as P
-    from repro_torch.kernels import getnorm
+    from repro_torch.kernels import getnorm, spamm_mm
 
     cfg = get_config(ARCH)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -1279,6 +1373,19 @@ def phase_kernels():
                  f"frozen w1 decode {TILE}({BATCH})x{d}x{ff}")
     check_frozen(decode_rows(ff, gen), w2,
                  f"frozen w2 decode {TILE}({BATCH})x{ff}x{d}")
+    # the decode kernel at the same shapes: BATCH live rows (run (c)'s
+    # decode steps), then 1 and DECODE_MAX_ROWS
+    decode = {}
+    for rows in (BATCH, 1, spamm_mm.DECODE_MAX_ROWS):
+        for name, x_d, w_d, n_in, n_out in (("w1", decode_rows(d, gen), w1,
+                                             d, ff),
+                                            ("w2", decode_rows(ff, gen), w2,
+                                             ff, d)):
+            x_d[BATCH:] = torch.randn(TILE - BATCH, n_in, generator=gen,
+                                      device=DEV)
+            decode.setdefault(name, []).append(check_decode(
+                x_d, w_d, rows, f"frozen {name} decode {TILE}({rows})x{n_in}"
+                                f"x{n_out}"))
 
     # (b) the low-precision kernels at the same shapes: the fused int8
     # get-norm on the activation and w1; the int8 work-list on frozen w1 at
@@ -1336,7 +1443,7 @@ def phase_kernels():
     check_worklist(a, b, pd, f"exp-decay {n}x{n}x{n} lam={lam}")
     del w1, w2, x, a, b, pd
     torch.cuda.empty_cache()
-    return norms_act, mm_w1, lowp
+    return norms_act, mm_w1, lowp, decode
 
 
 def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
@@ -1382,7 +1489,9 @@ def run_engine(cfg, pcfg, params, prompts, spamm_cfg, label):
 def replay_profile(g, reps=20):
     """A captured graph replayed `reps` times back to back: CUDA-event ms
     per replay, the profiler's kernel ms and its count of device nodes
-    (kernels, copies, fills) per replay."""
+    (kernels, copies, fills) per replay, and the kernel ms per replay of
+    the f32 work-list's 64-row and decode kernels, the get-norm kernels
+    and the rest (`by_kernel`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1398,10 +1507,15 @@ def replay_profile(g, reps=20):
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA]
-    return {"ms": ms,
-            "kernel_ms": sum(e.self_device_time_total for e in dev)
-            / 1e3 / reps,
-            "nodes": sum(e.count for e in dev) / reps}
+    parts = {"worklist_f32": "spamm_worklist_f32_kernel",
+             "worklist_f32_decode": "spamm_worklist_f32_decode_kernel",
+             "tile_norms": "tile_norms"}
+    by = dict.fromkeys((*parts, "rest"), 0.0)
+    for e in dev:
+        part = next((p for p, key in parts.items() if key in e.key), "rest")
+        by[part] += e.self_device_time_total / 1e3 / reps
+    return {"ms": ms, "kernel_ms": sum(by.values()),
+            "nodes": sum(e.count for e in dev) / reps, "by_kernel": by}
 
 
 def graph_breakdown(eng, params, label, reps=20):
@@ -1410,10 +1524,13 @@ def graph_breakdown(eng, params, label, reps=20):
     `label`; the frozen gate alone (`core.plan._plan_frozen`: get-norm plus
     the gate's small ops) of each of layer 0's six gated GEMMs on a decode
     activation of BATCH rows, summed over the layers as the gate's share
-    of a step; and layer-0 w1's whole gated GEMM. Per replay: CUDA-event
-    ms, the profiler's kernel ms and its count of device nodes (kernels,
-    copies, fills); the gap between the two times is the device idling
-    between nodes. Eager ms per call beside each."""
+    of a step; and layer-0 w1's whole gated GEMM on BATCH rows (the
+    decode kernel). Per replay: CUDA-event ms, the profiler's kernel ms
+    and its count of device nodes (kernels, copies, fills); the gap
+    between the two times is the device idling between nodes. Eager ms
+    per call beside each. The decode step's kernel ms also split by
+    kernel: the f32 work-list kernels (64-row and decode), the get-norm,
+    the rest (`by_kernel`)."""
     import torch
 
     from repro_torch.core import plan as P
@@ -1446,7 +1563,9 @@ def graph_breakdown(eng, params, label, reps=20):
             res["gates"][site] = replay_profile(captured(gate), reps)
             res["gates"][site]["eager_ms"] = time_ms(gate, reps=20, warmup=2)
             if site == "w1":
-                gemm = lambda: spamm_linear_frozen(x, w, fp)   # noqa: E731
+                # the engine's activation: BATCH rows, padded inside
+                xb = x[:BATCH].contiguous()
+                gemm = lambda: spamm_linear_frozen(xb, w, fp)  # noqa: E731
                 res["gated_gemm_w1"] = replay_profile(captured(gemm), reps)
                 res["gated_gemm_w1"]["eager_ms"] = time_ms(gemm, reps=20,
                                                            warmup=2)
@@ -1764,6 +1883,8 @@ def profile_wave(label, eng, prompts):
           "frozen_gate_ops_ms": gate_ms,
           "tile_norms_ms": share("tile_norms_f32_kernel"),
           "spamm_mm_worklist_ms": share("spamm_worklist_f32_kernel"),
+          "spamm_mm_worklist_decode_ms": share(
+              "spamm_worklist_f32_decode_kernel"),
           "spamm_mm_worklist_bf16_ms": share("spamm_worklist_bf16_"),
           "tile_norms_quant_ms": share("tile_norms_quant_f32_kernel"),
           "spamm_mm_worklist_int8_ms": share("spamm_worklist_int8_"),
@@ -1913,7 +2034,8 @@ def phase_serve(profile_path):
         vf = out["spamm"][phase]
         check(vf is not None and 0.0 < vf < 1.0,
               f"τ>0 {phase} {vf} not strictly inside (0, 1)")
-    check(counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0,
+    check(counts["tile_norms"] > 0 and counts["spamm_mm_worklist"] > 0
+          and counts["spamm_mm_worklist_decode"] > 0,
           f"τ>0 launches {counts}")
     compare_graphed_eager(eng, prompts, "c")
     graph_breakdown(eng, params, "c")
@@ -3445,7 +3567,8 @@ def phase_last_families():
             check(same and sp["gated_gemms"] == 0
                   and sp["decode_gated_gemms"] == 0
                   and counts["tile_norms"] == 0
-                  and counts["spamm_mm_worklist"] == 0,
+                  and counts["spamm_mm_worklist"] == 0
+                  and counts["spamm_mm_worklist_decode"] == 0,
                   f"{cfg.name} with SpAMM on: equal {same}, stats "
                   f"{sp['gated_gemms']}, launches {counts}")
             launches[arch] = counts
@@ -4809,6 +4932,7 @@ def _serve_tp_check(ranks, unsharded):
           and s3["decode_gated_gemms"] == 0 and not s3["fw_tree_frozen"]
           and s3["wave_launches"]["spamm_mm_worklist"] > 0
           and s3["decode_step_launches"]["spamm_mm_worklist"] == 0
+          and s3["decode_step_launches"]["spamm_mm_worklist_decode"] == 0
           and s3["decode_step_launches"]["tile_norms"] == 0,
           f"(s3) the legacy path: {s3}")
     return counts
@@ -5964,9 +6088,11 @@ def phase_library():
                            "eager_pool_launches":
                                out["eager"]["pool_launches"]}})
     # the fused int8 get-norm's tensor-core variant runs on the store path,
-    # the `mma.sync` work-list kernels on the large_tiles phase's
+    # the `mma.sync` work-list kernels on the large_tiles phase's, the f32
+    # decode kernel on the serving runs' decode steps
     check(all(v > 0 for k, v in counts.items()
-              if k != "tile_norms_quant_mxu" and not k.endswith("_mma_sync")),
+              if k not in ("tile_norms_quant_mxu", "spamm_mm_worklist_decode")
+              and not k.endswith("_mma_sync")),
           f"library launches {counts}")
 
     check_mxu_library(out["paper"][LIB_RATIOS[0]]["info"], out["mxu"])
@@ -6432,7 +6558,10 @@ def phase_large_tiles():
     counts = read_counts()
     emit({"large_tiles_path": {"seconds": time.perf_counter() - t0,
                                "launches": counts}})
-    check(all(v > 0 for v in counts.values()),
+    # every kernel but the f32 decode kernel (the serving runs' decode
+    # steps; held at tiles 128 and 256 by tests/test_torch_cuda.py)
+    check(all(v > 0 for k, v in counts.items()
+              if k != "spamm_mm_worklist_decode"),
           f"large tiles launches {counts}")
 
     results = {}
@@ -6490,7 +6619,7 @@ def main():
         return 2
     sys.path.insert(0, SRC)
     from repro_torch.device import f32_numerics
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, spamm_mm
 
     f32_numerics()
     smi = subprocess.run(
@@ -6519,7 +6648,7 @@ def main():
         seconds[name] = time.perf_counter() - t0
         return out
 
-    norms_act, mm_w1, lowp = timed("kernels", phase_kernels)
+    norms_act, mm_w1, lowp, decode = timed("kernels", phase_kernels)
     profile_path, _, cal_counts = timed("calibrate", phase_calibrate)
     (counts, lowp_counts, store_counts, chunked_counts, tuned_counts,
      seconds["autotune"]) = timed("serve", phase_serve, profile_path)
@@ -6632,6 +6761,27 @@ def main():
          **other_paths("spamm_mm_worklist"),
          **dryrun_path("spamm_mm_worklist"),
          **{k: mm_w1[k] for k in keys}},
+        {"name": "spamm_mm_worklist_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/spamm_decode.cu",
+         "replaces": "src/repro/kernels/spamm_mm.py:203",
+         "variant": f"f32 at ≤ {spamm_mm.DECODE_MAX_ROWS} live rows "
+                    f"(rows=), tile a multiple of 64",
+         "kernel": decode["w2"][0]["kernel"], "mma": "fma_decode",
+         "launches": counts["spamm_mm_worklist_decode"], "path": serve_path,
+         "chunked_launches": chunked_counts["spamm_mm_worklist_decode"],
+         "chunked_path": chunked_path,
+         "moe_launches": moe_counts["spamm_mm_worklist_decode"],
+         "moe_path": moe_path,
+         **other_paths("spamm_mm_worklist_decode"),
+         "ms_back_to_back": decode["w2"][0]["ms_back_to_back"],
+         "device_ms": decode["w2"][0]["device_ms"],
+         "geometry": decode["w2"][0]["geometry"],
+         "shapes": [{k: r[k] for k in keys + (
+             "rows", "kernel", "ms_back_to_back", "device_ms",
+             "device_ms_64_row_kernel", "library_device_ms",
+             "library_64_rows_device_ms", "valid_fraction")}
+             for site in ("w1", "w2") for r in decode[site]],
+         **{k: decode["w2"][0][k] for k in keys}},
         {"name": "spamm_mm_worklist_bf16", "route": "cuda",
          **large_tile_path("spamm_mm_worklist_bf16"),
          "multi_launches": multi_path("spamm_mm_worklist_bf16"),

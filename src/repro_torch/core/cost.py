@@ -731,8 +731,9 @@ def _card_samples(dev: torch.device, sweep: CardSweep, tile: int,
     """The card's sweep, each sample device-bound (`_replay_s`): get-norms
     of the decode and prefill activations of the largest gated weight and
     of squares up to ≈ 105 MB, then that weight's frozen work-list (the
-    serving path's plan and kernel) at the prefill and decode grids across
-    τ and block_n 1, 2."""
+    serving path's plan and kernel: at the decode grid, its live rows, so
+    the decode kernel) at the prefill and decode grids across τ and
+    block_n 1, 2."""
     from repro_torch.core import plan as cplan
     from repro_torch.kernels import ops as kops
     from repro_torch.plans.frozen import FrozenWeight
@@ -763,7 +764,8 @@ def _card_samples(dev: torch.device, sweep: CardSweep, tile: int,
                                         backend="cuda")
                 wp = cplan.pad_to_tile(w, tile, tile * bn).contiguous()
                 p = cplan.plan(x, frozen_weight=fw)
-                t = _replay_s(lambda p=p, wp=wp: cplan.execute(p, x, wp),
+                t = _replay_s(lambda p=p, wp=wp, rows=rows:
+                              cplan.execute(p, x, wp, rows=rows),
                               dev, repeat=repeat)
                 samples.append(({"kind": "frozen_worklist",
                                  "shape": [grid[rows], k, n], "rows": rows,

@@ -286,7 +286,7 @@ def _fwd_impl(x, w, tau, tile, backend, block_n, ctx=None, levels=0,
         p = _plan.plan(xp, wp, tau, tile=tile, block_n=block_n,
                        backend=backend, levels=levels,
                        compute_dtype=compute_dtype)
-    c = _plan.execute(p, xp, wp)
+    c = _plan.execute(p, xp, wp, rows=m)
     return c[:m, :n].reshape(*lead, n).to(x.dtype), p
 
 
@@ -399,7 +399,7 @@ def spamm_linear_frozen(x: torch.Tensor, w: torch.Tensor, fp,
                 if ctx.cost_coeffs is not None else None)
         ctx.tap(p.valid_fraction, p.bytes_moved(), site=site, cost=cost)
     wp = pad_to_tile(w, tile, tile * fp.block_n).contiguous()
-    c = _plan.execute(p, xp, wp)
+    c = _plan.execute(p, xp, wp, rows=m)
     return c[:m, :n].reshape(*lead, n).to(x.dtype)
 
 

@@ -709,7 +709,7 @@ def plan(a: Optional[torch.Tensor] = None, b: Optional[torch.Tensor] = None,
 
 
 def execute(p: SpammPlan, a: torch.Tensor, b: torch.Tensor, *,
-            out_dtype=None) -> torch.Tensor:
+            out_dtype=None, rows: Optional[int] = None) -> torch.Tensor:
     """Multiplication phase of a prebuilt plan on (a, b), which must have
     the tile-padded shapes the plan was built for: the backend's work-list
     GEMM over the plan's step tables.
@@ -719,7 +719,11 @@ def execute(p: SpammPlan, a: torch.Tensor, b: torch.Tensor, *,
     kernel (f32 accumulation); int8 quantizes both per tile with the
     plan's scales (recomputing missing ones, bit-identically) and drives
     the int8 work-list kernel. Operands of any strides are taken: a
-    non-contiguous or misaligned one is copied first (`kernel_operand`)."""
+    non-contiguous or misaligned one is copied first (`kernel_operand`).
+    `rows`: None (every row of a), or the rows of a that hold data, the
+    others zero (a tile-padded activation's real rows): the backend's
+    work-list GEMM receives it, and an f32 call at a few rows runs the
+    decode kernel; output rows from `rows` on are zero."""
     gm, gk = p.norm_a.shape
     gn = p.norm_b.shape[1]
     t = p.tile
@@ -734,10 +738,11 @@ def execute(p: SpammPlan, a: torch.Tensor, b: torch.Tensor, *,
         a_q, a_s = kquant.quantize_tiles(a, t, scales=p.a_scale)
         b_q, b_s = kquant.quantize_tiles(b, t, scales=p.b_scale)
         return bk.matmul_worklist_int8(a_q, b_q, a_s, b_s, p.work, t,
-                                       p.block_n, out_dtype)
+                                       p.block_n, out_dtype, rows=rows)
     if p.compute_dtype == "bfloat16":
         a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    return bk.matmul_worklist(a, b, p.work, t, p.block_n, out_dtype)
+    return bk.matmul_worklist(a, b, p.work, t, p.block_n, out_dtype,
+                              rows=rows)
 
 
 class _WeightEntry(NamedTuple):

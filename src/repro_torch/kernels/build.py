@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("getnorm.cu", "spamm_mm.cu", "spamm_wgmma.cu")
+SOURCES = ("getnorm.cu", "spamm_mm.cu", "spamm_wgmma.cu",
+           "spamm_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

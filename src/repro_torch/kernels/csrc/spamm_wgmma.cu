@@ -95,10 +95,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstdint>
-#include <mutex>
 
+#include "tma.cuh"
 #include "worklist.cuh"
 
 namespace {
@@ -124,59 +123,8 @@ constexpr int kMaxWidthInt8 = 64;
 constexpr int kMaxTile = 512;
 
 // ---------------------------------------------------------------------------
-// PTX: mbarriers, TMA, wgmma
+// PTX: wgmma (the barriers and TMA copies are tma.cuh's)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// waits until the phase of parity `parity` of the barrier has completed; a
-// wait that outlasts 2²⁴ tries (seconds: a copy or an arrival that never
-// comes) traps, so the launch fails with an error instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned addr = smem_addr(bar);
-  unsigned done = 0;
-  for (unsigned tries = 0; !done; ++tries) {
-    if (tries == (1u << 24)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// TMA: the box of `map` at column x, row y (elements) into `dst`,
-// completing on `bar`
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(smem_addr(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -603,126 +551,20 @@ spamm_worklist_int8_wgmma_kernel(const __grid_constant__ CUtensorMap ma,
 }
 
 // ---------------------------------------------------------------------------
-// Host side: tensor maps and launches
+// Host side: launches (tensor maps: tma.cuh)
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 2-D row-major (rows, cols) operand as TMA boxes of (box_rows,
-// box_cols). Returns false when the encode refuses it.
-bool encode(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-            int elem, long long rows, long long cols, int box_rows,
-            int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Encoded maps by everything `encode` reads: a direct-mapped table of
-// kMapSlots, a colliding key evicting the slot. The map is a function of
-// its key alone, so a hit is the map an encode would give.
-struct MapKey {
-  const void* ptr;
-  long long rows, cols;
-  int type, box_rows, box_cols, swizzle;
-};
-
-struct MapSlot {
-  MapKey key;
-  CUtensorMap map;
-  bool full;
-};
-
-constexpr int kMapSlots = 256;
-std::mutex g_maps_mu;
-MapSlot g_maps[kMapSlots];
-
-bool same_key(const MapKey& x, const MapKey& y) {
-  return x.ptr == y.ptr && x.rows == y.rows && x.cols == y.cols &&
-         x.type == y.type && x.box_rows == y.box_rows &&
-         x.box_cols == y.box_cols && x.swizzle == y.swizzle;
-}
-
-bool cached_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-                int elem, long long rows, long long cols, int box_rows,
-                int box_cols, CUtensorMapSwizzle swizzle) {
-  const MapKey key{ptr, rows, cols, static_cast<int>(type), box_rows,
-                   box_cols, static_cast<int>(swizzle)};
-  uint64_t h = reinterpret_cast<uintptr_t>(ptr) >> 4;
-  for (const long long v : {rows, cols, static_cast<long long>(box_cols),
-                            static_cast<long long>(key.type * 8 + key.swizzle)})
-    h = (h ^ static_cast<uint64_t>(v)) * 0x100000001b3ull;
-  MapSlot& slot = g_maps[(h ^ (h >> 29)) % kMapSlots];
-  std::lock_guard<std::mutex> hold(g_maps_mu);
-  if (!(slot.full && same_key(slot.key, key))) {
-    if (!encode(&slot.map, ptr, type, elem, rows, cols, box_rows, box_cols,
-                swizzle)) {
-      slot.full = false;
-      return false;
-    }
-    slot.key = key;
-    slot.full = true;
-  }
-  *map = slot.map;
-  return true;
-}
 
 // dynamic shared memory of a launch: the ring, int8's transposed-B
 // buffers, and room to align the ring to 1024 bytes
 template <class P>
 constexpr int kDynamicBytes = kStagesWgmma * P::STAGE + P::EXTRA + 1024;
 
-// The launch of kernel `kern` of product P; its dynamic shared-memory
-// attribute is set on a device's first launch (one bit a device).
+// The launch of kernel `kern` of product P (tma.cuh's launch_once: the
+// dynamic shared-memory attribute set on a device's first launch).
 template <class P, class K, class... Args>
 int launch(K kern, dim3 grid, cudaStream_t stream, Args... args) {
-  constexpr int smem = kDynamicBytes<P>;
-  static std::atomic<uint64_t> ready{0};
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (!(ready.load(std::memory_order_acquire) & bit)) {
-    rc = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    ready.fetch_or(bit, std::memory_order_release);
-  }
-  kern<<<grid, kThreads, smem, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
+  return launch_once<P>(kern, grid, kThreads, kDynamicBytes<P>, stream,
+                        args...);
 }
 
 // gridDim of a launch: run × band, column group × column piece

@@ -43,11 +43,15 @@ class Backend:
     pool_norms(normmap)                              → one pyramid level,
       (..., gm, gk) → (..., ⌈gm/2⌉, ⌈gk/2⌉) f32
     matmul_worklist(a, b, work, tile, block_n,
-                    out_dtype)                       → (M, N) out_dtype
-      f32 or bf16 operands, f32 accumulation
+                    out_dtype, rows=None)            → (M, N) out_dtype
+      f32 or bf16 operands, f32 accumulation; `rows` (keyword): None, or
+      the rows of a that hold data (the others zero; output rows from
+      `rows` on zero), which an f32 call at ≤ 16 rows serves with the
+      decode kernel
     matmul_worklist_int8(a_q, b_q, a_scale, b_scale, work, tile, block_n,
-                         out_dtype)                  → (M, N) out_dtype
-      int8 codes, per-tile f32 scales (b's per fine tile)
+                         out_dtype, rows=None)       → (M, N) out_dtype
+      int8 codes, per-tile f32 scales (b's per fine tile); `rows` is
+      received and may be ignored
     matmul(a, b, mask, kidx, nvalid, tile, block_n,
            out_dtype)                                → (..., M, N) out_dtype
       the dense-grid GEMM; `mask` is the (..., gm, gn//block_n, gk) bitmap,
@@ -108,14 +112,14 @@ def _tables(work) -> tuple:
 
 
 def _worklist(fn):
-    def matmul_worklist(a, b, work, tile, block_n, out_dtype):
+    def matmul_worklist(a, b, work, tile, block_n, out_dtype, rows=None):
         if analysis is None:
             return fn(a, b, work.step_i, work.step_j, work.step_k,
                       work.step_flags, work.runs, tile=tile, block_n=block_n,
-                      out_dtype=out_dtype)
+                      out_dtype=out_dtype, rows=rows)
         return _counted_worklist(
             lambda: fn(a, b, *_tables(work), tile=tile, block_n=block_n,
-                       out_dtype=out_dtype),
+                       out_dtype=out_dtype, rows=rows),
             a, b, work, tile, block_n, (a, b) + _tables(work))
 
     return matmul_worklist
@@ -123,14 +127,14 @@ def _worklist(fn):
 
 def _worklist_int8(fn):
     def matmul_worklist_int8(a_q, b_q, a_scale, b_scale, work, tile, block_n,
-                             out_dtype):
+                             out_dtype, rows=None):
         if analysis is None:
             return fn(a_q, b_q, a_scale, b_scale, work.step_i, work.step_j,
                       work.step_k, work.step_flags, work.runs, tile=tile,
-                      block_n=block_n, out_dtype=out_dtype)
+                      block_n=block_n, out_dtype=out_dtype, rows=rows)
         return _counted_worklist(
             lambda: fn(a_q, b_q, a_scale, b_scale, *_tables(work), tile=tile,
-                       block_n=block_n, out_dtype=out_dtype),
+                       block_n=block_n, out_dtype=out_dtype, rows=rows),
             a_q, b_q, work, tile, block_n,
             (a_q, b_q, a_scale, b_scale) + _tables(work))
 
@@ -207,7 +211,10 @@ VALID_BACKENDS = tuple(BACKENDS)
 
 def register_backend(backend: Backend):
     """Extension hook: make a new backend visible to the whole pipeline
-    (`get_backend`, plans, frozen weights) under `backend.name`."""
+    (`get_backend`, plans, frozen weights) under `backend.name`. Its
+    `matmul_worklist` and `matmul_worklist_int8` receive `rows=` as a
+    keyword (None or the live rows of a; see `Backend`), which they may
+    ignore."""
     BACKENDS[backend.name] = backend
 
 

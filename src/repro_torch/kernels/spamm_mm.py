@@ -34,7 +34,12 @@ fed by TMA copies into an mbarrier ring: one producer warp, one consumer
 warpgroup per block, a block owning a 64-row band and up to
 WGMMA_MAX_WIDTH columns); at tiles walked with a sub-tile of 16 or 32 they
 run the `mma.sync` kernels of `csrc/spamm_mm.cu`. f32 always runs on the
-CUDA cores ("fma"). A CUDA call launches its family's kernel or raises.
+CUDA cores: "fma", or "fma_decode" when a call at a multiple of 64 says
+that at most DECODE_MAX_ROWS rows of A hold data (`rows=`, the rest zero,
+a decode step's padding): the kernel of `csrc/spamm_decode.cu` computes
+those rows only, streaming the weight through a TMA ring (`decode_route`,
+`decode_geometry`), bit for bit the 64-row kernel on them. A CUDA call
+launches its family's kernel or raises.
 
 Int8 work-list: twin of `repro.kernels.spamm_mm.spamm_mm_worklist_int8`.
 Per-tile int8 codes a_q (M, K) and b_q (K, N), f32 scales a_scale (gm, gk)
@@ -88,7 +93,8 @@ slices. Every operand pointer the kernels read with 16-byte copies or TMA
 must be 16-byte aligned (the wrappers raise otherwise). `last_geometry` holds the geometry of the
 latest launch, its family under "mma".
 
-Launch counts: `launches` (f32 work-list), `bf16_launches` (bf16
+Launch counts: `launches` (f32 work-list, 64-row kernels),
+`decode_launches` (f32 work-list, the decode kernel), `bf16_launches` (bf16
 work-list, either family), `int8_launches` (int8 work-list, either
 family), `dense_launches` (dense-grid); of these, the `mma.sync` kernels'
 own launches in `bf16_mma_sync_launches` and `int8_mma_sync_launches`.
@@ -127,8 +133,18 @@ WGMMA_THREADS = 160
 WGMMA_MAX_WIDTH = types.MappingProxyType({torch.bfloat16: 256,
                                           torch.int8: 64})
 WGMMA_BAND = 64
+# the f32 decode kernel (csrc/spamm_decode.cu: the RB of its template, its
+# widths, kStagesDecode, kMaxRows, kMaxConsumers): live rows rounded up to
+# a row block, the columns of a block, ring depth, the route's cut, and the
+# most consumer threads of a block
+DECODE_ROW_BLOCKS = (1, 2, 4, 8, 16)
+DECODE_WIDTHS = (16, 32)
+DECODE_STAGES = 4
+DECODE_MAX_ROWS = 16
+DECODE_MAX_CONSUMERS = 128
 
 launches = 0
+decode_launches = 0
 bf16_launches = 0
 int8_launches = 0
 dense_launches = 0
@@ -138,6 +154,7 @@ last_geometry: dict = {}
 
 _LIB = None
 _WGMMA_LIB = None
+_DECODE_LIB = None
 _SMS: dict = {}
 
 
@@ -181,6 +198,18 @@ def _wgmma_lib():
     return _WGMMA_LIB
 
 
+def _decode_lib():
+    global _DECODE_LIB
+    if _DECODE_LIB is None:
+        lib = build.load("spamm_decode.cu")
+        fn = lib.spamm_decode_worklist_f32
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _DECODE_LIB = lib
+    return _DECODE_LIB
+
+
 def sub_tile(tile: int) -> int:
     """The sub-tile the kernels walk a tile with: 64, 32 or 16, the largest
     that divides it. Raises ValueError for a tile the kernels do not take:
@@ -207,20 +236,59 @@ def column_slices(num_blocks: int, tile: int, num_sms: int) -> int:
     return slices
 
 
-def mma_family(tile: int, dtype: torch.dtype) -> str:
+def decode_route(rows: int | None, tile: int, dtype: torch.dtype) -> bool:
+    """Whether a work-list call runs the f32 decode kernel: f32 operands, a
+    tile that is a multiple of 64 (one the kernels take) and 1 ..
+    DECODE_MAX_ROWS live rows. `rows` None means every row of A."""
+    return (dtype == torch.float32 and rows is not None
+            and 1 <= rows <= DECODE_MAX_ROWS and sub_tile(tile) == 64)
+
+
+def mma_family(tile: int, dtype: torch.dtype,
+               rows: int | None = None) -> str:
     """The instructions of the kernel that serves `tile` at operand type
     `dtype`: "wgmma" (csrc/spamm_wgmma.cu) for bf16 and int8 at a tile that
     is a multiple of 64, "mma.sync" (csrc/spamm_mm.cu) for bf16 and int8 at
-    a tile walked with a sub-tile of 16 or 32, "fma" (the CUDA cores) for
-    f32. Raises ValueError for a tile the kernels do not take."""
+    a tile walked with a sub-tile of 16 or 32; for f32 the CUDA cores:
+    "fma_decode" (csrc/spamm_decode.cu) where `decode_route` takes `rows`,
+    else "fma" (csrc/spamm_mm.cu). Raises ValueError for a tile the kernels
+    do not take."""
     sub = sub_tile(tile)
     if dtype == torch.float32:
-        return "fma"
+        return "fma_decode" if decode_route(rows, tile, dtype) else "fma"
     return "wgmma" if sub == WGMMA_BAND else "mma.sync"
 
 
+def decode_geometry(num_blocks: int, tile: int, rows: int,
+                    num_sms: int) -> dict:
+    """The launch of the f32 decode kernel over `num_blocks` (run, column
+    group) pairs at `tile` for `rows` live rows: RB = the smallest row
+    block ≥ rows; each tile-wide group cut into tile/width column pieces,
+    width 32 when that gives a block an SM, else 16; a block's RB·width
+    outputs go to min(RB·width, DECODE_MAX_CONSUMERS) consumer threads (at
+    least a warp), each owning `columns_per_thread` adjacent columns of
+    one row, beside one producer warp, over a DECODE_STAGES ring of
+    (64·width + RB·64)-float stages."""
+    rb = next(r for r in DECODE_ROW_BLOCKS if r >= rows)
+    width = (DECODE_WIDTHS[1]
+             if num_blocks * (tile // DECODE_WIDTHS[1]) >= num_sms
+             else DECODE_WIDTHS[0])
+    pieces = tile // width
+    lanes = min(rb * width, DECODE_MAX_CONSUMERS)
+    return {"mma": "fma_decode", "blocks": num_blocks * pieces,
+            "column_slices": 1, "width": width,
+            "threads": max(32, lanes) + 32,
+            "columns_per_thread": rb * width // lanes,
+            "stages": DECODE_STAGES, "sub_tile": WGMMA_BAND,
+            "row_bands": 1, "column_sub_blocks": pieces, "row_block": rb,
+            "rows": rows,
+            "ring_bytes": DECODE_STAGES * (WGMMA_BAND * width + rb
+                                           * WGMMA_BAND) * 4 + 128}
+
+
 def launch_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
-                    num_sms: int, max_width: int | None = None) -> dict:
+                    num_sms: int, max_width: int | None = None,
+                    rows: int | None = None) -> dict:
     """The launch of a work-list (f32, bf16 or int8) or dense-grid kernel
     over `num_blocks` (output block, column group) pairs at `tile`: its
     instruction family (`mma_family`), sub-tile (`sub_tile`), the R =
@@ -231,8 +299,11 @@ def launch_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
     shared memory. f32: width/4 threads along a row, each owning one float4
     of columns in as many rows as keep 128 threads (64 at sub-tile 16);
     bf16 and int8 on `mma.sync`: one warp per 16 rows of the sub-tile; on
-    `wgmma`: `wgmma_geometry` (`max_width` goes to it)."""
-    family = mma_family(tile, dtype)
+    `wgmma`: `wgmma_geometry` (`max_width` goes to it); on "fma_decode"
+    (`rows` live rows): `decode_geometry`."""
+    family = mma_family(tile, dtype, rows)
+    if family == "fma_decode":
+        return decode_geometry(num_blocks, tile, rows, num_sms)
     if family == "wgmma":
         return wgmma_geometry(num_blocks, tile, dtype, num_sms, max_width)
     sub = sub_tile(tile)
@@ -304,10 +375,12 @@ def _num_sms(dev) -> int:
     return _SMS[idx]
 
 
-def _geometry(num_blocks, tile, block_n, dtype, dev, max_width=None) -> dict:
+def _geometry(num_blocks, tile, block_n, dtype, dev, max_width=None,
+              rows=None) -> dict:
     """`launch_geometry` on `dev`'s SMs; raises when the launch's gridDim.y
     (block_n × column sub-blocks × column slices) exceeds MAX_GRID_Y."""
-    geo = launch_geometry(num_blocks, tile, dtype, _num_sms(dev), max_width)
+    geo = launch_geometry(num_blocks, tile, dtype, _num_sms(dev), max_width,
+                          rows)
     y = block_n * geo["column_sub_blocks"] * geo["column_slices"]
     if y > MAX_GRID_Y:
         raise ValueError(f"block_n {block_n} at tile {tile} needs gridDim.y "
@@ -350,17 +423,27 @@ def _accumulate(acc, at, bt, tile):
     return acc
 
 
+def _check_rows(rows, m):
+    """`rows`: None (every row of A) or the live rows, 0 .. m."""
+    if rows is not None and not 0 <= rows <= m:
+        raise ValueError(f"rows {rows} outside 0 .. {m}, the rows of a")
+
+
 def spamm_mm_worklist_plain(a, b, step_i, step_j, step_k, step_flags, runs,
                             *, tile: int = 64, block_n: int = 1,
-                            out_dtype=torch.float32) -> torch.Tensor:
+                            out_dtype=torch.float32,
+                            rows: int | None = None) -> torch.Tensor:
     """The plain version: every run advances one step per iteration, all
     runs together, honouring each flag bit exactly as the kernel does. An
     ACC step adds its tile product as `tile` rank-1 updates in ascending
     inner index (multiply, then add, in f32), so every output element is
     accumulated in the same order whatever the batch of runs — the plain
-    path is deterministic element by element, as frozen ≡ eager needs."""
+    path is deterministic element by element, as frozen ≡ eager needs.
+    `rows` (the live rows; A's others zero): output rows from `rows` on
+    are zero, as the decode kernel leaves them."""
     m, k, n = _check_shapes(a, b, (step_i, step_j, step_k, step_flags), runs,
                             tile, block_n)
+    _check_rows(rows, m)
     dev = a.device
     gm, gk, tn = m // tile, k // tile, tile * block_n
     out = torch.zeros(m, n, dtype=torch.float32, device=dev)
@@ -390,6 +473,8 @@ def spamm_mm_worklist_plain(a, b, step_i, step_j, step_k, step_flags, runs,
         if fl.numel():
             st = s[fl]
             o4[si[st], :, sj[st], :] = acc[fl]
+    if rows is not None:
+        out[rows:] = 0.0
     return out.to(out_dtype)
 
 
@@ -419,15 +504,20 @@ def _check_cuda_worklist(named, tables, runs, tile, block_n, out_dtype):
 def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
                            *, tile: int = 64, block_n: int = 1,
                            out_dtype=torch.float32,
-                           max_width: int | None = None) -> torch.Tensor:
-    """The CUDA kernels, by `mma_family`: f32 on the CUDA cores, bf16 on
-    `wgmma` (tiles that are multiples of 64) or `mma.sync`; the launch of
-    `launch_geometry`. Takes two contiguous, 16-byte aligned float32 or
-    bfloat16 operands and int32 tables on one CUDA device, a tile
-    `sub_tile` takes and a float32 output; raises on anything else (mixed
-    operand types too). `max_width` caps a `wgmma` block's columns below
-    WGMMA_MAX_WIDTH (a width the kernels are built for)."""
-    global launches, bf16_launches, bf16_mma_sync_launches, last_geometry
+                           max_width: int | None = None,
+                           rows: int | None = None) -> torch.Tensor:
+    """The CUDA kernels, by `mma_family`: f32 on the CUDA cores (the decode
+    kernel where `decode_route` takes `rows`, the live rows of A, whose
+    other rows the caller zeroed; output rows from `rows` on stay zero),
+    bf16 on `wgmma` (tiles that are multiples of 64) or `mma.sync`; the
+    launch of `launch_geometry`. Takes two contiguous, 16-byte aligned
+    float32 or bfloat16 operands and int32 tables on one CUDA device, a
+    tile `sub_tile` takes and a float32 output; raises on anything else
+    (mixed operand types too). `max_width` caps a `wgmma` block's columns
+    below WGMMA_MAX_WIDTH (a width the kernels are built for); bf16 takes
+    `rows` and ignores it."""
+    global launches, decode_launches, bf16_launches, bf16_mma_sync_launches
+    global last_geometry
     tables = (step_i, step_j, step_k, step_flags)
     m, k, n = _check_shapes(a, b, tables, runs, tile, block_n)
     dev = _check_cuda_worklist((("a", a), ("b", b)), tables, runs, tile,
@@ -435,14 +525,19 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
     if a.dtype != b.dtype or a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"spamm_mm_worklist_cuda takes two float32 or two "
                         f"bfloat16 operands, got {a.dtype} @ {b.dtype}")
+    _check_rows(rows, m)
     _check_aligned((("a", a), ("b", b)))
     out = torch.zeros(m, n, dtype=torch.float32, device=dev)
     num_runs = runs.shape[0] - 1
     if num_runs == 0:
         return out
     geo = _geometry(num_runs * block_n, tile, block_n, a.dtype, dev,
-                    max_width)
-    if geo["mma"] == "wgmma":
+                    max_width, rows)
+    extra = ()
+    if geo["mma"] == "fma_decode":
+        fn, split = _decode_lib().spamm_decode_worklist_f32, geo["width"]
+        extra = (rows,)
+    elif geo["mma"] == "wgmma":
         fn, split = _wgmma_lib().spamm_wgmma_worklist_bf16, geo["width"]
     else:
         lib = _lib()
@@ -454,12 +549,14 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
         rc = fn(a.data_ptr(), b.data_ptr(), step_i.data_ptr(),
                 step_j.data_ptr(), step_k.data_ptr(), step_flags.data_ptr(),
                 runs.data_ptr(), num_runs, out.data_ptr(), m, k, n, tile,
-                block_n, split, stream)
+                block_n, *extra, split, stream)
     if rc != 0:
         raise RuntimeError(
             f"spamm_mm_worklist kernel launch failed: CUDA error {rc}")
     last_geometry = geo
-    if a.dtype == torch.float32:
+    if geo["mma"] == "fma_decode":
+        decode_launches += 1
+    elif a.dtype == torch.float32:
         launches += 1
     else:
         bf16_launches += 1
@@ -469,13 +566,14 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
 
 def spamm_mm_worklist(a, b, step_i, step_j, step_k, step_flags, runs, *,
                       tile: int = 64, block_n: int = 1,
-                      out_dtype=torch.float32) -> torch.Tensor:
+                      out_dtype=torch.float32,
+                      rows: int | None = None) -> torch.Tensor:
     """Work-list GEMM: the plain version for CPU operands, the CUDA kernel
     for CUDA operands."""
     fn = (spamm_mm_worklist_plain if a.device.type == "cpu"
           else spamm_mm_worklist_cuda)
     return fn(a, b, step_i, step_j, step_k, step_flags, runs, tile=tile,
-              block_n=block_n, out_dtype=out_dtype)
+              block_n=block_n, out_dtype=out_dtype, rows=rows)
 
 
 def _check_int8(a_q, b_q, a_scale, b_scale, tables, runs, tile, block_n):
@@ -493,13 +591,14 @@ def _check_int8(a_q, b_q, a_scale, b_scale, tables, runs, tile, block_n):
 
 def spamm_mm_worklist_int8_plain(a_q, b_q, a_scale, b_scale, step_i, step_j,
                                  step_k, step_flags, runs, *, tile: int = 64,
-                                 block_n: int = 1,
-                                 out_dtype=torch.float32) -> torch.Tensor:
+                                 block_n: int = 1, out_dtype=torch.float32,
+                                 rows: int | None = None) -> torch.Tensor:
     """The plain int8 version: the runs of `spamm_mm_worklist_plain`, with
     each ACC step's tile dot taken on the codes in f32 — exact, since every
     partial sum is an integer of magnitude ≤ tile·127² < 2²⁴ — then scaled
     and added as the kernel does: acc + (dot · a_scale[i, k]) ·
-    b_scale[k, fine j], three f32 roundings in that order."""
+    b_scale[k, fine j], three f32 roundings in that order. `rows` is taken
+    and ignored, as the kernels ignore it."""
     m, k, n = _check_int8(a_q, b_q, a_scale, b_scale,
                           (step_i, step_j, step_k, step_flags), runs, tile,
                           block_n)
@@ -542,14 +641,16 @@ def spamm_mm_worklist_int8_plain(a_q, b_q, a_scale, b_scale, step_i, step_j,
 def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
                                 step_k, step_flags, runs, *, tile: int = 64,
                                 block_n: int = 1, out_dtype=torch.float32,
-                                max_width: int | None = None) -> torch.Tensor:
+                                max_width: int | None = None,
+                                rows: int | None = None) -> torch.Tensor:
     """The CUDA int8 kernels: exact s32 tile dots on the tensor cores,
     `wgmma` s8 at tiles that are multiples of 64, `mma.sync` s8 at the
     others (`mma_family`), each step's dot scaled once; the launch of
     `launch_geometry`. Takes contiguous, 16-byte aligned int8 codes,
     float32 scales (per T-level tile) and int32 tables on one CUDA device,
     a tile `sub_tile` takes and a float32 output; raises on anything
-    else. `max_width` as in `spamm_mm_worklist_cuda`."""
+    else. `max_width` as in `spamm_mm_worklist_cuda`; `rows` is taken and
+    ignored."""
     global int8_launches, int8_mma_sync_launches, last_geometry
     tables = (step_i, step_j, step_k, step_flags)
     m, k, n = _check_int8(a_q, b_q, a_scale, b_scale, tables, runs, tile,
@@ -588,14 +689,15 @@ def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
 
 def spamm_mm_worklist_int8(a_q, b_q, a_scale, b_scale, step_i, step_j, step_k,
                            step_flags, runs, *, tile: int = 64,
-                           block_n: int = 1,
-                           out_dtype=torch.float32) -> torch.Tensor:
+                           block_n: int = 1, out_dtype=torch.float32,
+                           rows: int | None = None) -> torch.Tensor:
     """Int8 work-list GEMM: the plain version for CPU operands, the CUDA
     kernel for CUDA operands."""
     fn = (spamm_mm_worklist_int8_plain if a_q.device.type == "cpu"
           else spamm_mm_worklist_int8_cuda)
     return fn(a_q, b_q, a_scale, b_scale, step_i, step_j, step_k, step_flags,
-              runs, tile=tile, block_n=block_n, out_dtype=out_dtype)
+              runs, tile=tile, block_n=block_n, out_dtype=out_dtype,
+              rows=rows)
 
 
 def _check_dense(a, b, kidx, nvalid, tile, block_n):

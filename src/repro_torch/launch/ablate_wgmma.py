@@ -50,16 +50,21 @@ Prints one JSON object per variant and pass, then a summary line
 
 times the bf16 and int8 work-list kernels of whichever tree is on the path
 (by path, so another checkout's package is imported, e.g. the parent's)
-at the same cases: device ms (graphed), one call and CALLS back to back
-(host cost inside), the host's own ms a call (CALLS calls issued with no
-sync, the least of 21 passes), the library call's device ms, the
-geometry.
+at the same cases, and the f32 work-list at the four serving shapes and
+the wq and wk decode shapes (the decode shapes with `rows=REAL_ROWS`
+where the tree's wrapper takes it: the f32 decode kernel; a tree without
+it runs its 64-row kernel):
+device ms (graphed), one call and CALLS back to back (host cost inside),
+the host's own ms a call (CALLS calls issued with no sync, the least of
+21 passes), the library call's device ms (f32 decode: also at the live
+rows), the geometry.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import functools
+import inspect
 import json
 import subprocess
 import time
@@ -82,6 +87,7 @@ _STAGES = "constexpr int kStagesWgmma = 4;"
 _INT8_WIDEST = "constexpr int kMaxWidthInt8 = 64;"
 _INT8_AT = "  SPAMM_INT8_AT(64)\n"
 _TRY_WAIT = "mbarrier.try_wait.parity.shared::cta.b64"
+_TMA_INCLUDE = '#include "tma.cuh"\n'
 _RASTER = "sk, sf, runs, out, n, block_n, tile, m / tile);"
 _RASTER8 = "si, sj, sk, sf, runs, out, k, n, block_n, tile, m / tile);"
 _BLOCKS_BF16 = "static constexpr int MIN_BLOCKS = W <= 64 ? 2 : 1;"
@@ -118,6 +124,13 @@ def _cut(src: str, start: str, end: str) -> str:
     return src[:i] + src[j:]
 
 
+def _inline_tma(src: str) -> str:
+    """`src` with csrc/tma.cuh (the barrier waits, TMA copies, tensor maps)
+    pasted in place of its include, for a variant that changes them."""
+    header = (build.CSRC / "tma.cuh").read_text()
+    return _sub(src, _TMA_INCLUDE, header.replace("#pragma once\n", ""))
+
+
 def variants(src: str) -> dict:
     """{name: (source, computes the kernels' function)}; wide, narrow and
     int8_w32 launch at other widths (`widths`), narrow and int8_w32 on
@@ -131,8 +144,8 @@ def variants(src: str) -> dict:
     wide = _sub(_sub(_sub(src, _INT8_WIDEST, _INT8_WIDEST.replace(
         "64", "128")), _INT8_AT, _INT8_AT + "  SPAMM_INT8_AT(128)\n"),
         _BLOCKS_INT8, _BLOCKS_INT8.replace("3", "W <= 64 ? 3 : 2"))
-    test_wait = _sub(src, _TRY_WAIT, _TRY_WAIT.replace("try_wait",
-                                                       "test_wait"))
+    test_wait = _sub(_inline_tma(src), _TRY_WAIT,
+                     _TRY_WAIT.replace("try_wait", "test_wait"))
     return {
         "baseline": (src, True),
         "stages3": (_sub(src, _STAGES, _STAGES.replace("4", "3")), True),
@@ -189,6 +202,8 @@ def _median_tau(x, w, dtype, tile):
     (quantized or rounded) operands: about half the tile products kept."""
     if dtype == "int8":
         na, nb = (getnorm.tile_norms_quant_cuda(t, tile)[0] for t in (x, w))
+    elif dtype == "float32":
+        na, nb = (getnorm.tile_norms_cuda(t, tile) for t in (x, w))
     else:
         na, nb = (getnorm.tile_norms_cuda(t.bfloat16().float(), tile)
                   for t in (x, w))
@@ -206,13 +221,18 @@ def _launch(fn, args, kw, max_width=None):
     return fn(*args, **kw)
 
 
-def cases(seed: int = 0) -> list:
-    """(dtype, label, call, tile, plain output, library call) at the
-    serving shapes and the large tiles; int8 at tiles ≥ 254 on a
-    valid_ratio 0.5 plan (the widened int8 gate keeps every tile there).
-    The library call is the dense product of the same operands:
-    `torch._int_mm` on the codes (B column-major), `torch.matmul` at
-    bf16."""
+def cases(seed: int = 0, f32: bool = False) -> list:
+    """(dtype, label, call, tile, plain output, library call, library call
+    at the live rows or None) at the serving shapes and the large tiles;
+    int8 at tiles ≥ 254 on a valid_ratio 0.5 plan (the widened int8 gate
+    keeps every tile there). The library call is the dense product of the
+    same operands: `torch._int_mm` on the codes (B column-major),
+    `torch.matmul` at bf16 and f32. `f32` adds the f32 work-list at the
+    four serving shapes (tile 64) and at the wq and wk decode shapes, the
+    decode ones at REAL_ROWS live rows where the wrapper takes `rows`,
+    with `torch.matmul` at those rows."""
+    takes_rows = "rows" in inspect.signature(
+        spamm_mm.spamm_mm_worklist_cuda).parameters
     cfg = get_config("starcoder2-7b")
     d, ff = cfg.d_model, cfg.d_ff
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -234,10 +254,22 @@ def cases(seed: int = 0) -> list:
                64, 1)]
     shapes += [(f"frozen w1 {ROWS}x{d}x{ff} tile {t}", x, w1, t, 1)
                for t in LARGE_TILES]
+    if f32:
+        # the attention projections' decode shapes: wq (= wo) and wk (= wv)
+        kv = cfg.num_kv_heads * (d // cfg.num_heads)
+        for name, n in (("wq", d), ("wk", kv)):
+            w = torch.randn(d, n, generator=gen, device="cuda").mul_(
+                d ** -0.5)
+            shapes.append((f"frozen {name} decode 64({REAL_ROWS})x{d}x{n}",
+                           decode(d), w, 64, 1))
     out = []
-    for dtype in ("int8", "bfloat16"):
+    for dtype in ("int8", "bfloat16") + (("float32",) if f32 else ()):
         for label, a, w, tile, block_n in shapes:
             if dtype == "bfloat16" and block_n > 1:
+                continue
+            if dtype == "float32" and tile != 64:
+                continue
+            if dtype != "float32" and label.split()[1] in ("wq", "wk"):
                 continue
             if dtype == "int8" and Q.gate_eps("int8", tile) >= 1:
                 p = P.plan(a, w, valid_ratio=0.5, tile=tile,
@@ -250,6 +282,7 @@ def cases(seed: int = 0) -> list:
             wk = p.work
             tabs = (wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
             kw = {"tile": tile, "block_n": block_n}
+            live = None
             if dtype == "int8":
                 a_q, a_s = Q.quantize_tiles(a, tile, scales=p.a_scale)
                 b_q, b_s = Q.quantize_tiles(w, tile, scales=p.b_scale)
@@ -261,14 +294,21 @@ def cases(seed: int = 0) -> list:
                 library = (lambda a_q=a_q, b_cm=b_cm:
                            torch._int_mm(a_q, b_cm))
             else:
-                args = (a.bfloat16(), w.bfloat16(), *tabs)
+                cast = torch.bfloat16 if dtype == "bfloat16" else a.dtype
+                args = (a.to(cast), w.to(cast), *tabs)
+                if dtype == "float32" and "decode" in label:
+                    if takes_rows:
+                        kw = {**kw, "rows": REAL_ROWS}
+                    ar = a[:REAL_ROWS].contiguous()
+                    live = lambda ar=ar, w=w: torch.matmul(ar, w)  # noqa
                 call = functools.partial(
                     _launch, spamm_mm.spamm_mm_worklist_cuda, args, kw)
-                want = spamm_mm.spamm_mm_worklist_plain(*args, **kw)
+                plain_kw = {k: v for k, v in kw.items() if k != "rows"}
+                want = spamm_mm.spamm_mm_worklist_plain(*args, **plain_kw)
                 library = (lambda ab=args[0], wb=args[1]:
                            torch.matmul(ab, wb))
             out.append((dtype, f"{dtype} {label}", call, tile, want,
-                        library))
+                        library, live))
     return out
 
 
@@ -350,20 +390,23 @@ def host_ms(fn, calls=CALLS, reps=21) -> float:
 
 
 def run_lines() -> None:
-    """One line per case for the tree on the path: device ms (graphed),
-    one call, CALLS back to back, host ms a call, the library call's
-    device ms, the launch geometry."""
-    for dtype, label, call, tile, want, library in cases():
+    """One line per case for the tree on the path (the f32 lines too):
+    device ms (graphed), one call, CALLS back to back, host ms a call, the
+    library call's device ms (f32 decode: also at the live rows), the
+    launch geometry."""
+    for dtype, label, call, tile, want, library, live in cases(f32=True):
         got = call()
         geo = dict(spamm_mm.last_geometry)
         torch.cuda.synchronize()
-        print(json.dumps({"line": label, "tile": tile,
-                          "agrees_with_plain": _agrees(dtype, got, want),
-                          "device_ms": graph_ms(call), "ms": event_ms(call),
-                          "ms_back_to_back": event_ms(call, calls=CALLS),
-                          "host_ms": host_ms(call),
-                          "library_device_ms": graph_ms(library),
-                          "geometry": geo}), flush=True)
+        line = {"line": label, "tile": tile,
+                "agrees_with_plain": _agrees(dtype, got, want),
+                "device_ms": graph_ms(call), "ms": event_ms(call),
+                "ms_back_to_back": event_ms(call, calls=CALLS),
+                "host_ms": host_ms(call),
+                "library_device_ms": graph_ms(library), "geometry": geo}
+        if live is not None:
+            line["library_live_rows_device_ms"] = graph_ms(live)
+        print(json.dumps(line), flush=True)
 
 
 def run_variants(names) -> dict:
@@ -375,7 +418,7 @@ def run_variants(names) -> dict:
         use_library(libs[name])
         rule, at64 = over.get(name, ({}, True))
         line = {}
-        for dtype, label, call, tile, want, _ in shapes:
+        for dtype, label, call, tile, want, _, _ in shapes:
             width = rule.get(torch.int8 if dtype == "int8"
                              else torch.bfloat16)
             if name in over and ((tile == 64 and not at64) or width is None):

@@ -44,9 +44,9 @@ import torch
 _COUNTERS = (
     ("getnorm", ("launches", "quant_launches", "mxu_launches",
                  "quant_mxu_launches", "pool_launches")),
-    ("spamm_mm", ("launches", "bf16_launches", "int8_launches",
-                  "bf16_mma_sync_launches", "int8_mma_sync_launches",
-                  "dense_launches")),
+    ("spamm_mm", ("launches", "decode_launches", "bf16_launches",
+                  "int8_launches", "bf16_mma_sync_launches",
+                  "int8_mma_sync_launches", "dense_launches")),
 )
 
 

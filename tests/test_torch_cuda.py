@@ -410,6 +410,56 @@ def test_decode_column_split_f32_on_card(dev, tile):
     assert torch.equal(dense, c)
 
 
+@pytest.mark.parametrize("rows", [1, 4, 16, 17])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_decode_kernel_at_live_rows_on_card(dev, tile, rows):
+    """f32 with `rows` live rows of a row tile: 1, 4 and 16 run the decode
+    kernel ("fma_decode", counted in `decode_launches`), 17 the 64-row
+    kernel. On the live rows the call is bit for bit the 64-row kernel on
+    every row, the other rows stay zero; within MM_TOL of the plain version;
+    frozen ≡ eager through `execute(rows=)`; the call captured in a CUDA
+    graph and replayed ≡ eager."""
+    gk, gn = 40, 4
+    x = torch.zeros(tile, gk * tile, device=dev)
+    x[:rows] = _rand((rows, gk * tile), 41 + rows, dev)
+    w = _rand((gk * tile, gn * tile), 42, dev)
+    tau = _median_tau(x, w, tile)
+    fw = FrozenWeight.build(w, tau, tile=tile, backend="cuda")
+    frozen = P.plan(x, frozen_weight=fw.for_rows(1))
+    assert 0.0 < float(frozen.valid_fraction) < 1.0
+    wk = frozen.work
+    args = (x, w, wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
+    every_row = spamm_mm.spamm_mm_worklist_cuda(*args, tile=tile)
+    decode = rows <= spamm_mm.DECODE_MAX_ROWS
+    before = (spamm_mm.launches, spamm_mm.decode_launches)
+    got = spamm_mm.spamm_mm_worklist_cuda(*args, tile=tile, rows=rows)
+    geo = dict(spamm_mm.last_geometry)
+    torch.cuda.synchronize()
+    assert (spamm_mm.launches, spamm_mm.decode_launches) == (
+        before[0] + (not decode), before[1] + decode)
+    assert geo["mma"] == ("fma_decode" if decode else "fma")
+    assert torch.equal(got[:rows], every_row[:rows])
+    assert not got[rows:].any()
+    plain = spamm_mm.spamm_mm_worklist_plain(*args, tile=tile, rows=rows)
+    torch.testing.assert_close(got, plain, rtol=MM_TOL, atol=MM_TOL)
+    eager = P.plan(x, w, tau, tile=tile, backend="cuda")
+    assert torch.equal(P.execute(frozen, x, w, rows=rows),
+                       P.execute(eager, x, w, rows=rows))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        spamm_mm.spamm_mm_worklist_cuda(*args, tile=tile, rows=rows)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = spamm_mm.spamm_mm_worklist_cuda(*args, tile=tile,
+                                                   rows=rows)
+    captured.fill_(float("nan"))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
+
+
 @pytest.mark.parametrize("tile", [32, 64])
 def test_decode_column_split_bf16_on_card(dev, tile):
     """bf16 at decode shapes: frozen ≡ eager bit for bit through the split
