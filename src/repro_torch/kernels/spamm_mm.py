@@ -28,12 +28,15 @@ bf16-rounded operands, and with its plain version, within 1e-4 of the
 output's largest magnitude (the products are exact in f32 in all three;
 only the order of the additions differs), and is deterministic.
 
-Tensor-core families (`mma_family`): bf16 and int8 at a tile that is a
-multiple of 64 run the Hopper kernels of `csrc/spamm_wgmma.cu` (`wgmma`
-fed by TMA copies into an mbarrier ring: one producer warp, one consumer
-warpgroup per block, a block owning a 64-row band and up to
-WGMMA_MAX_WIDTH columns); at tiles walked with a sub-tile of 16 or 32 they
-run the `mma.sync` kernels of `csrc/spamm_mm.cu`. f32 always runs on the
+Tensor-core families (`mma_family`): bf16 and int8 at every tile from
+WGMMA_LOWEST_TILE (48) run the Hopper kernels of `csrc/spamm_wgmma.cu`
+("wgmma": `wgmma` fed by TMA copies into an mbarrier ring, one producer
+warp, one consumer warpgroup per block, a block owning one 64-row band of
+a tile's rows, T % 64 live ones in the last band of a tile that is not a
+multiple of 64, and a column piece, the last one possibly reaching past
+the tile; a step walked as ⌈T/64⌉ K-chunks, the last T % 64 deep:
+`wgmma_geometry`); at tiles 16 and 32, where those measured slower, the
+`mma.sync` kernels of `csrc/spamm_mm.cu`. f32 always runs on the
 CUDA cores: "fma", or "fma_decode" when a call at a multiple of 64 says
 that at most DECODE_MAX_ROWS rows of A hold data (`rows=`, the rest zero,
 a decode step's padding): the kernel of `csrc/spamm_decode.cu` computes
@@ -86,18 +89,19 @@ R column sub-blocks × `slices` column slices. `column_slices` is the rule:
 a decode step's few runs are split into up to 4 slices of at least 16
 columns until the launch has two blocks per SM; each slice walks the same
 steps over its columns, so the per-element order does not change. The
-`wgmma` kernels: T/64 row bands × block_n column groups × T/base column
-pieces × slices, base the widest power of two dividing T up to
-WGMMA_MAX_WIDTH (or the wrapper's `max_width`), a block's width base /
-slices. Every operand pointer the kernels read with 16-byte copies or TMA
-must be 16-byte aligned (the wrappers raise otherwise). `last_geometry` holds the geometry of the
-latest launch, its family under "mma".
+`wgmma` kernels: ⌈T/64⌉ row bands × block_n column groups × ⌈T/width⌉
+column pieces (`wgmma_geometry`; at a multiple of 64 the pieces of the
+widest power of two dividing T up to WGMMA_MAX_WIDTH, or the wrapper's
+`max_width`, cut into slices). Every operand pointer the kernels read
+with 16-byte copies or TMA must be 16-byte aligned (the wrappers raise
+otherwise). `last_geometry` holds the geometry of the latest launch, its
+family under "mma".
 
 Launch counts: `launches` (f32 work-list, 64-row kernels),
 `decode_launches` (f32 work-list, the decode kernel), `bf16_launches` (bf16
-work-list, either family), `int8_launches` (int8 work-list, either
-family), `dense_launches` (dense-grid); of these, the `mma.sync` kernels'
-own launches in `bf16_mma_sync_launches` and `int8_mma_sync_launches`.
+work-list, any family), `int8_launches` (int8 work-list, any family),
+`dense_launches` (dense-grid); of these, the `mma.sync` kernels' own
+launches in `bf16_mma_sync_launches` and `int8_mma_sync_launches`.
 """
 from __future__ import annotations
 
@@ -125,14 +129,23 @@ PIPELINE_STAGES = {torch.float32: 2, torch.bfloat16: 3, torch.int8: 4}
 # kernel's kThreadsF32)
 F32_THREADS = 128
 # the wgmma kernels (csrc/spamm_wgmma.cu, kStagesWgmma, kThreads,
-# kMaxWidthBf16 / kMaxWidthInt8): ring depth, threads of a block (one
-# consumer warpgroup and one producer warp), the widest column range of a
-# block, and the rows of a band (wgmma's M, the depth of a K-chunk)
+# kMaxWidthBf16 / kMaxWidthInt8, kMaxWidthOddBf16 / kMaxWidthOddInt8,
+# kMinTile, SPAMM_BF16_AT / SPAMM_INT8_AT): ring depth, threads of a block
+# (one consumer warpgroup and one producer warp), the widest column range
+# of a block at a tile that is a multiple of 64 and at the other tiles,
+# the rows of a band (wgmma's M, the depth of a K-chunk), the smallest
+# tile they take (at 16 and 32 the `mma.sync` kernels of csrc/spamm_mm.cu
+# serve bf16 and int8, faster there), and the widths they are built for
 WGMMA_STAGES = 4
 WGMMA_THREADS = 160
 WGMMA_MAX_WIDTH = types.MappingProxyType({torch.bfloat16: 256,
                                           torch.int8: 64})
+WGMMA_MAX_WIDTH_ODD = types.MappingProxyType({torch.bfloat16: 128,
+                                              torch.int8: 96})
 WGMMA_BAND = 64
+WGMMA_LOWEST_TILE = 48
+WGMMA_WIDTHS = types.MappingProxyType({
+    torch.bfloat16: (16, 32, 64, 128, 256), torch.int8: (16, 32, 48, 64, 96)})
 # the f32 decode kernel (csrc/spamm_decode.cu: the RB of its template, its
 # widths, kStagesDecode, kMaxRows, kMaxConsumers): live rows rounded up to
 # a row block, the columns of a block, ring depth, the route's cut, and the
@@ -247,16 +260,16 @@ def decode_route(rows: int | None, tile: int, dtype: torch.dtype) -> bool:
 def mma_family(tile: int, dtype: torch.dtype,
                rows: int | None = None) -> str:
     """The instructions of the kernel that serves `tile` at operand type
-    `dtype`: "wgmma" (csrc/spamm_wgmma.cu) for bf16 and int8 at a tile that
-    is a multiple of 64, "mma.sync" (csrc/spamm_mm.cu) for bf16 and int8 at
-    a tile walked with a sub-tile of 16 or 32; for f32 the CUDA cores:
-    "fma_decode" (csrc/spamm_decode.cu) where `decode_route` takes `rows`,
-    else "fma" (csrc/spamm_mm.cu). Raises ValueError for a tile the kernels
-    do not take."""
-    sub = sub_tile(tile)
+    `dtype`: "wgmma" (csrc/spamm_wgmma.cu) for bf16 and int8 at every tile
+    from WGMMA_LOWEST_TILE, "mma.sync" (csrc/spamm_mm.cu) at tiles 16 and
+    32; for f32 the
+    CUDA cores: "fma_decode" (csrc/spamm_decode.cu) where `decode_route`
+    takes `rows`, else "fma" (csrc/spamm_mm.cu). Raises ValueError for a
+    tile the kernels do not take."""
+    sub_tile(tile)
     if dtype == torch.float32:
         return "fma_decode" if decode_route(rows, tile, dtype) else "fma"
-    return "wgmma" if sub == WGMMA_BAND else "mma.sync"
+    return "mma.sync" if tile < WGMMA_LOWEST_TILE else "wgmma"
 
 
 def decode_geometry(num_blocks: int, tile: int, rows: int,
@@ -299,7 +312,7 @@ def launch_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
     shared memory. f32: width/4 threads along a row, each owning one float4
     of columns in as many rows as keep 128 threads (64 at sub-tile 16);
     bf16 and int8 on `mma.sync`: one warp per 16 rows of the sub-tile; on
-    `wgmma`: `wgmma_geometry` (`max_width` goes to it); on "fma_decode"
+    `wgmma`: `wgmma_geometry` (`max_width` goes there); on "fma_decode"
     (`rows` live rows): `decode_geometry`."""
     family = mma_family(tile, dtype, rows)
     if family == "fma_decode":
@@ -321,43 +334,96 @@ def launch_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
 
 def wgmma_geometry(num_blocks: int, tile: int, dtype: torch.dtype,
                    num_sms: int, max_width: int | None = None) -> dict:
-    """The launch of a `wgmma` kernel (bf16 or int8, tile a multiple of
-    64): each (output block, column group) pair's T × T block is T/64 row
-    bands (`row_bands`) × T/base column pieces (`column_sub_blocks`), base
-    the widest power of two that divides T and is at most `max_width`
-    (default WGMMA_MAX_WIDTH[dtype], the widest the kernels are built
-    for), each piece cut into the slices `column_slices` gives on the
-    launch (at T = 64 the decode split of 4 × 16 columns); a
-    block owns one band and width = base/slices columns, and runs
-    WGMMA_THREADS threads over a WGMMA_STAGES ring."""
-    bands = tile // WGMMA_BAND
-    widest = max_width or WGMMA_MAX_WIDTH[dtype]
-    base = max(w for w in (16, 32, 64, 128, 256)
-               if w <= widest and tile % w == 0)
-    pieces = tile // base
-    slices = column_slices(num_blocks * bands * pieces, base, num_sms)
-    width = base // slices
-    return {"mma": "wgmma", "blocks": num_blocks * bands * pieces * slices,
+    """The launch of a `wgmma` kernel (bf16 or int8, a tile T from
+    WGMMA_LOWEST_TILE) over `num_blocks` (output block, column group)
+    pairs: each pair's T × T block is ⌈T/64⌉ row bands (`row_bands`: T //
+    64 full ones and, where T is not a multiple of 64, a last one of
+    `last_band_rows` = T % 64 rows) × ⌈T/width⌉ column pieces
+    (`column_sub_blocks` × `column_slices`, the last one
+    `last_piece_columns` wide: its other columns are loaded and never
+    stored); a step is ⌈T/64⌉ K-chunks, 64 deep but the last, a ring stage
+    each. The width, at most `max_width`: at a multiple of 64, base = the
+    widest power of two dividing T up to WGMMA_MAX_WIDTH[dtype], cut into
+    the slices `column_slices` gives on the launch (at T = 64 the decode
+    split of 4 × 16 columns), `column_sub_blocks` = T/base; at the other
+    tiles the one of WGMMA_WIDTHS[dtype] up to WGMMA_MAX_WIDTH_ODD[dtype]
+    that loads the fewest columns a band and step, ⌈T/w⌉·(64 + w) (A's
+    64-row chunk once a piece, B's w columns), fewer loaded columns on a
+    tie, narrower while the launch has fewer than two blocks an SM (a
+    decode step's few runs). A block runs WGMMA_THREADS threads over a
+    WGMMA_STAGES ring (`wgmma_ring_bytes`)."""
+    bands = -(-tile // WGMMA_BAND)
+    if tile % WGMMA_BAND == 0:
+        widest = max_width or WGMMA_MAX_WIDTH[dtype]
+        base = max(w for w in (16, 32, 64, 128, 256)
+                   if w <= widest and tile % w == 0)
+        slices = column_slices(num_blocks * bands * (tile // base), base,
+                               num_sms)
+        width = base // slices
+    else:
+        widest = max_width or WGMMA_MAX_WIDTH_ODD[dtype]
+        fits = [w for w in WGMMA_WIDTHS[dtype] if w <= widest]
+
+        def pieces(w):
+            return -(-tile // w)
+
+        width = min(fits, key=lambda w: (pieces(w) * (WGMMA_BAND + w),
+                                         pieces(w) * w))
+        for w in sorted((w for w in fits if w < width), reverse=True):
+            if num_blocks * bands * pieces(width) >= 2 * num_sms:
+                break
+            width = w
+        slices = 1
+    p = -(-tile // width)
+    return {"mma": "wgmma", "blocks": num_blocks * bands * p,
             "column_slices": slices, "width": width,
             "threads": WGMMA_THREADS, "stages": WGMMA_STAGES,
             "sub_tile": WGMMA_BAND, "row_bands": bands,
-            "column_sub_blocks": pieces,
-            "ring_bytes": ring_bytes(WGMMA_BAND, width, dtype)}
+            "last_band_rows": tile % WGMMA_BAND,
+            "column_sub_blocks": p // slices,
+            "last_piece_columns": tile - (p - 1) * width,
+            "ring_bytes": wgmma_ring_bytes(tile, width, dtype)}
+
+
+def stage_layout(tile: int, width: int, dtype: torch.dtype) -> dict:
+    """A `wgmma` kernel's ring stage at `tile` and `width` (`stage_layout`
+    of csrc/spamm_wgmma.cu): one K-chunk of a step, `a_row` the bytes of an
+    A box row (64 columns), `b_rows` B's k rows (the chunk's, up to 64) at
+    `b_at` (past A's box, from a 1024-byte boundary), `stage` its bytes
+    (B's end, or the 64 rows a product reads from A's box, whichever is
+    further, rounded up to 1024)."""
+    def round1024(x):
+        return -(-x // 1024) * 1024
+
+    elem = 2 if dtype == torch.bfloat16 else 1
+    a_row = WGMMA_BAND * elem
+    b_rows = min(tile, WGMMA_BAND)
+    b_at = round1024(b_rows * a_row)
+    stage = round1024(max(b_at + b_rows * width * elem, WGMMA_BAND * a_row))
+    return {"a_row": a_row, "b_rows": b_rows, "b_at": b_at, "stage": stage}
+
+
+def wgmma_ring_bytes(tile: int, width: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a `wgmma` kernel's block (`dynamic_bytes`
+    of csrc/spamm_wgmma.cu): WGMMA_STAGES stages of `stage_layout`; int8's
+    two transposed-B buffers of 64·width bytes; at a tile that is not a
+    multiple of 64 the zero region the products past a chunk's depth read
+    (bf16 32·width bytes and at least 2048, int8 2048); 1024 bytes to align
+    the ring."""
+    if dtype == torch.bfloat16:
+        extra, zero = 0, max(32 * width, 2048)
+    else:
+        extra, zero = 2 * WGMMA_BAND * width, 2048
+    return (WGMMA_STAGES * stage_layout(tile, width, dtype)["stage"] + extra
+            + (zero if tile % WGMMA_BAND else 0) + 1024)
 
 
 def ring_bytes(sub: int, width: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of a block at sub-tile `sub` and width
-    `width`, by the kernels' stage formulas; it does not grow with the
-    tile. f32 at every sub-tile, bf16 and int8 at 16 and 32
-    (`STAGE_BYTES` of F32Product, Bf16Product, Int8Product): the ring.
-    bf16 and int8 at 64, the `wgmma` kernels (`kDynamicBytes`): the ring of
-    (64·64 + 64·width)-element stages, int8's two transposed-B buffers of
-    64·width bytes, and 1024 bytes to align the ring."""
-    if dtype != torch.float32 and sub == WGMMA_BAND:
-        item = 2 if dtype == torch.bfloat16 else 1
-        stage = (WGMMA_BAND * WGMMA_BAND + WGMMA_BAND * width) * item
-        extra = 0 if dtype == torch.bfloat16 else 2 * width * WGMMA_BAND
-        return WGMMA_STAGES * stage + extra + 1024
+    """Dynamic shared memory of a block of the kernels of csrc/spamm_mm.cu
+    at sub-tile `sub` and width `width`, by their stage formulas; it does
+    not grow with the tile. f32 at every sub-tile, bf16 and int8 at 16 and
+    32 (`STAGE_BYTES` of F32Product, Bf16Product, Int8Product): the ring
+    (the `wgmma` kernels': `wgmma_ring_bytes`)."""
     if dtype == torch.float32:
         stage = (sub * (sub + 4) + sub * width) * 4
     elif dtype == torch.bfloat16:
@@ -509,13 +575,13 @@ def spamm_mm_worklist_cuda(a, b, step_i, step_j, step_k, step_flags, runs,
     """The CUDA kernels, by `mma_family`: f32 on the CUDA cores (the decode
     kernel where `decode_route` takes `rows`, the live rows of A, whose
     other rows the caller zeroed; output rows from `rows` on stay zero),
-    bf16 on `wgmma` (tiles that are multiples of 64) or `mma.sync`; the
-    launch of `launch_geometry`. Takes two contiguous, 16-byte aligned
-    float32 or bfloat16 operands and int32 tables on one CUDA device, a
-    tile `sub_tile` takes and a float32 output; raises on anything else
-    (mixed operand types too). `max_width` caps a `wgmma` block's columns
-    below WGMMA_MAX_WIDTH (a width the kernels are built for); bf16 takes
-    `rows` and ignores it."""
+    bf16 on `wgmma` (tiles from 48) or `mma.sync` (16, 32); the launch of
+    `launch_geometry`. Takes two contiguous, 16-byte aligned float32 or
+    bfloat16 operands and int32 tables on one CUDA device, a tile
+    `sub_tile` takes and a float32 output; raises on anything else (mixed
+    operand types too). `max_width` caps a `wgmma` block's columns below
+    WGMMA_MAX_WIDTH / WGMMA_MAX_WIDTH_ODD (a width the kernels are built
+    for); bf16 takes `rows` and ignores it."""
     global launches, decode_launches, bf16_launches, bf16_mma_sync_launches
     global last_geometry
     tables = (step_i, step_j, step_k, step_flags)
@@ -644,8 +710,8 @@ def spamm_mm_worklist_int8_cuda(a_q, b_q, a_scale, b_scale, step_i, step_j,
                                 max_width: int | None = None,
                                 rows: int | None = None) -> torch.Tensor:
     """The CUDA int8 kernels: exact s32 tile dots on the tensor cores,
-    `wgmma` s8 at tiles that are multiples of 64, `mma.sync` s8 at the
-    others (`mma_family`), each step's dot scaled once; the launch of
+    `wgmma` s8 at tiles from 48, `mma.sync` s8 at 16 and 32 (`mma_family`),
+    each step's dot scaled once; the launch of
     `launch_geometry`. Takes contiguous, 16-byte aligned int8 codes,
     float32 scales (per T-level tile) and int32 tables on one CUDA device,
     a tile `sub_tile` takes and a float32 output; raises on anything

@@ -50,14 +50,18 @@ Prints one JSON object per variant and pass, then a summary line
 
 times the bf16 and int8 work-list kernels of whichever tree is on the path
 (by path, so another checkout's package is imported, e.g. the parent's)
-at the same cases, and the f32 work-list at the four serving shapes and
+at the same cases and at the tiles that are not multiples of 64 (frozen w1
+prefill at ODD_TILES, the activation zero-padded to the tile, and at
+CUT_TILES on w1 cut to CUT_SHAPE; w2 decode at ODD_DECODE_TILES), and
+the f32 work-list at the four serving shapes and
 the wq and wk decode shapes (the decode shapes with `rows=REAL_ROWS`
 where the tree's wrapper takes it: the f32 decode kernel; a tree without
 it runs its 64-row kernel):
 device ms (graphed), one call and CALLS back to back (host cost inside),
 the host's own ms a call (CALLS calls issued with no sync, the least of
 21 passes), the library call's device ms (f32 decode: also at the live
-rows), the geometry.
+rows), the bound (`bound_ms`: the card's least time for the call's bytes
+or operations), the geometry.
 """
 from __future__ import annotations
 
@@ -80,36 +84,46 @@ from repro_torch.plans.frozen import FrozenWeight
 
 ROWS, REAL_ROWS = 512, 4
 LARGE_TILES = (128, 256, 512)
+# the tiles that are not multiples of 64: frozen w1 prefill at ODD_TILES
+# (the activation zero-padded to the tile) and at CUT_TILES on w1 cut to
+# CUT_SHAPE (4608 and 18432 take no 80 or 112), w2 decode at
+# ODD_DECODE_TILES (REAL_ROWS live rows of one row tile)
+ODD_TILES = (16, 32, 48, 96, 144)
+CUT_TILES = (80, 112)
+CUT_SHAPE = (4480, 17920)
+ODD_DECODE_TILES = (32, 48, 96)
 CALLS = 20
 MM_RTOL = 1e-4
+# an H100 SXM's HBM rate and peak rates (bytes/s, operations/s by type)
+PEAK_BYTES_S = 3.35e12
+PEAK_OP_S = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 _STAGES = "constexpr int kStagesWgmma = 4;"
 _INT8_WIDEST = "constexpr int kMaxWidthInt8 = 64;"
 _INT8_AT = "  SPAMM_INT8_AT(64)\n"
 _TRY_WAIT = "mbarrier.try_wait.parity.shared::cta.b64"
 _TMA_INCLUDE = '#include "tma.cuh"\n'
-_RASTER = "sk, sf, runs, out, n, block_n, tile, m / tile);"
-_RASTER8 = "si, sj, sk, sf, runs, out, k, n, block_n, tile, m / tile);"
+_RASTER = "runs, out, n, block_n, tile, m / tile);"
+_RASTER8 = "runs, out, k, n, block_n, tile, m / tile);"
 _BLOCKS_BF16 = "static constexpr int MIN_BLOCKS = W <= 64 ? 2 : 1;"
 _BLOCKS_INT8 = "static constexpr int MIN_BLOCKS = 3;"
 _TRANSPOSE_START = ("#pragma unroll\n    for (int it = 0; it < (ITEMS + kConsumers - 1)"
                     " / kConsumers; ++it) {")
 _TRANSPOSE_END = "    // the generic-proxy stores, visible to the tensor cores' reads"
-_WGMMA_BF16 = """      wgmma_bf16<W>(acc.c, da + ((kk * 32) >> 4),
-                    db + ((kk * 16 * ROW) >> 4));"""
-_WGMMA_S8 = """      wgmma_s8<W>(acc.d, da + ((kk * 32) >> 4), db + ((kk * 32) >> 4));"""
+_WGMMA_BF16 = ("    for (int q = 0; q < 4; ++q) wgmma_bf16<W>(acc.c, da[q], "
+               "db[q]);\n")
+_WGMMA_S8 = """    wgmma_s8<W>(acc.d, da, db);
+    wgmma_s8<W>(acc.d, da1, db + 2);
+"""
 _FOLD = """      acc.c[r] = __fadd_rn(acc.c[r], __fmul_rn(__fmul_rn(dot, s.x), s.y));"""
 _NO_FOLD = "      acc.c[r] += dot;"
-_LOAD_BF16 = """    mbar_expect_tx(full, STAGE);
-    tma_load_2d(st, ma, ax, ay, full);
-#pragma unroll
-    for (int q = 0; q < W / BOX; ++q)
-      tma_load_2d(st + A_BYTES + q * BOX_BYTES, mb, bx + q * BOX, by, full);"""
-_LOAD_INT8 = """    mbar_expect_tx(full, STAGE);
-    tma_load_2d(st, ma, ax, ay, full);
-    tma_load_2d(st + A_BYTES, mb, bx, by, full);"""
-_NO_LOAD = "    mbar_arrive(full);"
-_FENCE = '    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");\n'
+_LOAD = """            mbar_expect_tx(&full[stage], P::bytes(lay, d, live));
+            P::load(ring + stage * lay.stage, lay, a_map,
+                    d == kBand ? mb : mb_tail, en.x * tile + kc * kBand,
+                    en.y * tile + row0, en.z * jstride + col0,
+                    en.x * tile + kc * kBand, &full[stage]);"""
+_NO_LOAD = "            mbar_arrive(&full[stage]);"
+_FENCE = '  asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");\n'
 
 
 def _sub(src: str, old: str, new: str, count: int = 1) -> str:
@@ -138,7 +152,7 @@ def variants(src: str) -> dict:
     no_raster = _sub(_sub(src, _RASTER, _RASTER.replace("m / tile", "1")),
                      _RASTER8, _RASTER8.replace("m / tile", "1"))
     no_wgmma = _sub(_sub(src, _WGMMA_BF16, ""), _WGMMA_S8, "")
-    no_loads = _sub(_sub(src, _LOAD_BF16, _NO_LOAD), _LOAD_INT8, _NO_LOAD)
+    no_loads = _sub(src, _LOAD, _NO_LOAD)
     more_blocks = _sub(_sub(src, _BLOCKS_INT8, _BLOCKS_INT8.replace(
         "3", "4")), _BLOCKS_BF16, _BLOCKS_BF16.replace("2 : 1", "3 : 2"))
     wide = _sub(_sub(_sub(src, _INT8_WIDEST, _INT8_WIDEST.replace(
@@ -221,9 +235,11 @@ def _launch(fn, args, kw, max_width=None):
     return fn(*args, **kw)
 
 
-def cases(seed: int = 0, f32: bool = False) -> list:
+def cases(seed: int = 0, f32: bool = False, odd: bool = False) -> list:
     """(dtype, label, call, tile, plain output, library call, library call
-    at the live rows or None) at the serving shapes and the large tiles;
+    at the live rows or None, `bound_ms`) at the serving shapes and the
+    large tiles
+    (`odd`: also at ODD_TILES, CUT_TILES and ODD_DECODE_TILES);
     int8 at tiles ≥ 254 on a valid_ratio 0.5 plan (the widened int8 gate
     keeps every tile there). The library call is the dense product of the
     same operands: `torch._int_mm` on the codes (B column-major),
@@ -262,6 +278,23 @@ def cases(seed: int = 0, f32: bool = False) -> list:
                 d ** -0.5)
             shapes.append((f"frozen {name} decode 64({REAL_ROWS})x{d}x{n}",
                            decode(d), w, 64, 1))
+    if odd:
+        for t in ODD_TILES:
+            xp = P.pad_to_tile(x, t).contiguous()
+            shapes.append((f"frozen w1 {xp.shape[0]}({ROWS})x{d}x{ff} tile "
+                           f"{t}", xp, w1, t, 1))
+        dc, fc = CUT_SHAPE
+        wc = w1[:dc, :fc].contiguous()
+        for t in CUT_TILES:
+            xp = P.pad_to_tile(x[:, :dc], t).contiguous()
+            shapes.append((f"frozen w1 {xp.shape[0]}({ROWS})x{dc}x{fc} tile "
+                           f"{t}", xp, wc, t, 1))
+        xd = torch.zeros(max(ODD_DECODE_TILES), ff, device="cuda")
+        xd[:REAL_ROWS] = torch.randn(REAL_ROWS, ff, generator=gen,
+                                     device="cuda")
+        for t in ODD_DECODE_TILES:
+            shapes.append((f"frozen w2 decode {t}({REAL_ROWS})x{ff}x{d} "
+                           f"tile {t}", xd[:t], w2, t, 1))
     out = []
     for dtype in ("int8", "bfloat16") + (("float32",) if f32 else ()):
         for label, a, w, tile, block_n in shapes:
@@ -308,8 +341,30 @@ def cases(seed: int = 0, f32: bool = False) -> list:
                 library = (lambda ab=args[0], wb=args[1]:
                            torch.matmul(ab, wb))
             out.append((dtype, f"{dtype} {label}", call, tile, want,
-                        library, live))
+                        library, live,
+                        bound_ms(wk, tile, block_n, dtype, want.numel())))
     return out
+
+
+def bound_ms(work, tile, block_n, dtype, out_numel) -> float:
+    """Least device ms of a work-list call on an H100: the larger of its
+    bytes over the HBM rate (each A and B tile the ACC steps touch read
+    once, the step tables once, int8's scales once, the f32 output written
+    once) and its operations (2·t³ an ACC step and column group) over the
+    peak rate of `dtype`; counted on this call's tables."""
+    acc = (work.step_flags & 2) != 0
+    si, sj, sk = (t[acc].long() for t in (work.step_i, work.step_j,
+                                          work.step_k))
+    a_tiles = int(torch.unique(si * 1_000_003 + sk).numel())
+    b_tiles = int(torch.unique(sk * 1_000_003 + sj).numel())
+    item = {"float32": 4, "bfloat16": 2, "int8": 1}[dtype]
+    nbytes = ((a_tiles + b_tiles * block_n) * tile * tile * item
+              + 4 * work.step_i.numel() * 4 + work.runs.numel() * 4
+              + out_numel * 4)
+    if dtype == "int8":
+        nbytes += (a_tiles + b_tiles * block_n) * 4
+    ops = 2 * tile ** 3 * block_n * int(acc.sum())
+    return max(nbytes / PEAK_BYTES_S, ops / PEAK_OP_S[dtype]) * 1e3
 
 
 def graph_ms(fn, calls=CALLS, reps=5) -> float:
@@ -390,11 +445,12 @@ def host_ms(fn, calls=CALLS, reps=21) -> float:
 
 
 def run_lines() -> None:
-    """One line per case for the tree on the path (the f32 lines too):
-    device ms (graphed), one call, CALLS back to back, host ms a call, the
-    library call's device ms (f32 decode: also at the live rows), the
-    launch geometry."""
-    for dtype, label, call, tile, want, library, live in cases(f32=True):
+    """One line per case for the tree on the path (the f32 and odd-tile
+    lines too): device ms (graphed), one call, CALLS back to back, host ms
+    a call, the library call's device ms (f32 decode: also at the live
+    rows), the bound (`bound_ms`), the launch geometry."""
+    for dtype, label, call, tile, want, library, live, bound in cases(
+            f32=True, odd=True):
         got = call()
         geo = dict(spamm_mm.last_geometry)
         torch.cuda.synchronize()
@@ -403,7 +459,8 @@ def run_lines() -> None:
                 "device_ms": graph_ms(call), "ms": event_ms(call),
                 "ms_back_to_back": event_ms(call, calls=CALLS),
                 "host_ms": host_ms(call),
-                "library_device_ms": graph_ms(library), "geometry": geo}
+                "library_device_ms": graph_ms(library), "bound_ms": bound,
+                "geometry": geo}
         if live is not None:
             line["library_live_rows_device_ms"] = graph_ms(live)
         print(json.dumps(line), flush=True)
@@ -418,7 +475,7 @@ def run_variants(names) -> dict:
         use_library(libs[name])
         rule, at64 = over.get(name, ({}, True))
         line = {}
-        for dtype, label, call, tile, want, _, _ in shapes:
+        for dtype, label, call, tile, want, _, _, _ in shapes:
             width = rule.get(torch.int8 if dtype == "int8"
                              else torch.bfloat16)
             if name in over and ((tile == 64 and not at64) or width is None):

@@ -2156,6 +2156,215 @@ def test_large_tile_flag_patterns_on_card(dev, dtype):
     assert not bool(q[:, tile:].any())
 
 
+# the `wgmma` kernels (csrc/spamm_wgmma.cu) at the tiles from 48 that are
+# not multiples of 64: a last band of T % 64 live rows, a last K-chunk of
+# T % 64, a last column piece reaching past the tile
+BAND_TILES = (48, 80, 96, 208)
+
+
+def _band_case(tile, block_n, case, dev, seed):
+    """(a, b) of a prefill (3 × 3 row and k tiles) or a decode step (4
+    real rows in one row tile, 6 k tiles), 2·block_n column tiles."""
+    if case == "decode":
+        a = torch.zeros(tile, 6 * tile, device=dev)
+        a[:4] = _rand((4, 6 * tile), seed, dev)
+    else:
+        a = _rand((3 * tile, 3 * tile), seed, dev)
+    return a, _rand((a.shape[1], 2 * block_n * tile), seed + 1, dev)
+
+
+def _band_width(blocks, tile, dtype, sms):
+    """The width a `wgmma` launch of `blocks` (run, group) pairs picks on
+    `sms` SMs at such a tile: at 0 the rule's own, at 10⁶ the narrowest
+    (16)."""
+    return spamm_mm.wgmma_geometry(blocks, tile, dtype, sms)["width"]
+
+
+@pytest.mark.parametrize("case", ["prefill", "decode"])
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", BAND_TILES)
+def test_wgmma_band_int8_equals_plain_at_every_width_on_card(
+        dev, monkeypatch, tile, block_n, case):
+    """Row 5 on the `wgmma` kernel at a tile that is not a multiple of 64:
+    ≡ the plain version bit for bit at the width rule's own width and at
+    the narrowest (16; forced through the SM count the rule sees), on a
+    prefill and on a decode step; two launches are equal; the launches
+    count the int8 wrapper and not its `mma.sync` kernels, the geometry
+    names its family, ⌈T/64⌉ bands and ⌈T/width⌉ pieces."""
+    a, b = _band_case(tile, block_n, case, dev, 110)
+    args = _int8_args(a, b, tile, block_n)
+    kw = {"tile": tile, "block_n": block_n}
+    want = spamm_mm.spamm_mm_worklist_int8_plain(*args, **kw)
+    assert float(want.abs().max()) > 0.0
+    pairs = (args[-1].numel() - 1) * block_n
+    for sms in (0, 10 ** 6):
+        width = _band_width(pairs, tile, torch.int8, sms)
+        assert width == 16 or not sms
+        monkeypatch.setattr(spamm_mm, "_num_sms", lambda _dev, s=sms: s)
+        before = (spamm_mm.int8_launches, spamm_mm.int8_mma_sync_launches)
+        got = spamm_mm.spamm_mm_worklist_int8(*args, **kw)
+        geo = dict(spamm_mm.last_geometry)
+        again = spamm_mm.spamm_mm_worklist_int8(*args, **kw)
+        torch.cuda.synchronize()
+        assert (spamm_mm.int8_launches, spamm_mm.int8_mma_sync_launches) == (
+            before[0] + 2, before[1])
+        assert (geo["mma"], geo["width"]) == ("wgmma", width)
+        assert geo["row_bands"] == -(-tile // 64)
+        assert geo["blocks"] == pairs * geo["row_bands"] * -(-tile // width)
+        assert torch.equal(got, want), (width,
+                                        float((got - want).abs().max()))
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case", ["prefill", "decode"])
+@pytest.mark.parametrize("block_n", [1, 2])
+@pytest.mark.parametrize("tile", BAND_TILES)
+def test_wgmma_band_bf16_tolerance_determinism_frozen_on_card(
+        dev, monkeypatch, tile, block_n, case):
+    """Row 2 bf16 on the `wgmma` kernel at a tile that is not a multiple of
+    64, at the width rule's own width and the
+    narrowest: within MM_TOL of the output's largest magnitude against the
+    plain version, two launches bit-equal; frozen ≡ eager bit for bit at
+    bf16 and int8 through plan and execute."""
+    x, w = _band_case(tile, block_n, case, dev, 112)
+    tau = _median_tau(x, w, tile)
+    eager = P.plan(x, w, tau, tile=tile, block_n=block_n, backend="cuda",
+                   compute_dtype="bfloat16")
+    wk = eager.work
+    tables = (wk.step_i, wk.step_j, wk.step_k, wk.step_flags, wk.runs)
+    xb, wb = x.bfloat16(), w.bfloat16()
+    kw = {"tile": tile, "block_n": block_n}
+    plain = spamm_mm.spamm_mm_worklist_plain(xb, wb, *tables, **kw)
+    assert float(plain.abs().max()) > 0.0
+    pairs = (wk.runs.numel() - 1) * block_n
+    for sms in (0, 10 ** 6):
+        width = _band_width(pairs, tile, torch.bfloat16, sms)
+        assert width == 16 or not sms
+        monkeypatch.setattr(spamm_mm, "_num_sms", lambda _dev, s=sms: s)
+        before = (spamm_mm.bf16_launches, spamm_mm.bf16_mma_sync_launches)
+        got = spamm_mm.spamm_mm_worklist(xb, wb, *tables, **kw)
+        geo = dict(spamm_mm.last_geometry)
+        again = spamm_mm.spamm_mm_worklist(xb, wb, *tables, **kw)
+        torch.cuda.synchronize()
+        assert (spamm_mm.bf16_launches, spamm_mm.bf16_mma_sync_launches) == (
+            before[0] + 2, before[1])
+        assert (geo["mma"], geo["width"]) == ("wgmma", width)
+        assert torch.equal(got, again)
+        assert _max_rel(got, plain) <= MM_TOL, width
+    monkeypatch.undo()
+    gm = x.shape[0] // tile
+    for dtype in ("bfloat16", "int8"):
+        eager = P.plan(x, w, tau, tile=tile, block_n=block_n, backend="cuda",
+                       compute_dtype=dtype)
+        fw = FrozenWeight.build(w, tau, tile=tile, block_n=block_n,
+                                backend="cuda", compute_dtype=dtype)
+        frozen = P.plan(x, frozen_weight=fw.for_rows(gm))
+        c = P.execute(frozen, x, w)
+        assert spamm_mm.last_geometry["mma"] == "wgmma"
+        assert float(c.abs().max()) > 0.0
+        assert torch.equal(P.execute(eager, x, w), c), dtype
+
+
+@pytest.mark.parametrize("tile", [48, 80])
+def test_wgmma_band_flag_patterns_on_card(dev, tile):
+    """A run longer than one step-list chunk with flag-0 steps between its
+    ACC steps, and a run of flag-0 steps ending in a lone FLUSH: bf16
+    within MM_TOL of the plain version, int8 ≡ plain bit for bit, the
+    lone-FLUSH block zero."""
+    gk = 5
+    tables = _flag_tables(tile, gk, dev)
+    a = _rand((tile, gk * tile), 118, dev)
+    b = _rand((gk * tile, 2 * tile), 119, dev)
+    ab, bb = a.bfloat16(), b.bfloat16()
+    got = spamm_mm.spamm_mm_worklist_cuda(ab, bb, *tables, tile=tile)
+    assert spamm_mm.last_geometry["mma"] == "wgmma"
+    want = spamm_mm.spamm_mm_worklist_plain(ab, bb, *tables, tile=tile)
+    assert _max_rel(got, want) <= MM_TOL
+    assert float(got[:, :tile].abs().max()) > 0.0
+    assert not bool(got[:, tile:].any())
+    a_q, a_s = Q.quantize_tiles(a, tile)
+    b_q, b_s = Q.quantize_tiles(b, tile)
+    q = spamm_mm.spamm_mm_worklist_int8_cuda(a_q, b_q, a_s, b_s, *tables,
+                                             tile=tile)
+    assert spamm_mm.last_geometry["mma"] == "wgmma"
+    assert torch.equal(q, spamm_mm.spamm_mm_worklist_int8_plain(
+        a_q, b_q, a_s, b_s, *tables, tile=tile))
+    assert not bool(q[:, tile:].any())
+
+
+@pytest.mark.parametrize("tile", [48, 96])
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_wgmma_band_captured_replay_equals_eager_on_card(dev, dtype, tile):
+    """A CUDA graph of a `wgmma` launch at such a tile (its four tensor
+    maps captured by
+    value) replays to the eager output bit for bit, on new operand values
+    in the same buffers too."""
+    a = _rand((2 * tile, 4 * tile), 114, dev)
+    b = _rand((4 * tile, 2 * tile), 115, dev)
+    if dtype == "int8":
+        args = _int8_args(a, b, tile)
+
+        def call():
+            return spamm_mm.spamm_mm_worklist_int8_cuda(*args, tile=tile)
+    else:
+        w = P.plan(a, b, _median_tau(a, b, tile), tile=tile,
+                   backend="cuda").work
+        args = (a.bfloat16(), b.bfloat16(), w.step_i, w.step_j, w.step_k,
+                w.step_flags, w.runs)
+
+        def call():
+            return spamm_mm.spamm_mm_worklist_cuda(*args, tile=tile)
+    eager = call()
+    assert spamm_mm.last_geometry["mma"] == "wgmma"
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = call()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    args[0].copy_(args[0].flip(0))
+    g.replay()
+    fresh = call()
+    torch.cuda.synchronize()
+    assert not torch.equal(fresh, eager)
+    assert torch.equal(out, fresh)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_wgmma_band_raises_on_misaligned_operands_on_card(dev, dtype):
+    """TMA needs 16-byte aligned bases at tile 48 too: a
+    contiguous view 4 bytes off a boundary raises ValueError before any
+    launch, for either operand."""
+    tile = 48
+    a = _rand((tile, 2 * tile), 116, dev)
+    b = _rand((2 * tile, tile), 117, dev)
+    if dtype == "int8":
+        args = list(_int8_args(a, b, tile))
+        fn = spamm_mm.spamm_mm_worklist_int8_cuda
+    else:
+        w = P.plan(a, b, 0.0, tile=tile, backend="cuda").work
+        args = [a.bfloat16(), b.bfloat16(), w.step_i, w.step_j, w.step_k,
+                w.step_flags, w.runs]
+        fn = spamm_mm.spamm_mm_worklist_cuda
+
+    def shifted(t):
+        pad = 4 // t.element_size()
+        buf = torch.empty(t.numel() + pad, dtype=t.dtype, device=dev)
+        view = buf[pad:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    before = (spamm_mm.bf16_launches, spamm_mm.int8_launches)
+    for i in (0, 1):
+        bad = list(args)
+        bad[i] = shifted(bad[i])
+        with pytest.raises(ValueError, match="aligned"):
+            fn(*bad, tile=tile)
+    assert (spamm_mm.bf16_launches, spamm_mm.int8_launches) == before
+
+
 def test_large_tile_kernels_raise_on_what_they_do_not_take(dev):
     """A tile that is not a multiple of 16 (24) or is above 512 (576)
     raises on CUDA tensors, in every wrapper, before any launch."""
